@@ -2,10 +2,13 @@
 """GPU smoke run of the PyTorch/CUDA port (pseldnets_tpu_torch).
 
 Builds the hand-written CUDA kernels from pseldnets_tpu_torch/csrc, holds each
-against its plain PyTorch version on the card, then serves full-width HTSAT
-mACCDOA (configs/, 13 classes x 3 tracks, seeded random weights) from 10 s FOA
-waveforms through htsat_fused_forward_from_wav, checks the outputs and the
-kernels' launch counts, and prints the times.
+against its plain PyTorch version on the card, then drives the port's two
+main paths at full published width (configs/, HTSAT mACCDOA, 13 classes x 3
+tracks, seeded random weights, 10 s FOA waveforms): serving through
+htsat_fused_forward_from_wav, and training through SELDTask.train_step
+(frontend, fused forward with drop-path, ADPIT loss, K3 backward, clip,
+AdamW). It checks the outputs, the kernels' launch counts on each path and
+the kernel step against the plain step, and prints the times.
 
     python3 chip_smoke.py
 
@@ -31,7 +34,13 @@ PEAK_F32_FLOP_S = 67e12
 B_CHECK = 4        # clips per batch in the kernel-vs-plain checks
 B_SERVE = 32       # clips per batch on the served path
 SERVE_BATCHES = 3  # timed batches on the served path
+B_TRAIN = 32       # clips per training step (bench_train.py's B)
+TRAIN_STEPS = 5    # timed training steps
 N_SAMPLES = 240000  # 10 s at 24 kHz
+# bench_train.py:56-58 in bf16, fused forward
+TRAIN_OVERRIDES = ["loss=multi_accdoa", "model.kwargs.pretrained_path=null",
+                   "model.kwargs.audioset_pretrain=false", "trainer.precision=bf16-mixed",
+                   "trainer.fused_forward=true"]
 
 
 def log(msg):
@@ -87,12 +96,18 @@ def phase_device():
     return smi
 
 
-def phase_build():
-    from pseldnets_tpu_torch.ops import _cuda, frontend, swin_block
+def kernels():
+    from pseldnets_tpu_torch.ops import frontend, swin_block, swin_block_vjp
 
-    secs = _cuda.build_all([frontend.KERNEL, swin_block.KERNEL])
+    return {"K1": frontend.KERNEL, "K2": swin_block.KERNEL, "K3": swin_block_vjp.KERNEL}
+
+
+def phase_build():
+    from pseldnets_tpu_torch.ops import _cuda
+
+    secs = _cuda.build_all(list(kernels().values()))
     log(f"build: {secs:.1f} s (nvcc, sm_90a, one process per source)")
-    for k in (frontend.KERNEL, swin_block.KERNEL):
+    for k in kernels().values():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {k.source.name}: {line.strip()}")
@@ -184,6 +199,71 @@ def phase_swin_block():
                       f"merge {merge}")
 
 
+def compare(name, got, plain16, plain32, rel_tol):
+    """A bf16 kernel output against its plain bf16 and float32 versions:
+    within rel_tol of the output's largest magnitude of the plain bf16 one,
+    and no further from float32 than the plain bf16 version (x1.25 plus one
+    bf16 ulp, 2^-7 of the scale). Returns the max abs error vs plain bf16."""
+    import torch
+
+    got, plain16, plain32 = got.float(), plain16.float(), plain32.float()
+    scale = plain32.abs().max().item()
+    e16 = (got - plain16).abs().max().item()
+    e32 = (got - plain32).abs().max().item()
+    p_e32 = (plain16 - plain32).abs().max().item()
+    ok = (torch.isfinite(got).all().item() and e16 <= rel_tol * scale
+          and e32 <= 1.25 * p_e32 + 2.0 ** -7 * scale)
+    log(f"  {name:8s} |k-plain16| {e16:.3g} (<= {rel_tol * scale:.3g}), |k-plain32| "
+        f"{e32:.3g} (plain16 {p_e32:.3g}), scale {scale:.3g}")
+    check(ok, f"{name} disagrees with its plain version")
+    return e16
+
+
+def drop_masks(B):
+    """(B, 2) drop-path scales with dropped branches: image 0 drops its MLP
+    branch, image 1 its attention branch, the rest keep both (keep 0.9)."""
+    import torch
+
+    m = torch.full((B, 2), 1 / 0.9)
+    m[0, 1] = m[1, 0] = 0.0
+    return m.cuda()
+
+
+def phase_swin_block_train():
+    """K2 with drop-path masks and K3 against their plain versions (bf16 and
+    float32) at each stage shape, shifted and unshifted."""
+    import torch
+    from pseldnets_tpu_torch.ops.swin_block import (prepare_block, swin_block_fused,
+                                                    swin_block_plain)
+    from pseldnets_tpu_torch.ops.swin_block_vjp import (GRAD_KEYS, swin_block_backward,
+                                                        swin_block_backward_plain)
+
+    gen = torch.Generator().manual_seed(5)
+    for i in range(4):
+        for shift in ((0, 4) if i < 3 else (0,)):
+            blk, _ = random_block(i, shift, False, gen)
+            H, C = 64 >> i, 96 << i
+            x = torch.randn(B_CHECK, H * H, C, generator=gen).cuda().bfloat16()
+            dout = torch.randn(B_CHECK, H * H, C, generator=gen).cuda().bfloat16()
+            m = drop_masks(B_CHECK)
+            p16 = prepare_block(blk, torch.bfloat16)
+            p32 = prepare_block(blk, torch.float32)
+            log(f"training block, stage {i} {H}x{H} C={C} shift={shift}, masks with zeros:")
+            got = swin_block_fused(x, p16, m)
+            torch.cuda.synchronize()
+            compare("K2 out", got, swin_block_plain(x, p16, m),
+                    swin_block_plain(x.float(), p32, m), 2.0 ** -6)
+            dx, g = swin_block_backward(x, p16, m, dout)
+            torch.cuda.synchronize()
+            dx16, g16 = swin_block_backward_plain(x, p16, m, dout)
+            dx32, g32 = swin_block_backward_plain(x.float(), p32, m, dout.float())
+            # K3 vs its plain bf16 version: rounding points agree, one-ulp
+            # flips of bf16 intermediates propagate into the float32 sums
+            compare("K3 dx", dx, dx16, dx32, 2.0 ** -6)
+            for k in GRAD_KEYS:
+                compare(f"K3 {k}", g[k], g16[k], g32[k], 2.0 ** -6)
+
+
 def k1_work(B):
     """Bytes and float32 FLOPs of K1's function on B 10 s clips: per frame
     and channel the window and a real FFT of n_fft (2.5 n log2 n FLOPs), then
@@ -220,11 +300,31 @@ def k2_work(B, p):
     return M * C * 2 + out_bytes + w_bytes, flops
 
 
+def k3_work(B, p):
+    """Bytes and bf16 FLOPs of one K3 call on B images: the forward the
+    backward needs (qkv, proj, fc1: 2M(3C^2 + C^2 + C hid); attention
+    4M 64C), the activation grads (2M(hid C + C hid + C^2 + 3C^2)), the
+    weight grads (the same) and the attention backward (dV, dP, dq, dk:
+    8M 64C); x and dout read, dx written, the bf16 weights and float32
+    vectors read, every float32 grad written, once each."""
+    L, C, hid = p.H * p.W, p.C, p.fc1_w.shape[1]
+    M = B * L
+    grads = C * 3 * C + C * C + C * hid + hid * C
+    flops = 2 * M * (4 * C * C + C * hid) + 2 * 2 * M * grads + 12 * M * 64 * C
+    w_bytes = sum(t.numel() * t.element_size() for t in
+                  (p.qkv_w, p.proj_w, p.fc1_w, p.fc2_w, p.bias, p.qkv_b, p.proj_b,
+                   p.fc1_b, p.fc2_b, p.ln1_w, p.ln1_b, p.ln2_w, p.ln2_b))
+    if p.mask is not None:
+        w_bytes += p.mask.numel() * 4
+    g_bytes = 4 * (grads + 3 * C + C + hid + C + 4 * C + p.bias.numel())
+    return 3 * M * C * 2 + B * 2 * 4 + w_bytes + g_bytes, flops
+
+
 def phase_serve(smi):
     import torch
     from pseldnets_tpu_torch.config import compose
     from pseldnets_tpu_torch.models import build_model
-    from pseldnets_tpu_torch.ops import frontend, swin_block
+    from pseldnets_tpu_torch.ops import swin_block
     from pseldnets_tpu_torch.serving import (embed_tokens, folded_wav_features,
                                              htsat_fused_forward_from_wav,
                                              prepare_blocks)
@@ -246,15 +346,17 @@ def phase_serve(smi):
     torch.cuda.synchronize()
 
     # the main path: counts from 0, SERVE_BATCHES batches
-    frontend.KERNEL.launches = swin_block.KERNEL.launches = 0
+    for k in kernels().values():
+        k.launches = 0
     t0 = time.perf_counter()
     outs = [serve(w)["multi_accdoa"] for w in wavs]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
-    launches = {"K1": frontend.KERNEL.launches, "K2": swin_block.KERNEL.launches}
+    launches = {n: k.launches for n, k in kernels().items()}
+    want = {"K1": SERVE_BATCHES, "K2": 12 * SERVE_BATCHES, "K3": 0}
     log(f"served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches {launches} "
-        f"(expect K1 {SERVE_BATCHES}, K2 {12 * SERVE_BATCHES})")
-    check(launches == {"K1": SERVE_BATCHES, "K2": 12 * SERVE_BATCHES}, "launch counts")
+        f"(expect {want})")
+    check(launches == want, "launch counts")
     for o in outs:
         check(o.shape == (B_SERVE, 100, 117) and o.dtype == torch.float32, f"shape {o.shape}")
         check(bool(torch.isfinite(o).all()), "served output not finite")
@@ -281,6 +383,7 @@ def phase_serve(smi):
     feats = folded_wav_features(model, wav, t_out=1024)
     ref = folded_wav_features(model, wav, t_out=1024, use_kernels=False).float()
     k1_err = (feats.float() - ref).abs().max().item()
+    k1_rel = k1_err / ref.abs().max().item()
     rel = ((feats.float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
     log(f"K1 at B={B_SERVE} (served form): max |d| {k1_err:.3g}, max err {rel:.3g} of "
         f"max(|x|, 1) (<= 2^-7)")
@@ -288,17 +391,18 @@ def phase_serve(smi):
     k1 = cuda_ms(lambda: folded_wav_features(model, wav, t_out=1024), reps=10)
     k1_plain = cuda_ms(lambda: folded_wav_features(model, wav, t_out=1024,
                                                    use_kernels=False), reps=3)
-    xs = [embed_tokens(model, feats, torch.bfloat16)]
-    for p in blocks[:-1]:
-        xs.append(swin_block.swin_block_fused(xs[-1], p))
-    k2_rows, k2_err = [], 0.0
+    with torch.no_grad():
+        xs = [embed_tokens(model, feats, torch.bfloat16)]
+        for p in blocks[:-1]:
+            xs.append(swin_block.swin_block_fused(xs[-1], p))
+    k2_rows, k2_err, k2_rel = [], 0.0, 0.0
     for i, (x, p) in enumerate(zip(xs, blocks)):
         ref = swin_block.swin_block_plain(x, p).float()
         scale = ref.abs().max().item()
         err = (swin_block.swin_block_fused(x, p).float() - ref).abs().max().item()
         check(err <= 2.0 ** -6 * scale,
               f"K2 block {i} disagrees with its plain version at B={B_SERVE}")
-        k2_err = max(k2_err, err)
+        k2_err, k2_rel = max(k2_err, err), max(k2_rel, err / scale)
         t = cuda_ms(lambda: swin_block.swin_block_fused(x, p), reps=5)
         tp = cuda_ms(lambda: swin_block.swin_block_plain(x, p), reps=2)
         nb, fl = k2_work(B_SERVE, p)
@@ -314,33 +418,185 @@ def phase_serve(smi):
     log(f"per batch of {B_SERVE} ({smi}): K1 {k1:.3f} ms (plain {k1_plain:.3f}, bound "
         f"{k1_bound:.3f}), K2 x12 {k2_ms:.3f} ms (plain {k2_plain:.3f}, bound "
         f"{k2_bound:.3f}), rest {dt * 1e3 - k1 - k2_ms:.3f} ms")
-    phase_profile(serve, wav)
-    return launches, {"K1": (k1_err, k1, k1_plain, k1_bound, k1_by),
-                      "K2": (k2_err, k2_ms, k2_plain, k2_bound, "operations")}
+    phase_profile("one served batch", lambda: serve(wav))
+    return launches, {"K1": (k1_err, k1_rel, k1, k1_plain, k1_bound, k1_by),
+                      "K2": (k2_err, k2_rel, k2_ms, k2_plain, k2_bound, "operations")}
 
 
-def phase_profile(serve, wav):
-    """Device time by kernel over one served batch (torch.profiler, CUPTI)."""
+def make_labels(rng, B, T_label, K_cls=13):
+    """bench_train.py::make_labels: one active source per frame, random
+    class and unit DOA, on track A."""
+    import numpy as np
+
+    adpit = np.zeros((B, T_label, 6, 4, K_cls), np.float32)
+    cls = rng.integers(0, K_cls, (B, T_label))
+    doa = rng.standard_normal((B, T_label, 3)).astype(np.float32)
+    doa /= np.linalg.norm(doa, axis=-1, keepdims=True)
+    bi, ti = np.meshgrid(np.arange(B), np.arange(T_label), indexing="ij")
+    adpit[bi, ti, 0, 0, cls] = 1.0
+    for ax in range(3):
+        adpit[bi, ti, 0, 1 + ax, cls] = doa[..., ax]
+    return adpit
+
+
+def phase_train(smi):
+    """Full-width B=32 training steps through SELDTask (kernels K1, K2 with
+    masks, K3), the kernel step against the plain step, K3 on the step's own
+    block inputs, and a profile of one step."""
+    import numpy as np
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.ops import swin_block_vjp
+    from pseldnets_tpu_torch.ops.frontend import fused_logmel_iv_plain
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    cfg = compose(str(ROOT / "configs"), "train", TRAIN_OVERRIDES)
+    task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=100, device="cuda")
+    check(task.fused_forward and task.compute_dtype == torch.bfloat16, "training configuration")
+    task.init_state(0)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    wavs = [torch.randn(B_TRAIN, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(TRAIN_STEPS)]
+    labels = {"adpit_label": torch.from_numpy(make_labels(np.random.default_rng(0), B_TRAIN,
+                                                          100)).cuda()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    step = lambda w: task.train_step(w, labels, gen)  # noqa: E731
+    step(wavs[0])  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: counts from 0, TRAIN_STEPS steps
+    for k in kernels().values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    losses = [step(w)["loss_all"] for w in wavs]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {n: k.launches for n, k in kernels().items()}
+    want = {"K1": TRAIN_STEPS, "K2": 12 * TRAIN_STEPS, "K3": 12 * TRAIN_STEPS}
+    log(f"trained {TRAIN_STEPS} steps of {B_TRAIN} x 10 s clips: launches {launches} "
+        f"(expect {want}); losses {[round(float(v), 6) for v in losses]}")
+    check(launches == want, "training launch counts")
+    check(all(np.isfinite(float(v)) for v in losses), "training loss not finite")
+    log(f"training: {dt * 1e3:.2f} ms/step, {B_TRAIN / dt:.1f} clips/s "
+        f"(host clock, synchronized; {smi})")
+
+    # one kernel step against one plain step (bf16) and one float32 plain
+    # step, from the same parameters, batch and drop-path masks
+    def grads_with(use_kernels, dtype):
+        task.set_use_kernels(use_kernels)
+        task.compute_dtype = dtype
+        losses, grads, _ = task.compute_grads(wavs[0], labels,
+                                              torch.Generator(device="cuda").manual_seed(8))
+        return losses["loss_all"].float().reshape(1), grads
+
+    lk, gk = grads_with(True, torch.bfloat16)
+    lp, gp = grads_with(False, torch.bfloat16)
+    lf, gf = grads_with(False, torch.float32)
+    task.set_use_kernels(True)
+    task.compute_dtype = torch.bfloat16
+    log(f"kernel step vs plain step: loss {lk.item():.6f} (plain bf16 {lp.item():.6f}, "
+        f"float32 {lf.item():.6f})")
+    compare("loss", lk, lp, lf, 2.0 ** -6)
+    worst = 0.0
+    for name, a, b, c in zip(task.names, gk, gp, gf):
+        worst = max(worst, compare(name[-36:], a, b, c, 2.0 ** -4)
+                    / max(c.abs().max().item(), 1e-30))
+    log(f"every parameter grad within {worst:.3g} of its scale of the plain step's")
+
+    # K1 in its training form (unfolded, float32) on the step's own B=32
+    # waveforms, with phase_frontend's feature budget, and timed
+    wav = wavs[0]
+    feats = task.extractor(wav)
+    ref = fused_logmel_iv_plain(wav)
+    check(feats.shape == ref.shape == (B_TRAIN, 7, 1001, 64) and feats.dtype == torch.float32,
+          f"K1 training form shape {tuple(feats.shape)}")
+    db = (feats[:, :4] - ref[:, :4]).abs().max().item()
+    iv = (feats[:, 4:] - ref[:, 4:]).abs().max().item()
+    k1_err = max(db, iv)
+    k1_rel = max(db / ref[:, :4].abs().max().item(), iv / ref[:, 4:].abs().max().item())
+    log(f"K1 at B={B_TRAIN} (training form, float32): max |dB| {db:.3g} (<= 8e-4), "
+        f"max |IV| {iv:.3g} (<= 7e-5)")
+    check(torch.isfinite(feats).all().item() and db <= 8e-4 and iv <= 7e-5,
+          f"K1 training form disagrees with its plain version at B={B_TRAIN}")
+    k1_ms = cuda_ms(lambda: task.extractor(wav), reps=10)
+
+    # K3 on the step's own B=32 block inputs, recorded from one step
+    recorded = []
+
+    def record(x, p, m, dout):
+        recorded.append((x, p, m, dout))
+        return orig(x, p, m, dout)
+
+    orig = swin_block_vjp.swin_block_backward
+    swin_block_vjp.swin_block_backward = record
+    try:
+        task.compute_grads(wavs[1], labels, torch.Generator(device="cuda").manual_seed(9))
+    finally:
+        swin_block_vjp.swin_block_backward = orig
+    check(len(recorded) == 12, f"recorded {len(recorded)} block backwards")
+    k2_err = k2_rel = k3_err = k3_rel = 0.0
+    rows = []
+    for j, (x, p, m, dout) in enumerate(reversed(recorded)):
+        # K2 with masks on the block's own input, phase_swin_block's 2^-6
+        y = swin_block_vjp.swin_block_fused(x, p, m).float()
+        y0 = swin_block_vjp.swin_block_plain(x, p, m).float()
+        e, s = (y - y0).abs().max().item(), y0.abs().max().item()
+        check(torch.isfinite(y).all().item() and e <= 2.0 ** -6 * s,
+              f"K2 with masks, block {j}, disagrees at B={B_TRAIN}")
+        k2_err, k2_rel = max(k2_err, e), max(k2_rel, e / s)
+        k2_block_rel = e / s
+        dx, gr = orig(x, p, m, dout)
+        dx0, g0 = swin_block_vjp.swin_block_backward_plain(x, p, m, dout)
+        worst_rel = 0.0
+        for name, a, b in [("dx", dx, dx0)] + [(k, gr[k], g0[k]) for k in gr]:
+            e = (a.float() - b.float()).abs().max().item()
+            s = b.float().abs().max().item()
+            check(e <= 2.0 ** -6 * s, f"K3 block {j} {name} disagrees at B={B_TRAIN}")
+            k3_err, worst_rel = max(k3_err, e), max(worst_rel, e / s)
+        k3_rel = max(k3_rel, worst_rel)
+        t = cuda_ms(lambda: orig(x, p, m, dout), reps=5)
+        tp = cuda_ms(lambda: swin_block_vjp.swin_block_backward_plain(x, p, m, dout), reps=1)
+        t2 = cuda_ms(lambda: swin_block_vjp.swin_block_fused(x, p, m), reps=5)
+        nb, fl = k3_work(B_TRAIN, p)
+        rows.append((t, tp, bound_ms(nb, bf16_flops=fl)[0], t2))
+        log(f"  K3 block {j:2d} {p.H}x{p.W} C={p.C} shift={p.shift}: worst {worst_rel:.3g} of "
+            f"scale, {t:.3f} ms, plain {tp:.3f} ms, bound {rows[-1][2]:.4f} ms; K2 with "
+            f"masks {k2_block_rel:.3g} of scale (<= 2^-6), {t2:.3f} ms")
+    k3_ms, k3_plain, k3_bound = (sum(r[i] for r in rows) for i in range(3))
+    k2_train = sum(r[3] for r in rows)
+    log(f"per step of {B_TRAIN} ({smi}): K1 (float32) {k1_ms:.3f} ms, K2 with masks x12 "
+        f"{k2_train:.3f} ms, K3 x12 {k3_ms:.3f} ms (plain {k3_plain:.3f}, bound "
+        f"{k3_bound:.3f}), rest {dt * 1e3 - k1_ms - k2_train - k3_ms:.3f} ms")
+    phase_profile("one training step", lambda: step(wavs[0]))
+    return launches, {"K1": (k1_err, k1_rel), "K2": (k2_err, k2_rel),
+                      "K3": (k3_err, k3_rel, k3_ms, k3_plain, k3_bound, "operations")}
+
+
+def phase_profile(what, fn):
+    """Device time by kernel over one call of fn (torch.profiler, CUPTI)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    serve(wav)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(wav)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # kernel events only: an aten op's own device time repeats its kernels'
+    # kernel events only: an aten op's own device time repeats its kernels',
+    # and a user annotation's (torch.optim's "Optimizer.step#...") spans them
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     busy = sum(r[1] for r in rows)
     if not rows:
         log("profile: no device time recorded (not measured)")
         return
-    log(f"profile of one served batch: device busy {busy:.3f} ms of {wall * 1e3:.3f} ms "
-        f"wall ({100 * busy / (wall * 1e3):.1f}%), by kernel:")
-    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:14]:
+    log(f"profile of {what}: device busy {busy:.3f} ms of {wall * 1e3:.3f} ms "
+        f"wall ({100 * busy / (wall * 1e3):.1f}%), {sum(r[2] for r in rows)} device "
+        f"events, by kernel:")
+    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:20]:
         log(f"  {ms:8.3f} ms {100 * ms / busy:5.1f}% x{n:<3d} {name[:90]}")
 
 
@@ -352,18 +608,34 @@ def main():
     phase_build()
     phase_frontend()
     phase_swin_block()
-    launches, times = phase_serve(smi)
+    phase_swin_block_train()
+    serve_launches, serve_times = phase_serve(smi)
+    train_launches, train_times = phase_train(smi)
     rows = []
+    # launches: the sum over the two main paths' runs (served batches and
+    # training steps), each counted from 0; errors: the largest over the
+    # checks at each path's own shapes, absolute and as a share of the plain
+    # output's largest magnitude; ms and bounds per served batch (K1, K2) or
+    # per training step (K3)
     for name, route_src, replaces in (
             ("K1 fused_logmel_iv", "pseldnets_tpu_torch/csrc/frontend.cu",
              "pseldnets_tpu/ops/pallas/frontend.py:754"),
             ("K2 swin_block_fused", "pseldnets_tpu_torch/csrc/swin_block.cu",
-             "pseldnets_tpu/ops/pallas/swin_block.py:663")):
+             "pseldnets_tpu/ops/pallas/swin_block.py:663"),
+            ("K3 swin_block_backward", "pseldnets_tpu_torch/csrc/swin_block_bwd.cu",
+             "pseldnets_tpu/ops/pallas/swin_block_vjp.py:303")):
         key = name.split()[0]
-        err, ms, plain_ms, b_ms, by = times[key]
+        errs = {path: t[key][:2] for path, t in (("serve", serve_times), ("train", train_times))
+                if key in t}
+        ms, plain_ms, b_ms, by = (serve_times.get(key) or train_times[key])[2:]
+        by_path = {"serve": serve_launches.get(key, 0), "train": train_launches[key]}
         rows.append({"name": name, "route": "cuda", "source": route_src,
-                     "replaces": replaces, "launches": launches[key],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "replaces": replaces, "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     "max_abs_err": max(e[0] for e in errs.values()),
+                     "max_abs_err_by_path": {k: e[0] for k, e in errs.items()},
+                     "max_err_of_scale": max(e[1] for e in errs.values()),
+                     "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,9 @@
-// Kernel K2: fused eval Swin transformer block, with the stage's PatchMerging
-// folded into its last block.
+// Kernel K2: fused Swin transformer block, with the stage's PatchMerging
+// folded into its last block (eval) or per-image drop-path masks (training).
 //
 // Replaces the JAX package's ops/pallas/swin_block.py::swin_block_fused
-// (_block_kernel, attn_impl="exact", merge_params). x (B, H*W, C) bf16 ->
-// (B, H*W, C), or (B, H*W/4, 2C) with the merge:
+// (_block_kernel, attn_impl="exact", merge_params, dp_masks). x (B, H*W, C)
+// bf16 -> (B, H*W, C), or (B, H*W/4, 2C) with the merge:
 //   LN1 -> cyclic shift -> window partition -> qkv (q-scale folded into the
 //   weights) -> per-head scores + relative-position bias + shift mask ->
 //   max-subtracted float32 softmax -> PV -> proj -> window reverse + unshift
@@ -12,6 +12,8 @@
 // Matmul operands bf16 with float32 accumulation (tensor cores); LayerNorm and
 // softmax in float32; activations rounded to bf16 where the Pallas kernel
 // rounds them (qkv, probabilities, heads, proj, residual sums, GELU output).
+// With drop-path masks m (B, 2) the residual adds are x + bf16(m0) * proj and
+// y + bf16(m1) * fc2, each product rounded to bf16 (swin_block.py:351, :389).
 //
 // What bounds it on the H100: per block, 24*L*C^2 (+4*L*C^2 with the merge)
 // GEMM FLOPs and 4*L*64*C attention FLOPs against ~2*L*C*2 bytes of
@@ -25,8 +27,9 @@
 //  * gemm: a 64x64x32 bf16 WMMA tile GEMM (4 warps, 32x32 each) whose A
 //    loader applies the LayerNorm (prologue) and whose row addressing does
 //    the shift + window partition or the 2x2 merge gather; the epilogue adds
-//    the bias, applies GELU, rounds, adds the residual and scatters rows back
-//    through the window reverse + unshift.
+//    the bias, applies GELU, rounds, scales by the image's mask, adds the
+//    residual and scatters rows back through the window reverse + unshift.
+// The device code lives in swin_common.cuh, shared with the backward K3.
 //  * window_attention: one block of 4 warps per (window, head); Q, K, V
 //    (head dim 24 zero-padded to 32, the tensor-core tile width) and the
 //    bias (+ mask) in shared memory; S = bias + Q K^T and O = P V on the
@@ -36,379 +39,7 @@
 // one write of the tokens per block (everything else in VMEM), and wgmma/TMA
 // pipelining, are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-namespace {
-
-constexpr float LN_EPS = 1e-5f;
-constexpr int WIN_N = 64;  // tokens per 8x8 window
-
-enum { A_PLAIN = 0, A_LN = 1, A_MERGE = 2 };
-
-// token geometry of one block call
-struct RowMap {
-  int L, H, W, win, shift, C;
-};
-
-// 8 bf16 moved as one 16-byte load or store
-union Pack8 {
-  uint4 u;
-  bf16 h[8];
-};
-
-__device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16_rn(v); }
-
-// row r in window order (image, window (wi, wj), token (ti, tj)) -> index of
-// the token in the unshifted (B*L) layout: the window partition of the map
-// rolled by -shift, and, read backwards, the window reverse + unshift
-__device__ __forceinline__ int window_token(const RowMap& g, int r) {
-  const int n = g.win * g.win;
-  const int b = r / g.L, rr = r - b * g.L;
-  const int wid = rr / n, t = rr - wid * n;
-  const int nww = g.W / g.win;
-  const int wi = wid / nww, wj = wid - wi * nww;
-  const int ti = t / g.win, tj = t - ti * g.win;
-  int h = wi * g.win + ti + g.shift;
-  if (h >= g.H) h -= g.H;
-  int w = wj * g.win + tj + g.shift;
-  if (w >= g.W) w -= g.W;
-  return b * g.L + h * g.W + w;
-}
-
-// merged row r (image, i, j), piece p of the 2x2 concat -> source token
-__device__ __forceinline__ int merge_token(const RowMap& g, int r, int piece) {
-  const int l4 = g.L / 4, w2 = g.W / 2;
-  const int b = r / l4, rr = r - b * l4;
-  const int i = rr / w2, j = rr - i * w2;
-  return b * g.L + (2 * i + (piece & 1)) * g.W + 2 * j + (piece >> 1);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// LayerNorm moments of `rows` rows of K elements: MERGE = 0 reads row r of a
-// (rows, K) matrix, MERGE = 1 the 4C gather of merged row r
-template <int MERGE>
-__global__ void __launch_bounds__(256) row_stats_kernel(const bf16* __restrict__ x,
-                                                        float* __restrict__ mean,
-                                                        float* __restrict__ rstd,
-                                                        int rows, int K, RowMap g) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  auto load = [&](int k) -> float {
-    if (MERGE) {
-      const int piece = k / g.C, c = k - piece * g.C;
-      return bf2f(x[(long)merge_token(g, row, piece) * g.C + c]);
-    }
-    return bf2f(x[(long)row * K + k]);
-  };
-  float s = 0.f;
-  for (int k = lane; k < K; k += 32) s += load(k);
-  const float mu = warp_sum(s) / K;
-  float v = 0.f;
-  for (int k = lane; k < K; k += 32) {
-    const float d = load(k) - mu;
-    v += d * d;
-  }
-  v = warp_sum(v) / K;
-  if (lane == 0) {
-    mean[row] = mu;
-    rstd[row] = rsqrtf(v + LN_EPS);
-  }
-}
-
-struct GemmParams {
-  const bf16* A;      // A_PLAIN: (M, K) rows; A_LN: token rows; A_MERGE: tokens (.., C)
-  int lda;            // row stride of A in elements
-  const float* mean;  // A_LN: per source token; A_MERGE: per row
-  const float* rstd;
-  const float* ln_w;  // (K)
-  const float* ln_b;
-  const bf16* Bm;     // (K, N) row-major
-  const float* bias;  // (N) or null
-  const bf16* resid;  // added after rounding, at the output row, or null
-  bf16* out;          // (rows, N)
-  int M, N, K;
-  RowMap g;
-  int a_window;       // A_LN: row r reads token window_token(r)
-  int out_window;     // output row r goes to token window_token(r)
-  int gelu;
-};
-
-constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
-constexpr int LDA_S = BK + 8, LDB_S = BN + 8, LDC_S = BN + 4;
-
-// C = A' @ Bm with A' = A, LN(A rows) or LN(merge gather of A); epilogue
-// bias -> GELU -> bf16 -> + residual -> bf16, scattered through out_window.
-// Needs K % 32 == 0, N % 16 == 0 and (A_MERGE) C % 16 == 0. The next A/B
-// tile is loaded into registers while the tensor cores work on the current.
-template <int AMODE>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmParams p) {
-  __shared__ __align__(128) bf16 As[BM * LDA_S];
-  __shared__ __align__(128) bf16 Bs[BK * LDB_S];
-  __shared__ __align__(128) float Cs[BM * LDC_S];
-  __shared__ int src_row[BM], dst_row[BM];
-  __shared__ float row_mean[BM], row_rstd[BM];
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-
-  if (tid < BM) {
-    const int r = m0 + tid;
-    int src = -1, dst = -1;
-    float mu = 0.f, rs = 0.f;
-    if (r < p.M) {
-      src = (AMODE == A_LN && p.a_window) ? window_token(p.g, r) : r;
-      dst = p.out_window ? window_token(p.g, r) : r;
-      if (AMODE != A_PLAIN) {
-        mu = p.mean[src];
-        rs = p.rstd[src];
-      }
-    }
-    src_row[tid] = src;
-    dst_row[tid] = dst;
-    row_mean[tid] = mu;
-    row_rstd[tid] = rs;
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int a_r = tid >> 1, a_k = (tid & 1) * 16;  // 16 A elements per thread
-  const int b_k = tid >> 2, b_n = (tid & 3) * 16;  // 16 B elements per thread
-  const int src = src_row[a_r];
-  const float mu = row_mean[a_r], rs = row_rstd[a_r];
-  Pack8 ra[2], rb[2];
-  auto load_tile = [&](int k0) {
-    ra[0].u = ra[1].u = rb[0].u = rb[1].u = make_uint4(0, 0, 0, 0);
-    if (src >= 0) {
-      const int k = k0 + a_k;
-      const bf16* ptr;
-      if (AMODE == A_MERGE) {
-        const int piece = k / p.g.C;
-        ptr = p.A + (long)merge_token(p.g, src, piece) * p.g.C + (k - piece * p.g.C);
-      } else {
-        ptr = p.A + (long)src * p.lda + k;
-      }
-      ra[0].u = reinterpret_cast<const uint4*>(ptr)[0];
-      ra[1].u = reinterpret_cast<const uint4*>(ptr)[1];
-    }
-    if (n0 + b_n < p.N) {
-      const uint4* ptr = reinterpret_cast<const uint4*>(p.Bm + (long)(k0 + b_k) * p.N + n0 + b_n);
-      rb[0].u = ptr[0];
-      rb[1].u = ptr[1];
-    }
-  };
-
-  load_tile(0);
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
-    if (AMODE != A_PLAIN && src >= 0) {  // LayerNorm prologue, float32
-      const float4* gw = reinterpret_cast<const float4*>(p.ln_w + k0 + a_k);
-      const float4* gb = reinterpret_cast<const float4*>(p.ln_b + k0 + a_k);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 w4 = gw[q], b4 = gb[q];
-        const float wv[4] = {w4.x, w4.y, w4.z, w4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          bf16& e = ra[q / 2].h[(q % 2) * 4 + t];
-          e = f2bf((bf2f(e) - mu) * rs * wv[t] + bv[t]);
-        }
-      }
-    }
-    uint4* da = reinterpret_cast<uint4*>(As + a_r * LDA_S + a_k);
-    da[0] = ra[0].u;
-    da[1] = ra[1].u;
-    uint4* db = reinterpret_cast<uint4*>(Bs + b_k * LDB_S + b_n);
-    db[0] = rb[0].u;
-    db[1] = rb[1].u;
-    __syncthreads();
-    if (k0 + BK < p.K) load_tile(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * LDA_S + kk, LDA_S);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * LDB_S + wn * 32 + j * 16, LDB_S);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC_S + wn * 32 + j * 16,
-                              acc[i][j], LDC_S, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < BM * (BN / 8); idx += GEMM_THREADS) {  // 8 outputs each
-    const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
-    const int orow = dst_row[r], gc = n0 + c;
-    if (orow < 0 || gc >= p.N) continue;
-    const float4 c0 = *reinterpret_cast<const float4*>(Cs + r * LDC_S + c);
-    const float4 c1 = *reinterpret_cast<const float4*>(Cs + r * LDC_S + c + 4);
-    const float v[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-    Pack8 res, packed;
-    res.u = make_uint4(0, 0, 0, 0);
-    if (p.resid != nullptr) res.u = *reinterpret_cast<const uint4*>(p.resid + (long)orow * p.N + gc);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float x = v[e];
-      if (p.bias != nullptr) x += p.bias[gc + e];
-      if (p.gelu) x = 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-      packed.h[e] = f2bf(x);
-      if (p.resid != nullptr) packed.h[e] = f2bf(bf2f(res.h[e]) + bf2f(packed.h[e]));
-    }
-    *reinterpret_cast<uint4*>(p.out + (long)orow * p.N + gc) = packed.u;
-  }
-}
-
-// One block of 4 warps per (window, head). Q, K, V (head dim zero-padded to
-// 32) and the bias (+ mask) are staged in shared memory; warp w owns query
-// rows 16w..16w+15 from there on: S = bias + Q K^T on the tensor cores
-// (bf16 operands, float32 accumulation), float32 max-subtracted softmax,
-// P rounded to bf16, O = P V on the tensor cores, O rounded to bf16.
-constexpr int ATT_THREADS = 128, HD = 24, HDP = 32;
-constexpr int LDQ = HDP + 8, LDS_S = WIN_N + 4, LDP = WIN_N + 8;
-
-__global__ void __launch_bounds__(ATT_THREADS) window_attention_kernel(
-    const bf16* __restrict__ qkv, const float* __restrict__ bias,
-    const float* __restrict__ mask, bf16* __restrict__ out, int C, int nW) {
-  __shared__ __align__(128) bf16 Qs[WIN_N * LDQ];
-  __shared__ __align__(128) bf16 Ks[WIN_N * LDQ];
-  __shared__ __align__(128) bf16 Vs[WIN_N * LDQ];
-  __shared__ __align__(128) float Ss[WIN_N * LDS_S];  // scores, then O
-  __shared__ __align__(128) bf16 Ps[WIN_N * LDP];
-  const int win = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const long row0 = (long)win * WIN_N;
-  const int ld = 3 * C;
-
-  // Q, K, V rows: HD / 8 16-byte pieces each, zeros up to HDP
-  for (int idx = tid; idx < 3 * WIN_N * (HDP / 8); idx += ATT_THREADS) {
-    const int mat = idx / (WIN_N * (HDP / 8)), rem = idx % (WIN_N * (HDP / 8));
-    const int j = rem / (HDP / 8), piece = rem % (HDP / 8);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (piece * 8 < HD)
-      v = *reinterpret_cast<const uint4*>(qkv + (row0 + j) * ld + mat * C + h * HD + piece * 8);
-    bf16* dst = (mat == 0 ? Qs : mat == 1 ? Ks : Vs) + j * LDQ + piece * 8;
-    *reinterpret_cast<uint4*>(dst) = v;
-  }
-  const float* bh = bias + (long)h * WIN_N * WIN_N;
-  const float* mw = mask != nullptr ? mask + (long)(win % nW) * WIN_N * WIN_N : nullptr;
-  for (int idx = tid; idx < WIN_N * WIN_N / 4; idx += ATT_THREADS) {
-    const int r = idx / (WIN_N / 4), c = (idx % (WIN_N / 4)) * 4;
-    float4 b = *reinterpret_cast<const float4*>(bh + r * WIN_N + c);
-    if (mw != nullptr) {
-      const float4 m = *reinterpret_cast<const float4*>(mw + r * WIN_N + c);
-      b.x += m.x;
-      b.y += m.y;
-      b.z += m.z;
-      b.w += m.w;
-    }
-    *reinterpret_cast<float4*>(Ss + r * LDS_S + c) = b;
-  }
-  __syncthreads();
-
-  const int r0 = warp * 16;
-#pragma unroll
-  for (int jt = 0; jt < WIN_N / 16; ++jt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-    wmma::load_matrix_sync(s, Ss + r0 * LDS_S + jt * 16, LDS_S, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < HDP; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;  // K^T
-      wmma::load_matrix_sync(fq, Qs + r0 * LDQ + kk, LDQ);
-      wmma::load_matrix_sync(fk, Ks + jt * 16 * LDQ + kk, LDQ);
-      wmma::mma_sync(s, fq, fk, s);
-    }
-    wmma::store_matrix_sync(Ss + r0 * LDS_S + jt * 16, s, LDS_S, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  // softmax: two lanes per row, 32 columns each
-  {
-    const int r = r0 + lane / 2, c0 = (lane & 1) * 32;
-    const float* sr = Ss + r * LDS_S + c0;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) mx = fmaxf(mx, sr[c]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    float e[32], sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      e[c] = expf(sr[c] - mx);
-      sum += e[c];
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-#pragma unroll
-    for (int c = 0; c < 32; ++c) Ps[r * LDP + c0 + c] = f2bf(e[c] / sum);
-  }
-  __syncwarp();
-
-#pragma unroll
-  for (int dt = 0; dt < HDP / 16; ++dt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-    wmma::fill_fragment(o, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < WIN_N; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-      wmma::load_matrix_sync(fp, Ps + r0 * LDP + kk, LDP);
-      wmma::load_matrix_sync(fv, Vs + kk * LDQ + dt * 16, LDQ);
-      wmma::mma_sync(o, fp, fv, o);
-    }
-    wmma::store_matrix_sync(Ss + r0 * LDS_S + dt * 16, o, LDS_S, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  {
-    const int r = r0 + lane / 2, c0 = (lane & 1) * 16;
-    bf16* orow = out + (row0 + r) * C + h * HD;
-#pragma unroll
-    for (int c = 0; c < 16; ++c)
-      if (c0 + c < HD) orow[c0 + c] = f2bf(Ss[r * LDS_S + c0 + c]);
-  }
-}
-
-template <int AMODE>
-void launch_gemm(const GemmParams& p, cudaStream_t stream) {
-  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
-  gemm_kernel<AMODE><<<grid, GEMM_THREADS, 0, stream>>>(p);
-}
-
-template <int MERGE>
-void launch_stats(const bf16* x, float* mean, float* rstd, int rows, int K,
-                  const RowMap& g, cudaStream_t stream) {
-  row_stats_kernel<MERGE><<<(rows + 7) / 8, 256, 0, stream>>>(x, mean, rstd, rows, K, g);
-}
-
-}  // namespace
+#include "swin_common.cuh"
 
 extern "C" const char* pt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -416,14 +47,16 @@ extern "C" const char* pt_error_string(int code) {
 
 // One eval Swin block (+ PatchMerging when merge_w is not null). Weights are
 // (in, out) bf16 matrices and float32 vectors; bias (nh, 64, 64) and mask
-// (nW, 64, 64) float32 (mask null when unshifted). Scratch: stats (2, B*L)
+// (nW, 64, 64) float32 (mask null when unshifted); dp (B, 2) float32
+// drop-path masks or null (not with the merge). Scratch: stats (2, B*L)
 // f32, qkv (B*L, 3C), attn / y / z (B*L, C), hid (B*L, hidden) bf16. The
 // block output is z, or out (B*L/4, 2C) with the merge.
 extern "C" int swin_block_forward(
     const bf16* x, const float* ln1_w, const float* ln1_b, const bf16* qkv_w,
     const float* qkv_b, const bf16* proj_w, const float* proj_b, const float* ln2_w,
     const float* ln2_b, const bf16* fc1_w, const float* fc1_b, const bf16* fc2_w,
-    const float* fc2_b, const float* bias, const float* mask, const float* mln_w,
+    const float* fc2_b, const float* bias, const float* mask, const float* dp,
+    const float* mln_w,
     const float* mln_b, const bf16* merge_w, float* stats, bf16* qkv, bf16* attn,
     bf16* y, bf16* hid, bf16* z, bf16* out, int B, int H, int W, int C, int nh,
     int win, int shift, int hidden, cudaStream_t stream) {
@@ -442,13 +75,15 @@ extern "C" int swin_block_forward(
   p.a_window = 1;
   launch_gemm<A_LN>(p, stream);
 
-  if (hd != HD) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != HD || (dp != nullptr && merge_w != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   window_attention_kernel<<<dim3(B * nW, nh), ATT_THREADS, 0, stream>>>(qkv, bias, mask, attn, C, nW);
 
   // proj, window reverse + unshift, residual
   p = GemmParams{};
   p.g = g;
   p.A = attn; p.lda = C; p.Bm = proj_w; p.bias = proj_b; p.resid = x; p.out = y;
+  p.rscale = dp;
   p.M = M; p.N = C; p.K = C; p.out_window = 1;
   launch_gemm<A_PLAIN>(p, stream);
 
@@ -462,6 +97,7 @@ extern "C" int swin_block_forward(
   p = GemmParams{};
   p.g = g;
   p.A = hid; p.lda = hidden; p.Bm = fc2_w; p.bias = fc2_b; p.resid = y; p.out = z;
+  p.rscale = dp != nullptr ? dp + 1 : nullptr;
   p.M = M; p.N = C; p.K = hidden;
   launch_gemm<A_PLAIN>(p, stream);
 

@@ -1,13 +1,14 @@
 """Shared model plumbing in PyTorch, the counterpart of the JAX package's
-models/common.py: eval BatchNorm with torch semantics, the fused per-channel
+models/common.py: BatchNorm with torch semantics, the fused per-channel
 "scalar" BN, the ViT Mlp and PatchEmbed, and the time-axis interpolate used by
 every head.
 
 Parity targets: reference src/models/components/model_utilities.py (Mlp
 :129-171, PatchEmbed :174-213) and src/models/components/utils.py
-(interpolate :25-52). Eval only: the training slice adds batch statistics.
+(interpolate :25-52).
 """
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -17,30 +18,56 @@ import torch.nn.functional as F
 
 
 class TorchBatchNorm(nn.Module):
-    """Eval BatchNorm over arbitrary reduce axes with feature shape
-    ``feat_shape`` (running statistics, eps 1e-5)."""
+    """BatchNorm over arbitrary reduce axes with feature shape ``feat_shape``
+    and torch.nn.BatchNorm semantics (the JAX package's models/common.py:
+    32-75): eval normalizes with the running statistics; training with the
+    biased batch variance, and moves the running mean and the unbiased
+    (n / (n - 1)) running variance by momentum 0.1; eps 1e-5. Output float32.
+    """
 
-    def __init__(self, feat_shape: Tuple[int, ...], reduce_axes: Tuple[int, ...],
-                 eps: float = 1e-5):
+    momentum = 0.1
+    eps = 1e-5
+
+    def __init__(self, feat_shape: Tuple[int, ...], reduce_axes: Tuple[int, ...]):
         super().__init__()
         self.reduce_axes = tuple(reduce_axes)
-        self.eps = eps
         self.weight = nn.Parameter(torch.ones(feat_shape))
         self.bias = nn.Parameter(torch.zeros(feat_shape))
         self.register_buffer("running_mean", torch.zeros(feat_shape))
         self.register_buffer("running_var", torch.ones(feat_shape))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("batch-statistics BatchNorm belongs to "
-                                      "the training slice of the port")
+    def _bshape(self, x: torch.Tensor):
         shape = list(x.shape)
         for ax in self.reduce_axes:
             shape[ax] = 1
-        mean = self.running_mean.reshape(shape)
-        var = self.running_var.reshape(shape)
-        y = (x.float() - mean) * torch.rsqrt(var + self.eps)
+        return shape
+
+    def _normalize(self, x, mean, var):
+        shape = self._bshape(x)
+        y = (x.float() - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + self.eps)
         return y * self.weight.reshape(shape) + self.bias.reshape(shape)
+
+    def batch_forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Training-mode BN without side effects: (output, new running mean,
+        new running variance)."""
+        xf = x.float()
+        mean = xf.mean(dim=self.reduce_axes)
+        var = ((xf - mean.reshape(self._bshape(x))) ** 2).mean(dim=self.reduce_axes)
+        n = math.prod(x.shape[ax] for ax in self.reduce_axes)
+        with torch.no_grad():
+            new_mean = (1 - self.momentum) * self.running_mean + self.momentum * mean
+            new_var = ((1 - self.momentum) * self.running_var
+                       + self.momentum * var * (n / max(n - 1, 1)))
+        return self._normalize(x, mean, var), new_mean, new_var
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return self._normalize(x, self.running_mean, self.running_var)
+        y, new_mean, new_var = self.batch_forward(x)
+        with torch.no_grad():
+            self.running_mean.copy_(new_mean)
+            self.running_var.copy_(new_var)
+        return y
 
 
 class ScalarBN(TorchBatchNorm):

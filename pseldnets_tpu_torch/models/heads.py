@@ -7,17 +7,22 @@ src/models/multi_accdoa.py. Output dict keys match the reference:
 [track0 x(K) y(K) z(K) | track1 ... | track2 ...].
 """
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from .common import ScalarBN, interpolate
-from .htsat import HTSATEncoder
+from .htsat import HTSATEncoder, drop_path_masks
 
 
 class HTSAT(nn.Module):
-    """HTS-AT backbone + tscam conv head (reference accdoa.py:107-246), eval.
+    """HTS-AT backbone + tscam conv head (reference accdoa.py:107-246).
+
+    In train mode the ScalarBN uses batch statistics and the blocks take
+    drop-path masks: ``dp_masks`` (one (B', 2) mask per block, B' the
+    encoder batch) or, when the rates are not all 0, masks drawn from
+    ``generator``.
 
     Handles the 5 s clip trick: when the incoming clip yields
     tgt_output_frames/2 label frames, the two batch halves are concatenated
@@ -43,7 +48,8 @@ class HTSAT(nn.Module):
     def output_key(self) -> str:
         return "accdoa" if self.num_tracks == 1 else "multi_accdoa"
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, dp_masks: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         B, C, T, Fq = x.shape
         output_frames = T // self.pred_res
         five_sec = output_frames < self.tgt_output_frames
@@ -54,7 +60,12 @@ class HTSAT(nn.Module):
             x = torch.cat([x[: B // 2, :, :-1], x[B // 2:, :, :-1]], dim=2)
         elif output_frames > self.tgt_output_frames:
             raise NotImplementedError("output_frames > tgt_output_frames")
-        x = self.encoder(self.scalar(x))  # (B', C, SF, ST)
+        rates = self.encoder.block_rates()
+        if self.training and dp_masks is None and any(rates):
+            if generator is None:
+                raise ValueError("train mode with drop-path needs dp_masks or a generator")
+            dp_masks = drop_path_masks(generator, x.shape[0], rates, x.device)
+        x = self.encoder(self.scalar(x), dp_masks)  # (B', C, SF, ST)
         x = self.tscam_conv(x).flatten(2).transpose(1, 2)  # (B', ST, out)
         x = interpolate(x, ratio=self.encoder.time_res, method="bilinear")
         x = x[:, : self.tgt_output_frames * self.pred_res]

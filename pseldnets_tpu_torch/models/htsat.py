@@ -6,11 +6,18 @@ reshape_wav2img -> PatchEmbed 4x4/4 -> 4 BasicLayers of windowed attention with
 relative-position bias, cyclic shift every other block and PatchMerging between
 stages -> final LayerNorm + token-map reshape. Parameter names are the
 reference torch state_dict keys. These eager modules are the plain version of
-the whole encoder; the serving path (serving/htsat.py) runs each block through
-the fused kernel of ops/swin_block.py instead.
+the whole encoder, in eval and in train mode; the serving path
+(serving/htsat.py) and the fused training forward (train/fused_forward.py)
+run each block through the kernels of ops/swin_block.py and
+ops/swin_block_vjp.py instead.
+
+Train mode has stochastic depth (drop-path) only: the per-block (B, 2) masks
+come from the caller (``drop_path_masks`` draws them from an explicit
+generator); no module keeps random state. Attention, projection and
+position dropout are not ported and raise when their rate is not 0.
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +68,23 @@ def shift_attn_mask(H: int, W: int, w: int, shift: int) -> np.ndarray:
     return np.where(mask != 0, -100.0, 0.0).astype(np.float32)
 
 
+def drop_path_masks(generator: Optional[torch.Generator], B: int, rates: Sequence[float],
+                    device=None) -> List[torch.Tensor]:
+    """Per-block (B, 2) float32 drop-path scales (attention branch, MLP
+    branch): ones where the block's rate is 0, else Bernoulli(keep) / keep
+    with keep = 1 - rate (the JAX package's train/fused_forward.py:119-128;
+    reference model_utilities.py:216-231), drawn from ``generator``."""
+    out = []
+    for rate in rates:
+        if rate > 0.0:
+            keep = 1.0 - float(rate)
+            u = torch.rand((B, 2), generator=generator, device=device)
+            out.append((u < keep).float() / keep)
+        else:
+            out.append(torch.ones((B, 2), device=device))
+    return out
+
+
 def window_and_shift(H: int, W: int, window: int, shift: int) -> Tuple[int, int]:
     """The reference's clamp: a window that covers the whole map is not
     shifted (htsat.py:181-184)."""
@@ -109,7 +133,9 @@ class WindowAttention(nn.Module):
 
 
 class SwinTransformerBlock(nn.Module):
-    """(htsat.py:152-268), eval mode (drop-path is the identity)."""
+    """(htsat.py:152-268). ``dp_masks`` (B, 2): per-image drop-path scales
+    of the attention and MLP branches, y = x + m0 * attn, out = y + m1 * mlp
+    (None: the identity, as in eval)."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int], num_heads: int,
                  window_size: int = 8, shift_size: int = 0, mlp_ratio: float = 4.0,
@@ -129,7 +155,7 @@ class SwinTransformerBlock(nn.Module):
                 if self.shift_size > 0 else None)
         self.register_buffer("attn_mask", mask, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dp_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
         H, W = self.input_resolution
         w, shift = self.window_size, self.shift_size
         B, L, C = x.shape
@@ -141,8 +167,13 @@ class SwinTransformerBlock(nn.Module):
         h = window_reverse(h, w, H, W)
         if shift > 0:
             h = torch.roll(h, shifts=(shift, shift), dims=(1, 2))
-        x = shortcut + h.reshape(B, H * W, C)
-        return x + self.mlp(self.norm2(x))
+        h = h.reshape(B, H * W, C)
+        if dp_masks is None:
+            x = shortcut + h
+            return x + self.mlp(self.norm2(x))
+        m = dp_masks.to(h.dtype)
+        x = shortcut + m[:, 0, None, None] * h
+        return x + m[:, 1, None, None] * self.mlp(self.norm2(x))
 
 
 class PatchMerging(nn.Module):
@@ -178,9 +209,10 @@ class BasicLayer(nn.Module):
         self.downsample = (PatchMerging(input_resolution, dim)
                            if downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for blk in self.blocks:
-            x = blk(x)
+    def forward(self, x: torch.Tensor,
+                dp_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, None if dp_masks is None else dp_masks[i])
         if self.downsample is not None:
             x = self.downsample(x)
         return x
@@ -195,12 +227,14 @@ class HTSATEncoder(nn.Module):
                  depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (4, 8, 16, 32), window_size: int = 8,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, mel_bins: int = 64,
-                 ape: bool = False, patch_norm: bool = True, **eval_unused):
-        # eval only: the config's dropout / drop-path rates, norm_before_mlp
-        # and use_checkpoint land in eval_unused
+                 ape: bool = False, patch_norm: bool = True, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1, **unused):
+        # norm_before_mlp and use_checkpoint land in unused
         super().__init__()
         if ape:
             raise NotImplementedError("absolute position embedding (ape=True)")
+        self.drop_rate, self.attn_drop_rate = float(drop_rate), float(attn_drop_rate)
+        self.drop_path_rate = float(drop_path_rate)
         self.spec_size, self.mel_bins = spec_size, mel_bins
         self.patch_stride = tuple(patch_stride)
         self.patch_size = patch_size
@@ -266,8 +300,28 @@ class HTSATEncoder(nn.Module):
         x = x.reshape(B, C, SF // c_freq_bin, c_freq_bin, ST).transpose(2, 3)
         return x.reshape(B, C, c_freq_bin, -1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def block_rates(self) -> List[float]:
+        """Drop-path rate of every block in order: linspace(0, rate, blocks)
+        (reference htsat.py:446-447)."""
+        return [float(r) for r in np.linspace(0, self.drop_path_rate, sum(self.depths))]
+
+    def check_trainable(self) -> None:
+        """Train mode ports drop-path only."""
+        if self.drop_rate or self.attn_drop_rate:
+            raise NotImplementedError(
+                f"training with drop_rate={self.drop_rate} / attn_drop_rate="
+                f"{self.attn_drop_rate}: only drop-path is ported (the published "
+                "HTSAT configuration sets both to 0)")
+
+    def forward(self, x: torch.Tensor,
+                dp_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """``dp_masks``: one (B, 2) mask per block, in order (train mode)."""
+        if self.training:
+            self.check_trainable()
         x = self.patch_embed(self.reshape_wav2img(x))
+        i = 0
         for layer in self.layers:
-            x = layer(x)
+            n = len(layer.blocks)
+            x = layer(x, None if dp_masks is None else dp_masks[i:i + n])
+            i += n
         return self.finalize(x)

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source has a plain C interface. At first use it is compiled
 by ``nvcc`` for ``sm_90a`` into a shared library under
-``pseldnets_tpu_torch/_build/`` (named by a hash of its source and flags, so an
-edited source builds anew) and loaded with ``ctypes``. Every C entry point
+``pseldnets_tpu_torch/_build/`` (named by a hash of its source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source or header builds
+anew) and loaded with ``ctypes``. Every C entry point
 launches on the stream it is given and returns ``cudaGetLastError()``; a
 non-zero code raises here. Nothing is built or imported when a module is
 imported: the CPU tests import every module.
@@ -69,6 +70,8 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha1(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 

@@ -1,5 +1,5 @@
 """logmel + FOA intensity-vector frontend in PyTorch, the counterpart of the
-JAX package's ops/features.py (LogmelIVExtractor path only).
+JAX package's ops/features.py (LogmelIVExtractor path and make_extractor).
 
 Behavioral parity target (reference src/utils/feature.py:20-56,93-117): STFT ->
 power-mel (HTK scale, slaney norm, fmin=20, fmax=fs/2) -> 10*log10 dB
@@ -7,7 +7,9 @@ power-mel (HTK scale, slaney norm, fmin=20, fmax=fs/2) -> 10*log10 dB
 projected onto the mel basis; output (B, 4+3, T, n_mels).
 
 This is the plain version of the fused frontend kernel (ops/frontend.py), and
-the only path when hop >= n_fft.
+the only path when hop >= n_fft. ``LogmelIVExtractor`` sends a CUDA tensor to
+the kernel (K1 in its unfolded float32 form, as the JAX extractor calls its
+Pallas kernel, features.py:105-115).
 """
 
 import numpy as np
@@ -52,11 +54,20 @@ def intensity_vector(real: torch.Tensor, imag: torch.Tensor,
 
 
 class LogmelIVExtractor:
-    """logmel(4ch) + intensity-vector(3ch) frontend for FOA input, eager."""
+    """logmel(4ch) + intensity-vector(3ch) frontend for FOA input.
+
+    A CUDA tensor goes to kernel K1 (``fused_logmel_iv``: no affine, float32,
+    no zero tail, which raises on any other device) unless ``use_kernels``
+    is False; a CPU tensor, and the shapes the JAX package itself keeps off
+    its kernel (hop >= n_fft, frontend.py:478), take the eager form. On the
+    card K1 takes n_fft 1024 only: other FFT lengths raise (ROADMAP queue B,
+    B9).
+    """
 
     in_channels = 7
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, use_kernels: bool = True):
+        self.use_kernels = use_kernels
         data = cfg["data"]
         self.n_fft = int(data["nfft"])
         self.hop = int(data["hoplen"])
@@ -67,9 +78,33 @@ class LogmelIVExtractor:
             logmel_iv_filterbank(self.sr, self.n_fft, self.n_mels))
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 4, samples) -> (B, 7, n_frames, n_mels)."""
+        """(B, 4, samples) -> (B, 7, n_frames, n_mels) float32."""
+        if x.device.type != "cpu" and self.use_kernels and self.hop < self.n_fft:
+            from .frontend import FFT_SIDE, fused_logmel_iv
+
+            if self.n_fft != FFT_SIDE ** 2:
+                raise NotImplementedError(
+                    f"the frontend kernel on the card takes n_fft={FFT_SIDE ** 2}, got "
+                    f"{self.n_fft}: the JAX package's other frontend forms are "
+                    "ROADMAP queue B, B9")
+            return fused_logmel_iv(x, n_fft=self.n_fft, hop=self.hop, window=self.window,
+                                   n_mels=self.n_mels, sample_rate=self.sr)
         return logmel_iv(x, n_fft=self.n_fft, hop=self.hop, window=self.window,
                          mel_fb=self.mel_fb.to(x.device))
+
+
+def make_extractor(cfg, use_kernels: bool = True):
+    """The on-device frontend for ``cfg.data.audio_feature`` (the JAX
+    package's make_extractor, features.py:210-220): logmelIV ->
+    LogmelIVExtractor; features other than logmel are read pre-extracted
+    (None); the mono/mic logmel extractor is not ported yet (ROADMAP queue
+    A, step 1)."""
+    feat = cfg["data"]["audio_feature"]
+    if feat == "logmelIV":
+        return LogmelIVExtractor(cfg, use_kernels=use_kernels)
+    if feat == "logmel":
+        raise NotImplementedError("LogmelExtractor is not ported yet (ROADMAP queue A, step 1)")
+    return None
 
 
 def logmel_iv(x: torch.Tensor, *, n_fft: int, hop: int, window: str,

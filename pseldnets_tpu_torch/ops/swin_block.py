@@ -1,6 +1,7 @@
-"""Fused eval Swin block: kernel K2 and its plain version. The counterpart of
-the JAX package's ``ops/pallas/swin_block.py::swin_block_fused`` (exact
-softmax, with the PatchMerging fold of ``merge_params``).
+"""Fused Swin block: kernel K2 and its plain version. The counterpart of the
+JAX package's ``ops/pallas/swin_block.py::swin_block_fused`` (exact softmax,
+with the PatchMerging fold of ``merge_params`` for serving, or the per-image
+drop-path masks ``dp_masks`` for training).
 
     LN1 -> cyclic shift -> window partition -> qkv (q-scale folded) -> per-head
     scores + relative-position bias + shift mask -> max-subtracted softmax ->
@@ -12,7 +13,9 @@ float32 accumulation, LayerNorm and softmax in float32, and every activation
 (qkv, attention output, proj, hidden, residual sums) rounded to the compute
 dtype where the kernel rounds it. GELU is the exact erf form in both dtypes
 (the Pallas kernel's bf16 path uses a polynomial within 5.2e-5 of it - below
-bf16 rounding).
+bf16 rounding). With drop-path masks m (B, 2) float32 the residual adds are
+``x + cd(m0) * proj`` and ``y + cd(m1) * mlp``, each product rounded to the
+compute dtype, as the Pallas forward computes them (swin_block.py:351, :389).
 
 On a CUDA tensor ``swin_block_fused`` launches the hand-written kernels of
 ``csrc/swin_block.cu`` (bf16 only); on a CPU tensor it runs
@@ -30,7 +33,7 @@ from ..models.htsat import (PatchMerging, SwinTransformerBlock, window_partition
 from ._cuda import CudaKernel, check_cuda_tensor, i32, ptr
 
 KERNEL = CudaKernel("swin_block.cu", {
-    "swin_block_forward": [ptr] * 25 + [i32] * 8 + [ptr],
+    "swin_block_forward": [ptr] * 26 + [i32] * 8 + [ptr],
 })
 
 LN_EPS = 1e-5
@@ -122,12 +125,34 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), w.float())
 
 
-def swin_block_plain(x: torch.Tensor, p: SwinBlockParams) -> torch.Tensor:
+def _check_masks(dp_masks: Optional[torch.Tensor], p: SwinBlockParams, B: int) -> None:
+    if dp_masks is None:
+        return
+    if p.merge:
+        raise ValueError("drop-path masks do not combine with the merge fold "
+                         "(training calls the block without merge_params)")
+    if tuple(dp_masks.shape) != (B, 2) or dp_masks.dtype != torch.float32:
+        raise ValueError(f"dp_masks: expected float32 ({B}, 2), got "
+                         f"{dp_masks.dtype} {tuple(dp_masks.shape)}")
+
+
+def _masked(branch: torch.Tensor, dp_masks: Optional[torch.Tensor], col: int) -> torch.Tensor:
+    """``cd(m[:, col]) * branch`` per image, rounded to the compute dtype."""
+    if dp_masks is None:
+        return branch
+    m = dp_masks[:, col].to(branch.dtype).reshape(-1, *([1] * (branch.ndim - 1)))
+    return m * branch
+
+
+def swin_block_plain(x: torch.Tensor, p: SwinBlockParams,
+                     dp_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of kernel K2, on any device: x (B, H*W, C) in the
     compute dtype (the dtype of ``p.qkv_w``) -> (B, H*W, C), or
-    (B, H*W/4, 2C) with the merge fold."""
+    (B, H*W/4, 2C) with the merge fold; ``dp_masks`` (B, 2) float32 scale
+    the attention and MLP branches per image."""
     cd = p.qkv_w.dtype
     B, L, C = x.shape
+    _check_masks(dp_masks, p, B)
     H, W, w, s, nh = p.H, p.W, p.window, p.shift, p.nh
     N, hd = w * w, C // nh
     x0 = x.to(cd)
@@ -147,10 +172,10 @@ def swin_block_plain(x: torch.Tensor, p: SwinBlockParams) -> torch.Tensor:
     a = window_reverse(a.reshape(-1, N, C), w, H, W)
     if s:
         a = torch.roll(a, shifts=(s, s), dims=(1, 2))
-    y = x0 + a.reshape(B, L, C)
+    y = x0 + _masked(a.reshape(B, L, C), dp_masks, 0)
     h = _ln(y, p.ln2_w, p.ln2_b).to(cd)
     h = F.gelu(_mm(h, p.fc1_w) + p.fc1_b, approximate="none").to(cd)
-    out = y + (_mm(h, p.fc2_w) + p.fc2_b).to(cd)
+    out = y + _masked((_mm(h, p.fc2_w) + p.fc2_b).to(cd), dp_masks, 1)
     if not p.merge:
         return out
     v4 = out.reshape(B, H, W, C)
@@ -160,13 +185,15 @@ def swin_block_plain(x: torch.Tensor, p: SwinBlockParams) -> torch.Tensor:
     return _mm(v4, p.merge_w).to(cd)
 
 
-def swin_block_fused(x: torch.Tensor, p: SwinBlockParams) -> torch.Tensor:
-    """One eval Swin block (+ PatchMerging when ``p.merge``). A CPU tensor
-    takes ``swin_block_plain``; a CUDA tensor launches kernel K2 (bfloat16)
-    or raises."""
+def swin_block_fused(x: torch.Tensor, p: SwinBlockParams,
+                     dp_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One Swin block (+ PatchMerging when ``p.merge``, or drop-path masks
+    (B, 2) float32 in training). A CPU tensor takes ``swin_block_plain``; a
+    CUDA tensor launches kernel K2 (bfloat16) or raises."""
     if x.device.type == "cpu":
-        return swin_block_plain(x, p)
+        return swin_block_plain(x, p, dp_masks)
     B, L, C = x.shape
+    _check_masks(dp_masks, p, B)
     H, W, w, nh = p.H, p.W, p.window, p.nh
     N, hd, hidden = w * w, C // nh, p.fc1_w.shape[1]
     check_cuda_tensor("x", x, torch.bfloat16, (B, H * W, C))
@@ -192,6 +219,8 @@ def swin_block_fused(x: torch.Tensor, p: SwinBlockParams) -> torch.Tensor:
     nW = (H // w) * (W // w)
     if p.mask is not None:
         check_cuda_tensor("mask", p.mask, torch.float32, (nW, N, N))
+    if dp_masks is not None:
+        check_cuda_tensor("dp_masks", dp_masks, torch.float32, (B, 2))
 
     M = B * L
     dev = x.device
@@ -212,7 +241,7 @@ def swin_block_fused(x: torch.Tensor, p: SwinBlockParams) -> torch.Tensor:
                 p.qkv_w.data_ptr(), p.qkv_b.data_ptr(), p.proj_w.data_ptr(),
                 p.proj_b.data_ptr(), p.ln2_w.data_ptr(), p.ln2_b.data_ptr(),
                 p.fc1_w.data_ptr(), p.fc1_b.data_ptr(), p.fc2_w.data_ptr(),
-                p.fc2_b.data_ptr(), p.bias.data_ptr(), opt(p.mask),
+                p.fc2_b.data_ptr(), p.bias.data_ptr(), opt(p.mask), opt(dp_masks),
                 opt(p.merge_ln_w), opt(p.merge_ln_b), opt(p.merge_w),
                 stats.data_ptr(), qkv.data_ptr(), attn.data_ptr(), y.data_ptr(),
                 hid.data_ptr(), z.data_ptr(), out.data_ptr() if p.merge else None,

@@ -8,6 +8,8 @@ kernel K1 (ops/frontend.py).
 The patch embed (one reshape + einsum), the final LayerNorm, the token-map
 finalize, the tscam conv, the interpolation matmul, the frame mean and the
 tanh stay plain PyTorch, as the JAX package leaves them outside its kernels.
+``embed_tokens`` and ``head_tail`` carry autograd: the fused training forward
+(train/fused_forward.py) shares them; the serving callers run under no_grad.
 
 Eval only, plain checkpoints (models/adapters.py raises on adapters or LoRA at
 build time), 10 s or 5 s clips (the reference's two supported shapes).
@@ -47,7 +49,6 @@ def _ln(x: torch.Tensor, ln: torch.nn.LayerNorm) -> torch.Tensor:
                         ln.bias.float(), ln.eps).to(x.dtype)
 
 
-@torch.no_grad()
 def embed_tokens(model: HTSAT, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """Normalized (B, C, T, F) features -> patch-embedded, LayerNormed tokens
     (B, H*W, E) in the compute dtype.
@@ -109,6 +110,17 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
     x = embed_tokens(model, x, cd)
     for p in blocks:
         x = block_fn(x, p)
+    return head_tail(model, x, cd, B, output_frames, five_sec)
+
+
+def head_tail(model: HTSAT, x: torch.Tensor, compute_dtype: torch.dtype, B: int,
+              output_frames: int, five_sec: bool) -> Dict[str, torch.Tensor]:
+    """Last-stage tokens (B', L, C) -> the head's output dict: final
+    LayerNorm, token map, tscam conv, bilinear interpolation, frame mean and
+    tanh (models.heads.HTSAT), rounded to the compute dtype where the JAX
+    package's fused forwards round."""
+    enc = model.encoder
+    cd = compute_dtype
     x = enc.token_map(_ln(x, enc.norm))
 
     # tscam conv head + bilinear interpolate + pooling (models.heads.HTSAT)

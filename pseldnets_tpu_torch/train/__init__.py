@@ -1,1 +1,2 @@
-"""Checkpoint bridge (the training step is the next slice of the port)."""
+"""Training: the weight bridge, losses' optimizer, the fused training forward
+and the SELDTask train step."""

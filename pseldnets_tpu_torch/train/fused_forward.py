@@ -1,0 +1,98 @@
+"""Fused-kernel training forward for HTSAT, the counterpart of the JAX
+package's train/fused_forward.py (:34-159).
+
+Every Swin block runs as ``SwinBlockTrain``: kernel K2 with drop-path masks
+forward, kernel K3 backward (ops/swin_block_vjp.py). Around them, plain
+PyTorch with autograd: the 5 s clip trick, the train-mode ScalarBN, the
+patch embed (serving/htsat.py::embed_tokens), the unfolded PatchMerging
+between stages (as the JAX package leaves it to XLA, fused_forward.py:
+139-140), the final LayerNorm, token map, tscam conv, interpolation, frame
+mean and tanh (serving/htsat.py::head_tail).
+
+The math equals the eager ``model.train()`` forward with the same masks, up
+to the kernels' compute-dtype rounding. The masks come from the caller
+(``dp_masks``, one (B', 2) float32 mask per block) or from ``generator``;
+torch's generator cannot replay the JAX package's draw order
+(``fold_in(dropout_rng, bi)``, fused_forward.py:119-128), so tests inject
+that package's masks.
+"""
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..models.heads import HTSAT
+from ..models.htsat import PatchMerging, drop_path_masks
+from ..ops.swin_block_vjp import swin_block_train
+from ..serving.htsat import embed_tokens, head_tail
+
+__all__ = ["supports_fused_train", "drop_path_masks", "htsat_fused_train_forward"]
+
+
+def supports_fused_train(model) -> bool:
+    """An HTSAT with zero attention / projection / position dropout (adapters
+    and LoRA raise when the model is built)."""
+    if not isinstance(model, HTSAT):
+        return False
+    enc = model.encoder
+    return enc.drop_rate == 0.0 and enc.attn_drop_rate == 0.0
+
+
+def patch_merging(mod: PatchMerging, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """2x2 concat -> float32 LayerNorm -> 4C -> 2C reduction on compute-dtype
+    operands with float32 accumulation; output in the compute dtype."""
+    H, W = mod.input_resolution
+    B, L, C = x.shape
+    v = x.reshape(B, H, W, C)
+    v = torch.cat([v[:, 0::2, 0::2], v[:, 1::2, 0::2], v[:, 0::2, 1::2], v[:, 1::2, 1::2]],
+                  dim=-1).reshape(B, L // 4, 4 * C)
+    v = F.layer_norm(v.float(), (4 * C,), mod.norm.weight.float(), mod.norm.bias.float(),
+                     mod.norm.eps).to(compute_dtype)
+    w = mod.reduction.weight.to(compute_dtype).float()
+    return torch.matmul(v.float(), w.t()).to(compute_dtype)
+
+
+def htsat_fused_train_forward(model: HTSAT, feats: torch.Tensor, *,
+                              dp_masks: Optional[Sequence[torch.Tensor]] = None,
+                              generator: Optional[torch.Generator] = None,
+                              compute_dtype: torch.dtype = torch.bfloat16,
+                              use_kernels: bool = True
+                              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Train-mode forward of ``model`` on features (B, C, T, F) with every
+    Swin block on kernels K2/K3. Returns ``(preds, batch-stat update)``: the
+    head's output dict and the ScalarBN's new ``running_mean`` /
+    ``running_var`` (not yet written into the model). ``use_kernels=False``
+    runs the kernels' plain versions on the same device."""
+    enc = model.encoder
+    enc.check_trainable()
+    cd = compute_dtype
+    B, C, T, Fq = feats.shape
+    output_frames = T // model.pred_res
+    five_sec = output_frames < model.tgt_output_frames
+    x = feats
+    if five_sec:
+        if output_frames != model.tgt_output_frames // 2 or B % 2:
+            raise ValueError("only 5-second (even batch) or 10-second clips are supported")
+        x = torch.cat([x[: B // 2, :, :-1], x[B // 2:, :, :-1]], dim=2)
+    x, new_mean, new_var = model.scalar.batch_forward(x)
+    x = embed_tokens(model, x, cd)
+
+    rates = enc.block_rates()
+    if dp_masks is None:
+        if generator is None and any(rates):
+            raise ValueError("drop-path needs dp_masks or a generator")
+        dp_masks = drop_path_masks(generator, x.shape[0], rates, x.device)
+    masks: List[torch.Tensor] = list(dp_masks)
+    if len(masks) != len(rates):
+        raise ValueError(f"expected {len(rates)} drop-path masks, got {len(masks)}")
+    bi = 0
+    for layer in enc.layers:
+        for blk in layer.blocks:
+            m = masks[bi].to(x.device, torch.float32).contiguous()
+            x = swin_block_train(x, blk, m, cd, use_kernels)
+            bi += 1
+        if layer.downsample is not None:
+            x = patch_merging(layer.downsample, x, cd)
+    preds = head_tail(model, x, cd, B, output_frames, five_sec)
+    return preds, {"running_mean": new_mean, "running_var": new_var}

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on the card against their plain versions (marked
+"""Kernels K1, K2 and K3 on the card against their plain versions (marked
 ``cuda``: skipped without a CUDA card and nvcc). Imports nothing of JAX, so on
 a machine without JAX it runs with
 
@@ -10,7 +10,7 @@ import torch
 
 from pseldnets_tpu_torch.models.factory import init_weights
 from pseldnets_tpu_torch.models.htsat import PatchMerging, SwinTransformerBlock
-from pseldnets_tpu_torch.ops import frontend, swin_block
+from pseldnets_tpu_torch.ops import frontend, swin_block, swin_block_vjp
 
 pytestmark = pytest.mark.cuda
 
@@ -62,3 +62,31 @@ def test_swin_block_kernel_matches_plain(card, stage, shift, merge):
     ref = swin_block.swin_block_plain(x, p).float()
     assert got.shape == ref.shape
     assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+
+
+@pytest.mark.parametrize("stage,shift", [(0, 4), (1, 0), (2, 4), (3, 0)])
+def test_training_block_kernels_match_plain(card, stage, shift):
+    """K2 with drop-path masks (zeros included) and K3 at one full-width
+    shape per stage, B=2: every output within 2^-6 of its largest magnitude
+    of the plain bf16 version (phase_swin_block_train's bound)."""
+    gen = torch.Generator().manual_seed(10 + stage)
+    H, C, nh = 64 >> stage, 96 << stage, 4 << stage
+    blk = SwinTransformerBlock(C, (H, H), nh, 8, shift_size=shift)
+    init_weights(blk, gen)
+    blk.to(card)
+    p = swin_block.prepare_block(blk, torch.bfloat16)
+    x = torch.randn(2, H * H, C, generator=gen).to(card).bfloat16()
+    dout = torch.randn(2, H * H, C, generator=gen).to(card).bfloat16()
+    m = torch.tensor([[1 / 0.9, 0.0], [0.0, 1 / 0.9]], device=card)
+    before = (swin_block.KERNEL.launches, swin_block_vjp.KERNEL.launches)
+    got = swin_block.swin_block_fused(x, p, m).float()
+    dx, g = swin_block_vjp.swin_block_backward(x, p, m, dout)
+    assert (swin_block.KERNEL.launches, swin_block_vjp.KERNEL.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = swin_block.swin_block_plain(x, p, m).float()
+    assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+    dx0, g0 = swin_block_vjp.swin_block_backward_plain(x, p, m, dout)
+    for name, a, b in [("dx", dx, dx0)] + [(k, g[k], g0[k]) for k in swin_block_vjp.GRAD_KEYS]:
+        a, b = a.float(), b.float()
+        assert a.shape == b.shape, name
+        assert (a - b).abs().max() <= 2.0 ** -6 * b.abs().max(), name
