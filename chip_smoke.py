@@ -2,13 +2,15 @@
 """GPU smoke run of the PyTorch/CUDA port (pseldnets_tpu_torch).
 
 Builds the hand-written CUDA kernels from pseldnets_tpu_torch/csrc, holds each
-against its plain PyTorch version on the card, then drives the port's two
-main paths at full published width (configs/, HTSAT mACCDOA, 13 classes x 3
+against its plain PyTorch version on the card, then drives the port's main
+paths at full published width (configs/, HTSAT mACCDOA, 13 classes x 3
 tracks, seeded random weights, 10 s FOA waveforms): serving through
 htsat_fused_forward_from_wav, and training through SELDTask.train_step
 (frontend, fused forward with drop-path, ADPIT loss, K3 backward, clip,
-AdamW). It checks the outputs, the kernels' launch counts on each path and
-the kernel step against the plain step, and prints the times.
+AdamW); then the same two with AdapterBit (adapt=adapter: bottleneck
+adapters in every block, K4 forward and K5 backward, frozen backbone). It
+checks the outputs, the kernels' launch counts on each path and the kernel
+step against the plain step, and prints the times.
 
     python3 chip_smoke.py
 
@@ -41,6 +43,8 @@ N_SAMPLES = 240000  # 10 s at 24 kHz
 TRAIN_OVERRIDES = ["loss=multi_accdoa", "model.kwargs.pretrained_path=null",
                    "model.kwargs.audioset_pretrain=false", "trainer.precision=bf16-mixed",
                    "trainer.fused_forward=true"]
+ADAPT = ["adapt=adapter"]  # configs/adapt/adapter.yaml (bench_all.py adapterbit_train)
+PATHS = ("serve", "train", "serve_adapter", "train_adapter")
 
 
 def log(msg):
@@ -97,9 +101,19 @@ def phase_device():
 
 
 def kernels():
-    from pseldnets_tpu_torch.ops import frontend, swin_block, swin_block_vjp
+    from pseldnets_tpu_torch.ops import frontend, swin_block, swin_block_adapt, swin_block_vjp
 
-    return {"K1": frontend.KERNEL, "K2": swin_block.KERNEL, "K3": swin_block_vjp.KERNEL}
+    return {"K1": frontend.KERNEL, "K2": swin_block.KERNEL, "K3": swin_block_vjp.KERNEL,
+            "K4": swin_block_adapt.FWD_KERNEL, "K5": swin_block_adapt.BWD_KERNEL}
+
+
+def zero_counts():
+    for k in kernels().values():
+        k.launches = 0
+
+
+def read_counts():
+    return {n: k.launches for n, k in kernels().items()}
 
 
 def phase_build():
@@ -346,14 +360,13 @@ def phase_serve(smi):
     torch.cuda.synchronize()
 
     # the main path: counts from 0, SERVE_BATCHES batches
-    for k in kernels().values():
-        k.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     outs = [serve(w)["multi_accdoa"] for w in wavs]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
-    launches = {n: k.launches for n, k in kernels().items()}
-    want = {"K1": SERVE_BATCHES, "K2": 12 * SERVE_BATCHES, "K3": 0}
+    launches = read_counts()
+    want = {"K1": SERVE_BATCHES, "K2": 12 * SERVE_BATCHES, "K3": 0, "K4": 0, "K5": 0}
     log(f"served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches {launches} "
         f"(expect {want})")
     check(launches == want, "launch counts")
@@ -465,14 +478,15 @@ def phase_train(smi):
     torch.cuda.synchronize()
 
     # the main path: counts from 0, TRAIN_STEPS steps
-    for k in kernels().values():
-        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     t0 = time.perf_counter()
     losses = [step(w)["loss_all"] for w in wavs]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
-    launches = {n: k.launches for n, k in kernels().items()}
-    want = {"K1": TRAIN_STEPS, "K2": 12 * TRAIN_STEPS, "K3": 12 * TRAIN_STEPS}
+    launches = read_counts()
+    log(f"peak device memory over the steps {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    want = {"K1": TRAIN_STEPS, "K2": 12 * TRAIN_STEPS, "K3": 12 * TRAIN_STEPS, "K4": 0, "K5": 0}
     log(f"trained {TRAIN_STEPS} steps of {B_TRAIN} x 10 s clips: launches {launches} "
         f"(expect {want}); losses {[round(float(v), 6) for v in losses]}")
     check(launches == want, "training launch counts")
@@ -498,7 +512,7 @@ def phase_train(smi):
         f"float32 {lf.item():.6f})")
     compare("loss", lk, lp, lf, 2.0 ** -6)
     worst = 0.0
-    for name, a, b, c in zip(task.names, gk, gp, gf):
+    for name, a, b, c in zip(task.trained_names, gk, gp, gf):
         worst = max(worst, compare(name[-36:], a, b, c, 2.0 ** -4)
                     / max(c.abs().max().item(), 1e-30))
     log(f"every parameter grad within {worst:.3g} of its scale of the plain step's")
@@ -572,6 +586,323 @@ def phase_train(smi):
                       "K3": (k3_err, k3_rel, k3_ms, k3_plain, k3_bound, "operations")}
 
 
+def randomize_adapters(model, gen):
+    """Seeded random values in every adapter leaf, standing for a tuned
+    AdapterBit checkpoint (a zero fc2, the init, would hide wiring faults):
+    weights N(0, 1/fan_in) clamped at 2 sigma, biases N(0, 0.02)."""
+    import torch
+    from pseldnets_tpu_torch.models.adapters import Adapter
+
+    with torch.no_grad():
+        for ad in [m for m in model.modules() if isinstance(m, Adapter)]:
+            for fc in (ad.fc1, ad.fc2):
+                w = torch.randn(fc.weight.shape, generator=gen).clamp_(-2, 2)
+                fc.weight.copy_(w / math.sqrt(fc.weight.shape[1]))
+                fc.bias.copy_(0.02 * torch.randn(fc.bias.shape, generator=gen))
+
+
+def adapt_config():
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.models.adapters import AdaptConfig
+
+    return AdaptConfig(compose(str(ROOT / "configs"), "train", ADAPT)["adapt"])
+
+
+def phase_swin_block_adapt():
+    """K4 with drop-path masks and K5 against their plain versions (bf16 and
+    float32) at each stage shape, shifted and unshifted, random adapters
+    (stage 0: the 48-wide adapter, padded to 64)."""
+    import torch
+    from pseldnets_tpu_torch.models.factory import init_weights
+    from pseldnets_tpu_torch.models.htsat import SwinTransformerBlock
+    from pseldnets_tpu_torch.ops import swin_block_adapt as sa
+
+    gen = torch.Generator().manual_seed(11)
+    adapt = adapt_config()
+    for i in range(4):
+        for shift in ((0, 4) if i < 3 else (0,)):
+            H, C, nh = 64 >> i, 96 << i, 4 << i
+            blk = SwinTransformerBlock(C, (H, H), nh, 8, shift_size=shift, adapt=adapt)
+            init_weights(blk, gen)
+            randomize_adapters(blk, gen)
+            blk.cuda()
+            x = torch.randn(B_CHECK, H * H, C, generator=gen).cuda().bfloat16()
+            dout = torch.randn(B_CHECK, H * H, C, generator=gen).cuda().bfloat16()
+            m = drop_masks(B_CHECK)
+            p16 = sa.prepare_adapt_block(blk, torch.bfloat16)
+            p32 = sa.prepare_adapt_block(blk, torch.float32)
+            log(f"adapter block, stage {i} {H}x{H} C={C} adapter {p16.ch} (padded "
+                f"{p16.ch_pad}) shift={shift}, masks with zeros:")
+            got = sa.swin_block_adapt_fused(x, p16, m)
+            torch.cuda.synchronize()
+            compare("K4 out", got, sa.swin_block_adapt_plain(x, p16, m),
+                    sa.swin_block_adapt_plain(x.float(), p32, m), 2.0 ** -6)
+            dx, g = sa.swin_block_adapt_backward(x, p16, m, dout)
+            torch.cuda.synchronize()
+            dx16, g16 = sa.swin_block_adapt_backward_plain(x, p16, m, dout)
+            dx32, g32 = sa.swin_block_adapt_backward_plain(x.float(), p32, m, dout.float())
+            check(set(g) == set(g16) == set(g32) and len(g) == 21, "K5 grad keys")
+            compare("K5 dx", dx, dx16, dx32, 2.0 ** -6)
+            for k in g16:
+                compare(f"K5 {k}", g[k], g16[k], g32[k], 2.0 ** -6)
+
+
+def k4_work(B, p):
+    """Bytes and bf16 FLOPs of one K4 call on B images: K2's (no merge) plus
+    the two adapters' four GEMMs (8 M C ch, 4 M C^2 at ch = C/2) and their
+    weights, at the true adapter width ch."""
+    nbytes, flops = k2_work(B, p.base)
+    M, C, ch = B * p.base.H * p.base.W, p.base.C, p.ch
+    return nbytes + 2 * (2 * C * ch * 2 + (ch + C) * 4), flops + 8 * M * C * ch
+
+
+def k5_work(B, p):
+    """Bytes and bf16 FLOPs of one K5 call on B images: K3's plus the
+    adapters' recompute, activation grads and weight grads (3 x 8 M C ch,
+    12 M C^2 at ch = C/2), their weights read and float32 grads written."""
+    nbytes, flops = k3_work(B, p.base)
+    M, C, ch = B * p.base.H * p.base.W, p.base.C, p.ch
+    return (nbytes + 2 * (2 * C * ch * 2 + (ch + C) * 4) + 2 * (2 * C * ch + ch + C) * 4,
+            flops + 24 * M * C * ch)
+
+
+def adapter_model(seed):
+    """The full-width AdapterBit mACCDOA model on the card, seeded, with
+    random adapters and non-trivial eval ScalarBN statistics."""
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.models import build_model
+
+    cfg = compose(str(ROOT / "configs"), "train",
+                  ["loss=multi_accdoa", "model.kwargs.pretrained_path=null"] + ADAPT)
+    model, _ = build_model(cfg, 13, device="cuda", seed=0)
+    gen = torch.Generator().manual_seed(seed)
+    randomize_adapters(model, gen)
+    with torch.no_grad():
+        model.scalar.running_mean.copy_(torch.randn(7, 64, generator=gen).cuda() * 5.0 - 20.0)
+        model.scalar.running_var.copy_(torch.rand(7, 64, generator=gen).cuda() * 50.0 + 10.0)
+    return model
+
+
+def phase_serve_adapter(smi):
+    """AdapterBit serving: SERVE_BATCHES batches of B_SERVE 10 s clips through
+    htsat_fused_forward_from_wav (K1, then K4 on every block, PatchMerging
+    unfolded), the output against the plain path, K4 on the batch's own block
+    inputs, and a profile."""
+    import torch
+    from pseldnets_tpu_torch.ops import swin_block_adapt as sa
+    from pseldnets_tpu_torch.serving import (embed_tokens, folded_wav_features,
+                                             htsat_fused_forward_from_wav, prepare_blocks)
+    from pseldnets_tpu_torch.serving.htsat import patch_merging
+
+    model = adapter_model(12)
+    blocks = prepare_blocks(model, torch.bfloat16)
+    check(len(blocks) == 12 and all(isinstance(p, sa.AdaptBlockParams) for p in blocks)
+          and blocks[0].ch == 48 and blocks[0].ch_pad == 64, "adapter block plan")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(SERVE_BATCHES)]
+    serve = lambda w: htsat_fused_forward_from_wav(model, w, blocks=blocks)  # noqa: E731
+    serve(wavs[0])  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: counts from 0, SERVE_BATCHES batches
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [serve(w)["multi_accdoa"] for w in wavs]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SERVE_BATCHES
+    launches = read_counts()
+    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 12 * SERVE_BATCHES, "K5": 0}
+    log(f"AdapterBit: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches "
+        f"{launches} (expect {want})")
+    check(launches == want, "AdapterBit serving launch counts")
+    for o in outs:
+        check(o.shape == (B_SERVE, 100, 117) and torch.isfinite(o).all().item(),
+              f"AdapterBit served output {tuple(o.shape)}")
+    log(f"AdapterBit served: {dt * 1e3:.2f} ms/batch, {B_SERVE / dt:.1f} clips/s "
+        f"(host clock, synchronized; {smi})")
+    plain = htsat_fused_forward_from_wav(model, wavs[0], blocks=blocks,
+                                         use_kernels=False)["multi_accdoa"]
+    f32 = htsat_fused_forward_from_wav(model, wavs[0], compute_dtype=torch.float32,
+                                       use_kernels=False)["multi_accdoa"]
+    e_plain = (outs[0] - plain).abs().max().item()
+    e_f32 = (outs[0] - f32).abs().max().item()
+    p_f32 = (plain - f32).abs().max().item()
+    log(f"AdapterBit served vs plain bf16 path: max |d| {e_plain:.3g} (<= 5e-2); vs float32 "
+        f"plain path {e_f32:.3g} (plain bf16 {p_f32:.3g}); output std {f32.std().item():.3g}")
+    check(e_plain <= 5e-2, "AdapterBit served output disagrees with the plain path")
+    check(e_f32 <= 1.25 * p_f32 + 1e-2,
+          "AdapterBit served output further from float32 than plain bf16")
+
+    # K4 against its plain version on the batch's own block inputs, timed
+    wav = wavs[0]
+    feats = folded_wav_features(model, wav, t_out=1024)
+    xs, rows, k4_err, k4_rel = [], [], 0.0, 0.0
+    with torch.no_grad():
+        x = embed_tokens(model, feats, torch.bfloat16)
+        i = 0
+        for layer in model.encoder.layers:
+            for _ in layer.blocks:
+                xs.append(x)
+                x = sa.swin_block_adapt_fused(x, blocks[i])
+                i += 1
+            if layer.downsample is not None:
+                x = patch_merging(layer.downsample, x, torch.bfloat16)
+    for i, (x, p) in enumerate(zip(xs, blocks)):
+        ref = sa.swin_block_adapt_plain(x, p).float()
+        scale = ref.abs().max().item()
+        err = (sa.swin_block_adapt_fused(x, p).float() - ref).abs().max().item()
+        check(err <= 2.0 ** -6 * scale, f"K4 block {i} disagrees with its plain version")
+        k4_err, k4_rel = max(k4_err, err), max(k4_rel, err / scale)
+        t = cuda_ms(lambda: sa.swin_block_adapt_fused(x, p), reps=5)
+        tp = cuda_ms(lambda: sa.swin_block_adapt_plain(x, p), reps=2)
+        nb, fl = k4_work(B_SERVE, p)
+        rows.append((t, tp, bound_ms(nb, bf16_flops=fl)[0]))
+        log(f"  K4 block {i:2d} {p.base.H}x{p.base.W} C={p.base.C} shift={p.base.shift}: "
+            f"|k-plain| {err:.3g} (<= {2.0 ** -6 * scale:.3g}), {t:.3f} ms, plain {tp:.3f} ms, "
+            f"bound {rows[-1][2]:.4f} ms")
+    k4_ms, k4_plain, k4_bound = (sum(r[j] for r in rows) for j in range(3))
+    k1 = cuda_ms(lambda: folded_wav_features(model, wav, t_out=1024), reps=10)
+    log(f"AdapterBit per batch of {B_SERVE} ({smi}): K1 {k1:.3f} ms, K4 x12 {k4_ms:.3f} ms "
+        f"(plain {k4_plain:.3f}, bound {k4_bound:.3f}), rest {dt * 1e3 - k1 - k4_ms:.3f} ms")
+    phase_profile("one AdapterBit served batch", lambda: serve(wav))
+    return launches, {"K4": (k4_err, k4_rel, k4_ms, k4_plain, k4_bound, "operations")}
+
+
+def phase_train_adapter(smi):
+    """AdapterBit training (bench_all.py adapterbit_train: bench_train's step
+    with adapt=adapter, B=32): TRAIN_STEPS SELDTask steps from the zero
+    adapter init (K1, K4 with masks, K5), the frozen backbone bit-identical
+    after them, then, with random adapters, one kernel step against one plain
+    step, K4 and K5 on the step's own block inputs, and a profile."""
+    import numpy as np
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.ops import swin_block_adapt as sa
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    cfg = compose(str(ROOT / "configs"), "train", TRAIN_OVERRIDES + ADAPT)
+    task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=100, device="cuda")
+    check(task.fused_forward and task.compute_dtype == torch.bfloat16,
+          "AdapterBit training configuration")
+    task.init_state(0)
+    trained = set(task.trained_names)
+    n_train = sum(p.numel() for p in task.trained)
+    n_all = sum(p.numel() for p in task.params)
+    log(f"AdapterBit: {len(trained)} of {len(task.names)} parameter tensors train "
+        f"({n_train} of {n_all} values)")
+    before = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+    g = torch.Generator(device="cuda").manual_seed(14)
+    wavs = [torch.randn(B_TRAIN, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(TRAIN_STEPS)]
+    labels = {"adpit_label": torch.from_numpy(make_labels(np.random.default_rng(1), B_TRAIN,
+                                                          100)).cuda()}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    step = lambda w: task.train_step(w, labels, gen)  # noqa: E731
+    step(wavs[0])  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: counts from 0, TRAIN_STEPS steps
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = [step(w)["loss_all"] for w in wavs]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = read_counts()
+    log(f"AdapterBit: peak device memory over the steps "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    want = {"K1": TRAIN_STEPS, "K2": 0, "K3": 0, "K4": 12 * TRAIN_STEPS, "K5": 12 * TRAIN_STEPS}
+    log(f"AdapterBit: trained {TRAIN_STEPS} steps of {B_TRAIN} x 10 s clips: launches "
+        f"{launches} (expect {want}); losses {[round(float(v), 6) for v in losses]}")
+    check(launches == want, "AdapterBit training launch counts")
+    check(all(np.isfinite(float(v)) for v in losses), "AdapterBit training loss not finite")
+    log(f"AdapterBit training: {dt * 1e3:.2f} ms/step, {B_TRAIN / dt:.1f} clips/s "
+        f"(host clock, synchronized; {smi})")
+    after = dict(task.model.named_parameters())
+    frozen_same = all(torch.equal(after[n], v) for n, v in before.items() if n not in trained)
+    adapters_moved = all(not torch.equal(after[n], before[n]) for n in trained if "adapter" in n)
+    log(f"after {TRAIN_STEPS + 1} steps: frozen parameters bit-identical {frozen_same}; "
+        f"every adapter parameter moved {adapters_moved}")
+    check(frozen_same and adapters_moved, "freeze policy on the card")
+
+    # from here on, random adapters (a zero fc2 would hide wiring faults)
+    randomize_adapters(task.model, torch.Generator().manual_seed(16))
+
+    def grads_with(use_kernels, dtype):
+        task.set_use_kernels(use_kernels)
+        task.compute_dtype = dtype
+        losses, grads, _ = task.compute_grads(wavs[0], labels,
+                                              torch.Generator(device="cuda").manual_seed(17))
+        return losses["loss_all"].float().reshape(1), grads
+
+    lk, gk = grads_with(True, torch.bfloat16)
+    lp, gp = grads_with(False, torch.bfloat16)
+    lf, gf = grads_with(False, torch.float32)
+    task.set_use_kernels(True)
+    task.compute_dtype = torch.bfloat16
+    log(f"AdapterBit kernel step vs plain step: loss {lk.item():.6f} (plain bf16 "
+        f"{lp.item():.6f}, float32 {lf.item():.6f})")
+    compare("loss", lk, lp, lf, 2.0 ** -6)
+    worst = 0.0
+    for name, a, b, c in zip(task.trained_names, gk, gp, gf):
+        worst = max(worst, compare(name[-36:], a, b, c, 2.0 ** -4)
+                    / max(c.abs().max().item(), 1e-30))
+    log(f"every trained parameter grad within {worst:.3g} of its scale of the plain step's")
+
+    # K4 with masks and K5 on the step's own B=32 block inputs, from one step
+    recorded = []
+
+    def record(x, p, m, dout):
+        recorded.append((x, p, m, dout))
+        return orig(x, p, m, dout)
+
+    orig = sa.swin_block_adapt_backward
+    sa.swin_block_adapt_backward = record
+    try:
+        task.compute_grads(wavs[1], labels, torch.Generator(device="cuda").manual_seed(18))
+    finally:
+        sa.swin_block_adapt_backward = orig
+    check(len(recorded) == 12, f"recorded {len(recorded)} adapter block backwards")
+    k4_err = k4_rel = k5_err = k5_rel = 0.0
+    rows = []
+    for j, (x, p, m, dout) in enumerate(reversed(recorded)):
+        y = sa.swin_block_adapt_fused(x, p, m).float()
+        y0 = sa.swin_block_adapt_plain(x, p, m).float()
+        e, s = (y - y0).abs().max().item(), y0.abs().max().item()
+        check(torch.isfinite(y).all().item() and e <= 2.0 ** -6 * s,
+              f"K4 with masks, block {j}, disagrees at B={B_TRAIN}")
+        k4_err, k4_rel = max(k4_err, e), max(k4_rel, e / s)
+        k4_block_rel = e / s
+        dx, gr = orig(x, p, m, dout)
+        dx0, g0 = sa.swin_block_adapt_backward_plain(x, p, m, dout)
+        worst_rel = 0.0
+        for name, a, b in [("dx", dx, dx0)] + [(k, gr[k], g0[k]) for k in g0]:
+            e = (a.float() - b.float()).abs().max().item()
+            s = b.float().abs().max().item()
+            check(e <= 2.0 ** -6 * s, f"K5 block {j} {name} disagrees at B={B_TRAIN}")
+            k5_err, worst_rel = max(k5_err, e), max(worst_rel, e / max(s, 1e-30))
+        k5_rel = max(k5_rel, worst_rel)
+        t = cuda_ms(lambda: orig(x, p, m, dout), reps=5)
+        tp = cuda_ms(lambda: sa.swin_block_adapt_backward_plain(x, p, m, dout), reps=1)
+        t4 = cuda_ms(lambda: sa.swin_block_adapt_fused(x, p, m), reps=5)
+        nb, fl = k5_work(B_TRAIN, p)
+        rows.append((t, tp, bound_ms(nb, bf16_flops=fl)[0], t4))
+        log(f"  K5 block {j:2d} {p.base.H}x{p.base.W} C={p.base.C} shift={p.base.shift}: worst "
+            f"{worst_rel:.3g} of scale, {t:.3f} ms, plain {tp:.3f} ms, bound {rows[-1][2]:.4f} "
+            f"ms; K4 with masks {k4_block_rel:.3g} of scale (<= 2^-6), {t4:.3f} ms")
+    k5_ms, k5_plain, k5_bound = (sum(r[i] for r in rows) for i in range(3))
+    k4_train = sum(r[3] for r in rows)
+    k1_ms = cuda_ms(lambda: task.extractor(wavs[0]), reps=10)
+    log(f"AdapterBit per step of {B_TRAIN} ({smi}): K1 (float32) {k1_ms:.3f} ms, K4 with masks "
+        f"x12 {k4_train:.3f} ms, K5 x12 {k5_ms:.3f} ms (plain {k5_plain:.3f}, bound "
+        f"{k5_bound:.3f}), rest {dt * 1e3 - k1_ms - k4_train - k5_ms:.3f} ms")
+    phase_profile("one AdapterBit training step", lambda: step(wavs[0]))
+    return launches, {"K4": (k4_err, k4_rel),
+                      "K5": (k5_err, k5_rel, k5_ms, k5_plain, k5_bound, "operations")}
+
+
 def phase_profile(what, fn):
     """Device time by kernel over one call of fn (torch.profiler, CUPTI)."""
     import torch
@@ -609,26 +940,34 @@ def main():
     phase_frontend()
     phase_swin_block()
     phase_swin_block_train()
-    serve_launches, serve_times = phase_serve(smi)
-    train_launches, train_times = phase_train(smi)
+    # the plain paths first, in the same process state as before the adapter
+    # kernels existed, so their times compare with earlier runs
+    results = {"serve": phase_serve(smi), "train": phase_train(smi)}
+    phase_swin_block_adapt()
+    results["serve_adapter"] = phase_serve_adapter(smi)
+    results["train_adapter"] = phase_train_adapter(smi)
     rows = []
-    # launches: the sum over the two main paths' runs (served batches and
-    # training steps), each counted from 0; errors: the largest over the
-    # checks at each path's own shapes, absolute and as a share of the plain
-    # output's largest magnitude; ms and bounds per served batch (K1, K2) or
-    # per training step (K3)
+    # launches: the sum over the main paths' runs (served batches and training
+    # steps, plain and AdapterBit), each counted from 0; errors: the largest
+    # over the checks at each path's own shapes, absolute and as a share of
+    # the plain output's largest magnitude; ms and bounds per served batch
+    # (K1, K2, K4) or per training step (K3, K5)
     for name, route_src, replaces in (
             ("K1 fused_logmel_iv", "pseldnets_tpu_torch/csrc/frontend.cu",
              "pseldnets_tpu/ops/pallas/frontend.py:754"),
             ("K2 swin_block_fused", "pseldnets_tpu_torch/csrc/swin_block.cu",
              "pseldnets_tpu/ops/pallas/swin_block.py:663"),
             ("K3 swin_block_backward", "pseldnets_tpu_torch/csrc/swin_block_bwd.cu",
-             "pseldnets_tpu/ops/pallas/swin_block_vjp.py:303")):
+             "pseldnets_tpu/ops/pallas/swin_block_vjp.py:303"),
+            ("K4 swin_block_adapt_fused", "pseldnets_tpu_torch/csrc/swin_block_adapt.cu",
+             "pseldnets_tpu/ops/pallas/swin_block_adapt_vjp.py:463"),
+            ("K5 swin_block_adapt_backward", "pseldnets_tpu_torch/csrc/swin_block_adapt_bwd.cu",
+             "pseldnets_tpu/ops/pallas/swin_block_adapt_vjp.py:532")):
         key = name.split()[0]
-        errs = {path: t[key][:2] for path, t in (("serve", serve_times), ("train", train_times))
-                if key in t}
-        ms, plain_ms, b_ms, by = (serve_times.get(key) or train_times[key])[2:]
-        by_path = {"serve": serve_launches.get(key, 0), "train": train_launches[key]}
+        errs = {path: r[1][key][:2] for path, r in results.items() if key in r[1]}
+        ms, plain_ms, b_ms, by = next(r[1][key] for r in results.values()
+                                      if len(r[1].get(key, ())) == 6)[2:]
+        by_path = {path: results[path][0][key] for path in PATHS}
         rows.append({"name": name, "route": "cuda", "source": route_src,
                      "replaces": replaces, "launches": sum(by_path.values()),
                      "launches_by_path": by_path,

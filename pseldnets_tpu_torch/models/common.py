@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .adapters import NO_ADAPT, AdaptConfig, Adapter
 
 class TorchBatchNorm(nn.Module):
     """BatchNorm over arbitrary reduce axes with feature shape ``feat_shape``
@@ -85,16 +86,47 @@ class ScalarBN(TorchBatchNorm):
         super().__init__((num_channels, mel_bins), reduce_axes=(0, 2))
 
 
-class Mlp(nn.Module):
-    """ViT MLP: fc1 -> exact erf GELU -> fc2 (reference model_utilities.py:129-171)."""
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """float32 LayerNorm of ``x`` with ``ln``'s affine. When only one of the
+    scale and the shift needs a gradient (AdapterBit freezes LayerNorm scales
+    and trains their shifts), the affine runs outside the fused LayerNorm,
+    whose CUDA backward then returns no shift gradient."""
+    w, b = ln.weight.float(), ln.bias.float()
+    if w.requires_grad == b.requires_grad:
+        return F.layer_norm(x.float(), ln.normalized_shape, w, b, ln.eps)
+    return F.layer_norm(x.float(), ln.normalized_shape, None, None, ln.eps) * w + b
 
-    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm (eps 1e-5) that also trains a shift beside a frozen
+    scale on the card (see ``layer_norm``); otherwise nn.LayerNorm itself."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.requires_grad == self.bias.requires_grad:
+            return super().forward(x)
+        y = layer_norm(x, self)  # float32, as LayerNorm under autocast
+        return y if torch.is_autocast_enabled(x.device.type) else y.to(x.dtype)
+
+
+class Mlp(nn.Module):
+    """ViT MLP: fc1 -> exact erf GELU -> fc2, plus a parallel bottleneck
+    ``adapter`` on the input when the config has an MlpAdapter:
+    ``fc2(gelu(fc1 x)) + adapter(x)`` (reference model_utilities.py:129-171)."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 adapt: AdaptConfig = NO_ADAPT):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
+        self.adapter = (Adapter(in_features, **adapt.adapter_args())
+                        if adapt.mlp_adapter else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        h = self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        return h if self.adapter is None else h + self.adapter(x)
 
 
 class PatchEmbed(nn.Module):
@@ -112,7 +144,7 @@ class PatchEmbed(nn.Module):
                (patch_size[1] - patch_stride[1]) // 2)
         self.proj = nn.Conv2d(in_chans, embed_dim, kernel_size=tuple(patch_size),
                               stride=tuple(patch_stride), padding=pad)
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-5) if use_norm else nn.Identity()
+        self.norm = LayerNorm(embed_dim) if use_norm else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape[2:]) != self.img_size:

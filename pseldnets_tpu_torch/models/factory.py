@@ -12,7 +12,7 @@ import torch.nn as nn
 
 from ..ops._cuda import resolve_device
 from . import heads
-from .adapters import AdaptConfig
+from .adapters import AdaptConfig, Adapter
 from .common import TorchBatchNorm
 from .htsat import WindowAttention
 
@@ -36,7 +36,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     stay O(1) through every layer: Linear/Conv weights N(0, 1/fan_in)
     truncated at 2 sigma with N(0, 0.02) biases, LayerNorm and BatchNorm
     affines 1 + N(0, 0.1) and N(0, 0.1), relative-position tables N(0, 0.5)
-    so the bias visibly shapes attention. BN running stats stay (0, 1)."""
+    so the bias visibly shapes attention. BN running stats stay (0, 1).
+    An adapter's fc2 stays zero, as the JAX package initializes it."""
     def randn(p, std, base=0.0):
         p.copy_(base + std * torch.randn(p.shape, generator=generator))
 
@@ -53,6 +54,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 randn(mod.bias, 0.1)
             elif isinstance(mod, WindowAttention):
                 randn(mod.relative_position_bias_table, 0.5)
+        for mod in model.modules():
+            if isinstance(mod, Adapter):
+                mod.fc2.weight.zero_()
+                mod.fc2.bias.zero_()
 
 
 def build_model(cfg, num_classes: int, *, device="cuda", seed: int = 0):
@@ -71,7 +76,7 @@ def build_model(cfg, num_classes: int, *, device="cuda", seed: int = 0):
     pretrained_path = kwargs.pop("pretrained_path", None)
     audioset_pretrain = kwargs.pop("audioset_pretrain", True)
     tgt_output_frames = int(kwargs.pop("tgt_output_frames", 100))
-    AdaptConfig(cfg.get("adapt"))  # raises on adapters or LoRA
+    adapt = AdaptConfig(cfg.get("adapt"))  # raises on what is not ported
 
     for what in (method, backbone):
         if what in _NOT_PORTED:
@@ -88,7 +93,8 @@ def build_model(cfg, num_classes: int, *, device="cuda", seed: int = 0):
     model = heads.HTSAT(num_classes=num_classes, in_channels=in_channels,
                         mel_bins=mel_bins, pred_res=pred_res,
                         num_tracks=3 if method == "multi_accdoa" else 1,
-                        tgt_output_frames=tgt_output_frames, encoder_kwargs=enc)
+                        tgt_output_frames=tgt_output_frames, encoder_kwargs=enc,
+                        adapt=adapt)
     init_weights(model, torch.Generator().manual_seed(seed))
     meta = {"pretrained_path": pretrained_path,
             "audioset_pretrain": audioset_pretrain,

@@ -12,6 +12,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from .adapters import NO_ADAPT, AdaptConfig
 from .common import ScalarBN, interpolate
 from .htsat import HTSATEncoder, drop_path_masks
 
@@ -32,12 +33,13 @@ class HTSAT(nn.Module):
 
     def __init__(self, num_classes: int, in_channels: int = 7, mel_bins: int = 64,
                  pred_res: int = 10, num_tracks: int = 1, tgt_output_frames: int = 100,
-                 encoder_kwargs: Dict[str, Any] = None):
+                 encoder_kwargs: Dict[str, Any] = None, adapt: AdaptConfig = NO_ADAPT):
         super().__init__()
         self.num_classes, self.in_channels = num_classes, in_channels
         self.mel_bins, self.pred_res = mel_bins, pred_res
         self.num_tracks, self.tgt_output_frames = num_tracks, tgt_output_frames
-        self.encoder = HTSATEncoder(in_chans=in_channels, mel_bins=mel_bins,
+        self.adapt = adapt
+        self.encoder = HTSATEncoder(in_chans=in_channels, mel_bins=mel_bins, adapt=adapt,
                                     **dict(encoder_kwargs or {}))
         self.scalar = ScalarBN(in_channels, mel_bins)
         self.tscam_conv = nn.Conv2d(self.encoder.num_features,

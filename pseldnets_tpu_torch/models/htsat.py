@@ -9,7 +9,8 @@ reference torch state_dict keys. These eager modules are the plain version of
 the whole encoder, in eval and in train mode; the serving path
 (serving/htsat.py) and the fused training forward (train/fused_forward.py)
 run each block through the kernels of ops/swin_block.py and
-ops/swin_block_vjp.py instead.
+ops/swin_block_vjp.py instead, or, for blocks that carry AdapterBit adapters
+(``adapt``, models/adapters.py), those of ops/swin_block_adapt.py.
 
 Train mode has stochastic depth (drop-path) only: the per-block (B, 2) masks
 come from the caller (``drop_path_masks`` draws them from an explicit
@@ -24,7 +25,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import Mlp, PatchEmbed
+from .adapters import NO_ADAPT, AdaptConfig, Adapter
+from .common import LayerNorm, Mlp, PatchEmbed
 
 
 def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -94,14 +96,17 @@ def window_and_shift(H: int, W: int, window: int, shift: int) -> Tuple[int, int]
 
 
 class WindowAttention(nn.Module):
-    """W-MSA with relative position bias (htsat.py:53-148)."""
+    """W-MSA with relative position bias (htsat.py:53-148); with a
+    SpatialAdapter, ``a + adapter(a)`` on the projection's output a."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, adapt: AdaptConfig = NO_ADAPT):
         super().__init__()
         self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
+        self.adapter = (Adapter(dim, **adapt.adapter_args())
+                        if adapt.spatial_adapter else None)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         self.register_buffer(
@@ -128,28 +133,29 @@ class WindowAttention(nn.Module):
             attn = attn.reshape(B_ // nW, nW, nh, N, N) + mask[None, :, None]
             attn = attn.reshape(B_, nh, N, N)
         attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-        x = torch.matmul(attn, v).transpose(1, 2).reshape(B_, N, C)
-        return self.proj(x)
+        x = self.proj(torch.matmul(attn, v).transpose(1, 2).reshape(B_, N, C))
+        return x if self.adapter is None else x + self.adapter(x)
 
 
 class SwinTransformerBlock(nn.Module):
     """(htsat.py:152-268). ``dp_masks`` (B, 2): per-image drop-path scales
     of the attention and MLP branches, y = x + m0 * attn, out = y + m1 * mlp
-    (None: the identity, as in eval)."""
+    (None: the identity, as in eval). ``adapt`` adds the AdapterBit
+    bottlenecks (``attn.adapter``, ``mlp.adapter``)."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int], num_heads: int,
                  window_size: int = 8, shift_size: int = 0, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, adapt: AdaptConfig = NO_ADAPT):
         super().__init__()
         self.dim, self.input_resolution = dim, tuple(input_resolution)
         self.num_heads = num_heads
         H, W = self.input_resolution
         self.window_size, self.shift_size = window_and_shift(H, W, window_size,
                                                              shift_size)
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = WindowAttention(dim, self.window_size, num_heads, qkv_bias)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.norm1 = LayerNorm(dim)
+        self.attn = WindowAttention(dim, self.window_size, num_heads, qkv_bias, adapt)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, adapt)
         mask = (torch.as_tensor(shift_attn_mask(H, W, self.window_size,
                                                 self.shift_size))
                 if self.shift_size > 0 else None)
@@ -182,7 +188,7 @@ class PatchMerging(nn.Module):
     def __init__(self, input_resolution: Tuple[int, int], dim: int):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
-        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
+        self.norm = LayerNorm(4 * dim)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -199,12 +205,13 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int], depth: int,
                  num_heads: int, window_size: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, downsample: bool = False):
+                 qkv_bias: bool = True, downsample: bool = False,
+                 adapt: AdaptConfig = NO_ADAPT):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(dim, input_resolution, num_heads, window_size,
                                  shift_size=0 if i % 2 == 0 else window_size // 2,
-                                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias)
+                                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, adapt=adapt)
             for i in range(depth)])
         self.downsample = (PatchMerging(input_resolution, dim)
                            if downsample else None)
@@ -228,9 +235,11 @@ class HTSATEncoder(nn.Module):
                  num_heads: Sequence[int] = (4, 8, 16, 32), window_size: int = 8,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, mel_bins: int = 64,
                  ape: bool = False, patch_norm: bool = True, drop_rate: float = 0.0,
-                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1, **unused):
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1,
+                 adapt: AdaptConfig = NO_ADAPT, **unused):
         # norm_before_mlp and use_checkpoint land in unused
         super().__init__()
+        self.adapt = adapt
         if ape:
             raise NotImplementedError("absolute position embedding (ape=True)")
         self.drop_rate, self.attn_drop_rate = float(drop_rate), float(attn_drop_rate)
@@ -248,9 +257,9 @@ class HTSATEncoder(nn.Module):
             BasicLayer(int(embed_dim * 2 ** i),
                        (grid[0] // 2 ** i, grid[1] // 2 ** i), self.depths[i],
                        self.num_heads[i], window_size, mlp_ratio, qkv_bias,
-                       downsample=i < self.num_layers - 1)
+                       downsample=i < self.num_layers - 1, adapt=adapt)
             for i in range(self.num_layers)])
-        self.norm = nn.LayerNorm(self.num_features, eps=1e-5)
+        self.norm = LayerNorm(self.num_features)
 
     @property
     def num_layers(self) -> int:

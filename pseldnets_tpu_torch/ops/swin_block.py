@@ -144,6 +144,37 @@ def _masked(branch: torch.Tensor, dp_masks: Optional[torch.Tensor], col: int) ->
     return m * branch
 
 
+def attention_rows(x0: torch.Tensor, p: SwinBlockParams):
+    """The attention half of the plain block, at K2's rounding points: LN1
+    -> shift -> window partition -> qkv -> attention -> proj -> window
+    reverse + unshift, on x0 (B, H*W, C) in the compute dtype. Returns the
+    window-order LN1 rows (B*L, C), q, k, v (B*nW, nh, N, hd; q carries the
+    scale), P (B*nW, nh, N, N), the window-order attention output (B*L, C)
+    and the token-order proj output a (B*L, C), each in the compute dtype."""
+    cd = p.qkv_w.dtype
+    B, L, C = x0.shape
+    H, W, w, s, nh = p.H, p.W, p.window, p.shift, p.nh
+    N, hd = w * w, C // nh
+    img = _ln(x0, p.ln1_w, p.ln1_b).to(cd).reshape(B, H, W, C)
+    if s:
+        img = torch.roll(img, shifts=(-s, -s), dims=(1, 2))
+    win = window_partition(img, w).reshape(-1, C)
+    qkv = (_mm(win, p.qkv_w) + p.qkv_b).to(cd)
+    q, k, v = (qkv[:, i * C:(i + 1) * C].reshape(-1, N, nh, hd).transpose(1, 2)
+               for i in range(3))
+    sc = torch.matmul(q.float(), k.float().transpose(-1, -2)) + p.bias[None]
+    if p.mask is not None:
+        nW = p.mask.shape[0]
+        sc = (sc.reshape(B, nW, nh, N, N) + p.mask[None, :, None]).reshape(-1, nh, N, N)
+    pr = torch.softmax(sc, dim=-1).to(cd)
+    attn = torch.matmul(pr.float(), v.float()).to(cd).transpose(1, 2).reshape(-1, C)
+    a = (_mm(attn, p.proj_w) + p.proj_b).to(cd)
+    img2 = window_reverse(a.reshape(-1, N, C), w, H, W)
+    if s:
+        img2 = torch.roll(img2, shifts=(s, s), dims=(1, 2))
+    return win, q, k, v, pr, attn, img2.reshape(-1, C)
+
+
 def swin_block_plain(x: torch.Tensor, p: SwinBlockParams,
                      dp_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of kernel K2, on any device: x (B, H*W, C) in the
@@ -153,25 +184,9 @@ def swin_block_plain(x: torch.Tensor, p: SwinBlockParams,
     cd = p.qkv_w.dtype
     B, L, C = x.shape
     _check_masks(dp_masks, p, B)
-    H, W, w, s, nh = p.H, p.W, p.window, p.shift, p.nh
-    N, hd = w * w, C // nh
+    H, W = p.H, p.W
     x0 = x.to(cd)
-    img = _ln(x0, p.ln1_w, p.ln1_b).to(cd).reshape(B, H, W, C)
-    if s:
-        img = torch.roll(img, shifts=(-s, -s), dims=(1, 2))
-    qkv = (_mm(window_partition(img, w).reshape(-1, C), p.qkv_w) + p.qkv_b).to(cd)
-    q, k, v = (qkv[:, i * C:(i + 1) * C].reshape(-1, N, nh, hd).transpose(1, 2)
-               for i in range(3))  # (B*nW, nh, N, hd)
-    sc = torch.matmul(q.float(), k.float().transpose(-1, -2)) + p.bias[None]
-    if p.mask is not None:
-        nW = p.mask.shape[0]
-        sc = (sc.reshape(B, nW, nh, N, N) + p.mask[None, :, None]).reshape(-1, nh, N, N)
-    pr = torch.softmax(sc, dim=-1).to(cd)
-    o = torch.matmul(pr.float(), v.float()).to(cd).transpose(1, 2).reshape(-1, C)
-    a = (_mm(o, p.proj_w) + p.proj_b).to(cd)
-    a = window_reverse(a.reshape(-1, N, C), w, H, W)
-    if s:
-        a = torch.roll(a, shifts=(s, s), dims=(1, 2))
+    a = attention_rows(x0, p)[-1]
     y = x0 + _masked(a.reshape(B, L, C), dp_masks, 0)
     h = _ln(y, p.ln2_w, p.ln2_b).to(cd)
     h = F.gelu(_mm(h, p.fc1_w) + p.fc1_b, approximate="none").to(cd)

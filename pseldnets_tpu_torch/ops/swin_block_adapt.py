@@ -1,0 +1,438 @@
+"""Swin block with AdapterBit bottleneck adapters: kernels K4 (forward) and
+K5 (backward), their plain versions, and the ``torch.autograd.Function``
+that pairs them. The counterpart of the JAX package's
+``ops/pallas/swin_block_adapt_vjp.py`` (``swin_block_adapt_eval``,
+``swin_block_train_adapt``; ``_fwd_kernel``, ``_bwd_kernel``).
+
+With s the constant adapter scalar and drop-path masks m (B, 2) float32
+(all ones when serving):
+
+    a      = window reverse + unshift of proj(attention(LN1 x))     (compute dtype)
+    branch = a + s * (gelu(a Wsa1 + bsa1) Wsa2 + bsa2)                  (float32)
+    y      = x + m0 * branch                                            (float32)
+    h2     = LN2(y)                                                     (compute dtype)
+    mo     = fc2(gelu(fc1 h2)) + s * (gelu(h2 Wma1 + bma1) Wma2 + bma2) (float32)
+    out    = y + m1 * mo                                   (rounded once, at the end)
+
+Unlike K2, the residual stream y stays float32 (swin_block_adapt_vjp.py:
+126-152). The plain versions mirror ``_fwd_kernel`` and ``_bwd_kernel`` step
+by step, at the same rounding points, with K3's two deliberate differences
+(ops/swin_block_vjp.py): exact-erf GELU in both dtypes, and the q-scale
+folded into the qkv weights.
+
+The adapter width C * mlp_ratio is padded with zeros to a multiple of 32 (the
+kernels' GEMM step; 48 -> 64 at stage 0): zero columns of Wa1 and ba1, zero
+rows of Wa2. The padded units compute gelu(0) = 0, an exact no-op, and their
+grads are cut off before they are returned. A block whose tree has one
+adapter gets a zero-filled slot for the other (swin_block_adapt_vjp.py:
+371-385), and no grads for it come back.
+
+On a CUDA tensor ``swin_block_adapt_fused`` launches K4
+(``csrc/swin_block_adapt.cu``) and ``swin_block_adapt_backward`` K5
+(``csrc/swin_block_adapt_bwd.cu``), bf16 only, or raise; on a CPU tensor they
+run the plain versions.
+"""
+
+import ctypes
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..models.htsat import SwinTransformerBlock, window_partition, window_reverse
+from ._cuda import CudaKernel, check_cuda_tensor, f32, i32, ptr
+from .swin_block import SwinBlockParams, _check_masks, _ln, _mm, attention_rows, prepare_block
+from .swin_block_vjp import (GRAD_KEYS, _INV_SQRT2, _INV_SQRT2PI, _ln_bwd, _ln_fwd, _mlp_rows,
+                             block_parameters, module_grads)
+
+_WS = [i32] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+FWD_KERNEL = CudaKernel("swin_block_adapt.cu", {
+    "swin_block_adapt_forward_workspace": _WS,
+    "swin_block_adapt_forward": [ptr] * 24 + [f32, ptr, ptr] + [i32] * 9 + [ptr],
+})
+BWD_KERNEL = CudaKernel("swin_block_adapt_bwd.cu", {
+    "swin_block_adapt_backward_workspace": _WS,
+    "swin_block_adapt_backward": [ptr] * 25 + [f32] + [ptr] * 23 + [i32] * 9 + [ptr],
+})
+
+ADAPTER_KEYS = {"attn": ("sa1_w", "sa1_b", "sa2_w", "sa2_b"),
+                "mlp": ("ma1_w", "ma1_b", "ma2_w", "ma2_b")}
+PAD = 32  # the adapter width is padded to a multiple of this
+
+
+@dataclass
+class AdaptBlockParams:
+    """One adapter block's weights in the kernels' layout: K2's
+    ``SwinBlockParams`` (no merge fold) plus the spatial (sa) and MLP (ma)
+    adapters' (in, out) matrices in the compute dtype and float32 biases,
+    padded to width ``ch_pad``; ``ch`` is the true width, ``where`` the
+    adapters the module has ("attn", "mlp")."""
+
+    base: SwinBlockParams
+    scale: float
+    ch: int
+    where: Tuple[str, ...]
+    sa1_w: torch.Tensor
+    sa1_b: torch.Tensor
+    sa2_w: torch.Tensor
+    sa2_b: torch.Tensor
+    ma1_w: torch.Tensor
+    ma1_b: torch.Tensor
+    ma2_w: torch.Tensor
+    ma2_b: torch.Tensor
+
+    @property
+    def ch_pad(self) -> int:
+        return self.sa1_w.shape[1]
+
+
+def block_adapters(block: SwinTransformerBlock) -> Dict[str, torch.nn.Module]:
+    """The block's adapter modules by place ("attn", "mlp")."""
+    return {w: m.adapter for w, m in (("attn", block.attn), ("mlp", block.mlp))
+            if m.adapter is not None}
+
+
+def has_adapters(block: SwinTransformerBlock) -> bool:
+    return bool(block_adapters(block))
+
+
+def prepare_adapt_block(block: SwinTransformerBlock,
+                        compute_dtype: torch.dtype) -> AdaptBlockParams:
+    """K2's prepared weights of ``block`` plus its adapters, padded, with a
+    zero-filled slot for an adapter the block does not have."""
+    ads = block_adapters(block)
+    if not ads:
+        raise ValueError("the block carries no adapter: use ops.swin_block")
+    scales = {m.scale for m in ads.values()}
+    if len(scales) != 1:
+        raise ValueError(f"the block's adapters have different scalars {sorted(scales)}")
+    C = block.dim
+    ch = next(iter(ads.values())).fc1.out_features
+    chp = -(-ch // PAD) * PAD
+    dev = block.norm1.weight.device
+    mats = {}
+    with torch.no_grad():
+        for where, (k1w, k1b, k2w, k2b) in ADAPTER_KEYS.items():
+            w1, b1 = torch.zeros(C, chp, device=dev), torch.zeros(chp, device=dev)
+            w2, b2 = torch.zeros(chp, C, device=dev), torch.zeros(C, device=dev)
+            if where in ads:
+                ad = ads[where]
+                w1[:, :ch] = ad.fc1.weight.detach().float().t()
+                b1[:ch] = ad.fc1.bias.detach().float()
+                w2[:ch] = ad.fc2.weight.detach().float().t()
+                b2.copy_(ad.fc2.bias.detach().float())
+            mats.update({k1w: w1.to(compute_dtype).contiguous(), k1b: b1,
+                         k2w: w2.to(compute_dtype).contiguous(), k2b: b2})
+    return AdaptBlockParams(base=prepare_block(block, compute_dtype), scale=scales.pop(),
+                            ch=ch, where=tuple(ads), **mats)
+
+
+def _gelu_pair(f1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gelu(f1), gelu'(f1)) in float32, exact erf form."""
+    cdf = 0.5 * (1.0 + torch.erf(f1 * _INV_SQRT2))
+    return f1 * cdf, cdf + f1 * (torch.exp(-0.5 * f1 * f1) * _INV_SQRT2PI)
+
+
+def _ones(x: torch.Tensor) -> torch.Tensor:
+    return torch.ones((x.shape[0], 2), device=x.device, dtype=torch.float32)
+
+
+def swin_block_adapt_plain(x: torch.Tensor, p: AdaptBlockParams,
+                           dp_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel K4, on any device: x (B, H*W, C) ->
+    (B, H*W, C) in the compute dtype; ``dp_masks`` (B, 2) float32, ones
+    when None (serving)."""
+    b = p.base
+    cd = b.qkv_w.dtype
+    B, L, C = x.shape
+    masks = _ones(x) if dp_masks is None else dp_masks
+    _check_masks(masks, p.base, B)
+    m0, m1 = (masks[:, i].reshape(B, 1, 1) for i in range(2))
+    s = p.scale
+    x0 = x.to(cd)
+    a = attention_rows(x0, b)[-1]
+    gs = F.gelu(_mm(a, p.sa1_w) + p.sa1_b, approximate="none").to(cd)
+    branch = a.float() + s * (_mm(gs, p.sa2_w) + p.sa2_b)
+    y = x0.float() + m0 * branch.reshape(B, L, C)
+    h2 = _ln(y, b.ln2_w, b.ln2_b).to(cd)
+    fg = F.gelu(_mm(h2, b.fc1_w) + b.fc1_b, approximate="none").to(cd)
+    gm = F.gelu(_mm(h2, p.ma1_w) + p.ma1_b, approximate="none").to(cd)
+    mo = (_mm(fg, b.fc2_w) + b.fc2_b) + s * (_mm(gm, p.ma2_w) + p.ma2_b)
+    return (y + m1 * mo).to(cd)
+
+
+def _cut(p: AdaptBlockParams, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """K3's grads plus those of the adapters the block has, unpadded."""
+    out = {k: grads[k] for k in GRAD_KEYS}
+    ch = p.ch
+    for where in p.where:
+        w1, b1, w2, b2 = ADAPTER_KEYS[where]
+        out.update({w1: grads[w1][:, :ch], b1: grads[b1][:ch], w2: grads[w2][:ch],
+                    b2: grads[b2]})
+    return out
+
+
+def swin_block_adapt_backward_plain(x: torch.Tensor, p: AdaptBlockParams,
+                                    dp_masks: torch.Tensor, dout: torch.Tensor
+                                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Plain PyTorch version of kernel K5, on any device: x, dout (B, H*W,
+    C), dp_masks (B, 2) float32 -> (dx in x's dtype, float32 grads in the
+    kernels' layout: ``GRAD_KEYS`` and the present adapters'
+    ``ADAPTER_KEYS``)."""
+    b = p.base
+    cd = b.qkv_w.dtype
+    B, L, C = x.shape
+    H, W, w, sh, nh = b.H, b.W, b.window, b.shift, b.nh
+    N, hd = w * w, C // nh
+    _check_masks(dp_masks, p.base, B)
+    m0, m1 = (dp_masks[:, i].float().reshape(B, 1, 1) for i in range(2))
+    s = p.scale
+
+    # ---- recompute the forward
+    x0 = x.to(cd)
+    xhat1, r1 = _ln_fwd(x0.float())
+    win, q, k, v, pr, attn, a = attention_rows(x0, b)
+    f1s = _mm(a, p.sa1_w) + p.sa1_b
+    gsf, dgelus = _gelu_pair(f1s)
+    gs = gsf.to(cd)
+    branch = a.float() + s * (_mm(gs, p.sa2_w) + p.sa2_b)
+    y = x0.float() + m0 * branch.reshape(B, L, C)
+    yhat2, r2 = _ln_fwd(y)
+    h2 = (yhat2 * b.ln2_w + b.ln2_b).to(cd).reshape(-1, C)
+
+    # ---- MLP branch and MLP adapter, chunked by rows
+    g = dout.float()
+    df2f = (m1 * g).reshape(-1, C)
+    df2 = df2f.to(cd)
+    g2mf = s * df2f
+    g2m = g2mf.to(cd)
+    hidden, chp = b.fc1_w.shape[1], p.ch_pad
+    grads = {k_: torch.zeros(n, device=x.device) for k_, n in (
+        ("fc2_w", (hidden, C)), ("fc2_b", (C,)), ("fc1_w", (C, hidden)), ("fc1_b", (hidden,)),
+        ("ma2_w", (chp, C)), ("ma2_b", (C,)), ("ma1_w", (C, chp)), ("ma1_b", (chp,)))}
+    dh2 = torch.empty(B * L, C, device=x.device)
+    rows = _mlp_rows(L)
+    for r0 in range(0, B * L, rows):
+        sl = slice(r0, r0 + rows)
+        h2c = h2[sl]
+        fgf, dgelu = _gelu_pair(_mm(h2c, b.fc1_w) + b.fc1_b)
+        fg = fgf.to(cd)
+        grads["fc2_w"] += _mm(fg.t(), df2[sl])
+        grads["fc2_b"] += df2f[sl].sum(0)
+        df1 = (_mm(df2[sl], b.fc2_w.t()) * dgelu).to(cd)
+        grads["fc1_w"] += _mm(h2c.t(), df1)
+        grads["fc1_b"] += df1.float().sum(0)
+        dh2c = _mm(df1, b.fc1_w.t())
+        gmf, dgelum = _gelu_pair(_mm(h2c, p.ma1_w) + p.ma1_b)
+        gm = gmf.to(cd)
+        grads["ma2_w"] += _mm(gm.t(), g2m[sl])
+        grads["ma2_b"] += g2mf[sl].sum(0)
+        df1m = (_mm(g2m[sl], p.ma2_w.t()) * dgelum).to(cd)
+        grads["ma1_w"] += _mm(h2c.t(), df1m)
+        grads["ma1_b"] += df1m.float().sum(0)
+        dh2[sl] = dh2c + _mm(df1m, p.ma1_w.t())
+    dh2 = dh2.reshape(B, L, C)
+    grads["ln2_w"] = (dh2 * yhat2).sum((0, 1))
+    grads["ln2_b"] = dh2.sum((0, 1))
+    dy = g + _ln_bwd(dh2, yhat2, r2, b.ln2_w)
+
+    # ---- spatial adapter, at branch = a + s * adapter(a), token order
+    dbranch = (m0 * dy).reshape(-1, C)
+    g2sf = s * dbranch
+    g2s = g2sf.to(cd)
+    grads["sa2_w"] = _mm(gs.t(), g2s)
+    grads["sa2_b"] = g2sf.sum(0)
+    df1s = (_mm(g2s, p.sa2_w.t()) * dgelus).to(cd)
+    grads["sa1_w"] = _mm(a.t(), df1s)
+    grads["sa1_b"] = df1s.float().sum(0)
+    da = dbranch + _mm(df1s, p.sa1_w.t())
+
+    # ---- attention branch (K3's, from the grad at proj's output)
+    dbr = da.reshape(B, H, W, C)
+    if sh:
+        dbr = torch.roll(dbr, shifts=(-sh, -sh), dims=(1, 2))
+    dA = window_partition(dbr, w).reshape(-1, C).to(cd)
+    grads["proj_w"] = _mm(attn.t(), dA)
+    grads["proj_b"] = dA.float().sum(0)
+    dattn = _mm(dA, b.proj_w.t()).to(cd)
+    dO = dattn.reshape(-1, N, nh, hd).transpose(1, 2).float()
+    pf = pr.float()
+    dP = torch.matmul(dO, v.float().transpose(-1, -2))
+    dV = torch.matmul(pf.transpose(-1, -2), dO)
+    dS = pf * (dP - (dP * pf).sum(-1, keepdim=True))
+    grads["bias"] = dS.sum(0)
+    dSc = dS.to(cd).float()
+    dq = torch.matmul(dSc, k.float())
+    dk = torch.matmul(dSc.transpose(-1, -2), q.float())
+    dqkv = torch.cat([t.transpose(1, 2).reshape(-1, C) for t in (dq, dk, dV)], -1).to(cd)
+    grads["qkv_w"] = _mm(win.t(), dqkv)
+    grads["qkv_b"] = dqkv.float().sum(0)
+    dwin = _mm(dqkv, b.qkv_w.t()).to(cd)
+    dh = window_reverse(dwin.reshape(-1, N, C), w, H, W)
+    if sh:
+        dh = torch.roll(dh, shifts=(sh, sh), dims=(1, 2))
+    dh = dh.reshape(B, L, C).float()
+    grads["ln1_w"] = (dh * xhat1).sum((0, 1))
+    grads["ln1_b"] = dh.sum((0, 1))
+    dx = dy + _ln_bwd(dh, xhat1, r1, b.ln1_w)
+    return dx.to(x.dtype), _cut(p, grads)
+
+
+def _check_cuda_params(p: AdaptBlockParams, B: int) -> Tuple[int, ...]:
+    """Raise unless ``p`` has the layout and shapes the kernels take; returns
+    the shape arguments of the C entry points."""
+    b = p.base
+    C, H, W, w, nh = b.C, b.H, b.W, b.window, b.nh
+    N, hd, hidden, chp = w * w, C // nh, b.fc1_w.shape[1], p.ch_pad
+    if N != 64 or hd != 24 or C % 32 or hidden % 32 or chp % 32 or H % w or W % w:
+        raise NotImplementedError(
+            f"the adapter block kernels take 8x8 windows, head dim 24, C, hidden and the "
+            f"padded adapter width % 32 == 0 and whole windows (got window={w}, hd={hd}, "
+            f"C={C}, hidden={hidden}, adapter {chp}, {H}x{W})")
+    if b.merge:
+        raise ValueError("the adapter block has no merge fold")
+    mats = {"qkv_w": (C, 3 * C), "proj_w": (C, C), "fc1_w": (C, hidden), "fc2_w": (hidden, C)}
+    for name, shape in mats.items():
+        check_cuda_tensor(name, getattr(b, name), torch.bfloat16, shape)
+    for name, n in {"ln1_w": C, "ln1_b": C, "qkv_b": 3 * C, "proj_b": C, "ln2_w": C,
+                    "ln2_b": C, "fc1_b": hidden, "fc2_b": C}.items():
+        check_cuda_tensor(name, getattr(b, name), torch.float32, (n,))
+    for w1, b1, w2, b2 in ADAPTER_KEYS.values():
+        check_cuda_tensor(w1, getattr(p, w1), torch.bfloat16, (C, chp))
+        check_cuda_tensor(b1, getattr(p, b1), torch.float32, (chp,))
+        check_cuda_tensor(w2, getattr(p, w2), torch.bfloat16, (chp, C))
+        check_cuda_tensor(b2, getattr(p, b2), torch.float32, (C,))
+    check_cuda_tensor("bias", b.bias, torch.float32, (nh, N, N))
+    if b.mask is not None:
+        check_cuda_tensor("mask", b.mask, torch.float32, ((H // w) * (W // w), N, N))
+    return B, H, W, C, nh, w, b.shift, hidden, chp
+
+
+def _weight_ptrs(p: AdaptBlockParams) -> List[int]:
+    b = p.base
+    return [t.data_ptr() for t in (
+        b.ln1_w, b.ln1_b, b.qkv_w, b.qkv_b, b.proj_w, b.proj_b, b.ln2_w, b.ln2_b,
+        b.fc1_w, b.fc1_b, b.fc2_w, b.fc2_b, p.sa1_w, p.sa1_b, p.sa2_w, p.sa2_b,
+        p.ma1_w, p.ma1_b, p.ma2_w, p.ma2_b, b.bias)] + [
+        b.mask.data_ptr() if b.mask is not None else None]
+
+
+def _workspace(kernel: CudaKernel, query: str, shapes: Tuple[int, ...], device) -> torch.Tensor:
+    """The scratch the kernel's C entry needs at these shapes (its size query)."""
+    nbytes = ctypes.c_longlong()
+    getattr(kernel.lib(), query)(*shapes, ctypes.byref(nbytes))
+    return torch.empty(nbytes.value, device=device, dtype=torch.uint8)
+
+
+def swin_block_adapt_fused(x: torch.Tensor, p: AdaptBlockParams,
+                           dp_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One Swin block with adapters (drop-path masks (B, 2) float32 in
+    training, ones when None). A CPU tensor takes ``swin_block_adapt_plain``;
+    a CUDA tensor launches kernel K4 (bfloat16) or raises."""
+    if x.device.type == "cpu":
+        return swin_block_adapt_plain(x, p, dp_masks)
+    B, L, C = x.shape
+    check_cuda_tensor("x", x, torch.bfloat16, (B, p.base.H * p.base.W, C))
+    masks = _ones(x) if dp_masks is None else dp_masks
+    _check_masks(masks, p.base, B)
+    check_cuda_tensor("dp_masks", masks, torch.float32, (B, 2))
+    shapes = _check_cuda_params(p, B)
+    ws = _workspace(FWD_KERNEL, "swin_block_adapt_forward_workspace", shapes, x.device)
+    out = torch.empty_like(x)
+    FWD_KERNEL.launches += 1
+    FWD_KERNEL.call("swin_block_adapt_forward", x.data_ptr(), masks.data_ptr(), *_weight_ptrs(p),
+                p.scale, out.data_ptr(), ws.data_ptr(), *shapes)
+    return out
+
+
+def swin_block_adapt_backward(x: torch.Tensor, p: AdaptBlockParams, dp_masks: torch.Tensor,
+                              dout: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Backward of one Swin block with adapters. A CPU tensor takes
+    ``swin_block_adapt_backward_plain``; a CUDA tensor launches kernel K5
+    (bfloat16) or raises."""
+    if x.device.type == "cpu":
+        return swin_block_adapt_backward_plain(x, p, dp_masks, dout)
+    B, L, C = x.shape
+    b = p.base
+    check_cuda_tensor("x", x, torch.bfloat16, (B, b.H * b.W, C))
+    check_cuda_tensor("dout", dout, torch.bfloat16, (B, b.H * b.W, C))
+    _check_masks(dp_masks, p.base, B)
+    check_cuda_tensor("dp_masks", dp_masks, torch.float32, (B, 2))
+    shapes = _check_cuda_params(p, B)
+    hidden, chp, N = b.fc1_w.shape[1], p.ch_pad, b.window ** 2
+    ws = _workspace(BWD_KERNEL, "swin_block_adapt_backward_workspace", shapes, x.device)
+    sizes = {"ln1_w": (C,), "ln1_b": (C,), "qkv_w": (C, 3 * C), "qkv_b": (3 * C,),
+             "proj_w": (C, C), "proj_b": (C,), "ln2_w": (C,), "ln2_b": (C,),
+             "fc1_w": (C, hidden), "fc1_b": (hidden,), "fc2_w": (hidden, C), "fc2_b": (C,),
+             "bias": (b.nh, N, N)}
+    for w1, b1, w2, b2 in ADAPTER_KEYS.values():
+        sizes.update({w1: (C, chp), b1: (chp,), w2: (chp, C), b2: (C,)})
+    keys = GRAD_KEYS + ADAPTER_KEYS["attn"] + ADAPTER_KEYS["mlp"]
+    grads = {k_: torch.empty(sizes[k_], device=x.device, dtype=torch.float32) for k_ in keys}
+    dx = torch.empty_like(x)
+    BWD_KERNEL.launches += 1
+    BWD_KERNEL.call("swin_block_adapt_backward", x.data_ptr(), dout.data_ptr(), dp_masks.data_ptr(),
+                *_weight_ptrs(p), p.scale, dx.data_ptr(),
+                *(grads[k_].data_ptr() for k_ in keys), ws.data_ptr(), *shapes)
+    return dx, _cut(p, grads)
+
+
+def adapt_block_parameters(block: SwinTransformerBlock) -> List[torch.nn.Parameter]:
+    """The block's parameters in the order ``SwinBlockAdaptTrain`` returns
+    their grads: K3's ``block_parameters``, then each present adapter's
+    fc1.weight, fc1.bias, fc2.weight, fc2.bias (attn before mlp)."""
+    out = block_parameters(block)
+    for ad in block_adapters(block).values():
+        out += [ad.fc1.weight, ad.fc1.bias, ad.fc2.weight, ad.fc2.bias]
+    return out
+
+
+def adapt_module_grads(block: SwinTransformerBlock,
+                       g: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """Kernel-layout grads -> grads of ``adapt_block_parameters(block)``."""
+    out = module_grads(block, g)
+    for where in block_adapters(block):
+        w1, b1, w2, b2 = ADAPTER_KEYS[where]
+        out += [g[w1].t(), g[b1], g[w2].t(), g[b2]]
+    return out
+
+
+class SwinBlockAdaptTrain(torch.autograd.Function):
+    """One training Swin block with adapters: K4 with drop-path masks
+    forward, K5 backward (on the CPU, or with ``use_kernels=False``, their
+    plain versions). Saves only x and the masks; the backward recomputes the
+    forward. Grads come back for x and ``adapt_block_parameters(block)``
+    (None where autograd needs none: frozen parameters), none for the masks.
+
+        y = SwinBlockAdaptTrain.apply(x, masks, block, compute_dtype, use_kernels,
+                                      *adapt_block_parameters(block))
+    """
+
+    @staticmethod
+    def forward(ctx, x, dp_masks, block, compute_dtype, use_kernels, *params):
+        p = prepare_adapt_block(block, compute_dtype)
+        ctx.block, ctx.prepared, ctx.use_kernels = block, p, use_kernels
+        ctx.save_for_backward(x, dp_masks)
+        x = x.to(compute_dtype)
+        fn = swin_block_adapt_fused if use_kernels else swin_block_adapt_plain
+        return fn(x, p, dp_masks)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, dp_masks = ctx.saved_tensors
+        p = ctx.prepared
+        cd = p.base.qkv_w.dtype
+        fn = swin_block_adapt_backward if ctx.use_kernels else swin_block_adapt_backward_plain
+        dx, g = fn(x.to(cd), p, dp_masks, dout.to(cd).contiguous())
+        grads = [gr if need else None for gr, need in
+                 zip(adapt_module_grads(ctx.block, g), ctx.needs_input_grad[5:])]
+        return (dx.to(x.dtype), None, None, None, None, *grads)
+
+
+def swin_block_adapt_train(x: torch.Tensor, block: SwinTransformerBlock, dp_masks: torch.Tensor,
+                           compute_dtype: torch.dtype, use_kernels: bool = True) -> torch.Tensor:
+    """Differentiable training block with adapters and drop-path masks (B, 2)
+    float32."""
+    return SwinBlockAdaptTrain.apply(x, dp_masks, block, compute_dtype, use_kernels,
+                                     *adapt_block_parameters(block))

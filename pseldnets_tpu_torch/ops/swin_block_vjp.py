@@ -35,8 +35,8 @@ import torch
 from ..models.htsat import (SwinTransformerBlock, relative_position_index,
                             window_partition, window_reverse)
 from ._cuda import CudaKernel, check_cuda_tensor, i32, ptr
-from .swin_block import (LN_EPS, SwinBlockParams, _mm, prepare_block, swin_block_fused,
-                         swin_block_plain)
+from .swin_block import (LN_EPS, SwinBlockParams, _mm, attention_rows, prepare_block,
+                         swin_block_fused, swin_block_plain)
 
 KERNEL = CudaKernel("swin_block_bwd.cu", {
     "swin_block_backward": [ptr] * 32 + [i32] * 8 + [ptr],
@@ -79,30 +79,14 @@ def swin_block_backward_plain(x: torch.Tensor, p: SwinBlockParams, dp_masks: tor
     B, L, C = x.shape
     H, W, w, s, nh = p.H, p.W, p.window, p.shift, p.nh
     N, hd = w * w, C // nh
-    nW = (H // w) * (W // w)
     m0 = dp_masks[:, 0].float().reshape(B, 1, 1)
     m1 = dp_masks[:, 1].float().reshape(B, 1, 1)
 
     # ---- recompute the forward
     x0 = x.to(cd)
     xhat1, r1 = _ln_fwd(x0.float())
-    img = (xhat1 * p.ln1_w + p.ln1_b).to(cd).reshape(B, H, W, C)
-    if s:
-        img = torch.roll(img, shifts=(-s, -s), dims=(1, 2))
-    win = window_partition(img, w).reshape(-1, C)  # window order
-    qkv = (_mm(win, p.qkv_w) + p.qkv_b).to(cd)
-    q, k, v = (qkv[:, i * C:(i + 1) * C].reshape(-1, N, nh, hd).transpose(1, 2)
-               for i in range(3))  # (B*nW, nh, N, hd), q carries the scale
-    sc = torch.matmul(q.float(), k.float().transpose(-1, -2)) + p.bias[None]
-    if p.mask is not None:
-        sc = (sc.reshape(B, nW, nh, N, N) + p.mask[None, :, None]).reshape(-1, nh, N, N)
-    pr = torch.softmax(sc, dim=-1).to(cd)
-    attn = torch.matmul(pr.float(), v.float()).to(cd).transpose(1, 2).reshape(-1, C)
-    a = (_mm(attn, p.proj_w) + p.proj_b).to(cd)
-    img2 = window_reverse(a.reshape(-1, N, C), w, H, W)
-    if s:
-        img2 = torch.roll(img2, shifts=(s, s), dims=(1, 2))
-    y = x0.float() + m0 * img2.reshape(B, L, C).float()
+    win, q, k, v, pr, attn, a = attention_rows(x0, p)
+    y = x0.float() + m0 * a.reshape(B, L, C).float()
     yhat2, r2 = _ln_fwd(y)
     h2 = (yhat2 * p.ln2_w + p.ln2_b).to(cd).reshape(-1, C)
 

@@ -3,7 +3,10 @@ package's serving/htsat.py: the eval forward of models.heads.HTSAT with every
 Swin block (and each stage's PatchMerging, folded into its last block) run by
 kernel K2 (ops/swin_block.py), and, from the waveform, the features, the eval
 ScalarBN, the compute-dtype cast and the reshape_wav2img frame pad run by
-kernel K1 (ops/frontend.py).
+kernel K1 (ops/frontend.py). An AdapterBit model (blocks that carry
+adapters) runs every block on kernel K4 (ops/swin_block_adapt.py, masks 1)
+without the merge fold, and each PatchMerging unfolded (``patch_merging``),
+as the JAX package does (serving/htsat.py:78-86, :187-215).
 
 The patch embed (one reshape + einsum), the final LayerNorm, the token-map
 finalize, the tscam conv, the interpolation matmul, the frame mean and the
@@ -11,42 +14,65 @@ tanh stay plain PyTorch, as the JAX package leaves them outside its kernels.
 ``embed_tokens`` and ``head_tail`` carry autograd: the fused training forward
 (train/fused_forward.py) shares them; the serving callers run under no_grad.
 
-Eval only, plain checkpoints (models/adapters.py raises on adapters or LoRA at
-build time), 10 s or 5 s clips (the reference's two supported shapes).
+Eval only; plain and constant-scalar AdapterBit checkpoints (models/adapters.py
+raises on the rest at build time); 10 s or 5 s clips (the reference's two
+supported shapes).
 ``use_kernels=False`` calls the kernels' plain versions on the same device:
 the reference a card run is held against.
 """
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from ..models.common import _linear_upsample_matrix
+from ..models.common import _linear_upsample_matrix, layer_norm
 from ..models.heads import HTSAT
+from ..models.htsat import PatchMerging
 from ..ops._cuda import resolve_device
 from ..ops.frontend import fused_logmel_iv, fused_logmel_iv_plain
 from ..ops.swin_block import (SwinBlockParams, prepare_block, swin_block_fused,
                               swin_block_plain)
+from ..ops.swin_block_adapt import (AdaptBlockParams, has_adapters, prepare_adapt_block,
+                                    swin_block_adapt_fused, swin_block_adapt_plain)
+
+BlockParams = Union[SwinBlockParams, AdaptBlockParams]
 
 
 def prepare_blocks(model: HTSAT,
-                   compute_dtype: torch.dtype = torch.bfloat16) -> List[SwinBlockParams]:
-    """Every block's kernel-layout weights, in order; the last block of each
-    stage but the last carries the stage's PatchMerging."""
+                   compute_dtype: torch.dtype = torch.bfloat16) -> List[BlockParams]:
+    """Every block's kernel-layout weights, in order: K2's, where the last
+    block of each stage but the last carries the stage's PatchMerging, or,
+    for a block with adapters, K4's (no merge fold)."""
     out = []
     for layer in model.encoder.layers:
         for j, blk in enumerate(layer.blocks):
+            if has_adapters(blk):
+                out.append(prepare_adapt_block(blk, compute_dtype))
+                continue
             last = j == len(layer.blocks) - 1
             out.append(prepare_block(blk, compute_dtype,
                                      layer.downsample if last else None))
     return out
 
 
+def patch_merging(mod: PatchMerging, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """2x2 concat -> float32 LayerNorm -> 4C -> 2C reduction on compute-dtype
+    operands with float32 accumulation; output in the compute dtype (the
+    JAX package's unfolded merge, serving/htsat.py:201-215)."""
+    H, W = mod.input_resolution
+    B, L, C = x.shape
+    v = x.reshape(B, H, W, C)
+    v = torch.cat([v[:, 0::2, 0::2], v[:, 1::2, 0::2], v[:, 0::2, 1::2], v[:, 1::2, 1::2]],
+                  dim=-1).reshape(B, L // 4, 4 * C)
+    v = layer_norm(v, mod.norm).to(compute_dtype)
+    w = mod.reduction.weight.to(compute_dtype).float()
+    return torch.matmul(v.float(), w.t()).to(compute_dtype)
+
+
 def _ln(x: torch.Tensor, ln: torch.nn.LayerNorm) -> torch.Tensor:
     """float32 LayerNorm, result in the input's dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
-                        ln.bias.float(), ln.eps).to(x.dtype)
+    return layer_norm(x, ln).to(x.dtype)
 
 
 def embed_tokens(model: HTSAT, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -77,7 +103,7 @@ def embed_tokens(model: HTSAT, x: torch.Tensor, compute_dtype: torch.dtype) -> t
 def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
                         compute_dtype: torch.dtype = torch.bfloat16,
                         pre_normalized: bool = False,
-                        blocks: Optional[List[SwinBlockParams]] = None,
+                        blocks: Optional[List[BlockParams]] = None,
                         use_kernels: bool = True) -> Dict[str, torch.Tensor]:
     """Eval forward equal to ``model(x)`` up to compute-dtype rounding.
 
@@ -91,6 +117,7 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
     if blocks is None:
         blocks = prepare_blocks(model, cd)
     block_fn = swin_block_fused if use_kernels else swin_block_plain
+    adapt_fn = swin_block_adapt_fused if use_kernels else swin_block_adapt_plain
 
     B, C, T, Fq = x.shape
     if pre_normalized:
@@ -108,8 +135,14 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
         x = model.scalar(x).to(cd)
 
     x = embed_tokens(model, x, cd)
-    for p in blocks:
-        x = block_fn(x, p)
+    i = 0
+    for layer in enc.layers:
+        for _ in layer.blocks:
+            p = blocks[i]
+            i += 1
+            x = adapt_fn(x, p) if isinstance(p, AdaptBlockParams) else block_fn(x, p)
+        if layer.downsample is not None and isinstance(p, AdaptBlockParams):
+            x = patch_merging(layer.downsample, x, cd)
     return head_tail(model, x, cd, B, output_frames, five_sec)
 
 
@@ -163,11 +196,12 @@ def folded_wav_features(model: HTSAT, wav: torch.Tensor, *,
 def htsat_fused_forward_from_wav(model: HTSAT, wav, *,
                                  compute_dtype: torch.dtype = torch.bfloat16,
                                  device="cuda",
-                                 blocks: Optional[List[SwinBlockParams]] = None,
+                                 blocks: Optional[List[BlockParams]] = None,
                                  use_kernels: bool = True,
                                  **frontend_kwargs) -> Dict[str, torch.Tensor]:
     """Full serving step from the FOA waveform (B, 4, N) float32: kernel K1
-    (features + ScalarBN + cast + frame pad) then the fused model. 10-second
+    (features + ScalarBN + cast + frame pad) then the fused model (K2, or K4
+    for an AdapterBit model). 10-second
     clips only. ``device`` defaults to the card and raises when CUDA is
     absent; ``model`` must already live there."""
     device = resolve_device(device)

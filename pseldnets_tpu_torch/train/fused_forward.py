@@ -2,7 +2,9 @@
 package's train/fused_forward.py (:34-159).
 
 Every Swin block runs as ``SwinBlockTrain``: kernel K2 with drop-path masks
-forward, kernel K3 backward (ops/swin_block_vjp.py). Around them, plain
+forward, kernel K3 backward (ops/swin_block_vjp.py); a block that carries
+AdapterBit adapters runs as ``SwinBlockAdaptTrain``: K4 forward, K5 backward
+(ops/swin_block_adapt.py, fused_forward.py:129-135). Around them, plain
 PyTorch with autograd: the 5 s clip trick, the train-mode ScalarBN, the
 patch embed (serving/htsat.py::embed_tokens), the unfolded PatchMerging
 between stages (as the JAX package leaves it to XLA, fused_forward.py:
@@ -20,37 +22,23 @@ that package's masks.
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..models.heads import HTSAT
-from ..models.htsat import PatchMerging, drop_path_masks
+from ..models.htsat import drop_path_masks
+from ..ops.swin_block_adapt import has_adapters, swin_block_adapt_train
 from ..ops.swin_block_vjp import swin_block_train
-from ..serving.htsat import embed_tokens, head_tail
+from ..serving.htsat import embed_tokens, head_tail, patch_merging
 
 __all__ = ["supports_fused_train", "drop_path_masks", "htsat_fused_train_forward"]
 
 
 def supports_fused_train(model) -> bool:
-    """An HTSAT with zero attention / projection / position dropout (adapters
-    and LoRA raise when the model is built)."""
-    if not isinstance(model, HTSAT):
+    """An HTSAT whose adapters the kernels run (``AdaptConfig.kernels_support``)
+    with zero attention / projection / position dropout."""
+    if not isinstance(model, HTSAT) or not model.adapt.kernels_support():
         return False
     enc = model.encoder
     return enc.drop_rate == 0.0 and enc.attn_drop_rate == 0.0
-
-
-def patch_merging(mod: PatchMerging, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """2x2 concat -> float32 LayerNorm -> 4C -> 2C reduction on compute-dtype
-    operands with float32 accumulation; output in the compute dtype."""
-    H, W = mod.input_resolution
-    B, L, C = x.shape
-    v = x.reshape(B, H, W, C)
-    v = torch.cat([v[:, 0::2, 0::2], v[:, 1::2, 0::2], v[:, 0::2, 1::2], v[:, 1::2, 1::2]],
-                  dim=-1).reshape(B, L // 4, 4 * C)
-    v = F.layer_norm(v.float(), (4 * C,), mod.norm.weight.float(), mod.norm.bias.float(),
-                     mod.norm.eps).to(compute_dtype)
-    w = mod.reduction.weight.to(compute_dtype).float()
-    return torch.matmul(v.float(), w.t()).to(compute_dtype)
 
 
 def htsat_fused_train_forward(model: HTSAT, feats: torch.Tensor, *,
@@ -60,7 +48,7 @@ def htsat_fused_train_forward(model: HTSAT, feats: torch.Tensor, *,
                               use_kernels: bool = True
                               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Train-mode forward of ``model`` on features (B, C, T, F) with every
-    Swin block on kernels K2/K3. Returns ``(preds, batch-stat update)``: the
+    Swin block on kernels K2/K3 (K4/K5 with adapters). Returns ``(preds, batch-stat update)``: the
     head's output dict and the ScalarBN's new ``running_mean`` /
     ``running_var`` (not yet written into the model). ``use_kernels=False``
     runs the kernels' plain versions on the same device."""
@@ -90,7 +78,8 @@ def htsat_fused_train_forward(model: HTSAT, feats: torch.Tensor, *,
     for layer in enc.layers:
         for blk in layer.blocks:
             m = masks[bi].to(x.device, torch.float32).contiguous()
-            x = swin_block_train(x, blk, m, cd, use_kernels)
+            run = swin_block_adapt_train if has_adapters(blk) else swin_block_train
+            x = run(x, blk, m, cd, use_kernels)
             bi += 1
         if layer.downsample is not None:
             x = patch_merging(layer.downsample, x, cd)

@@ -5,19 +5,26 @@ One step (reference common_step, model_module.py:47-68): FOA waveform ->
 frontend (kernel K1 on the card) -> HTSAT train-mode forward -> loss ->
 backward -> clip by global norm -> optimizer -> ScalarBN batch-stat update.
 ``trainer.fused_forward`` picks the forward: "auto" and true run every Swin
-block on kernels K2/K3 (train/fused_forward.py), false the eager
-``model.train()`` module (under bf16 autocast with bf16-mixed precision).
+block on kernels K2/K3 (K4/K5 for AdapterBit blocks; train/fused_forward.py),
+false the eager ``model.train()`` module (under bf16 autocast with bf16-mixed
+precision).
+
+The freeze policy is the JAX step's (train/module.py:276-295): the
+parameters that ``trainable_mask`` freezes (AdapterBit: all but biases,
+adapters and the head) get ``requires_grad`` False, so they receive no
+gradient and stay out of the clip's global norm, as ``stop_gradient`` keeps
+them out there; gradients still flow through them to what trains.
 
 Not in this slice, and raising with the ROADMAP.md queue A step that brings
 them: augmentation (non-empty ``augment.type``, AugMix, ``rotate.on_device``:
 step 5), tensor parallelism (``trainer.tensor_parallel`` > 1: step 11) and
-adapters / LoRA (models/adapters.py: step 6). The epoch loop, data loading,
-checkpoint save and resume and the ``src/train.py`` entry point are the rest
-of step 4.
+LoRA and the eager-only adapter settings (models/adapters.py: step 6). The
+epoch loop, data loading, checkpoint save and resume and the
+``src/train.py`` entry point are the rest of step 4.
 """
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -27,7 +34,7 @@ from ..models.factory import init_weights
 from ..ops._cuda import resolve_device
 from ..ops.features import make_extractor
 from .fused_forward import htsat_fused_train_forward, supports_fused_train
-from .optim import build_optimizer, optimizer_step
+from .optim import build_optimizer, optimizer_step, trainable_mask
 
 
 @dataclass
@@ -93,6 +100,12 @@ class SELDTask:
         named = list(self.model.named_parameters())
         self.names: List[str] = [n for n, _ in named]
         self.params: List[torch.nn.Parameter] = [p for _, p in named]
+        mask = trainable_mask(self.names, (cfg.get("adapt") or {}).get("method", "none"))
+        for p, trains in zip(self.params, mask):
+            p.requires_grad_(trains)
+        # the parameters that train, in model order, and their names
+        self.trained_names: List[str] = [n for n, m in zip(self.names, mask) if m]
+        self.trained: List[torch.nn.Parameter] = [p for p, m in zip(self.params, mask) if m]
         self.max_norm = trainer.get("gradient_clip_val")
         self.lr_fn = None
         self.state: Optional[TrainState] = None
@@ -124,42 +137,47 @@ class SELDTask:
              for k, v in targets.items() if k.endswith("label")}
         return x, t
 
-    def forward_train(self, feats: torch.Tensor, generator: Optional[torch.Generator] = None
+    def forward_train(self, feats: torch.Tensor, generator: Optional[torch.Generator] = None,
+                      dp_masks: Optional[Sequence[torch.Tensor]] = None
                       ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
-        """Train-mode forward, drop-path masks drawn from ``generator``:
-        (preds, ScalarBN update), the update None on the eager path, whose
-        BatchNorm writes its statistics itself."""
+        """Train-mode forward, drop-path masks given (``dp_masks``, one (B',
+        2) float32 mask per block) or drawn from ``generator``: (preds,
+        ScalarBN update), the update None on the eager path, whose BatchNorm
+        writes its statistics itself."""
         self.model.train()
         if self.fused_forward:
-            return htsat_fused_train_forward(self.model, feats, generator=generator,
+            return htsat_fused_train_forward(self.model, feats, dp_masks=dp_masks,
+                                             generator=generator,
                                              compute_dtype=self.compute_dtype,
                                              use_kernels=self.use_kernels)
         with torch.autocast(device_type=self.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
-            return self.model(feats, generator=generator), None
+            return self.model(feats, dp_masks=dp_masks, generator=generator), None
 
-    def compute_grads(self, batch_x, targets: Dict, generator: Optional[torch.Generator] = None):
-        """Frontend -> forward -> loss -> grads of ``self.params``; returns
-        (losses, grads, ScalarBN update or None). Changes no parameter."""
+    def compute_grads(self, batch_x, targets: Dict, generator: Optional[torch.Generator] = None,
+                      dp_masks: Optional[Sequence[torch.Tensor]] = None):
+        """Frontend -> forward -> loss -> grads of ``self.trained`` (the
+        frozen parameters get none); returns (losses, grads, ScalarBN update
+        or None). Changes no parameter."""
         x, tgt = self._to_device(batch_x, targets)
         with torch.no_grad():
             feats = self.extractor(x) if self.extractor is not None else x
-        preds, bs = self.forward_train(feats, generator)
+        preds, bs = self.forward_train(feats, generator, dp_masks)
         losses = self.loss(preds, tgt)
-        grads = torch.autograd.grad(losses[self.loss_type], self.params, allow_unused=True)
-        grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, self.params)]
+        grads = torch.autograd.grad(losses[self.loss_type], self.trained, allow_unused=True)
+        grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, self.trained)]
         return losses, grads, bs
 
-    def train_step(self, batch_x, targets: Dict,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    def train_step(self, batch_x, targets: Dict, generator: Optional[torch.Generator] = None,
+                   dp_masks: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, Any]:
         """One optimizer step on a batch: FOA waveforms (B, 4, samples) and
         label arrays (``adpit_label`` or ``accdoa_label``). Drop-path masks
-        come from ``generator``. Returns the losses as device tensors (no
-        host synchronization)."""
+        are ``dp_masks`` or come from ``generator``. Returns the losses as
+        device tensors (no host synchronization)."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
-        losses, grads, bs = self.compute_grads(batch_x, targets, generator)
-        optimizer_step(self.state.optimizer, self.params, grads, self.state.step, self.max_norm)
+        losses, grads, bs = self.compute_grads(batch_x, targets, generator, dp_masks)
+        optimizer_step(self.state.optimizer, self.trained, grads, self.state.step, self.max_norm)
         if bs is not None:
             with torch.no_grad():
                 self.model.scalar.running_mean.copy_(bs["running_mean"])

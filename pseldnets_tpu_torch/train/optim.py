@@ -150,9 +150,10 @@ def build_optimizer(cfg, named_params: Sequence[Tuple[str, torch.Tensor]],
 def optimizer_step(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor],
                    grads: List[torch.Tensor], step: int,
                    max_norm: Optional[float] = None) -> None:
-    """Update ``step`` (counted from 0): clip ``grads`` (one per parameter,
-    frozen ones included) by their global norm when ``max_norm`` is set,
-    give each group its rate for the step, and step the optimizer."""
+    """Update ``step`` (counted from 0): clip ``grads`` (one per trained
+    parameter; frozen ones have none and stay out of the norm) by their
+    global norm when ``max_norm`` is set, give each group its rate for the
+    step, and step the optimizer."""
     if max_norm:
         clip_by_global_norm_(grads, float(max_norm))
     for p, g in zip(params, grads):

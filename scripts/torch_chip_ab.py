@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""A/B timing of two checkouts of the PyTorch/CUDA port on one card.
+
+Runs ``python3 chip_smoke.py`` in the checkout A and the checkout B in turns,
+A B B A repeated ``--rounds`` times, each run a process of its own, keeps each
+run's output under ``--out``, reads the times that chip_smoke.py prints (the
+served batch, the training step, the kernels per batch or step, and the
+AdapterBit lines where the checkout has them) and prints, per checkout, the
+median and the range of each over its runs as one JSON line. Exits non-zero
+when a run fails.
+
+    python3 scripts/torch_chip_ab.py _archive/parent . --rounds 3 --out ab_logs
+"""
+
+import argparse
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+PATTERNS = {
+    "served_ms": r"^served: ([\d.]+) ms/batch",
+    "k1_served_ms": r"^per batch of \d+ .*?: K1 ([\d.]+) ms",
+    "k2_x12_ms": r"^per batch of \d+ .*?K2 x12 ([\d.]+) ms",
+    "train_ms": r"^training: ([\d.]+) ms/step",
+    "k2_masks_x12_ms": r"^per step of \d+ .*?K2 with masks x12 ([\d.]+) ms",
+    "k3_x12_ms": r"^per step of \d+ .*?K3 x12 ([\d.]+) ms",
+    "train_rest_ms": r"^per step of \d+ .*?rest ([-\d.]+) ms",
+    "adapter_served_ms": r"^AdapterBit served: ([\d.]+) ms/batch",
+    "k4_x12_ms": r"^AdapterBit per batch of \d+ .*?K4 x12 ([\d.]+) ms",
+    "adapter_train_ms": r"^AdapterBit training: ([\d.]+) ms/step",
+    "k4_masks_x12_ms": r"^AdapterBit per step of \d+ .*?K4 with masks x12 ([\d.]+) ms",
+    "k5_x12_ms": r"^AdapterBit per step of \d+ .*?K5 x12 ([\d.]+) ms",
+    "adapter_rest_ms": r"^AdapterBit per step of \d+ .*?rest ([-\d.]+) ms",
+}
+
+
+def run(checkout: Path, out: Path, tag: str) -> dict:
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=checkout, capture_output=True,
+                       text=True)
+    secs = time.perf_counter() - t0
+    (out / f"{tag}.log").write_text(r.stdout + "\n--- stderr ---\n" + r.stderr)
+    lines = r.stdout.splitlines()
+    ok = r.returncode == 0 and bool(lines) and json.loads(lines[-1]).get("ok") is True
+    vals = {"seconds": secs}
+    for key, pat in PATTERNS.items():
+        for line in lines:
+            m = re.search(pat, line)
+            if m:
+                vals[key] = float(m.group(1))
+                break
+    print(json.dumps({"run": tag, "ok": ok, **vals}), flush=True)
+    if not ok:
+        sys.stderr.write(f"{tag} failed (exit {r.returncode}); see {out / (tag + '.log')}\n")
+        sys.exit(1)
+    return vals
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("a", type=Path, help="checkout A (the parent)")
+    ap.add_argument("b", type=Path, help="checkout B (the change)")
+    ap.add_argument("--rounds", type=int, default=3, help="A B B A rounds")
+    ap.add_argument("--out", type=Path, required=True, help="directory for the run logs")
+    args = ap.parse_args()
+    args.out.mkdir(parents=True, exist_ok=True)
+    runs = {"A": [], "B": []}
+    for _ in range(args.rounds):
+        for side in ("A", "B", "B", "A"):
+            checkout = args.a if side == "A" else args.b
+            runs[side].append(run(checkout.resolve(), args.out, f"{side}{len(runs[side])}"))
+    summary = {}
+    for side, vals in runs.items():
+        keys = sorted({k for v in vals for k in v})
+        summary[side] = {k: {"median": statistics.median([v[k] for v in vals if k in v]),
+                             "min": min(v[k] for v in vals if k in v),
+                             "max": max(v[k] for v in vals if k in v),
+                             "n": sum(k in v for v in vals)} for k in keys}
+    print(json.dumps({"ab": summary}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K3 on the card against their plain versions (marked
+"""Kernels K1-K5 on the card against their plain versions (marked
 ``cuda``: skipped without a CUDA card and nvcc). Imports nothing of JAX, so on
 a machine without JAX it runs with
 
@@ -8,9 +8,10 @@ a machine without JAX it runs with
 import pytest
 import torch
 
+from pseldnets_tpu_torch.models.adapters import AdaptConfig
 from pseldnets_tpu_torch.models.factory import init_weights
 from pseldnets_tpu_torch.models.htsat import PatchMerging, SwinTransformerBlock
-from pseldnets_tpu_torch.ops import frontend, swin_block, swin_block_vjp
+from pseldnets_tpu_torch.ops import frontend, swin_block, swin_block_adapt, swin_block_vjp
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +91,56 @@ def test_training_block_kernels_match_plain(card, stage, shift):
         a, b = a.float(), b.float()
         assert a.shape == b.shape, name
         assert (a - b).abs().max() <= 2.0 ** -6 * b.abs().max(), name
+
+
+@pytest.mark.parametrize("stage,shift,positions", [
+    (0, 4, ("MlpAdapter", "SpatialAdapter")), (1, 0, ("MlpAdapter",)),
+    (2, 4, ("MlpAdapter", "SpatialAdapter")), (3, 0, ("SpatialAdapter",))])
+def test_adapter_block_kernels_match_plain(card, stage, shift, positions):
+    """K4 with drop-path masks and K5 at one full-width shape per stage
+    (stage 0: the 48-wide adapter padded to 64), random adapter weights,
+    B=2: every output within 2^-6 of its largest magnitude of the plain
+    bf16 version; no grads for an adapter the block lacks."""
+    gen = torch.Generator().manual_seed(20 + stage)
+    H, C, nh = 64 >> stage, 96 << stage, 4 << stage
+    adapt = AdaptConfig({"method": "adapter", "adapt_kwargs": {
+        "position": list(positions), "type": "adapter", "mlp_ratio": 0.5,
+        "adapter_scalar": 0.1, "act_layer": "gelu"}})
+    blk = SwinTransformerBlock(C, (H, H), nh, 8, shift_size=shift, adapt=adapt)
+    init_weights(blk, gen)
+    with torch.no_grad():
+        for ad in swin_block_adapt.block_adapters(blk).values():
+            ad.fc2.weight.copy_(torch.randn(ad.fc2.weight.shape, generator=gen) * 0.3)
+    blk.to(card)
+    p = swin_block_adapt.prepare_adapt_block(blk, torch.bfloat16)
+    x = torch.randn(2, H * H, C, generator=gen).to(card).bfloat16()
+    dout = torch.randn(2, H * H, C, generator=gen).to(card).bfloat16()
+    m = torch.tensor([[1 / 0.9, 0.0], [0.0, 1 / 0.9]], device=card)
+    fwd, bwd = swin_block_adapt.FWD_KERNEL, swin_block_adapt.BWD_KERNEL
+    before = (fwd.launches, bwd.launches)
+    got = swin_block_adapt.swin_block_adapt_fused(x, p, m).float()
+    dx, g = swin_block_adapt.swin_block_adapt_backward(x, p, m, dout)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref = swin_block_adapt.swin_block_adapt_plain(x, p, m).float()
+    assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+    dx0, g0 = swin_block_adapt.swin_block_adapt_backward_plain(x, p, m, dout)
+    assert set(g) == set(g0) and ("sa1_w" in g) == ("SpatialAdapter" in positions)
+    for name, a, b in [("dx", dx, dx0)] + [(k, g[k], g0[k]) for k in g0]:
+        a, b = a.float(), b.float()
+        assert a.shape == b.shape, name
+        assert (a - b).abs().max() <= 2.0 ** -6 * b.abs().max(), name
+
+
+def test_layer_norm_with_frozen_scale_trains_its_shift(card):
+    """On the card, a LayerNorm whose scale is frozen still gives its shift
+    a gradient (the AdapterBit freeze), equal to nn.LayerNorm's."""
+    from pseldnets_tpu_torch.models.common import LayerNorm
+
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(64, 96, device=card, generator=g)
+    dy = torch.randn(64, 96, device=card, generator=g)
+    ref, ln = torch.nn.LayerNorm(96).to(card), LayerNorm(96).to(card)
+    ln.weight.requires_grad_(False)
+    (gb_ref,) = torch.autograd.grad((ref(x) * dy).sum(), [ref.bias])
+    (gb,) = torch.autograd.grad((ln(x) * dy).sum(), [ln.bias])
+    assert gb.shape == (96,) and torch.allclose(gb, gb_ref, atol=1e-5)
