@@ -8,9 +8,11 @@ tracks, seeded random weights, 10 s FOA waveforms): serving through
 htsat_fused_forward_from_wav, and training through SELDTask.train_step
 (frontend, fused forward with drop-path, ADPIT loss, K3 backward, clip,
 AdamW); then the same two with AdapterBit (adapt=adapter: bottleneck
-adapters in every block, K4 forward and K5 backward, frozen backbone). It
-checks the outputs, the kernels' launch counts on each path and the kernel
-step against the plain step, and prints the times.
+adapters in every block, K4 forward and K5 backward, frozen backbone); then
+PaSST mACCDOA serving (configs/model/passt.yaml, 602 tokens of 768, 7 ViT
+blocks on K6) through passt_fused_forward_from_wav. It checks the outputs,
+the kernels' launch counts on each path and the kernel step against the
+plain step, and prints the times.
 
     python3 chip_smoke.py
 
@@ -44,7 +46,10 @@ TRAIN_OVERRIDES = ["loss=multi_accdoa", "model.kwargs.pretrained_path=null",
                    "model.kwargs.audioset_pretrain=false", "trainer.precision=bf16-mixed",
                    "trainer.fused_forward=true"]
 ADAPT = ["adapt=adapter"]  # configs/adapt/adapter.yaml (bench_all.py adapterbit_train)
-PATHS = ("serve", "train", "serve_adapter", "train_adapter")
+# configs/model/passt.yaml as bench_all.py:70-80 composes passt_maccdoa
+PASST_OVERRIDES = ["model=passt", "loss=multi_accdoa", "model.kwargs.pretrained_path=null",
+                   "model.kwargs.audioset_pretrain=false"]
+PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt")
 
 
 def log(msg):
@@ -101,10 +106,12 @@ def phase_device():
 
 
 def kernels():
-    from pseldnets_tpu_torch.ops import frontend, swin_block, swin_block_adapt, swin_block_vjp
+    from pseldnets_tpu_torch.ops import (frontend, swin_block, swin_block_adapt, swin_block_vjp,
+                                         vit_block)
 
     return {"K1": frontend.KERNEL, "K2": swin_block.KERNEL, "K3": swin_block_vjp.KERNEL,
-            "K4": swin_block_adapt.FWD_KERNEL, "K5": swin_block_adapt.BWD_KERNEL}
+            "K4": swin_block_adapt.FWD_KERNEL, "K5": swin_block_adapt.BWD_KERNEL,
+            "K6": vit_block.KERNEL}
 
 
 def zero_counts():
@@ -366,7 +373,7 @@ def phase_serve(smi):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
     launches = read_counts()
-    want = {"K1": SERVE_BATCHES, "K2": 12 * SERVE_BATCHES, "K3": 0, "K4": 0, "K5": 0}
+    want = {"K1": SERVE_BATCHES, "K2": 12 * SERVE_BATCHES, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
     log(f"served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches {launches} "
         f"(expect {want})")
     check(launches == want, "launch counts")
@@ -486,7 +493,8 @@ def phase_train(smi):
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
     launches = read_counts()
     log(f"peak device memory over the steps {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    want = {"K1": TRAIN_STEPS, "K2": 12 * TRAIN_STEPS, "K3": 12 * TRAIN_STEPS, "K4": 0, "K5": 0}
+    want = {"K1": TRAIN_STEPS, "K2": 12 * TRAIN_STEPS, "K3": 12 * TRAIN_STEPS, "K4": 0, "K5": 0,
+            "K6": 0}
     log(f"trained {TRAIN_STEPS} steps of {B_TRAIN} x 10 s clips: launches {launches} "
         f"(expect {want}); losses {[round(float(v), 6) for v in losses]}")
     check(launches == want, "training launch counts")
@@ -713,7 +721,7 @@ def phase_serve_adapter(smi):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
     launches = read_counts()
-    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 12 * SERVE_BATCHES, "K5": 0}
+    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 12 * SERVE_BATCHES, "K5": 0, "K6": 0}
     log(f"AdapterBit: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches "
         f"{launches} (expect {want})")
     check(launches == want, "AdapterBit serving launch counts")
@@ -813,7 +821,8 @@ def phase_train_adapter(smi):
     launches = read_counts()
     log(f"AdapterBit: peak device memory over the steps "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    want = {"K1": TRAIN_STEPS, "K2": 0, "K3": 0, "K4": 12 * TRAIN_STEPS, "K5": 12 * TRAIN_STEPS}
+    want = {"K1": TRAIN_STEPS, "K2": 0, "K3": 0, "K4": 12 * TRAIN_STEPS, "K5": 12 * TRAIN_STEPS,
+            "K6": 0}
     log(f"AdapterBit: trained {TRAIN_STEPS} steps of {B_TRAIN} x 10 s clips: launches "
         f"{launches} (expect {want}); losses {[round(float(v), 6) for v in losses]}")
     check(launches == want, "AdapterBit training launch counts")
@@ -903,6 +912,187 @@ def phase_train_adapter(smi):
                       "K5": (k5_err, k5_rel, k5_ms, k5_plain, k5_bound, "operations")}
 
 
+def random_vit_block(gen):
+    """A full-width PaSST block (768, 12 heads of 64, MLP 3072) with seeded
+    weights, on the card."""
+    from pseldnets_tpu_torch.models.factory import init_weights
+    from pseldnets_tpu_torch.models.passt import Block
+
+    blk = Block(768, 12)
+    init_weights(blk, gen)
+    return blk.cuda().eval()
+
+
+def phase_vit_block():
+    """K6 against its plain version (bf16 and float32) at PaSST's full
+    width: the served N=602 at B=4, a tail (N=130, B=3: N and B*N not
+    multiples of 64) and N=1800 (16 query rows per attention block)."""
+    import torch
+    from pseldnets_tpu_torch.ops.vit_block import (prepare_vit_block, vit_block_fused,
+                                                   vit_block_plain)
+
+    gen = torch.Generator().manual_seed(21)
+    for B, N in ((B_CHECK, 602), (3, 130), (1, 1800)):
+        blk = random_vit_block(gen)
+        x = torch.randn(B, N, 768, generator=gen).cuda().bfloat16()
+        p16 = prepare_vit_block(blk, torch.bfloat16)
+        p32 = prepare_vit_block(blk, torch.float32)
+        log(f"ViT block B={B} N={N} C=768, 12 heads:")
+        got = vit_block_fused(x, p16)
+        torch.cuda.synchronize()
+        compare("K6 out", got, vit_block_plain(x, p16), vit_block_plain(x.float(), p32), 2.0 ** -6)
+
+
+def k6_work(B, N, p):
+    """Bytes and bf16 FLOPs of one K6 call on B images of N tokens: the four
+    GEMMs (2 M C (3C + C + 2 hidden)), Q K^T and P V (4 B N^2 C); x read and
+    the output written once, the bf16 matrices and float32 vectors read
+    once."""
+    C, hidden = p.C, p.hidden
+    M = B * N
+    flops = 2 * M * C * (3 * C + C + 2 * hidden) + 4 * B * N * N * C
+    w_bytes = sum(t.numel() * t.element_size() for t in
+                  (p.qkv_w, p.proj_w, p.fc1_w, p.fc2_w, p.qkv_b, p.proj_b, p.fc1_b,
+                   p.fc2_b, p.ln1_w, p.ln1_b, p.ln2_w, p.ln2_b))
+    return 2 * M * C * 2 + w_bytes, flops
+
+
+def library_layer(blk):
+    """The one PyTorch call that computes K6's function, as a yardstick
+    only: nn.TransformerEncoderLayer (pre-LN, exact GELU, eps 1e-6) with the
+    block's weights, bf16, eval."""
+    import torch
+
+    C, nh = blk.dim, blk.num_heads
+    layer = torch.nn.TransformerEncoderLayer(
+        C, nh, blk.mlp.fc1.out_features, dropout=0.0, activation="gelu",
+        layer_norm_eps=blk.norm1.eps, batch_first=True, norm_first=True)
+    with torch.no_grad():
+        for dst, src in ((layer.self_attn.in_proj_weight, blk.attn.qkv.weight),
+                         (layer.self_attn.in_proj_bias, blk.attn.qkv.bias),
+                         (layer.self_attn.out_proj.weight, blk.attn.proj.weight),
+                         (layer.self_attn.out_proj.bias, blk.attn.proj.bias),
+                         (layer.linear1.weight, blk.mlp.fc1.weight),
+                         (layer.linear1.bias, blk.mlp.fc1.bias),
+                         (layer.linear2.weight, blk.mlp.fc2.weight),
+                         (layer.linear2.bias, blk.mlp.fc2.bias),
+                         (layer.norm1.weight, blk.norm1.weight),
+                         (layer.norm1.bias, blk.norm1.bias),
+                         (layer.norm2.weight, blk.norm2.weight),
+                         (layer.norm2.bias, blk.norm2.bias)):
+            dst.copy_(src)
+    return layer.to(device="cuda", dtype=torch.bfloat16).eval()
+
+
+def phase_serve_passt(smi):
+    """PaSST mACCDOA serving (bench_all.py passt_maccdoa at B=32):
+    SERVE_BATCHES batches of B_SERVE 10 s clips through
+    passt_fused_forward_from_wav (K1, then K6 on every block), the output
+    against the plain path, K1 and K6 on the batch's own inputs, the library
+    yardstick per block, and a profile."""
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.models import build_model
+    from pseldnets_tpu_torch.ops import vit_block
+    from pseldnets_tpu_torch.serving import (folded_wav_features, passt_fused_forward_from_wav,
+                                             prepare_vit_blocks)
+    from pseldnets_tpu_torch.serving.passt import passt_tokens
+
+    cfg = compose(str(ROOT / "configs"), "train", PASST_OVERRIDES)
+    model, _ = build_model(cfg, 13, device="cuda", seed=0)
+    gen = torch.Generator().manual_seed(22)
+    with torch.no_grad():  # non-trivial eval ScalarBN statistics
+        model.scalar.running_mean.copy_(torch.randn(7, 64, generator=gen).cuda() * 5.0 - 20.0)
+        model.scalar.running_var.copy_(torch.rand(7, 64, generator=gen).cuda() * 50.0 + 10.0)
+    blocks = prepare_vit_blocks(model, torch.bfloat16)
+    check(len(blocks) == 7 and all((p.C, p.nh, p.hidden) == (768, 12, 3072) for p in blocks)
+          and model.encoder.grid_size == (6, 100), "PaSST block plan")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(SERVE_BATCHES)]
+    serve = lambda w: passt_fused_forward_from_wav(model, w, blocks=blocks)  # noqa: E731
+    serve(wavs[0])  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: counts from 0, SERVE_BATCHES batches
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [serve(w)["multi_accdoa"] for w in wavs]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SERVE_BATCHES
+    launches = read_counts()
+    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 7 * SERVE_BATCHES}
+    log(f"PaSST: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches {launches} "
+        f"(expect {want})")
+    check(launches == want, "PaSST serving launch counts")
+    for o in outs:
+        check(o.shape == (B_SERVE, 100, 117) and o.dtype == torch.float32
+              and torch.isfinite(o).all().item(), f"PaSST served output {tuple(o.shape)}")
+    log(f"PaSST served: {dt * 1e3:.2f} ms/batch, {B_SERVE / dt:.1f} clips/s "
+        f"(host clock, synchronized; {smi})")
+    plain = passt_fused_forward_from_wav(model, wavs[0], blocks=blocks,
+                                         use_kernels=False)["multi_accdoa"]
+    f32 = passt_fused_forward_from_wav(model, wavs[0], compute_dtype=torch.float32,
+                                       use_kernels=False)["multi_accdoa"]
+    e_plain = (outs[0] - plain).abs().max().item()
+    e_f32 = (outs[0] - f32).abs().max().item()
+    p_f32 = (plain - f32).abs().max().item()
+    log(f"PaSST served vs plain bf16 path: max |d| {e_plain:.3g} (<= 5e-2); vs float32 plain "
+        f"path {e_f32:.3g} (plain bf16 {p_f32:.3g}); output std {f32.std().item():.3g}")
+    check(e_plain <= 5e-2, "PaSST served output disagrees with the plain path")
+    check(e_f32 <= 1.25 * p_f32 + 1e-2, "PaSST served output further from float32 than plain bf16")
+
+    # K1 in its PaSST form (ScalarBN folded, bf16, no frame pad) on the batch
+    wav = wavs[0]
+    feats = folded_wav_features(model, wav)
+    ref = folded_wav_features(model, wav, use_kernels=False).float()
+    check(feats.shape == (B_SERVE, 7, 1001, 64), f"K1 PaSST form {tuple(feats.shape)}")
+    k1_err = (feats.float() - ref).abs().max().item()
+    k1_rel = k1_err / ref.abs().max().item()
+    rel = ((feats.float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    log(f"K1 at B={B_SERVE} (PaSST form, 1001 frames): max err {rel:.3g} of max(|x|, 1) "
+        f"(<= 2^-7)")
+    check(rel <= 2.0 ** -7, f"K1 disagrees with its plain version at B={B_SERVE} (PaSST)")
+    k1 = cuda_ms(lambda: folded_wav_features(model, wav), reps=10)
+
+    # K6 against its plain version on each of the batch's 7 block inputs,
+    # timed beside the plain version and the library call
+    with torch.no_grad():
+        xs = [passt_tokens(model, feats, torch.bfloat16)]
+        for p in blocks[:-1]:
+            xs.append(vit_block.vit_block_fused(xs[-1], p))
+    check(xs[0].shape == (B_SERVE, 602, 768), f"PaSST tokens {tuple(xs[0].shape)}")
+    rows, k6_err, k6_rel, lib_rel = [], 0.0, 0.0, 0.0
+    for i, (x, p, blk) in enumerate(zip(xs, blocks, model.encoder.blocks)):
+        ref = vit_block.vit_block_plain(x, p).float()
+        scale = ref.abs().max().item()
+        err = (vit_block.vit_block_fused(x, p).float() - ref).abs().max().item()
+        check(err <= 2.0 ** -6 * scale, f"K6 block {i} disagrees with its plain version")
+        k6_err, k6_rel = max(k6_err, err), max(k6_rel, err / scale)
+        layer = library_layer(blk)
+        with torch.no_grad():
+            lib_e = (layer(x).float() - ref).abs().max().item() / scale
+            t_lib = cuda_ms(lambda: layer(x), reps=5)
+        # the library call rounds elsewhere (its own LayerNorm and attention)
+        check(lib_e <= 2.0 ** -4, f"library call block {i}: {lib_e:.3g} of scale")
+        lib_rel = max(lib_rel, lib_e)
+        t = cuda_ms(lambda: vit_block.vit_block_fused(x, p), reps=5)
+        tp = cuda_ms(lambda: vit_block.vit_block_plain(x, p), reps=2)
+        nb, fl = k6_work(B_SERVE, 602, p)
+        rows.append((t, tp, bound_ms(nb, bf16_flops=fl)[0], t_lib))
+        log(f"  K6 block {i}: |k-plain| {err:.3g} (<= {2.0 ** -6 * scale:.3g}), {t:.3f} ms, "
+            f"plain {tp:.3f} ms, library {t_lib:.3f} ms ({lib_e:.3g} of scale from plain), "
+            f"bound {rows[-1][2]:.4f} ms")
+    k6_ms, k6_plain, k6_bound, k6_lib = (sum(r[j] for r in rows) for j in range(4))
+    log(f"PaSST per batch of {B_SERVE} ({smi}): K1 {k1:.3f} ms, K6 x7 {k6_ms:.3f} ms (plain "
+        f"{k6_plain:.3f}, library {k6_lib:.3f}, bound {k6_bound:.3f}), rest "
+        f"{dt * 1e3 - k1 - k6_ms:.3f} ms; library call within {lib_rel:.3g} of scale")
+    phase_profile("one PaSST served batch", lambda: serve(wav))
+    return launches, {"K1": (k1_err, k1_rel),
+                      "K6": (k6_err, k6_rel, k6_ms, k6_plain, k6_bound, "operations", k6_lib,
+                             lib_rel)}
+
+
 def phase_profile(what, fn):
     """Device time by kernel over one call of fn (torch.profiler, CUPTI)."""
     import torch
@@ -946,12 +1136,16 @@ def main():
     phase_swin_block_adapt()
     results["serve_adapter"] = phase_serve_adapter(smi)
     results["train_adapter"] = phase_train_adapter(smi)
+    phase_vit_block()
+    results["serve_passt"] = phase_serve_passt(smi)
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
-    # steps, plain and AdapterBit), each counted from 0; errors: the largest
-    # over the checks at each path's own shapes, absolute and as a share of
-    # the plain output's largest magnitude; ms and bounds per served batch
-    # (K1, K2, K4) or per training step (K3, K5)
+    # steps, plain, AdapterBit and PaSST), each counted from 0; errors: the
+    # largest over the checks at each path's own shapes, absolute and as a
+    # share of the plain output's largest magnitude; ms and bounds per served
+    # batch (K1, K2, K4, K6) or per training step (K3, K5); library_ms: one
+    # PyTorch call computing the same function (K6 only), with its error
+    # from the plain version as a share of scale
     for name, route_src, replaces in (
             ("K1 fused_logmel_iv", "pseldnets_tpu_torch/csrc/frontend.cu",
              "pseldnets_tpu/ops/pallas/frontend.py:754"),
@@ -962,11 +1156,14 @@ def main():
             ("K4 swin_block_adapt_fused", "pseldnets_tpu_torch/csrc/swin_block_adapt.cu",
              "pseldnets_tpu/ops/pallas/swin_block_adapt_vjp.py:463"),
             ("K5 swin_block_adapt_backward", "pseldnets_tpu_torch/csrc/swin_block_adapt_bwd.cu",
-             "pseldnets_tpu/ops/pallas/swin_block_adapt_vjp.py:532")):
+             "pseldnets_tpu/ops/pallas/swin_block_adapt_vjp.py:532"),
+            ("K6 vit_block_fused", "pseldnets_tpu_torch/csrc/vit_block.cu",
+             "pseldnets_tpu/ops/pallas/vit_block.py:222")):
         key = name.split()[0]
         errs = {path: r[1][key][:2] for path, r in results.items() if key in r[1]}
-        ms, plain_ms, b_ms, by = next(r[1][key] for r in results.values()
-                                      if len(r[1].get(key, ())) == 6)[2:]
+        timed = next(r[1][key] for r in results.values() if len(r[1].get(key, ())) >= 6)
+        ms, plain_ms, b_ms, by = timed[2:6]
+        library_ms, library_err = timed[6:8] if len(timed) > 6 else (None, None)
         by_path = {path: results[path][0][key] for path in PATHS}
         rows.append({"name": name, "route": "cuda", "source": route_src,
                      "replaces": replaces, "launches": sum(by_path.values()),
@@ -975,7 +1172,8 @@ def main():
                      "max_abs_err_by_path": {k: e[0] for k, e in errs.items()},
                      "max_err_of_scale": max(e[1] for e in errs.values()),
                      "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms,
+                     "library_err_of_scale": library_err})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -98,11 +98,12 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
 
 
 class LayerNorm(nn.LayerNorm):
-    """nn.LayerNorm (eps 1e-5) that also trains a shift beside a frozen
-    scale on the card (see ``layer_norm``); otherwise nn.LayerNorm itself."""
+    """nn.LayerNorm (eps 1e-5 by default; PaSST's are 1e-6) that also trains
+    a shift beside a frozen scale on the card (see ``layer_norm``);
+    otherwise nn.LayerNorm itself."""
 
-    def __init__(self, dim: int):
-        super().__init__(dim, eps=1e-5)
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__(dim, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.weight.requires_grad == self.bias.requires_grad:
@@ -132,14 +133,18 @@ class Mlp(nn.Module):
 class PatchEmbed(nn.Module):
     """2D patch embedding conv + LayerNorm (reference model_utilities.py:174-213).
 
-    Input NCHW; output (B, N, C) tokens in row-major (H', W') order.
+    Input NCHW; output (B, N, C) tokens in row-major (H', W') order, or with
+    ``flatten=False`` the conv's NCHW map (B, C, H', W') and no norm (PaSST
+    adds its position embeddings on that map).
     """
 
     def __init__(self, img_size: Tuple[int, int], patch_size: Tuple[int, int],
                  patch_stride: Tuple[int, int], in_chans: int, embed_dim: int,
-                 use_norm: bool = True):
+                 use_norm: bool = True, flatten: bool = True):
         super().__init__()
         self.img_size = tuple(img_size)
+        self.flatten = flatten
+        use_norm = use_norm and flatten
         pad = ((patch_size[0] - patch_stride[0]) // 2,
                (patch_size[1] - patch_stride[1]) // 2)
         self.proj = nn.Conv2d(in_chans, embed_dim, kernel_size=tuple(patch_size),
@@ -150,6 +155,8 @@ class PatchEmbed(nn.Module):
         if tuple(x.shape[2:]) != self.img_size:
             raise ValueError(f"input {tuple(x.shape[2:])} != img_size {self.img_size}")
         x = self.proj(x)
+        if not self.flatten:
+            return x
         return self.norm(x.flatten(2).transpose(1, 2))
 
 

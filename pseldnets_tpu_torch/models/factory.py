@@ -1,5 +1,5 @@
 """Model factory: (method, backbone) -> torch module, the counterpart of the
-JAX package's models/factory.py (HTSAT branch only in this slice).
+JAX package's models/factory.py (the ACCDOA/mACCDOA HTSAT and PaSST branches).
 
 Mirrors the reference's lookup (src/models/model_module.py:13-34) including the
 audio_feature -> in_channels mapping (:24-31).
@@ -15,10 +15,14 @@ from . import heads
 from .adapters import AdaptConfig, Adapter
 from .common import TorchBatchNorm
 from .htsat import WindowAttention
+from .passt import PaSSTEncoder
 
 # what the JAX package builds and this slice does not port yet, with the
 # ROADMAP.md queue A step that ports it
-_NOT_PORTED = {"einv2": 7, "PASST": 8, "CRNN": 9, "ConvConformer": 9}
+_NOT_PORTED = {"einv2": 7, "CRNN": 9, "ConvConformer": 9}
+# PaSST encoder kwargs the module does not take (the JAX package's
+# models/factory.py:18)
+_PASST_DROP = ("representation_size", "norm_layer", "act_layer", "attn_drop_rate")
 
 
 def in_channels_for(audio_feature: str) -> int:
@@ -54,6 +58,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 randn(mod.bias, 0.1)
             elif isinstance(mod, WindowAttention):
                 randn(mod.relative_position_bias_table, 0.5)
+            elif isinstance(mod, PaSSTEncoder):
+                for p in (mod.cls_token, mod.dist_token, mod.new_pos_embed,
+                          mod.freq_new_pos_embed, mod.time_new_pos_embed):
+                    if p is not None:
+                        nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
+                                              generator=generator)
         for mod in model.modules():
             if isinstance(mod, Adapter):
                 mod.fc2.weight.zero_()
@@ -83,18 +93,27 @@ def build_model(cfg, num_classes: int, *, device="cuda", seed: int = 0):
             raise NotImplementedError(
                 f"backbone '{backbone}' for method '{method}' is not ported yet "
                 f"(ROADMAP.md queue A step {_NOT_PORTED[what]})")
-    if method not in ("accdoa", "multi_accdoa") or backbone != "HTSAT":
+    if method not in ("accdoa", "multi_accdoa") or backbone not in ("HTSAT", "PASST"):
         raise NotImplementedError(f"backbone '{backbone}' for method '{method}'")
+    num_tracks = 3 if method == "multi_accdoa" else 1
     enc = dict(kwargs)
-    enc["depths"] = tuple(enc.get("depths", (2, 2, 6, 2)))
-    enc["num_heads"] = tuple(enc.get("num_heads", (4, 8, 16, 32)))
-    enc["patch_stride"] = tuple(enc.get("patch_stride", (4, 4)))
-    enc["mlp_ratio"] = float(enc.get("mlp_ratio", 4.0))
-    model = heads.HTSAT(num_classes=num_classes, in_channels=in_channels,
-                        mel_bins=mel_bins, pred_res=pred_res,
-                        num_tracks=3 if method == "multi_accdoa" else 1,
-                        tgt_output_frames=tgt_output_frames, encoder_kwargs=enc,
-                        adapt=adapt)
+    if backbone == "PASST":  # takes no adapters, as in the JAX package
+        for k in _PASST_DROP:
+            enc.pop(k, None)
+        enc["img_size"] = tuple(enc.get("img_size", (64, 1001)))
+        enc["mlp_ratio"] = float(enc.get("mlp_ratio", 4.0))
+        model = heads.PASST(num_classes=num_classes, in_channels=in_channels,
+                            mel_bins=mel_bins, num_tracks=num_tracks,
+                            encoder_kwargs=enc)
+    else:
+        enc["depths"] = tuple(enc.get("depths", (2, 2, 6, 2)))
+        enc["num_heads"] = tuple(enc.get("num_heads", (4, 8, 16, 32)))
+        enc["patch_stride"] = tuple(enc.get("patch_stride", (4, 4)))
+        enc["mlp_ratio"] = float(enc.get("mlp_ratio", 4.0))
+        model = heads.HTSAT(num_classes=num_classes, in_channels=in_channels,
+                            mel_bins=mel_bins, pred_res=pred_res, num_tracks=num_tracks,
+                            tgt_output_frames=tgt_output_frames, encoder_kwargs=enc,
+                            adapt=adapt)
     init_weights(model, torch.Generator().manual_seed(seed))
     meta = {"pretrained_path": pretrained_path,
             "audioset_pretrain": audioset_pretrain,

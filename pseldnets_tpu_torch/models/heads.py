@@ -1,7 +1,7 @@
 """Single-branch SELD heads in PyTorch, the counterpart of the JAX package's
-models/heads.py (HTSAT only in this slice).
+models/heads.py (HTSAT and PaSST).
 
-Parity: reference src/models/accdoa.py (HTSAT :107-246) and
+Parity: reference src/models/accdoa.py (HTSAT :107-246, PaSST :249-329) and
 src/models/multi_accdoa.py. Output dict keys match the reference:
 {'accdoa': (B, T, 3K)} or {'multi_accdoa': (B, T, 9K)} with channel layout
 [track0 x(K) y(K) z(K) | track1 ... | track2 ...].
@@ -15,6 +15,7 @@ import torch.nn as nn
 from .adapters import NO_ADAPT, AdaptConfig
 from .common import ScalarBN, interpolate
 from .htsat import HTSATEncoder, drop_path_masks
+from .passt import PaSSTEncoder
 
 
 class HTSAT(nn.Module):
@@ -76,3 +77,25 @@ class HTSAT(nn.Module):
             x = torch.cat([x[:, :half], x[:, half:]], dim=0)
         x = x.reshape(B, output_frames, self.pred_res, -1).mean(dim=2)
         return {self.output_key: torch.tanh(x.float())}
+
+
+class PASST(nn.Module):
+    """PaSST backbone + linear head (reference accdoa.py:249-329): ScalarBN
+    -> encoder -> fc on the (B, T', E) token map -> tanh. Eval only (the
+    encoder raises in train mode)."""
+
+    def __init__(self, num_classes: int, in_channels: int = 7, mel_bins: int = 64,
+                 num_tracks: int = 1, encoder_kwargs: Dict[str, Any] = None):
+        super().__init__()
+        self.num_tracks = num_tracks
+        self.scalar = ScalarBN(in_channels, mel_bins)
+        self.encoder = PaSSTEncoder(in_chans=in_channels, **dict(encoder_kwargs or {}))
+        self.fc = nn.Linear(self.encoder.num_features, 3 * num_tracks * num_classes)
+
+    @property
+    def output_key(self) -> str:
+        return "accdoa" if self.num_tracks == 1 else "multi_accdoa"
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        fm = self.encoder(self.scalar(x))
+        return {self.output_key: torch.tanh(self.fc(fm).float())}

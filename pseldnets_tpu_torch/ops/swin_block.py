@@ -110,12 +110,12 @@ def prepare_block(block: SwinTransformerBlock, compute_dtype: torch.dtype,
     return p
 
 
-def _ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """float32 LayerNorm over the last axis (two-pass moments, eps 1e-5)."""
+def _ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
+    """float32 LayerNorm over the last axis (two-pass moments)."""
     xf = x.float()
     m = xf.mean(-1, keepdim=True)
     v = ((xf - m) ** 2).mean(-1, keepdim=True)
-    return (xf - m) * torch.rsqrt(v + LN_EPS) * w + b
+    return (xf - m) * torch.rsqrt(v + eps) * w + b
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -6,3 +6,6 @@ from .htsat import htsat_fused_forward  # noqa: F401
 from .htsat import htsat_fused_forward_from_wav  # noqa: F401
 from .htsat import prepare_blocks  # noqa: F401
 from .htsat import scalar_bn_affine  # noqa: F401
+from .passt import passt_fused_forward  # noqa: F401
+from .passt import passt_fused_forward_from_wav  # noqa: F401
+from .passt import prepare_vit_blocks  # noqa: F401

@@ -5,7 +5,7 @@ Runs ``python3 chip_smoke.py`` in the checkout A and the checkout B in turns,
 A B B A repeated ``--rounds`` times, each run a process of its own, keeps each
 run's output under ``--out``, reads the times that chip_smoke.py prints (the
 served batch, the training step, the kernels per batch or step, and the
-AdapterBit lines where the checkout has them) and prints, per checkout, the
+AdapterBit and PaSST lines where the checkout has them) and prints, per checkout, the
 median and the range of each over its runs as one JSON line. Exits non-zero
 when a run fails.
 
@@ -35,6 +35,10 @@ PATTERNS = {
     "k4_masks_x12_ms": r"^AdapterBit per step of \d+ .*?K4 with masks x12 ([\d.]+) ms",
     "k5_x12_ms": r"^AdapterBit per step of \d+ .*?K5 x12 ([\d.]+) ms",
     "adapter_rest_ms": r"^AdapterBit per step of \d+ .*?rest ([-\d.]+) ms",
+    "passt_served_ms": r"^PaSST served: ([\d.]+) ms/batch",
+    "k6_x7_ms": r"^PaSST per batch of \d+ .*?K6 x7 ([\d.]+) ms",
+    "k6_library_ms": r"^PaSST per batch of \d+ .*?K6 x7 .*?library ([\d.]+),",
+    "passt_rest_ms": r"^PaSST per batch of \d+ .*?rest ([-\d.]+) ms",
 }
 
 

@@ -1,4 +1,4 @@
-"""Kernels K1-K5 on the card against their plain versions (marked
+"""Kernels K1-K6 on the card against their plain versions (marked
 ``cuda``: skipped without a CUDA card and nvcc). Imports nothing of JAX, so on
 a machine without JAX it runs with
 
@@ -11,7 +11,8 @@ import torch
 from pseldnets_tpu_torch.models.adapters import AdaptConfig
 from pseldnets_tpu_torch.models.factory import init_weights
 from pseldnets_tpu_torch.models.htsat import PatchMerging, SwinTransformerBlock
-from pseldnets_tpu_torch.ops import frontend, swin_block, swin_block_adapt, swin_block_vjp
+from pseldnets_tpu_torch.models.passt import Block
+from pseldnets_tpu_torch.ops import frontend, swin_block, swin_block_adapt, swin_block_vjp, vit_block
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +145,23 @@ def test_layer_norm_with_frozen_scale_trains_its_shift(card):
     (gb_ref,) = torch.autograd.grad((ref(x) * dy).sum(), [ref.bias])
     (gb,) = torch.autograd.grad((ln(x) * dy).sum(), [ln.bias])
     assert gb.shape == (96,) and torch.allclose(gb, gb_ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,N", [(2, 602), (3, 130), (1, 1800)])
+def test_vit_block_kernel_matches_plain(card, B, N):
+    """K6 at PaSST's full width (C 768, 12 heads of 64, MLP 3072): the served
+    token count, a tail whose N and B*N are not multiples of 64, and a count
+    past 1664 (16 query rows per attention block): within 2^-6 of the plain
+    bf16 output's largest magnitude."""
+    gen = torch.Generator().manual_seed(30 + N)
+    blk = Block(768, 12)
+    init_weights(blk, gen)
+    blk.to(card).eval()
+    p = vit_block.prepare_vit_block(blk, torch.bfloat16)
+    x = torch.randn(B, N, 768, generator=gen).to(card).bfloat16()
+    before = vit_block.KERNEL.launches
+    got = vit_block.vit_block_fused(x, p).float()
+    assert vit_block.KERNEL.launches == before + 1
+    ref = vit_block.vit_block_plain(x, p).float()
+    assert got.shape == ref.shape == (B, N, 768)
+    assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()

@@ -98,7 +98,7 @@ def test_full_size_model_from_configs():
 @pytest.mark.parametrize("override,match", [
     ("adapt=adapter adapt.adapt_kwargs.adapter_scalar=learnable_scalar", "queue A step 6"),
     ("adapt=lora", "queue A step 6"),
-    ("model=crnn", "queue A step 9"), ("model=passt", "queue A step 8")])
+    ("model=crnn", "queue A step 9"), ("model=passt loss=einv2_pit", "queue A step 7")])
 def test_unported_settings_raise(override, match):
     cfg = compose(str(ROOT / "configs"), "train", OVERRIDES + override.split())
     with pytest.raises(NotImplementedError, match=match):

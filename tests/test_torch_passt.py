@@ -1,0 +1,243 @@
+"""The port's PaSST ACCDOA/mACCDOA model, its ViT block (plain version of
+kernel K6) and its serving path against the JAX package, tiny configurations
+(tests/test_serving_fused.py:173-226), weights moved across by the bridge;
+the JAX Pallas kernels run in interpret mode."""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pseldnets_tpu.models import heads as jax_heads
+from pseldnets_tpu.models.passt import Block as JaxBlock
+from pseldnets_tpu.ops.pallas.vit_block import vit_block_fused as jax_vit_block
+from pseldnets_tpu.serving import passt_fused_forward as jax_fused_forward
+from pseldnets_tpu.serving import passt_fused_forward_from_wav as jax_from_wav
+from pseldnets_tpu.train.checkpoint import flax_to_torch_key as jax_key
+from pseldnets_tpu_torch.config import compose
+from pseldnets_tpu_torch.models import build_model, heads
+from pseldnets_tpu_torch.models.passt import Block
+from pseldnets_tpu_torch.ops import frontend, vit_block
+from pseldnets_tpu_torch.serving import (passt_fused_forward, passt_fused_forward_from_wav,
+                                         prepare_vit_blocks)
+from pseldnets_tpu_torch.train.checkpoint import (_flatten, flax_to_torch_key,
+                                                  jax_to_torch_state_dict, load_jax_variables)
+from test_torch_swin_block import randomize
+
+ENC = dict(u_patchout=0, s_patchout_t=0, s_patchout_f=0, img_size=(16, 101), patch_size=16,
+           stride=10, embed_dim=32, depth=2, num_heads=2, mlp_ratio=4.0, qkv_bias=True,
+           distilled=True, drop_rate=0.0, drop_path_rate=0.0)
+# from the waveform: 64 mels and 1 s at 24 kHz fill img_size with 101 frames
+WAV_ENC = dict(ENC, img_size=(64, 101))
+PASST_OVERRIDES = ["model=passt", "loss=multi_accdoa", "model.kwargs.pretrained_path=null",
+                   "model.kwargs.audioset_pretrain=false"]
+
+
+def _models(rng, num_tracks=3, enc=ENC, dtype=jnp.float32):
+    """A tiny JAX heads.PASST with seeded random weights (every leaf: tokens,
+    position embeddings, norms, biases) and eval ScalarBN statistics, and the
+    port's model with the same weights through the bridge."""
+    mel = enc["img_size"][0]
+    jm = jax_heads.PASST(num_classes=5, in_channels=7, mel_bins=mel, num_tracks=num_tracks,
+                         encoder_kwargs=tuple(enc.items()), dtype=dtype)
+    x = jnp.zeros((1, 7, enc["img_size"][1], mel), jnp.float32)
+    v = jm.init({"params": jax.random.PRNGKey(0)}, x, train=False)
+    variables = {"params": randomize(v["params"], rng),
+                 "batch_stats": {"scalar": {"bn": {
+                     "running_mean": (rng.standard_normal((7, mel)) * 0.5).astype(np.float32),
+                     "running_var": (rng.random((7, mel)) + 0.5).astype(np.float32)}}}}
+    tm = heads.PASST(num_classes=5, in_channels=7, mel_bins=mel, num_tracks=num_tracks,
+                     encoder_kwargs=enc)
+    load_jax_variables(tm, variables)
+    return jm, variables, tm.eval()
+
+
+@pytest.mark.parametrize("num_tracks,key", [(1, "accdoa"), (3, "multi_accdoa")])
+def test_bridge_and_eager_forward_match_flax(rng, num_tracks, key):
+    """Every key maps both ways with the JAX package's key map and the
+    reference layouts; the eager model equals model.apply(train=False) in
+    float32 (summation order only)."""
+    jm, variables, tm = _models(rng, num_tracks)
+    sd = jax_to_torch_state_dict(variables, tm)
+    assert set(sd) == set(tm.state_dict())
+    for coll in ("params", "batch_stats"):
+        for path in _flatten(variables[coll]):
+            assert flax_to_torch_key(path) == jax_key(path), path
+    assert sd["encoder.blocks.1.attn.qkv.weight"].shape == (96, 32)
+    assert sd["encoder.head.0.weight"].shape == (32,)
+    assert sd["encoder.cls_token"].shape == sd["encoder.dist_token"].shape == (1, 1, 32)
+    assert sd["encoder.new_pos_embed"].shape == (1, 2, 32)
+    assert sd["encoder.freq_new_pos_embed"].shape == (1, 32, 1, 1)
+    assert sd["encoder.time_new_pos_embed"].shape == (1, 32, 1, 10)
+    assert sd["encoder.patch_embed.proj.weight"].shape == (32, 7, 16, 16)
+    x = (rng.standard_normal((2, 7, 101, 16)) * 0.5).astype(np.float32)
+    ref = np.asarray(jm.apply(variables, jnp.asarray(x), train=False)[key])
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))[key].numpy()
+    assert got.shape == ref.shape == (2, 10, 15 * num_tracks)
+    assert np.abs(got - ref).max() < 2e-5, np.abs(got - ref).max()
+
+
+def _block_pair(rng, N, C, nh):
+    blk = JaxBlock(dim=C, num_heads=nh)
+    x = rng.standard_normal((3, N, C)).astype(np.float32)
+    params = randomize(blk.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], rng)
+    tblk = Block(C, nh)
+    load_jax_variables(tblk, {"params": params})
+    return blk, params, tblk.eval(), x
+
+
+@pytest.mark.parametrize("N,C,nh", [(26, 32, 4), (17, 48, 3)])
+def test_vit_block_plain_matches_pallas_f32(rng, N, C, nh):
+    """vit_block_plain against the Pallas kernel (exact softmax, interpret
+    mode) and the flax block in float32, N not a multiple of 16."""
+    blk, params, tblk, x = _block_pair(rng, N, C, nh)
+    ref = np.asarray(jax_vit_block(jnp.asarray(x), params, nh=nh, compute_dtype=jnp.float32,
+                                   interpret=True))
+    p = vit_block.prepare_vit_block(tblk, torch.float32)
+    assert p.eps == 1e-6
+    got = vit_block.vit_block_plain(torch.from_numpy(x), p).numpy()
+    assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
+    flax_ref = np.asarray(blk.apply({"params": params}, jnp.asarray(x)))
+    with torch.no_grad():
+        eager = tblk(torch.from_numpy(x)).numpy()
+    assert np.abs(eager - flax_ref).max() < 5e-5, np.abs(eager - flax_ref).max()
+    assert np.abs(got - eager).max() < 5e-5, np.abs(got - eager).max()
+
+
+def test_vit_block_plain_matches_pallas_bf16(rng):
+    """bf16: the same rounding points as the Pallas bf16 kernel; they differ
+    by exact GELU against _gelu_poly and one-ulp flips that propagate, within
+    3e-2 of the output's largest magnitude (K2's bound)."""
+    _, params, tblk, x = _block_pair(rng, 26, 32, 4)
+    ref = np.asarray(jax_vit_block(jnp.asarray(x), params, nh=4, compute_dtype=jnp.bfloat16,
+                                   interpret=True)).astype(np.float32)
+    got = vit_block.vit_block_plain(torch.from_numpy(x),
+                                    vit_block.prepare_vit_block(tblk, torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err < 3e-2 * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+def test_fused_forward_matches_jax(rng):
+    """The port's fused forward on the plain block (CPU) against the JAX
+    passt_fused_forward (Pallas interpret): 5e-5 in float32; and the eager
+    model agrees with it."""
+    jm, variables, tm = _models(rng, num_tracks=1)
+    x = (rng.standard_normal((2, 7, 101, 16)) * 0.5).astype(np.float32)
+    ref = np.asarray(jax_fused_forward(jm, variables, jnp.asarray(x), compute_dtype=jnp.float32,
+                                       interpret=True)["accdoa"])
+    got = passt_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32,
+                              use_kernels=False)["accdoa"].numpy()
+    assert got.shape == ref.shape == (2, 10, 15)
+    assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
+    with torch.no_grad():
+        eager = tm(torch.from_numpy(x))["accdoa"].numpy()
+    assert np.abs(got - eager).max() < 5e-5
+
+
+def test_fused_forward_bf16_within_band(rng):
+    """bf16: the port against the JAX fused forward of a bf16 model (the
+    flax submodules at bf16, the Pallas block in bf16), and against the
+    float32 path: both within 5e-2, the band the JAX package holds its bf16
+    paths to (the outputs are tanh values)."""
+    jm, variables, tm = _models(rng, dtype=jnp.bfloat16)
+    x = (rng.standard_normal((2, 7, 101, 16)) * 0.5).astype(np.float32)
+    ref = np.asarray(jax_fused_forward(jm, variables, jnp.asarray(x), compute_dtype=jnp.bfloat16,
+                                       interpret=True)["multi_accdoa"]).astype(np.float32)
+    blocks = prepare_vit_blocks(tm, torch.bfloat16)
+    got = passt_fused_forward(tm, torch.from_numpy(x), blocks=blocks)["multi_accdoa"]
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert np.abs(got.numpy() - ref).max() < 5e-2, np.abs(got.numpy() - ref).max()
+    f32 = passt_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32)
+    assert (got - f32["multi_accdoa"]).abs().max() < 5e-2
+
+
+def test_from_wav_matches_jax_from_wav(rng):
+    """The serving path from the waveform, float32, plain branches on the
+    CPU, against the JAX one in interpret mode (frontend split3=False, eval
+    ScalarBN folded): 5e-5, test_torch_htsat.py's from-wav bound; 101
+    frames fill img_size (64, 101), 62 tokens."""
+    jm, variables, tm = _models(rng, enc=WAV_ENC)
+    wav = (rng.standard_normal((2, 4, 24000)) * 0.1).astype(np.float32)
+    frontend.KERNEL.launches = vit_block.KERNEL.launches = 0
+    got = passt_fused_forward_from_wav(tm, wav, compute_dtype=torch.float32, device="cpu",
+                                       use_kernels=False)["multi_accdoa"].numpy()
+    # the default use_kernels=True on CPU tensors takes the plain versions
+    dflt = passt_fused_forward_from_wav(tm, wav, compute_dtype=torch.float32,
+                                        device="cpu")["multi_accdoa"].numpy()
+    assert frontend.KERNEL.launches == vit_block.KERNEL.launches == 0
+    assert np.array_equal(got, dflt)
+    ref = np.asarray(jax_from_wav(jm, variables, jnp.asarray(wav), compute_dtype=jnp.float32,
+                                  interpret=True, split3=False)["multi_accdoa"])
+    assert got.shape == ref.shape == (2, 10, 45)
+    assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
+
+
+def test_from_wav_needs_the_card_and_a_full_clip(rng):
+    _, _, tm = _models(rng, enc=WAV_ENC)
+    wav = np.zeros((1, 4, 24000), np.float32)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            passt_fused_forward_from_wav(tm, wav)
+    with pytest.raises(ValueError, match="needs 101 frames"):
+        passt_fused_forward_from_wav(tm, wav[..., :12000], device="cpu")
+
+
+@pytest.mark.parametrize("setting", [{}, {"u_patchout": 10}, {"s_patchout_t": 2},
+                                     {"s_patchout_f": 1}, {"drop_rate": 0.1},
+                                     {"drop_path_rate": 0.1}])
+def test_train_mode_raises(rng, setting):
+    """A PaSST with a train-only setting builds and serves in eval mode; a
+    train-mode forward raises, naming the PaSST training step."""
+    tm = heads.PASST(num_classes=5, in_channels=7, mel_bins=16, num_tracks=3,
+                     encoder_kwargs=dict(ENC, **setting))
+    x = torch.from_numpy((rng.standard_normal((2, 7, 101, 16)) * 0.5).astype(np.float32))
+    with torch.no_grad():
+        assert tm.eval()(x)["multi_accdoa"].shape == (2, 10, 45)
+        with pytest.raises(NotImplementedError, match="queue A step 8"):
+            tm.train()(x)
+
+
+def test_vit_block_wrapper_routes_and_raises(rng):
+    """A CPU tensor takes the plain version and builds or launches nothing;
+    any other device must be CUDA, and the kernel's shape limits raise."""
+    _, _, tblk, x = _block_pair(rng, 26, 128, 2)  # head dim 64
+    p = vit_block.prepare_vit_block(tblk, torch.bfloat16)
+    xt = torch.from_numpy(x).bfloat16()
+    vit_block.KERNEL.launches = 0
+    assert torch.equal(vit_block.vit_block_fused(xt, p), vit_block.vit_block_plain(xt, p))
+    assert vit_block.KERNEL.launches == 0 and vit_block.KERNEL._lib is None
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        vit_block.vit_block_fused(xt.to("meta"), p)
+    with pytest.raises(NotImplementedError, match="head dim 64"):
+        vit_block.vit_block_fused(torch.zeros(1, vit_block.MAX_TOKENS + 1, 128,
+                                              dtype=torch.bfloat16, device="meta"), p)
+    _, _, tblk32, _ = _block_pair(rng, 26, 64, 2)  # head dim 32
+    with pytest.raises(NotImplementedError, match="head dim 64"):
+        vit_block.vit_block_fused(torch.zeros(1, 26, 64, dtype=torch.bfloat16, device="meta"),
+                                  vit_block.prepare_vit_block(tblk32, torch.bfloat16))
+    assert vit_block.KERNEL.launches == 0
+
+
+def test_full_size_passt_from_configs():
+    """configs/model/passt.yaml with bench_all.py's overrides builds the
+    published width: (6, 100) patch grid + cls + dist = 602 tokens, 7 blocks
+    of 768 wide, 12 heads of 64, MLP 3072, eps 1e-6, 13 x 3 x 3 outputs; the
+    seeded init fills the tokens and position embeddings."""
+    cfg = compose(str(Path(__file__).resolve().parents[1] / "configs"), "train", PASST_OVERRIDES)
+    model, meta = build_model(cfg, 13, device="cpu")
+    enc = model.encoder
+    assert meta["backbone"] == "PASST" and not model.training
+    assert enc.grid_size == (6, 100) and enc.num_tokens == 2 and enc.img_size == (64, 1001)
+    assert model.output_key == "multi_accdoa" and model.fc.out_features == 117
+    blocks = prepare_vit_blocks(model, torch.bfloat16)
+    assert [(p.C, p.nh, p.hidden, p.eps) for p in blocks] == [(768, 12, 3072, 1e-6)] * 7
+    assert blocks[0].qkv_w.shape == (768, 2304) and blocks[0].qkv_w.dtype == torch.bfloat16
+    for t in (enc.cls_token, enc.dist_token, enc.new_pos_embed, enc.freq_new_pos_embed,
+              enc.time_new_pos_embed):
+        assert 0.01 < t.std().item() < 0.03 and t.abs().max().item() <= 0.04
+    assert enc.time_new_pos_embed.shape == (1, 768, 1, 100)
