@@ -10,9 +10,11 @@ htsat_fused_forward_from_wav, and training through SELDTask.train_step
 AdamW); then the same two with AdapterBit (adapt=adapter: bottleneck
 adapters in every block, K4 forward and K5 backward, frozen backbone); then
 PaSST mACCDOA serving (configs/model/passt.yaml, 602 tokens of 768, 7 ViT
-blocks on K6) through passt_fused_forward_from_wav. It checks the outputs,
-the kernels' launch counts on each path and the kernel step against the
-plain step, and prints the times.
+blocks on K6) through passt_fused_forward_from_wav; then CRNN ACCDOA serving
+(configs/model/crnn.yaml: the CNN12 trunk, its six ConvBlocks on K7, and a
+conformer at 2048) through crnn_fused_forward_from_wav. It checks the
+outputs, the kernels' launch counts on each path and the kernel step
+against the plain step, and prints the times.
 
     python3 chip_smoke.py
 
@@ -49,7 +51,13 @@ ADAPT = ["adapt=adapter"]  # configs/adapt/adapter.yaml (bench_all.py adapterbit
 # configs/model/passt.yaml as bench_all.py:70-80 composes passt_maccdoa
 PASST_OVERRIDES = ["model=passt", "loss=multi_accdoa", "model.kwargs.pretrained_path=null",
                    "model.kwargs.audioset_pretrain=false"]
-PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt")
+# configs/model/crnn.yaml as bench_all.py:167-191 composes cnn14_accdoa
+CRNN_OVERRIDES = ["model=crnn", "loss=accdoa", "model.kwargs.pretrained_path=null",
+                  "model.kwargs.audioset_pretrain=false"]
+# the CNN12 trunk's ConvBlocks at 10 s: (T, F, Cin, Cout)
+CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
+               (125, 8, 256, 512), (125, 4, 512, 1024), (125, 2, 1024, 2048))
+PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn")
 
 
 def log(msg):
@@ -106,12 +114,12 @@ def phase_device():
 
 
 def kernels():
-    from pseldnets_tpu_torch.ops import (frontend, swin_block, swin_block_adapt, swin_block_vjp,
-                                         vit_block)
+    from pseldnets_tpu_torch.ops import (conv_block, frontend, swin_block, swin_block_adapt,
+                                         swin_block_vjp, vit_block)
 
     return {"K1": frontend.KERNEL, "K2": swin_block.KERNEL, "K3": swin_block_vjp.KERNEL,
             "K4": swin_block_adapt.FWD_KERNEL, "K5": swin_block_adapt.BWD_KERNEL,
-            "K6": vit_block.KERNEL}
+            "K6": vit_block.KERNEL, "K7": conv_block.KERNEL}
 
 
 def zero_counts():
@@ -373,7 +381,8 @@ def phase_serve(smi):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
     launches = read_counts()
-    want = {"K1": SERVE_BATCHES, "K2": 12 * SERVE_BATCHES, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+    want = {"K1": SERVE_BATCHES, "K2": 12 * SERVE_BATCHES, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
+            "K7": 0}
     log(f"served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches {launches} "
         f"(expect {want})")
     check(launches == want, "launch counts")
@@ -494,7 +503,7 @@ def phase_train(smi):
     launches = read_counts()
     log(f"peak device memory over the steps {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     want = {"K1": TRAIN_STEPS, "K2": 12 * TRAIN_STEPS, "K3": 12 * TRAIN_STEPS, "K4": 0, "K5": 0,
-            "K6": 0}
+            "K6": 0, "K7": 0}
     log(f"trained {TRAIN_STEPS} steps of {B_TRAIN} x 10 s clips: launches {launches} "
         f"(expect {want}); losses {[round(float(v), 6) for v in losses]}")
     check(launches == want, "training launch counts")
@@ -721,7 +730,8 @@ def phase_serve_adapter(smi):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
     launches = read_counts()
-    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 12 * SERVE_BATCHES, "K5": 0, "K6": 0}
+    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 12 * SERVE_BATCHES, "K5": 0, "K6": 0,
+            "K7": 0}
     log(f"AdapterBit: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches "
         f"{launches} (expect {want})")
     check(launches == want, "AdapterBit serving launch counts")
@@ -822,7 +832,7 @@ def phase_train_adapter(smi):
     log(f"AdapterBit: peak device memory over the steps "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     want = {"K1": TRAIN_STEPS, "K2": 0, "K3": 0, "K4": 12 * TRAIN_STEPS, "K5": 12 * TRAIN_STEPS,
-            "K6": 0}
+            "K6": 0, "K7": 0}
     log(f"AdapterBit: trained {TRAIN_STEPS} steps of {B_TRAIN} x 10 s clips: launches "
         f"{launches} (expect {want}); losses {[round(float(v), 6) for v in losses]}")
     check(launches == want, "AdapterBit training launch counts")
@@ -1021,7 +1031,8 @@ def phase_serve_passt(smi):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
     launches = read_counts()
-    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 7 * SERVE_BATCHES}
+    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 7 * SERVE_BATCHES,
+            "K7": 0}
     log(f"PaSST: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches {launches} "
         f"(expect {want})")
     check(launches == want, "PaSST serving launch counts")
@@ -1093,8 +1104,232 @@ def phase_serve_passt(smi):
                              lib_rel)}
 
 
+def folded_conv_block(gen, cin, cout, dtype):
+    """A ConvBlock of the trunk's shape with seeded weights and non-trivial
+    eval BN statistics, folded as the serving path folds it (the stem's
+    input channels padded to 16)."""
+    import torch
+    from pseldnets_tpu_torch.models.backbone import ConvBlock
+    from pseldnets_tpu_torch.models.factory import init_weights
+    from pseldnets_tpu_torch.serving.crnn import prepare_conv_block
+
+    blk = ConvBlock(cin, cout)
+    init_weights(blk, gen)
+    randomize_bn_stats(blk, gen)
+    blk.cuda().eval()
+    with torch.no_grad():
+        return [prepare_conv_block(blk, dt, 16 if cin < 16 else 0) for dt in (dtype, torch.float32)]
+
+
+def randomize_bn_stats(module, gen, scale=1.0):
+    """Running statistics of every BatchNorm in ``module`` away from (0, 1):
+    mean N(0, 0.3) and variance U(0.5, 1.5), times ``scale``**(1, 2)."""
+    import torch
+    from pseldnets_tpu_torch.models.common import ScalarBN, TorchBatchNorm
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, TorchBatchNorm) and not isinstance(m, ScalarBN):
+                shape, dev = m.running_mean.shape, m.running_mean.device
+                m.running_mean.copy_(torch.randn(shape, generator=gen).to(dev) * 0.3 * scale)
+                m.running_var.copy_((torch.rand(shape, generator=gen).to(dev) + 0.5) * scale ** 2)
+
+
+def conv_args(mode, x, p):
+    """The K7 call of ``mode`` on input x with folded ConvBlock params p."""
+    if mode == "pair":
+        return (x, p.w1, p.b1, p.w2, p.b2)
+    if mode == "single":
+        return (x, p.w1, p.b1)
+    return (x, None, p.b1, p.w2, p.b2)  # relu_conv: x is a raw conv1 output
+
+
+def phase_conv_block():
+    """K7 against its plain version (bf16 and float32) at B_CHECK: the pair
+    at all six ConvBlock shapes of the CNN12 trunk (T=1001 at the stem, its
+    7 channels padded to 16), single and relu_conv at the stem shape and at
+    one deep shape; folded random weights and BN statistics, so the biases
+    are large enough for a wrong edge halo to show."""
+    import torch
+    from pseldnets_tpu_torch.ops.conv_block import conv3x3_bias_relu, conv3x3_bias_relu_plain
+
+    gen = torch.Generator().manual_seed(31)
+    cases = [("pair", shape) for shape in CRNN_BLOCKS]
+    cases += [(mode, CRNN_BLOCKS[i]) for mode in ("single", "relu_conv") for i in (0, 4)]
+    for mode, (T, Fq, cin, cout) in cases:
+        p16, p32 = folded_conv_block(gen, cin, cout, torch.bfloat16)
+        width = cout if mode == "relu_conv" else p16.w1.shape[2]
+        x = torch.randn(B_CHECK, T, Fq, width, generator=gen)
+        if width > cin and mode != "relu_conv":
+            x[..., cin:] = 0.0  # the stem's zero channels
+        x = x.cuda().bfloat16()
+        got = conv3x3_bias_relu(*conv_args(mode, x, p16))
+        torch.cuda.synchronize()
+        plain16 = conv3x3_bias_relu_plain(*conv_args(mode, x, p16))
+        plain32 = conv3x3_bias_relu_plain(*conv_args(mode, x.float(), p32),
+                                          compute_dtype=torch.float32)
+        err = (got.float() - plain16.float()).abs().max().item()
+        scale = plain16.float().abs().max().item()
+        log(f"K7 {mode} B={B_CHECK} T={T} F={Fq} {cin}->{cout}: max |d| {err:.3g} = "
+            f"{err / scale:.3g} of scale (<= 2^-6, two bf16 ulps)")
+        compare("K7 " + mode, got, plain16, plain32, 2.0 ** -6)
+
+
+def k7_work(B, T, Fq, cin, cout):
+    """Bytes and bf16 FLOPs of one ConvBlock (both convs) on B images:
+    2 M 9 (cin cout + cout cout) with the stem's 7 real channels; x read
+    (cin channels, bf16), the bf16 weights and float32 biases read, the
+    output written, once each."""
+    M = B * T * Fq
+    flops = 2 * M * 9 * (cin * cout + cout * cout)
+    nbytes = M * cin * 2 + 9 * (cin * cout + cout * cout) * 2 + 2 * cout * 4 + M * cout * 2
+    return nbytes, flops
+
+
+def library_pair(x, p):
+    """The one PyTorch call per conv that computes K7's pair, as a yardstick
+    only: relu(conv2d(x, w, b, padding=1)) twice in bf16, channels_last
+    (cuDNN), on the same inputs and folded weights."""
+    import torch
+    import torch.nn.functional as F
+
+    xl = x.permute(0, 3, 1, 2)  # NHWC as a channels_last NCHW view
+    w1, w2 = (w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+              for w in (p.w1, p.w2))
+    b1, b2 = p.b1.bfloat16(), p.b2.bfloat16()
+    return lambda: F.relu(F.conv2d(F.relu(F.conv2d(xl, w1, b1, padding=1)), w2, b2, padding=1))
+
+
+def phase_serve_crnn(smi):
+    """CRNN ACCDOA serving (bench_all.py cnn14_accdoa at B=32, CNN12 +
+    conformer at 2048): SERVE_BATCHES batches of B_SERVE 10 s clips through
+    crnn_fused_forward_from_wav (K1, then K7 on every ConvBlock), the output
+    against the plain path, K1 and K7 on the batch's own inputs, the cuDNN
+    yardstick per ConvBlock, peak memory and a profile."""
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.models import build_model
+    from pseldnets_tpu_torch.ops.conv_block import conv3x3_bias_relu, conv3x3_bias_relu_plain
+    from pseldnets_tpu_torch.serving import (crnn_fused_forward_from_wav, folded_wav_features,
+                                             prepare_crnn)
+    from pseldnets_tpu_torch.serving.crnn import avg_pool, trunk_input
+
+    cfg = compose(str(ROOT / "configs"), "train", CRNN_OVERRIDES)
+    model, _ = build_model(cfg, 13, device="cuda", seed=0)
+    gen = torch.Generator().manual_seed(32)
+    randomize_bn_stats(model, gen)
+    with torch.no_grad():  # non-trivial eval ScalarBN statistics
+        model.scalar.running_mean.copy_(torch.randn(7, 64, generator=gen).cuda() * 5.0 - 20.0)
+        model.scalar.running_var.copy_(torch.rand(7, 64, generator=gen).cuda() * 50.0 + 10.0)
+    params = prepare_crnn(model, torch.bfloat16)
+    n_params = sum(t.numel() for t in model.parameters())
+    plan = [(p.w1.shape[2], p.w2.shape[3], p.pool) for p in params.blocks]
+    check(plan == [(16, 64, (2, 2)), (64, 128, (2, 2)), (128, 256, (2, 2)), (256, 512, (1, 2)),
+                   (512, 1024, (1, 2)), (1024, 2048, (1, 2))]
+          and len(params.decoder) == 1 and params.num_heads == 8, f"CRNN plan {plan}")
+    log(f"CRNN: {n_params / 1e6:.2f} M parameters (CNN12 64..2048, 1 conformer layer at 2048)")
+    g = torch.Generator(device="cuda").manual_seed(33)
+    wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(SERVE_BATCHES)]
+    serve = lambda w: crnn_fused_forward_from_wav(model, w, params=params)  # noqa: E731
+    serve(wavs[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts from 0, SERVE_BATCHES batches
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [serve(w)["accdoa"] for w in wavs]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SERVE_BATCHES
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
+            "K7": 6 * SERVE_BATCHES}
+    log(f"CRNN: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches {launches} "
+        f"(expect {want}: K7 one call per ConvBlock, two conv launches each)")
+    check(launches == want, "CRNN serving launch counts")
+    for o in outs:
+        check(o.shape == (B_SERVE, 100, 39) and o.dtype == torch.float32
+              and torch.isfinite(o).all().item(), f"CRNN served output {tuple(o.shape)}")
+    log(f"CRNN served: {dt * 1e3:.2f} ms/batch, {B_SERVE / dt:.1f} clips/s (host clock, "
+        f"synchronized; {smi}); peak device memory {peak:.2f} GiB")
+    plain = crnn_fused_forward_from_wav(model, wavs[0], params=params,
+                                        use_kernels=False)["accdoa"]
+    f32 = crnn_fused_forward_from_wav(model, wavs[0], compute_dtype=torch.float32,
+                                      use_kernels=False)["accdoa"]
+    e_plain = (outs[0] - plain).abs().max().item()
+    e_f32 = (outs[0] - f32).abs().max().item()
+    p_f32 = (plain - f32).abs().max().item()
+    log(f"CRNN served vs plain bf16 path: max |d| {e_plain:.3g} (<= 5e-2); vs float32 plain "
+        f"path {e_f32:.3g} (plain bf16 {p_f32:.3g}); output std {f32.std().item():.3g}")
+    check(e_plain <= 5e-2, "CRNN served output disagrees with the plain path")
+    check(e_f32 <= 1.25 * p_f32 + 1e-2, "CRNN served output further from float32 than plain bf16")
+
+    # K1 in its CRNN form (ScalarBN folded, bf16, 1001 frames) on the batch
+    wav = wavs[0]
+    feats = folded_wav_features(model, wav)
+    ref = folded_wav_features(model, wav, use_kernels=False).float()
+    check(feats.shape == (B_SERVE, 7, 1001, 64), f"K1 CRNN form {tuple(feats.shape)}")
+    k1_err = (feats.float() - ref).abs().max().item()
+    k1_rel = k1_err / ref.abs().max().item()
+    rel = ((feats.float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    log(f"K1 at B={B_SERVE} (CRNN form, 1001 frames): max err {rel:.3g} of max(|x|, 1) "
+        f"(<= 2^-7)")
+    check(rel <= 2.0 ** -7, f"K1 disagrees with its plain version at B={B_SERVE} (CRNN)")
+    k1 = cuda_ms(lambda: folded_wav_features(model, wav), reps=10)
+
+    # K7 against its plain version on each of the batch's six ConvBlock
+    # inputs, timed beside the plain version and the cuDNN yardstick
+    with torch.no_grad():
+        xs = [trunk_input(feats, torch.bfloat16, 16)]
+        for p in params.blocks[:-1]:
+            xs.append(avg_pool(conv3x3_bias_relu(xs[-1], p.w1, p.b1, p.w2, p.b2), p.pool))
+    rows, k7_err, k7_rel, lib_rel = [], 0.0, 0.0, 0.0
+    for i, (x, p, (T, Fq, cin, cout)) in enumerate(zip(xs, params.blocks, CRNN_BLOCKS)):
+        check(tuple(x.shape) == (B_SERVE, T, Fq, p.w1.shape[2]), f"block {i} input {x.shape}")
+        args = (x, p.w1, p.b1, p.w2, p.b2)
+        ref = conv3x3_bias_relu_plain(*args).float()
+        scale = ref.abs().max().item()
+        err = (conv3x3_bias_relu(*args).float() - ref).abs().max().item()
+        check(err <= 2.0 ** -6 * scale, f"K7 block {i} disagrees with its plain version")
+        k7_err, k7_rel = max(k7_err, err), max(k7_rel, err / scale)
+        lib = library_pair(x, p)
+        with torch.no_grad():
+            lib_e = (lib().permute(0, 2, 3, 1).float() - ref).abs().max().item() / scale
+        # cuDNN rounds elsewhere (the bias in bf16, its own accumulation order)
+        check(lib_e <= 2.0 ** -4, f"library call block {i}: {lib_e:.3g} of scale")
+        lib_rel = max(lib_rel, lib_e)
+        t = cuda_ms(lambda: conv3x3_bias_relu(*args), reps=5)
+        tp = cuda_ms(lambda: conv3x3_bias_relu_plain(*args), reps=2)
+        t_lib = cuda_ms(lib, reps=5)
+        nb, fl = k7_work(B_SERVE, T, Fq, cin, cout)
+        rows.append((t, tp, bound_ms(nb, bf16_flops=fl)[0], t_lib, fl))
+        log(f"  K7 block {i} T={T} F={Fq} {cin}->{cout}: |k-plain| {err:.3g} (<= "
+            f"{2.0 ** -6 * scale:.3g}), {t:.3f} ms ({fl / t / 1e9:.0f} TFLOP/s), plain "
+            f"{tp:.3f} ms, library {t_lib:.3f} ms ({lib_e:.3g} of scale from plain), bound "
+            f"{rows[-1][2]:.4f} ms")
+    k7_ms, k7_plain, k7_bound, k7_lib, k7_flops = (sum(r[j] for r in rows) for j in range(5))
+    log(f"CRNN per batch of {B_SERVE} ({smi}): K1 {k1:.3f} ms, K7 x6 {k7_ms:.3f} ms "
+        f"({k7_flops / 1e12:.3f} TFLOP, {k7_flops / k7_ms / 1e9:.0f} TFLOP/s; plain "
+        f"{k7_plain:.3f}, library {k7_lib:.3f}, bound {k7_bound:.3f}), rest "
+        f"{dt * 1e3 - k1 - k7_ms:.3f} ms; library call within {lib_rel:.3g} of scale")
+    names = [r[0] for r in phase_profile("one CRNN served batch", lambda: serve(wav))]
+    # cuDNN's and PyTorch's own conv kernels (cuBLAS GEMMs of the glue are
+    # named *_xmma_gemm_* and are not convs)
+    library_convs = [n for n in names if "conv3x3_igemm" not in n and any(
+        k in n.lower() for k in ("cudnn", "fprop", "implicit", "conv"))]
+    log(f"CRNN served batch: library conv kernels in the profile: {library_convs or 'none'}"
+        if names else "CRNN served batch: library conv kernels not measured (no profile)")
+    check(not library_convs, "the served CRNN path launched a library conv")
+    return launches, {"K1": (k1_err, k1_rel),
+                      "K7": (k7_err, k7_rel, k7_ms, k7_plain, k7_bound, "operations", k7_lib,
+                             lib_rel)}
+
+
 def phase_profile(what, fn):
-    """Device time by kernel over one call of fn (torch.profiler, CUPTI)."""
+    """Device time by kernel over one call of fn (torch.profiler, CUPTI);
+    returns the (kernel, ms, count) rows, empty when nothing was recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1113,15 +1348,17 @@ def phase_profile(what, fn):
     busy = sum(r[1] for r in rows)
     if not rows:
         log("profile: no device time recorded (not measured)")
-        return
+        return rows
     log(f"profile of {what}: device busy {busy:.3f} ms of {wall * 1e3:.3f} ms "
         f"wall ({100 * busy / (wall * 1e3):.1f}%), {sum(r[2] for r in rows)} device "
         f"events, by kernel:")
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:20]:
         log(f"  {ms:8.3f} ms {100 * ms / busy:5.1f}% x{n:<3d} {name[:90]}")
+    return rows
 
 
 def main():
+    t_start = time.perf_counter()
     smi = phase_device()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -1138,13 +1375,15 @@ def main():
     results["train_adapter"] = phase_train_adapter(smi)
     phase_vit_block()
     results["serve_passt"] = phase_serve_passt(smi)
+    phase_conv_block()
+    results["serve_crnn"] = phase_serve_crnn(smi)
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
-    # steps, plain, AdapterBit and PaSST), each counted from 0; errors: the
+    # steps, plain, AdapterBit, PaSST and CRNN), each counted from 0; errors: the
     # largest over the checks at each path's own shapes, absolute and as a
     # share of the plain output's largest magnitude; ms and bounds per served
-    # batch (K1, K2, K4, K6) or per training step (K3, K5); library_ms: one
-    # PyTorch call computing the same function (K6 only), with its error
+    # batch (K1, K2, K4, K6, K7) or per training step (K3, K5); library_ms:
+    # one PyTorch call computing the same function (K6, K7), with its error
     # from the plain version as a share of scale
     for name, route_src, replaces in (
             ("K1 fused_logmel_iv", "pseldnets_tpu_torch/csrc/frontend.cu",
@@ -1158,7 +1397,9 @@ def main():
             ("K5 swin_block_adapt_backward", "pseldnets_tpu_torch/csrc/swin_block_adapt_bwd.cu",
              "pseldnets_tpu/ops/pallas/swin_block_adapt_vjp.py:532"),
             ("K6 vit_block_fused", "pseldnets_tpu_torch/csrc/vit_block.cu",
-             "pseldnets_tpu/ops/pallas/vit_block.py:222")):
+             "pseldnets_tpu/ops/pallas/vit_block.py:222"),
+            ("K7 conv3x3_bias_relu", "pseldnets_tpu_torch/csrc/conv_block.cu",
+             "pseldnets_tpu/ops/pallas/conv_block.py:193")):
         key = name.split()[0]
         errs = {path: r[1][key][:2] for path, r in results.items() if key in r[1]}
         timed = next(r[1][key] for r in results.values() if len(r[1].get(key, ())) >= 6)
@@ -1174,6 +1415,7 @@ def main():
                      "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms,
                      "library_err_of_scale": library_err})
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

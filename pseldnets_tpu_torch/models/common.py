@@ -1,15 +1,15 @@
 """Shared model plumbing in PyTorch, the counterpart of the JAX package's
-models/common.py: BatchNorm with torch semantics, the fused per-channel
-"scalar" BN, the ViT Mlp and PatchEmbed, and the time-axis interpolate used by
-every head.
+models/common.py: BatchNorm with torch semantics (per-channel "scalar" BN,
+BatchNorm2d), the ViT Mlp and PatchEmbed, the GRU / transformer / conformer
+sequence decoders, and the time-axis interpolate used by every head.
 
 Parity targets: reference src/models/components/model_utilities.py (Mlp
-:129-171, PatchEmbed :174-213) and src/models/components/utils.py
-(interpolate :25-52).
+:129-171, PatchEmbed :174-213, Decoder :245-269) and
+src/models/components/utils.py (interpolate :25-52).
 """
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +17,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .adapters import NO_ADAPT, AdaptConfig, Adapter
+
+NO_DECODER = (None, "None", "null", "identity")
+
+
+def check_no_dropout(module: nn.Module, rate: float, what: str) -> None:
+    """Train mode with dropout is not ported: raise when ``module`` trains
+    with a rate other than 0 (eval ignores dropout)."""
+    if module.training and rate:
+        raise NotImplementedError(f"training {what} with dropout {rate} is not ported")
+
 
 class TorchBatchNorm(nn.Module):
     """BatchNorm over arbitrary reduce axes with feature shape ``feat_shape``
@@ -47,6 +57,11 @@ class TorchBatchNorm(nn.Module):
         shape = self._bshape(x)
         y = (x.float() - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + self.eps)
         return y * self.weight.reshape(shape) + self.bias.reshape(shape)
+
+    def eval_affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Eval BN as float32 y = x * inv + shift over the feature shape."""
+        inv = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
+        return inv, self.bias.float() - self.running_mean.float() * inv
 
     def batch_forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Training-mode BN without side effects: (output, new running mean,
@@ -84,6 +99,14 @@ class ScalarBN(TorchBatchNorm):
 
     def __init__(self, num_channels: int, mel_bins: int):
         super().__init__((num_channels, mel_bins), reduce_axes=(0, 2))
+
+
+class BatchNorm2d(TorchBatchNorm):
+    """torch BatchNorm2d on NCHW input (the JAX package's BatchNorm2d over
+    NHWC): statistics per channel over (B, H, W)."""
+
+    def __init__(self, features: int):
+        super().__init__((features,), reduce_axes=(0, 2, 3))
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -184,3 +207,78 @@ def interpolate(x: torch.Tensor, ratio: int, method: str = "repeat") -> torch.Te
     m = torch.as_tensor(_linear_upsample_matrix(x.shape[1], ratio),
                         dtype=x.dtype, device=x.device)
     return torch.einsum("st,bt...->bs...", m, x)
+
+
+class TorchGRU(nn.GRU):
+    """Bidirectional multi-layer GRU on (B, T, C) -> (B, T, 2 * hidden): torch's
+    nn.GRU, whose gate order (r, z, n) and parameter names
+    (``weight_ih_l0[_reverse]``, ...) are the JAX package's TorchGRU
+    (models/common.py:276)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 2):
+        super().__init__(input_size, hidden_size, num_layers=num_layers, batch_first=True,
+                         bidirectional=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x)[0]
+
+
+class TransformerEncoderLayer(nn.Module):
+    """torch nn.TransformerEncoderLayer, post-LN and relu (the JAX package's
+    models/common.py:331), with its parameter names: ``self_attn``
+    (packed ``in_proj_weight``), ``linear1``, ``linear2``, ``norm1``,
+    ``norm2``. Training with dropout raises."""
+
+    def __init__(self, d_model: int, nhead: int = 8, dim_feedforward: int = 2048,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.dropout = dropout
+        self.self_attn = nn.MultiheadAttention(d_model, nhead, dropout=0.0, batch_first=True)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        check_no_dropout(self, self.dropout, "the transformer decoder")
+        x = self.norm1(x + self.self_attn(x, x, x, need_weights=False)[0])
+        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+
+
+class TransformerEncoder(nn.Module):
+    """``num_layers`` TransformerEncoderLayers under ``layers`` (the
+    reference's nn.TransformerEncoder keys)."""
+
+    def __init__(self, d_model: int, num_layers: int):
+        super().__init__()
+        self.layers = nn.ModuleList(TransformerEncoderLayer(d_model) for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class Decoder(nn.Module):
+    """gru | conformer | transformer | None on (B, T, C) (reference
+    model_utilities.py:245-269; the JAX package's models/common.py:358); the
+    decoder module sits under ``decoder``."""
+
+    def __init__(self, decoder: Optional[str], num_feats: int, num_layers: int = 2):
+        super().__init__()
+        self.kind = decoder
+        if decoder in NO_DECODER:
+            self.decoder = None
+        elif decoder == "gru":
+            self.decoder = TorchGRU(num_feats, num_feats // 2, num_layers)
+        elif decoder == "conformer":
+            from .conformer import ConformerBlocks
+
+            self.decoder = ConformerBlocks(num_feats, num_layers)
+        elif decoder == "transformer":
+            self.decoder = TransformerEncoder(num_feats, num_layers)
+        else:
+            raise NotImplementedError(f"decoder '{decoder}' is not implemented")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.decoder is None else self.decoder(x)

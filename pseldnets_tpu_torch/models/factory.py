@@ -1,5 +1,6 @@
 """Model factory: (method, backbone) -> torch module, the counterpart of the
-JAX package's models/factory.py (the ACCDOA/mACCDOA HTSAT and PaSST branches).
+JAX package's models/factory.py (the ACCDOA/mACCDOA CRNN, ConvConformer,
+HTSAT and PaSST branches).
 
 Mirrors the reference's lookup (src/models/model_module.py:13-34) including the
 audio_feature -> in_channels mapping (:24-31).
@@ -14,12 +15,13 @@ from ..ops._cuda import resolve_device
 from . import heads
 from .adapters import AdaptConfig, Adapter
 from .common import TorchBatchNorm
+from .conformer import RelativeMultiHeadAttention
 from .htsat import WindowAttention
 from .passt import PaSSTEncoder
 
-# what the JAX package builds and this slice does not port yet, with the
-# ROADMAP.md queue A step that ports it
-_NOT_PORTED = {"einv2": 7, "CRNN": 9, "ConvConformer": 9}
+# what the JAX package builds and the port does not yet, with the ROADMAP.md
+# queue A step that ports it
+_NOT_PORTED = {"einv2": 7}
 # PaSST encoder kwargs the module does not take (the JAX package's
 # models/factory.py:18)
 _PASST_DROP = ("representation_size", "norm_layer", "act_layer", "attn_drop_rate")
@@ -37,22 +39,34 @@ def in_channels_for(audio_feature: str) -> int:
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Deterministic random weights from ``generator``, scaled so activations
-    stay O(1) through every layer: Linear/Conv weights N(0, 1/fan_in)
-    truncated at 2 sigma with N(0, 0.02) biases, LayerNorm and BatchNorm
-    affines 1 + N(0, 0.1) and N(0, 0.1), relative-position tables N(0, 0.5)
-    so the bias visibly shapes attention. BN running stats stay (0, 1).
+    stay O(1) through every layer: Linear/Conv/GRU/packed-attention weights
+    N(0, 1/fan_in) truncated at 2 sigma with N(0, 0.02) biases, LayerNorm
+    and BatchNorm affines 1 + N(0, 0.1) and N(0, 0.1), relative-position
+    tables N(0, 0.5) so the bias visibly shapes attention, the conformer's
+    u/v biases xavier-uniform (as flax). BN running stats stay (0, 1).
     An adapter's fc2 stays zero, as the JAX package initializes it."""
     def randn(p, std, base=0.0):
         p.copy_(base + std * torch.randn(p.shape, generator=generator))
 
+    def fan_in_normal(w):
+        w.copy_(torch.randn(w.shape, generator=generator).clamp_(-2, 2)
+                / math.sqrt(w[0].numel()))
+
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
-                w = mod.weight
-                w.copy_(torch.randn(w.shape, generator=generator).clamp_(-2, 2)
-                        / math.sqrt(w[0].numel()))
+            if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+                fan_in_normal(mod.weight)
                 if mod.bias is not None:
                     randn(mod.bias, 0.02)
+            elif isinstance(mod, (nn.GRU, nn.MultiheadAttention)):
+                for name, p in mod.named_parameters(recurse=False):
+                    if "weight" in name:
+                        fan_in_normal(p)
+                    else:
+                        randn(p, 0.02)
+            elif isinstance(mod, RelativeMultiHeadAttention):
+                nn.init.xavier_uniform_(mod.u_bias, generator=generator)
+                nn.init.xavier_uniform_(mod.v_bias, generator=generator)
             elif isinstance(mod, (nn.LayerNorm, TorchBatchNorm)):
                 randn(mod.weight, 0.1, 1.0)
                 randn(mod.bias, 0.1)
@@ -93,11 +107,20 @@ def build_model(cfg, num_classes: int, *, device="cuda", seed: int = 0):
             raise NotImplementedError(
                 f"backbone '{backbone}' for method '{method}' is not ported yet "
                 f"(ROADMAP.md queue A step {_NOT_PORTED[what]})")
-    if method not in ("accdoa", "multi_accdoa") or backbone not in ("HTSAT", "PASST"):
+    if method not in ("accdoa", "multi_accdoa") or backbone not in (
+            "CRNN", "ConvConformer", "HTSAT", "PASST"):
         raise NotImplementedError(f"backbone '{backbone}' for method '{method}'")
     num_tracks = 3 if method == "multi_accdoa" else 1
     enc = dict(kwargs)
-    if backbone == "PASST":  # takes no adapters, as in the JAX package
+    if backbone in ("CRNN", "ConvConformer"):
+        cls = heads.ConvConformer if backbone == "ConvConformer" else heads.CRNN
+        model = cls(num_classes=num_classes, in_channels=in_channels,
+                    encoder=kwargs.get("encoder", "CNN8"),
+                    num_features=tuple(kwargs.get("num_features", (32, 64, 128, 256))),
+                    decoder=cfg["model"].get("decoder"),
+                    num_decoder_layers=int(cfg["model"].get("num_decoder_layers", 2)),
+                    mel_bins=mel_bins, pred_res=pred_res, num_tracks=num_tracks)
+    elif backbone == "PASST":  # takes no adapters, as in the JAX package
         for k in _PASST_DROP:
             enc.pop(k, None)
         enc["img_size"] = tuple(enc.get("img_size", (64, 1001)))

@@ -1,8 +1,8 @@
 """Single-branch SELD heads in PyTorch, the counterpart of the JAX package's
-models/heads.py (HTSAT and PaSST).
+models/heads.py (CRNN / ConvConformer, HTSAT and PaSST).
 
-Parity: reference src/models/accdoa.py (HTSAT :107-246, PaSST :249-329) and
-src/models/multi_accdoa.py. Output dict keys match the reference:
+Parity: reference src/models/accdoa.py (CRNN :12-95, HTSAT :107-246, PaSST
+:249-329) and src/models/multi_accdoa.py. Output dict keys match the reference:
 {'accdoa': (B, T, 3K)} or {'multi_accdoa': (B, T, 9K)} with channel layout
 [track0 x(K) y(K) z(K) | track1 ... | track2 ...].
 """
@@ -13,9 +13,61 @@ import torch
 import torch.nn as nn
 
 from .adapters import NO_ADAPT, AdaptConfig
-from .common import ScalarBN, interpolate
+from .backbone import CNN
+from .common import Decoder, ScalarBN, interpolate
+from .conformer import ConformerBlocks
 from .htsat import HTSATEncoder, drop_path_masks
 from .passt import PaSSTEncoder
+
+
+class CRNN(nn.Module):
+    """CNN8/CNN12 (+ GRU/conformer/transformer decoder) ACCDOA head (reference
+    accdoa.py:12-95): ScalarBN -> CNN -> frequency mean -> decoder ->
+    repeat-interpolate x8 (the three time pools) -> mean over ``pred_res``
+    frames -> fc -> tanh. The conformer sits directly under ``decoder``; the
+    other decoders under ``decoder.decoder`` (the reference's keys)."""
+
+    ENCODER_BLOCKS = {"CNN8": 4, "CNN12": 6}
+
+    def __init__(self, num_classes: int, in_channels: int = 7, encoder: str = "CNN8",
+                 num_features: Sequence[int] = (32, 64, 128, 256),
+                 decoder: Optional[str] = "gru", num_decoder_layers: int = 2,
+                 mel_bins: int = 64, pred_res: int = 10, num_tracks: int = 1):
+        super().__init__()
+        expected = self.ENCODER_BLOCKS.get(encoder)
+        if expected is not None and len(num_features) != expected:
+            raise ValueError(f"encoder={encoder} expects {expected} num_features, got "
+                             f"{len(num_features)}: {tuple(num_features)}")
+        self.num_classes, self.in_channels, self.mel_bins = num_classes, in_channels, mel_bins
+        self.num_features = tuple(num_features)
+        self.decoder_kind, self.num_decoder_layers = decoder, num_decoder_layers
+        self.pred_res, self.num_tracks = pred_res, num_tracks
+        self.scalar = ScalarBN(in_channels, mel_bins)
+        self.convs = CNN(in_channels, self.num_features)
+        C = self.num_features[-1]
+        self.decoder = (ConformerBlocks(C, num_decoder_layers) if decoder == "conformer"
+                        else Decoder(decoder, C, num_decoder_layers))
+        self.fc = nn.Linear(C, 3 * num_tracks * num_classes)
+
+    @property
+    def output_key(self) -> str:
+        return "accdoa" if self.num_tracks == 1 else "multi_accdoa"
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        B, _, T, _ = x.shape
+        output_frames = T // self.pred_res
+        x = self.convs(self.scalar(x))          # (B, C, T', F')
+        x = self.decoder(x.mean(dim=3).transpose(1, 2))  # (B, T', C)
+        x = interpolate(x, ratio=8)
+        x = x.reshape(B, output_frames, self.pred_res, -1).mean(dim=2)
+        return {self.output_key: torch.tanh(self.fc(x).float())}
+
+
+class ConvConformer(CRNN):
+    """CRNN with a conformer decoder (reference accdoa.py:98-104)."""
+
+    def __init__(self, *args, decoder: Optional[str] = "conformer", **kwargs):
+        super().__init__(*args, decoder=decoder, **kwargs)
 
 
 class HTSAT(nn.Module):

@@ -172,21 +172,20 @@ def head_tail(model: HTSAT, x: torch.Tensor, compute_dtype: torch.dtype, B: int,
     return {model.output_key: torch.tanh(x.float())}
 
 
-def scalar_bn_affine(model: HTSAT) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval ScalarBN as a per-(channel, mel) affine: y = x * inv + shift."""
-    bn = model.scalar
-    inv = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-    shift = bn.bias.float() - bn.running_mean.float() * inv
-    return inv, shift
+def scalar_bn_affine(model: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval ScalarBN (``model.scalar``, any head that has one) as a
+    per-(channel, mel) affine: y = x * inv + shift."""
+    return model.scalar.eval_affine()
 
 
-def folded_wav_features(model: HTSAT, wav: torch.Tensor, *,
+def folded_wav_features(model: torch.nn.Module, wav: torch.Tensor, *,
                         compute_dtype: torch.dtype = torch.bfloat16,
                         t_out: Optional[int] = None, use_kernels: bool = True,
                         **frontend_kwargs) -> torch.Tensor:
     """FOA waveform -> eval-normalized (B, 7, T, mel) features in one kernel:
-    the frontend with the eval ScalarBN (post_affine), the compute-dtype cast
-    and optionally the reshape_wav2img zero-tail (t_out) folded in."""
+    the frontend with the eval ScalarBN of any head that has one (HTSAT,
+    PaSST, CRNN; post_affine), the compute-dtype cast and optionally the
+    reshape_wav2img zero-tail (t_out) folded in."""
     fn = fused_logmel_iv if use_kernels else fused_logmel_iv_plain
     return fn(wav, post_affine=scalar_bn_affine(model), out_dtype=compute_dtype,
               t_out=t_out, **frontend_kwargs)

@@ -3,11 +3,16 @@
 ``jax_to_torch_state_dict`` maps a ``{"params": ..., "batch_stats": ...}``
 tree of numpy arrays onto the port's module. Keys come from
 ``flax_to_torch_key``, a copy of the JAX package's train/checkpoint.py:67 key
-map, so the port's parameter names are the reference's torch keys and a later
-change can load the released checkpoints with no second map (the fused
-ScalarBN (C, F) is the one exception, see models.common.ScalarBN). Values
-invert the layout rules of that package's ``_to_flax_value`` (:119): Dense
-(in, out) -> Linear (out, in); conv HWIO -> OIHW; LayerNorm scale -> weight.
+map with its conformer rewrite (``_CONFORMER_MAP``, :43-63), so the port's
+parameter names are the reference's torch keys and a later change can load
+the released checkpoints with no second map (the fused ScalarBN (C, F) is
+the one exception, see models.common.ScalarBN). Values invert the layout
+rules of that package's ``_to_flax_value`` (:119): Dense (in, out) -> Linear
+(out, in), or Conv1d (out, in, 1) for the conformer's pointwise convs; conv
+HWIO -> OIHW; a depthwise kernel (k, 1, C) -> Conv1d (C, 1, k); LayerNorm
+scale -> weight. The q/k/v/out DenseGeneral kernels of a flax attention
+under ``self_attn`` pack into nn.MultiheadAttention's ``in_proj_weight`` /
+``in_proj_bias`` and ``out_proj`` (the inverse of :220-251).
 """
 
 import re
@@ -21,11 +26,37 @@ _LIST_NAMES = ("layers", "blocks", "stitch", "stitch1", "stitch2",
                "sed_decoder", "doa_decoder", "fc_sed", "fc_doa")
 _IDX_RE = re.compile(r"^(%s)_(\d+)$" % "|".join(_LIST_NAMES))
 
+# conformer: flax submodule path -> torch sequential path (per ConformerBlock)
+_CONFORMER_MAP = {
+    ("ff1", "norm"): "sequential.0.module.sequential.0",
+    ("ff1", "fc1"): "sequential.0.module.sequential.1",
+    ("ff1", "fc2"): "sequential.0.module.sequential.4",
+    ("attn_norm",): "sequential.1.module.layer_norm",
+    ("attn", "query_proj"): "sequential.1.module.attention.query_proj",
+    ("attn", "key_proj"): "sequential.1.module.attention.key_proj",
+    ("attn", "value_proj"): "sequential.1.module.attention.value_proj",
+    ("attn", "pos_proj"): "sequential.1.module.attention.pos_proj",
+    ("attn", "out_proj"): "sequential.1.module.attention.out_proj",
+    ("attn", "u_bias"): "sequential.1.module.attention.u_bias",
+    ("attn", "v_bias"): "sequential.1.module.attention.v_bias",
+    ("conv", "norm"): "sequential.2.module.sequential.0",
+    ("conv", "pw_conv1"): "sequential.2.module.sequential.2.conv",
+    ("conv", "dw_conv"): "sequential.2.module.sequential.4.conv",
+    ("conv", "bn"): "sequential.2.module.sequential.5",
+    ("conv", "pw_conv2"): "sequential.2.module.sequential.7.conv",
+    ("ff2", "norm"): "sequential.3.module.sequential.0",
+    ("ff2", "fc1"): "sequential.3.module.sequential.1",
+    ("ff2", "fc2"): "sequential.3.module.sequential.4",
+    ("final_norm",): "sequential.4",
+}
+# flax Dense layers that the reference stores as Conv1d(k=1)
+_POINTWISE = ("pw_conv1", "pw_conv2")
+_QKV = ("query", "key", "value")
+
 
 def flax_to_torch_key(path: Tuple[str, ...]) -> Optional[str]:
     """Translate a flax variable path (without the collection prefix) into the
-    reference's torch state_dict key (the JAX package's key map, without its
-    conformer rewrite, which no HTSAT path reaches)."""
+    reference's torch state_dict key (the JAX package's key map)."""
     parts = list(path)
     leaf = parts[-1]
     if leaf == "kernel":
@@ -49,6 +80,13 @@ def flax_to_torch_key(path: Tuple[str, ...]) -> Optional[str]:
             out.extend(["decoder", "layers", p.rsplit("_", 1)[1]])
         else:
             out.append(p)
+    # conformer rewrite, only right after layers.N: ...layers.N.<flax names>
+    # -> ...layers.N.sequential...
+    for span in (2, 1):
+        for j in range(2, len(out) - span + 1):
+            key = tuple(out[j:j + span])
+            if key in _CONFORMER_MAP and out[j - 2] == "layers" and out[j - 1].isdigit():
+                return ".".join(out[:j] + _CONFORMER_MAP[key].split(".") + out[j + span:])
     return ".".join(out) if out else None
 
 
@@ -66,12 +104,44 @@ def _to_torch_value(path: Tuple[str, ...], val: np.ndarray) -> np.ndarray:
     """Invert the JAX package's _to_flax_value layout rules for one leaf."""
     v = np.array(val, dtype=np.float32)  # a writable copy
     if path[-1] == "kernel":
-        if v.ndim == 2:
+        if v.ndim == 2 and len(path) >= 2 and path[-2] in _POINTWISE:
+            v = v.T[:, :, None]  # Dense (in, out) -> pointwise Conv1d (out, in, 1)
+        elif v.ndim == 2:
             v = v.T  # Dense (in, out) -> Linear (out, in)
+        elif v.ndim == 3:
+            v = v.transpose(2, 1, 0)  # conv1d (k, in / groups, out) -> (out, in / groups, k)
         elif v.ndim == 4:
             v = v.transpose(3, 2, 0, 1)  # conv HWIO -> OIHW
         else:
             raise ValueError(f"unexpected kernel rank {v.ndim} at {'/'.join(path)}")
+    return np.ascontiguousarray(v)
+
+
+def _attention_piece(path: Tuple[str, ...]) -> Optional[Tuple[str, str, int]]:
+    """For a leaf of a flax attention under ``self_attn`` (DenseGeneral
+    ``query``/``key``/``value``/``out``): (torch key, slot, part), where the
+    q/k/v parts (0-2) of one key are concatenated; else None."""
+    if "self_attn" not in path[:-2] or path[-1] not in ("kernel", "bias"):
+        return None
+    i = path.index("self_attn")
+    proj, leaf = path[i + 1], path[-1]
+    if len(path) != i + 3 or proj not in _QKV + ("out",):
+        return None
+    base = flax_to_torch_key(path[:i + 1] + ("x",)).rsplit(".", 1)[0]
+    if proj == "out":
+        return f"{base}.out_proj.{'weight' if leaf == 'kernel' else 'bias'}", leaf, -1
+    return f"{base}.in_proj_{'weight' if leaf == 'kernel' else 'bias'}", leaf, _QKV.index(proj)
+
+
+def _attention_value(leaf: str, part: int, val: np.ndarray) -> np.ndarray:
+    """flax DenseGeneral layout -> torch rows: q/k/v kernel (E, H, D) ->
+    (E', E) rows of in_proj_weight, bias (H, D) -> (E',); out kernel
+    (H, D, E) -> out_proj.weight (E, E'), bias as it is."""
+    v = np.array(val, dtype=np.float32)
+    if leaf == "kernel":
+        v = v.reshape(v.shape[0], -1).T if part >= 0 else v.reshape(-1, v.shape[-1]).T
+    elif part >= 0:
+        v = v.reshape(-1)
     return np.ascontiguousarray(v)
 
 
@@ -87,14 +157,28 @@ def jax_to_torch_state_dict(variables: Mapping,
     if unknown:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    packed: Dict[str, Dict[int, np.ndarray]] = {}
     for coll in ("params", "batch_stats"):
         for path, val in _flatten(variables.get(coll, {})).items():
-            key = flax_to_torch_key(path)
+            piece = _attention_piece(path)
+            key = flax_to_torch_key(path) if piece is None else piece[0]
             if key is None:
                 raise KeyError(f"no torch key for {coll}/{'/'.join(path)}")
+            if piece is not None and piece[2] >= 0:
+                parts = packed.setdefault(key, {})
+                if piece[2] in parts:
+                    raise KeyError(f"{coll}/{'/'.join(path)} maps onto {key} twice")
+                parts[piece[2]] = _attention_value(*piece[1:], val)
+                continue
             if key in sd:
                 raise KeyError(f"{coll}/{'/'.join(path)} maps onto {key} twice")
-            sd[key] = torch.from_numpy(_to_torch_value(path, val))
+            sd[key] = torch.from_numpy(_attention_value(*piece[1:], val) if piece
+                                       else _to_torch_value(path, val))
+    for key, parts in packed.items():
+        if sorted(parts) != [0, 1, 2]:
+            raise KeyError(f"{key}: the tree lacks parts {sorted({0, 1, 2} - set(parts))} "
+                           f"of (query, key, value)")
+        sd[key] = torch.from_numpy(np.concatenate([parts[i] for i in range(3)], axis=0))
     if model is not None:
         want = model.state_dict()
         missing = sorted(set(want) - set(sd))

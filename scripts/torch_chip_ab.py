@@ -5,7 +5,7 @@ Runs ``python3 chip_smoke.py`` in the checkout A and the checkout B in turns,
 A B B A repeated ``--rounds`` times, each run a process of its own, keeps each
 run's output under ``--out``, reads the times that chip_smoke.py prints (the
 served batch, the training step, the kernels per batch or step, and the
-AdapterBit and PaSST lines where the checkout has them) and prints, per checkout, the
+AdapterBit, PaSST and CRNN lines where the checkout has them) and prints, per checkout, the
 median and the range of each over its runs as one JSON line. Exits non-zero
 when a run fails.
 
@@ -39,6 +39,10 @@ PATTERNS = {
     "k6_x7_ms": r"^PaSST per batch of \d+ .*?K6 x7 ([\d.]+) ms",
     "k6_library_ms": r"^PaSST per batch of \d+ .*?K6 x7 .*?library ([\d.]+),",
     "passt_rest_ms": r"^PaSST per batch of \d+ .*?rest ([-\d.]+) ms",
+    "crnn_served_ms": r"^CRNN served: ([\d.]+) ms/batch",
+    "k7_x6_ms": r"^CRNN per batch of \d+ .*?K7 x6 ([\d.]+) ms",
+    "k7_library_ms": r"^CRNN per batch of \d+ .*?K7 x6 .*?library ([\d.]+),",
+    "crnn_rest_ms": r"^CRNN per batch of \d+ .*?rest ([-\d.]+) ms",
 }
 
 

@@ -1,4 +1,4 @@
-"""Kernels K1-K6 on the card against their plain versions (marked
+"""Kernels K1-K7 on the card against their plain versions (marked
 ``cuda``: skipped without a CUDA card and nvcc). Imports nothing of JAX, so on
 a machine without JAX it runs with
 
@@ -12,7 +12,8 @@ from pseldnets_tpu_torch.models.adapters import AdaptConfig
 from pseldnets_tpu_torch.models.factory import init_weights
 from pseldnets_tpu_torch.models.htsat import PatchMerging, SwinTransformerBlock
 from pseldnets_tpu_torch.models.passt import Block
-from pseldnets_tpu_torch.ops import frontend, swin_block, swin_block_adapt, swin_block_vjp, vit_block
+from pseldnets_tpu_torch.ops import (conv_block, frontend, swin_block, swin_block_adapt,
+                                     swin_block_vjp, vit_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -165,3 +166,58 @@ def test_vit_block_kernel_matches_plain(card, B, N):
     ref = vit_block.vit_block_plain(x, p).float()
     assert got.shape == ref.shape == (B, N, 768)
     assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+
+
+def _conv_operands(card, gen, B, T, F, cin, cmid, cout, relu_conv=False):
+    """bf16 NHWC input, HWIO weights N(0, 1/fan_in) with folded-BN-like
+    scales, float32 biases large enough that a wrong edge halo shows."""
+    x = torch.randn(B, T, F, cin, generator=gen)
+    w1 = torch.randn(3, 3, cin, cmid, generator=gen) / (9 * cin) ** 0.5
+    b1 = torch.randn(cin if relu_conv else cmid, generator=gen) * 0.5 + 0.5
+    w2 = torch.randn(3, 3, cmid, cout, generator=gen) / (9 * cmid) ** 0.5
+    b2 = torch.randn(cout, generator=gen) * 0.5
+    bf = lambda t: t.to(card).bfloat16().contiguous()  # noqa: E731
+    return bf(x), bf(w1), b1.to(card), bf(w2), b2.to(card)
+
+
+@pytest.mark.parametrize("mode,shape", [
+    ("pair", (2, 37, 16, 16, 64, 64)), ("pair", (2, 9, 4, 512, 1024, 1024)),
+    ("single", (2, 21, 8, 64, 128, 0)), ("single", (1, 5, 2, 1024, 2048, 0)),
+    ("relu_conv", (2, 19, 8, 64, 64, 128)), ("pair", (1, 11, 8, 32, 48, 40))])
+def test_conv_block_kernel_matches_plain(card, mode, shape):
+    """K7 in each mode at small shapes (a Cin of 16 takes the 16-channel K
+    step; Cout 40 and the mid 48 are not multiples of the 64-wide tile; M is never a
+    multiple of 128): within two bf16 ulps (2^-6) of the plain bf16 version at the
+    output's largest magnitude."""
+    B, T, F, cin, cmid, cout = shape
+    gen = torch.Generator().manual_seed(40 + T)
+    x, w1, b1, w2, b2 = _conv_operands(card, gen, B, T, F, cin, cmid if mode != "relu_conv"
+                                       else cin, cout or cmid, relu_conv=mode == "relu_conv")
+    if mode == "relu_conv":
+        args = (x, None, b1, w2, b2)
+    elif mode == "single":
+        args = (x, w1, b1, None, None)
+    else:
+        args = (x, w1, b1, w2, b2)
+    before = conv_block.KERNEL.launches
+    got = conv_block.conv3x3_bias_relu(*args)
+    assert conv_block.KERNEL.launches == before + 1
+    ref = conv_block.conv3x3_bias_relu_plain(*args)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+
+
+def test_conv_block_kernel_raises_on_what_it_does_not_take(card):
+    gen = torch.Generator().manual_seed(50)
+    x, w1, b1, w2, b2 = _conv_operands(card, gen, 1, 4, 4, 16, 32, 32)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        conv_block.conv3x3_bias_relu(x.float(), w1, b1)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_block.conv3x3_bias_relu(x.transpose(1, 2), w1, b1)
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        conv_block.conv3x3_bias_relu(x, w1, b1.bfloat16())
+    with pytest.raises(NotImplementedError, match="Cin % 16"):
+        conv_block.conv3x3_bias_relu(x[..., :7].contiguous(), w1[:, :, :7].contiguous(), b1)
+    with pytest.raises(NotImplementedError, match="computes in bf16"):
+        conv_block.conv3x3_bias_relu(x, w1, b1, compute_dtype=torch.float32)

@@ -98,7 +98,8 @@ def test_full_size_model_from_configs():
 @pytest.mark.parametrize("override,match", [
     ("adapt=adapter adapt.adapt_kwargs.adapter_scalar=learnable_scalar", "queue A step 6"),
     ("adapt=lora", "queue A step 6"),
-    ("model=crnn", "queue A step 9"), ("model=passt loss=einv2_pit", "queue A step 7")])
+    ("model=crnn loss=einv2_pit", "queue A step 7"),
+    ("model=passt loss=einv2_pit", "queue A step 7")])
 def test_unported_settings_raise(override, match):
     cfg = compose(str(ROOT / "configs"), "train", OVERRIDES + override.split())
     with pytest.raises(NotImplementedError, match=match):
@@ -159,3 +160,17 @@ def test_bridge_maps_every_key_both_ways():
                                     if k != "tscam_conv"})
     with pytest.raises(KeyError, match="tscam_conv"):
         jax_to_torch_state_dict(short, tm)
+
+
+def test_chip_smoke_builds_every_kernel_source():
+    """Every ``csrc/*.cu`` is one kernel of chip_smoke.py's K1-K7 (built,
+    checked and counted there), conv_block.cu (K7) among them; no module
+    imports JAX (above)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    sources = {k.source.name for k in chip_smoke.kernels().values()}
+    assert sources == {p.name for p in (PORT / "csrc").glob("*.cu")}
+    assert "conv_block.cu" in sources and sorted(chip_smoke.kernels()) == [
+        f"K{i}" for i in range(1, 8)]
+    assert "serve_crnn" in chip_smoke.PATHS
