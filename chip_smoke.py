@@ -12,9 +12,12 @@ adapters in every block, K4 forward and K5 backward, frozen backbone); then
 PaSST mACCDOA serving (configs/model/passt.yaml, 602 tokens of 768, 7 ViT
 blocks on K6) through passt_fused_forward_from_wav; then CRNN ACCDOA serving
 (configs/model/crnn.yaml: the CNN12 trunk, its six ConvBlocks on K7, and a
-conformer at 2048) through crnn_fused_forward_from_wav. It checks the
-outputs, the kernels' launch counts on each path and the kernel step
-against the plain step, and prints the times.
+conformer at 2048) through crnn_fused_forward_from_wav; then HTSAT serving
+again with the patch embed on its kernel (K8, patch_embed="kernel"); then
+the frontend's flat and DIF forms (K9, K10) through fused_logmel_iv
+(radix2=False, variant="dif"). It checks the outputs, the kernels' launch
+counts on each path and the kernel step against the plain step, and prints
+the times.
 
     python3 chip_smoke.py
 
@@ -57,7 +60,8 @@ CRNN_OVERRIDES = ["model=crnn", "loss=accdoa", "model.kwargs.pretrained_path=nul
 # the CNN12 trunk's ConvBlocks at 10 s: (T, F, Cin, Cout)
 CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
                (125, 8, 256, 512), (125, 4, 512, 1024), (125, 2, 1024, 2048))
-PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn")
+PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn",
+         "serve_patch", "features_flat", "features_dif")
 
 
 def log(msg):
@@ -114,12 +118,14 @@ def phase_device():
 
 
 def kernels():
-    from pseldnets_tpu_torch.ops import (conv_block, frontend, swin_block, swin_block_adapt,
-                                         swin_block_vjp, vit_block)
+    from pseldnets_tpu_torch.ops import (conv_block, frontend, frontend_forms, patch_embed,
+                                         swin_block, swin_block_adapt, swin_block_vjp,
+                                         vit_block)
 
     return {"K1": frontend.KERNEL, "K2": swin_block.KERNEL, "K3": swin_block_vjp.KERNEL,
             "K4": swin_block_adapt.FWD_KERNEL, "K5": swin_block_adapt.BWD_KERNEL,
-            "K6": vit_block.KERNEL, "K7": conv_block.KERNEL}
+            "K6": vit_block.KERNEL, "K7": conv_block.KERNEL, "K8": patch_embed.KERNEL,
+            "K9": frontend_forms.FLAT_KERNEL, "K10": frontend_forms.DIF_KERNEL}
 
 
 def zero_counts():
@@ -129,6 +135,12 @@ def zero_counts():
 
 def read_counts():
     return {n: k.launches for n, k in kernels().items()}
+
+
+def expected(**launches):
+    """The launch counts a path should read: the given ones, 0 for every
+    other kernel."""
+    return {n: launches.get(n, 0) for n in kernels()}
 
 
 def phase_build():
@@ -293,21 +305,23 @@ def phase_swin_block_train():
                 compare(f"K3 {k}", g[k], g16[k], g32[k], 2.0 ** -6)
 
 
-def k1_work(B):
-    """Bytes and float32 FLOPs of K1's function on B 10 s clips: per frame
-    and channel the window and a real FFT of n_fft (2.5 n log2 n FLOPs), then
-    power, the normalized IV and the mel projection on non-zero weights, of
-    the n_frames real frames; waveform, filterbank, window and affine read
-    once, bf16 output written at 1024 frames."""
+def k1_work(B, n_fft=1024, hop=240, t_out=1024, out_bytes=2, affine=True):
+    """Bytes and float32 FLOPs of the frontend's function (K1, and K9 and
+    K10 at their shapes) on B 10 s clips: per frame and channel the window
+    and a real FFT of n_fft (2.5 n log2 n FLOPs), then power, the normalized
+    IV and the mel projection on non-zero weights, of the n_frames real
+    frames; waveform, filterbank, window and affine read once, the output
+    (t_out frames of out_bytes) written once. The function's bound, not the
+    algorithm's: a DFT as a GEMM does far more."""
     from pseldnets_tpu_torch.ops.features import logmel_iv_filterbank
 
-    n_fft, n_frames = 1024, 1 + N_SAMPLES // 240
+    n_frames, n_freqs = 1 + N_SAMPLES // hop, n_fft // 2 + 1
     fb = logmel_iv_filterbank(24000, n_fft, 64)
     nnz = int((fb != 0).sum())
     fft = n_fft + 2.5 * n_fft * math.log2(n_fft)
-    per_frame = 4 * fft + 4 * 513 * 3 + 513 * 15 + 7 * nnz * 2
-    nbytes = (B * 4 * N_SAMPLES * 4 + B * 7 * 1024 * 64 * 2
-              + fb.size * 4 + n_fft * 4 + 2 * 7 * 64 * 4)
+    per_frame = 4 * fft + 4 * n_freqs * 3 + n_freqs * 15 + 7 * nnz * 2
+    nbytes = (B * 4 * N_SAMPLES * 4 + B * 7 * t_out * 64 * out_bytes
+              + fb.size * 4 + n_fft * 4 + (2 * 7 * 64 * 4 if affine else 0))
     return nbytes, B * n_frames * per_frame
 
 
@@ -349,14 +363,12 @@ def k3_work(B, p):
     return 3 * M * C * 2 + B * 2 * 4 + w_bytes + g_bytes, flops
 
 
-def phase_serve(smi):
+def htsat_serving_model():
+    """HTSAT mACCDOA at full published width (bench.py's config), seeded
+    random weights, non-trivial eval ScalarBN statistics, on the card."""
     import torch
     from pseldnets_tpu_torch.config import compose
     from pseldnets_tpu_torch.models import build_model
-    from pseldnets_tpu_torch.ops import swin_block
-    from pseldnets_tpu_torch.serving import (embed_tokens, folded_wav_features,
-                                             htsat_fused_forward_from_wav,
-                                             prepare_blocks)
 
     cfg = compose(str(ROOT / "configs"), "train",
                   ["loss=multi_accdoa", "model.kwargs.pretrained_path=null"])
@@ -365,6 +377,17 @@ def phase_serve(smi):
     with torch.no_grad():  # non-trivial eval ScalarBN statistics
         model.scalar.running_mean.copy_(torch.randn(7, 64, generator=gen) * 5.0 - 20.0)
         model.scalar.running_var.copy_(torch.rand(7, 64, generator=gen) * 50.0 + 10.0)
+    return model
+
+
+def phase_serve(smi):
+    import torch
+    from pseldnets_tpu_torch.ops import swin_block
+    from pseldnets_tpu_torch.serving import (embed_tokens, folded_wav_features,
+                                             htsat_fused_forward_from_wav,
+                                             prepare_blocks)
+
+    model = htsat_serving_model()
     blocks = prepare_blocks(model, torch.bfloat16)
     check(len(blocks) == 12 and sum(p.merge for p in blocks) == 3, "block plan")
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -381,8 +404,7 @@ def phase_serve(smi):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
     launches = read_counts()
-    want = {"K1": SERVE_BATCHES, "K2": 12 * SERVE_BATCHES, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
-            "K7": 0}
+    want = expected(K1=SERVE_BATCHES, K2=12 * SERVE_BATCHES)
     log(f"served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches {launches} "
         f"(expect {want})")
     check(launches == want, "launch counts")
@@ -502,8 +524,7 @@ def phase_train(smi):
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
     launches = read_counts()
     log(f"peak device memory over the steps {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    want = {"K1": TRAIN_STEPS, "K2": 12 * TRAIN_STEPS, "K3": 12 * TRAIN_STEPS, "K4": 0, "K5": 0,
-            "K6": 0, "K7": 0}
+    want = expected(K1=TRAIN_STEPS, K2=12 * TRAIN_STEPS, K3=12 * TRAIN_STEPS)
     log(f"trained {TRAIN_STEPS} steps of {B_TRAIN} x 10 s clips: launches {launches} "
         f"(expect {want}); losses {[round(float(v), 6) for v in losses]}")
     check(launches == want, "training launch counts")
@@ -730,8 +751,7 @@ def phase_serve_adapter(smi):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
     launches = read_counts()
-    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 12 * SERVE_BATCHES, "K5": 0, "K6": 0,
-            "K7": 0}
+    want = expected(K1=SERVE_BATCHES, K4=12 * SERVE_BATCHES)
     log(f"AdapterBit: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches "
         f"{launches} (expect {want})")
     check(launches == want, "AdapterBit serving launch counts")
@@ -831,8 +851,7 @@ def phase_train_adapter(smi):
     launches = read_counts()
     log(f"AdapterBit: peak device memory over the steps "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    want = {"K1": TRAIN_STEPS, "K2": 0, "K3": 0, "K4": 12 * TRAIN_STEPS, "K5": 12 * TRAIN_STEPS,
-            "K6": 0, "K7": 0}
+    want = expected(K1=TRAIN_STEPS, K4=12 * TRAIN_STEPS, K5=12 * TRAIN_STEPS)
     log(f"AdapterBit: trained {TRAIN_STEPS} steps of {B_TRAIN} x 10 s clips: launches "
         f"{launches} (expect {want}); losses {[round(float(v), 6) for v in losses]}")
     check(launches == want, "AdapterBit training launch counts")
@@ -1031,8 +1050,7 @@ def phase_serve_passt(smi):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
     launches = read_counts()
-    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 7 * SERVE_BATCHES,
-            "K7": 0}
+    want = expected(K1=SERVE_BATCHES, K6=7 * SERVE_BATCHES)
     log(f"PaSST: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches {launches} "
         f"(expect {want})")
     check(launches == want, "PaSST serving launch counts")
@@ -1244,8 +1262,7 @@ def phase_serve_crnn(smi):
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {"K1": SERVE_BATCHES, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
-            "K7": 6 * SERVE_BATCHES}
+    want = expected(K1=SERVE_BATCHES, K7=6 * SERVE_BATCHES)
     log(f"CRNN: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches {launches} "
         f"(expect {want}: K7 one call per ConvBlock, two conv launches each)")
     check(launches == want, "CRNN serving launch counts")
@@ -1327,6 +1344,320 @@ def phase_serve_crnn(smi):
                              lib_rel)}
 
 
+def phase_patch_embed():
+    """K8 against its plain version at B_CHECK clips: on K1's serving output
+    (ScalarBN folded, bf16, 1024 frames) and on the 5 s trick's input (the
+    batch halves of 5 s features concatenated in time, 1000 frames, ScalarBN,
+    padded to 1024 in the kernel); bf16 within one bf16 ulp (2^-7 of
+    max(|x|, 1)), float32 within 1e-5."""
+    import torch
+    from pseldnets_tpu_torch.ops.frontend import fused_logmel_iv
+    from pseldnets_tpu_torch.ops.patch_embed import (patch_embed_tokens,
+                                                     patch_embed_tokens_plain)
+    from pseldnets_tpu_torch.serving import folded_wav_features, prepare_patch_embed
+
+    model = htsat_serving_model()
+    g = torch.Generator(device="cuda").manual_seed(44)
+    wav = torch.randn(B_CHECK, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+    feats = folded_wav_features(model, wav, t_out=1024)
+    raw = fused_logmel_iv(torch.randn(B_CHECK, 4, N_SAMPLES // 2, device="cuda", generator=g)
+                          * 0.1)
+    half = B_CHECK // 2
+    with torch.no_grad():
+        five = model.scalar(torch.cat([raw[:half, :, :-1], raw[half:, :, :-1]], dim=2))
+    check(tuple(feats.shape) == (B_CHECK, 7, 1024, 64)
+          and tuple(five.shape) == (half, 7, 1000, 64), "K8 inputs")
+    for dtype in (torch.bfloat16, torch.float32):
+        p = prepare_patch_embed(model, dtype)
+        for what, x in (("serving form", feats), ("5 s trick", five)):
+            x = x.to(dtype)
+            got = patch_embed_tokens(x, p)
+            torch.cuda.synchronize()
+            ref = patch_embed_tokens_plain(x, p)
+            check(got.shape == ref.shape == (x.shape[0], 4096, 96) and got.dtype == dtype,
+                  f"K8 shape {tuple(got.shape)}")
+            err = (got.float() - ref.float()).abs().max().item()
+            if dtype == torch.bfloat16:
+                rel = ((got.float() - ref.float()).abs()
+                       / ref.float().abs().clamp(min=1.0)).max().item()
+                log(f"K8 bf16 {what}: max |d| {err:.3g}, max err {rel:.3g} of max(|x|, 1) "
+                    f"(<= 2^-7)")
+                check(rel <= 2.0 ** -7, f"K8 bf16 disagrees with its plain version ({what})")
+            else:
+                log(f"K8 float32 {what}: max |d| {err:.3g} (<= 1e-5)")
+                check(err <= 1e-5, f"K8 float32 disagrees with its plain version ({what})")
+
+
+def k8_work(B, p):
+    """Bytes and bf16 FLOPs of K8's function on B clips: the (B, 7, 1024,
+    64) bf16 features read once, the (B, 4096, 96) bf16 tokens written once,
+    the weights read once; 2 K E FLOPs per token for the conv (K = 7 x 16)
+    and ~8 E for bias and LayerNorm."""
+    K, E = p.w.shape
+    tokens = B * 4096
+    nbytes = B * 7 * 1024 * 64 * 2 + tokens * E * 2 + p.w.numel() * 2 + 3 * E * 4
+    return nbytes, tokens * (2 * K * E + 8 * E)
+
+
+def phase_serve_patch(smi):
+    """HTSAT mACCDOA serving with the patch embed on kernel K8
+    (htsat_fused_forward_from_wav(..., patch_embed="kernel")): SERVE_BATCHES
+    batches of B_SERVE 10 s clips (K1 x1, K8 x1, K2 x12 per batch), counted
+    from 0; the output against the plain path, float32, and the einsum
+    path; K8 on the batch's own features, timed beside its plain version
+    and the einsum embed it replaces; the served time beside the einsum
+    path's, in turns in this process; a profile."""
+    import torch
+    from pseldnets_tpu_torch.ops.patch_embed import (patch_embed_tokens,
+                                                     patch_embed_tokens_plain)
+    from pseldnets_tpu_torch.serving import (embed_tokens, folded_wav_features,
+                                             htsat_fused_forward_from_wav, prepare_blocks,
+                                             prepare_patch_embed)
+
+    model = htsat_serving_model()
+    blocks = prepare_blocks(model, torch.bfloat16)
+    embed = prepare_patch_embed(model, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(45)
+    wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(SERVE_BATCHES)]
+    serve = lambda w: htsat_fused_forward_from_wav(  # noqa: E731
+        model, w, blocks=blocks, patch_embed="kernel", embed=embed)
+    serve_einsum = lambda w: htsat_fused_forward_from_wav(model, w, blocks=blocks)  # noqa: E731
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = [fn(w)["multi_accdoa"] for w in wavs]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / SERVE_BATCHES, out
+
+    serve(wavs[0])  # warm-up
+    serve_einsum(wavs[0])
+    torch.cuda.synchronize()
+
+    # the main path: counts from 0, SERVE_BATCHES batches
+    zero_counts()
+    dt, outs = timed(serve)
+    launches = read_counts()
+    want = expected(K1=SERVE_BATCHES, K8=SERVE_BATCHES, K2=12 * SERVE_BATCHES)
+    log(f"patch-embed kernel: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: "
+        f"launches {launches} (expect {want})")
+    check(launches == want, "serving launch counts with the K8 embed")
+    for o in outs:
+        check(o.shape == (B_SERVE, 100, 117) and o.dtype == torch.float32
+              and torch.isfinite(o).all().item(), f"served output {tuple(o.shape)}")
+    # the einsum path and this one again, in turns: kernel, einsum, einsum, kernel
+    dt_e1, ein = timed(serve_einsum)
+    dt_e2, _ = timed(serve_einsum)
+    dt2, _ = timed(serve)
+    dt_k, dt_e = (dt + dt2) / 2, (dt_e1 + dt_e2) / 2
+    log(f"served with the K8 embed: {dt_k * 1e3:.2f} ms/batch ({dt * 1e3:.2f}, "
+        f"{dt2 * 1e3:.2f}), {B_SERVE / dt_k:.1f} clips/s; einsum embed {dt_e * 1e3:.2f} "
+        f"ms/batch ({dt_e1 * 1e3:.2f}, {dt_e2 * 1e3:.2f}), {B_SERVE / dt_e:.1f} clips/s "
+        f"(host clock, synchronized; {smi})")
+    plain = htsat_fused_forward_from_wav(model, wavs[0], blocks=blocks, use_kernels=False,
+                                         patch_embed="kernel", embed=embed)["multi_accdoa"]
+    f32 = htsat_fused_forward_from_wav(model, wavs[0], compute_dtype=torch.float32,
+                                       use_kernels=False, patch_embed="kernel")["multi_accdoa"]
+    e_plain = (outs[0] - plain).abs().max().item()
+    e_f32 = (outs[0] - f32).abs().max().item()
+    p_f32 = (plain - f32).abs().max().item()
+    e_ein = (outs[0] - ein[0]).abs().max().item()
+    log(f"served (K8 embed) vs plain bf16 path: max |d| {e_plain:.3g} (<= 5e-2); vs float32 "
+        f"plain path {e_f32:.3g} (plain bf16 {p_f32:.3g}); vs the einsum embed's path "
+        f"{e_ein:.3g} (<= 5e-2, the rounding before the LayerNorm)")
+    check(e_plain <= 5e-2, "served output (K8 embed) disagrees with the plain path")
+    check(e_f32 <= 1.25 * p_f32 + 1e-2, "served output (K8 embed) further from float32")
+    check(e_ein <= 5e-2, "the K8 and einsum embeds' served outputs differ beyond bf16")
+
+    # K1 and K8 against their plain versions on the batch's own inputs;
+    # K8 timed beside its plain version and the einsum embed
+    wav = wavs[0]
+    feats = folded_wav_features(model, wav, t_out=1024)
+    ref1 = folded_wav_features(model, wav, t_out=1024, use_kernels=False).float()
+    k1_err = (feats.float() - ref1).abs().max().item()
+    rel = ((feats.float() - ref1).abs() / ref1.abs().clamp(min=1.0)).max().item()
+    check(rel <= 2.0 ** -7, f"K1 disagrees with its plain version at B={B_SERVE}")
+    got = patch_embed_tokens(feats, embed).float()
+    ref = patch_embed_tokens_plain(feats, embed).float()
+    k8_err = (got - ref).abs().max().item()
+    k8_rel = k8_err / ref.abs().max().item()
+    rel8 = ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    check(rel8 <= 2.0 ** -7, f"K8 disagrees with its plain version at B={B_SERVE}")
+    with torch.no_grad():
+        e_emb = (embed_tokens(model, feats, torch.bfloat16).float() - ref).abs().max().item()
+        k8 = cuda_ms(lambda: patch_embed_tokens(feats, embed), reps=20)
+        k8_plain = cuda_ms(lambda: patch_embed_tokens_plain(feats, embed), reps=5)
+        k8_einsum = cuda_ms(lambda: embed_tokens(model, feats, torch.bfloat16), reps=20)
+    nb, fl = k8_work(B_SERVE, embed)
+    k8_bound, k8_by = bound_ms(nb, bf16_flops=fl)
+    log(f"K8 at B={B_SERVE}: max |d| {k8_err:.3g}, max err {rel8:.3g} of max(|x|, 1) (<= "
+        f"2^-7); the einsum embed {e_emb:.3g} from it; {k8:.4f} ms (plain {k8_plain:.3f}, "
+        f"einsum embed {k8_einsum:.4f}, bound {k8_bound:.4f} by {k8_by}; {smi})")
+    phase_profile("one served batch with the K8 embed", lambda: serve(wav))
+    return launches, {"K1": (k1_err, k1_err / ref1.abs().max().item()),
+                      "K8": (k8_err, k8_rel, k8, k8_plain, k8_bound, k8_by, None, None,
+                             {"einsum_ms": k8_einsum})}
+
+
+# (n_fft, hop, window, fused_logmel_iv keywords, the kernel the route takes)
+FORM_CASES = ((1024, 240, "hann", {"radix2": False}, "K9"),
+              (1024, 240, "hann", {"variant": "dif"}, "K10"),
+              (1024, 240, "hamming", {"variant": "dif"}, "K10"),
+              (512, 100, "hann", {"radix2": False}, "K9"),
+              (512, 100, "hann", {"variant": "dif"}, "K10"),
+              (1024, 241, "hann", {}, "K9"),
+              (1023, 241, "hamming", {}, "K9"),
+              (2048, 240, "hann", {}, "K9"))
+FEATURE_BUDGET = (8e-4, 7e-5)  # max |dB| log-mel, max |IV|
+
+
+def feature_errs(a, b):
+    """(max |dB| over the 4 log-mel channels, max |d| over the 3 IV ones)."""
+    d = (a.float() - b.float()).abs()
+    return d[:, :4].max().item(), d[:, 4:].max().item()
+
+
+def within_budget(errs):
+    return errs[0] <= FEATURE_BUDGET[0] and errs[1] <= FEATURE_BUDGET[1]
+
+
+def raises(fn, exc):
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def phase_frontend_forms():
+    """K9 and K10 at B_CHECK 10 s clips at each shape the routing gives them
+    (FORM_CASES): each against its plain version and against the float32
+    eager extractor, within the feature budget (8e-4 dB / 7e-5 IV), and
+    beside a float64 DFT; n_fft 2048 through LogmelIVExtractor, and in K1's
+    folded serving form (affine, bf16, 1024 frames) within one bf16 ulp of
+    the plain folded form; the routes that raise."""
+    import torch
+    from pseldnets_tpu_torch.ops import frontend_forms
+    from pseldnets_tpu_torch.ops.features import (LogmelIVExtractor, logmel_iv_filterbank,
+                                                  logmel_iv_from_spectrum)
+    from pseldnets_tpu_torch.ops.frontend import (frontend_route, fused_logmel_iv,
+                                                  fused_logmel_iv_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(46)
+    x = torch.randn(B_CHECK, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+    x[-1, :, : N_SAMPLES // 4] = 0.0  # a silent stretch: IV must stay finite
+    plains = {"K9": frontend_forms.logmel_iv_flat_plain,
+              "K10": frontend_forms.logmel_iv_dif_plain}
+
+    def hold(name, what, got, ref, eager, f64):
+        e_plain, e_eager = feature_errs(got, ref), feature_errs(got, eager)
+        log(f"{name} {what}: vs plain {e_plain[0]:.3g} dB / {e_plain[1]:.3g} IV, vs float32 "
+            f"eager {e_eager[0]:.3g} / {e_eager[1]:.3g} (<= 8e-4 / 7e-5); from float64 "
+            f"{feature_errs(got, f64)[0]:.3g} dB (plain {feature_errs(ref, f64)[0]:.3g}, "
+            f"eager {feature_errs(eager, f64)[0]:.3g})")
+        check(bool(torch.isfinite(got).all()) and within_budget(e_plain)
+              and within_budget(e_eager), f"{name} {what} outside the feature budget")
+
+    for n_fft, hop, window, kw, name in FORM_CASES:
+        shape = dict(n_fft=n_fft, hop=hop, window=window)
+        before = read_counts()
+        got = fused_logmel_iv(x, **shape, **kw)
+        torch.cuda.synchronize()
+        after = read_counts()
+        check(after[name] == before[name] + 1
+              and sum(after.values()) == sum(before.values()) + 1,
+              f"route of {shape} {kw}: counts {before} -> {after}")
+        check(got.shape == (B_CHECK, 7, 1 + N_SAMPLES // hop, 64), f"{name} shape")
+        fb64 = torch.as_tensor(logmel_iv_filterbank(24000, n_fft, 64), device="cuda").double()
+        f64 = logmel_iv_from_spectrum(*frontend_forms.flat_spectrum(x.double(), n_fft, hop,
+                                                                    window), fb64)
+        hold(name, f"{shape} {kw}", got, plains[name](x, **shape),
+             fused_logmel_iv_plain(x, **shape), f64)
+        del f64
+
+    # n_fft 2048 through the extractor a SELDTask builds, then folded
+    cfg = {"data": {"nfft": 2048, "hoplen": 240, "window": "hann", "sample_rate": 24000,
+                    "n_mels": 64}}
+    before = read_counts()["K9"]
+    got = LogmelIVExtractor(cfg)(x)
+    check(read_counts()["K9"] == before + 1, "LogmelIVExtractor at n_fft 2048 runs K9")
+    shape = dict(n_fft=2048, hop=240)
+    fb64 = torch.as_tensor(logmel_iv_filterbank(24000, 2048, 64), device="cuda").double()
+    hold("K9", "LogmelIVExtractor n_fft 2048", got,
+         frontend_forms.logmel_iv_flat_plain(x, **shape), fused_logmel_iv_plain(x, **shape),
+         logmel_iv_from_spectrum(*frontend_forms.flat_spectrum(x.double(), 2048, 240), fb64))
+    inv = torch.rand(7, 64, device="cuda", generator=g) + 0.5
+    shift = torch.randn(7, 64, device="cuda", generator=g)
+    kw = dict(post_affine=(inv, shift), out_dtype=torch.bfloat16, t_out=1024)
+    got = fused_logmel_iv(x, **shape, **kw)
+    ref = frontend_forms.logmel_iv_flat_plain(x, **shape, **kw)
+    check(got.shape == (B_CHECK, 7, 1024, 64) and got.dtype == torch.bfloat16
+          and bool((got[:, :, 1001:] == 0).all()), "K9 folded form shape, dtype, zero tail")
+    rel = ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+    log(f"K9 folded serving form (n_fft 2048, affine, bf16, 1024 frames): max err {rel:.3g} "
+        f"of max(|x|, 1) (<= 2^-7)")
+    check(rel <= 2.0 ** -7, "K9 folded form disagrees with its plain version")
+
+    # the routes that raise, as in the JAX package
+    nie = NotImplementedError
+    cases = {"hop >= n_fft": lambda: frontend_route(1024, 1024),
+             "DIF with folds": lambda: fused_logmel_iv(x, variant="dif", out_dtype=torch.bfloat16),
+             "radix2=False with folds": lambda: fused_logmel_iv(x, radix2=False,
+                                                                post_affine=(inv, shift)),
+             "odd hop with folds": lambda: fused_logmel_iv(x, hop=241, t_out=1024)}
+    for what, fn in cases.items():
+        check(raises(fn, nie), f"the route does not raise for {what}")
+    log(f"routes that raise NotImplementedError: {', '.join(cases)}")
+
+
+def phase_features_form(smi, name, kw):
+    """One main path of the frontend's forms: B_SERVE 10 s clips (1001
+    frames, n_fft 1024, hop 240, float32) through fused_logmel_iv(**kw),
+    counted from 0 (the form's kernel once, K1 never); the output against
+    the plain version within the feature budget; timed beside the plain
+    version and K1 on the same batch (the same function), against k1_work's
+    bound at this shape."""
+    import torch
+    from pseldnets_tpu_torch.ops import frontend_forms
+    from pseldnets_tpu_torch.ops.frontend import fused_logmel_iv
+
+    plain = {"K9": frontend_forms.logmel_iv_flat_plain,
+             "K10": frontend_forms.logmel_iv_dif_plain}[name]
+    g = torch.Generator(device="cuda").manual_seed(47)
+    x = torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+    run = lambda: fused_logmel_iv(x, **kw)  # noqa: E731
+    run()  # warm-up: the tables
+    torch.cuda.synchronize()
+
+    zero_counts()
+    out = run()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = expected(**{name: 1})
+    log(f"fused_logmel_iv({kw}) on {B_SERVE} x 10 s clips: launches {launches} (expect {want})")
+    check(launches == want, f"{name} path launch counts")
+    check(out.shape == (B_SERVE, 7, 1001, 64) and bool(torch.isfinite(out).all()),
+          f"{name} output {tuple(out.shape)}")
+    ref = plain(x, n_fft=1024, hop=240)
+    errs = feature_errs(out, ref)
+    err = (out - ref).abs().max().item()
+    check(within_budget(errs), f"{name} outside the feature budget at B={B_SERVE}")
+    ms = cuda_ms(run, reps=5)
+    plain_ms = cuda_ms(lambda: plain(x, n_fft=1024, hop=240), reps=2)
+    k1_ms = cuda_ms(lambda: fused_logmel_iv(x), reps=10)
+    nb, fl = k1_work(B_SERVE, t_out=1001, out_bytes=4, affine=False)
+    bound, by = bound_ms(nb, f32_flops=fl)
+    tables = (frontend_forms._flat_kernel_tables(1024, "hann", 64, 24000, x.device) if name == "K9"
+              else frontend_forms._dif_kernel_tables(1024, 64, 24000, x.device))
+    n_tiles, Kp, cols = tables[0].shape
+    gemm = 2.0 * B_SERVE * 4 * 1001 * Kp * cols * n_tiles
+    log(f"{name} at B={B_SERVE} ({smi}): vs plain {errs[0]:.3g} dB / {errs[1]:.3g} IV; "
+        f"{ms:.3f} ms ({gemm / 1e12:.3f} TFLOP of DFT, {gemm / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.3f} ms, K1 on the same batch {k1_ms:.3f} ms, bound {bound:.4f} ms by {by}")
+    return launches, {name: (err, err / ref.abs().max().item(), ms, plain_ms, bound, by, None,
+                             None, {"k1_ms": k1_ms})}
+
+
 def phase_profile(what, fn):
     """Device time by kernel over one call of fn (torch.profiler, CUPTI);
     returns the (kernel, ms, count) rows, empty when nothing was recorded."""
@@ -1377,14 +1708,22 @@ def main():
     results["serve_passt"] = phase_serve_passt(smi)
     phase_conv_block()
     results["serve_crnn"] = phase_serve_crnn(smi)
+    phase_patch_embed()
+    results["serve_patch"] = phase_serve_patch(smi)
+    phase_frontend_forms()
+    results["features_flat"] = phase_features_form(smi, "K9", {"radix2": False})
+    results["features_dif"] = phase_features_form(smi, "K10", {"variant": "dif"})
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
-    # steps, plain, AdapterBit, PaSST and CRNN), each counted from 0; errors: the
-    # largest over the checks at each path's own shapes, absolute and as a
-    # share of the plain output's largest magnitude; ms and bounds per served
-    # batch (K1, K2, K4, K6, K7) or per training step (K3, K5); library_ms:
-    # one PyTorch call computing the same function (K6, K7), with its error
-    # from the plain version as a share of scale
+    # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the K8 embed, one
+    # call of each frontend form), each counted from 0; errors: the largest
+    # over the checks at each path's own shapes, absolute and as a share of
+    # the plain output's largest magnitude; ms and bounds per served batch
+    # (K1, K2, K4, K6, K7, K8), per training step (K3, K5) or per call on a
+    # batch (K9, K10); library_ms: one PyTorch call computing the same
+    # function (K6, K7), with its error from the plain version as a share of
+    # scale; einsum_ms (K8): the einsum embed it replaces; k1_ms (K9, K10): K1
+    # on the same batch
     for name, route_src, replaces in (
             ("K1 fused_logmel_iv", "pseldnets_tpu_torch/csrc/frontend.cu",
              "pseldnets_tpu/ops/pallas/frontend.py:754"),
@@ -1399,7 +1738,13 @@ def main():
             ("K6 vit_block_fused", "pseldnets_tpu_torch/csrc/vit_block.cu",
              "pseldnets_tpu/ops/pallas/vit_block.py:222"),
             ("K7 conv3x3_bias_relu", "pseldnets_tpu_torch/csrc/conv_block.cu",
-             "pseldnets_tpu/ops/pallas/conv_block.py:193")):
+             "pseldnets_tpu/ops/pallas/conv_block.py:193"),
+            ("K8 patch_embed_tokens", "pseldnets_tpu_torch/csrc/patch_embed.cu",
+             "pseldnets_tpu/ops/pallas/patch_embed.py:119"),
+            ("K9 logmel_iv_flat", "pseldnets_tpu_torch/csrc/frontend_flat.cu",
+             "pseldnets_tpu/ops/pallas/frontend.py:556"),
+            ("K10 logmel_iv_dif", "pseldnets_tpu_torch/csrc/frontend_dif.cu",
+             "pseldnets_tpu/ops/pallas/frontend.py:847")):
         key = name.split()[0]
         errs = {path: r[1][key][:2] for path, r in results.items() if key in r[1]}
         timed = next(r[1][key] for r in results.values() if len(r[1].get(key, ())) >= 6)
@@ -1414,7 +1759,8 @@ def main():
                      "max_err_of_scale": max(e[1] for e in errs.values()),
                      "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms,
-                     "library_err_of_scale": library_err})
+                     "library_err_of_scale": library_err,
+                     **(timed[8] if len(timed) > 8 else {})})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,10 +22,11 @@ NO_DECODER = (None, "None", "null", "identity")
 
 
 def check_no_dropout(module: nn.Module, rate: float, what: str) -> None:
-    """Train mode with dropout is not ported: raise when ``module`` trains
-    with a rate other than 0 (eval ignores dropout)."""
+    """Train mode with dropout is not ported: raise when ``module`` (a CRNN
+    decoder's) trains with a rate other than 0 (eval ignores dropout)."""
     if module.training and rate:
-        raise NotImplementedError(f"training {what} with dropout {rate} is not ported")
+        raise NotImplementedError(f"training {what} with dropout {rate} is not ported "
+                                  "yet (ROADMAP.md queue A step 9)")
 
 
 class TorchBatchNorm(nn.Module):

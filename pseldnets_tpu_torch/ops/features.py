@@ -6,10 +6,12 @@ power-mel (HTK scale, slaney norm, fmin=20, fmax=fs/2) -> 10*log10 dB
 (amin=1e-10) concatenated with the L2-normalized FOA intensity vector
 projected onto the mel basis; output (B, 4+3, T, n_mels).
 
-This is the plain version of the fused frontend kernel (ops/frontend.py), and
-the only path when hop >= n_fft. ``LogmelIVExtractor`` sends a CUDA tensor to
-the kernel (K1 in its unfolded float32 form, as the JAX extractor calls its
-Pallas kernel, features.py:105-115).
+This is the plain version of the fused frontend kernel K1 (ops/frontend.py),
+its epilogue (``logmel_iv_from_spectrum``) that of the flat and DIF forms
+(ops/frontend_forms.py), and the only path when hop >= n_fft.
+``LogmelIVExtractor`` sends a CUDA tensor to the kernels (in their unfolded
+float32 form, as the JAX extractor calls its Pallas kernel,
+features.py:105-115).
 """
 
 import numpy as np
@@ -56,12 +58,12 @@ def intensity_vector(real: torch.Tensor, imag: torch.Tensor,
 class LogmelIVExtractor:
     """logmel(4ch) + intensity-vector(3ch) frontend for FOA input.
 
-    A CUDA tensor goes to kernel K1 (``fused_logmel_iv``: no affine, float32,
-    no zero tail, which raises on any other device) unless ``use_kernels``
-    is False; a CPU tensor, and the shapes the JAX package itself keeps off
-    its kernel (hop >= n_fft, frontend.py:478), take the eager form. On the
-    card K1 takes n_fft 1024 only: other FFT lengths raise (ROADMAP queue B,
-    B9).
+    A CUDA tensor goes to ``fused_logmel_iv`` (no affine, float32, no zero
+    tail), which routes it as the JAX package's does (ops/frontend.py
+    ``frontend_route``): kernel K1 at n_fft 1024 with an even hop, K9 (the
+    flat form) at every other shape; unless ``use_kernels`` is False. A CPU
+    tensor, and the shapes the JAX package itself keeps off its kernels
+    (hop >= n_fft, frontend.py:478), take the eager form.
     """
 
     in_channels = 7
@@ -80,13 +82,8 @@ class LogmelIVExtractor:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """(B, 4, samples) -> (B, 7, n_frames, n_mels) float32."""
         if x.device.type != "cpu" and self.use_kernels and self.hop < self.n_fft:
-            from .frontend import FFT_SIDE, fused_logmel_iv
+            from .frontend import fused_logmel_iv
 
-            if self.n_fft != FFT_SIDE ** 2:
-                raise NotImplementedError(
-                    f"the frontend kernel on the card takes n_fft={FFT_SIDE ** 2}, got "
-                    f"{self.n_fft}: the JAX package's other frontend forms are "
-                    "ROADMAP queue B, B9")
             return fused_logmel_iv(x, n_fft=self.n_fft, hop=self.hop, window=self.window,
                                    n_mels=self.n_mels, sample_rate=self.sr)
         return logmel_iv(x, n_fft=self.n_fft, hop=self.hop, window=self.window,
@@ -113,6 +110,14 @@ def logmel_iv(x: torch.Tensor, *, n_fft: int, hop: int, window: str,
     if x.ndim != 3 or x.shape[1] != 4:
         raise ValueError(f"expected (batch, 4, samples), got {tuple(x.shape)}")
     real, imag = stft_dft(x, n_fft, hop, window)  # (B, 4, T, F)
+    return logmel_iv_from_spectrum(real, imag, mel_fb)
+
+
+def logmel_iv_from_spectrum(real: torch.Tensor, imag: torch.Tensor,
+                            mel_fb: torch.Tensor) -> torch.Tensor:
+    """The windowed spectrum (B, 4, T, F) as (real, imag) -> (B, 7, T,
+    n_mels): power -> mel -> dB, and the normalized intensity vector -> mel.
+    The epilogue every plain frontend form shares."""
     power = real * real + imag * imag
     logmel = power_to_db(_mel_project(power, mel_fb))
     iv = intensity_vector(real, imag, mel_fb)

@@ -1,14 +1,17 @@
-"""Fused logmel + FOA intensity-vector frontend: kernel K1 and its plain
-version. The counterpart of the JAX package's
-``ops/pallas/frontend.py::fused_logmel_iv`` (radix-2 DIT path).
+"""Fused logmel + FOA intensity-vector frontend: kernel K1, its plain
+version, and the routing among the frontend's forms. The counterpart of the
+JAX package's ``ops/pallas/frontend.py::fused_logmel_iv``: K1 is its radix-2
+DIT path; the flat and DIF forms (kernels K9 and K10) are in
+ops/frontend_forms.py, and ``frontend_route`` chooses among the three as the
+JAX function chooses among its kernels (frontend.py:467-504).
 
-On a CUDA tensor the hand-written kernel in ``csrc/frontend.cu`` runs; on a
-CPU tensor the plain PyTorch version (ops/features.py plus the folds below)
-runs. Folds, as in the Pallas kernel: ``post_affine=(inv, shift)`` (the eval
-ScalarBN per (channel, mel)), ``out_dtype`` and ``t_out`` - the output holds
-``t_out`` frames and frames from ``n_frames = 1 + N // hop`` on are 0 AFTER the
-affine (the JAX kernel's ``full_frames``, which pads to the HTSAT
-reshape_wav2img frame count).
+On a CUDA tensor the hand-written kernel of the route runs (K1:
+``csrc/frontend.cu``); on a CPU tensor its plain PyTorch version (K1's:
+ops/features.py plus the folds below). Folds, as in the Pallas kernel:
+``post_affine=(inv, shift)`` (the eval ScalarBN per (channel, mel)),
+``out_dtype`` and ``t_out`` - the output holds ``t_out`` frames and frames
+from ``n_frames = 1 + N // hop`` on are 0 AFTER the affine (the JAX kernel's
+``full_frames``, which pads to the HTSAT reshape_wav2img frame count).
 """
 
 from functools import lru_cache
@@ -16,10 +19,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ._cuda import CudaKernel, check_cuda_tensor, i32, ptr
 from .features import logmel_iv, logmel_iv_filterbank
+from .frontend_forms import (WIN_3TAP, affine_table, apply_folds, check_launch, logmel_iv_dif,
+                             logmel_iv_flat)
 from .windows import get_window
 
 KERNEL = CudaKernel("frontend.cu", {
@@ -30,41 +34,65 @@ KERNEL = CudaKernel("frontend.cu", {
 FFT_SIDE = 32
 
 
+def frontend_route(n_fft: int, hop: int, window: str = "hann", radix2=None,
+                   variant: str = "dit", folds: bool = False) -> str:
+    """Which form computes the features: "k1", "flat" or "dif", or raise.
+
+    The JAX package's selection (frontend.py:467-504): hop >= n_fft raises;
+    with ``radix2`` not False and an even n_fft and hop, ``variant="dif"``
+    with a hann or hamming window takes the DIF form and any other setting
+    the radix-2 DIT form, which here is K1 at n_fft 1024 and the flat form
+    (K9) at every other n_fft; the rest (radix2=False, an odd n_fft or hop)
+    takes the flat form. ``folds`` (an affine, a non-float32 output or
+    ``t_out``) raise off the DIT form, as there: K9 carries them only where
+    it stands in for it."""
+    if hop >= n_fft:
+        raise NotImplementedError(
+            f"fused_logmel_iv requires hop < n_fft (got hop={hop}, n_fft={n_fft}): "
+            "use ops.features.logmel_iv")
+    if (radix2 is None or radix2) and n_fft % 2 == 0 and hop % 2 == 0:
+        if variant == "dif" and window in WIN_3TAP:
+            if folds:
+                raise NotImplementedError("post_affine/out_dtype/t_out: radix-2 DIT forms only")
+            return "dif"
+        return "k1" if n_fft == FFT_SIDE ** 2 else "flat"
+    if folds:
+        raise NotImplementedError("post_affine/out_dtype/t_out: radix-2 DIT forms only")
+    return "flat"
+
+
 def fused_logmel_iv(x: torch.Tensor, *, n_fft: int = 1024, hop: int = 240,
                     window: str = "hann", n_mels: int = 64,
                     sample_rate: int = 24000,
                     post_affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     out_dtype: torch.dtype = torch.float32,
-                    t_out: Optional[int] = None) -> torch.Tensor:
+                    t_out: Optional[int] = None, radix2=None,
+                    variant: str = "dit") -> torch.Tensor:
     """(B, 4, N) float32 -> (B, 7, t_out or n_frames, n_mels) of ``out_dtype``.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches kernel K1
-    or raises."""
+    ``radix2`` and ``variant`` choose the form as in the JAX package
+    (``frontend_route``). A CPU tensor takes the form's plain version; a
+    CUDA tensor launches its kernel (K1, K9 or K10) or raises."""
+    folds = post_affine is not None or out_dtype != torch.float32 or t_out is not None
+    route = frontend_route(n_fft, hop, window, radix2, variant, folds)
+    kw = dict(n_fft=n_fft, hop=hop, window=window, n_mels=n_mels, sample_rate=sample_rate)
+    if route == "dif":
+        return logmel_iv_dif(x, **kw)
+    if route == "flat":
+        return logmel_iv_flat(x, post_affine=post_affine, out_dtype=out_dtype, t_out=t_out,
+                              **kw)
     n_frames = 1 + x.shape[-1] // hop
     t_out = n_frames if t_out is None else int(t_out)
     if t_out < n_frames:
         raise ValueError(f"t_out={t_out} < n_frames={n_frames}")
     if x.device.type == "cpu":
-        return fused_logmel_iv_plain(x, n_fft=n_fft, hop=hop, window=window,
-                                     n_mels=n_mels, sample_rate=sample_rate,
-                                     post_affine=post_affine,
-                                     out_dtype=out_dtype, t_out=t_out)
+        return fused_logmel_iv_plain(x, post_affine=post_affine, out_dtype=out_dtype,
+                                     t_out=t_out, **kw)
     B, C, N = x.shape
     check_cuda_tensor("x", x, torch.float32, (B, 4, N))
-    if hop >= n_fft or n_fft != FFT_SIDE ** 2:
-        raise NotImplementedError(
-            f"the frontend kernel needs hop < n_fft and n_fft == {FFT_SIDE ** 2} "
-            f"(got hop={hop}, n_fft={n_fft}): use ops.features.logmel_iv")
-    if N <= n_fft // 2:
-        raise ValueError(f"reflect padding needs more than n_fft/2 samples, got {N}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    check_launch(N, n_fft, hop, out_dtype)
     win, tw, wts, bands, sched = _kernel_tables(n_fft, window, n_mels, sample_rate, x.device)
-    aff = None
-    if post_affine is not None:
-        aff = torch.stack([post_affine[0], post_affine[1]]).to(
-            device=x.device, dtype=torch.float32).contiguous()
-        check_cuda_tensor("post_affine", aff, torch.float32, (2, 7, n_mels))
+    aff = affine_table(post_affine, n_mels, x.device)
     out = torch.empty((B, 7, t_out, n_mels), device=x.device, dtype=out_dtype)
     KERNEL.launches += 1
     KERNEL.call("logmel_iv_frontend", x.data_ptr(), win.data_ptr(),
@@ -85,13 +113,7 @@ def fused_logmel_iv_plain(x: torch.Tensor, *, n_fft: int = 1024, hop: int = 240,
     mel_fb = torch.as_tensor(logmel_iv_filterbank(sample_rate, n_fft, n_mels),
                              device=x.device)
     feats = logmel_iv(x.float(), n_fft=n_fft, hop=hop, window=window, mel_fb=mel_fb)
-    if post_affine is not None:
-        inv, shift = (torch.as_tensor(a, dtype=torch.float32, device=x.device)
-                      for a in post_affine)
-        feats = feats * inv[None, :, None, :] + shift[None, :, None, :]
-    if t_out is not None:
-        feats = F.pad(feats, (0, 0, 0, t_out - feats.shape[2]))
-    return feats.to(out_dtype)
+    return apply_folds(feats, post_affine, out_dtype, t_out)
 
 
 def fft_tables(n_fft: int, window: str):

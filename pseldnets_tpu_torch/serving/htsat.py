@@ -8,7 +8,10 @@ adapters) runs every block on kernel K4 (ops/swin_block_adapt.py, masks 1)
 without the merge fold, and each PatchMerging unfolded (``patch_merging``),
 as the JAX package does (serving/htsat.py:78-86, :187-215).
 
-The patch embed (one reshape + einsum), the final LayerNorm, the token-map
+The patch embed is one reshape + einsum (``patch_embed="einsum"``, the
+default, as in the JAX package) or kernel K8 (``patch_embed="kernel"``,
+ops/patch_embed.py: wav2img, conv, bias and LayerNorm in one pass, the JAX
+package's opt-in Pallas embed). The final LayerNorm, the token-map
 finalize, the tscam conv, the interpolation matmul, the frame mean and the
 tanh stay plain PyTorch, as the JAX package leaves them outside its kernels.
 ``embed_tokens`` and ``head_tail`` carry autograd: the fused training forward
@@ -31,6 +34,8 @@ from ..models.heads import HTSAT
 from ..models.htsat import PatchMerging
 from ..ops._cuda import resolve_device
 from ..ops.frontend import fused_logmel_iv, fused_logmel_iv_plain
+from ..ops.patch_embed import (PatchEmbedParams, patch_embed_tokens,
+                               patch_embed_tokens_plain, prepare_patch_embed)
 from ..ops.swin_block import (SwinBlockParams, prepare_block, swin_block_fused,
                               swin_block_plain)
 from ..ops.swin_block_adapt import (AdaptBlockParams, has_adapters, prepare_adapt_block,
@@ -99,23 +104,33 @@ def embed_tokens(model: HTSAT, x: torch.Tensor, compute_dtype: torch.dtype) -> t
     return _ln(tok.reshape(Bc, -1, tok.shape[-1]), enc.patch_embed.norm)
 
 
+PATCH_EMBEDS = ("einsum", "kernel")
+
+
 @torch.no_grad()
 def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
                         compute_dtype: torch.dtype = torch.bfloat16,
                         pre_normalized: bool = False,
                         blocks: Optional[List[BlockParams]] = None,
-                        use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+                        use_kernels: bool = True, patch_embed: str = "einsum",
+                        embed: Optional[PatchEmbedParams] = None) -> Dict[str, torch.Tensor]:
     """Eval forward equal to ``model(x)`` up to compute-dtype rounding.
 
     ``pre_normalized``: ``x`` already carries the eval ScalarBN (folded into
     the frontend kernel) and may be zero-padded to the full reshape_wav2img
     frame count - 10 s clips only. ``blocks``: :func:`prepare_blocks` of this
     model and dtype, to skip preparing the weights on every call.
+    ``patch_embed``: "einsum" or "kernel" (K8; ``embed``: its
+    :func:`prepare_patch_embed` of this model and dtype, likewise).
     """
     enc = model.encoder
     cd = compute_dtype
+    if patch_embed not in PATCH_EMBEDS:
+        raise NotImplementedError(f"patch_embed={patch_embed!r}: the port takes {PATCH_EMBEDS}")
     if blocks is None:
         blocks = prepare_blocks(model, cd)
+    if patch_embed == "kernel" and embed is None:
+        embed = prepare_patch_embed(model, cd)
     block_fn = swin_block_fused if use_kernels else swin_block_plain
     adapt_fn = swin_block_adapt_fused if use_kernels else swin_block_adapt_plain
 
@@ -134,7 +149,10 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
             x = torch.cat([x[: B // 2, :, :-1], x[B // 2:, :, :-1]], dim=2)
         x = model.scalar(x).to(cd)
 
-    x = embed_tokens(model, x, cd)
+    if patch_embed == "kernel":
+        x = (patch_embed_tokens if use_kernels else patch_embed_tokens_plain)(x, embed)
+    else:
+        x = embed_tokens(model, x, cd)
     i = 0
     for layer in enc.layers:
         for _ in layer.blocks:
@@ -196,13 +214,14 @@ def htsat_fused_forward_from_wav(model: HTSAT, wav, *,
                                  compute_dtype: torch.dtype = torch.bfloat16,
                                  device="cuda",
                                  blocks: Optional[List[BlockParams]] = None,
-                                 use_kernels: bool = True,
+                                 use_kernels: bool = True, patch_embed: str = "einsum",
+                                 embed: Optional[PatchEmbedParams] = None,
                                  **frontend_kwargs) -> Dict[str, torch.Tensor]:
     """Full serving step from the FOA waveform (B, 4, N) float32: kernel K1
-    (features + ScalarBN + cast + frame pad) then the fused model (K2, or K4
-    for an AdapterBit model). 10-second
-    clips only. ``device`` defaults to the card and raises when CUDA is
-    absent; ``model`` must already live there."""
+    (features + ScalarBN + cast + frame pad) then the fused model: the patch
+    embed (``patch_embed``: "einsum" or kernel K8), then K2, or K4 for an
+    AdapterBit model. 10-second clips only. ``device`` defaults to the card
+    and raises when CUDA is absent; ``model`` must already live there."""
     device = resolve_device(device)
     wav = torch.as_tensor(wav, dtype=torch.float32, device=device)
     if model.scalar.weight.device != wav.device:
@@ -219,4 +238,5 @@ def htsat_fused_forward_from_wav(model: HTSAT, wav, *,
                                 use_kernels=use_kernels, **frontend_kwargs)
     return htsat_fused_forward(model, feats, compute_dtype=compute_dtype,
                                pre_normalized=True, blocks=blocks,
-                               use_kernels=use_kernels)
+                               use_kernels=use_kernels, patch_embed=patch_embed,
+                               embed=embed)

@@ -2,12 +2,13 @@
 train/module.py (:46-159, :249-335).
 
 One step (reference common_step, model_module.py:47-68): FOA waveform ->
-frontend (kernel K1 on the card) -> HTSAT train-mode forward -> loss ->
-backward -> clip by global norm -> optimizer -> ScalarBN batch-stat update.
+frontend (kernel K1 on the card) -> train-mode forward -> loss -> backward
+-> clip by global norm -> optimizer -> ScalarBN batch-stat update.
 ``trainer.fused_forward`` picks the forward: "auto" and true run every Swin
 block on kernels K2/K3 (K4/K5 for AdapterBit blocks; train/fused_forward.py),
 false the eager ``model.train()`` module (under bf16 autocast with bf16-mixed
-precision).
+precision), the one forward of the CRNN heads (their BatchNorms use batch
+statistics there).
 
 The freeze policy is the JAX step's (train/module.py:276-295): the
 parameters that ``trainable_mask`` freezes (AdapterBit: all but biases,
@@ -17,8 +18,10 @@ them out there; gradients still flow through them to what trains.
 
 Not in this slice, and raising with the ROADMAP.md queue A step that brings
 them: augmentation (non-empty ``augment.type``, AugMix, ``rotate.on_device``:
-step 5), tensor parallelism (``trainer.tensor_parallel`` > 1: step 11) and
-LoRA and the eager-only adapter settings (models/adapters.py: step 6). The
+step 5), tensor parallelism (``trainer.tensor_parallel`` > 1: step 11),
+LoRA and the eager-only adapter settings (models/adapters.py: step 6), PaSST
+training (models/passt.py: step 8) and a conformer or transformer decoder
+that trains with dropout (models/common.py ``check_no_dropout``: step 9). The
 epoch loop, data loading, checkpoint save and resume and the
 ``src/train.py`` entry point are the rest of step 4.
 """
@@ -31,6 +34,7 @@ import torch
 from ..losses import build_loss
 from ..models import build_model
 from ..models.factory import init_weights
+from ..models.heads import HTSAT
 from ..ops._cuda import resolve_device
 from ..ops.features import make_extractor
 from .fused_forward import htsat_fused_train_forward, supports_fused_train
@@ -141,9 +145,10 @@ class SELDTask:
                       dp_masks: Optional[Sequence[torch.Tensor]] = None
                       ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
         """Train-mode forward, drop-path masks given (``dp_masks``, one (B',
-        2) float32 mask per block) or drawn from ``generator``: (preds,
-        ScalarBN update), the update None on the eager path, whose BatchNorm
-        writes its statistics itself."""
+        2) float32 mask per block) or drawn from ``generator`` (HTSAT only:
+        the other heads have no drop-path): (preds, ScalarBN update), the
+        update None on the eager path, whose BatchNorm writes its statistics
+        itself."""
         self.model.train()
         if self.fused_forward:
             return htsat_fused_train_forward(self.model, feats, dp_masks=dp_masks,
@@ -152,7 +157,11 @@ class SELDTask:
                                              use_kernels=self.use_kernels)
         with torch.autocast(device_type=self.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
-            return self.model(feats, dp_masks=dp_masks, generator=generator), None
+            if isinstance(self.model, HTSAT):  # the one head with drop-path
+                return self.model(feats, dp_masks=dp_masks, generator=generator), None
+            if dp_masks is not None:
+                raise ValueError(f"{type(self.model).__name__} takes no drop-path masks")
+            return self.model(feats), None
 
     def compute_grads(self, batch_x, targets: Dict, generator: Optional[torch.Generator] = None,
                       dp_masks: Optional[Sequence[torch.Tensor]] = None):

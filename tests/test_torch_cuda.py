@@ -1,4 +1,4 @@
-"""Kernels K1-K7 on the card against their plain versions (marked
+"""Kernels K1-K10 on the card against their plain versions (marked
 ``cuda``: skipped without a CUDA card and nvcc). Imports nothing of JAX, so on
 a machine without JAX it runs with
 
@@ -12,8 +12,8 @@ from pseldnets_tpu_torch.models.adapters import AdaptConfig
 from pseldnets_tpu_torch.models.factory import init_weights
 from pseldnets_tpu_torch.models.htsat import PatchMerging, SwinTransformerBlock
 from pseldnets_tpu_torch.models.passt import Block
-from pseldnets_tpu_torch.ops import (conv_block, frontend, swin_block, swin_block_adapt,
-                                     swin_block_vjp, vit_block)
+from pseldnets_tpu_torch.ops import (conv_block, frontend, frontend_forms, patch_embed,
+                                     swin_block, swin_block_adapt, swin_block_vjp, vit_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +221,66 @@ def test_conv_block_kernel_raises_on_what_it_does_not_take(card):
         conv_block.conv3x3_bias_relu(x[..., :7].contiguous(), w1[:, :, :7].contiguous(), b1)
     with pytest.raises(NotImplementedError, match="computes in bf16"):
         conv_block.conv3x3_bias_relu(x, w1, b1, compute_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("dtype,T", [(torch.bfloat16, 1024), (torch.bfloat16, 1000),
+                                     (torch.float32, 1024)])
+def test_patch_embed_kernel_matches_plain(card, dtype, T):
+    """K8 at HTSAT's serving shape (7 x 1024 x 64 -> 4096 x 96, B=2; T=1000
+    zero-padded in the kernel): bf16 within one bf16 ulp (2^-7 of
+    max(|x|, 1)), float32 within 1e-5 of the plain version."""
+    gen = torch.Generator().manual_seed(60)
+    vec = lambda s, o: (torch.randn(96, generator=gen) * s + o).to(card)  # noqa: E731
+    p = patch_embed.PatchEmbedParams(
+        w=(torch.randn(112, 96, generator=gen) * 0.1).to(card, dtype), bias=vec(0.1, 0.0),
+        ln_w=vec(0.1, 1.0), ln_b=vec(0.1, 0.0), freq_ratio=4, t_img=1024)
+    x = torch.randn(2, 7, T, 64, generator=gen).to(card, dtype)
+    before = patch_embed.KERNEL.launches
+    got = patch_embed.patch_embed_tokens(x, p)
+    assert patch_embed.KERNEL.launches == before + 1
+    ref = patch_embed.patch_embed_tokens_plain(x, p)
+    assert got.shape == ref.shape == (2, 4096, 96) and got.dtype == dtype
+    got, ref = got.float(), ref.float()
+    if dtype == torch.bfloat16:
+        assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max() <= 2.0 ** -7
+    else:
+        assert (got - ref).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("kw,kernel", [
+    (dict(n_fft=1024, hop=240, radix2=False), "flat"),
+    (dict(n_fft=1024, hop=240, variant="dif", window="hamming"), "dif"),
+    (dict(n_fft=512, hop=100, variant="dif"), "dif"),
+    (dict(n_fft=1024, hop=241), "flat"), (dict(n_fft=1023, hop=241), "flat"),
+    (dict(n_fft=2048, hop=240), "flat")])
+def test_frontend_form_kernels_match_plain(card, kw, kernel):
+    """K9 and K10 through fused_logmel_iv's routing, 2 s clips: within the
+    8e-4 dB / 7e-5 IV budget of the form's plain version and of the float32
+    eager extractor; K1 is not launched."""
+    g = torch.Generator(device=card).manual_seed(61)
+    x = torch.randn(2, 4, 48000, device=card, generator=g) * 0.1
+    k = frontend_forms.FLAT_KERNEL if kernel == "flat" else frontend_forms.DIF_KERNEL
+    before = (k.launches, frontend.KERNEL.launches)
+    got = frontend.fused_logmel_iv(x, **kw)
+    assert (k.launches, frontend.KERNEL.launches) == (before[0] + 1, before[1])
+    shape = {n: v for n, v in kw.items() if n in ("n_fft", "hop", "window")}
+    plain = (frontend_forms.logmel_iv_flat_plain if kernel == "flat"
+             else frontend_forms.logmel_iv_dif_plain)
+    for ref in (plain(x, **shape), frontend.fused_logmel_iv_plain(x, **shape)):
+        assert got.shape == ref.shape
+        assert (got[:, :4] - ref[:, :4]).abs().max() <= 8e-4
+        assert (got[:, 4:] - ref[:, 4:]).abs().max() <= 7e-5
+
+
+def test_flat_kernel_folded_form_matches_plain(card):
+    """K9 standing in for the DIT kernel at n_fft 2048 with K1's folds
+    (affine, bf16, zero tail to 208 frames): one bf16 ulp."""
+    g = torch.Generator(device=card).manual_seed(62)
+    x = torch.randn(2, 4, 48000, device=card, generator=g) * 0.1
+    aff = (torch.rand(7, 64, device=card, generator=g) + 0.5,
+           torch.randn(7, 64, device=card, generator=g))
+    kw = dict(n_fft=2048, hop=240, post_affine=aff, out_dtype=torch.bfloat16, t_out=208)
+    got = frontend.fused_logmel_iv(x, **kw).float()
+    ref = frontend_forms.logmel_iv_flat_plain(x, **kw).float()
+    assert got.shape == (2, 7, 208, 64) and not got[:, :, 201:].any()
+    assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max() <= 2.0 ** -7

@@ -163,14 +163,15 @@ def test_bridge_maps_every_key_both_ways():
 
 
 def test_chip_smoke_builds_every_kernel_source():
-    """Every ``csrc/*.cu`` is one kernel of chip_smoke.py's K1-K7 (built,
-    checked and counted there), conv_block.cu (K7) among them; no module
-    imports JAX (above)."""
+    """Every ``csrc/*.cu`` is one kernel of chip_smoke.py's K1-K10 (built,
+    checked and counted there), conv_block.cu (K7), patch_embed.cu (K8) and
+    the frontend's flat and DIF forms (K9, K10) among them, each with the
+    main path that runs it; no module imports JAX (above)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
     sources = {k.source.name for k in chip_smoke.kernels().values()}
     assert sources == {p.name for p in (PORT / "csrc").glob("*.cu")}
-    assert "conv_block.cu" in sources and sorted(chip_smoke.kernels()) == [
-        f"K{i}" for i in range(1, 8)]
-    assert "serve_crnn" in chip_smoke.PATHS
+    assert {"conv_block.cu", "patch_embed.cu", "frontend_flat.cu", "frontend_dif.cu"} <= sources
+    assert list(chip_smoke.kernels()) == [f"K{i}" for i in range(1, 11)]
+    assert {"serve_crnn", "serve_patch", "features_flat", "features_dif"} <= set(chip_smoke.PATHS)

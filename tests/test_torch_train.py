@@ -284,6 +284,94 @@ def test_seld_task_step_matches_jax(rng, fused):
     assert task.state.step == 1
 
 
+# ROADMAP queue C, C1: the CRNN at 2 s (1 s chunks give 96 frames after the
+# three time pools, which the JAX head cannot reshape to 10 x 10 either)
+TINY_CRNN = ["model=crnn", "loss=accdoa", "model.kwargs.pretrained_path=null",
+             "model.kwargs.audioset_pretrain=false",
+             "model.kwargs.num_features=[8,8,8,8,8,8]", "data.train_chunklen_sec=2"]
+
+
+def _zero_dropout(model: torch.nn.Module) -> None:
+    """Every dropout rate of ``model`` set to 0."""
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+        elif isinstance(getattr(mod, "dropout", None), float):
+            mod.dropout = 0.0
+
+
+@pytest.mark.parametrize("decoder", ["null", "conformer"])
+def test_seld_task_crnn_step_matches_jax(monkeypatch, decoder):
+    """C1: one eager CRNN SELDTask.train_step (CNN12 of width 8, ACCDOA,
+    float32, B=2: frontend, ScalarBN and trunk BatchNorms on batch
+    statistics, decoder, loss, clip, AdamW) against the JAX SELDTask's step
+    from the same weights and batch, with no decoder and with the conformer
+    at dropout 0 on both sides. Bounds of test_seld_task_step_matches_jax,
+    at the CRNN config's learning rate."""
+    import functools
+
+    from pseldnets_tpu.models import conformer as jax_conformer
+
+    rng = np.random.default_rng(11)
+    over = TINY_CRNN + [f"model.decoder={decoder}"]
+    if decoder == "conformer":
+        monkeypatch.setattr(jax_conformer, "ConformerBlock",
+                            functools.partial(jax_conformer.ConformerBlock, dropout=0.0))
+    cfg_j = jax_compose(str(ROOT / "configs"), "train", over)
+    task_j = JaxTask(cfg_j, _JaxSpec(), steps_per_epoch=2, num_devices=1)
+    state = task_j.init_state(jax.random.PRNGKey(0))
+    variables = jax.tree_util.tree_map(np.asarray, {"params": state.params,
+                                                    "batch_stats": state.batch_stats})
+    wav = (rng.standard_normal((2, 4, 48000)) * 0.1).astype(np.float32)
+    lab = rng.uniform(-1, 1, (2, 20, 9)).astype(np.float32)
+    new_state, losses_j, _ = task_j.train_step(state, {"data": wav, "accdoa_label": lab},
+                                               jax.random.PRNGKey(1))
+
+    cfg = compose(str(ROOT / "configs"), "train", over)
+    task = SELDTask(cfg, DatasetSpec(num_classes=3), steps_per_epoch=2, device="cpu")
+    assert not task.fused_forward
+    if decoder == "conformer":
+        _zero_dropout(task.model)
+    task.init_state(0)
+    load_jax_variables(task.model, variables)
+    losses = task.train_step(wav, {"accdoa_label": lab})
+    assert abs(float(losses["loss_all"]) - float(losses_j["loss_all"])) < 1e-5
+    ref = jax_to_torch_state_dict(jax.tree_util.tree_map(
+        np.asarray, {"params": new_state.params, "batch_stats": new_state.batch_stats}))
+    got = task.model.state_dict()
+    assert set(ref) <= set(got)
+    lr = float(cfg["model"]["optimizer"]["kwargs"]["lr"])
+    n_far = n_all = 0
+    for name, r in ref.items():
+        d = (got[name] - r).abs()
+        assert float(d.max()) <= 2.01 * lr, name
+        n_far += int((d > 1e-6).sum())
+        n_all += d.numel()
+    assert n_far <= 0.005 * n_all, (n_far, n_all)
+
+
+@pytest.mark.parametrize("over,match", [
+    (TINY_CRNN + ["model.decoder=conformer"], "step 9"),
+    (["model=passt", "loss=multi_accdoa", "model.kwargs.pretrained_path=null",
+      "model.kwargs.depth=1", "model.kwargs.embed_dim=24", "model.kwargs.num_heads=2",
+      "data.train_chunklen_sec=2"], "step 8"),
+])
+def test_seld_task_unported_training_raises(over, match):
+    """C1: the conformer at its shipped dropout 0.1 and PaSST's training
+    forward raise NotImplementedError naming their ROADMAP step, not a
+    TypeError."""
+    rng = np.random.default_rng(12)
+    task = SELDTask(compose(str(ROOT / "configs"), "train", over),
+                    DatasetSpec(num_classes=3), steps_per_epoch=2, device="cpu")
+    task.init_state(0)
+    wav = (rng.standard_normal((2, 4, 48000)) * 0.1).astype(np.float32)
+    labels = ({"adpit_label": _adpit_labels(rng, 2, 20, 3)}
+              if task.model.output_key == "multi_accdoa"
+              else {"accdoa_label": rng.uniform(-1, 1, (2, 20, 9)).astype(np.float32)})
+    with pytest.raises(NotImplementedError, match=match):
+        task.train_step(wav, labels)
+
+
 @pytest.mark.parametrize("override,error,match", [
     ("augment=augmix", NotImplementedError, "step 5"),
     ("augment.type=[specaug]", NotImplementedError, "step 5"),
