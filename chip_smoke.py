@@ -15,7 +15,8 @@ blocks on K6) through passt_fused_forward_from_wav; then CRNN ACCDOA serving
 conformer at 2048) through crnn_fused_forward_from_wav; then HTSAT serving
 again with the patch embed on its kernel (K8, patch_embed="kernel"); then
 the frontend's flat and DIF forms (K9, K10) through fused_logmel_iv
-(radix2=False, variant="dif"). It checks the outputs, the kernels' launch
+(radix2=False, variant="dif"); then HTSAT serving once more with each Swin
+stage in one launch (K11, swin="stage", the merges unfolded). It checks the outputs, the kernels' launch
 counts on each path and the kernel step against the plain step, and prints
 the times.
 
@@ -61,7 +62,8 @@ CRNN_OVERRIDES = ["model=crnn", "loss=accdoa", "model.kwargs.pretrained_path=nul
 CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
                (125, 8, 256, 512), (125, 4, 512, 1024), (125, 2, 1024, 2048))
 PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn",
-         "serve_patch", "features_flat", "features_dif")
+         "serve_patch", "features_flat", "features_dif", "serve_stage")
+DEPTHS = (2, 2, 6, 2)  # HTSAT's Swin stages (configs/model/htsat.yaml)
 
 
 def log(msg):
@@ -120,12 +122,13 @@ def phase_device():
 def kernels():
     from pseldnets_tpu_torch.ops import (conv_block, frontend, frontend_forms, patch_embed,
                                          swin_block, swin_block_adapt, swin_block_vjp,
-                                         vit_block)
+                                         swin_stage, vit_block)
 
     return {"K1": frontend.KERNEL, "K2": swin_block.KERNEL, "K3": swin_block_vjp.KERNEL,
             "K4": swin_block_adapt.FWD_KERNEL, "K5": swin_block_adapt.BWD_KERNEL,
             "K6": vit_block.KERNEL, "K7": conv_block.KERNEL, "K8": patch_embed.KERNEL,
-            "K9": frontend_forms.FLAT_KERNEL, "K10": frontend_forms.DIF_KERNEL}
+            "K9": frontend_forms.FLAT_KERNEL, "K10": frontend_forms.DIF_KERNEL,
+            "K11": swin_stage.KERNEL}
 
 
 def zero_counts():
@@ -1658,6 +1661,237 @@ def phase_features_form(smi, name, kw):
                              None, {"k1_ms": k1_ms})}
 
 
+def random_stage(i, gen, shifts=None):
+    """Stage-i full-width Swin stage at its full depth (DEPTHS) with seeded
+    weights, or with one block per entry of ``shifts``."""
+    import torch
+    from pseldnets_tpu_torch.models.factory import init_weights
+    from pseldnets_tpu_torch.models.htsat import BasicLayer, SwinTransformerBlock
+
+    H, C, nh = 64 >> i, 96 << i, 4 << i
+    if shifts is None:
+        layer = BasicLayer(C, (H, H), DEPTHS[i], nh, 8)
+    else:
+        layer = torch.nn.Module()
+        layer.blocks = torch.nn.ModuleList(
+            [SwinTransformerBlock(C, (H, H), nh, 8, shift_size=s) for s in shifts])
+    init_weights(layer, gen)
+    return layer.cuda().eval()
+
+
+def k2_chained(x, sp):
+    """K2 run block after block over a stage's blocks (no merge): what K11
+    computes in one launch."""
+    from pseldnets_tpu_torch.ops.swin_block import swin_block_fused
+
+    for d in range(sp.depth):
+        x = swin_block_fused(x, sp.block(d))
+    return x
+
+
+def check_stage(name, got, x, sp, sp32=None):
+    """K11's output ``got`` on x against its plain version, block by block:
+    bitwise equal to K2 run block after block (the same tile code in the
+    same order), each of those blocks within K2's 2^-6 of the output's
+    largest magnitude of its plain version on its own input; the whole stage
+    within depth x 2^-6 of the plain stage's (each block's one-ulp flips
+    carry into the next) and, given the float32 weights sp32, no further
+    from the float32 plain stage than the plain bf16 stage is (x1.25 plus
+    one bf16 ulp of the scale). Returns the stage's max abs error from the
+    plain version, absolute and as a share of its scale."""
+    import torch
+    from pseldnets_tpu_torch.ops.swin_block import swin_block_fused, swin_block_plain
+    from pseldnets_tpu_torch.ops.swin_stage import swin_stage_plain
+
+    xs, blk_rel = x, 0.0
+    for d in range(sp.depth):
+        p = sp.block(d)
+        y = swin_block_fused(xs, p)
+        ref = swin_block_plain(xs, p).float()
+        e, sc = (y.float() - ref).abs().max().item(), ref.abs().max().item()
+        check(e <= 2.0 ** -6 * sc, f"{name}: K2 block {d} disagrees with its plain version")
+        blk_rel, xs = max(blk_rel, e / sc), y
+    plain16 = swin_stage_plain(x, sp).float()
+    scale = plain16.abs().max().item()
+    err = (got.float() - plain16).abs().max().item()
+    tol = sp.depth * 2.0 ** -6
+    msg = (f"  {name}: = K2 chained {torch.equal(got, xs)}, its blocks <= {blk_rel:.3g} of "
+           f"scale from plain (<= 2^-6); stage |k-plain16| {err:.3g} = {err / scale:.3g} of "
+           f"scale {scale:.3g} (<= {tol:.3g})")
+    ok = torch.equal(got, xs) and err <= tol * scale
+    if sp32 is not None:
+        plain32 = swin_stage_plain(x.float(), sp32)
+        e32 = (got.float() - plain32).abs().max().item()
+        p_e32 = (plain16 - plain32).abs().max().item()
+        msg += f", |k-plain32| {e32:.3g} (plain16 {p_e32:.3g})"
+        ok = ok and e32 <= 1.25 * p_e32 + 2.0 ** -7 * scale
+    log(msg)
+    check(ok and torch.isfinite(got).all().item(), f"{name} disagrees with its plain version")
+    return err, err / scale
+
+
+def phase_swin_stage():
+    """K11 against its plain version (check_stage, bf16 and float32) at
+    B_CHECK at the four served stage shapes, full width and depth, through
+    v2; then v1 on a pattern v2 refuses, (0, 4, 4, 0, 0, 4) at stage 2's
+    shape. Each with a second launch bitwise equal to the first (a missing
+    grid barrier shows as a difference)."""
+    import torch
+    from pseldnets_tpu_torch.ops.swin_stage import (prepare_stage, swin_stage_fused,
+                                                    swin_stage_fused_v2)
+
+    gen = torch.Generator().manual_seed(6)
+    for i, shifts in [(i, None) for i in range(4)] + [(2, (0, 4, 4, 0, 0, 4))]:
+        layer = random_stage(i, gen, shifts)
+        H, C = 64 >> i, 96 << i
+        x = torch.randn(B_CHECK, H * H, C, generator=gen).cuda().bfloat16()
+        p16 = prepare_stage(layer, torch.bfloat16)
+        fn = swin_stage_fused_v2 if shifts is None else swin_stage_fused
+        got = fn(x, p16)
+        torch.cuda.synchronize()
+        again = fn(x, p16)
+        torch.cuda.synchronize()
+        log(f"K11 stage {i} {H}x{H} C={C} shifts {p16.shifts} "
+            f"({'v2' if shifts is None else 'v1'}): second launch bitwise equal "
+            f"{torch.equal(got, again)}")
+        check(torch.equal(got, again), f"K11 stage {i}: two launches on one input differ")
+        check_stage(f"K11 s{i}", got, x, p16, prepare_stage(layer, torch.float32))
+        if shifts is not None:
+            check(raises(lambda: swin_stage_fused_v2(x, p16), ValueError),
+                  "swin_stage_fused_v2 took a non-alternating pattern")
+
+
+def k11_work(B, sp):
+    """Bytes and bf16 FLOPs of one K11 call on B images: K2's FLOPs
+    (k2_work) summed over the stage's blocks, no merge; the tokens read and
+    written once, every block's weights and the one mask read once."""
+    tokens = B * sp.H * sp.W * sp.C * 2
+    nbytes, flops = 2 * tokens, 0
+    for d in range(sp.depth):
+        p = sp.block(d)
+        nb, fl = k2_work(B, p)
+        nbytes += nb - 2 * tokens - (p.mask.numel() * 4 if p.mask is not None else 0)
+        flops += fl
+    if sp.mask is not None:
+        nbytes += sp.mask.numel() * 4
+    return nbytes, flops
+
+
+def phase_serve_stage(smi):
+    """HTSAT mACCDOA served one Swin stage per launch
+    (htsat_fused_forward_from_wav(..., swin="stage")): SERVE_BATCHES batches
+    of B_SERVE 10 s clips (K1 x1, K11 x4 per batch, K2 x0), counted from 0;
+    the output against the plain stage path, float32 and the block path;
+    the served time beside swin="block", in turns in this process; K11 on
+    each stage's own input against its plain version (check_stage), timed
+    beside K2 chained and the plain version; the eager merges timed; a
+    profile."""
+    import torch
+    from pseldnets_tpu_torch.ops.swin_stage import swin_stage_fused_v2, swin_stage_plain
+    from pseldnets_tpu_torch.serving import (embed_tokens, folded_wav_features,
+                                             htsat_fused_forward_from_wav, prepare_blocks,
+                                             prepare_stages)
+    from pseldnets_tpu_torch.serving.htsat import patch_merging
+
+    model = htsat_serving_model()
+    blocks = prepare_blocks(model, torch.bfloat16)
+    stages = prepare_stages(model, torch.bfloat16)
+    check([sp.depth for sp in stages] == list(DEPTHS)
+          and [sp.shifts[-1] for sp in stages] == [4, 4, 4, 0], "stage plan")
+    g = torch.Generator(device="cuda").manual_seed(46)
+    wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(SERVE_BATCHES)]
+    serve = lambda w: htsat_fused_forward_from_wav(  # noqa: E731
+        model, w, swin="stage", stages=stages)
+    serve_block = lambda w: htsat_fused_forward_from_wav(model, w, blocks=blocks)  # noqa: E731
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = [fn(w)["multi_accdoa"] for w in wavs]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / SERVE_BATCHES, out
+
+    serve(wavs[0])  # warm-up
+    serve_block(wavs[0])
+    torch.cuda.synchronize()
+
+    # the main path: counts from 0, SERVE_BATCHES batches
+    zero_counts()
+    dt, outs = timed(serve)
+    launches = read_counts()
+    want = expected(K1=SERVE_BATCHES, K11=4 * SERVE_BATCHES)
+    log(f"one stage per launch: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: "
+        f"launches {launches} (expect {want})")
+    check(launches == want, "serving launch counts with swin='stage'")
+    for o in outs:
+        check(o.shape == (B_SERVE, 100, 117) and o.dtype == torch.float32
+              and torch.isfinite(o).all().item(), f"served output {tuple(o.shape)}")
+    # the block path and this one again, in turns: stage, block, block, stage
+    dt_b1, blk = timed(serve_block)
+    dt_b2, _ = timed(serve_block)
+    dt2, _ = timed(serve)
+    dt_s, dt_b = (dt + dt2) / 2, (dt_b1 + dt_b2) / 2
+    log(f"served with swin='stage': {dt_s * 1e3:.2f} ms/batch ({dt * 1e3:.2f}, "
+        f"{dt2 * 1e3:.2f}), {B_SERVE / dt_s:.1f} clips/s; swin='block' {dt_b * 1e3:.2f} "
+        f"ms/batch ({dt_b1 * 1e3:.2f}, {dt_b2 * 1e3:.2f}), {B_SERVE / dt_b:.1f} clips/s "
+        f"(host clock, synchronized; {smi})")
+    plain = htsat_fused_forward_from_wav(model, wavs[0], use_kernels=False, swin="stage",
+                                         stages=stages)["multi_accdoa"]
+    f32 = htsat_fused_forward_from_wav(model, wavs[0], compute_dtype=torch.float32,
+                                       use_kernels=False, swin="stage")["multi_accdoa"]
+    e_plain = (outs[0] - plain).abs().max().item()
+    e_f32 = (outs[0] - f32).abs().max().item()
+    p_f32 = (plain - f32).abs().max().item()
+    e_blk = (outs[0] - blk[0]).abs().max().item()
+    log(f"served (swin='stage') vs plain bf16 stage path: max |d| {e_plain:.3g} (<= 5e-2); "
+        f"vs float32 plain path {e_f32:.3g} (plain bf16 {p_f32:.3g}); vs the block path "
+        f"{e_blk:.3g} (<= 5e-2, the merge's rounding)")
+    check(e_plain <= 5e-2, "served output (swin='stage') disagrees with the plain path")
+    check(e_f32 <= 1.25 * p_f32 + 1e-2, "served output (swin='stage') further from float32")
+    check(e_blk <= 5e-2, "the stage and block paths' served outputs differ beyond bf16")
+
+    # K1 on the batch's own waveform; K11 on each stage's own input against
+    # its plain version, timed beside K2 chained and the plain version; the
+    # merges timed
+    wav = wavs[0]
+    feats = folded_wav_features(model, wav, t_out=1024)
+    ref1 = folded_wav_features(model, wav, t_out=1024, use_kernels=False).float()
+    k1_err = (feats.float() - ref1).abs().max().item()
+    rel = ((feats.float() - ref1).abs() / ref1.abs().clamp(min=1.0)).max().item()
+    check(rel <= 2.0 ** -7, f"K1 disagrees with its plain version at B={B_SERVE}")
+    rows, k11_err, k11_rel, merge_ms = [], 0.0, 0.0, 0.0
+    with torch.no_grad():
+        x = embed_tokens(model, feats, torch.bfloat16)
+        for i, (layer, sp) in enumerate(zip(model.encoder.layers, stages)):
+            got = swin_stage_fused_v2(x, sp)
+            err, rel = check_stage(f"K11 stage {i} at B={B_SERVE}", got, x, sp)
+            k11_err, k11_rel = max(k11_err, err), max(k11_rel, rel)
+            t = cuda_ms(lambda x=x, sp=sp: swin_stage_fused_v2(x, sp), reps=10)
+            tk2 = cuda_ms(lambda x=x, sp=sp: k2_chained(x, sp), reps=10)
+            tp = cuda_ms(lambda x=x, sp=sp: swin_stage_plain(x, sp), reps=2)
+            nb, fl = k11_work(B_SERVE, sp)
+            rows.append((t, tp, tk2) + bound_ms(nb, bf16_flops=fl))
+            log(f"  K11 stage {i} {sp.H}x{sp.W} C={sp.C} depth {sp.depth}: {t:.3f} ms, "
+                f"K2 chained {tk2:.3f} ms, plain {tp:.3f} ms, bound {rows[-1][3]:.4f} ms "
+                f"by {rows[-1][4]}")
+            x = got
+            if layer.downsample is not None:
+                mrg = layer.downsample
+                tm = cuda_ms(lambda x=x, m=mrg: patch_merging(m, x, torch.bfloat16), reps=10)
+                merge_ms += tm
+                log(f"  merge after stage {i}: {tm:.3f} ms")
+                x = patch_merging(mrg, x, torch.bfloat16)
+    k11_ms, k11_plain, k2_ms, k11_bound = (sum(r[j] for r in rows) for j in range(4))
+    k11_by = "operations" if all(r[4] == "operations" for r in rows) else "bytes"
+    log(f"per batch of {B_SERVE} ({smi}): K11 x4 {k11_ms:.3f} ms (K2 x12 on the same stages "
+        f"{k2_ms:.3f}, plain {k11_plain:.3f}, bound {k11_bound:.4f}), eager merges x3 "
+        f"{merge_ms:.3f} ms")
+    phase_profile("one served batch, one Swin stage per launch", lambda: serve(wav))
+    return launches, {"K1": (k1_err, k1_err / ref1.abs().max().item()),
+                      "K11": (k11_err, k11_rel, k11_ms, k11_plain, k11_bound, k11_by,
+                              None, None, {"k2_chained_ms": k2_ms, "merges_ms": merge_ms})}
+
+
 def phase_profile(what, fn):
     """Device time by kernel over one call of fn (torch.profiler, CUPTI);
     returns the (kernel, ms, count) rows, empty when nothing was recorded."""
@@ -1713,17 +1947,21 @@ def main():
     phase_frontend_forms()
     results["features_flat"] = phase_features_form(smi, "K9", {"radix2": False})
     results["features_dif"] = phase_features_form(smi, "K10", {"variant": "dif"})
+    phase_swin_stage()
+    results["serve_stage"] = phase_serve_stage(smi)
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
     # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the K8 embed, one
-    # call of each frontend form), each counted from 0; errors: the largest
-    # over the checks at each path's own shapes, absolute and as a share of
-    # the plain output's largest magnitude; ms and bounds per served batch
-    # (K1, K2, K4, K6, K7, K8), per training step (K3, K5) or per call on a
-    # batch (K9, K10); library_ms: one PyTorch call computing the same
-    # function (K6, K7), with its error from the plain version as a share of
-    # scale; einsum_ms (K8): the einsum embed it replaces; k1_ms (K9, K10): K1
-    # on the same batch
+    # call of each frontend form, HTSAT one stage per launch), each counted
+    # from 0; errors: the largest over the checks at each path's own shapes,
+    # absolute and as a share of the plain output's largest magnitude; ms and
+    # bounds per served batch (K1, K2, K4, K6, K7, K8, K11), per training step
+    # (K3, K5) or per call on a batch (K9, K10); library_ms: one PyTorch call
+    # computing the same function (K6, K7), with its error from the plain
+    # version as a share of scale; einsum_ms (K8): the einsum embed it
+    # replaces; k1_ms (K9, K10): K1 on the same batch; k2_chained_ms (K11): K2
+    # block after block on the same stage inputs, merges_ms (K11): the three
+    # eager merges between the stages
     for name, route_src, replaces in (
             ("K1 fused_logmel_iv", "pseldnets_tpu_torch/csrc/frontend.cu",
              "pseldnets_tpu/ops/pallas/frontend.py:754"),
@@ -1744,7 +1982,10 @@ def main():
             ("K9 logmel_iv_flat", "pseldnets_tpu_torch/csrc/frontend_flat.cu",
              "pseldnets_tpu/ops/pallas/frontend.py:556"),
             ("K10 logmel_iv_dif", "pseldnets_tpu_torch/csrc/frontend_dif.cu",
-             "pseldnets_tpu/ops/pallas/frontend.py:847")):
+             "pseldnets_tpu/ops/pallas/frontend.py:847"),
+            ("K11 swin_stage_fused", "pseldnets_tpu_torch/csrc/swin_stage.cu",
+             "pseldnets_tpu/ops/pallas/swin_block.py:848; "
+             "pseldnets_tpu/ops/pallas/swin_block.py:1043")):
         key = name.split()[0]
         errs = {path: r[1][key][:2] for path, r in results.items() if key in r[1]}
         timed = next(r[1][key] for r in results.values() if len(r[1].get(key, ())) >= 6)

@@ -1,10 +1,16 @@
-// Device code shared by the Swin block kernels K2 (swin_block.cu, forward)
-// and K3 (swin_block_bwd.cu, backward): token row maps, LayerNorm moments,
-// the bf16 WMMA tile GEMM with its LayerNorm prologue and epilogues, and the
-// window attention forward.
+// Device code shared by the Swin block kernels K2 (swin_block.cu, forward),
+// K3 (swin_block_bwd.cu, backward) and K11 (swin_stage.cu, a whole stage):
+// token row maps, LayerNorm moments, the bf16 WMMA tile GEMM with its
+// LayerNorm prologue and epilogues, and the window attention forward. Each
+// of the last three is a __device__ function of one row, one output tile or
+// one (window, head), called once by its own __global__ kernel (K2-K6) or
+// in a grid-stride loop by K11.
 //
 // Every function lives in an anonymous namespace: each source that includes
-// this header is its own shared library with its own copy.
+// this header is its own shared library with its own copy. The activation
+// pointers of the __device__ functions carry no __restrict__: K11 reads
+// activations that other blocks wrote earlier in the same launch, which the
+// read-only (non-coherent) load path that __restrict__ allows may not see.
 
 #pragma once
 
@@ -80,16 +86,12 @@ __device__ __forceinline__ float gelu_grad(float x) {
   return cdf + x * (expf(-0.5f * x * x) * 0.3989422804014327f);
 }
 
-// LayerNorm moments of `rows` rows of K elements: MERGE = 0 reads row r of a
-// (rows, K) matrix, MERGE = 1 the 4C gather of merged row r
+// LayerNorm moments of one row, by one warp: MERGE = 0 reads row `row` of a
+// (rows, K) matrix, MERGE = 1 the 4C gather of merged row `row`
 template <int MERGE>
-__global__ void __launch_bounds__(256) row_stats_kernel(const bf16* __restrict__ x,
-                                                        float* __restrict__ mean,
-                                                        float* __restrict__ rstd,
-                                                        int rows, int K, RowMap g) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
+__device__ __forceinline__ void row_stats_row(const bf16* x, float* mean, float* rstd, int row,
+                                              int lane, int K,
+                                              const RowMap& g) {
   auto load = [&](int k) -> float {
     if (MERGE) {
       const int piece = k / g.C, c = k - piece * g.C;
@@ -110,6 +112,17 @@ __global__ void __launch_bounds__(256) row_stats_kernel(const bf16* __restrict__
     mean[row] = mu;
     rstd[row] = rsqrtf(v + LN_EPS);
   }
+}
+
+// LayerNorm moments of `rows` rows of K elements, one warp per row
+template <int MERGE>
+__global__ void __launch_bounds__(256) row_stats_kernel(const bf16* __restrict__ x,
+                                                        float* __restrict__ mean,
+                                                        float* __restrict__ rstd,
+                                                        int rows, int K, RowMap g) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (row >= rows) return;
+  row_stats_row<MERGE>(x, mean, rstd, row, threadIdx.x & 31, K, g);
 }
 
 struct GemmParams {
@@ -138,6 +151,16 @@ struct GemmParams {
 constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
 constexpr int LDA_S = BK + 8, LDB_S = BN + 8, LDBT_S = BK + 8, LDC_S = BN + 4;
 
+// the shared memory of one GEMM tile
+template <bool BT>
+struct GemmSmem {
+  alignas(128) bf16 As[BM * LDA_S];
+  alignas(128) bf16 Bs[BT ? BN * LDBT_S : BK * LDB_S];
+  alignas(128) float Cs[BM * LDC_S];
+  int src_row[BM], dst_row[BM];
+  float row_mean[BM], row_rstd[BM];
+};
+
 // C = A' @ B with A' = A, LN(A rows) or LN(merge gather of A), and B the
 // (K, N) matrix Bm or, with BT, the transpose of the (N, K) matrix Bm.
 // Epilogue: bias -> [aux copy] -> GELU -> [* gelu'(dgelu)] -> [float32 out],
@@ -145,17 +168,20 @@ constexpr int LDA_S = BK + 8, LDB_S = BN + 8, LDBT_S = BK + 8, LDC_S = BN + 4;
 // out_window; the bracketed steps exist only in the EXT instantiation, so
 // the serving GEMMs compile without them. Needs K % 32 == 0, N % 16 == 0 and
 // (A_MERGE) C % 16 == 0. The next A/B tile is loaded into registers while
-// the tensor cores work on the current.
+// the tensor cores work on the current. This is the output tile at rows
+// m0.., columns n0.. by the block's GEMM_THREADS threads; a caller that runs
+// another tile in the same shared memory synchronizes the block first.
 template <int AMODE, bool BT, bool EXT>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmParams p) {
+__device__ __forceinline__ void gemm_tile(const GemmParams& p, int m0, int n0, GemmSmem<BT>& sm) {
   typedef typename std::conditional<BT, wmma::col_major, wmma::row_major>::type BLayout;
-  __shared__ __align__(128) bf16 As[BM * LDA_S];
-  __shared__ __align__(128) bf16 Bs[BT ? BN * LDBT_S : BK * LDB_S];
-  __shared__ __align__(128) float Cs[BM * LDC_S];
-  __shared__ int src_row[BM], dst_row[BM];
-  __shared__ float row_mean[BM], row_rstd[BM];
+  bf16* As = sm.As;
+  bf16* Bs = sm.Bs;
+  float* Cs = sm.Cs;
+  int* src_row = sm.src_row;
+  int* dst_row = sm.dst_row;
+  float* row_mean = sm.row_mean;
+  float* row_rstd = sm.row_rstd;
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
 
@@ -316,6 +342,12 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmParams p) {
   }
 }
 
+template <int AMODE, bool BT, bool EXT>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmParams p) {
+  __shared__ GemmSmem<BT> sm;
+  gemm_tile<AMODE, BT, EXT>(p, blockIdx.y * BM, blockIdx.x * BN, sm);
+}
+
 // One block of 4 warps per (window, head). Q, K, V (head dim zero-padded to
 // 32) and the bias (+ mask) are staged in shared memory; warp w owns query
 // rows 16w..16w+15 from there on: S = bias + Q K^T on the tensor cores
@@ -327,7 +359,7 @@ constexpr int LDQ = HDP + 8, LDS_S = WIN_N + 4, LDP = WIN_N + 8;
 // Q, K, V of one (window, head) from the (rows, 3C) qkv matrix into shared
 // memory, head dim zero-padded to HDP; mats = 3, or 4 with rows of `extra`
 // (rows, C) into the fourth buffer
-__device__ __forceinline__ void stage_head(const bf16* __restrict__ qkv, const bf16* __restrict__ extra,
+__device__ __forceinline__ void stage_head(const bf16* qkv, const bf16* extra,
                                            bf16* Qs, bf16* Ks, bf16* Vs, bf16* Es, long row0,
                                            int C, int h, int mats, int tid) {
   const int ld = 3 * C;
@@ -414,15 +446,29 @@ __device__ __forceinline__ void store_head_rows(const float* Ss, bf16* dst, long
     if (c0 + c < HD) orow[c0 + c] = f2bf(Ss[r * LDS_S + c0 + c]);
 }
 
-__global__ void __launch_bounds__(ATT_THREADS) window_attention_kernel(
-    const bf16* __restrict__ qkv, const float* __restrict__ bias,
-    const float* __restrict__ mask, bf16* __restrict__ out, int C, int nW) {
-  __shared__ __align__(128) bf16 Qs[WIN_N * LDQ];
-  __shared__ __align__(128) bf16 Ks[WIN_N * LDQ];
-  __shared__ __align__(128) bf16 Vs[WIN_N * LDQ];
-  __shared__ __align__(128) float Ss[WIN_N * LDS_S];  // scores, then O
-  __shared__ __align__(128) bf16 Ps[WIN_N * LDP];
-  const int win = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+// the shared memory of one (window, head)
+struct AttnSmem {
+  alignas(128) bf16 Qs[WIN_N * LDQ];
+  alignas(128) bf16 Ks[WIN_N * LDQ];
+  alignas(128) bf16 Vs[WIN_N * LDQ];
+  alignas(128) float Ss[WIN_N * LDS_S];  // scores, then O
+  alignas(128) bf16 Ps[WIN_N * LDP];
+};
+
+// window `win` (of B*nW), head h, by the block's ATT_THREADS threads; a
+// caller that runs another (window, head) in the same shared memory
+// synchronizes the block first
+__device__ __forceinline__ void window_attention_tile(const bf16* qkv,
+                                                      const float* __restrict__ bias,
+                                                      const float* __restrict__ mask,
+                                                      bf16* out, int C, int nW,
+                                                      int win, int h, AttnSmem& sm) {
+  bf16* Qs = sm.Qs;
+  bf16* Ks = sm.Ks;
+  bf16* Vs = sm.Vs;
+  float* Ss = sm.Ss;  // scores, then O
+  bf16* Ps = sm.Ps;
+  const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const long row0 = (long)win * WIN_N;
 
@@ -449,6 +495,13 @@ __global__ void __launch_bounds__(ATT_THREADS) window_attention_kernel(
   }
   __syncwarp();
   store_head_rows(Ss, out + row0 * C + h * HD, C, r0, lane);
+}
+
+__global__ void __launch_bounds__(ATT_THREADS) window_attention_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ bias,
+    const float* __restrict__ mask, bf16* __restrict__ out, int C, int nW) {
+  __shared__ AttnSmem sm;
+  window_attention_tile(qkv, bias, mask, out, C, nW, blockIdx.x, blockIdx.y, sm);
 }
 
 template <int AMODE, bool BT = false>

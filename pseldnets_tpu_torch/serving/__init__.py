@@ -9,6 +9,7 @@ from .htsat import htsat_fused_forward  # noqa: F401
 from .htsat import htsat_fused_forward_from_wav  # noqa: F401
 from .htsat import prepare_blocks  # noqa: F401
 from .htsat import prepare_patch_embed  # noqa: F401
+from .htsat import prepare_stages  # noqa: F401
 from .htsat import scalar_bn_affine  # noqa: F401
 from .passt import passt_fused_forward  # noqa: F401
 from .passt import passt_fused_forward_from_wav  # noqa: F401

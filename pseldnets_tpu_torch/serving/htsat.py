@@ -8,6 +8,12 @@ adapters) runs every block on kernel K4 (ops/swin_block_adapt.py, masks 1)
 without the merge fold, and each PatchMerging unfolded (``patch_merging``),
 as the JAX package does (serving/htsat.py:78-86, :187-215).
 
+``swin="stage"`` runs each Swin stage in one launch of kernel K11
+(ops/swin_stage.py, every block of the stage) and each PatchMerging
+unfolded (``patch_merging``), as the JAX package's probe composes its stage
+kernel (scripts/perf_r3a_probe.py:53-120); ``swin="block"``, the default,
+runs K2 per block with the merge folds. The stage path takes no adapters.
+
 The patch embed is one reshape + einsum (``patch_embed="einsum"``, the
 default, as in the JAX package) or kernel K8 (``patch_embed="kernel"``,
 ops/patch_embed.py: wav2img, conv, bias and LayerNorm in one pass, the JAX
@@ -40,6 +46,8 @@ from ..ops.swin_block import (SwinBlockParams, prepare_block, swin_block_fused,
                               swin_block_plain)
 from ..ops.swin_block_adapt import (AdaptBlockParams, has_adapters, prepare_adapt_block,
                                     swin_block_adapt_fused, swin_block_adapt_plain)
+from ..ops.swin_stage import (StageParams, prepare_stage, swin_stage_fused_v2,
+                              swin_stage_plain)
 
 BlockParams = Union[SwinBlockParams, AdaptBlockParams]
 
@@ -59,6 +67,13 @@ def prepare_blocks(model: HTSAT,
             out.append(prepare_block(blk, compute_dtype,
                                      layer.downsample if last else None))
     return out
+
+
+def prepare_stages(model: HTSAT,
+                   compute_dtype: torch.dtype = torch.bfloat16) -> List[StageParams]:
+    """Every stage's K11 weights, in order (no merge folds); raises on an
+    AdapterBit model."""
+    return [prepare_stage(layer, compute_dtype) for layer in model.encoder.layers]
 
 
 def patch_merging(mod: PatchMerging, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -105,6 +120,7 @@ def embed_tokens(model: HTSAT, x: torch.Tensor, compute_dtype: torch.dtype) -> t
 
 
 PATCH_EMBEDS = ("einsum", "kernel")
+SWINS = ("block", "stage")
 
 
 @torch.no_grad()
@@ -113,7 +129,8 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
                         pre_normalized: bool = False,
                         blocks: Optional[List[BlockParams]] = None,
                         use_kernels: bool = True, patch_embed: str = "einsum",
-                        embed: Optional[PatchEmbedParams] = None) -> Dict[str, torch.Tensor]:
+                        embed: Optional[PatchEmbedParams] = None, swin: str = "block",
+                        stages: Optional[List[StageParams]] = None) -> Dict[str, torch.Tensor]:
     """Eval forward equal to ``model(x)`` up to compute-dtype rounding.
 
     ``pre_normalized``: ``x`` already carries the eval ScalarBN (folded into
@@ -122,16 +139,28 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
     model and dtype, to skip preparing the weights on every call.
     ``patch_embed``: "einsum" or "kernel" (K8; ``embed``: its
     :func:`prepare_patch_embed` of this model and dtype, likewise).
+    ``swin``: "block" (K2 per block, merges folded; K4 with adapters) or
+    "stage" (K11 per stage, merges unfolded; ``stages``: its
+    :func:`prepare_stages` of this model and dtype, likewise).
     """
     enc = model.encoder
     cd = compute_dtype
     if patch_embed not in PATCH_EMBEDS:
         raise NotImplementedError(f"patch_embed={patch_embed!r}: the port takes {PATCH_EMBEDS}")
-    if blocks is None:
+    if swin not in SWINS:
+        raise NotImplementedError(f"swin={swin!r}: the port takes {SWINS}")
+    if swin == "stage":
+        if any(has_adapters(b) for layer in enc.layers for b in layer.blocks):
+            raise NotImplementedError("swin='stage' has no adapters (nor have the JAX "
+                                      "package's stage kernels): use swin='block'")
+        if stages is None:
+            stages = prepare_stages(model, cd)
+    elif blocks is None:
         blocks = prepare_blocks(model, cd)
     if patch_embed == "kernel" and embed is None:
         embed = prepare_patch_embed(model, cd)
     block_fn = swin_block_fused if use_kernels else swin_block_plain
+    stage_fn = swin_stage_fused_v2 if use_kernels else swin_stage_plain
     adapt_fn = swin_block_adapt_fused if use_kernels else swin_block_adapt_plain
 
     B, C, T, Fq = x.shape
@@ -153,6 +182,12 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
         x = (patch_embed_tokens if use_kernels else patch_embed_tokens_plain)(x, embed)
     else:
         x = embed_tokens(model, x, cd)
+    if swin == "stage":
+        for layer, sp in zip(enc.layers, stages):
+            x = stage_fn(x, sp)
+            if layer.downsample is not None:
+                x = patch_merging(layer.downsample, x, cd)
+        return head_tail(model, x, cd, B, output_frames, five_sec)
     i = 0
     for layer in enc.layers:
         for _ in layer.blocks:
@@ -216,11 +251,14 @@ def htsat_fused_forward_from_wav(model: HTSAT, wav, *,
                                  blocks: Optional[List[BlockParams]] = None,
                                  use_kernels: bool = True, patch_embed: str = "einsum",
                                  embed: Optional[PatchEmbedParams] = None,
+                                 swin: str = "block",
+                                 stages: Optional[List[StageParams]] = None,
                                  **frontend_kwargs) -> Dict[str, torch.Tensor]:
     """Full serving step from the FOA waveform (B, 4, N) float32: kernel K1
     (features + ScalarBN + cast + frame pad) then the fused model: the patch
     embed (``patch_embed``: "einsum" or kernel K8), then K2, or K4 for an
-    AdapterBit model. 10-second clips only. ``device`` defaults to the card
+    AdapterBit model (``swin="block"``), or K11 per stage and the unfolded
+    merges (``swin="stage"``). 10-second clips only. ``device`` defaults to the card
     and raises when CUDA is absent; ``model`` must already live there."""
     device = resolve_device(device)
     wav = torch.as_tensor(wav, dtype=torch.float32, device=device)
@@ -239,4 +277,4 @@ def htsat_fused_forward_from_wav(model: HTSAT, wav, *,
     return htsat_fused_forward(model, feats, compute_dtype=compute_dtype,
                                pre_normalized=True, blocks=blocks,
                                use_kernels=use_kernels, patch_embed=patch_embed,
-                               embed=embed)
+                               embed=embed, swin=swin, stages=stages)

@@ -1,4 +1,4 @@
-"""Kernels K1-K10 on the card against their plain versions (marked
+"""Kernels K1-K11 on the card against their plain versions (marked
 ``cuda``: skipped without a CUDA card and nvcc). Imports nothing of JAX, so on
 a machine without JAX it runs with
 
@@ -10,10 +10,11 @@ import torch
 
 from pseldnets_tpu_torch.models.adapters import AdaptConfig
 from pseldnets_tpu_torch.models.factory import init_weights
-from pseldnets_tpu_torch.models.htsat import PatchMerging, SwinTransformerBlock
+from pseldnets_tpu_torch.models.htsat import BasicLayer, PatchMerging, SwinTransformerBlock
 from pseldnets_tpu_torch.models.passt import Block
 from pseldnets_tpu_torch.ops import (conv_block, frontend, frontend_forms, patch_embed,
-                                     swin_block, swin_block_adapt, swin_block_vjp, vit_block)
+                                     swin_block, swin_block_adapt, swin_block_vjp, swin_stage,
+                                     vit_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -284,3 +285,60 @@ def test_flat_kernel_folded_form_matches_plain(card):
     ref = frontend_forms.logmel_iv_flat_plain(x, **kw).float()
     assert got.shape == (2, 7, 208, 64) and not got[:, :, 201:].any()
     assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max() <= 2.0 ** -7
+
+
+def _check_stage(got, x, sp):
+    """K11's output against its plain version block by block (chip_smoke.py's
+    check_stage): bitwise K2 run block after block, each of those blocks
+    within K2's 2^-6 of its plain version's scale on its own input, the
+    stage within depth x 2^-6 of the plain stage's scale."""
+    xs = x
+    for d in range(sp.depth):
+        p = sp.block(d)
+        y = swin_block.swin_block_fused(xs, p).float()
+        ref = swin_block.swin_block_plain(xs, p).float()
+        assert (y - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+        xs = swin_block.swin_block_fused(xs, p)
+    assert torch.equal(got, xs)
+    ref = swin_stage.swin_stage_plain(x, sp).float()
+    assert (got.float() - ref).abs().max() <= sp.depth * 2.0 ** -6 * ref.abs().max()
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_swin_stage_kernel_matches_plain(card, stage):
+    """K11 at each served stage shape, full width and depth (2, 2, 6, 2),
+    B=2: one launch, held against its plain version block by block
+    (_check_stage), a second launch bitwise equal (a missing grid barrier
+    shows as a difference), v1 and v2 alike."""
+    gen = torch.Generator().manual_seed(20 + stage)
+    H, C, nh, depth = 64 >> stage, 96 << stage, 4 << stage, (2, 2, 6, 2)[stage]
+    layer = BasicLayer(C, (H, H), depth, nh, 8)
+    init_weights(layer, gen)
+    sp = swin_stage.prepare_stage(layer.to(card).eval(), torch.bfloat16)
+    assert sp.shifts == (((0, 4) * 3)[:depth] if stage < 3 else (0, 0))
+    x = torch.randn(2, H * H, C, generator=gen).to(card).bfloat16()
+    before = swin_stage.KERNEL.launches
+    got = swin_stage.swin_stage_fused(x, sp)
+    again = swin_stage.swin_stage_fused_v2(x, sp)
+    assert swin_stage.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    _check_stage(got, x, sp)
+
+
+def test_swin_stage_kernel_takes_any_zero_base_pattern(card):
+    """v1's pattern (0, 4, 4, 0, 0, 4) at stage 2's shape, B=2, against the
+    plain version (_check_stage); v2 refuses it before launching."""
+    gen = torch.Generator().manual_seed(30)
+    shifts = (0, 4, 4, 0, 0, 4)
+    blocks = [SwinTransformerBlock(384, (16, 16), 16, 8, shift_size=s) for s in shifts]
+    layer = torch.nn.Module()
+    layer.blocks = torch.nn.ModuleList(blocks)
+    init_weights(layer, gen)
+    sp = swin_stage.prepare_stage(layer.to(card).eval(), torch.bfloat16)
+    x = torch.randn(2, 256, 384, generator=gen).to(card).bfloat16()
+    before = swin_stage.KERNEL.launches
+    got = swin_stage.swin_stage_fused(x, sp)
+    with pytest.raises(ValueError):
+        swin_stage.swin_stage_fused_v2(x, sp)
+    assert swin_stage.KERNEL.launches == before + 1
+    _check_stage(got, x, sp)

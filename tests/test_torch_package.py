@@ -163,15 +163,18 @@ def test_bridge_maps_every_key_both_ways():
 
 
 def test_chip_smoke_builds_every_kernel_source():
-    """Every ``csrc/*.cu`` is one kernel of chip_smoke.py's K1-K10 (built,
-    checked and counted there), conv_block.cu (K7), patch_embed.cu (K8) and
-    the frontend's flat and DIF forms (K9, K10) among them, each with the
-    main path that runs it; no module imports JAX (above)."""
+    """Every ``csrc/*.cu`` is one kernel of chip_smoke.py's K1-K11 (built,
+    checked and counted there), conv_block.cu (K7), patch_embed.cu (K8),
+    the frontend's flat and DIF forms (K9, K10) and the whole-stage Swin
+    swin_stage.cu (K11) among them, each with the main path that runs it;
+    no module imports JAX (above)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
     sources = {k.source.name for k in chip_smoke.kernels().values()}
     assert sources == {p.name for p in (PORT / "csrc").glob("*.cu")}
-    assert {"conv_block.cu", "patch_embed.cu", "frontend_flat.cu", "frontend_dif.cu"} <= sources
-    assert list(chip_smoke.kernels()) == [f"K{i}" for i in range(1, 11)]
-    assert {"serve_crnn", "serve_patch", "features_flat", "features_dif"} <= set(chip_smoke.PATHS)
+    assert {"conv_block.cu", "patch_embed.cu", "frontend_flat.cu", "frontend_dif.cu",
+            "swin_stage.cu"} <= sources
+    assert list(chip_smoke.kernels()) == [f"K{i}" for i in range(1, 12)]
+    assert {"serve_crnn", "serve_patch", "features_flat", "features_dif",
+            "serve_stage"} <= set(chip_smoke.PATHS)
