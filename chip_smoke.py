@@ -958,20 +958,25 @@ def random_vit_block(gen):
 def phase_vit_block():
     """K6 against its plain version (bf16 and float32) at PaSST's full
     width: the served N=602 at B=4, a tail (N=130, B=3: N and B*N not
-    multiples of 64) and N=1800 (16 query rows per attention block)."""
+    multiples of 64), N=1800, N=3500 (a sequence whose float32 scores for
+    16 query rows would not fit in shared memory) and B*N=385 (not a
+    multiple of the 128-row tiles); at each shape a second launch on the
+    same input must give the same bits."""
     import torch
     from pseldnets_tpu_torch.ops.vit_block import (prepare_vit_block, vit_block_fused,
                                                    vit_block_plain)
 
     gen = torch.Generator().manual_seed(21)
-    for B, N in ((B_CHECK, 602), (3, 130), (1, 1800)):
+    for B, N in ((B_CHECK, 602), (3, 130), (1, 1800), (1, 3500), (5, 77)):
         blk = random_vit_block(gen)
         x = torch.randn(B, N, 768, generator=gen).cuda().bfloat16()
         p16 = prepare_vit_block(blk, torch.bfloat16)
         p32 = prepare_vit_block(blk, torch.float32)
         log(f"ViT block B={B} N={N} C=768, 12 heads:")
         got = vit_block_fused(x, p16)
+        again = vit_block_fused(x, p16)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"K6 B={B} N={N}: two launches differ")
         compare("K6 out", got, vit_block_plain(x, p16), vit_block_plain(x.float(), p32), 2.0 ** -6)
 
 
@@ -1119,10 +1124,30 @@ def phase_serve_passt(smi):
     log(f"PaSST per batch of {B_SERVE} ({smi}): K1 {k1:.3f} ms, K6 x7 {k6_ms:.3f} ms (plain "
         f"{k6_plain:.3f}, library {k6_lib:.3f}, bound {k6_bound:.3f}), rest "
         f"{dt * 1e3 - k1 - k6_ms:.3f} ms; library call within {lib_rel:.3g} of scale")
+    phases = k6_phases(xs[0], blocks[0], smi)
     phase_profile("one PaSST served batch", lambda: serve(wav))
     return launches, {"K1": (k1_err, k1_rel),
                       "K6": (k6_err, k6_rel, k6_ms, k6_plain, k6_bound, "operations", k6_lib,
-                             lib_rel)}
+                             lib_rel, {"phases_ms_per_block": phases})}
+
+
+def k6_phases(x, p, smi):
+    """K6's seven launches on one served block input, timed by the CUDA
+    events its C entry records between them (10 runs after 2); each GEMM and
+    the attention with its TFLOP/s (attention on the two-pass FLOPs, 6 B N^2
+    C: Q K^T twice and P V once)."""
+    from pseldnets_tpu_torch.ops import vit_block
+
+    B, N, C = x.shape
+    M, hid = B * N, p.hidden
+    flops = {"qkv": 2 * M * C * 3 * C, "attention": 6 * B * N * N * C, "proj": 2 * M * C * C,
+             "fc1": 2 * M * C * hid, "fc2": 2 * M * hid * C}
+    vit_block.vit_block_phases(x, p, reps=2)
+    ms = vit_block.vit_block_phases(x, p, reps=10)
+    log(f"K6 by phase, one block at B={B} N={N} ({smi}): " + ", ".join(
+        f"{k} {v:.4f} ms" + (f" ({flops[k] / v / 1e9:.0f} TFLOP/s)" if k in flops else "")
+        for k, v in ms.items()) + f"; sum {sum(ms.values()):.4f} ms")
+    return {k: round(v, 5) for k, v in ms.items()}
 
 
 def folded_conv_block(gen, cin, cout, dtype):

@@ -149,12 +149,14 @@ def test_layer_norm_with_frozen_scale_trains_its_shift(card):
     assert gb.shape == (96,) and torch.allclose(gb, gb_ref, atol=1e-5)
 
 
-@pytest.mark.parametrize("B,N", [(2, 602), (3, 130), (1, 1800)])
+@pytest.mark.parametrize("B,N", [(2, 602), (3, 130), (1, 1800), (1, 3500), (5, 77)])
 def test_vit_block_kernel_matches_plain(card, B, N):
     """K6 at PaSST's full width (C 768, 12 heads of 64, MLP 3072): the served
-    token count, a tail whose N and B*N are not multiples of 64, and a count
-    past 1664 (16 query rows per attention block): within 2^-6 of the plain
-    bf16 output's largest magnitude."""
+    token count, a tail whose N and B*N are not multiples of 64, a long
+    sequence, one past the earlier design's 3392-token limit, and a B*N
+    (385) that is not a multiple of the 128-row tiles: within 2^-6 of the
+    plain bf16 output's largest magnitude, and a second launch bitwise
+    equal."""
     gen = torch.Generator().manual_seed(30 + N)
     blk = Block(768, 12)
     init_weights(blk, gen)
@@ -162,11 +164,38 @@ def test_vit_block_kernel_matches_plain(card, B, N):
     p = vit_block.prepare_vit_block(blk, torch.bfloat16)
     x = torch.randn(B, N, 768, generator=gen).to(card).bfloat16()
     before = vit_block.KERNEL.launches
-    got = vit_block.vit_block_fused(x, p).float()
+    got = vit_block.vit_block_fused(x, p)
     assert vit_block.KERNEL.launches == before + 1
+    assert torch.equal(vit_block.vit_block_fused(x, p), got)
+    got = got.float()
     ref = vit_block.vit_block_plain(x, p).float()
     assert got.shape == ref.shape == (B, N, 768)
     assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+
+
+@pytest.mark.parametrize("M,N,K,epilogue,bn", [
+    (19264, 2304, 768, "bias", 192), (19264, 768, 768, "resid", 192),
+    (19264, 3072, 768, "gelu", 128), (19264, 768, 3072, "resid", 192),
+    (1000, 768, 768, "bias", 256), (130, 3072, 768, "gelu", 256),
+    (77, 2304, 3072, "resid", 128), (200, 768, 3072, "resid", 256),
+    (19264, 3072, 768, "gelu", -128), (1000, 768, 3072, "resid", -128),
+    (333, 2304, 768, "bias", -128)])
+def test_vit_gemm_core_matches_plain(card, M, N, K, epilogue, bn):
+    """K6's Hopper GEMM core alone (TMA, mbarrier ring, wgmma, TMA-stored
+    epilogue) at the four GEMM shapes of a served PaSST batch (B=32 x 602
+    tokens) with their tiles and at ragged M, each tile width and the
+    ping-pong schedule (bn -128): within 2^-7 of
+    the plain version's largest magnitude (float32 sums in another order,
+    then one or two bf16 roundings)."""
+    gen = torch.Generator().manual_seed(M + N + K)
+    a = (torch.randn(M, K, generator=gen) * 0.5).to(card).bfloat16()
+    w = (torch.randn(N, K, generator=gen) / K ** 0.5).to(card).bfloat16()
+    bias = (torch.randn(N, generator=gen) * 0.1).to(card)
+    resid = torch.randn(M, N, generator=gen).to(card).bfloat16() if epilogue == "resid" else None
+    got = vit_block.gemm(a, w, bias, resid, epilogue, bn).float()
+    ref = vit_block.gemm_plain(a, w, bias, resid, epilogue).float()
+    assert got.shape == (M, N)
+    assert (got - ref).abs().max() <= 2.0 ** -7 * ref.abs().max()
 
 
 def _conv_operands(card, gen, B, T, F, cin, cmid, cout, relu_conv=False):

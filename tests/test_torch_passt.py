@@ -122,6 +122,63 @@ def test_vit_block_plain_matches_pallas_bf16(rng):
     assert err < 3e-2 * np.abs(ref).max(), (err, np.abs(ref).max())
 
 
+def _two_pass_attention(q, k, v, tile=64):
+    """Kernel K6's attention order in plain torch, per (image, head): pass 1
+    over key tiles of ``tile`` keeps a running float32 row max m and sum l
+    of exp(s / 8 - m), rescaled as m grows; pass 2 recomputes each tile's
+    scores, rounds p = exp(s / 8 - m) / l to bf16 (normalized, then rounded,
+    as the Pallas exact path) and sums P V in float32. q, k, v (B, nh, N, 64)
+    bf16 -> O (B, nh, N, 64) bf16."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale = q.shape[-1] ** -0.5
+    N = q.shape[2]
+    m = torch.full(q.shape[:3] + (1,), -float("inf"))
+    l = torch.zeros(q.shape[:3] + (1,))
+    for j0 in range(0, N, tile):
+        s = torch.matmul(qf, kf[:, :, j0:j0 + tile].transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(-1, keepdim=True)
+        m = m_new
+    o = torch.zeros(qf.shape)
+    for j0 in range(0, N, tile):
+        s = torch.matmul(qf, kf[:, :, j0:j0 + tile].transpose(-1, -2)) * scale
+        p = (torch.exp(s - m) / l).to(torch.bfloat16)
+        o += torch.matmul(p.float(), vf[:, :, j0:j0 + tile])
+    return o.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_two_pass_attention_order_matches_pallas(rng, tile):
+    """The kernel's two-pass attention (key tiles of 64, as shipped, and of
+    128, its other form; N = 150 leaves a partial last tile) inside the
+    plain bf16 block, against the Pallas exact path in interpret mode:
+    within 3e-2 of the output's largest magnitude, the bound of the bf16
+    test above; and its heads within two bf16 ulps of the one-pass softmax
+    of vit_block_plain."""
+    _, params, tblk, x = _block_pair(rng, 150, 128, 2)  # head dim 64, as the kernel
+    p = vit_block.prepare_vit_block(tblk, torch.bfloat16)
+    x0 = torch.from_numpy(x).bfloat16()
+    B, N, C = x0.shape
+    h = vit_block._ln(x0, p.ln1_w, p.ln1_b, p.eps).to(torch.bfloat16)
+    qkv = (vit_block._mm(h, p.qkv_w.t()) + p.qkv_b).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(B, N, p.nh, 64).transpose(1, 2)
+               for i in range(3))
+    o = _two_pass_attention(q, k, v, tile)
+    one_pass = torch.matmul(torch.softmax(torch.matmul((q * 0.125).float(), k.float().transpose(
+        -1, -2)), dim=-1).to(torch.bfloat16).float(), v.float()).to(torch.bfloat16)
+    assert (o.float() - one_pass.float()).abs().max() <= 2.0 ** -7 * one_pass.float().abs().max()
+    o = o.transpose(1, 2).reshape(B, N, C)
+    y = x0 + (vit_block._mm(o, p.proj_w.t()) + p.proj_b).to(torch.bfloat16)
+    h = vit_block._ln(y, p.ln2_w, p.ln2_b, p.eps).to(torch.bfloat16)
+    h = torch.nn.functional.gelu(vit_block._mm(h, p.fc1_w.t()) + p.fc1_b,
+                                 approximate="none").to(torch.bfloat16)
+    got = (y + (vit_block._mm(h, p.fc2_w.t()) + p.fc2_b).to(torch.bfloat16)).float().numpy()
+    ref = np.asarray(jax_vit_block(jnp.asarray(x), params, nh=2, compute_dtype=jnp.bfloat16,
+                                   interpret=True)).astype(np.float32)
+    err = np.abs(got - ref).max()
+    assert err < 3e-2 * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
 def test_fused_forward_matches_jax(rng):
     """The port's fused forward on the plain block (CPU) against the JAX
     passt_fused_forward (Pallas interpret): 5e-5 in float32; and the eager
@@ -214,12 +271,45 @@ def test_vit_block_wrapper_routes_and_raises(rng):
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         vit_block.vit_block_fused(xt.to("meta"), p)
     with pytest.raises(NotImplementedError, match="head dim 64"):
-        vit_block.vit_block_fused(torch.zeros(1, vit_block.MAX_TOKENS + 1, 128,
+        vit_block.vit_block_fused(torch.zeros(vit_block.MAX_IMAGES + 1, 26, 128,
                                               dtype=torch.bfloat16, device="meta"), p)
+    # TMA reads rows of 16 bytes: hidden must be a multiple of 8
+    odd = vit_block.prepare_vit_block(Block(128, 2, mlp_ratio=131 / 128).eval(), torch.bfloat16)
+    assert odd.hidden == 131 and odd.fc1_w.shape == (131, 128)
+    with pytest.raises(NotImplementedError, match="hidden % 8 == 0"):
+        vit_block.vit_block_fused(torch.zeros(1, 26, 128, dtype=torch.bfloat16, device="meta"),
+                                  odd)
     _, _, tblk32, _ = _block_pair(rng, 26, 64, 2)  # head dim 32
     with pytest.raises(NotImplementedError, match="head dim 64"):
         vit_block.vit_block_fused(torch.zeros(1, 26, 64, dtype=torch.bfloat16, device="meta"),
                                   vit_block.prepare_vit_block(tblk32, torch.bfloat16))
+    assert vit_block.KERNEL.launches == 0
+
+
+def test_gemm_core_wrapper_routes_and_raises(rng):
+    """K6's GEMM core alone: a CPU tensor takes the plain version (float32
+    sums of the rounded operands, the epilogue's roundings) and builds or
+    launches nothing; the tile, the epilogue and the 16-byte row limits
+    raise before any launch."""
+    a = torch.from_numpy(rng.standard_normal((37, 64)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((48, 64)).astype(np.float32)).bfloat16()
+    bias = torch.from_numpy(rng.standard_normal(48).astype(np.float32))
+    resid = torch.from_numpy(rng.standard_normal((37, 48)).astype(np.float32)).bfloat16()
+    vit_block.KERNEL.launches = 0
+    f = torch.matmul(a.float(), w.float().t()) + bias
+    assert torch.equal(vit_block.gemm(a, w, bias), f.bfloat16())
+    assert torch.equal(vit_block.gemm(a, w, bias, resid, "resid"), resid + f.bfloat16())
+    assert torch.equal(vit_block.gemm(a, w, bias, epilogue="gelu"),
+                       torch.nn.functional.gelu(f).bfloat16())
+    assert vit_block.KERNEL.launches == 0 and vit_block.KERNEL._lib is None
+    meta = lambda *shape: torch.zeros(*shape, dtype=torch.bfloat16, device="meta")  # noqa: E731
+    for kw in ({"bn": 64}, {"epilogue": "relu"}):
+        with pytest.raises(NotImplementedError, match="the GEMM core takes"):
+            vit_block.gemm(meta(37, 64), meta(48, 64), bias.to("meta"), **kw)
+    with pytest.raises(NotImplementedError, match="K % 8 == 0"):
+        vit_block.gemm(meta(37, 60), meta(48, 60), bias.to("meta"))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        vit_block.gemm(meta(37, 64), meta(48, 64), bias.to("meta"))
     assert vit_block.KERNEL.launches == 0
 
 
@@ -236,7 +326,7 @@ def test_full_size_passt_from_configs():
     assert model.output_key == "multi_accdoa" and model.fc.out_features == 117
     blocks = prepare_vit_blocks(model, torch.bfloat16)
     assert [(p.C, p.nh, p.hidden, p.eps) for p in blocks] == [(768, 12, 3072, 1e-6)] * 7
-    assert blocks[0].qkv_w.shape == (768, 2304) and blocks[0].qkv_w.dtype == torch.bfloat16
+    assert blocks[0].qkv_w.shape == (2304, 768) and blocks[0].qkv_w.dtype == torch.bfloat16
     for t in (enc.cls_token, enc.dist_token, enc.new_pos_embed, enc.freq_new_pos_embed,
               enc.time_new_pos_embed):
         assert 0.01 < t.std().item() < 0.03 and t.abs().max().item() <= 0.04
