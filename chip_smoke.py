@@ -29,9 +29,12 @@ kernels with their launches, errors, times and bounds.
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -155,6 +158,21 @@ def phase_build():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {k.source.name}: {line.strip()}")
+    # what the Hopper kernels were compiled to: wgmma (HGMMA), TMA loads
+    # (UTMALDG) and stores (UTMASTG) in K6's and K7's SASS
+    tool = shutil.which("cuobjdump") or str(Path(_cuda.nvcc()).parent / "cuobjdump")
+    for name in ("K6", "K7"):
+        lib = kernels()[name].library_path()
+        try:
+            sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                                  check=True).stdout
+        except (OSError, subprocess.CalledProcessError):
+            log(f"  {lib.name} SASS: not measured (no cuobjdump)")
+            continue
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG",
+                                                                      "UTMASTG")}
+        log(f"  {lib.name} SASS: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        check(all(counts.values()), f"{name}'s SASS lacks wgmma or TMA: {counts}")
 
 
 def phase_frontend():
@@ -1153,10 +1171,11 @@ def k6_phases(x, p, smi):
 def folded_conv_block(gen, cin, cout, dtype):
     """A ConvBlock of the trunk's shape with seeded weights and non-trivial
     eval BN statistics, folded as the serving path folds it (the stem's
-    input channels padded to 16)."""
+    input channels padded to 8)."""
     import torch
     from pseldnets_tpu_torch.models.backbone import ConvBlock
     from pseldnets_tpu_torch.models.factory import init_weights
+    from pseldnets_tpu_torch.ops.conv_block import padded_channels
     from pseldnets_tpu_torch.serving.crnn import prepare_conv_block
 
     blk = ConvBlock(cin, cout)
@@ -1164,7 +1183,7 @@ def folded_conv_block(gen, cin, cout, dtype):
     randomize_bn_stats(blk, gen)
     blk.cuda().eval()
     with torch.no_grad():
-        return [prepare_conv_block(blk, dt, 16 if cin < 16 else 0) for dt in (dtype, torch.float32)]
+        return [prepare_conv_block(blk, dt, padded_channels(cin)) for dt in (dtype, torch.float32)]
 
 
 def randomize_bn_stats(module, gen, scale=1.0):
@@ -1190,14 +1209,38 @@ def conv_args(mode, x, p):
     return (x, None, p.b1, p.w2, p.b2)  # relu_conv: x is a raw conv1 output
 
 
+# K7's other shape classes, (mode, (B, T, F, Cin, Cmid, Cout)): F not
+# dividing 128 with odd T and B = 3, F = 5 (25-row tiles), F over 128 (two
+# 100-bin chunks), Cin 16, 24 and 32 (zero-filled channels of a K step),
+# Cout 40 and the mid 48 (clipped output tiles), relu_conv on them
+CONV_SHAPES = (("pair", (3, 7, 48, 16, 64, 64)), ("single", (3, 33, 5, 32, 128, 0)),
+               ("pair", (2, 3, 200, 64, 48, 40)), ("relu_conv", (3, 13, 200, 64, 64, 128)),
+               ("relu_conv", (3, 9, 5, 24, 24, 40)))
+
+
+def conv_operands(gen, B, T, F, cin, cmid, cout, relu_conv):
+    """Random bf16 NHWC input and HWIO weights N(0, 1/fan_in), float32
+    biases large enough that a wrong edge halo shows; (plain16 args,
+    plain32 args) in the argument order of ``mode``."""
+    import torch
+
+    x = torch.randn(B, T, F, cin, generator=gen)
+    w1 = torch.randn(3, 3, cin, cmid, generator=gen) / (9 * cin) ** 0.5
+    b1 = torch.randn(cin if relu_conv else cmid, generator=gen) * 0.5 + 0.5
+    w2 = torch.randn(3, 3, cmid, cout, generator=gen) / (9 * cmid) ** 0.5
+    b2 = torch.randn(cout, generator=gen) * 0.5
+    return [(x.cuda().to(dt), w1.cuda().to(dt), b1.cuda(), w2.cuda().to(dt), b2.cuda())
+            for dt in (torch.bfloat16, torch.float32)]
+
+
 def phase_conv_block():
     """K7 against its plain version (bf16 and float32) at B_CHECK: the pair
     at all six ConvBlock shapes of the CNN12 trunk (T=1001 at the stem, its
-    7 channels padded to 16), single and relu_conv at the stem shape and at
-    one deep shape; folded random weights and BN statistics, so the biases
-    are large enough for a wrong edge halo to show."""
+    7 channels padded to 8), single and relu_conv at the stem shape and at
+    one deep shape, folded random weights and BN statistics, so the biases
+    are large enough for a wrong edge halo to show; then CONV_SHAPES with
+    random weights. At each a second launch must give the same bits."""
     import torch
-    from pseldnets_tpu_torch.ops.conv_block import conv3x3_bias_relu, conv3x3_bias_relu_plain
 
     gen = torch.Generator().manual_seed(31)
     cases = [("pair", shape) for shape in CRNN_BLOCKS]
@@ -1209,16 +1252,33 @@ def phase_conv_block():
         if width > cin and mode != "relu_conv":
             x[..., cin:] = 0.0  # the stem's zero channels
         x = x.cuda().bfloat16()
-        got = conv3x3_bias_relu(*conv_args(mode, x, p16))
-        torch.cuda.synchronize()
-        plain16 = conv3x3_bias_relu_plain(*conv_args(mode, x, p16))
-        plain32 = conv3x3_bias_relu_plain(*conv_args(mode, x.float(), p32),
-                                          compute_dtype=torch.float32)
-        err = (got.float() - plain16.float()).abs().max().item()
-        scale = plain16.float().abs().max().item()
-        log(f"K7 {mode} B={B_CHECK} T={T} F={Fq} {cin}->{cout}: max |d| {err:.3g} = "
-            f"{err / scale:.3g} of scale (<= 2^-6, two bf16 ulps)")
-        compare("K7 " + mode, got, plain16, plain32, 2.0 ** -6)
+        a16, a32 = conv_args(mode, x, p16), conv_args(mode, x.float(), p32)
+        check_conv(f"K7 {mode} B={B_CHECK} T={T} F={Fq} {cin}->{cout}", a16, a32)
+    for mode, (B, T, Fq, cin, cmid, cout) in CONV_SHAPES:
+        relu_conv = mode == "relu_conv"
+        a16, a32 = (conv_args(mode, a[0], types.SimpleNamespace(w1=a[1], b1=a[2], w2=a[3], b2=a[4]))
+                    for a in conv_operands(gen, B, T, Fq, cin, cin if relu_conv else cmid,
+                                           cout or cmid, relu_conv))
+        check_conv(f"K7 {mode} B={B} T={T} F={Fq} {cin}->{cmid}->{cout or cmid}", a16, a32)
+
+
+def check_conv(what, a16, a32):
+    """K7 on args a16 against its plain version on a16 and a32 (2^-6 of
+    scale), and a second launch bitwise equal."""
+    import torch
+    from pseldnets_tpu_torch.ops.conv_block import conv3x3_bias_relu, conv3x3_bias_relu_plain
+
+    got = conv3x3_bias_relu(*a16)
+    again = conv3x3_bias_relu(*a16)
+    torch.cuda.synchronize()
+    plain16 = conv3x3_bias_relu_plain(*a16)
+    plain32 = conv3x3_bias_relu_plain(*a32, compute_dtype=torch.float32)
+    err = (got.float() - plain16.float()).abs().max().item()
+    scale = plain16.float().abs().max().item()
+    log(f"{what}: max |d| {err:.3g} = {err / scale:.3g} of scale (<= 2^-6, two bf16 "
+        f"ulps); repeat bitwise {torch.equal(got, again)}")
+    check(torch.equal(got, again), f"{what}: two launches differ")
+    compare("K7", got, plain16, plain32, 2.0 ** -6)
 
 
 def k7_work(B, T, Fq, cin, cout):
@@ -1270,7 +1330,7 @@ def phase_serve_crnn(smi):
     params = prepare_crnn(model, torch.bfloat16)
     n_params = sum(t.numel() for t in model.parameters())
     plan = [(p.w1.shape[2], p.w2.shape[3], p.pool) for p in params.blocks]
-    check(plan == [(16, 64, (2, 2)), (64, 128, (2, 2)), (128, 256, (2, 2)), (256, 512, (1, 2)),
+    check(plan == [(8, 64, (2, 2)), (64, 128, (2, 2)), (128, 256, (2, 2)), (256, 512, (1, 2)),
                    (512, 1024, (1, 2)), (1024, 2048, (1, 2))]
           and len(params.decoder) == 1 and params.num_heads == 8, f"CRNN plan {plan}")
     log(f"CRNN: {n_params / 1e6:.2f} M parameters (CNN12 64..2048, 1 conformer layer at 2048)")
@@ -1327,7 +1387,7 @@ def phase_serve_crnn(smi):
     # K7 against its plain version on each of the batch's six ConvBlock
     # inputs, timed beside the plain version and the cuDNN yardstick
     with torch.no_grad():
-        xs = [trunk_input(feats, torch.bfloat16, 16)]
+        xs = [trunk_input(feats, torch.bfloat16, params.blocks[0].w1.shape[2])]
         for p in params.blocks[:-1]:
             xs.append(avg_pool(conv3x3_bias_relu(xs[-1], p.w1, p.b1, p.w2, p.b2), p.pool))
     rows, k7_err, k7_rel, lib_rel = [], 0.0, 0.0, 0.0
@@ -1362,7 +1422,7 @@ def phase_serve_crnn(smi):
     names = [r[0] for r in phase_profile("one CRNN served batch", lambda: serve(wav))]
     # cuDNN's and PyTorch's own conv kernels (cuBLAS GEMMs of the glue are
     # named *_xmma_gemm_* and are not convs)
-    library_convs = [n for n in names if "conv3x3_igemm" not in n and any(
+    library_convs = [n for n in names if "conv3x3_wgmma" not in n and any(
         k in n.lower() for k in ("cudnn", "fprop", "implicit", "conv"))]
     log(f"CRNN served batch: library conv kernels in the profile: {library_convs or 'none'}"
         if names else "CRNN served batch: library conv kernels not measured (no profile)")

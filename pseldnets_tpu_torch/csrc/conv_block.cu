@@ -18,253 +18,401 @@
 // output positions) against one bf16 read of the input, the weights and one
 // bf16 write of the output. At the CNN12 trunk's shapes the six ConvBlocks do
 // 2.21 TFLOP per batch of 32 against ~2 GB: the bound is the tensor-core rate
-// (2.23 ms at 989 TFLOP/s).
+// (2.23 ms at 989 TFLOP/s); the stem's pair alone is close to its bytes.
 //
-// Design (correct and simple first): each conv is an implicit GEMM, M
-// output positions x Cout, K = 9 Cin, with Cin a multiple of 16 (the wrapper
-// pads the stem's 7 channels with zeros, in x and in the weights). The
-// weights are the contiguous HWIO tensor read as a (9 Cin, Cout) matrix, row
-// (3 dt + df) Cin + c. A block computes a 128 x 128 output tile with 4
-// warps of 64 x 64 (16 WMMA tiles each, two MMAs per fragment load), or,
-// where Cout <= 64, a 128 x 64 tile with 8 warps of 32 x 32: per
-// K step of BK (32, or 16 when Cin % 32 != 0) channels of one tap (dt, df),
-// cp.async gathers the A tile straight from NHWC (16 bytes, 8 channels, per
-// copy; positions whose tap falls outside the image are zero-filled by the
-// copy) and the B tile from the weight matrix, 3-4 stages deep. Each warp
-// runs bf16 WMMA 16x16x16 tiles with float32 accumulators; the epilogue
-// stages them in shared memory, adds the float32 bias, applies ReLU and
-// writes bf16 with 16-byte stores. relu_conv transforms each thread's own
-// copied pieces in shared memory before the block syncs. The pair is two
-// launches on the caller's stream with the bf16 mid in device memory: the
-// same arithmetic as _kernel_double. Keeping the mid on chip with a
-// recomputed halo, wgmma and TMA are later work.
+// Design: each conv is an implicit GEMM on Hopper's TMA and wgmma, written on
+// the primitives of sm90_gemm.cuh (K6's core) with the same schedule: one
+// persistent block of 384 threads per SM walks the output tiles, the weight
+// panel outermost (consecutive tiles share it, so it stays in L2).
+//  * An output tile is tT time rows x Fb bins of one image, tT Fb <= 128
+//    (the host's plan: ops/conv_block.py::tile_plan), by BN output channels.
+//  * A: x is a 4-D tensor map (C, F, T, B). For tap (dt, df) and channel
+//    step c0 the producer loads the box (BK, Fb, tT, 1) at (c0, f0 + df - 1,
+//    t0 + dt - 1, b): it lands as tT Fb rows of BK channels, the K-major,
+//    swizzled A tile wgmma reads. TMA fills coordinates outside the tensor
+//    with zeros, negative ones included: that is the SAME padding, and
+//    channels past Cin read as zero, so any Cin % 8 == 0 works unpadded.
+//    BK is 64 (128-byte rows and swizzle) or, for Cin <= 16, 16 (32-byte
+//    rows and swizzle: no MMAs on 48 zero channels).
+//  * B: the HWIO weights as they are, a 3-D map (Cout, Cin, 9): per tap and
+//    channel step, BN / 64 boxes of (64, BK) land as BK rows of 64 output
+//    channels, the MN-major B that wgmma reads with its transpose bit.
+//  * Warpgroup 2 is the producer (one thread issues the loads into a ring of
+//    stages with full and empty mbarriers; setmaxnreg 40); warpgroups 0 and
+//    1 consume (setmaxnreg 232): cooperative, each runs wgmma m64nBNk16 on
+//    its 64 rows of a 128 x BN tile (BN 64, 128, 192, 256), or ping-pong,
+//    each owns every other 128 x BN tile (BN 64, 128) and the two take
+//    turns at the mainloop. The K loop is 9 taps x ceil(Cin / BK) steps.
+//  * relu_conv: the consumers rewrite their rows of each landed A tile in
+//    shared memory as relu(x + b1) rounded to bf16, skipping the rows whose
+//    tap falls outside the image and the channels past Cin (TMA's zeros
+//    stay zero), then fence.proxy.async before wgmma reads them.
+//  * Resident form, where the whole weight matrix is one panel that fits in
+//    shared memory beside three ring stages and Fb % 8 == 0 (the stem's
+//    convs): the producer loads all 9 ceil(Cin / BK) B tiles once per block,
+//    and the ring holds, per (channel step, df), one box of (tT + 2) Fb
+//    rows that the three taps dt read at row offsets 0, Fb and 2 Fb (whole
+//    swizzle groups): three times fewer A bytes and no B bytes per tile.
+//  * Epilogue: + the float32 bias, ReLU, one rounding to bf16, written into
+//    a 128-byte-swizzled staging tile in shared memory and stored by one
+//    thread through a 4-D output map with box (64, Fb, tT, 1): positions
+//    past T or F and channels past Cout are clipped by the store.
+// The pair is two launches on the caller's stream with the bf16 mid in
+// device memory, the same arithmetic as _kernel_double.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "sm90_gemm.cuh"
 
 namespace {
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+constexpr int CONV_BM = 128;  // output positions per tile
+constexpr int CONV_THREADS = 384;
+constexpr int CONV_MAX_STAGES = 16;
 
-constexpr int BM = 128;  // output positions per block
-
-// One tile shape: BK input channels of one tap per K step, BN output
-// channels, warps of WM x WN outputs, STAGES cp.async stages.
-template <int BK_, int BN_, int WM_, int WN_, int STAGES_>
-struct Cfg {
-  static constexpr int BK = BK_, BN = BN_, WM = WM_, WN = WN_, STAGES = STAGES_;
-  static constexpr int WARPS_M = BM / WM, WARPS_N = BN / WN;
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int FM = WM / 16, FN = WN / 16;  // WMMA tiles per warp
-  static constexpr int LDA = BK + 8;  // bf16 row stride of an activation tile
-  static constexpr int LDB = BN + 8;  // bf16 row stride of a weight tile
-  static constexpr int LDC = BN + 4;  // float32 row stride of the staged output
-  static constexpr int A_ELEMS = BM * LDA;
-  static constexpr int STAGE_ELEMS = A_ELEMS + BK * LDB;
-  static constexpr int PIECES = BK / 8;  // 16-byte pieces per A row
-  static constexpr int A_ITERS = BM * PIECES / THREADS;
-  static constexpr int B_PIECES = BK * (BN / 8);
-  static constexpr int B_ITERS = (B_PIECES + THREADS - 1) / THREADS;
-  static constexpr size_t PIPE_BYTES = (size_t)STAGES * STAGE_ELEMS * sizeof(bf16);
-  static constexpr size_t C_BYTES = (size_t)BM * LDC * sizeof(float);
-  static constexpr size_t SMEM = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
-  static_assert(A_ITERS >= 1 && BM * PIECES % THREADS == 0, "A tile split");
-  static_assert((A_ELEMS * sizeof(bf16)) % 128 == 0 && (STAGE_ELEMS * sizeof(bf16)) % 128 == 0,
-                "WMMA tiles need 32-byte alignment");
-  static_assert(SMEM <= 232448, "a block's shared memory on sm_90");
+// The tile form of one conv: BN output channels, BK input channels per K
+// step, PP ping-pong (each consumer warpgroup owns whole 128-row tiles).
+template <int BN, int BK, bool PP>
+struct ConvTile {
+  static_assert(BK == 64 || BK == 16, "K steps of 64 (128-byte swizzle) or 16 (32-byte)");
+  static_assert(!PP || BN <= 128, "ping-pong holds a 128 x BN tile per warpgroup");
+  static constexpr int ROWS = PP ? 128 : 64;  // output rows a warpgroup owns per tile
+  static constexpr int ROW_BYTES = BK * 2;    // one position's BK channels
+  static constexpr int A_BYTES = CONV_BM * ROW_BYTES;
+  static constexpr int B_BYTES = BN * BK * 2;  // BN / 64 blocks of BK rows x 128 bytes
+  static constexpr int OUT_BYTES = (PP ? 2 : 1) * CONV_BM * BN * 2;  // staged output tiles
+  static constexpr int FIT = (230400 - OUT_BYTES) / (A_BYTES + B_BYTES);
+  static constexpr int MAX_STAGES = FIT < CONV_MAX_STAGES ? FIT : CONV_MAX_STAGES;
+  static_assert(MAX_STAGES >= 2, "ring of at least 2 stages in 227 KB");
 };
 
-// the stem's first conv (Cin = 16), and every conv with Cout <= 64
-using SmallBK16 = Cfg<16, 64, 32, 32, 3>;
-using Small = Cfg<32, 64, 32, 32, 3>;
-// every other conv: the fastest of the shapes that scripts/torch_k7_tiles.py
-// times at the trunk's (B = 32; PERF.md): BK 64 took 6-10% longer, 8 warps
-// of 64 x 32 took 26% longer
-using Big = Cfg<32, 128, 64, 64, 4>;
-
-union Pack8 {
-  uint4 u;
-  bf16 h[8];
+struct ConvArgs {
+  const float* bias;  // (Cout,) float32
+  const float* bin;   // (Cin,) float32, relu_conv's input bias (RELU_IN only)
+  int B, T, F, Cin, Cout;
+  int tT, Fb;     // the tile: tT time rows x Fb bins
+  int stages;     // ring depth
+  int a_stage;    // bytes of a ring stage's A box (1024-aligned)
 };
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  const int src_bytes = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
-               "r"(src_bytes));
+// shared memory of a launch: the ring's A boxes, its B tiles (or the resident
+// weights), the staged output, the barriers, 1024 bytes of alignment
+template <int BN, int BK, bool PP, bool RES>
+int conv_smem(const ConvArgs& a) {
+  using C = ConvTile<BN, BK, PP>;
+  const int csteps = (a.Cin + BK - 1) / BK;
+  const int b_region = RES ? 9 * csteps * C::B_BYTES : a.stages * C::B_BYTES;
+  return a.stages * a.a_stage + b_region + C::OUT_BYTES + 8 * (2 * a.stages + 3) + 1024;
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int BN, int BK, bool PP, bool RELU_IN, bool RES>
+__global__ void __launch_bounds__(CONV_THREADS, 1)
+    conv3x3_wgmma(const __grid_constant__ CUtensorMap tma_x,
+                  const __grid_constant__ CUtensorMap tma_w,
+                  const __grid_constant__ CUtensorMap tma_out, const ConvArgs a) {
+  using C = ConvTile<BN, BK, PP>;
+  static_assert(!RELU_IN || (BK == 64 && !RES), "relu_conv transforms 128-byte rows");
+  constexpr int ROWS = C::ROWS, HALVES = ROWS / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const int S = a.stages;
+  const int csteps = (a.Cin + BK - 1) / BK, ksteps = 9 * csteps;
+  // ring stages per tile: one per (tap, channel step), or per (channel
+  // step, df) in the resident form
+  const int nsteps = RES ? 3 * csteps : ksteps;
+  const uint32_t sA = base, sB = base + S * a.a_stage;
+  const uint32_t sOut = sB + (RES ? ksteps : S) * C::B_BYTES;
+  const uint32_t full = sOut + C::OUT_BYTES, empty = full + 8 * S;
+  const uint32_t order = empty + 8 * S;  // ping-pong turns, one per warpgroup
+  const uint32_t b_full = order + 16;    // the resident weights have landed
+  const int wg = threadIdx.x / 128;
+  const int nT = (a.T + a.tT - 1) / a.tT, nF = (a.F + a.Fb - 1) / a.Fb;
+  const int m_tiles = a.B * nT * nF;
+  const int tiles = m_tiles * ((a.Cout + BN - 1) / BN);
+  const int rows = a.tT * a.Fb;
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// One conv of the block: out = relu(conv3x3(A, w) + bias), A = x, or
-// relu(x + bin) rounded to bf16 when RELU_IN. x (M, Cin) NHWC positions, w
-// (9 Cin, Cout), out (M, Cout).
-template <class C, bool RELU_IN>
-__global__ void __launch_bounds__(C::THREADS) conv3x3_igemm(
-    const bf16* __restrict__ x, const float* __restrict__ bin, const bf16* __restrict__ w,
-    const float* __restrict__ bias, bf16* __restrict__ out, int M, int T, int F, int Cin,
-    int Cout) {
-  constexpr int BK = C::BK, BN = C::BN, LDA = C::LDA, LDB = C::LDB, LDC = C::LDC;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* pipe = reinterpret_cast<bf16*>(smem);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int steps_per_tap = Cin / BK;
-  const int KT = 9 * steps_per_tap;
-
-  // this thread's A pieces: row (output position) and 8-channel piece, the
-  // same in every K step; its position's (t, f) for the image-edge test
-  int a_row[C::A_ITERS], a_piece[C::A_ITERS], a_t[C::A_ITERS], a_f[C::A_ITERS];
-  bool a_in[C::A_ITERS];
-#pragma unroll
-  for (int i = 0; i < C::A_ITERS; ++i) {
-    const int c = tid + i * C::THREADS;
-    a_row[i] = c / C::PIECES;
-    a_piece[i] = c % C::PIECES;
-    const int m = m0 + a_row[i];
-    a_in[i] = m < M;
-    a_f[i] = m % F;
-    a_t[i] = (m / F) % T;
-  }
-
-  // whether A piece i of K step ks reads inside the image
-  auto a_valid = [&](int i, int ks, int& dt, int& df) {
-    const int tap = ks / steps_per_tap;
-    dt = tap / 3 - 1;
-    df = tap % 3 - 1;
-    const int t = a_t[i] + dt, f = a_f[i] + df;
-    return a_in[i] && t >= 0 && t < T && f >= 0 && f < F;
+  // tile t: output channels n0.., image b, time rows t0.., bins f0..
+  auto tile_at = [&](int t, int& n0, int& b, int& t0, int& f0) {
+    n0 = t / m_tiles * BN;
+    int m = t % m_tiles;
+    f0 = m % nF * a.Fb;
+    m /= nF;
+    t0 = m % nT * a.tT;
+    b = m / nT;
   };
 
-  auto load_stage = [&](int stage, int ks) {
-    bf16* As = pipe + stage * C::STAGE_ELEMS;
-    bf16* Bs = As + C::A_ELEMS;
-    const int c0 = (ks % steps_per_tap) * BK;
-#pragma unroll
-    for (int i = 0; i < C::A_ITERS; ++i) {
-      int dt, df;
-      const bool ok = a_valid(i, ks, dt, df);
-      const bf16* src =
-          ok ? x + ((long)(m0 + a_row[i]) + (long)dt * F + df) * Cin + c0 + a_piece[i] * 8 : x;
-      cp_async16(As + a_row[i] * LDA + a_piece[i] * 8, src, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, PP ? 4 : 8);  // one arrival per consumer warp reading it
     }
-#pragma unroll
-    for (int i = 0; i < C::B_ITERS; ++i) {
-      const int c = tid + i * C::THREADS;
-      if (C::B_PIECES % C::THREADS && c >= C::B_PIECES) break;
-      const int row = c / (BN / 8), col = (c % (BN / 8)) * 8;
-      const bool ok = n0 + col < Cout;
-      const bf16* src = ok ? w + (long)(ks * BK + row) * Cout + n0 + col : w;
-      cp_async16(Bs + row * LDB + col, src, ok);
-    }
-  };
-
-  // relu(x + bin) over this thread's own pieces of a landed stage; pieces
-  // outside the image stay zero
-  auto relu_in = [&](int stage, int ks) {
-    bf16* As = pipe + stage * C::STAGE_ELEMS;
-    const int c0 = (ks % steps_per_tap) * BK;
-#pragma unroll
-    for (int i = 0; i < C::A_ITERS; ++i) {
-      int dt, df;
-      if (!a_valid(i, ks, dt, df)) continue;
-      Pack8* p = reinterpret_cast<Pack8*>(As + a_row[i] * LDA + a_piece[i] * 8);
-      Pack8 v = *p;
-      const float* bb = bin + c0 + a_piece[i] * 8;
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        v.h[e] = __float2bfloat16_rn(fmaxf(__bfloat162float(v.h[e]) + bb[e], 0.f));
-      *p = v;
-    }
-  };
-
-  const int wm = (warp % C::WARPS_M) * C::WM, wn = (warp / C::WARPS_M) * C::WN;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[C::FM][C::FN];
-#pragma unroll
-  for (int i = 0; i < C::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-#pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
+    mbar_init(order, 4);
+    mbar_init(order + 8, 4);
+    mbar_init(b_full, 1);
+    fence_barrier_init();
   }
-  for (int ks = 0; ks < KT; ++ks) {
-    cp_async_wait<C::STAGES - 2>();  // this thread's copies of step ks have landed
-    if (RELU_IN) relu_in(ks % C::STAGES, ks);
-    __syncthreads();  // everyone's copies landed; the stage refilled below is consumed
-    if (ks + C::STAGES - 1 < KT) load_stage((ks + C::STAGES - 1) % C::STAGES, ks + C::STAGES - 1);
-    cp_async_commit();
-    const bf16* As = pipe + (ks % C::STAGES) * C::STAGE_ELEMS;
-    const bf16* Bs = As + C::A_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[C::FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[C::FN];
-#pragma unroll
-      for (int i = 0; i < C::FM; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < C::FN; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * LDB + wn + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < C::FM; ++i)
-#pragma unroll
-        for (int j = 0; j < C::FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the pipeline's shared memory becomes the output tile
-
-  float* Cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < C::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::FN; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
   __syncthreads();
-  for (int idx = tid; idx < BM * (BN / 8); idx += C::THREADS) {
-    const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= Cout) continue;
-    Pack8 pk;
+
+  if (wg == 2) {
+    // producer: the block's tiles in order, every (tap, channel step)
+    // through the ring
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      if (RES && blockIdx.x < tiles) {  // every weight tile once, (tap, channel step) order
+        mbar_expect_tx(b_full, ksteps * C::B_BYTES);
+        for (int k = 0; k < ksteps; ++k)
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      pk.h[e] = __float2bfloat16_rn(fmaxf(Cs[r * LDC + c + e] + bias[n + e], 0.f));
-    *reinterpret_cast<uint4*>(out + (long)m * Cout + n) = pk.u;
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_3d(sB + k * C::B_BYTES + j * BK * 128, &tma_w, 64 * j, k % csteps * BK,
+                        k / csteps, b_full);
+      }
+      const uint32_t bytes = RES ? (a.tT + 2) * a.Fb * C::ROW_BYTES
+                                 : rows * C::ROW_BYTES + C::B_BYTES;
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int n0, b, t0, f0;
+        tile_at(t, n0, b, t0, f0);
+        for (int ks = 0; ks < nsteps; ++ks) {
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          mbar_expect_tx(full + 8 * s, bytes);
+          if (RES) {  // the (tT + 2) x Fb box of df = ks % 3 for the three dt
+            tma_load_4d(sA + s * a.a_stage, &tma_x, ks / 3 * BK, f0 + ks % 3 - 1, t0 - 1, b,
+                        full + 8 * s);
+          } else {
+            const int tap = ks / csteps, c0 = ks % csteps * BK;
+            tma_load_4d(sA + s * a.a_stage, &tma_x, c0, f0 + tap % 3 - 1, t0 + tap / 3 - 1, b,
+                        full + 8 * s);
+#pragma unroll
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load_3d(sB + s * C::B_BYTES + j * BK * 128, &tma_w, n0 + 64 * j, c0, tap,
+                          full + 8 * s);
+          }
+          if (++s == S) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: cooperative, warpgroup wg takes rows 64 wg .. 64 wg + 63 of
+    // every tile; ping-pong, all rows of the block's tiles wg, wg + 2, ...
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const bool leader = PP ? threadIdx.x % 128 == 0 : threadIdx.x == 0;
+    const uint32_t stg = sOut + (PP ? wg * (C::OUT_BYTES / 2) : 0);
+    const int row0 = PP ? 0 : wg * 64;  // the warpgroup's first row of a tile
+    const int epi_bar = PP ? 1 + wg : 1, epi_threads = PP ? 128 : 256;
+    float acc[HALVES][BN / 2];
+    uint32_t order_ph = 0;
+    if (RES) mbar_wait(b_full, 0);
+    for (int i = PP ? wg : 0;; i += PP ? 2 : 1) {
+      const int t = blockIdx.x + i * gridDim.x;
+      if (t >= tiles) break;
+      int n0, b, t0, f0;
+      tile_at(t, n0, b, t0, f0);
+      if (PP && i > 0) {  // the other warpgroup's previous mainloop is done
+        mbar_wait(order + 8 * wg, order_ph);
+        order_ph ^= 1;
+      }
+      const int p0 = i * nsteps;  // ring position of the tile's first stage
+      int s = p0 % S, prev = -1;
+      uint32_t ph = (p0 / S) & 1;
+      for (int ks = 0; ks < nsteps; ++ks) {
+        mbar_wait(full + 8 * s, ph);
+        const uint32_t at = sA + s * a.a_stage;
+        if constexpr (RELU_IN) {
+          // relu(x + b1) in place over this warpgroup's rows, 16 bytes (8
+          // channels) a piece; pieces whose tap position lies outside the
+          // image, or whose channels lie past Cin, keep TMA's zeros
+          const int tap = ks / csteps, c0 = ks % csteps * BK;
+#pragma unroll
+          for (int k = 0; k < ROWS / 16; ++k) {
+            const int q = threadIdx.x % 128 + 128 * k;
+            const int r = row0 + q / 8, piece = q % 8, c = c0 + 8 * piece;
+            const int tt = t0 + r / a.Fb + tap / 3 - 1, ff = f0 + r % a.Fb + tap % 3 - 1;
+            if (r >= rows || c >= a.Cin || tt < 0 || tt >= a.T || ff < 0 || ff >= a.F) continue;
+            const uint32_t p = at + r * 128 + ((piece ^ (r % 8)) * 16);
+            uint32_t v[4];
+            asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                         : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                         : "r"(p));
+            const float4 b0 = *reinterpret_cast<const float4*>(a.bin + c);
+            const float4 b1 = *reinterpret_cast<const float4*>(a.bin + c + 4);
+            const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v[e]);
+              v[e] = pack_bf16(fmaxf(__bfloat162float(h.x) + bb[2 * e], 0.f),
+                               fmaxf(__bfloat162float(h.y) + bb[2 * e + 1], 0.f));
+            }
+            asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(p), "r"(v[0]),
+                         "r"(v[1]), "r"(v[2]), "r"(v[3]));
+          }
+          fence_async_shared();
+          named_barrier(3 + wg, 128);
+        }
+        wgmma_fence();
+        // the taps of this stage: (dt, ks % 3) of channel step ks / 3 from
+        // one box in the resident form, else one; per tap, A from its rows
+        // (64 h further per half, +32 bytes per k16) and B from its tile (+16
+        // rows per k16)
+#pragma unroll
+        for (int dt = 0; dt < (RES ? 3 : 1); ++dt) {
+          const uint32_t a_rows = at + (row0 + (RES ? dt * a.Fb : 0)) * C::ROW_BYTES;
+          const uint32_t b_tile = RES ? sB + ((3 * dt + ks % 3) * csteps + ks / 3) * C::B_BYTES
+                                      : sB + s * C::B_BYTES;
+          const uint64_t da = BK == 64 ? desc_sw128(a_rows) : desc_sw32(a_rows);
+          const uint64_t db = desc_sw128_mn(b_tile, BK * 128);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+            for (int h = 0; h < HALVES; ++h)
+              wgmma_ss<BN, 1>(acc[h], da + (64 * C::ROW_BYTES >> 4) * h + 2 * kk,
+                              db + 128 * kk, ks > 0 || dt > 0 || kk > 0);
+        }
+        wgmma_commit();
+        // the group before this one has retired: its stage is free
+        wgmma_wait<1>();
+        if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+        prev = s;
+        if (++s == S) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h) fence_regs(acc[h]);
+      if (lane == 0) {
+        mbar_arrive(empty + 8 * prev);
+        if (PP) mbar_arrive(order + 8 * (1 - wg));  // the other warpgroup's turn
+      }
+
+      // epilogue: once the previous tile's store has read the staging tile
+      if (leader) bulk_wait_read();
+      named_barrier(epi_bar, epi_threads);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = 8 * j + 2 * (lane % 4);
+        const float2 bv = n0 + c < a.Cout ? *reinterpret_cast<const float2*>(a.bias + n0 + c)
+                                          : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = row0 + h * 64 + warp * 16 + lane / 4 + 8 * half;
+            const float v0 = fmaxf(acc[h][4 * j + 2 * half] + bv.x, 0.f);
+            const float v1 = fmaxf(acc[h][4 * j + 2 * half + 1] + bv.y, 0.f);
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(stg + staged<CONV_BM>(r, c)),
+                         "r"(pack_bf16(v0, v1)));
+          }
+      }
+      fence_async_shared();
+      named_barrier(epi_bar, epi_threads);
+      if (leader) {
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_store_4d(&tma_out, stg + j * CONV_BM * 128, n0 + 64 * j, f0, t0, b);
+        bulk_commit();
+      }
+    }
+    if (leader) bulk_wait();
   }
 }
 
-template <class C, bool RELU_IN>
-cudaError_t launch(const bf16* x, const float* bin, const bf16* w, const float* bias, bf16* out,
-                   int M, int T, int F, int Cin, int Cout, cudaStream_t stream) {
-  auto kernel = conv3x3_igemm<C, RELU_IN>;
-  if (C::SMEM > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::SMEM));
-    if (e != cudaSuccess) return e;
+// NHWC (B, T, F, C) bf16 as a 4-D map (C, F, T, B) read or written in boxes
+// of (box_c, Fb, tT, 1)
+cudaError_t nhwc_map(CUtensorMap* map, const bf16* t, const ConvArgs& a, int C, int box_c,
+                     CUtensorMapSwizzle swizzle) {
+  const uint64_t dims[4] = {(uint64_t)C, (uint64_t)a.F, (uint64_t)a.T, (uint64_t)a.B};
+  const uint64_t row = (uint64_t)C * sizeof(bf16);
+  const uint64_t strides[3] = {row, row * a.F, row * a.F * a.T};
+  const uint32_t box[4] = {(uint32_t)box_c, (uint32_t)a.Fb, (uint32_t)a.tT, 1};
+  return make_tmap(map, t, 4, dims, strides, box, swizzle);
+}
+
+template <int BN, int BK, bool PP, bool RELU_IN, bool RES>
+cudaError_t launch_conv(const bf16* x, const bf16* w, bf16* out, const ConvArgs& a,
+                        cudaStream_t stream) {
+  CUtensorMap tx, tw, to;
+  ConvArgs r = a;
+  r.tT = RES ? a.tT + 2 : a.tT;  // the resident form's x boxes hold the halo rows
+  cudaError_t e = nhwc_map(&tx, x, r, a.Cin, BK,
+                           BK == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
+  if (e == cudaSuccess) {
+    // HWIO as (Cout, Cin, 9): boxes of 64 output channels x BK input channels of one tap
+    const uint64_t dims[3] = {(uint64_t)a.Cout, (uint64_t)a.Cin, 9};
+    const uint64_t strides[2] = {(uint64_t)a.Cout * sizeof(bf16),
+                                 (uint64_t)a.Cout * a.Cin * sizeof(bf16)};
+    const uint32_t box[3] = {64, (uint32_t)BK, 1};
+    e = make_tmap(&tw, w, 3, dims, strides, box);
   }
-  const dim3 grid((M + BM - 1) / BM, (Cout + C::BN - 1) / C::BN);
-  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(x, bin, w, bias, out, M, T, F, Cin, Cout);
+  if (e == cudaSuccess) e = nhwc_map(&to, out, a, a.Cout, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return e;
+  auto kernel = conv3x3_wgmma<BN, BK, PP, RELU_IN, RES>;
+  const int smem = conv_smem<BN, BK, PP, RES>(a);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  // persistent: one block per SM, or one per tile
+  const long tiles = (long)a.B * ((a.T + a.tT - 1) / a.tT) * ((a.F + a.Fb - 1) / a.Fb) *
+                     ((a.Cout + BN - 1) / BN);
+  const int grid = tiles < sm_count() ? (int)tiles : sm_count();
+  kernel<<<grid, CONV_THREADS, smem, stream>>>(tx, tw, to, a);
   return cudaGetLastError();
 }
 
-template <bool RELU_IN>
-cudaError_t conv(const bf16* x, const float* bin, const bf16* w, const float* bias, bf16* out,
-                 int M, int T, int F, int Cin, int Cout, cudaStream_t stream) {
-  if (Cin % 32) return launch<SmallBK16, RELU_IN>(x, bin, w, bias, out, M, T, F, Cin, Cout, stream);
-  if (Cout <= 64) return launch<Small, RELU_IN>(x, bin, w, bias, out, M, T, F, Cin, Cout, stream);
-  return launch<Big, RELU_IN>(x, bin, w, bias, out, M, T, F, Cin, Cout, stream);
+// One conv on tile form (BN, BK, PP): the resident form where `resident`
+// allows it and it fits (one weight panel, Fb % 8 == 0, three stages of
+// (tT + 2) Fb rows beside the weights), else the ring of (tap, channel
+// step) stages, `a.stages` deep at most (0: as deep as shared memory allows)
+template <int BN, int BK, bool PP, bool RELU_IN>
+cudaError_t conv_form(bool resident, const bf16* x, const bf16* w, bf16* out, ConvArgs a,
+                      cudaStream_t stream) {
+  using C = ConvTile<BN, BK, PP>;
+  const int want = a.stages == 0 || a.stages > CONV_MAX_STAGES ? CONV_MAX_STAGES : a.stages;
+  if constexpr (!RELU_IN && BN == 64) {
+    if (resident && a.Cout <= BN && a.Fb % 8 == 0) {
+      const int bytes = (a.tT + 2) * a.Fb * C::ROW_BYTES;
+      a.a_stage = (bytes + 1023) / 1024 * 1024;
+      a.stages = 1;
+      const int fit = (230400 - conv_smem<BN, BK, PP, true>(a) + a.a_stage) / a.a_stage;
+      if (fit >= 3) {
+        a.stages = fit < want ? fit : want;
+        return launch_conv<BN, BK, PP, false, true>(x, w, out, a, stream);
+      }
+    }
+  }
+  a.a_stage = C::A_BYTES;
+  a.stages = C::MAX_STAGES < want ? C::MAX_STAGES : want;
+  if (a.stages < 2) return cudaErrorInvalidValue;
+  return launch_conv<BN, BK, PP, RELU_IN, false>(x, w, out, a, stream);
+}
+
+// One conv with the tile chosen at run time: bn 64, 128, 192, 256
+// cooperative, -64 or -128 ping-pong; bk 64, or 16 (not with relu_in)
+cudaError_t conv(int bn, int bk, bool relu_in, bool resident, const bf16* x, const bf16* w,
+                 bf16* out, const ConvArgs& a, cudaStream_t stream) {
+  if (bk == 16 && !relu_in) {
+    switch (bn) {
+      case 64: return conv_form<64, 16, false, false>(resident, x, w, out, a, stream);
+      case -64: return conv_form<64, 16, true, false>(resident, x, w, out, a, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (bk != 64) return cudaErrorInvalidValue;
+#define K7_TILES(RELU)                                                                    \
+  switch (bn) {                                                                           \
+    case 64: return conv_form<64, 64, false, RELU>(resident, x, w, out, a, stream);       \
+    case 128: return conv_form<128, 64, false, RELU>(resident, x, w, out, a, stream);     \
+    case 192: return conv_form<192, 64, false, RELU>(resident, x, w, out, a, stream);     \
+    case 256: return conv_form<256, 64, false, RELU>(resident, x, w, out, a, stream);     \
+    case -64: return conv_form<64, 64, true, RELU>(resident, x, w, out, a, stream);       \
+    case -128: return conv_form<128, 64, true, RELU>(resident, x, w, out, a, stream);     \
+    default: return cudaErrorInvalidValue;                                                \
+  }
+  if (relu_in) K7_TILES(true)
+  K7_TILES(false)
+#undef K7_TILES
 }
 
 }  // namespace
@@ -274,29 +422,39 @@ extern "C" const char* pt_error_string(int code) {
 }
 
 // One ConvBlock call. mode 0 (single): out = relu(conv(x, w1) + b1), Cout =
-// cout. mode 1 (pair): mid (M, cmid) = relu(conv(x, w1) + b1), out =
-// relu(conv(mid, w2) + b2). mode 2 (relu_conv): out = relu(conv(relu(x + b1),
-// w2) + b2), cmid = cin. x (B, T, F, cin) bf16; weights contiguous HWIO bf16
-// ((9 Cin, Cout) matrices); biases float32. Needs cin (and the pair's cmid) %
-// 16 == 0 and every Cout % 8 == 0.
+// cout. mode 1 (pair): mid (B, T, F, cmid) = relu(conv(x, w1) + b1), out =
+// relu(conv(mid, w2) + b2). mode 2 (relu_conv): out = relu(conv(relu(x +
+// b1), w2) + b2), cmid = cin. x (B, T, F, cin) bf16; weights contiguous HWIO
+// bf16; biases float32; every tensor 16-byte aligned. Tiles of tT x Fb
+// positions (tT Fb <= 128); conv1 on tile (bn1, bk1), conv2 (bn2, bk2);
+// `stages` the ring depth, at most (and for 0) as deep as shared memory
+// allows; `resident` lets a conv take the resident form where it fits.
+// Needs every channel count % 8 == 0.
 extern "C" int conv_block_forward(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
                                   const float* b2, bf16* mid, bf16* out, int mode, int B, int T,
-                                  int F, int cin, int cmid, int cout, cudaStream_t stream) {
-  if (B < 1 || T < 1 || F < 1 || cin % 16 || cout % 8 || mode < 0 || mode > 2 ||
-      (mode == 1 && (cmid % 16 || !mid)) || (mode != 2 && !w1) || (mode != 0 && (!w2 || !b2)))
+                                  int F, int cin, int cmid, int cout, int tT, int Fb, int bn1,
+                                  int bk1, int bn2, int bk2, int stages, int resident,
+                                  cudaStream_t stream) {
+  if (B < 1 || T < 1 || F < 1 || cin < 8 || cin % 8 || cout < 8 || cout % 8 || mode < 0 ||
+      mode > 2 || (mode == 1 && (cmid < 8 || cmid % 8 || !mid)) || (mode != 2 && !w1) ||
+      (mode != 0 && (!w2 || !b2)) || tT < 1 || Fb < 1 || tT * Fb > CONV_BM || Fb > 256 ||
+      stages < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long Ml = (long)B * T * F;
   if (Ml * (cin > cout ? cin : cout) >= (1L << 31) || (mode == 1 && Ml * cmid >= (1L << 31)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int M = static_cast<int>(Ml);
+  const bool res = resident != 0;
+  const ConvArgs a{b1, nullptr, B, T, F, cin, mode == 0 ? cout : cmid, tT, Fb, stages, 0};
   cudaError_t e;
   if (mode == 0) {
-    e = conv<false>(x, nullptr, w1, b1, out, M, T, F, cin, cout, stream);
+    e = conv(bn1, bk1, false, res, x, w1, out, a, stream);
   } else if (mode == 1) {
-    e = conv<false>(x, nullptr, w1, b1, mid, M, T, F, cin, cmid, stream);
-    if (e == cudaSuccess) e = conv<false>(mid, nullptr, w2, b2, out, M, T, F, cmid, cout, stream);
+    e = conv(bn1, bk1, false, res, x, w1, mid, a, stream);
+    const ConvArgs a2{b2, nullptr, B, T, F, cmid, cout, tT, Fb, stages, 0};
+    if (e == cudaSuccess) e = conv(bn2, bk2, false, res, mid, w2, out, a2, stream);
   } else {
-    e = conv<true>(x, b1, w2, b2, out, M, T, F, cin, cout, stream);
+    const ConvArgs a2{b2, b1, B, T, F, cin, cout, tT, Fb, stages, 0};
+    e = conv(bn2, bk2, true, res, x, w2, out, a2, stream);
   }
   return static_cast<int>(e);
 }

@@ -71,7 +71,7 @@ def fold_conv_bn(conv: nn.Conv2d, bn: TorchBatchNorm,
 
 def prepare_conv_block(blk: ConvBlock, dtype: torch.dtype, cin_pad: int = 0) -> ConvBlockParams:
     """Fold one ConvBlock; ``cin_pad`` zero-pads conv1's input channels (the
-    stem's 7 -> 16 for K7: zero channels add nothing)."""
+    stem's 7 -> 8 for K7: zero channels add nothing)."""
     w1, b1 = fold_conv_bn(blk.conv1, blk.bn1, dtype)
     w2, b2 = fold_conv_bn(blk.conv2, blk.bn2, dtype)
     if cin_pad > w1.shape[2]:
@@ -120,7 +120,7 @@ def prepare_conformer_block(layer: ConformerBlock, dtype: torch.dtype) -> Dict[s
 
 
 def prepare_crnn(model: CRNN, compute_dtype: torch.dtype = torch.bfloat16) -> CRNNParams:
-    """Every ConvBlock folded (the stem padded to 16 input channels) and
+    """Every ConvBlock folded (the stem padded to 8 input channels) and
     every conformer block laid out for :func:`crnn_fused_forward`."""
     with torch.no_grad():
         blocks = [prepare_conv_block(blk, compute_dtype,

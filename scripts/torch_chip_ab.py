@@ -5,9 +5,10 @@ Runs ``python3 chip_smoke.py`` in the checkout A and the checkout B in turns,
 A B B A repeated ``--rounds`` times, each run a process of its own, keeps each
 run's output under ``--out``, reads the times that chip_smoke.py prints (the
 served batch, the training step, the kernels per batch or step, and the
-AdapterBit, PaSST and CRNN lines where the checkout has them) and prints, per checkout, the
-median and the range of each over its runs as one JSON line. Exits non-zero
-when a run fails.
+AdapterBit, PaSST, CRNN, K8, frontend-form and one-stage-per-launch lines
+where the checkout has them) and prints, per checkout, the median and the
+range of each over its runs as one JSON line. Exits non-zero when a run
+fails.
 
     python3 scripts/torch_chip_ab.py _archive/parent . --rounds 3 --out ab_logs
 """
@@ -43,6 +44,12 @@ PATTERNS = {
     "k7_x6_ms": r"^CRNN per batch of \d+ .*?K7 x6 ([\d.]+) ms",
     "k7_library_ms": r"^CRNN per batch of \d+ .*?K7 x6 .*?library ([\d.]+),",
     "crnn_rest_ms": r"^CRNN per batch of \d+ .*?rest ([-\d.]+) ms",
+    "patch_served_ms": r"^served with the K8 embed: ([\d.]+) ms/batch",
+    "k8_ms": r"^K8 at B=\d+: .*?; ([\d.]+) ms \(plain",
+    "k9_ms": r"^K9 at B=\d+ .*?IV; ([\d.]+) ms \(",
+    "k10_ms": r"^K10 at B=\d+ .*?IV; ([\d.]+) ms \(",
+    "stage_served_ms": r"^served with swin='stage': ([\d.]+) ms/batch",
+    "k11_x4_ms": r"^per batch of \d+ .*?K11 x4 ([\d.]+) ms",
 }
 
 

@@ -111,13 +111,13 @@ def test_conv_block_plain_matches_pallas_f32(rng, mode, Ci, t_blk):
 
 
 def test_conv_block_stem_forms_agree_in_float32(rng):
-    """The served stem (the pair on Cin = 7, zero-padded to 16) equals the
+    """The served stem (the pair on Cin = 7, zero-padded to 8) equals the
     JAX "pallas" stem split (raw conv1, then relu_conv) in float32: < 5e-5.
     In bf16 they differ where the split rounds the raw conv1 output."""
     x, w1, b1, w2, b2 = _conv_inputs(rng, 7)
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
-    assert conv_block.padded_channels(7) == 16 and conv_block.padded_channels(64) == 64
-    xp, w1p = F.pad(t(x), (0, 9)), F.pad(t(w1), (0, 0, 0, 9))
+    assert conv_block.padded_channels(7) == 8 and conv_block.padded_channels(64) == 64
+    xp, w1p = F.pad(t(x), (0, 1)), F.pad(t(w1), (0, 0, 0, 1))
     pair = conv_block.conv3x3_bias_relu_plain(xp, w1p, t(b1), t(w2), t(b2),
                                               compute_dtype=torch.float32)
     split = conv_block.conv3x3_bias_relu_plain(*(None if a is None else t(a) for a in
@@ -301,7 +301,7 @@ def test_fused_forward_bf16_within_band(rng):
     ref = np.asarray(jax_fused_forward(jm, variables, jnp.asarray(x),
                                        compute_dtype=jnp.bfloat16)["multi_accdoa"])
     params = prepare_crnn(tm, torch.bfloat16)
-    assert params.blocks[0].w1.shape == (3, 3, 16, 8) and params.num_heads == 8
+    assert params.blocks[0].w1.shape == (3, 3, 8, 8) and params.num_heads == 8
     got = crnn_fused_forward(tm, torch.from_numpy(x), params=params)["multi_accdoa"]
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert np.abs(got.numpy() - ref.astype(np.float32)).max() < 5e-2

@@ -210,32 +210,68 @@ def _conv_operands(card, gen, B, T, F, cin, cmid, cout, relu_conv=False):
     return bf(x), bf(w1), b1.to(card), bf(w2), b2.to(card)
 
 
+def _conv_args(mode, x, w1, b1, w2, b2):
+    if mode == "relu_conv":
+        return (x, None, b1, w2, b2)
+    if mode == "single":
+        return (x, w1, b1, None, None)
+    return (x, w1, b1, w2, b2)
+
+
+def _check_conv_block(card, mode, shape, seed):
+    B, T, F, cin, cmid, cout = shape
+    gen = torch.Generator().manual_seed(seed)
+    args = _conv_args(mode, *_conv_operands(
+        card, gen, B, T, F, cin, cmid if mode != "relu_conv" else cin, cout or cmid,
+        relu_conv=mode == "relu_conv"))
+    before = conv_block.KERNEL.launches
+    got = conv_block.conv3x3_bias_relu(*args)
+    again = conv_block.conv3x3_bias_relu(*args)
+    assert conv_block.KERNEL.launches == before + 2
+    ref = conv_block.conv3x3_bias_relu_plain(*args)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    got, ref = got.float(), ref.float()
+    assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+
+
 @pytest.mark.parametrize("mode,shape", [
     ("pair", (2, 37, 16, 16, 64, 64)), ("pair", (2, 9, 4, 512, 1024, 1024)),
     ("single", (2, 21, 8, 64, 128, 0)), ("single", (1, 5, 2, 1024, 2048, 0)),
-    ("relu_conv", (2, 19, 8, 64, 64, 128)), ("pair", (1, 11, 8, 32, 48, 40))])
+    ("relu_conv", (2, 19, 8, 64, 64, 128)), ("pair", (1, 11, 8, 32, 48, 40)),
+    ("pair", (3, 7, 48, 16, 64, 64)), ("single", (3, 33, 5, 32, 128, 0)),
+    ("pair", (2, 3, 200, 64, 48, 40)), ("relu_conv", (3, 13, 200, 64, 64, 128)),
+    ("relu_conv", (3, 9, 5, 24, 24, 40)), ("pair", (3, 101, 64, 8, 64, 64))])
 def test_conv_block_kernel_matches_plain(card, mode, shape):
-    """K7 in each mode at small shapes (a Cin of 16 takes the 16-channel K
-    step; Cout 40 and the mid 48 are not multiples of the 64-wide tile; M is never a
-    multiple of 128): within two bf16 ulps (2^-6) of the plain bf16 version at the
-    output's largest magnitude."""
-    B, T, F, cin, cmid, cout = shape
-    gen = torch.Generator().manual_seed(40 + T)
-    x, w1, b1, w2, b2 = _conv_operands(card, gen, B, T, F, cin, cmid if mode != "relu_conv"
-                                       else cin, cout or cmid, relu_conv=mode == "relu_conv")
-    if mode == "relu_conv":
-        args = (x, None, b1, w2, b2)
-    elif mode == "single":
-        args = (x, w1, b1, None, None)
-    else:
-        args = (x, w1, b1, w2, b2)
-    before = conv_block.KERNEL.launches
-    got = conv_block.conv3x3_bias_relu(*args)
-    assert conv_block.KERNEL.launches == before + 1
-    ref = conv_block.conv3x3_bias_relu_plain(*args)
-    assert got.shape == ref.shape and got.dtype == torch.bfloat16
-    got, ref = got.float(), ref.float()
-    assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+    """K7 in each mode at small shapes: tiles of whole frequency rows (F 16,
+    8, 4, 2), F not dividing 128 (48; 5: 25 time rows of 5 bins), F over 128
+    (200: two 100-bin chunks), odd T with B >= 3 (each image's last tile
+    clipped), Cin 8, 16, 24 and 32 (zero-filled channels of the K step, the
+    16-channel K step at Cin <= 16), Cout 40 and the mid 48 (clipped output
+    tiles), relu_conv with its halo and its channels past Cin kept zero:
+    within two bf16 ulps (2^-6) of the plain bf16 version at the output's
+    largest magnitude, and a second launch gives the same bits."""
+    _check_conv_block(card, mode, shape, 40 + shape[1])
+
+
+@pytest.mark.parametrize("bn,bk,stages", [
+    (64, 64, 0), (-64, 64, 0), (64, 16, 0), (-64, 16, 2), (128, 64, 0), (-128, 64, 0),
+    (192, 64, 0), (256, 64, 0), (256, 64, 2)])
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("mode,shape", [("pair", (3, 13, 48, 16, 64, 136)),
+                                        ("relu_conv", (2, 5, 200, 72, 72, 200))])
+def test_conv_block_kernel_tiles_match_plain(card, monkeypatch, bn, bk, stages, resident, mode,
+                                             shape):
+    """Every tile form of K7 (64 to 256 output channels, cooperative or
+    ping-pong, K steps of 16 or 64 channels, the shallowest ring, conv1 of
+    the pair with its weights resident or in the ring) on both convs, at
+    ragged shapes: as test_conv_block_kernel_matches_plain."""
+    for key in ("bn_cout64", "bn_cout128", "bn_wider"):
+        monkeypatch.setitem(conv_block.TILES, key, bn)
+    monkeypatch.setitem(conv_block.TILES, "bk_cin16", bk)
+    monkeypatch.setitem(conv_block.TILES, "stages", stages)
+    monkeypatch.setitem(conv_block.TILES, "resident", resident)
+    _check_conv_block(card, mode, shape, 60 + abs(bn) + bk + stages)
 
 
 def test_conv_block_kernel_raises_on_what_it_does_not_take(card):
@@ -247,10 +283,20 @@ def test_conv_block_kernel_raises_on_what_it_does_not_take(card):
         conv_block.conv3x3_bias_relu(x.transpose(1, 2), w1, b1)
     with pytest.raises(ValueError, match="expected torch.float32"):
         conv_block.conv3x3_bias_relu(x, w1, b1.bfloat16())
-    with pytest.raises(NotImplementedError, match="Cin % 16"):
+    with pytest.raises(NotImplementedError, match="Cin % 8"):
         conv_block.conv3x3_bias_relu(x[..., :7].contiguous(), w1[:, :, :7].contiguous(), b1)
+    with pytest.raises(NotImplementedError, match="Cout % 8"):
+        conv_block.conv3x3_bias_relu(x, w1[..., :12].contiguous(), b1[:12].contiguous())
     with pytest.raises(NotImplementedError, match="computes in bf16"):
         conv_block.conv3x3_bias_relu(x, w1, b1, compute_dtype=torch.float32)
+    shifted = torch.empty(x.numel() + 4, device=card, dtype=torch.bfloat16)[4:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        conv_block.conv3x3_bias_relu(shifted, w1, b1)
+    big = torch.zeros(1, 1024, 1024, 8, device=card, dtype=torch.bfloat16)
+    wide = torch.zeros(3, 3, 8, 2048, device=card, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="< 2\\^31"):
+        conv_block.conv3x3_bias_relu(big, wide, torch.zeros(2048, device=card))
 
 
 @pytest.mark.parametrize("dtype,T", [(torch.bfloat16, 1024), (torch.bfloat16, 1000),
