@@ -159,9 +159,13 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 log(f"  {k.source.name}: {line.strip()}")
     # what the Hopper kernels were compiled to: wgmma (HGMMA), TMA loads
-    # (UTMALDG) and stores (UTMASTG) in K6's and K7's SASS
+    # (UTMALDG) and stores (UTMASTG) in K6's and K7's SASS; in K3's and K5's
+    # wgmma and TMA loads (their epilogues store from the registers) and no
+    # HMMA (mma.sync, what WMMA compiles to)
     tool = shutil.which("cuobjdump") or str(Path(_cuda.nvcc()).parent / "cuobjdump")
-    for name in ("K6", "K7"):
+    for name, need in (("K6", ("HGMMA", "UTMALDG", "UTMASTG")),
+                       ("K7", ("HGMMA", "UTMALDG", "UTMASTG")),
+                       ("K3", ("HGMMA", "UTMALDG")), ("K5", ("HGMMA", "UTMALDG"))):
         lib = kernels()[name].library_path()
         try:
             sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
@@ -170,9 +174,11 @@ def phase_build():
             log(f"  {lib.name} SASS: not measured (no cuobjdump)")
             continue
         counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG",
-                                                                      "UTMASTG")}
+                                                                      "UTMASTG", "HMMA")}
         log(f"  {lib.name} SASS: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
-        check(all(counts.values()), f"{name}'s SASS lacks wgmma or TMA: {counts}")
+        check(all(counts[op] for op in need), f"{name}'s SASS lacks wgmma or TMA: {counts}")
+        if name in ("K3", "K5"):
+            check(counts["HMMA"] == 0, f"{name}'s SASS still has mma.sync (WMMA): {counts}")
 
 
 def phase_frontend():
@@ -364,13 +370,15 @@ def k2_work(B, p):
     return M * C * 2 + out_bytes + w_bytes, flops
 
 
-def k3_work(B, p):
+def k3_work(B, p, masked=False):
     """Bytes and bf16 FLOPs of one K3 call on B images: the forward the
     backward needs (qkv, proj, fc1: 2M(3C^2 + C^2 + C hid); attention
     4M 64C), the activation grads (2M(hid C + C hid + C^2 + 3C^2)), the
     weight grads (the same) and the attention backward (dV, dP, dq, dk:
     8M 64C); x and dout read, dx written, the bf16 weights and float32
-    vectors read, every float32 grad written, once each."""
+    vectors read, every float32 grad written, once each. ``masked``: the
+    training form with frozen weights (AdapterBit's): no weight grads, no
+    LayerNorm-scale or bias-table grads written."""
     L, C, hid = p.H * p.W, p.C, p.fc1_w.shape[1]
     M = B * L
     grads = C * 3 * C + C * C + C * hid + hid * C
@@ -381,7 +389,46 @@ def k3_work(B, p):
     if p.mask is not None:
         w_bytes += p.mask.numel() * 4
     g_bytes = 4 * (grads + 3 * C + C + hid + C + 4 * C + p.bias.numel())
+    if masked:
+        flops -= 2 * M * grads
+        g_bytes -= 4 * (grads + 2 * C + p.bias.numel())
     return 3 * M * C * 2 + B * 2 * 4 + w_bytes + g_bytes, flops
+
+
+def k35_phase_flops(B, p, ch=0, masked=False):
+    """bf16 FLOPs of K3 (ch 0) or K5 (adapter width ch) by phase, as
+    scripts/torch_k35_phases.py groups the launches: the recompute GEMMs
+    (qkv, proj, the spatial adapter), the dual GEMMs (fc1 with fc2's grad,
+    the adapters' two), the activation grads (dh2, the spatial adapter's,
+    dattn, dh), the weight grads (none in the masked form, whose frozen
+    weights keep only the adapters'), the attention recompute (S, P V) and
+    backward (S, dV, dP, dq, dk)."""
+    L, C, hid = p.H * p.W, p.C, p.fc1_w.shape[1]
+    M = B * L
+    wg = 2 * M * (3 * C * C + C * C + 2 * C * hid)
+    return {"recompute": 2 * M * (4 * C * C + 2 * C * ch),
+            "mlp_dual": 4 * M * C * hid + 8 * M * C * ch,
+            "act_grad": 2 * M * (hid * C + 4 * C * C + 2 * ch * C),
+            "weight_grad": (0 if masked else wg) + 8 * M * C * ch,
+            "attn_fwd": 4 * M * 64 * C, "attn_bwd": 10 * M * 64 * C}
+
+
+def log_phases(name, recorded, B, flops_of, smi):
+    """``name`` by phase over one step's 12 recorded block backwards (each
+    launched as the step launched it; torch.profiler): ms x12 and the GEMM
+    and attention phases' TFLOP/s. Returns {phase: ms}."""
+    from pseldnets_tpu_torch.ops.swin_bwd_plan import phases_ms
+
+    ms, fl = {}, {}
+    for fn, args in recorded:
+        for k, v in phases_ms(fn, reps=3).items():
+            ms[k] = ms.get(k, 0.0) + v
+        for k, v in flops_of(args).items():
+            fl[k] = fl.get(k, 0) + v
+    log(f"{name} by phase x12 at B={B} ({smi}): " + ", ".join(
+        f"{k} {v:.3f} ms" + (f" ({fl[k] / v / 1e9:.0f} TFLOP/s)" if fl.get(k) else "")
+        for k, v in sorted(ms.items(), key=lambda kv: -kv[1])) + f"; sum {sum(ms.values()):.3f} ms")
+    return {k: round(v, 5) for k, v in ms.items()}
 
 
 def htsat_serving_model():
@@ -596,9 +643,9 @@ def phase_train(smi):
     # K3 on the step's own B=32 block inputs, recorded from one step
     recorded = []
 
-    def record(x, p, m, dout):
-        recorded.append((x, p, m, dout))
-        return orig(x, p, m, dout)
+    def record(x, p, m, dout, want=None):
+        recorded.append((x, p, m, dout, want))
+        return orig(x, p, m, dout, want)
 
     orig = swin_block_vjp.swin_block_backward
     swin_block_vjp.swin_block_backward = record
@@ -609,7 +656,9 @@ def phase_train(smi):
     check(len(recorded) == 12, f"recorded {len(recorded)} block backwards")
     k2_err = k2_rel = k3_err = k3_rel = 0.0
     rows = []
-    for j, (x, p, m, dout) in enumerate(reversed(recorded)):
+    check(all(set(r[4]) == set(swin_block_vjp.GRAD_KEYS) for r in recorded),
+          "the plain step asks K3 for every grad")
+    for j, (x, p, m, dout, _) in enumerate(reversed(recorded)):
         # K2 with masks on the block's own input, phase_swin_block's 2^-6
         y = swin_block_vjp.swin_block_fused(x, p, m).float()
         y0 = swin_block_vjp.swin_block_plain(x, p, m).float()
@@ -640,9 +689,12 @@ def phase_train(smi):
     log(f"per step of {B_TRAIN} ({smi}): K1 (float32) {k1_ms:.3f} ms, K2 with masks x12 "
         f"{k2_train:.3f} ms, K3 x12 {k3_ms:.3f} ms (plain {k3_plain:.3f}, bound "
         f"{k3_bound:.3f}), rest {dt * 1e3 - k1_ms - k2_train - k3_ms:.3f} ms")
+    phases = log_phases("K3", [((lambda r=r: orig(*r)), r) for r in recorded], B_TRAIN,
+                        lambda r: k35_phase_flops(B_TRAIN, r[1]), smi)
     phase_profile("one training step", lambda: step(wavs[0]))
     return launches, {"K1": (k1_err, k1_rel), "K2": (k2_err, k2_rel),
-                      "K3": (k3_err, k3_rel, k3_ms, k3_plain, k3_bound, "operations")}
+                      "K3": (k3_err, k3_rel, k3_ms, k3_plain, k3_bound, "operations", None,
+                             None, {"phases_ms_x12": phases})}
 
 
 def randomize_adapters(model, gen):
@@ -715,11 +767,13 @@ def k4_work(B, p):
     return nbytes + 2 * (2 * C * ch * 2 + (ch + C) * 4), flops + 8 * M * C * ch
 
 
-def k5_work(B, p):
+def k5_work(B, p, masked=False):
     """Bytes and bf16 FLOPs of one K5 call on B images: K3's plus the
     adapters' recompute, activation grads and weight grads (3 x 8 M C ch,
-    12 M C^2 at ch = C/2), their weights read and float32 grads written."""
-    nbytes, flops = k3_work(B, p.base)
+    12 M C^2 at ch = C/2), their weights read and float32 grads written.
+    ``masked``: AdapterBit's training form, k3_work's masked form plus the
+    adapters' work (all of it trains)."""
+    nbytes, flops = k3_work(B, p.base, masked)
     M, C, ch = B * p.base.H * p.base.W, p.base.C, p.ch
     return (nbytes + 2 * (2 * C * ch * 2 + (ch + C) * 4) + 2 * (2 * C * ch + ch + C) * 4,
             flops + 24 * M * C * ch)
@@ -913,9 +967,9 @@ def phase_train_adapter(smi):
     # K4 with masks and K5 on the step's own B=32 block inputs, from one step
     recorded = []
 
-    def record(x, p, m, dout):
-        recorded.append((x, p, m, dout))
-        return orig(x, p, m, dout)
+    def record(x, p, m, dout, want=None):
+        recorded.append((x, p, m, dout, want))
+        return orig(x, p, m, dout, want)
 
     orig = sa.swin_block_adapt_backward
     sa.swin_block_adapt_backward = record
@@ -924,9 +978,13 @@ def phase_train_adapter(smi):
     finally:
         sa.swin_block_adapt_backward = orig
     check(len(recorded) == 12, f"recorded {len(recorded)} adapter block backwards")
+    trained_keys = {"ln1_b", "qkv_b", "proj_b", "ln2_b", "fc1_b", "fc2_b"} | set(
+        k for keys in sa.ADAPTER_KEYS.values() for k in keys)
+    check(all(set(r[4]) <= trained_keys and {"qkv_b", "ln1_b"} <= set(r[4]) for r in recorded),
+          f"AdapterBit asks K5 for more than its trained grads: {sorted(recorded[0][4])}")
     k4_err = k4_rel = k5_err = k5_rel = 0.0
     rows = []
-    for j, (x, p, m, dout) in enumerate(reversed(recorded)):
+    for j, (x, p, m, dout, want) in enumerate(reversed(recorded)):
         y = sa.swin_block_adapt_fused(x, p, m).float()
         y0 = sa.swin_block_adapt_plain(x, p, m).float()
         e, s = (y - y0).abs().max().item(), y0.abs().max().item()
@@ -943,23 +1001,41 @@ def phase_train_adapter(smi):
             check(e <= 2.0 ** -6 * s, f"K5 block {j} {name} disagrees at B={B_TRAIN}")
             k5_err, worst_rel = max(k5_err, e), max(worst_rel, e / max(s, 1e-30))
         k5_rel = max(k5_rel, worst_rel)
+        # the training form the step launched: exactly its wanted grads, and
+        # those equal to the full form's bits
+        dxm, grm = orig(x, p, m, dout, want)
+        check(set(grm) == set(want) & set(gr) and torch.equal(dxm, dx)
+              and all(torch.equal(grm[k], gr[k]) for k in grm),
+              f"K5 block {j}: the training form differs from the full form")
         t = cuda_ms(lambda: orig(x, p, m, dout), reps=5)
+        tm = cuda_ms(lambda: orig(x, p, m, dout, want), reps=5)
         tp = cuda_ms(lambda: sa.swin_block_adapt_backward_plain(x, p, m, dout), reps=1)
         t4 = cuda_ms(lambda: sa.swin_block_adapt_fused(x, p, m), reps=5)
         nb, fl = k5_work(B_TRAIN, p)
-        rows.append((t, tp, bound_ms(nb, bf16_flops=fl)[0], t4))
+        nbm, flm = k5_work(B_TRAIN, p, masked=True)
+        rows.append((t, tp, bound_ms(nb, bf16_flops=fl)[0], t4, tm,
+                     bound_ms(nbm, bf16_flops=flm)[0]))
         log(f"  K5 block {j:2d} {p.base.H}x{p.base.W} C={p.base.C} shift={p.base.shift}: worst "
-            f"{worst_rel:.3g} of scale, {t:.3f} ms, plain {tp:.3f} ms, bound {rows[-1][2]:.4f} "
-            f"ms; K4 with masks {k4_block_rel:.3g} of scale (<= 2^-6), {t4:.3f} ms")
+            f"{worst_rel:.3g} of scale, {t:.3f} ms (training form {tm:.3f}), plain {tp:.3f} ms, "
+            f"bound {rows[-1][2]:.4f} ms (training form {rows[-1][5]:.4f}); K4 with masks "
+            f"{k4_block_rel:.3g} of scale (<= 2^-6), {t4:.3f} ms")
     k5_ms, k5_plain, k5_bound = (sum(r[i] for r in rows) for i in range(3))
+    k5_train_ms, k5_train_bound = sum(r[4] for r in rows), sum(r[5] for r in rows)
     k4_train = sum(r[3] for r in rows)
     k1_ms = cuda_ms(lambda: task.extractor(wavs[0]), reps=10)
     log(f"AdapterBit per step of {B_TRAIN} ({smi}): K1 (float32) {k1_ms:.3f} ms, K4 with masks "
         f"x12 {k4_train:.3f} ms, K5 x12 {k5_ms:.3f} ms (plain {k5_plain:.3f}, bound "
-        f"{k5_bound:.3f}), rest {dt * 1e3 - k1_ms - k4_train - k5_ms:.3f} ms")
+        f"{k5_bound:.3f}), K5 x12 in the training form {k5_train_ms:.3f} ms (bound "
+        f"{k5_train_bound:.3f}), rest {dt * 1e3 - k1_ms - k4_train - k5_train_ms:.3f} ms")
+    phases = log_phases("K5 (training form)", [((lambda r=r: orig(*r)), r) for r in recorded],
+                        B_TRAIN, lambda r: k35_phase_flops(B_TRAIN, r[1].base, r[1].ch_pad,
+                                                           masked=True), smi)
     phase_profile("one AdapterBit training step", lambda: step(wavs[0]))
     return launches, {"K4": (k4_err, k4_rel),
-                      "K5": (k5_err, k5_rel, k5_ms, k5_plain, k5_bound, "operations")}
+                      "K5": (k5_err, k5_rel, k5_ms, k5_plain, k5_bound, "operations", None, None,
+                             {"training_form_ms": k5_train_ms,
+                              "training_form_bound_ms": k5_train_bound,
+                              "phases_ms_x12_training_form": phases})}
 
 
 def random_vit_block(gen):

@@ -1,9 +1,10 @@
 // The Hopper GEMM core: TMA-fed, mbarrier-ringed, warp-specialised wgmma
 // for sm_90a, as raw PTX (no CUTLASS), and the primitives it is built from.
 // Used by K6 (vit_block.cu: its four GEMMs, and the same primitives in its
-// attention) and K7 (conv_block.cu: its implicit-GEMM mainloop is written
+// attention), K7 (conv_block.cu: its implicit-GEMM mainloop is written
 // beside this one on the same primitives, with 4-D TMA boxes per tap and
-// the weights as a transposed B).
+// the weights as a transposed B) and K3/K5 (swin_bwd_sm90.cuh: the Swin
+// block backward's GEMM forms, transposed A included, and wgmma attention).
 //
 //   C (M, N) = A (M, K) . B (N, K)^T     A, B bf16 K-major, float32 sums
 //
@@ -230,28 +231,39 @@ __device__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t 
 
 // D (64 x N float32; N / 2 registers a thread) = A . B^T (+ D when scale_d),
 // A 64 x 16 and B N x 16 from shared memory, both K-major; with TB = 1, B is
-// 16 x N MN-major (wgmma's transpose bit) and D = A . B. Accumulator
-// layout (warp w of the warpgroup, lane l, register i): row 16 w + l / 4 +
-// 8 ((i % 4) / 2), column 8 (i / 4) + 2 (l % 4) + i % 2.
-template <int N, int TB = 0>
+// 16 x N MN-major (wgmma's transpose bit) and D = A . B; with TA = 1, A is
+// MN-major (16 x 64 stored, D = A^T ...). Accumulator layout (warp w of the
+// warpgroup, lane l, register i): row 16 w + l / 4 + 8 ((i % 4) / 2),
+// column 8 (i / 4) + 2 (l % 4) + i % 2.
+template <int N, int TB = 0, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "wgmma_ss widths");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 192 || N == 256, "wgmma_ss widths");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
         "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
   } else if constexpr (N == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -262,7 +274,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
         "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
         "%60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -274,7 +286,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
   } else if constexpr (N == 192) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
@@ -287,7 +299,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
         "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
         "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
         "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-        "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+        "}, %96, %97, p, 1, 1, %100, %99;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -304,7 +316,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
           "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
           "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
           "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
   } else if constexpr (N == 256) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -320,7 +332,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -343,7 +355,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
   }
 }
 

@@ -1,14 +1,15 @@
-// Code shared by the adapter block kernels K4 (swin_block_adapt.cu, forward)
-// and K5 (swin_block_adapt_bwd.cu, backward): the float32 residual +
-// LayerNorm that builds y and h2, the adapter shapes, the workspace carver,
-// the shape check and a GEMM-parameter helper. Everything is in an anonymous
-// namespace, as in swin_common.cuh.
+// Code of the adapter block kernel K4 (swin_block_adapt.cu, forward) beside
+// swin_common.cuh: the float32 residual + LayerNorm that builds y and h2, the
+// adapter shapes, the workspace carver, the shape check and a GEMM-parameter
+// helper. Everything is in an anonymous namespace, as in swin_common.cuh.
 
 #pragma once
 
-#include "swin_bwd_common.cuh"
+#include "swin_common.cuh"
 
 namespace {
+
+constexpr int ROW_THREADS = 256;  // 8 rows (warps) per block in the row kernels
 
 // y = x + m0 * (a + s * t) in float32 over token rows (one warp per row);
 // y_out[t] = y (or null), h_out[t] = bf16(LN(y) * w + b), and, when not
@@ -47,6 +48,12 @@ __global__ void __launch_bounds__(ROW_THREADS) adapt_residual_ln_kernel(
 }
 
 // ---- host side -----------------------------------------------------------
+
+struct Shapes {
+  int B, H, W, C, nh, win, shift, hidden;
+  long M() const { return (long)B * H * W; }
+  int n_windows() const { return B * (H / win) * (W / win); }
+};
 
 struct AdaptShapes : Shapes {
   int ch;  // adapter width, padded to a multiple of 32

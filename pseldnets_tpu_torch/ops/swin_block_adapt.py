@@ -29,13 +29,16 @@ adapter gets a zero-filled slot for the other (swin_block_adapt_vjp.py:
 
 On a CUDA tensor ``swin_block_adapt_fused`` launches K4
 (``csrc/swin_block_adapt.cu``) and ``swin_block_adapt_backward`` K5
-(``csrc/swin_block_adapt_bwd.cu``), bf16 only, or raise; on a CPU tensor they
-run the plain versions.
+(``csrc/swin_block_adapt_bwd.cu``, TMA-fed wgmma on the Hopper layer
+``csrc/swin_bwd_sm90.cuh``, K3's ``TILES``), bf16 only, or raise; on a CPU
+tensor they run the plain versions. The backward takes ``want``, the grads to
+compute (None: all, the Pallas kernel's set); AdapterBit training asks for
+the biases and adapters only, so the frozen weights' grads cost nothing.
 """
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +47,8 @@ from ..models.htsat import SwinTransformerBlock, window_partition, window_revers
 from ._cuda import CudaKernel, check_cuda_tensor, f32, i32, ptr
 from .swin_block import SwinBlockParams, _check_masks, _ln, _mm, attention_rows, prepare_block
 from .swin_block_vjp import (GRAD_KEYS, _INV_SQRT2, _INV_SQRT2PI, _ln_bwd, _ln_fwd, _mlp_rows,
-                             block_parameters, module_grads)
+                             block_parameters, check_aligned, module_grads, tile_args, wanted,
+                             wanted_keys)
 
 _WS = [i32] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
 FWD_KERNEL = CudaKernel("swin_block_adapt.cu", {
@@ -52,12 +56,13 @@ FWD_KERNEL = CudaKernel("swin_block_adapt.cu", {
     "swin_block_adapt_forward": [ptr] * 24 + [f32, ptr, ptr] + [i32] * 9 + [ptr],
 })
 BWD_KERNEL = CudaKernel("swin_block_adapt_bwd.cu", {
-    "swin_block_adapt_backward_workspace": _WS,
-    "swin_block_adapt_backward": [ptr] * 25 + [f32] + [ptr] * 23 + [i32] * 9 + [ptr],
+    "swin_block_adapt_backward_workspace": [i32] * 15 + [ctypes.POINTER(ctypes.c_longlong)],
+    "swin_block_adapt_backward": [ptr] * 25 + [f32] + [ptr] * 23 + [i32] * 15 + [ptr],
 })
 
 ADAPTER_KEYS = {"attn": ("sa1_w", "sa1_b", "sa2_w", "sa2_b"),
                 "mlp": ("ma1_w", "ma1_b", "ma2_w", "ma2_b")}
+ALL_KEYS = GRAD_KEYS + ADAPTER_KEYS["attn"] + ADAPTER_KEYS["mlp"]  # the C entry's order
 PAD = 32  # the adapter width is padded to a multiple of this
 
 
@@ -163,23 +168,25 @@ def swin_block_adapt_plain(x: torch.Tensor, p: AdaptBlockParams,
 
 
 def _cut(p: AdaptBlockParams, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """K3's grads plus those of the adapters the block has, unpadded."""
-    out = {k: grads[k] for k in GRAD_KEYS}
+    """K3's grads plus those of the adapters the block has, unpadded (the
+    keys ``grads`` holds)."""
+    out = {k: grads[k] for k in GRAD_KEYS if k in grads}
     ch = p.ch
+    cut = (lambda t: t[:, :ch], lambda t: t[:ch], lambda t: t[:ch], lambda t: t)
     for where in p.where:
-        w1, b1, w2, b2 = ADAPTER_KEYS[where]
-        out.update({w1: grads[w1][:, :ch], b1: grads[b1][:ch], w2: grads[w2][:ch],
-                    b2: grads[b2]})
+        out.update({k: f(grads[k]) for k, f in zip(ADAPTER_KEYS[where], cut) if k in grads})
     return out
 
 
 def swin_block_adapt_backward_plain(x: torch.Tensor, p: AdaptBlockParams,
-                                    dp_masks: torch.Tensor, dout: torch.Tensor
+                                    dp_masks: torch.Tensor, dout: torch.Tensor,
+                                    want: Optional[Iterable[str]] = None
                                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Plain PyTorch version of kernel K5, on any device: x, dout (B, H*W,
     C), dp_masks (B, 2) float32 -> (dx in x's dtype, float32 grads in the
     kernels' layout: ``GRAD_KEYS`` and the present adapters'
-    ``ADAPTER_KEYS``)."""
+    ``ADAPTER_KEYS``, only those ``want`` asks for)."""
+    keys = wanted(want, ALL_KEYS)
     b = p.base
     cd = b.qkv_w.dtype
     B, L, C = x.shape
@@ -218,18 +225,22 @@ def swin_block_adapt_backward_plain(x: torch.Tensor, p: AdaptBlockParams,
         h2c = h2[sl]
         fgf, dgelu = _gelu_pair(_mm(h2c, b.fc1_w) + b.fc1_b)
         fg = fgf.to(cd)
-        grads["fc2_w"] += _mm(fg.t(), df2[sl])
+        if "fc2_w" in keys:
+            grads["fc2_w"] += _mm(fg.t(), df2[sl])
         grads["fc2_b"] += df2f[sl].sum(0)
         df1 = (_mm(df2[sl], b.fc2_w.t()) * dgelu).to(cd)
-        grads["fc1_w"] += _mm(h2c.t(), df1)
+        if "fc1_w" in keys:
+            grads["fc1_w"] += _mm(h2c.t(), df1)
         grads["fc1_b"] += df1.float().sum(0)
         dh2c = _mm(df1, b.fc1_w.t())
         gmf, dgelum = _gelu_pair(_mm(h2c, p.ma1_w) + p.ma1_b)
         gm = gmf.to(cd)
-        grads["ma2_w"] += _mm(gm.t(), g2m[sl])
+        if "ma2_w" in keys:
+            grads["ma2_w"] += _mm(gm.t(), g2m[sl])
         grads["ma2_b"] += g2mf[sl].sum(0)
         df1m = (_mm(g2m[sl], p.ma2_w.t()) * dgelum).to(cd)
-        grads["ma1_w"] += _mm(h2c.t(), df1m)
+        if "ma1_w" in keys:
+            grads["ma1_w"] += _mm(h2c.t(), df1m)
         grads["ma1_b"] += df1m.float().sum(0)
         dh2[sl] = dh2c + _mm(df1m, p.ma1_w.t())
     dh2 = dh2.reshape(B, L, C)
@@ -241,10 +252,12 @@ def swin_block_adapt_backward_plain(x: torch.Tensor, p: AdaptBlockParams,
     dbranch = (m0 * dy).reshape(-1, C)
     g2sf = s * dbranch
     g2s = g2sf.to(cd)
-    grads["sa2_w"] = _mm(gs.t(), g2s)
+    if "sa2_w" in keys:
+        grads["sa2_w"] = _mm(gs.t(), g2s)
     grads["sa2_b"] = g2sf.sum(0)
     df1s = (_mm(g2s, p.sa2_w.t()) * dgelus).to(cd)
-    grads["sa1_w"] = _mm(a.t(), df1s)
+    if "sa1_w" in keys:
+        grads["sa1_w"] = _mm(a.t(), df1s)
     grads["sa1_b"] = df1s.float().sum(0)
     da = dbranch + _mm(df1s, p.sa1_w.t())
 
@@ -253,7 +266,8 @@ def swin_block_adapt_backward_plain(x: torch.Tensor, p: AdaptBlockParams,
     if sh:
         dbr = torch.roll(dbr, shifts=(-sh, -sh), dims=(1, 2))
     dA = window_partition(dbr, w).reshape(-1, C).to(cd)
-    grads["proj_w"] = _mm(attn.t(), dA)
+    if "proj_w" in keys:
+        grads["proj_w"] = _mm(attn.t(), dA)
     grads["proj_b"] = dA.float().sum(0)
     dattn = _mm(dA, b.proj_w.t()).to(cd)
     dO = dattn.reshape(-1, N, nh, hd).transpose(1, 2).float()
@@ -266,7 +280,8 @@ def swin_block_adapt_backward_plain(x: torch.Tensor, p: AdaptBlockParams,
     dq = torch.matmul(dSc, k.float())
     dk = torch.matmul(dSc.transpose(-1, -2), q.float())
     dqkv = torch.cat([t.transpose(1, 2).reshape(-1, C) for t in (dq, dk, dV)], -1).to(cd)
-    grads["qkv_w"] = _mm(win.t(), dqkv)
+    if "qkv_w" in keys:
+        grads["qkv_w"] = _mm(win.t(), dqkv)
     grads["qkv_b"] = dqkv.float().sum(0)
     dwin = _mm(dqkv, b.qkv_w.t()).to(cd)
     dh = window_reverse(dwin.reshape(-1, N, C), w, H, W)
@@ -276,7 +291,7 @@ def swin_block_adapt_backward_plain(x: torch.Tensor, p: AdaptBlockParams,
     grads["ln1_w"] = (dh * xhat1).sum((0, 1))
     grads["ln1_b"] = dh.sum((0, 1))
     dx = dy + _ln_bwd(dh, xhat1, r1, b.ln1_w)
-    return dx.to(x.dtype), _cut(p, grads)
+    return dx.to(x.dtype), _cut(p, {k_: grads[k_] for k_ in keys})
 
 
 def _check_cuda_params(p: AdaptBlockParams, B: int) -> Tuple[int, ...]:
@@ -321,7 +336,8 @@ def _weight_ptrs(p: AdaptBlockParams) -> List[int]:
 def _workspace(kernel: CudaKernel, query: str, shapes: Tuple[int, ...], device) -> torch.Tensor:
     """The scratch the kernel's C entry needs at these shapes (its size query)."""
     nbytes = ctypes.c_longlong()
-    getattr(kernel.lib(), query)(*shapes, ctypes.byref(nbytes))
+    if getattr(kernel.lib(), query)(*shapes, ctypes.byref(nbytes)) != 0:
+        raise ValueError(f"{query} refused shapes {shapes}")
     return torch.empty(nbytes.value, device=device, dtype=torch.uint8)
 
 
@@ -347,19 +363,23 @@ def swin_block_adapt_fused(x: torch.Tensor, p: AdaptBlockParams,
 
 
 def swin_block_adapt_backward(x: torch.Tensor, p: AdaptBlockParams, dp_masks: torch.Tensor,
-                              dout: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Backward of one Swin block with adapters. A CPU tensor takes
-    ``swin_block_adapt_backward_plain``; a CUDA tensor launches kernel K5
-    (bfloat16) or raises."""
+                              dout: torch.Tensor, want: Optional[Iterable[str]] = None
+                              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Backward of one Swin block with adapters, the grads ``want`` asks for
+    (all when None). A CPU tensor takes ``swin_block_adapt_backward_plain``;
+    a CUDA tensor launches kernel K5 (bfloat16) or raises."""
     if x.device.type == "cpu":
-        return swin_block_adapt_backward_plain(x, p, dp_masks, dout)
+        return swin_block_adapt_backward_plain(x, p, dp_masks, dout, want)
     B, L, C = x.shape
     b = p.base
     check_cuda_tensor("x", x, torch.bfloat16, (B, b.H * b.W, C))
     check_cuda_tensor("dout", dout, torch.bfloat16, (B, b.H * b.W, C))
     _check_masks(dp_masks, p.base, B)
     check_cuda_tensor("dp_masks", dp_masks, torch.float32, (B, 2))
-    shapes = _check_cuda_params(p, B)
+    shapes = _check_cuda_params(p, B) + tile_args()
+    check_aligned({"x": x, "dout": dout, "dp_masks": dp_masks, "mask": b.mask, **{
+        k_: getattr(b, k_) for k_ in GRAD_KEYS if k_ != "bias"}, "bias": b.bias, **{
+        k_: getattr(p, k_) for k_ in ALL_KEYS[len(GRAD_KEYS):]}})
     hidden, chp, N = b.fc1_w.shape[1], p.ch_pad, b.window ** 2
     ws = _workspace(BWD_KERNEL, "swin_block_adapt_backward_workspace", shapes, x.device)
     sizes = {"ln1_w": (C,), "ln1_b": (C,), "qkv_w": (C, 3 * C), "qkv_b": (3 * C,),
@@ -368,13 +388,14 @@ def swin_block_adapt_backward(x: torch.Tensor, p: AdaptBlockParams, dp_masks: to
              "bias": (b.nh, N, N)}
     for w1, b1, w2, b2 in ADAPTER_KEYS.values():
         sizes.update({w1: (C, chp), b1: (chp,), w2: (chp, C), b2: (C,)})
-    keys = GRAD_KEYS + ADAPTER_KEYS["attn"] + ADAPTER_KEYS["mlp"]
+    keys = wanted(want, ALL_KEYS)
     grads = {k_: torch.empty(sizes[k_], device=x.device, dtype=torch.float32) for k_ in keys}
     dx = torch.empty_like(x)
     BWD_KERNEL.launches += 1
     BWD_KERNEL.call("swin_block_adapt_backward", x.data_ptr(), dout.data_ptr(), dp_masks.data_ptr(),
                 *_weight_ptrs(p), p.scale, dx.data_ptr(),
-                *(grads[k_].data_ptr() for k_ in keys), ws.data_ptr(), *shapes)
+                *(grads[k_].data_ptr() if k_ in grads else None for k_ in ALL_KEYS),
+                ws.data_ptr(), *shapes)
     return dx, _cut(p, grads)
 
 
@@ -388,13 +409,20 @@ def adapt_block_parameters(block: SwinTransformerBlock) -> List[torch.nn.Paramet
     return out
 
 
+def adapt_param_keys(block: SwinTransformerBlock) -> Tuple[str, ...]:
+    """The grad keys of ``adapt_block_parameters(block)``, in its order."""
+    return GRAD_KEYS + sum((ADAPTER_KEYS[w] for w in block_adapters(block)), ())
+
+
 def adapt_module_grads(block: SwinTransformerBlock,
-                       g: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
-    """Kernel-layout grads -> grads of ``adapt_block_parameters(block)``."""
+                       g: Dict[str, torch.Tensor]) -> List[Optional[torch.Tensor]]:
+    """Kernel-layout grads -> grads of ``adapt_block_parameters(block)``;
+    None for a key ``g`` lacks."""
     out = module_grads(block, g)
     for where in block_adapters(block):
         w1, b1, w2, b2 = ADAPTER_KEYS[where]
-        out += [g[w1].t(), g[b1], g[w2].t(), g[b2]]
+        out += [g[w1].t() if w1 in g else None, g.get(b1), g[w2].t() if w2 in g else None,
+                g.get(b2)]
     return out
 
 
@@ -424,7 +452,8 @@ class SwinBlockAdaptTrain(torch.autograd.Function):
         p = ctx.prepared
         cd = p.base.qkv_w.dtype
         fn = swin_block_adapt_backward if ctx.use_kernels else swin_block_adapt_backward_plain
-        dx, g = fn(x.to(cd), p, dp_masks, dout.to(cd).contiguous())
+        want = wanted_keys(adapt_param_keys(ctx.block), ctx.needs_input_grad[5:])
+        dx, g = fn(x.to(cd), p, dp_masks, dout.to(cd).contiguous(), want)
         grads = [gr if need else None for gr, need in
                  zip(adapt_module_grads(ctx.block, g), ctx.needs_input_grad[5:])]
         return (dx.to(x.dtype), None, None, None, None, *grads)

@@ -21,14 +21,17 @@ rounds q, then q * scale) and the q-column gradients come out per folded
 weight; ``module_grads`` multiplies them by the scale.
 
 On a CUDA tensor ``swin_block_backward`` launches the hand-written kernels of
-``csrc/swin_block_bwd.cu`` (bf16 only) or raises; on a CPU tensor it runs
-``swin_block_backward_plain``.
+``csrc/swin_block_bwd.cu`` (bf16 only; TMA-fed wgmma on the Hopper layer
+``csrc/swin_bwd_sm90.cuh``, with the tile choices of ``TILES``) or raises;
+on a CPU tensor it runs ``swin_block_backward_plain``. Both take ``want``,
+the grads to compute (None: all of ``GRAD_KEYS``, the Pallas kernel's set);
+training passes what autograd asks for, so frozen parameters cost nothing.
 """
 
 import ctypes
 import math
 from functools import lru_cache
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -38,10 +41,26 @@ from ._cuda import CudaKernel, check_cuda_tensor, i32, ptr
 from .swin_block import (LN_EPS, SwinBlockParams, _mm, attention_rows, prepare_block,
                          swin_block_fused, swin_block_plain)
 
+# The kernels' tile choices (scripts/torch_k35_tiles.py sweeps them), shared
+# by K3 and K5: the tile width (64 or 128 columns, 128 rows) of the recompute
+# GEMMs h W (nn), the activation-grad GEMMs dY W^T (nt, also the two-pair
+# K5 dh2), the dual GEMMs (fc1's recompute with fc2's activation grad, and
+# the adapters'), the weight-grad GEMMs A^T dY (tt), the work items the
+# weight grads' row split aims at (the rows are cut into equal multiples of
+# 64, at least 8 k-blocks each; a pure function of the shape), and the
+# GEMMs' ring depth (stages; 0: as deep as shared memory allows, at most 6).
+TILES = {"bn_nn": 128, "bn_nt": 128, "bn_dual": 64, "bn_tt": 128, "tt_items": 132, "stages": 0}
+TILE_KEYS = ("bn_nn", "bn_nt", "bn_dual", "bn_tt", "tt_items", "stages")
+
 KERNEL = CudaKernel("swin_block_bwd.cu", {
-    "swin_block_backward": [ptr] * 32 + [i32] * 8 + [ptr],
-    "swin_block_backward_workspace": [i32] * 8 + [ctypes.POINTER(ctypes.c_longlong)],
+    "swin_block_backward": [ptr] * 32 + [i32] * 14 + [ptr],
+    "swin_block_backward_workspace": [i32] * 14 + [ctypes.POINTER(ctypes.c_longlong)],
+    "swin_bwd_gemm": [i32] * 3 + [ptr, ptr, i32, ptr, ptr] + [i32] * 3 + [ptr, i32] + [ptr] * 5
+    + [ptr],
+    "swin_bwd_gemm_workspace": [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong)],
 })
+# the backward layer's GEMM forms, as swin_bwd_gemm numbers them
+GEMM_FORMS = ("nn", "nn_f32", "nt", "nt_f32", "cat", "dual", "tt")
 
 GRAD_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b", "ln2_w", "ln2_b",
              "fc1_w", "fc1_b", "fc2_w", "fc2_b", "bias")
@@ -64,6 +83,27 @@ def _ln_bwd(dout: torch.Tensor, xhat: torch.Tensor, r: torch.Tensor,
                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
 
 
+def wanted(want: Optional[Iterable[str]], keys: Iterable[str]) -> Tuple[str, ...]:
+    """The keys of ``keys`` that ``want`` asks for (all when None), in order."""
+    if want is None:
+        return tuple(keys)
+    want = set(want)
+    return tuple(k for k in keys if k in want)
+
+
+def tile_args() -> Tuple[int, ...]:
+    """``TILES`` as the kernels' C entries take them."""
+    return tuple(int(TILES[k]) for k in TILE_KEYS)
+
+
+def check_aligned(tensors: Dict[str, Optional[torch.Tensor]]) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels'
+    vector loads and TMA descriptors need it)."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the backward kernels need 16-byte aligned tensors")
+
+
 def _mlp_rows(L: int) -> int:
     """Rows per MLP chunk: the Pallas kernel's split of an image's L rows
     into max(1, min(4, L // 512)) chunks."""
@@ -71,10 +111,12 @@ def _mlp_rows(L: int) -> int:
 
 
 def swin_block_backward_plain(x: torch.Tensor, p: SwinBlockParams, dp_masks: torch.Tensor,
-                              dout: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                              dout: torch.Tensor, want: Optional[Iterable[str]] = None
+                              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Plain PyTorch version of kernel K3, on any device: x, dout (B, H*W, C),
     dp_masks (B, 2) float32 -> (dx in x's dtype, float32 grads in K2's
-    layout keyed by ``GRAD_KEYS``)."""
+    layout keyed by ``GRAD_KEYS``, only those ``want`` asks for)."""
+    keys = wanted(want, GRAD_KEYS)
     cd = p.qkv_w.dtype
     B, L, C = x.shape
     H, W, w, s, nh = p.H, p.W, p.window, p.shift, p.nh
@@ -104,10 +146,12 @@ def swin_block_backward_plain(x: torch.Tensor, p: SwinBlockParams, dp_masks: tor
         cdf = 0.5 * (1.0 + torch.erf(f1 * _INV_SQRT2))
         fg = (f1 * cdf).to(cd)
         dgelu = cdf + f1 * (torch.exp(-0.5 * f1 * f1) * _INV_SQRT2PI)
-        grads["fc2_w"] += _mm(fg.t(), df2)
+        if "fc2_w" in keys:
+            grads["fc2_w"] += _mm(fg.t(), df2)
         grads["fc2_b"] += df2.float().sum(0)
         df1 = (_mm(df2, p.fc2_w.t()) * dgelu).to(cd)
-        grads["fc1_w"] += _mm(h2c.t(), df1)
+        if "fc1_w" in keys:
+            grads["fc1_w"] += _mm(h2c.t(), df1)
         grads["fc1_b"] += df1.float().sum(0)
         dh2[r0:r0 + rows] = _mm(df1, p.fc1_w.t())
     dh2 = dh2.reshape(B, L, C)
@@ -120,7 +164,8 @@ def swin_block_backward_plain(x: torch.Tensor, p: SwinBlockParams, dp_masks: tor
     if s:
         dbr = torch.roll(dbr, shifts=(-s, -s), dims=(1, 2))
     dA = window_partition(dbr, w).reshape(-1, C).to(cd)
-    grads["proj_w"] = _mm(attn.t(), dA)
+    if "proj_w" in keys:
+        grads["proj_w"] = _mm(attn.t(), dA)
     grads["proj_b"] = dA.float().sum(0)
     dattn = _mm(dA, p.proj_w.t()).to(cd)
     dO = dattn.reshape(-1, N, nh, hd).transpose(1, 2).float()
@@ -133,7 +178,8 @@ def swin_block_backward_plain(x: torch.Tensor, p: SwinBlockParams, dp_masks: tor
     dq = torch.matmul(dSc, k.float())
     dk = torch.matmul(dSc.transpose(-1, -2), q.float())
     dqkv = torch.cat([t.transpose(1, 2).reshape(-1, C) for t in (dq, dk, dV)], -1).to(cd)
-    grads["qkv_w"] = _mm(win.t(), dqkv)
+    if "qkv_w" in keys:
+        grads["qkv_w"] = _mm(win.t(), dqkv)
     grads["qkv_b"] = dqkv.float().sum(0)
     dwin = _mm(dqkv, p.qkv_w.t()).to(cd)
     dh = window_reverse(dwin.reshape(-1, N, C), w, H, W)
@@ -143,16 +189,17 @@ def swin_block_backward_plain(x: torch.Tensor, p: SwinBlockParams, dp_masks: tor
     grads["ln1_w"] = (dh * xhat1).sum((0, 1))
     grads["ln1_b"] = dh.sum((0, 1))
     dx = dy + _ln_bwd(dh, xhat1, r1, p.ln1_w)
-    return dx.to(x.dtype), {k_: grads[k_] for k_ in GRAD_KEYS}
+    return dx.to(x.dtype), {k_: grads[k_] for k_ in keys}
 
 
 def swin_block_backward(x: torch.Tensor, p: SwinBlockParams, dp_masks: torch.Tensor,
-                        dout: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Backward of one training Swin block. A CPU tensor takes
-    ``swin_block_backward_plain``; a CUDA tensor launches kernel K3
-    (bfloat16) or raises."""
+                        dout: torch.Tensor, want: Optional[Iterable[str]] = None
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Backward of one training Swin block, the grads ``want`` asks for (all
+    when None). A CPU tensor takes ``swin_block_backward_plain``; a CUDA
+    tensor launches kernel K3 (bfloat16) or raises."""
     if x.device.type == "cpu":
-        return swin_block_backward_plain(x, p, dp_masks, dout)
+        return swin_block_backward_plain(x, p, dp_masks, dout, want)
     B, L, C = x.shape
     H, W, w, nh = p.H, p.W, p.window, p.nh
     N, hd, hidden = w * w, C // nh, p.fc1_w.shape[1]
@@ -175,10 +222,16 @@ def swin_block_backward(x: torch.Tensor, p: SwinBlockParams, dp_masks: torch.Ten
     nW = (H // w) * (W // w)
     if p.mask is not None:
         check_cuda_tensor("mask", p.mask, torch.float32, (nW, N, N))
+    check_aligned({"x": x, "dout": dout, "dp_masks": dp_masks, "mask": p.mask, **{
+        k_: getattr(p, k_) for k_ in ("qkv_w", "proj_w", "fc1_w", "fc2_w", "ln1_w", "ln1_b",
+                                      "qkv_b", "proj_b", "ln2_w", "ln2_b", "fc1_b", "fc2_b",
+                                      "bias")}})
 
-    shapes = (B, H, W, C, nh, w, p.shift, hidden)
+    shapes = (B, H, W, C, nh, w, p.shift, hidden) + tile_args()
     nbytes = ctypes.c_longlong()
-    KERNEL.lib().swin_block_backward_workspace(*shapes, ctypes.byref(nbytes))
+    rc = KERNEL.lib().swin_block_backward_workspace(*shapes, ctypes.byref(nbytes))
+    if rc != 0:
+        raise ValueError(f"swin_block_backward_workspace refused shapes {shapes}")
     dev = x.device
     ws = torch.empty(nbytes.value, device=dev, dtype=torch.uint8)
     dx = torch.empty_like(x)
@@ -186,7 +239,8 @@ def swin_block_backward(x: torch.Tensor, p: SwinBlockParams, dp_masks: torch.Ten
              "proj_w": (C, C), "proj_b": (C,), "ln2_w": (C,), "ln2_b": (C,),
              "fc1_w": (C, hidden), "fc1_b": (hidden,), "fc2_w": (hidden, C), "fc2_b": (C,),
              "bias": (nh, N, N)}
-    grads = {k_: torch.empty(sizes[k_], device=dev, dtype=torch.float32) for k_ in GRAD_KEYS}
+    keys = wanted(want, GRAD_KEYS)
+    grads = {k_: torch.empty(sizes[k_], device=dev, dtype=torch.float32) for k_ in keys}
     KERNEL.launches += 1
     KERNEL.call("swin_block_backward",
                 x.data_ptr(), dout.data_ptr(), dp_masks.data_ptr(), p.ln1_w.data_ptr(),
@@ -195,8 +249,83 @@ def swin_block_backward(x: torch.Tensor, p: SwinBlockParams, dp_masks: torch.Ten
                 p.ln2_b.data_ptr(), p.fc1_w.data_ptr(), p.fc1_b.data_ptr(),
                 p.fc2_w.data_ptr(), p.fc2_b.data_ptr(), p.bias.data_ptr(),
                 p.mask.data_ptr() if p.mask is not None else None, dx.data_ptr(),
-                *(grads[k_].data_ptr() for k_ in GRAD_KEYS), ws.data_ptr(), *shapes)
+                *(grads[k_].data_ptr() if k_ in grads else None for k_ in GRAD_KEYS),
+                ws.data_ptr(), *shapes)
     return dx, grads
+
+
+def bwd_gemm_plain(form: str, a0: torch.Tensor, b0: torch.Tensor,
+                   a1: Optional[torch.Tensor] = None, b1: Optional[torch.Tensor] = None,
+                   bias: Optional[torch.Tensor] = None,
+                   gelu: bool = False) -> Dict[str, torch.Tensor]:
+    """Plain version of one GEMM form of K3/K5's backward layer
+    (``GEMM_FORMS``), float32 sums of the bf16 operands: nn a0 b0 (+ bias,
+    GELU), rounded ("out") or float32 ("out_f32"); nt a0 b0^T the same; cat
+    a0 b0^T + a1 b1^T (float32); dual: out = bf16(gelu(a0 b0 + bias)), out1 =
+    bf16((a1 b1^T) gelu'(a0 b0 + bias)) and colsum, the column sums of out1;
+    tt a0^T b0 (float32)."""
+    cd = a0.dtype
+    if form == "tt":
+        return {"out_f32": _mm(a0.t(), b0)}
+    if form == "dual":
+        f1 = _mm(a0, b0) + bias
+        cdf = 0.5 * (1.0 + torch.erf(f1 * _INV_SQRT2))
+        d = (_mm(a1, b1.t()) * (cdf + f1 * (torch.exp(-0.5 * f1 * f1) * _INV_SQRT2PI))).to(cd)
+        return {"out": (f1 * cdf).to(cd), "out1": d, "colsum": d.float().sum(0)}
+    f = _mm(a0, b0) if form.startswith("nn") else _mm(a0, b0.t())
+    if form == "cat":
+        return {"out_f32": f + _mm(a1, b1.t())}
+    if bias is not None:
+        f = f + bias
+    if gelu:
+        f = 0.5 * f * (1.0 + torch.erf(f * _INV_SQRT2))
+    return {"out_f32": f} if form.endswith("_f32") else {"out": f.to(cd)}
+
+
+def bwd_gemm(form: str, a0: torch.Tensor, b0: torch.Tensor, a1: Optional[torch.Tensor] = None,
+             b1: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+             gelu: bool = False, bn: int = 128,
+             tt_items: int = TILES["tt_items"]) -> Dict[str, torch.Tensor]:
+    """One GEMM form of the backward layer alone, as ``bwd_gemm_plain``: a
+    CPU tensor takes the plain version, CUDA bf16 operands launch the
+    kernel (tile width ``bn``; tt split for ``tt_items`` work items) or
+    raise. Operands: nn b0 (K, N); nt, cat, the dual's b1 (N, K); tt a0
+    (rows, Ka), b0 (rows, N)."""
+    if a0.device.type == "cpu":
+        return bwd_gemm_plain(form, a0, b0, a1, b1, bias, gelu)
+    if form not in GEMM_FORMS or bn not in (64, 128):
+        raise NotImplementedError(f"forms {GEMM_FORMS}, bn 64 or 128 (got {form!r}, {bn})")
+    for name, t in (("a0", a0), ("b0", b0), ("a1", a1), ("b1", b1)):
+        if t is not None:
+            check_cuda_tensor(name, t, torch.bfloat16)
+    if form == "tt":
+        K0, M, N = a0.shape[0], a0.shape[1], b0.shape[1]
+    else:
+        M, K0 = a0.shape
+        N = b0.shape[1] if form.startswith("nn") or form == "dual" else b0.shape[0]
+    K1 = a1.shape[1] if a1 is not None else 8
+    if bias is not None:
+        check_cuda_tensor("bias", bias, torch.float32, (N,))
+    dev = a0.device
+    outs = {}
+    if form in ("nn", "nt", "dual"):
+        outs["out"] = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+    if form == "dual":
+        outs["out1"] = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+        outs["colsum"] = torch.empty(-(-M // 128), N, device=dev)
+    if form in ("nn_f32", "nt_f32", "cat", "tt"):
+        outs["out_f32"] = torch.empty(M, N, device=dev)
+    nbytes = ctypes.c_longlong()
+    KERNEL.lib().swin_bwd_gemm_workspace(K0, M, N, bn, tt_items, ctypes.byref(nbytes))
+    ws = torch.empty(max(nbytes.value, 4), device=dev, dtype=torch.uint8)
+    dp = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    KERNEL.call("swin_bwd_gemm", GEMM_FORMS.index(form), bn, tt_items, dp(a0), dp(b0), K0,
+                dp(a1), dp(b1), K1, M, N, dp(bias), int(gelu), dp(outs.get("out")),
+                dp(outs.get("out1")), dp(outs.get("out_f32")), dp(outs.get("colsum")),
+                ws.data_ptr())
+    if form == "dual":
+        outs["colsum"] = outs["colsum"].sum(0)
+    return outs
 
 
 @lru_cache(maxsize=8)
@@ -220,19 +349,31 @@ def block_parameters(block: SwinTransformerBlock) -> List[torch.nn.Parameter]:
             a.relative_position_bias_table]
 
 
-def module_grads(block: SwinTransformerBlock, g: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+def module_grads(block: SwinTransformerBlock,
+                 g: Dict[str, torch.Tensor]) -> List[Optional[torch.Tensor]]:
     """Kernel-layout grads -> grads of ``block_parameters(block)``: (in, out)
     matrices transposed to the Linear (out, in) layout, the q columns of
     qkv multiplied by the q-scale folded into the kernel's weights, and the
-    (nh, N, N) bias grad folded onto the relative-position table."""
+    (nh, N, N) bias grad folded onto the relative-position table; None for a
+    key ``g`` lacks."""
     C, nh, w = block.dim, block.num_heads, block.window_size
-    qs = torch.ones(3 * C, device=g["qkv_b"].device)
+    dev = next(iter(g.values())).device
+    qs = torch.ones(3 * C, device=dev)
     qs[:C] = (C // nh) ** -0.5
-    dbias = g["bias"].permute(1, 2, 0).reshape(w ** 4, nh)
-    dtable = torch.matmul(_table_fold(w, dbias.device), dbias)
-    return [g["ln1_w"], g["ln1_b"], g["qkv_w"].t() * qs[:, None], g["qkv_b"] * qs,
-            g["proj_w"].t(), g["proj_b"], g["ln2_w"], g["ln2_b"], g["fc1_w"].t(),
-            g["fc1_b"], g["fc2_w"].t(), g["fc2_b"], dtable]
+    dtable = None
+    if "bias" in g:
+        dbias = g["bias"].permute(1, 2, 0).reshape(w ** 4, nh)
+        dtable = torch.matmul(_table_fold(w, dbias.device), dbias)
+    layout = {"qkv_w": lambda t: t.t() * qs[:, None], "qkv_b": lambda t: t * qs,
+              "proj_w": lambda t: t.t(), "fc1_w": lambda t: t.t(), "fc2_w": lambda t: t.t()}
+    out = [layout.get(k, lambda t: t)(g[k]) if k in g else None for k in GRAD_KEYS[:-1]]
+    return out + [dtable]
+
+
+def wanted_keys(keys: Iterable[str], needs: Iterable[bool]) -> Tuple[str, ...]:
+    """The grad keys whose parameters autograd asks for (``needs``, in the
+    parameters' order)."""
+    return tuple(k for k, need in zip(keys, needs) if need)
 
 
 class SwinBlockTrain(torch.autograd.Function):
@@ -258,7 +399,8 @@ class SwinBlockTrain(torch.autograd.Function):
         x, dp_masks = ctx.saved_tensors
         p = ctx.prepared
         fn = swin_block_backward if ctx.use_kernels else swin_block_backward_plain
-        dx, g = fn(x.to(p.qkv_w.dtype), p, dp_masks, dout.to(p.qkv_w.dtype).contiguous())
+        want = wanted_keys(GRAD_KEYS, ctx.needs_input_grad[5:])
+        dx, g = fn(x.to(p.qkv_w.dtype), p, dp_masks, dout.to(p.qkv_w.dtype).contiguous(), want)
         return (dx.to(x.dtype), None, None, None, None, *module_grads(ctx.block, g))
 
 

@@ -3,12 +3,16 @@
 
 Runs, in each checkout and in a process of its own, K6 (the PaSST ViT block,
 B=4 x 602 tokens, and its GEMM core at the block's four served GEMM shapes
-with each tile) and K7 (the CNN12 trunk's six ConvBlocks, pair mode, B=2) on
-inputs made from fixed seeds, saves the outputs in a temporary directory
-(about 2 GB), and prints for each output whether the two checkouts gave the
-same bits. Exits
+with each tile), K7 (the CNN12 trunk's six ConvBlocks, pair mode, B=2), K2
+(the Swin block at each stage shape, B=2, served with the merge fold where
+HTSAT has one, and with drop-path masks), K4 (the block with AdapterBit
+adapters, B=2, with masks), K11 (each whole eval Swin stage, B=2) and K3 and
+K5 (the block backwards, B=2, dx and every grad) on inputs made from fixed
+seeds, saves the outputs in a temporary directory (about 2 GB), and prints
+for each output whether the two checkouts gave the same bits. Exits
 non-zero when a run fails; a difference is reported, not an error (a change
-to a kernel's arithmetic may be meant).
+to a kernel's arithmetic may be meant; ``--meant K3,K5`` labels the kernels
+whose differences are expected).
 
     python3 scripts/torch_bits_ab.py _archive/parent .
 
@@ -27,7 +31,11 @@ import sys, torch
 sys.path.insert(0, '.')
 from pseldnets_tpu_torch.models.factory import init_weights
 from pseldnets_tpu_torch.models.passt import Block
-from pseldnets_tpu_torch.ops import conv_block, vit_block
+from pseldnets_tpu_torch.config import compose
+from pseldnets_tpu_torch.models.adapters import Adapter, AdaptConfig
+from pseldnets_tpu_torch.models.htsat import PatchMerging, SwinTransformerBlock
+from pseldnets_tpu_torch.ops import (conv_block, swin_block, swin_block_adapt, swin_block_vjp,
+                                     swin_stage, vit_block)
 
 g = torch.Generator().manual_seed(0)
 out = {}
@@ -55,6 +63,48 @@ for T, F, cin, cout in ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 25
     b1, b2 = torch.randn(cout, generator=g).cuda(), torch.randn(cout, generator=g).cuda()
     out[f"K7 pair T={T} F={F} {cin}->{cout}"] = conv_block.conv3x3_bias_relu(
         x.cuda().bfloat16(), w1.cuda().bfloat16(), b1, w2.cuda().bfloat16(), b2)
+adapt = AdaptConfig(compose('configs', 'train', ['adapt=adapter'])['adapt'])
+m = torch.tensor([[1 / 0.9, 0.0], [0.0, 1 / 0.9]]).cuda()
+for i in range(4):
+    H, C, nh = 64 >> i, 96 << i, 4 << i
+    shifts = (0, 4) if i < 3 else (0,)
+    for shift in shifts:
+        blk = SwinTransformerBlock(C, (H, H), nh, 8, shift_size=shift)
+        init_weights(blk, g)
+        mrg = PatchMerging((H, H), C) if i < 3 else None
+        if mrg is not None:
+            init_weights(mrg, g)
+            mrg = mrg.cuda().eval()
+        blk = blk.cuda().eval()
+        x = torch.randn(2, H * H, C, generator=g).cuda().bfloat16()
+        dout = torch.randn(2, H * H, C, generator=g).cuda().bfloat16()
+        p = swin_block.prepare_block(blk, torch.bfloat16)
+        out[f"K2 stage {i} shift {shift}"] = swin_block.swin_block_fused(x, p)
+        out[f"K2 stage {i} shift {shift} masks"] = swin_block.swin_block_fused(x, p, m)
+        if mrg is not None:
+            out[f"K2 stage {i} shift {shift} merge"] = swin_block.swin_block_fused(
+                x, swin_block.prepare_block(blk, torch.bfloat16, mrg))
+        dx, gr = swin_block_vjp.swin_block_backward(x, p, m, dout)
+        out[f"K3 stage {i} shift {shift} dx"] = dx
+        out.update({f"K3 stage {i} shift {shift} {k}": v for k, v in gr.items()})
+        ablk = SwinTransformerBlock(C, (H, H), nh, 8, shift_size=shift, adapt=adapt)
+        init_weights(ablk, g)
+        with torch.no_grad():
+            for ad in [a for a in ablk.modules() if isinstance(a, Adapter)]:
+                ad.fc2.weight.copy_(torch.randn(ad.fc2.weight.shape, generator=g) * 0.1)
+        ap = swin_block_adapt.prepare_adapt_block(ablk.cuda(), torch.bfloat16)
+        out[f"K4 stage {i} shift {shift} masks"] = swin_block_adapt.swin_block_adapt_fused(x, ap, m)
+        dx, gr = swin_block_adapt.swin_block_adapt_backward(x, ap, m, dout)
+        out[f"K5 stage {i} shift {shift} dx"] = dx
+        out.update({f"K5 stage {i} shift {shift} {k}": v for k, v in gr.items()})
+    layer = torch.nn.Module()
+    layer.blocks = torch.nn.ModuleList(  # HTSAT's stage: shifts 0, 4, ... (none at 8x8)
+        [SwinTransformerBlock(C, (H, H), nh, 8, shift_size=4 if j % 2 and i < 3 else 0)
+         for j in range((2, 2, 6, 2)[i])])
+    init_weights(layer, g)
+    sp = swin_stage.prepare_stage(layer.cuda().eval(), torch.bfloat16)
+    x = torch.randn(2, H * H, C, generator=g).cuda().bfloat16()
+    out[f"K11 stage {i}"] = swin_stage.swin_stage_fused_v2(x, sp)
 torch.cuda.synchronize()
 torch.save({k: v.cpu() for k, v in out.items()}, sys.argv[1])
 """
@@ -64,7 +114,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("a", type=Path)
     ap.add_argument("b", type=Path)
+    ap.add_argument("--meant", default="", help="kernels whose differences are meant, e.g. K3,K5")
     args = ap.parse_args()
+    meant = tuple(k + " " for k in args.meant.split(",") if k)
     import torch
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -79,8 +131,11 @@ def main():
         a, b = (torch.load(p) for p in saved)
     same = {k: bool(k in b and a[k].shape == b[k].shape and torch.equal(a[k], b[k])) for k in a}
     for k, v in same.items():
-        print(f"{k}: {'same bits' if v else 'DIFFERENT'}", flush=True)
-    print(json.dumps({"same_bits": same}))
+        note = "same bits" if v else (
+            "different (meant)" if k.startswith(meant) else "DIFFERENT")
+        print(f"{k}: {note}", flush=True)
+    unmeant = [k for k, v in same.items() if not v and not k.startswith(meant)]
+    print(json.dumps({"same_bits": same, "unmeant_differences": unmeant}))
 
 
 if __name__ == "__main__":

@@ -35,6 +35,8 @@ PATTERNS = {
     "adapter_train_ms": r"^AdapterBit training: ([\d.]+) ms/step",
     "k4_masks_x12_ms": r"^AdapterBit per step of \d+ .*?K4 with masks x12 ([\d.]+) ms",
     "k5_x12_ms": r"^AdapterBit per step of \d+ .*?K5 x12 ([\d.]+) ms",
+    "k5_training_form_x12_ms": r"^AdapterBit per step of \d+ .*?K5 x12 in the training form "
+                               r"([\d.]+) ms",
     "adapter_rest_ms": r"^AdapterBit per step of \d+ .*?rest ([-\d.]+) ms",
     "passt_served_ms": r"^PaSST served: ([\d.]+) ms/batch",
     "k6_x7_ms": r"^PaSST per batch of \d+ .*?K6 x7 ([\d.]+) ms",

@@ -455,3 +455,59 @@ def test_bridge_carries_adapter_keys():
         k: v for k, v in variables["params"]["encoder"]["layers_0"].items() if k != "blocks_1"}
     with pytest.raises(KeyError, match="blocks.1"):
         jax_to_torch_state_dict(dict(short, batch_stats=variables["batch_stats"]), tm)
+
+
+# AdapterBit's trained grads of a block (train/optim.py::trainable_mask)
+_TRAINED = ("ln1_b", "qkv_b", "proj_b", "ln2_b", "fc1_b", "fc2_b", "sa1_w", "sa1_b", "sa2_w",
+            "sa2_b", "ma1_w", "ma1_b", "ma2_w", "ma2_b")
+
+
+@pytest.mark.parametrize("positions,want", [(BOTH, _TRAINED), (("MlpAdapter",), _TRAINED),
+                                            (BOTH, ("qkv_w", "bias", "sa2_w", "ma1_b"))])
+def test_masked_plain_backward_returns_exactly_the_wanted_grads(rng, positions, want):
+    """K5's plain version asked for some grads returns those of the block's
+    present adapters and K3's set only, each with the full form's bits, and
+    the full form's dx."""
+    _, _, tblk, x = _block_pair(rng, 4, positions)
+    p = swin_block_adapt.prepare_adapt_block(tblk, torch.float32)
+    xt, m = torch.from_numpy(x), torch.from_numpy(_masks(rng, x.shape[0]))
+    dout = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    dx, g = swin_block_adapt.swin_block_adapt_backward_plain(xt, p, m, dout)
+    dxm, gm = swin_block_adapt.swin_block_adapt_backward_plain(xt, p, m, dout, want)
+    assert set(gm) == set(want) & set(g)
+    assert torch.equal(dxm, dx) and all(torch.equal(gm[k], g[k]) for k in gm)
+
+
+def test_adapt_train_asks_only_for_what_autograd_wants(rng, monkeypatch):
+    """Under AdapterBit's freeze (train/optim.py::trainable_mask on the
+    block's names), SwinBlockAdaptTrain's backward asks K5 for the biases
+    and adapters only, and their grads equal the full backward's."""
+    from pseldnets_tpu_torch.train.optim import trainable_mask
+
+    _, _, tblk, x = _block_pair(rng, 4)
+    masks = torch.from_numpy(_masks(rng, x.shape[0]))
+    dout = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    asked = []
+    plain = swin_block_adapt.swin_block_adapt_backward_plain
+
+    def record(*args):
+        asked.append(args[4])
+        return plain(*args)
+
+    monkeypatch.setattr(swin_block_adapt, "swin_block_adapt_backward_plain", record)
+    params = swin_block_adapt.adapt_block_parameters(tblk)
+    xb = torch.from_numpy(x).requires_grad_(True)
+    full = torch.autograd.grad((swin_block_adapt.swin_block_adapt_train(
+        xb, tblk, masks, torch.float32, use_kernels=False) * dout).sum(), [xb] + params)
+    names = [n for n, _ in tblk.named_parameters()]
+    for (n, prm), trains in zip(tblk.named_parameters(), trainable_mask(names, "adapter")):
+        prm.requires_grad_(trains)
+    out = swin_block_adapt.swin_block_adapt_train(xb, tblk, masks, torch.float32,
+                                                  use_kernels=False)
+    (out * dout).sum().backward()
+    assert set(asked[-1]) == set(_TRAINED)
+    for prm, ref in zip(params, full[1:]):
+        if prm.requires_grad:
+            assert torch.equal(prm.grad, ref)
+        else:
+            assert prm.grad is None

@@ -417,3 +417,133 @@ def test_swin_stage_kernel_takes_any_zero_base_pattern(card):
         swin_stage.swin_stage_fused_v2(x, sp)
     assert swin_stage.KERNEL.launches == before + 1
     _check_stage(got, x, sp)
+
+
+# the backward layer's GEMM forms at the shapes K3 and K5 give them (B=2 rows
+# of each stage; ragged rows), each tile width: (form, M, K, N, K1)
+_BWD_GEMMS = [
+    ("nn", 8192, 96, 288, 0), ("nn", 2048, 192, 576, 0), ("nn", 333, 384, 1152, 0),
+    ("nn", 128, 768, 384, 0), ("nn_f32", 8192, 64, 96, 0), ("nt", 8192, 288, 96, 0),
+    ("nt", 512, 1152, 384, 0), ("nt_f32", 8192, 384, 96, 0), ("nt_f32", 200, 3072, 768, 0),
+    ("cat", 8192, 384, 96, 64), ("cat", 333, 1536, 384, 192), ("dual", 8192, 96, 384, 0),
+    ("dual", 512, 384, 1536, 0), ("dual", 8192, 96, 64, 0), ("dual", 333, 192, 96, 0),
+    ("tt", 8192, 96, 288, 0), ("tt", 8192, 384, 96, 0), ("tt", 8192, 64, 96, 0),
+    ("tt", 2048, 768, 3072, 0), ("tt", 333, 192, 576, 0), ("tt", 131072, 96, 96, 0)]
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("form,M,K,N,K1", _BWD_GEMMS)
+def test_bwd_gemm_forms_match_plain(card, form, M, K, N, K1, bn):
+    """Each GEMM form of K3/K5's Hopper layer alone (TMA boxes, the
+    transposed operands, the epilogues, the row split of the weight grads
+    and its ordered reduction) against its plain version: bf16 outputs
+    within 2^-7, float32 within 2^-12 of the largest magnitude (float32 sums
+    in another order); two launches give equal bits. A wrong TMA descriptor
+    gives wrong numbers, not a crash."""
+    gen = torch.Generator().manual_seed(M + K + N + bn)
+    bf = lambda *s: (torch.randn(*s, generator=gen) / max(s[-1], 1) ** 0.25).to(card).bfloat16()  # noqa: E731
+    a1 = b1 = None
+    if form == "tt":
+        a0, b0 = bf(M, K), bf(M, N)
+    elif form.startswith("nn"):
+        a0, b0 = bf(M, K), bf(K, N)
+    else:
+        a0, b0 = bf(M, K), bf(N, K)
+    if form == "dual":
+        a0, b0, a1, b1 = bf(M, K), bf(K, N), bf(M, K), bf(N, K)
+    if form == "cat":
+        a1, b1 = bf(M, K1), bf(N, K1)
+    bias = (torch.randn(N, generator=gen) * 0.3).to(card) if form in ("nn", "dual") else None
+    gelu = form == "nn" and N % 3 == 0
+    kw = dict(a1=a1, b1=b1, bias=bias, gelu=gelu)
+    got = swin_block_vjp.bwd_gemm(form, a0, b0, bn=bn, **kw)
+    again = swin_block_vjp.bwd_gemm(form, a0, b0, bn=bn, **kw)
+    ref = swin_block_vjp.bwd_gemm_plain(form, a0, b0, **kw)
+    assert set(got) == set(ref)
+    for k, r in ref.items():
+        assert torch.equal(got[k], again[k]), k
+        g, r = got[k].float(), r.float()
+        assert g.shape == r.shape, k
+        tol = 2.0 ** -12 if k == "out_f32" else 2.0 ** -7
+        assert (g - r).abs().max() <= tol * r.abs().max(), k
+
+
+def _train_block(card, stage, shift, seed, adapt=None):
+    gen = torch.Generator().manual_seed(seed)
+    H, C, nh = 64 >> stage, 96 << stage, 4 << stage
+    blk = SwinTransformerBlock(C, (H, H), nh, 8, shift_size=shift, **(
+        {"adapt": adapt} if adapt is not None else {}))
+    init_weights(blk, gen)
+    if adapt is not None:
+        with torch.no_grad():
+            for ad in swin_block_adapt.block_adapters(blk).values():
+                ad.fc2.weight.copy_(torch.randn(ad.fc2.weight.shape, generator=gen) * 0.3)
+    blk.to(card)
+    x = torch.randn(2, H * H, C, generator=gen).to(card).bfloat16()
+    dout = torch.randn(2, H * H, C, generator=gen).to(card).bfloat16()
+    m = torch.tensor([[1 / 0.9, 0.0], [0.0, 1 / 0.9]], device=card)
+    return blk, x, dout, m
+
+
+_ADAPT = AdaptConfig({"method": "adapter", "adapt_kwargs": {
+    "position": ["MlpAdapter", "SpatialAdapter"], "type": "adapter", "mlp_ratio": 0.5,
+    "adapter_scalar": 0.1, "act_layer": "gelu"}})
+# AdapterBit's trained grads of a block (train/optim.py::trainable_mask)
+_ADAPT_TRAINED = ("ln1_b", "qkv_b", "proj_b", "ln2_b", "fc1_b", "fc2_b") + tuple(
+    k for keys in swin_block_adapt.ADAPTER_KEYS.values() for k in keys)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4), (2, 0), (2, 4), (3, 0)])
+@pytest.mark.parametrize("kernel", ["K3", "K5"])
+def test_block_backward_kernels_full_and_masked(card, kernel, stage, shift, masked):
+    """K3 and K5 at every stage shape, shifted and unshifted, B=2, in the
+    full form (every grad, the Pallas kernel's set) and the masked form
+    (AdapterBit's trained grads only): each output within 2^-6 of its
+    largest magnitude of the plain bf16 version, the masked form returning
+    exactly the wanted keys, and two launches giving equal bits."""
+    want = _ADAPT_TRAINED if masked else None
+    if kernel == "K3":
+        blk, x, dout, m = _train_block(card, stage, shift, 40 + stage)
+        p = swin_block.prepare_block(blk, torch.bfloat16)
+        run = lambda: swin_block_vjp.swin_block_backward(x, p, m, dout, want)  # noqa: E731
+        dx0, g0 = swin_block_vjp.swin_block_backward_plain(x, p, m, dout, want)
+    else:
+        blk, x, dout, m = _train_block(card, stage, shift, 50 + stage, _ADAPT)
+        p = swin_block_adapt.prepare_adapt_block(blk, torch.bfloat16)
+        run = lambda: swin_block_adapt.swin_block_adapt_backward(x, p, m, dout, want)  # noqa: E731
+        dx0, g0 = swin_block_adapt.swin_block_adapt_backward_plain(x, p, m, dout, want)
+    (dx, g), (dx2, g2) = run(), run()
+    assert set(g) == set(g0) == set(g2)
+    if masked:
+        keys = swin_block_vjp.GRAD_KEYS if kernel == "K3" else swin_block_adapt.ALL_KEYS
+        assert set(g) == set(want) & set(keys)
+    assert torch.equal(dx, dx2) and all(torch.equal(g[k], g2[k]) for k in g)
+    for name, a, b in [("dx", dx, dx0)] + [(k, g[k], g0[k]) for k in g0]:
+        a, b = a.float(), b.float()
+        assert a.shape == b.shape, name
+        assert (a - b).abs().max() <= 2.0 ** -6 * b.abs().max(), name
+
+
+def test_block_backward_kernels_raise_on_what_they_do_not_take(card, monkeypatch):
+    """No fallback: a window other than 8x8, a misaligned tensor and tiles
+    the C entry refuses raise; nothing launches the plain version."""
+    blk, x, dout, m = _train_block(card, 3, 0, 60)
+    p = swin_block.prepare_block(blk, torch.bfloat16)
+    with pytest.raises(ValueError):  # misaligned: 2 bytes past an aligned base
+        xm = torch.empty(x.numel() + 8, device=card, dtype=torch.bfloat16)[1:1 + x.numel()]
+        swin_block_vjp.swin_block_backward(xm.view_as(x), p, m, dout)
+    blk7 = SwinTransformerBlock(768, (7, 7), 32, 7).to(card)
+    p7 = swin_block.prepare_block(blk7, torch.bfloat16)
+    x7 = torch.randn(2, 49, 768, device=card).bfloat16()
+    with pytest.raises(NotImplementedError):
+        swin_block_vjp.swin_block_backward(x7, p7, m, x7)
+    monkeypatch.setitem(swin_block_vjp.TILES, "bn_nt", 96)
+    with pytest.raises(ValueError):  # the size query refuses the tile
+        swin_block_vjp.swin_block_backward(x, p, m, dout)
+    ablk, ax, adout, am = _train_block(card, 3, 0, 61, _ADAPT)
+    ap = swin_block_adapt.prepare_adapt_block(ablk, torch.bfloat16)
+    with pytest.raises(ValueError):
+        swin_block_adapt.swin_block_adapt_backward(ax, ap, am, adout)
+    with pytest.raises(NotImplementedError):
+        swin_block_vjp.bwd_gemm("nn", x[0], p.qkv_w, bn=96)

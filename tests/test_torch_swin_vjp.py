@@ -175,3 +175,51 @@ def test_backward_wrapper_counts_launches_only_on_cuda(rng):
     # the tiny task's hop >= n_fft: the JAX package keeps it off its kernel too
     tiny = LogmelIVExtractor(compose(str(ROOT / "configs"), "train", TINY_TASK))
     assert tiny.hop >= tiny.n_fft
+
+
+@pytest.mark.parametrize("want", [
+    ("ln1_b", "qkv_b", "proj_b", "ln2_b", "fc1_b", "fc2_b"), ("qkv_w", "bias", "ln2_w"), ()])
+def test_masked_plain_backward_returns_exactly_the_wanted_grads(rng, want):
+    """K3's plain version asked for some grads (the mask K3's C entry takes as
+    null pointers) returns those keys only, each with the full form's bits,
+    and the full form's dx."""
+    _, _, tblk, x = _block_pair(rng, 4)
+    p = swin_block.prepare_block(tblk, torch.float32)
+    xt, m = torch.from_numpy(x), torch.from_numpy(_masks(rng, x.shape[0]))
+    dout = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    dx, g = swin_block_vjp.swin_block_backward_plain(xt, p, m, dout)
+    dxm, gm = swin_block_vjp.swin_block_backward_plain(xt, p, m, dout, want)
+    assert set(g) == set(swin_block_vjp.GRAD_KEYS) and set(gm) == set(want)
+    assert torch.equal(dxm, dx) and all(torch.equal(gm[k], g[k]) for k in want)
+
+
+def test_swin_block_train_asks_only_for_what_autograd_wants(rng, monkeypatch):
+    """SwinBlockTrain's backward passes ``ctx.needs_input_grad`` on as the
+    grads it wants: a frozen parameter's grad is neither asked for nor
+    returned, and the trained ones equal the full backward's."""
+    _, _, tblk, x = _block_pair(rng, 0)
+    masks = torch.from_numpy(_masks(rng, x.shape[0]))
+    dout = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    asked = []
+    plain = swin_block_vjp.swin_block_backward_plain
+
+    def record(*args):
+        asked.append(args[4])
+        return plain(*args)
+
+    monkeypatch.setattr(swin_block_vjp, "swin_block_backward_plain", record)
+    params = swin_block_vjp.block_parameters(tblk)
+    xb = torch.from_numpy(x).requires_grad_(True)
+    full = torch.autograd.grad((swin_block_vjp.swin_block_train(
+        xb, tblk, masks, torch.float32, use_kernels=False) * dout).sum(), [xb] + params)
+    assert set(asked[-1]) == set(swin_block_vjp.GRAD_KEYS)
+    for prm in (tblk.attn.qkv.weight, tblk.norm1.weight, tblk.attn.relative_position_bias_table):
+        prm.requires_grad_(False)
+    out = swin_block_vjp.swin_block_train(xb, tblk, masks, torch.float32, use_kernels=False)
+    (out * dout).sum().backward()
+    assert set(asked[-1]) == set(swin_block_vjp.GRAD_KEYS) - {"qkv_w", "ln1_w", "bias"}
+    assert tblk.attn.qkv.weight.grad is None and tblk.norm1.weight.grad is None
+    for prm, ref in zip(params, full[1:]):
+        if prm.requires_grad:
+            assert torch.equal(prm.grad, ref)
+    assert torch.equal(xb.grad, full[0])
