@@ -182,7 +182,10 @@ def phase_build():
 
 
 def phase_frontend():
-    """K1 against its plain version at B_CHECK 10 s clips."""
+    """K1 against its plain version at B_CHECK 10 s clips, in the three forms
+    the paths use (training: float32, no folds; served HTSAT: affine, bf16,
+    1024 frames; PaSST and CRNN: affine, bf16, 1001 frames), with a silent
+    stretch; a second launch of each form gives equal bits."""
     import torch
     from pseldnets_tpu_torch.ops.frontend import fused_logmel_iv, fused_logmel_iv_plain
 
@@ -194,26 +197,50 @@ def phase_frontend():
     ref = fused_logmel_iv_plain(x)
     check(got.shape == ref.shape == (B_CHECK, 7, 1001, 64), f"K1 shape {tuple(got.shape)}")
     check(bool(torch.isfinite(got).all()), "K1 output not finite")
+    check(torch.equal(got, fused_logmel_iv(x)), "K1 float32: two launches differ")
     db = (got[:, :4] - ref[:, :4]).abs().max().item()
     iv = (got[:, 4:] - ref[:, 4:]).abs().max().item()
-    log(f"K1 float32: max |dB| {db:.3g} (<= 8e-4), max |IV| {iv:.3g} (<= 7e-5)")
+    log(f"K1 float32: max |dB| {db:.3g} (<= 8e-4), max |IV| {iv:.3g} (<= 7e-5), "
+        f"two launches equal")
     check(db <= 8e-4 and iv <= 7e-5, "K1 float32 outside the feature budget")
-    # serving form: eval ScalarBN affine, bf16, zero tail to 1024 frames.
-    # Both sides round the same float32 values to bf16: at most one bf16
-    # ulp apart (2^-7 of the magnitude, or of 1 below 1)
+    # serving forms: eval ScalarBN affine, bf16, zero tail to 1024 frames
+    # (HTSAT) or none (PaSST, CRNN). Both sides round the same float32
+    # values to bf16: at most one bf16 ulp apart (2^-7 of the magnitude, or
+    # of 1 below 1)
     inv = torch.rand(7, 64, device="cuda", generator=g) + 0.5
     shift = torch.randn(7, 64, device="cuda", generator=g)
-    kw = dict(post_affine=(inv, shift), out_dtype=torch.bfloat16, t_out=1024)
-    got_s = fused_logmel_iv(x, **kw)
-    ref_s = fused_logmel_iv_plain(x, **kw)
-    check(got_s.shape == (B_CHECK, 7, 1024, 64) and got_s.dtype == torch.bfloat16,
-          "K1 serving form shape/dtype")
-    check(bool((got_s[:, :, 1001:] == 0).all()), "K1 zero tail")
-    rel = ((got_s.float() - ref_s.float()).abs()
-           / ref_s.float().abs().clamp(min=1.0)).max().item()
-    log(f"K1 serving form (affine, bf16, 1024 frames): max err {rel:.3g} of "
-        f"max(|x|, 1) (<= 2^-7)")
-    check(rel <= 2.0 ** -7, "K1 serving form disagrees with its plain version")
+    for t_out in (1024, None):
+        kw = dict(post_affine=(inv, shift), out_dtype=torch.bfloat16, t_out=t_out)
+        got_s = fused_logmel_iv(x, **kw)
+        ref_s = fused_logmel_iv_plain(x, **kw)
+        frames = t_out or 1001
+        check(got_s.shape == (B_CHECK, 7, frames, 64) and got_s.dtype == torch.bfloat16,
+              "K1 serving form shape/dtype")
+        check(bool((got_s[:, :, 1001:] == 0).all()), "K1 zero tail")
+        check(bool(torch.isfinite(got_s.float()).all()), "K1 serving form not finite")
+        check(torch.equal(got_s, fused_logmel_iv(x, **kw)), "K1 serving form: launches differ")
+        rel = ((got_s.float() - ref_s.float()).abs()
+               / ref_s.float().abs().clamp(min=1.0)).max().item()
+        log(f"K1 serving form (affine, bf16, {frames} frames): max err {rel:.3g} of "
+            f"max(|x|, 1) (<= 2^-7), two launches equal")
+        check(rel <= 2.0 ** -7, "K1 serving form disagrees with its plain version")
+
+
+def rfft_yardstick_ms(x, reps=10):
+    """cuFFT's time for the FFT phase alone, as a yardstick beside K1:
+    torch.fft.rfft of the windowed 1024-point frames of x (made beforehand,
+    not timed); the port never calls it."""
+    import torch
+    from pseldnets_tpu_torch.ops.frontend_forms import padded_signal
+    from pseldnets_tpu_torch.ops.windows import get_window
+
+    win = torch.as_tensor(get_window("hann", 1024), dtype=torch.float32, device=x.device)
+    n_frames = 1 + x.shape[-1] // 240
+    frames = (padded_signal(x, 1024, 240).unfold(-1, 1024, 240)[..., :n_frames, :]
+              * win).contiguous()
+    ms = cuda_ms(lambda: torch.fft.rfft(frames), reps=reps)
+    del frames
+    return ms
 
 
 def random_block(i, shift, merge, gen):
@@ -531,6 +558,10 @@ def phase_serve(smi):
             f"plain {tp:.3f} ms, bound {k2_rows[-1][2]:.4f} ms")
     nb1, fl1 = k1_work(B_SERVE)
     k1_bound, k1_by = bound_ms(nb1, f32_flops=fl1)
+    rfft_ms = rfft_yardstick_ms(wav)
+    log(f"K1 at B={B_SERVE}: {k1:.4f} ms, bound {k1_bound:.4f} ms by {k1_by}; cuFFT rfft of "
+        f"its {B_SERVE * 4 * 1001} windowed frames alone (yardstick) {rfft_ms:.4f} ms ({smi})")
+    b128 = serve_b128(model, blocks, smi)
     k2_ms = sum(r[0] for r in k2_rows)
     k2_plain = sum(r[1] for r in k2_rows)
     k2_bound = sum(r[2] for r in k2_rows)
@@ -538,8 +569,36 @@ def phase_serve(smi):
         f"{k1_bound:.3f}), K2 x12 {k2_ms:.3f} ms (plain {k2_plain:.3f}, bound "
         f"{k2_bound:.3f}), rest {dt * 1e3 - k1 - k2_ms:.3f} ms")
     phase_profile("one served batch", lambda: serve(wav))
-    return launches, {"K1": (k1_err, k1_rel, k1, k1_plain, k1_bound, k1_by),
+    return launches, {"K1": (k1_err, k1_rel, k1, k1_plain, k1_bound, k1_by, None, None,
+                             {"cufft_rfft_ms": rfft_ms, "served_b128": b128}),
                       "K2": (k2_err, k2_rel, k2_ms, k2_plain, k2_bound, "operations")}
+
+
+def serve_b128(model, blocks, smi, B=128):
+    """One served HTSAT batch at bench.py's B=128 (after a warm-up batch),
+    outside the counted paths: the batch and K1 alone, ms and clips/s."""
+    import torch
+    from pseldnets_tpu_torch.serving import folded_wav_features, htsat_fused_forward_from_wav
+
+    g = torch.Generator(device="cuda").manual_seed(128)
+    wav = torch.randn(B, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+    with torch.no_grad():
+        serve = lambda: htsat_fused_forward_from_wav(model, wav, blocks=blocks)  # noqa: E731
+        out = serve()["multi_accdoa"]
+        check(out.shape == (B, 100, 117) and bool(torch.isfinite(out).all()),
+              f"served output at B={B}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        k1 = cuda_ms(lambda: folded_wav_features(model, wav, t_out=1024), reps=5)
+    nb, fl = k1_work(B)
+    bound = bound_ms(nb, f32_flops=fl)[0]
+    log(f"served at B={B}: {dt * 1e3:.3f} ms/batch, {B / dt:.1f} clips/s (host clock, one "
+        f"batch after a warm-up); K1 {k1:.4f} ms (bound {bound:.4f}) ({smi})")
+    del wav, out
+    return {"batch_ms": dt * 1e3, "clips_per_s": B / dt, "k1_ms": k1, "k1_bound_ms": bound}
 
 
 def make_labels(rng, B, T_label, K_cls=13):

@@ -27,11 +27,15 @@ from .frontend_forms import (WIN_3TAP, affine_table, apply_folds, check_launch, 
 from .windows import get_window
 
 KERNEL = CudaKernel("frontend.cu", {
-    "logmel_iv_frontend": [ptr] * 8 + [i32] * 10 + [ptr],
+    "logmel_iv_frontend": [ptr] * 8 + [i32] * 11 + [ptr],
 })
 
 # the kernel's FFT length: 32 x 32, four-step (csrc/frontend.cu)
 FFT_SIDE = 32
+GROUP = 4  # mel bands per gather group: 7 value rows x 4 bands = 28 lanes
+# frames (one warp each) per block and the gathers' bank-aligned windows, chosen
+# by scripts/torch_k1_tiles.py
+TILES = {"warps": 4, "aligned_windows": True}
 
 
 def frontend_route(n_fft: int, hop: int, window: str = "hann", radix2=None,
@@ -91,15 +95,16 @@ def fused_logmel_iv(x: torch.Tensor, *, n_fft: int = 1024, hop: int = 240,
     B, C, N = x.shape
     check_cuda_tensor("x", x, torch.float32, (B, 4, N))
     check_launch(N, n_fft, hop, out_dtype)
-    win, tw, wts, bands, sched = _kernel_tables(n_fft, window, n_mels, sample_rate, x.device)
+    win, tw, gwts, gstart, ginfo = _kernel_tables(n_fft, window, n_mels, sample_rate, x.device,
+                                                  TILES["aligned_windows"])
     aff = affine_table(post_affine, n_mels, x.device)
     out = torch.empty((B, 7, t_out, n_mels), device=x.device, dtype=out_dtype)
     KERNEL.launches += 1
     KERNEL.call("logmel_iv_frontend", x.data_ptr(), win.data_ptr(),
-                tw.data_ptr(), wts.data_ptr(), bands.data_ptr(), sched.data_ptr(),
+                tw.data_ptr(), gwts.data_ptr(), gstart.data_ptr(), ginfo.data_ptr(),
                 aff.data_ptr() if aff is not None else None, out.data_ptr(),
                 B, N, n_fft, hop, n_mels, n_frames, t_out,
-                int(out_dtype == torch.bfloat16), wts.numel(), sched.shape[0])
+                int(out_dtype == torch.bfloat16), gwts.numel(), ginfo.shape[0], TILES["warps"])
     return out
 
 
@@ -129,41 +134,110 @@ def fft_tables(n_fft: int, window: str):
 
 
 def mel_bands(fb: np.ndarray) -> np.ndarray:
-    """(n_mels, 3) int32: first and last bin with a non-zero weight in each
-    mel band (an empty band gets (1, 0)) and the offset of its first weight in
-    ``packed_mel_weights``."""
-    bands = np.zeros((fb.shape[1], 3), np.int32)
-    off = 0
+    """(n_mels, 2) int32: first and last bin with a non-zero weight in each
+    mel band (an empty band gets (1, 0))."""
+    bands = np.zeros((fb.shape[1], 2), np.int32)
     for mi in range(fb.shape[1]):
         nz = np.nonzero(fb[:, mi])[0]
-        lo, hi = (nz[0], nz[-1]) if nz.size else (1, 0)
-        bands[mi] = (lo, hi, off)
-        off += hi - lo + 1
+        bands[mi] = (nz[0], nz[-1]) if nz.size else (1, 0)
     return bands
 
 
-def packed_mel_weights(fb: np.ndarray, bands: np.ndarray) -> np.ndarray:
-    """Each band's weights over its bin range, bands one after the other."""
-    parts = [fb[lo:hi + 1, mi] for mi, (lo, hi, _) in enumerate(bands)]
-    return np.concatenate(parts).astype(np.float32)
+def mel_groups(fb: np.ndarray, group: int = GROUP, align: bool = True):
+    """K1's mel gather tables: bands in groups of ``group`` (lanes (m', q)
+    of a warp sum band group * g + m' of value row q). Each group has one
+    even width W; each band a window of W bins from ``start`` over which the
+    kernel sums the filterbank's own column, zeros outside the band
+    included. A window starts at a bin = m' mod 4 where one fits (value rows
+    are 4 banks apart, so the group's 28 lanes read 28 banks), W covers the
+    group's widest window and is no multiple of 32 (the weight rows' banks),
+    and a window that would pass bin n_fft / 2 is moved down. Returns gstart
+    (n_groups * group,) int32, ginfo (n_groups, 2) int32 (offset of the
+    group's weights, W) and gwts float32, group after group, each (group, W)
+    row-major; bands past n_mels have zero weights. ``align=False``: every
+    window from its band's first bin (TILES["aligned_windows"])."""
+    n_bins, n_mels = fb.shape
+    bands = mel_bands(fb)
+    n_groups = -(-n_mels // group)
+    gstart = np.zeros(n_groups * group, np.int32)
+    ginfo = np.zeros((n_groups, 2), np.int32)
+    parts, off = [], 0
+    for g in range(n_groups):
+        ms = [m for m in range(g * group, (g + 1) * group)
+              if m < n_mels and bands[m, 1] >= bands[m, 0]]
+        start = {m: int(bands[m, 0]) - (int(bands[m, 0]) - m % group) % 4 * align for m in ms}
+        start = {m: st if st >= 0 else int(bands[m, 0]) for m, st in start.items()}
+        width = max([int(bands[m, 1]) - start[m] + 1 for m in ms] + [2])
+        width += width % 2
+        width += 2 if width % 32 == 0 and align else 0
+        width = min(width, n_bins - n_bins % 2)
+        w = np.zeros((group, width), np.float32)
+        for m in ms:
+            st = min(start[m], n_bins - width)
+            gstart[m] = st
+            w[m - g * group] = fb[st:st + width, m]
+        ginfo[g] = (off, width)
+        parts.append(w.reshape(-1))
+        off += group * width
+    return gstart, ginfo, np.concatenate(parts)
 
 
-def mel_schedule(bands: np.ndarray, lanes: int = 32) -> np.ndarray:
-    """(n_slots, lanes) int32 order of the 7 * n_mels mel outputs of a frame,
-    widest band first, -1 past the end: the lanes of one slot sum bands of
-    about the same width, so few of them idle."""
-    width = np.tile(bands[:, 1] - bands[:, 0] + 1, 7)
-    order = np.argsort(-width, kind="stable").astype(np.int32)
-    slots = -(-order.size // lanes)
-    return np.concatenate([order, np.full(slots * lanes - order.size, -1, np.int32)]
-                          ).reshape(slots, lanes)
+def launch_plan(B: int, N: int, hop: int, t_out: int, n_mels: int = 64,
+                warps: Optional[int] = None, n_w: int = 0) -> dict:
+    """K1's launch as csrc/frontend.cu makes it: one warp per frame,
+    ``warps`` frames per block (TILES), blocks (ceil(t_out / warps), B);
+    warp w of block (bx, b) takes frame bx * warps + w of clip b (none past
+    t_out; the zero tail from n_frames on). The block stages its real
+    frames' span of the padded signal, ``span`` samples a channel from
+    ``first`` (frame f0's first sample), signal 0's two channels over its
+    warps' A regions and signal 1's over their B regions. Shared memory in
+    bytes: the block's mel tables (``n_w`` weights of ``mel_groups``, 4
+    starts and an (offset, width) pair per group), then the A regions (a
+    transpose; then the W/X stash, value rows 4-6 and the staged outputs)
+    and the B regions (a transpose; then value rows 0-3)."""
+    warps = TILES["warps"] if warps is None else warps
+    n_groups = -(-n_mels // GROUP)
+    n_frames = 1 + N // hop
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    vld = FFT_SIDE ** 2 // 2 + 4
+    region = a16(max(FFT_SIDE * (FFT_SIDE + 1) * 8, (16 + 3 * vld + 7 * n_mels) * 4))
+    tables = a16(4 * n_w) + a16(4 * (GROUP + 2) * n_groups)
+    blocks = []
+    for bx in range(-(-t_out // warps)):
+        f0 = bx * warps
+        nf = max(0, min(warps, n_frames - f0))
+        blocks.append({"frames": [f for f in range(f0, f0 + warps) if f < t_out],
+                       "first": f0 * hop, "span": (nf - 1) * hop + FFT_SIDE ** 2 if nf else 0})
+    return {"grid": (len(blocks), B), "threads": 32 * warps, "n_frames": n_frames,
+            "blocks": blocks, "region": region, "tables": tables,
+            "stash": (FFT_SIDE // 2 * FFT_SIDE + 1) * 16, "value_rows": 4 * vld * 4,
+            "outputs": (16 + 3 * vld + 7 * n_mels) * 4,
+            "smem": tables + 2 * warps * region}
+
+
+def span_samples(first: int, count: int, N: int, n_fft: int = FFT_SIDE ** 2) -> np.ndarray:
+    """The waveform index of padded-signal samples first .. first + count
+    as K1 stages them (``padded_sample``): a reflect pad of n_fft / 2 by
+    index arithmetic, -1 (a zero) past N + n_fft."""
+    i = first + np.arange(count)
+    j = np.abs(i - n_fft // 2)
+    j = np.where(j >= N, 2 * (N - 1) - j, j)
+    return np.where(i >= N + n_fft, -1, j)
+
+
+def store_columns(n_mels: int, lanes: int = 32):
+    """The columns of a staged output row each lane copies out in K1: a pair
+    (2 l + 64 t, + 1) where n_mels is even, one (l + 32 t) where odd."""
+    if n_mels % 2 == 0:
+        return [[m + e for m in range(2 * lane, n_mels, 2 * lanes) for e in (0, 1)]
+                for lane in range(lanes)]
+    return [list(range(lane, n_mels, lanes)) for lane in range(lanes)]
 
 
 @lru_cache(maxsize=8)
 def _kernel_tables(n_fft: int, window: str, n_mels: int, sample_rate: int,
-                   device: torch.device):
+                   device: torch.device, aligned: bool = True):
     fb = logmel_iv_filterbank(sample_rate, n_fft, n_mels)
-    bands = mel_bands(fb)
+    gstart, ginfo, gwts = mel_groups(fb, align=aligned)
     return tuple(torch.as_tensor(a, device=device) for a in (
-        *fft_tables(n_fft, window), packed_mel_weights(fb, bands), bands,
-        mel_schedule(bands)))
+        *fft_tables(n_fft, window), gwts, gstart, ginfo))

@@ -26,6 +26,7 @@ epoch loop, data loading, checkpoint save and resume and the
 ``src/train.py`` entry point are the rest of step 4.
 """
 
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -123,7 +124,15 @@ class SELDTask:
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Seeded random float32 parameters, fresh batch statistics and a
-        fresh optimizer state."""
+        fresh optimizer state. Raises where the JAX step would load
+        ``model.kwargs.pretrained_path`` (a non-empty path that exists):
+        the port has no loader yet, and random weights would silently
+        stand in for the checkpoint."""
+        pretrained = self.meta.get("pretrained_path")
+        if pretrained and os.path.exists(str(pretrained)):
+            raise NotImplementedError(
+                f"loading pretrained_path={pretrained!r} is not ported yet "
+                "(ROADMAP.md queue A, step 17)")
         seed = int(self.cfg.get("seed", 0)) if seed is None else int(seed)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         with torch.no_grad():

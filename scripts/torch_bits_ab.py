@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Bitwise comparison of the port's kernels across two checkouts on one card.
 
-Runs, in each checkout and in a process of its own, K6 (the PaSST ViT block,
+Runs, in each checkout and in a process of its own, K1 (the frontend, two
+10 s clips, in its training, served HTSAT and PaSST forms), K9 and K10 (the
+flat and DIF forms at the shapes the routing gives them), K6 (the PaSST ViT block,
 B=4 x 602 tokens, and its GEMM core at the block's four served GEMM shapes
 with each tile), K7 (the CNN12 trunk's six ConvBlocks, pair mode, B=2), K2
 (the Swin block at each stage shape, B=2, served with the merge fold where
@@ -15,6 +17,7 @@ to a kernel's arithmetic may be meant; ``--meant K3,K5`` labels the kernels
 whose differences are expected).
 
     python3 scripts/torch_bits_ab.py _archive/parent .
+    python3 scripts/torch_bits_ab.py _archive/parent . --meant K1
 
 Needs one CUDA card and nvcc.
 """
@@ -34,11 +37,23 @@ from pseldnets_tpu_torch.models.passt import Block
 from pseldnets_tpu_torch.config import compose
 from pseldnets_tpu_torch.models.adapters import Adapter, AdaptConfig
 from pseldnets_tpu_torch.models.htsat import PatchMerging, SwinTransformerBlock
-from pseldnets_tpu_torch.ops import (conv_block, swin_block, swin_block_adapt, swin_block_vjp,
-                                     swin_stage, vit_block)
+from pseldnets_tpu_torch.ops import (conv_block, frontend, frontend_forms, swin_block,
+                                     swin_block_adapt, swin_block_vjp, swin_stage, vit_block)
 
 g = torch.Generator().manual_seed(0)
 out = {}
+wav = (torch.randn(2, 4, 240000, generator=g) * 0.1).cuda()
+aff = tuple((torch.rand(7, 64, generator=g) + 0.5 * i).cuda() for i in (1, 0))
+out["K1 training form"] = frontend.fused_logmel_iv(wav)
+out["K1 served form"] = frontend.fused_logmel_iv(wav, post_affine=aff, out_dtype=torch.bfloat16,
+                                                 t_out=1024)
+out["K1 PaSST form"] = frontend.fused_logmel_iv(wav, post_affine=aff, out_dtype=torch.bfloat16)
+out["K9 flat"] = frontend.fused_logmel_iv(wav, radix2=False)
+out["K9 flat n_fft 2048 folded"] = frontend.fused_logmel_iv(
+    wav, n_fft=2048, post_affine=aff, out_dtype=torch.bfloat16, t_out=1024)
+out["K10 dif"] = frontend.fused_logmel_iv(wav, variant="dif")
+out["K10 dif n_fft 512 hop 100"] = frontend.fused_logmel_iv(wav, n_fft=512, hop=100,
+                                                            variant="dif")
 blk = Block(768, 12)
 init_weights(blk, g)
 p = vit_block.prepare_vit_block(blk.cuda().eval(), torch.bfloat16)

@@ -4,7 +4,8 @@
 Runs ``python3 chip_smoke.py`` in the checkout A and the checkout B in turns,
 A B B A repeated ``--rounds`` times, each run a process of its own, keeps each
 run's output under ``--out``, reads the times that chip_smoke.py prints (the
-served batch, the training step, the kernels per batch or step, and the
+served batch, the training step, the kernels per batch or step (K1 in each
+form, beside cuFFT's rfft of the same frames), the served batch of 128, and the
 AdapterBit, PaSST, CRNN, K8, frontend-form and one-stage-per-launch lines
 where the checkout has them) and prints, per checkout, the median and the
 range of each over its runs as one JSON line. Exits non-zero when a run
@@ -25,6 +26,12 @@ from pathlib import Path
 PATTERNS = {
     "served_ms": r"^served: ([\d.]+) ms/batch",
     "k1_served_ms": r"^per batch of \d+ .*?: K1 ([\d.]+) ms",
+    "k1_train_ms": r"^per step of \d+ .*?: K1 \(float32\) ([\d.]+) ms",
+    "k1_passt_ms": r"^PaSST per batch of \d+ .*?: K1 ([\d.]+) ms",
+    "k1_crnn_ms": r"^CRNN per batch of \d+ .*?: K1 ([\d.]+) ms",
+    "k1_cufft_rfft_ms": r"^K1 at B=\d+: .*?cuFFT rfft .*? ([\d.]+) ms \(",
+    "served_b128_ms": r"^served at B=128: ([\d.]+) ms/batch",
+    "k1_b128_ms": r"^served at B=128: .*?; K1 ([\d.]+) ms",
     "k2_x12_ms": r"^per batch of \d+ .*?K2 x12 ([\d.]+) ms",
     "train_ms": r"^training: ([\d.]+) ms/step",
     "k2_masks_x12_ms": r"^per step of \d+ .*?K2 with masks x12 ([\d.]+) ms",

@@ -28,22 +28,83 @@ def card():
     return torch.device("cuda")
 
 
-def test_frontend_kernel_matches_plain(card):
-    """2 s clips, f32 output: the 8e-4 dB / 7e-5 IV feature budget; the
-    serving form (affine, bf16, zero tail): one bf16 ulp."""
-    g = torch.Generator(device=card).manual_seed(0)
-    x = torch.randn(2, 4, 48000, device=card, generator=g) * 0.1
-    before = frontend.KERNEL.launches
-    got, ref = frontend.fused_logmel_iv(x), frontend.fused_logmel_iv_plain(x)
-    assert frontend.KERNEL.launches == before + 1
-    assert (got[:, :4] - ref[:, :4]).abs().max() <= 8e-4
-    assert (got[:, 4:] - ref[:, 4:]).abs().max() <= 7e-5
+@pytest.mark.parametrize("form", ["served", "passt", "train"])
+@pytest.mark.parametrize("B,N", [(1, 48000), (3, 48000 + 117), (32, 240000)])
+def test_frontend_kernel_matches_plain(card, form, B, N):
+    """K1 in the three forms the paths use: served HTSAT (affine, bf16,
+    t_out past n_frames: the zero tail), PaSST (affine, bf16, n_frames) and
+    training (float32, no folds); B = 1, 3 and 32 clips, an N that leaves a
+    partial last block, a silent stretch. float32 within the 8e-4 dB / 7e-5
+    IV feature budget, bf16 within one bf16 ulp (2^-7 of max(|x|, 1)),
+    exact zeros from n_frames on, finite everywhere, and a second launch
+    with equal bits."""
+    g = torch.Generator(device=card).manual_seed(B)
+    x = torch.randn(B, 4, N, device=card, generator=g) * 0.1
+    x[-1, :, N // 3:N // 2] = 0.0  # silence: IV must stay finite
+    n_frames = 1 + N // 240
     aff = (torch.rand(7, 64, device=card, generator=g) + 0.5,
            torch.randn(7, 64, device=card, generator=g))
-    kw = dict(post_affine=aff, out_dtype=torch.bfloat16, t_out=208)
-    got, ref = frontend.fused_logmel_iv(x, **kw).float(), frontend.fused_logmel_iv_plain(x, **kw).float()
-    assert got.shape == (2, 7, 208, 64) and not got[:, :, 201:].any()
+    kw = {"served": dict(post_affine=aff, out_dtype=torch.bfloat16,
+                         t_out=max(1024, n_frames + 23) if N == 240000 else n_frames + 23),
+          "passt": dict(post_affine=aff, out_dtype=torch.bfloat16),
+          "train": {}}[form]
+    before = frontend.KERNEL.launches
+    got = frontend.fused_logmel_iv(x, **kw)
+    again = frontend.fused_logmel_iv(x, **kw)
+    assert frontend.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    ref = frontend.fused_logmel_iv_plain(x, **kw)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert got.shape[2] == kw.get("t_out", n_frames)
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    assert not got[:, :, n_frames:].any()
+    if form == "train":
+        assert (got[:, :4] - ref[:, :4]).abs().max() <= 8e-4
+        assert (got[:, 4:] - ref[:, 4:]).abs().max() <= 7e-5
+    else:
+        assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max() <= 2.0 ** -7
+
+
+def test_frontend_kernel_at_32khz(card):
+    """The l3das22 configs' STFT (32 kHz, hop 320, 64 mels) on K1, B=3 four
+    seconds, served form and float32: the same bounds as at 24 kHz."""
+    g = torch.Generator(device=card).manual_seed(320)
+    x = torch.randn(3, 4, 128000, device=card, generator=g) * 0.1
+    kw = dict(hop=320, sample_rate=32000)
+    aff = (torch.rand(7, 64, device=card, generator=g) + 0.5,
+           torch.randn(7, 64, device=card, generator=g))
+    got, ref = frontend.fused_logmel_iv(x, **kw), frontend.fused_logmel_iv_plain(x, **kw)
+    assert got.shape == ref.shape == (3, 7, 401, 64)
+    assert (got[:, :4] - ref[:, :4]).abs().max() <= 8e-4
+    assert (got[:, 4:] - ref[:, 4:]).abs().max() <= 7e-5
+    kw.update(post_affine=aff, out_dtype=torch.bfloat16, t_out=416)
+    got = frontend.fused_logmel_iv(x, **kw).float()
+    ref = frontend.fused_logmel_iv_plain(x, **kw).float()
+    assert not got[:, :, 401:].any()
     assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max() <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (dict(N=512), ValueError),                      # reflect pad needs N > n_fft / 2
+    (dict(out_dtype=torch.float16), ValueError),
+    (dict(t_out=10), ValueError),                   # t_out < n_frames
+    (dict(hop=1024), NotImplementedError),          # hop >= n_fft
+    (dict(dtype=torch.float64), ValueError),
+    (dict(channels=3), ValueError),
+    (dict(strided=True), ValueError)])
+def test_frontend_kernel_raises(card, bad, exc):
+    """What K1 does not take raises before any launch: no fallback."""
+    N = bad.get("N", 4800)
+    x = torch.randn(2, bad.get("channels", 4), 2 * N if bad.get("strided") else N,
+                    device=card, dtype=bad.get("dtype", torch.float32))
+    if bad.get("strided"):
+        x = x[..., ::2]
+    kw = {k: v for k, v in bad.items() if k in ("out_dtype", "t_out", "hop")}
+    before = frontend.KERNEL.launches
+    with pytest.raises(exc):
+        frontend.fused_logmel_iv(x, **kw)
+    assert frontend.KERNEL.launches == before
 
 
 @pytest.mark.parametrize("stage,shift,merge", [(2, 4, True), (3, 0, False), (0, 4, False)])

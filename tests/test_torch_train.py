@@ -393,3 +393,39 @@ def test_task_defaults_to_the_card():
         pytest.skip("a card is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SELDTask(cfg, DatasetSpec(num_classes=3))
+
+
+@pytest.mark.parametrize("kind", ["file", "directory"])
+def test_init_state_raises_on_an_existing_pretrained_path(tmp_path, kind):
+    """C2: where the JAX init_state would load ``pretrained_path`` (a path
+    that exists, file or directory), the port raises naming queue A step 17
+    instead of training from random weights."""
+    path = tmp_path / "pretrained.ckpt"
+    if kind == "file":
+        path.write_bytes(b"not a checkpoint")
+    else:
+        path.mkdir()
+    cfg = compose(str(ROOT / "configs"), "train",
+                  TINY_TASK + [f"model.kwargs.pretrained_path={path}"])
+    task = SELDTask(cfg, DatasetSpec(num_classes=3), steps_per_epoch=2, device="cpu")
+    assert task.meta["pretrained_path"] == str(path)
+    with pytest.raises(NotImplementedError, match="step 17"):
+        task.init_state(0)
+    assert task.state is None
+
+
+@pytest.mark.parametrize("name", ["missing.ckpt", ""])
+def test_init_state_builds_without_a_pretrained_file(tmp_path, name):
+    """C2: a pretrained path that does not exist (or is empty) builds and
+    initialises from the seed, as the JAX package trains from random
+    weights then; two inits with one seed give equal weights."""
+    path = tmp_path / name if name else ""
+    cfg = compose(str(ROOT / "configs"), "train",
+                  TINY_TASK + [f"model.kwargs.pretrained_path={path}"])
+    task = SELDTask(cfg, DatasetSpec(num_classes=3), steps_per_epoch=2, device="cpu")
+    state = task.init_state(0)
+    assert state.step == 0 and task.state is state
+    first = {k: v.clone() for k, v in task.model.state_dict().items()}
+    task.init_state(0)
+    for k, v in task.model.state_dict().items():
+        assert torch.equal(v, first[k]), k
