@@ -161,11 +161,16 @@ def phase_build():
     # what the Hopper kernels were compiled to: wgmma (HGMMA), TMA loads
     # (UTMALDG) and stores (UTMASTG) in K6's and K7's SASS; in K3's and K5's
     # wgmma and TMA loads (their epilogues store from the registers) and no
-    # HMMA (mma.sync, what WMMA compiles to)
+    # HMMA (mma.sync, what WMMA compiles to); in K2's and K11's the same,
+    # counted in their own kernels (K2's GEMM fwd_gemm and attention, K11's
+    # swin_stage_kernel), since their libraries also hold the backward
+    # layer's kernels of the header they share
     tool = shutil.which("cuobjdump") or str(Path(_cuda.nvcc()).parent / "cuobjdump")
-    for name, need in (("K6", ("HGMMA", "UTMALDG", "UTMASTG")),
-                       ("K7", ("HGMMA", "UTMALDG", "UTMASTG")),
-                       ("K3", ("HGMMA", "UTMALDG")), ("K5", ("HGMMA", "UTMALDG"))):
+    for name, need, own in (("K6", ("HGMMA", "UTMALDG", "UTMASTG"), None),
+                            ("K7", ("HGMMA", "UTMALDG", "UTMASTG"), None),
+                            ("K3", ("HGMMA", "UTMALDG"), None), ("K5", ("HGMMA", "UTMALDG"), None),
+                            ("K2", ("HGMMA", "UTMALDG"), r"fwd_gemm|attention_kernel"),
+                            ("K11", ("HGMMA", "UTMALDG"), r"swin_stage_kernel")):
         lib = kernels()[name].library_path()
         try:
             sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
@@ -173,11 +178,17 @@ def phase_build():
         except (OSError, subprocess.CalledProcessError):
             log(f"  {lib.name} SASS: not measured (no cuobjdump)")
             continue
-        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG",
-                                                                      "UTMASTG", "HMMA")}
+        ops = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
         log(f"  {lib.name} SASS: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        if own is not None:  # the kernel's own functions only
+            parts = re.split(r"Function : ", sass)[1:]
+            mine = "".join(p for p in parts if re.search(own, p.split(None, 1)[0]))
+            counts = {op: len(re.findall(rf"\b{op}\b", mine)) for op in ops}
+            log(f"  {lib.name} SASS of its own kernels ({own}): "
+                + ", ".join(f"{op} {n}" for op, n in counts.items()))
         check(all(counts[op] for op in need), f"{name}'s SASS lacks wgmma or TMA: {counts}")
-        if name in ("K3", "K5"):
+        if name in ("K3", "K5", "K2", "K11"):
             check(counts["HMMA"] == 0, f"{name}'s SASS still has mma.sync (WMMA): {counts}")
 
 
@@ -259,7 +270,8 @@ def random_block(i, shift, merge, gen):
 
 def phase_swin_block():
     """K2 against its plain version (bf16 and float32) at each stage shape,
-    shifted and unshifted, with and without the merge fold."""
+    shifted and unshifted, with and without the merge fold; a second launch
+    bitwise equal to the first."""
     import torch
     from pseldnets_tpu_torch.ops.swin_block import (prepare_block, swin_block_fused,
                                                     swin_block_plain)
@@ -275,7 +287,9 @@ def phase_swin_block():
                 p16 = prepare_block(blk, torch.bfloat16, mrg)
                 p32 = prepare_block(blk, torch.float32, mrg)
                 got = swin_block_fused(x, p16).float()
+                again = swin_block_fused(x, p16).float()
                 torch.cuda.synchronize()
+                check(torch.equal(got, again), f"K2 stage {i}: two launches on one input differ")
                 plain16 = swin_block_plain(x, p16).float()
                 plain32 = swin_block_plain(x.float(), p32)
                 scale = plain32.abs().max().item()
@@ -326,7 +340,8 @@ def drop_masks(B):
 
 def phase_swin_block_train():
     """K2 with drop-path masks and K3 against their plain versions (bf16 and
-    float32) at each stage shape, shifted and unshifted."""
+    float32) at each stage shape, shifted and unshifted; K2 with every mask
+    zero gives its input back."""
     import torch
     from pseldnets_tpu_torch.ops.swin_block import (prepare_block, swin_block_fused,
                                                     swin_block_plain)
@@ -348,6 +363,9 @@ def phase_swin_block_train():
             torch.cuda.synchronize()
             compare("K2 out", got, swin_block_plain(x, p16, m),
                     swin_block_plain(x.float(), p32, m), 2.0 ** -6)
+            # every branch dropped: the block is the identity, exactly
+            zero = swin_block_fused(x, p16, torch.zeros_like(m))
+            check(torch.equal(zero, x), f"K2 with zero masks at stage {i} is not the identity")
             dx, g = swin_block_backward(x, p16, m, dout)
             torch.cuda.synchronize()
             dx16, g16 = swin_block_backward_plain(x, p16, m, dout)

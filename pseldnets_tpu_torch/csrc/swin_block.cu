@@ -1,5 +1,6 @@
-// Kernel K2: fused Swin transformer block, with the stage's PatchMerging
-// folded into its last block (eval) or per-image drop-path masks (training).
+// Kernel K2: fused Swin block, with the stage's PatchMerging folded into its
+// last block (eval) or per-image drop-path masks (training), for Hopper
+// (sm_90a).
 //
 // Replaces the JAX package's ops/pallas/swin_block.py::swin_block_fused
 // (_block_kernel, attn_impl="exact", merge_params, dp_masks). x (B, H*W, C)
@@ -11,103 +12,141 @@
 //   [-> 2x2 gather (h0,w0) (h1,w0) (h0,w1) (h1,w1) -> LN(4C) -> 4C->2C].
 // Matmul operands bf16 with float32 accumulation (tensor cores); LayerNorm and
 // softmax in float32; activations rounded to bf16 where the Pallas kernel
-// rounds them (qkv, probabilities, heads, proj, residual sums, GELU output).
-// With drop-path masks m (B, 2) the residual adds are x + bf16(m0) * proj and
-// y + bf16(m1) * fc2, each product rounded to bf16 (swin_block.py:351, :389).
+// rounds them (LN rows, qkv, probabilities, heads, proj, residual sums, GELU
+// output). With drop-path masks m (B, 2) the residual adds are
+// x + bf16(m0) * proj and y + bf16(m1) * fc2, each product rounded to bf16
+// (swin_block.py:351, :389).
 //
 // What bounds it on the H100: per block, 24*L*C^2 (+4*L*C^2 with the merge)
 // GEMM FLOPs and 4*L*64*C attention FLOPs against ~2*L*C*2 bytes of
 // activations in and out: at C = 96..768 that is 100-800 FLOP per byte, above
-// the bf16 balance point, so the bound is the tensor-core rate.
+// the bf16 balance point, so the bound is the tensor-core rate
+// (chip_smoke.py::k2_work). The short-K GEMMs of stage 0 (K = C = 96) are
+// bound by their epilogues' bytes instead.
 //
-// Design (correct and simple first): a few __global__ functions launched in
-// sequence by one C entry point.
-//  * row_stats: LayerNorm moments (two-pass, float32), one warp per row, over
-//    a token row or over the 4C gather of a merged row.
-//  * gemm: a 64x64x32 bf16 WMMA tile GEMM (4 warps, 32x32 each) whose A
-//    loader applies the LayerNorm (prologue) and whose row addressing does
-//    the shift + window partition or the 2x2 merge gather; the epilogue adds
-//    the bias, applies GELU, rounds, scales by the image's mask, adds the
-//    residual and scatters rows back through the window reverse + unshift.
-// The device code lives in swin_common.cuh, shared with the backward K3.
-//  * window_attention: one block of 4 warps per (window, head); Q, K, V
-//    (head dim 24 zero-padded to 32, the tensor-core tile width) and the
-//    bias (+ mask) in shared memory; S = bias + Q K^T and O = P V on the
-//    tensor cores, the float32 softmax between them warp-local.
-// Intermediates (qkv, attention output, the residual stream, the hidden
-// activations) go through device memory. The Pallas kernel's one read and
-// one write of the tokens per block (everything else in VMEM), and wgmma/TMA
-// pipelining, are later work.
+// Design, on the Hopper forward layer swin_fwd_sm90.cuh (shared with K11):
+// one launch a phase, in order on the caller's stream: LN1 rows in window
+// order; qkv (TMA-fed, warp-specialised wgmma GEMM, one persistent block of
+// 384 threads a SM: a producer warpgroup, of which one thread issues the
+// loads, and two consumer warpgroups; no setmaxnreg, which ptxas ignored
+// here (C7507) while the consumers fit 168 registers a thread without
+// spills at every tile width); the window attention (one warpgroup a (window group,
+// head), wgmma with the bias as the scores' initial accumulator); proj with
+// the residual stored through the window -> token map; LN2 rows; fc1 with
+// GELU; fc2 with the residual; with the merge, its LN rows over the 4C
+// gather and the 4C -> 2C GEMM. The GEMMs' tile widths and ring depth are
+// the caller's (ops/swin_block.py TILES). Intermediates (LN rows, qkv, the
+// attention output, the residual stream, the hidden activations) go through
+// device memory; keeping a window's rows on chip from LN1 to fc2 is later
+// work.
 
-#include "swin_common.cuh"
+#include "swin_fwd_sm90.cuh"
 
 extern "C" const char* pt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One eval Swin block (+ PatchMerging when merge_w is not null). Weights are
+// One Swin block (+ PatchMerging when merge_w is not null). Weights are
 // (in, out) bf16 matrices and float32 vectors; bias (nh, 64, 64) and mask
 // (nW, 64, 64) float32 (mask null when unshifted); dp (B, 2) float32
-// drop-path masks or null (not with the merge). Scratch: stats (2, B*L)
-// f32, qkv (B*L, 3C), attn / y / z (B*L, C), hid (B*L, hidden) bf16. The
-// block output is z, or out (B*L/4, 2C) with the merge.
+// drop-path masks or null (not with the merge). Scratch: h (B*L, C) (the
+// LN rows; with the merge, its (B*L/4, 4C) rows), qkv (B*L, 3C), attn / y
+// (B*L, C), hid (B*L, hidden) bf16. The block output is z (B*L, C), or out
+// (B*L/4, 2C) with the merge. Tiles: each GEMM's tile width (64, 128, 192)
+// and the ring depth (0: as deep as fits).
 extern "C" int swin_block_forward(
     const bf16* x, const float* ln1_w, const float* ln1_b, const bf16* qkv_w,
     const float* qkv_b, const bf16* proj_w, const float* proj_b, const float* ln2_w,
     const float* ln2_b, const bf16* fc1_w, const float* fc1_b, const bf16* fc2_w,
     const float* fc2_b, const float* bias, const float* mask, const float* dp,
-    const float* mln_w,
-    const float* mln_b, const bf16* merge_w, float* stats, bf16* qkv, bf16* attn,
-    bf16* y, bf16* hid, bf16* z, bf16* out, int B, int H, int W, int C, int nh,
-    int win, int shift, int hidden, cudaStream_t stream) {
-  const RowMap g{H * W, H, W, win, shift, C};
-  const int M = B * H * W, hd = C / nh;
-  const int nW = (H / win) * (W / win);
-  float* mean = stats;
-  float* rstd = stats + M;
-
-  // LN1 moments per token, then qkv of the shifted windows
-  launch_stats<0>(x, mean, rstd, M, C, g, stream);
-  GemmParams p{};
-  p.g = g;
-  p.A = x; p.lda = C; p.mean = mean; p.rstd = rstd; p.ln_w = ln1_w; p.ln_b = ln1_b;
-  p.Bm = qkv_w; p.bias = qkv_b; p.out = qkv; p.M = M; p.N = 3 * C; p.K = C;
-  p.a_window = 1;
-  launch_gemm<A_LN>(p, stream);
-
-  if (hd != HD || (dp != nullptr && merge_w != nullptr))
+    const float* mln_w, const float* mln_b, const bf16* merge_w, bf16* h, bf16* qkv, bf16* attn,
+    bf16* y, bf16* hid, bf16* z, bf16* out, int B, int H, int W, int C, int nh, int win,
+    int shift, int hidden, int bn_qkv, int bn_proj, int bn_fc1, int bn_fc2, int bn_merge,
+    int stages, cudaStream_t stream) {
+  const FwdTiles t{bn_qkv, bn_proj, bn_fc1, bn_fc2, bn_merge, stages};
+  const bool merge = merge_w != nullptr;
+  if (bad_block(H, W, C, nh, win, hidden) || bad_tiles(t) || (dp != nullptr && merge) ||
+      (merge && (H % 2 || W % 2 || 4 * C > 8 * 32 * MAX_LN_GROUPS)))
     return static_cast<int>(cudaErrorInvalidValue);
-  window_attention_kernel<<<dim3(B * nW, nh), ATT_THREADS, 0, stream>>>(qkv, bias, mask, attn, C, nW);
+  const RowMap g{H * W, H, W, win, shift, C};
+  const int M = B * H * W;
+  const int nW = (H / win) * (W / win);
+  cudaError_t e = ln_rows_launch<LN_WINDOWS>(x, ln1_w, ln1_b, h, M, g, stream);
+
+  FwdGemm a{};
+  a.M = M;
+  a.N = 3 * C;
+  a.bias = qkv_b;
+  a.out = qkv;
+  if (e == cudaSuccess) e = fwd_gemm_bn<F_OUT>(t.qkv, h, qkv_w, C, a, t.stages, stream);
+  if (e == cudaSuccess) e = attention_launch(qkv, bias, mask, attn, C, nh, nW, B * nW, stream);
 
   // proj, window reverse + unshift, residual
-  p = GemmParams{};
-  p.g = g;
-  p.A = attn; p.lda = C; p.Bm = proj_w; p.bias = proj_b; p.resid = x; p.out = y;
-  p.rscale = dp;
-  p.M = M; p.N = C; p.K = C; p.out_window = 1;
-  launch_gemm<A_PLAIN>(p, stream);
+  a = FwdGemm{};
+  a.M = M;
+  a.N = C;
+  a.bias = proj_b;
+  a.out = y;
+  a.resid = x;
+  a.scale = dp;
+  a.map = MAP_WIN_TO_TOK;
+  a.g = g;
+  if (e == cudaSuccess) e = fwd_gemm_bn<F_RES>(t.proj, attn, proj_w, C, a, t.stages, stream);
 
   // LN2 + fc1 + GELU, then fc2 + residual
-  launch_stats<0>(y, mean, rstd, M, C, g, stream);
-  p = GemmParams{};
-  p.g = g;
-  p.A = y; p.lda = C; p.mean = mean; p.rstd = rstd; p.ln_w = ln2_w; p.ln_b = ln2_b;
-  p.Bm = fc1_w; p.bias = fc1_b; p.out = hid; p.M = M; p.N = hidden; p.K = C; p.gelu = 1;
-  launch_gemm<A_LN>(p, stream);
-  p = GemmParams{};
-  p.g = g;
-  p.A = hid; p.lda = hidden; p.Bm = fc2_w; p.bias = fc2_b; p.resid = y; p.out = z;
-  p.rscale = dp != nullptr ? dp + 1 : nullptr;
-  p.M = M; p.N = C; p.K = hidden;
-  launch_gemm<A_PLAIN>(p, stream);
+  if (e == cudaSuccess) e = ln_rows_launch<LN_TOKENS>(y, ln2_w, ln2_b, h, M, g, stream);
+  a = FwdGemm{};
+  a.M = M;
+  a.N = hidden;
+  a.bias = fc1_b;
+  a.gelu = 1;
+  a.out = hid;
+  if (e == cudaSuccess) e = fwd_gemm_bn<F_OUT>(t.fc1, h, fc1_w, C, a, t.stages, stream);
+  a = FwdGemm{};
+  a.M = M;
+  a.N = C;
+  a.bias = fc2_b;
+  a.out = z;
+  a.resid = y;
+  a.scale = dp != nullptr ? dp + 1 : nullptr;
+  a.g = g;
+  if (e == cudaSuccess) e = fwd_gemm_bn<F_RES>(t.fc2, hid, fc2_w, hidden, a, t.stages, stream);
 
-  if (merge_w != nullptr) {  // PatchMerging: 2x2 gather + LN(4C) + 4C->2C
-    launch_stats<1>(z, mean, rstd, M / 4, 4 * C, g, stream);
-    p = GemmParams{};
-    p.g = g;
-    p.A = z; p.lda = C; p.mean = mean; p.rstd = rstd; p.ln_w = mln_w; p.ln_b = mln_b;
-    p.Bm = merge_w; p.out = out; p.M = M / 4; p.N = 2 * C; p.K = 4 * C;
-    launch_gemm<A_MERGE>(p, stream);
+  if (merge && e == cudaSuccess) {  // PatchMerging: 2x2 gather + LN(4C) + 4C->2C
+    e = ln_rows_launch<LN_MERGE>(z, mln_w, mln_b, h, M / 4, g, stream);
+    a = FwdGemm{};
+    a.M = M / 4;
+    a.N = 2 * C;
+    a.out = out;
+    if (e == cudaSuccess) e = fwd_gemm_bn<F_OUT>(t.merge, h, merge_w, 4 * C, a, t.stages, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
+}
+
+// One GEMM form alone, for the tests: out (M, N) = A (M, K) . W (K, N) with
+// epilogue epi (0 F_OUT: bias, GELU when gelu; 1 F_RES: bias, the scale of
+// image row / L from scale (stride 2) when not null, + resid, the output
+// row through the window -> token map of (L, H, W, win, shift) when map)
+extern "C" int swin_fwd_gemm(int epi, int bn, int stages, const bf16* A, const bf16* Wt,
+                             const float* bias, int gelu, const bf16* resid, const float* scale,
+                             bf16* out, int M, int N, int K, int L, int H, int W, int win,
+                             int shift, int map, cudaStream_t stream) {
+  if (bad_bn(bn) || stages < 0 || stages == 1 || M < 1 || N < 8 || N % 8 || K < 8 || K % 8 ||
+      (epi != F_OUT && epi != F_RES) || (epi == F_RES && resid == nullptr) ||
+      (map && (win < 1 || H % win || W % win || L != H * W)) ||
+      ((map || scale != nullptr) && (L < 1 || M % L)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdGemm a{};
+  a.M = M;
+  a.N = N;
+  a.bias = bias;
+  a.gelu = gelu;
+  a.out = out;
+  a.resid = resid;
+  a.scale = scale;
+  a.map = map ? MAP_WIN_TO_TOK : MAP_NONE;
+  a.g = RowMap{L, H, W, win, shift, 0};
+  const cudaError_t e = epi == F_OUT ? fwd_gemm_bn<F_OUT>(bn, A, Wt, K, a, stages, stream)
+                                     : fwd_gemm_bn<F_RES>(bn, A, Wt, K, a, stages, stream);
+  return static_cast<int>(e);
 }

@@ -4,8 +4,11 @@
 // needs, the window attention forward and backward on wgmma, the LayerNorm
 // and row passes, and one ordered reduction of every split partial. Built on
 // the primitives of sm90_gemm.cuh (TMA, mbarrier rings, wgmma, setmaxnreg);
-// nothing here is shared with the WMMA code of swin_common.cuh, which K2,
-// K4 and K11 keep.
+// nothing here is shared with the WMMA code of swin_common.cuh, which K4
+// keeps. The forward layer swin_fwd_sm90.cuh (K2, K11) includes this one
+// for its row maps and its window attention helpers, which therefore index
+// by the thread of the warpgroup (a 128-thread block here, one of a
+// 384-thread block's warpgroups in K11).
 //
 // GEMM forms (bf16 operands, float32 sums; 128 x BN output tiles, one
 // consumer warpgroup per 64 rows, a producer warpgroup issuing TMA boxes
@@ -1001,9 +1004,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 // 32-row transposes (rows 24..31), once per block
 __device__ __forceinline__ void att_zero_pads(uint32_t base, const int* t64, int n64,
                                               const int* t32, int n32) {
-  for (int i = threadIdx.x; i < n64 * 64; i += ATT_THREADS)
+  const int tl = threadIdx.x % ATT_THREADS;
+  for (int i = tl; i < n64 * 64; i += ATT_THREADS)
     st_shared_v4(base + t64[i / 64] + sw128(i % 64, 24), make_uint4(0, 0, 0, 0));
-  for (int i = threadIdx.x; i < n32 * 64; i += ATT_THREADS)
+  for (int i = tl; i < n32 * 64; i += ATT_THREADS)
     st_shared_v4(base + t32[i / 64] + sw128(24 + (i / 8) % 8, 8 * (i % 8)),
                  make_uint4(0, 0, 0, 0));
 }
@@ -1022,7 +1026,7 @@ struct AttChunks {
                                        int h) {
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      const int i = threadIdx.x + ATT_THREADS * k;
+      const int i = threadIdx.x % ATT_THREADS + ATT_THREADS * k;
       if (i >= NM * 192) continue;
       const int m = i / 192, r = (i % 192) / 3, ch = i % 3;
       const bf16* src = m < 3 ? qkv + (row0 + r) * 3 * C + m * C + h * HD + 8 * ch
@@ -1036,7 +1040,7 @@ struct AttChunks {
                                         const int (&tt)[NM]) const {
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      const int i = threadIdx.x + ATT_THREADS * k;
+      const int i = threadIdx.x % ATT_THREADS + ATT_THREADS * k;
       if (i >= NM * 192) continue;
       const int m = i / 192, r = (i % 192) / 3, ch = i % 3;
       if (tile[m] >= 0) st_shared_v4(base + tile[m] + sw128(r, 8 * ch), v[k]);
@@ -1054,7 +1058,7 @@ struct AttChunks {
 // accumulator layout: the scores' initial value
 __device__ __forceinline__ void att_bias(const float* __restrict__ bias_h,
                                          const float* __restrict__ mask_w, float (&bm)[32]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
     const int r = warp * 16 + lane / 4 + 8 * ((i % 4) / 2), c = 8 * (i / 4) + 2 * (lane % 4);
@@ -1118,7 +1122,7 @@ __device__ __forceinline__ void att_frags(const float (&v)[32], uint32_t (&a)[4]
 
 // a 64 x 64 accumulator-layout matrix, rounded, into a row-major tile
 __device__ __forceinline__ void att_store_tile(uint32_t tile, const float (&v)[32]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
     const int r = warp * 16 + lane / 4 + 8 * ((i % 4) / 2), c = 8 * (i / 4) + 2 * (lane % 4);
@@ -1131,7 +1135,7 @@ __device__ __forceinline__ void att_store_tile(uint32_t tile, const float (&v)[3
 // its two rows added to cs[6]
 __device__ __forceinline__ void att_store_head(const float (&v)[16], bf16* dst, long ld,
                                                float* cs) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
 #pragma unroll
   for (int i = 0; i < 12; i += 2) {  // column groups 0..2 (i / 4 < 3)
     const int r = warp * 16 + lane / 4 + 8 * ((i % 4) / 2), c = 8 * (i / 4) + 2 * (lane % 4);

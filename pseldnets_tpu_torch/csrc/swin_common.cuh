@@ -1,16 +1,17 @@
-// Device code shared by the Swin block kernels K2 (swin_block.cu, forward),
-// K3 (swin_block_bwd.cu, backward) and K11 (swin_stage.cu, a whole stage):
+// Device code of the AdapterBit block forward K4 (swin_block_adapt.cu,
+// through swin_adapt_common.cuh), the last user of the pre-Hopper WMMA code:
 // token row maps, LayerNorm moments, the bf16 WMMA tile GEMM with its
 // LayerNorm prologue and epilogues, and the window attention forward. Each
 // of the last three is a __device__ function of one row, one output tile or
-// one (window, head), called once by its own __global__ kernel (K2-K6) or
-// in a grid-stride loop by K11.
+// one (window, head), called once by its own __global__ kernel. K2 and K11
+// moved to the Hopper forward layer swin_fwd_sm90.cuh, K3 and K5 to
+// swin_bwd_sm90.cuh.
 //
 // Every function lives in an anonymous namespace: each source that includes
 // this header is its own shared library with its own copy. The activation
-// pointers of the __device__ functions carry no __restrict__: K11 reads
-// activations that other blocks wrote earlier in the same launch, which the
-// read-only (non-coherent) load path that __restrict__ allows may not see.
+// pointers of the __device__ functions carry no __restrict__ (they were
+// written for a kernel that read activations other blocks wrote earlier in
+// the same launch, which the read-only load path may not see).
 
 #pragma once
 

@@ -1,4 +1,5 @@
-// Kernel K11: a whole eval Swin stage (every block of it) in one launch.
+// Kernel K11: a whole eval Swin stage (every block of it) in one launch, for
+// Hopper (sm_90a).
 //
 // Replaces the JAX package's ops/pallas/swin_block.py::swin_stage_fused
 // (_stage_kernel, the depth unrolled, any 0/base shift per block) and
@@ -10,36 +11,42 @@
 //   (+ the shift mask when block d is shifted) -> max-subtracted float32
 //   softmax -> PV -> proj -> window reverse + unshift -> residual -> LN2 ->
 //   fc1 -> exact erf GELU -> fc2 -> residual.
-// The numerics are K2's: bf16 matmul operands with float32 accumulation,
-// LayerNorm and softmax in float32, activations rounded where K2 rounds
-// them. The tile code is K2's own (swin_common.cuh), so the stage computes
-// what K2 chained computes.
+// The numerics are K2's, and so are the bits: the phases are K2's own
+// __device__ bodies (swin_fwd_sm90.cuh) with K2's tile widths, so each
+// block computes what K2 computes on the same input.
 //
 // What bounds it on the H100: K2's work summed over the stage's blocks, 24 L
 // C^2 GEMM FLOPs and 4 L 64 C attention FLOPs per block and image, against
 // one read and one write of the tokens: above the bf16 balance point at
 // every stage width, so the bound is the tensor-core rate.
 //
-// Design (correct and simple first): one persistent cooperative launch of
-// as many blocks of 128 threads as are co-resident on the card
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs). Each CTA loops over
-// depth; each Swin block is K2's seven phases, each a grid-stride loop over
-// its work items: LN1 moments (a warp per row) -> qkv GEMM tiles (LN
-// prologue, shift + window-partition rows) -> (window, head) attention ->
-// proj GEMM tiles (window reverse + unshift + residual) -> LN2 moments ->
-// fc1 + GELU tiles -> fc2 + residual tiles. A shifted block's windows read
-// tokens other CTAs wrote, so a grid barrier (cooperative_groups
-// this_grid().sync(), which needs the cooperative launch) separates every
-// two phases: 7 per block, less the last. Intermediates go through one
-// scratch set (stats, qkv, attn, y, hid) sized for one block and reused over
-// depth; the token stream ping-pongs between `out` and `tmp` so that the
-// last block lands in `out` and the input x is never written. Keeping a
-// window's activations on chip from qkv to fc2 (one CTA per window) is
-// later work.
+// Design: one persistent cooperative launch, one block of 384 threads (three
+// warpgroups) a SM (about 200 KB of shared memory each;
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor with that memory must give
+// at least one, or the launch is refused). Each block loops over depth; each
+// Swin block is K2's seven phases, each walking its work items from the
+// block's index with the grid's stride: LN1 rows (a warp a row, 12 a block)
+// -> qkv tiles -> (window group, head) attention items (each warpgroup one,
+// in its own part of the ring's memory) -> proj tiles (residual through the
+// window -> token map) -> LN2 rows -> fc1 + GELU tiles -> fc2 + residual
+// tiles. The GEMM tiles take K2's roles: warpgroups 0 and 1 consume,
+// thread 256 feeds the ring. Phases read rows other blocks wrote, so a grid
+// barrier (cooperative_groups this_grid().sync(), after a proxy fence: TMA
+// reads through the async proxy what the row passes and epilogues stored)
+// separates every two phases: 7 per block, less the last. The ring's
+// mbarriers are initialised once and each role's position in it carries
+// from one GEMM to the next; its stages are sized for the widest tile of
+// the stage (64 or 128: at 192 the accumulators spill beside the stage's
+// loop state). The block gets 168 registers a thread; the row passes run
+// as a function of their own (inlined, their unrolled rows spilled).
+// Intermediates go through one scratch set (h, qkv, attn, y, hid) sized for
+// one block and reused over depth; the token stream ping-pongs between
+// `out` and `tmp` so that the last block lands in `out` and the input x is
+// never written.
 
 #include <cooperative_groups.h>
 
-#include "swin_common.cuh"
+#include "swin_fwd_sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -49,55 +56,66 @@ extern "C" const char* pt_error_string(int code) {
 
 namespace {
 
-constexpr int STAGE_THREADS = GEMM_THREADS;  // == ATT_THREADS
-constexpr int STAGE_WARPS = STAGE_THREADS / 32;
 constexpr int MAX_DEPTH = 31;  // block d is shifted when bit d of shift_bits is set
+// three warpgroups: all run the rows and the attention; in the GEMMs,
+// warpgroups 0 and 1 consume and thread 256 feeds the ring, as in K2 (with
+// thread 0 feeding between its own waits instead, in a block of two
+// warpgroups, the GEMM phases took 2.3x K2's on an H100)
+constexpr int STAGE_THREADS = 384;
+constexpr int STAGE_WARPS = STAGE_THREADS / 32;
+constexpr int ATT_SLOTS = 3;  // attention items in flight a block (one a warpgroup)
 
-static_assert(GEMM_THREADS == ATT_THREADS, "one block size serves both tile kinds");
+// a GEMM phase, K2's roles (widths 64 and 128)
+template <int EPI>
+__device__ __forceinline__ void gemm_phase(int bn, const CUtensorMap* ta, const CUtensorMap* tw,
+                                           const FwdGemm& a, Ring& r, uint32_t stg) {
+  if (threadIdx.x >= 256) {
+    if (threadIdx.x != 256) return;
+    if (bn == 64)
+      gemm_produce<64>(ta, tw, a, r, blockIdx.x, gridDim.x);
+    else
+      gemm_produce<128>(ta, tw, a, r, blockIdx.x, gridDim.x);
+    return;
+  }
+  if (bn == 64)
+    gemm_consume<64, EPI>(a, r, stg, blockIdx.x, gridDim.x);
+  else
+    gemm_consume<128, EPI>(a, r, stg, blockIdx.x, gridDim.x);
+}
+
+// TMA maps: the activations read as GEMM A (h: LN rows, attn, hid) and the
+// depth-stacked weights (depth, K, N) as 3-D maps
+struct StageMaps {
+  CUtensorMap h, attn, hid, qkv_w, proj_w, fc1_w, fc2_w;
+};
 
 struct StageArgs {
   const bf16* x;  // (M, C) stage input, read only
-  // depth-stacked weights: (depth, in, out) bf16 matrices, (depth, n) float32 vectors
-  const float *ln1_w, *ln1_b;
-  const bf16* qkv_w;
-  const float* qkv_b;
-  const bf16* proj_w;
-  const float* proj_b;
-  const float *ln2_w, *ln2_b;
-  const bf16* fc1_w;
-  const float* fc1_b;
-  const bf16* fc2_w;
-  const float* fc2_b;
+  // depth-stacked float32 vectors (depth, n)
+  const float *ln1_w, *ln1_b, *qkv_b, *proj_b, *ln2_w, *ln2_b, *fc1_b, *fc2_b;
   const float* bias;  // (depth, nh, 64, 64)
   const float* mask;  // (nW, 64, 64) of the base shift, or null
-  // scratch for one block: stats (2, M) f32; qkv (M, 3C), attn / y (M, C),
-  // hid (M, hidden) bf16; tmp (M, C) the other half of the token ping-pong
-  float* stats;
-  bf16 *qkv, *attn, *y, *hid, *tmp;
+  // scratch for one block: h (M, C) the LN rows, qkv (M, 3C), attn / y (M,
+  // C), hid (M, hidden) bf16; tmp (M, C) the other half of the token
+  // ping-pong
+  bf16 *h, *qkv, *attn, *y, *hid, *tmp;
   bf16* out;  // (M, C)
   int B, H, W, C, nh, win, base_shift, shift_bits, depth, hidden;
+  FwdTiles t;
+  int S, stage_bytes, stg_bytes, att_groups;  // the shared-memory layout
 };
 
-union StageSmem {
-  GemmSmem<false> gemm;
-  AttnSmem attn;
-};
-
-__device__ __forceinline__ void stats_phase(const bf16* x, float* mean, float* rstd, int rows,
-                                            const RowMap& g) {
-  const int lane = threadIdx.x & 31;
-  for (int row = blockIdx.x * STAGE_WARPS + (threadIdx.x >> 5); row < rows;
-       row += gridDim.x * STAGE_WARPS)
-    row_stats_row<0>(x, mean, rstd, row, lane, g.C, g);
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
-template <int AMODE>
-__device__ __forceinline__ void gemm_phase(const GemmParams& p, GemmSmem<false>& sm) {
-  const int tn = (p.N + BN - 1) / BN, tiles = tn * ((p.M + BM - 1) / BM);
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    gemm_tile<AMODE, false, false>(p, (t / tn) * BM, (t % tn) * BN, sm);
-    __syncthreads();
-  }
+// the row passes as a function of their own: inlined beside the rest of
+// the stage, their unrolled rows spilled
+template <int MODE>
+__device__ __noinline__ void ln_phase(const bf16* x, const float* w, const float* b, bf16* h,
+                                      int rows, RowMap g) {
+  ln_rows_any<MODE>(x, w, b, h, rows, g, blockIdx.x * STAGE_WARPS + threadIdx.x / 32,
+                    gridDim.x * STAGE_WARPS);
 }
 
 // output buffer of block d: the last block writes `out`, the ones before
@@ -106,66 +124,96 @@ __device__ __forceinline__ bf16* block_out(const StageArgs& a, int d) {
   return ((a.depth - 1 - d) & 1) ? a.tmp : a.out;
 }
 
-__global__ void __launch_bounds__(STAGE_THREADS) swin_stage_kernel(StageArgs a) {
-  __shared__ StageSmem sm;
+__global__ void __launch_bounds__(STAGE_THREADS, 1)
+    swin_stage_kernel(const __grid_constant__ StageMaps maps, const StageArgs a) {
+  extern __shared__ unsigned char smem_raw[];
   cg::grid_group grid = cg::this_grid();
-  const int L = a.H * a.W, M = a.B * L, C = a.C, hid = a.hidden;
-  const int nW = (a.H / a.win) * (a.W / a.win), n_win = a.B * nW;
-  float* mean = a.stats;
-  float* rstd = a.stats + M;
-
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t stg = base + a.S * a.stage_bytes;
+  const uint32_t full = stg + a.stg_bytes, empty = full + 8 * a.S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  Ring r{base, static_cast<uint32_t>(a.stage_bytes), full, empty, a.S, 0, 0};
+  const int L = a.H * a.W, M = a.B * L, C = a.C, hid = a.hidden, nh = a.nh;
+  const int nW = (a.H / a.win) * (a.W / a.win);
+  // every thread's stores before the barrier reach the next phase's TMA
+  // loads (async proxy) and plain loads
+  auto barrier = [&]() {
+    fence_proxy_async();
+    grid.sync();
+  };
+  // the GEMMs of block d: M, N, k-blocks and W's depth; returns the tile
+  // width (K2's at this shape)
+  auto gemm = [&](int d, int which, FwdGemm& p) -> int {
+    p.M = M;
+    p.wd = d;
+    p.kb = (C + FW_BK - 1) / FW_BK;
+    switch (which) {
+      case 0: p.N = 3 * C; return a.t.qkv;
+      case 1: p.N = C; return a.t.proj;
+      case 2: p.N = hid; return a.t.fc1;
+      default: p.N = C; p.kb = (hid + FW_BK - 1) / FW_BK; return a.t.fc2;
+    }
+  };
+  const int slot = threadIdx.x / ATT_THREADS;
   for (int d = 0; d < a.depth; ++d) {
     const int shift = ((a.shift_bits >> d) & 1) ? a.base_shift : 0;
     const RowMap g{L, a.H, a.W, a.win, shift, C};
     const bf16* xin = d == 0 ? a.x : block_out(a, d - 1);
     bf16* xout = block_out(a, d);
 
-    // LN1 moments per token, then qkv of the shifted windows
-    stats_phase(xin, mean, rstd, M, g);
-    grid.sync();
-    GemmParams p{};
-    p.g = g;
-    p.A = xin; p.lda = C; p.mean = mean; p.rstd = rstd;
-    p.ln_w = a.ln1_w + (long)d * C; p.ln_b = a.ln1_b + (long)d * C;
-    p.Bm = a.qkv_w + (long)d * C * 3 * C; p.bias = a.qkv_b + (long)d * 3 * C;
-    p.out = a.qkv; p.M = M; p.N = 3 * C; p.K = C; p.a_window = 1;
-    gemm_phase<A_LN>(p, sm.gemm);
-    grid.sync();
+    // LN1 rows in window order, then qkv
+    ln_phase<LN_WINDOWS>(xin, a.ln1_w + (long)d * C, a.ln1_b + (long)d * C, a.h, M, g);
+    barrier();
+    FwdGemm p{};
+    int bn = gemm(d, 0, p);
+    p.bias = a.qkv_b + (long)d * 3 * C;
+    p.out = a.qkv;
+    gemm_phase<F_OUT>(bn, &maps.h, &maps.qkv_w, p, r, stg);
+    barrier();
 
-    // window attention, one (window, head) per item
-    const float* bias = a.bias + (long)d * a.nh * WIN_N * WIN_N;
-    const float* mask = shift ? a.mask : nullptr;
-    for (int t = blockIdx.x; t < n_win * a.nh; t += gridDim.x) {
-      window_attention_tile(a.qkv, bias, mask, a.attn, C, nW, t % n_win, t / n_win, sm.attn);
-      __syncthreads();
-    }
-    grid.sync();
+    // window attention, each warpgroup in its own part of the ring's memory
+    attention_items(a.qkv, a.bias + (long)d * nh * WIN_N * WIN_N, shift ? a.mask : nullptr,
+                    a.attn, C, nW, a.B * nW, a.att_groups, nh, base + slot * AttFwdSmem::END,
+                    blockIdx.x * ATT_SLOTS + slot, gridDim.x * ATT_SLOTS, 1 + slot);
+    fence_async_shared();  // the next GEMM's TMA loads overwrite these tiles
+    barrier();
 
     // proj, window reverse + unshift, residual
-    p = GemmParams{};
+    p = FwdGemm{};
+    bn = gemm(d, 1, p);
+    p.bias = a.proj_b + (long)d * C;
+    p.out = a.y;
+    p.resid = xin;
+    p.map = MAP_WIN_TO_TOK;
     p.g = g;
-    p.A = a.attn; p.lda = C; p.Bm = a.proj_w + (long)d * C * C; p.bias = a.proj_b + (long)d * C;
-    p.resid = xin; p.out = a.y; p.M = M; p.N = C; p.K = C; p.out_window = 1;
-    gemm_phase<A_PLAIN>(p, sm.gemm);
-    grid.sync();
+    gemm_phase<F_RES>(bn, &maps.attn, &maps.proj_w, p, r, stg);
+    barrier();
 
-    // LN2 + fc1 + GELU, then fc2 + residual
-    stats_phase(a.y, mean, rstd, M, g);
-    grid.sync();
-    p = GemmParams{};
+    // LN2 rows, fc1 + GELU, then fc2 + residual
+    ln_phase<LN_TOKENS>(a.y, a.ln2_w + (long)d * C, a.ln2_b + (long)d * C, a.h, M, g);
+    barrier();
+    p = FwdGemm{};
+    bn = gemm(d, 2, p);
+    p.bias = a.fc1_b + (long)d * hid;
+    p.gelu = 1;
+    p.out = a.hid;
+    gemm_phase<F_OUT>(bn, &maps.h, &maps.fc1_w, p, r, stg);
+    barrier();
+    p = FwdGemm{};
+    bn = gemm(d, 3, p);
+    p.bias = a.fc2_b + (long)d * C;
+    p.out = xout;
+    p.resid = a.y;
     p.g = g;
-    p.A = a.y; p.lda = C; p.mean = mean; p.rstd = rstd;
-    p.ln_w = a.ln2_w + (long)d * C; p.ln_b = a.ln2_b + (long)d * C;
-    p.Bm = a.fc1_w + (long)d * C * hid; p.bias = a.fc1_b + (long)d * hid;
-    p.out = a.hid; p.M = M; p.N = hid; p.K = C; p.gelu = 1;
-    gemm_phase<A_LN>(p, sm.gemm);
-    grid.sync();
-    p = GemmParams{};
-    p.g = g;
-    p.A = a.hid; p.lda = hid; p.Bm = a.fc2_w + (long)d * hid * C; p.bias = a.fc2_b + (long)d * C;
-    p.resid = a.y; p.out = xout; p.M = M; p.N = C; p.K = hid;
-    gemm_phase<A_PLAIN>(p, sm.gemm);
-    if (d + 1 < a.depth) grid.sync();
+    gemm_phase<F_RES>(bn, &maps.hid, &maps.fc2_w, p, r, stg);
+    if (d + 1 < a.depth) barrier();
   }
 }
 
@@ -176,35 +224,68 @@ __global__ void __launch_bounds__(STAGE_THREADS) swin_stage_kernel(StageArgs a) 
 // (depth, C, 3C), proj_w (depth, C, C), fc1_w (depth, C, hidden), fc2_w
 // (depth, hidden, C) bf16; bias (depth, nh, 64, 64) and mask (nW, 64, 64)
 // float32 (mask null when no block is shifted). Block d is shifted by
-// base_shift when bit d of shift_bits is set. Scratch as in StageArgs. One
+// base_shift when bit d of shift_bits is set. Scratch as in StageArgs.
+// Tiles: K2's tile widths of qkv, proj, fc1, fc2 at this shape (so the
+// stage gives K2's bits; 64 or 128) and the ring depth (0: as deep as
+// fits). One
 // cooperative launch; a launch the card refuses returns its error.
 extern "C" int swin_stage_forward(
     const bf16* x, const float* ln1_w, const float* ln1_b, const bf16* qkv_w,
     const float* qkv_b, const bf16* proj_w, const float* proj_b, const float* ln2_w,
     const float* ln2_b, const bf16* fc1_w, const float* fc1_b, const bf16* fc2_w,
-    const float* fc2_b, const float* bias, const float* mask, float* stats, bf16* qkv,
-    bf16* attn, bf16* y, bf16* hid, bf16* tmp, bf16* out, int B, int H, int W, int C,
-    int nh, int win, int base_shift, int shift_bits, int depth, int hidden,
-    cudaStream_t stream) {
-  if (C / nh != HD || C % nh || win * win != WIN_N || H % win || W % win || C % 32 ||
-      hidden % 32 || depth < 1 || depth > MAX_DEPTH ||
+    const float* fc2_b, const float* bias, const float* mask, bf16* h, bf16* qkv, bf16* attn,
+    bf16* y, bf16* hid, bf16* tmp, bf16* out, int B, int H, int W, int C, int nh, int win,
+    int base_shift, int shift_bits, int depth, int hidden, int bn_qkv, int bn_proj, int bn_fc1,
+    int bn_fc2, int stages, cudaStream_t stream) {
+  const FwdTiles t{bn_qkv, bn_proj, bn_fc1, bn_fc2, 64, stages};
+  if (bad_block(H, W, C, nh, win, hidden) || bad_tiles(t) || depth < 1 || depth > MAX_DEPTH ||
+      std::max(std::max(bn_qkv, bn_proj), std::max(bn_fc1, bn_fc2)) > 128 ||
       (shift_bits >> depth) != 0 || (shift_bits != 0 && (mask == nullptr || base_shift <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const StageArgs a{x, ln1_w, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_w, ln2_b,
-                    fc1_w, fc1_b, fc2_w, fc2_b, bias, mask, stats, qkv, attn, y, hid, tmp, out,
-                    B, H, W, C, nh, win, base_shift, shift_bits, depth, hidden};
+  // shared memory: the ring for the widest tile, its staged rows, the barriers
+  const int bn = std::max(std::max(bn_qkv, bn_proj), std::max(bn_fc1, bn_fc2));
+  const int stage_bytes = FW_A_BYTES + bn * FW_BK * 2;
+  const int stg_bytes = 2048 + 2 * 64 * (bn * 2 + 16);  // FwdStage<bn>::BYTES
+  int S = std::min(6, (FW_RING_BUDGET - stg_bytes) / stage_bytes);
+  if (stages > 0) S = std::min(S, stages);
+  if (S * stage_bytes < ATT_SLOTS * AttFwdSmem::END) S = (ATT_SLOTS * AttFwdSmem::END +
+                                                          stage_bytes - 1) / stage_bytes;
+  const int smem = S * stage_bytes + stg_bytes + 16 * S + 1024;
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, swin_stage_kernel, STAGE_THREADS, 0);
+    e = cudaFuncSetAttribute(swin_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, swin_stage_kernel, STAGE_THREADS,
+                                                      smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  void* args[] = {const_cast<StageArgs*>(&a)};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(swin_stage_kernel),
-                                  dim3(per_sm * sms), dim3(STAGE_THREADS), args, 0, stream);
+  const int grid = per_sm * sms;
+
+  const long M = (long)B * H * W;
+  StageMaps maps;
+  e = tmap(&maps.h, h, M, C, FW_BM);
+  if (e == cudaSuccess) e = tmap(&maps.attn, attn, M, C, FW_BM);
+  if (e == cudaSuccess) e = tmap(&maps.hid, hid, M, hidden, FW_BM);
+  if (e == cudaSuccess) e = tmap_w3(&maps.qkv_w, qkv_w, depth, C, 3 * C);
+  if (e == cudaSuccess) e = tmap_w3(&maps.proj_w, proj_w, depth, C, C);
+  if (e == cudaSuccess) e = tmap_w3(&maps.fc1_w, fc1_w, depth, C, hidden);
+  if (e == cudaSuccess) e = tmap_w3(&maps.fc2_w, fc2_w, depth, hidden, C);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_windows = B * (H / win) * (W / win);
+  // (window group, head) items: about one per warpgroup of the grid
+  const int groups = std::max(1, std::min(n_windows, (ATT_SLOTS * grid + nh - 1) / nh));
+  const StageArgs a{x, ln1_w, ln1_b, qkv_b, proj_b, ln2_w, ln2_b, fc1_b, fc2_b, bias, mask,
+                    h, qkv, attn, y, hid, tmp, out, B, H, W, C, nh, win, base_shift,
+                    shift_bits, depth, hidden, t, S, stage_bytes, stg_bytes, groups};
+  void* args[] = {&maps, const_cast<StageArgs*>(&a)};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(swin_stage_kernel), dim3(grid),
+                                  dim3(STAGE_THREADS), args, smem, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,25 +18,66 @@ bf16 rounding). With drop-path masks m (B, 2) float32 the residual adds are
 compute dtype, as the Pallas forward computes them (swin_block.py:351, :389).
 
 On a CUDA tensor ``swin_block_fused`` launches the hand-written kernels of
-``csrc/swin_block.cu`` (bf16 only); on a CPU tensor it runs
-``swin_block_plain``.
+``csrc/swin_block.cu`` (bf16 only; TMA-fed wgmma on the Hopper forward layer
+``csrc/swin_fwd_sm90.cuh``, with the tile choices of ``TILES``) or raises;
+on a CPU tensor it runs ``swin_block_plain``. ``swin_block_phases_plain``
+chains the plain versions of the kernel's phases (``ln_rows_plain``,
+``fwd_gemm_plain``, the attention of ``attention_rows``) through the row
+maps of ``swin_fwd_plan`` as the C entry chains its launches.
 """
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..models.htsat import (PatchMerging, SwinTransformerBlock, window_partition,
                             window_reverse)
+from . import swin_fwd_plan as plan
 from ._cuda import CudaKernel, check_cuda_tensor, i32, ptr
 
 KERNEL = CudaKernel("swin_block.cu", {
-    "swin_block_forward": [ptr] * 26 + [i32] * 8 + [ptr],
+    "swin_block_forward": [ptr] * 26 + [i32] * 14 + [ptr],
+    "swin_fwd_gemm": [i32] * 3 + [ptr] * 3 + [i32] + [ptr] * 3 + [i32] * 9 + [ptr],
 })
 
 LN_EPS = 1e-5
+
+# The GEMMs' tile widths (128-row tiles of 64, 128 or 192 columns) at each
+# stage width C, and the ring depth (stages; 0: as deep as shared memory
+# allows, at most 6); scripts/torch_k2_tiles.py sweeps them (each GEMM's
+# fastest width at B=32 over two rounds). K11 takes the same widths at the same
+# C, so a stage gives K2's bits, and takes only 64 and 128: the merge, K2's
+# alone, may take 192.
+TILES = {
+    96: {"qkv": 64, "proj": 128, "fc1": 128, "fc2": 64, "merge": 128, "stages": 0},
+    192: {"qkv": 64, "proj": 64, "fc1": 128, "fc2": 64, "merge": 64, "stages": 0},
+    384: {"qkv": 64, "proj": 128, "fc1": 128, "fc2": 64, "merge": 192, "stages": 0},
+    768: {"qkv": 128, "proj": 64, "fc1": 128, "fc2": 128, "merge": 128, "stages": 0},
+}
+DEFAULT_TILES = {"qkv": 128, "proj": 128, "fc1": 128, "fc2": 128, "merge": 128, "stages": 0}
+
+
+def tiles_for(C: int) -> Dict[str, int]:
+    """The tile choices at stage width C (``TILES``, else ``DEFAULT_TILES``)."""
+    return dict(TILES.get(C, DEFAULT_TILES))
+
+
+def tile_args(C: int) -> Tuple[int, ...]:
+    """``tiles_for(C)`` as the C entries take them (``plan.TILE_KEYS``)."""
+    t = tiles_for(C)
+    plan.check_tiles(t)
+    return tuple(int(t[k]) for k in plan.TILE_KEYS)
+
+
+def check_aligned(tensors: Dict[str, Optional[torch.Tensor]]) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels'
+    vector loads and TMA descriptors need it)."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the Swin block kernels need 16-byte aligned tensors")
 
 
 @dataclass
@@ -200,6 +241,84 @@ def swin_block_plain(x: torch.Tensor, p: SwinBlockParams,
     return _mm(v4, p.merge_w).to(cd)
 
 
+def ln_rows_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  rows: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Plain version of K2's LN rows phase: x (tokens, C) in the compute
+    dtype; rows None (token order), (R,) (the token each row reads) or (R,
+    4) (the merge's 4C gather) -> (R, K) bf16((x - mean) rstd w + b)."""
+    cd = x.dtype
+    if rows is None:
+        return _ln(x, w, b).to(cd)
+    idx = torch.as_tensor(rows, device=x.device)
+    if idx.ndim == 1:
+        return _ln(x, w, b).to(cd)[idx]
+    return _ln(x[idx].reshape(idx.shape[0], -1), w, b).to(cd)
+
+
+def fwd_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                   gelu: bool = False, resid: Optional[torch.Tensor] = None,
+                   scale: Optional[torch.Tensor] = None, L: int = 0,
+                   rows_out: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Plain version of K2's GEMM forms: a (M, K) . w (K, N) with float32
+    sums in the compute dtype; without ``resid`` (F_OUT) bf16(acc + bias)
+    or bf16(gelu(acc + bias)); with it (F_RES) out[row r's place] =
+    bf16(resid + bf16(bf16(scale[r // L]) bf16(acc + bias))), the place
+    ``rows_out[r]`` (the window -> token map) or r, scale (images, ) float32
+    or None."""
+    cd = a.dtype
+    v = _mm(a, w)
+    if bias is not None:
+        v = v + bias
+    if resid is None:
+        return (F.gelu(v, approximate="none") if gelu else v).to(cd)
+    v = v.to(cd)
+    if scale is not None:
+        img = torch.arange(a.shape[0], device=a.device) // L
+        v = scale.to(cd)[img][:, None] * v
+    out = torch.empty_like(resid)
+    dst = slice(None) if rows_out is None else torch.as_tensor(rows_out, device=a.device)
+    out[dst] = resid[dst] + v
+    return out
+
+
+def swin_block_phases_plain(x: torch.Tensor, p: SwinBlockParams,
+                            dp_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2's phases in plain PyTorch, chained as ``swin_block_forward``
+    chains its launches, through ``swin_fwd_plan``'s row maps: LN1 rows in
+    window order, qkv, the window attention, proj with the residual through
+    the window -> token map, LN2 rows, fc1 + GELU, fc2 with the residual,
+    then the merge's LN rows over the 4C gather and its GEMM. Gives
+    ``swin_block_plain``'s bits (the CPU tests hold it there)."""
+    cd = p.qkv_w.dtype
+    B, L, C = x.shape
+    _check_masks(dp_masks, p, B)
+    H, W, w, s, nh = p.H, p.W, p.window, p.shift, p.nh
+    N, hd = w * w, C // nh
+    x0 = x.to(cd).reshape(B * L, C)
+    win_rows = plan.window_rows(B, H, W, w, s)
+    h1 = ln_rows_plain(x0, p.ln1_w, p.ln1_b, win_rows)
+    qkv = fwd_gemm_plain(h1, p.qkv_w, p.qkv_b)
+    q, k, v = (qkv[:, i * C:(i + 1) * C].reshape(-1, N, nh, hd).transpose(1, 2)
+               for i in range(3))
+    sc = torch.matmul(q.float(), k.float().transpose(-1, -2)) + p.bias[None]
+    if p.mask is not None:
+        nW = p.mask.shape[0]
+        sc = (sc.reshape(B, nW, nh, N, N) + p.mask[None, :, None]).reshape(-1, nh, N, N)
+    pr = torch.softmax(sc, dim=-1).to(cd)
+    attn = torch.matmul(pr.float(), v.float()).to(cd).transpose(1, 2).reshape(-1, C)
+    m = dp_masks
+    y = fwd_gemm_plain(attn, p.proj_w, p.proj_b, resid=x0,
+                       scale=None if m is None else m[:, 0], L=L, rows_out=win_rows)
+    h2 = ln_rows_plain(y, p.ln2_w, p.ln2_b)
+    hid = fwd_gemm_plain(h2, p.fc1_w, p.fc1_b, gelu=True)
+    z = fwd_gemm_plain(hid, p.fc2_w, p.fc2_b, resid=y,
+                       scale=None if m is None else m[:, 1], L=L)
+    if not p.merge:
+        return z.reshape(B, L, C)
+    hm = ln_rows_plain(z, p.merge_ln_w, p.merge_ln_b, plan.merge_rows(B, H, W))
+    return fwd_gemm_plain(hm, p.merge_w).reshape(B, L // 4, 2 * C)
+
+
 def swin_block_fused(x: torch.Tensor, p: SwinBlockParams,
                      dp_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One Swin block (+ PatchMerging when ``p.merge``, or drop-path masks
@@ -210,14 +329,9 @@ def swin_block_fused(x: torch.Tensor, p: SwinBlockParams,
     B, L, C = x.shape
     _check_masks(dp_masks, p, B)
     H, W, w, nh = p.H, p.W, p.window, p.nh
-    N, hd, hidden = w * w, C // nh, p.fc1_w.shape[1]
+    N, hidden = w * w, p.fc1_w.shape[1]
     check_cuda_tensor("x", x, torch.bfloat16, (B, H * W, C))
-    if N != 64 or hd != 24 or C % 32 or H % w or W % w:
-        raise NotImplementedError(
-            f"the Swin block kernel takes 8x8 windows, head dim 24, C % 32 "
-            f"== 0 and whole windows (got window={w}, hd={hd}, C={C}, {H}x{W})")
-    if p.merge and (H % 2 or W % 2):
-        raise ValueError(f"PatchMerging needs an even map, got {H}x{W}")
+    plan.check_block(H, W, C, nh, w, hidden, p.merge, dp_masks is not None)
     mats = {"qkv_w": (C, 3 * C), "proj_w": (C, C), "fc1_w": (C, hidden),
             "fc2_w": (hidden, C)}
     if p.merge:
@@ -236,10 +350,13 @@ def swin_block_fused(x: torch.Tensor, p: SwinBlockParams,
         check_cuda_tensor("mask", p.mask, torch.float32, (nW, N, N))
     if dp_masks is not None:
         check_cuda_tensor("dp_masks", dp_masks, torch.float32, (B, 2))
+    check_aligned({"x": x, "dp_masks": dp_masks, "mask": p.mask,
+                   **{k: getattr(p, k) for k in (*mats, *vecs, "bias")}})
+    tiles = tile_args(C)
 
     M = B * L
     dev = x.device
-    stats = torch.empty((2, M), device=dev, dtype=torch.float32)
+    h = torch.empty((M, C), device=dev, dtype=torch.bfloat16)
     qkv = torch.empty((M, 3 * C), device=dev, dtype=torch.bfloat16)
     attn = torch.empty((M, C), device=dev, dtype=torch.bfloat16)
     y = torch.empty((M, C), device=dev, dtype=torch.bfloat16)
@@ -258,7 +375,38 @@ def swin_block_fused(x: torch.Tensor, p: SwinBlockParams,
                 p.fc1_w.data_ptr(), p.fc1_b.data_ptr(), p.fc2_w.data_ptr(),
                 p.fc2_b.data_ptr(), p.bias.data_ptr(), opt(p.mask), opt(dp_masks),
                 opt(p.merge_ln_w), opt(p.merge_ln_b), opt(p.merge_w),
-                stats.data_ptr(), qkv.data_ptr(), attn.data_ptr(), y.data_ptr(),
+                h.data_ptr(), qkv.data_ptr(), attn.data_ptr(), y.data_ptr(),
                 hid.data_ptr(), z.data_ptr(), out.data_ptr() if p.merge else None,
-                B, H, W, C, nh, w, p.shift, hidden)
+                B, H, W, C, nh, w, p.shift, hidden, *tiles)
+    return out
+
+
+def fwd_gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+             gelu: bool = False, resid: Optional[torch.Tensor] = None,
+             scale: Optional[torch.Tensor] = None, L: int = 0,
+             geometry: Optional[Tuple[int, int, int, int]] = None, bn: int = 128,
+             stages: int = 0) -> torch.Tensor:
+    """One of K2's GEMM forms alone on the card (the C entry
+    ``swin_fwd_gemm``), as ``fwd_gemm_plain`` computes it: a (M, K) and w
+    (K, N) bf16; bias (N,) float32; with ``resid`` (M, N) bf16 the residual
+    form, ``scale`` (images, 2) float32 (column 0 read, the image of row r
+    being r // L), and the output rows through the window -> token map of
+    ``geometry`` (H, W, window, shift) when given."""
+    M, K = a.shape
+    N = w.shape[1]
+    check_cuda_tensor("a", a, torch.bfloat16)
+    check_cuda_tensor("w", w, torch.bfloat16, (K, N))
+    for name, t, dt in (("bias", bias, torch.float32), ("resid", resid, torch.bfloat16),
+                        ("scale", scale, torch.float32)):
+        if t is not None:
+            check_cuda_tensor(name, t, dt)
+    check_aligned({"a": a, "w": w, "bias": bias, "resid": resid, "scale": scale})
+    H, W, win, shift = geometry if geometry is not None else (0, 0, 0, 0)
+    if geometry is not None:
+        L = H * W
+    out = torch.empty((M, N), device=a.device, dtype=torch.bfloat16)
+    opt = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    KERNEL.call("swin_fwd_gemm", int(resid is not None), bn, stages, a.data_ptr(),
+                w.data_ptr(), opt(bias), int(gelu), opt(resid), opt(scale), out.data_ptr(),
+                M, N, K, L, H, W, win, shift, int(geometry is not None))
     return out

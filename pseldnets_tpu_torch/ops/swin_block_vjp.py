@@ -38,8 +38,8 @@ import torch
 from ..models.htsat import (SwinTransformerBlock, relative_position_index,
                             window_partition, window_reverse)
 from ._cuda import CudaKernel, check_cuda_tensor, i32, ptr
-from .swin_block import (LN_EPS, SwinBlockParams, _mm, attention_rows, prepare_block,
-                         swin_block_fused, swin_block_plain)
+from .swin_block import (LN_EPS, SwinBlockParams, _mm, attention_rows, check_aligned,
+                         prepare_block, swin_block_fused, swin_block_plain)
 
 # The kernels' tile choices (scripts/torch_k35_tiles.py sweeps them), shared
 # by K3 and K5: the tile width (64 or 128 columns, 128 rows) of the recompute
@@ -94,14 +94,6 @@ def wanted(want: Optional[Iterable[str]], keys: Iterable[str]) -> Tuple[str, ...
 def tile_args() -> Tuple[int, ...]:
     """``TILES`` as the kernels' C entries take them."""
     return tuple(int(TILES[k]) for k in TILE_KEYS)
-
-
-def check_aligned(tensors: Dict[str, Optional[torch.Tensor]]) -> None:
-    """Raise unless every tensor starts on a 16-byte boundary (the kernels'
-    vector loads and TMA descriptors need it)."""
-    for name, t in tensors.items():
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name}: the backward kernels need 16-byte aligned tensors")
 
 
 def _mlp_rows(L: int) -> int:

@@ -11,8 +11,10 @@ shift mask (nW, N, N) of the base shift serves every shifted block, as the
 JAX wrappers build them (swin_block.py:799-845).
 
 On a CUDA tensor ``swin_stage_fused`` launches ``csrc/swin_stage.cu`` once
-(bf16 only): one cooperative launch that runs every block. On a CPU tensor
-it runs ``swin_stage_plain``.
+(bf16 only): one cooperative launch that runs every block on K2's Hopper
+phases (``csrc/swin_fwd_sm90.cuh``) with K2's tile widths at the stage's
+width (``swin_block.tiles_for``), so it gives K2's bits. On a CPU tensor it
+runs ``swin_stage_plain``.
 """
 
 from dataclasses import dataclass
@@ -20,15 +22,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import swin_fwd_plan as plan
 from ._cuda import CudaKernel, check_cuda_tensor, i32, ptr
-from .swin_block import SwinBlockParams, prepare_block, swin_block_plain
+from .swin_block import (SwinBlockParams, check_aligned, prepare_block, swin_block_plain,
+                         tiles_for)
 from .swin_block_adapt import has_adapters
 
 KERNEL = CudaKernel("swin_stage.cu", {
-    "swin_stage_forward": [ptr] * 22 + [i32] * 10 + [ptr],
+    "swin_stage_forward": [ptr] * 22 + [i32] * 15 + [ptr],
 })
-
-MAX_DEPTH = 31  # the kernel takes the shifted blocks as bits of one int
 
 # the per-block tensors of SwinBlockParams that StageParams stacks on depth
 STACKED = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b", "ln2_w", "ln2_b",
@@ -128,16 +130,9 @@ def swin_stage_fused(x: torch.Tensor, sp: StageParams) -> torch.Tensor:
         return swin_stage_plain(x, sp)
     B, L, C = x.shape
     H, W, w, nh, depth, hidden = sp.H, sp.W, sp.window, sp.nh, sp.depth, sp.hidden
-    N, hd = w * w, C // nh
+    N = w * w
     check_cuda_tensor("x", x, torch.bfloat16, (B, H * W, C))
-    if N != 64 or hd != 24 or C % 32 or hidden % 32 or H % w or W % w:
-        raise NotImplementedError(
-            f"the Swin stage kernel takes 8x8 windows, head dim 24, C % 32 == 0, "
-            f"hidden % 32 == 0 and whole windows (got window={w}, hd={hd}, C={C}, "
-            f"hidden={hidden}, {H}x{W})")
-    if not 1 <= depth <= MAX_DEPTH:
-        raise NotImplementedError(f"the Swin stage kernel takes 1..{MAX_DEPTH} blocks, "
-                                  f"got {depth}")
+    plan.check_stage(H, W, C, nh, w, hidden, sp.shifts)
     mats = {"qkv_w": (C, 3 * C), "proj_w": (C, C), "fc1_w": (C, hidden),
             "fc2_w": (hidden, C)}
     for name, shape in mats.items():
@@ -152,10 +147,14 @@ def swin_stage_fused(x: torch.Tensor, sp: StageParams) -> torch.Tensor:
         if sp.mask is None:
             raise ValueError("shifted blocks need the shift mask")
         check_cuda_tensor("mask", sp.mask, torch.float32, ((H // w) * (W // w), N, N))
+    check_aligned({"x": x, "mask": sp.mask, **{k: getattr(sp, k) for k in STACKED}})
+    t = tiles_for(C)
+    plan.check_stage_tiles(t)
+    tiles = tuple(t[k] for k in ("qkv", "proj", "fc1", "fc2", "stages"))  # no merge in a stage
 
     M = B * L
     dev = x.device
-    stats = torch.empty((2, M), device=dev, dtype=torch.float32)
+    h = torch.empty((M, C), device=dev, dtype=torch.bfloat16)
     qkv = torch.empty((M, 3 * C), device=dev, dtype=torch.bfloat16)
     attn = torch.empty((M, C), device=dev, dtype=torch.bfloat16)
     y = torch.empty((M, C), device=dev, dtype=torch.bfloat16)
@@ -166,9 +165,9 @@ def swin_stage_fused(x: torch.Tensor, sp: StageParams) -> torch.Tensor:
     KERNEL.call("swin_stage_forward",
                 x.data_ptr(), *(getattr(sp, name).data_ptr() for name in STACKED),
                 sp.mask.data_ptr() if shift_bits else None,
-                stats.data_ptr(), qkv.data_ptr(), attn.data_ptr(), y.data_ptr(),
+                h.data_ptr(), qkv.data_ptr(), attn.data_ptr(), y.data_ptr(),
                 hid.data_ptr(), tmp.data_ptr(), out.data_ptr(),
-                B, H, W, C, nh, w, sp.base_shift, shift_bits, depth, hidden)
+                B, H, W, C, nh, w, sp.base_shift, shift_bits, depth, hidden, *tiles)
     return out
 
 

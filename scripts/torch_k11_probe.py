@@ -1,31 +1,28 @@
 #!/usr/bin/env python3
 """Where the time of kernel K11 (csrc/swin_stage.cu, a whole Swin stage in
-one cooperative launch) goes, on one card.
+one cooperative launch on K2's phases, csrc/swin_fwd_sm90.cuh) goes, on one
+card.
 
 Builds copies of the source with one change each and times them on the four
 HTSAT stages at full width and depth (2, 2, 6, 2), B=32 random bf16 tokens,
 seeded random weights, with CUDA events, beside K2 (csrc/swin_block.cu) run
 block after block on the same inputs, in rounds that alternate the order:
 
-- ``shipped``: the source as it is (as many blocks per SM as the occupancy
-  query allows);
-- ``per_sm_1``, ``per_sm_2``, ``per_sm_3``: the grid capped at that many
-  blocks per SM;
-- ``min_blocks_5``: ``__launch_bounds__`` asks for 5 blocks per SM, which
-  caps the registers at 102 a thread (the shared memory allows 5);
+- ``shipped``: the source as it is (one block of 384 threads a SM);
+- ``half_grid``: the grid cut to half the SMs (every phase's items and
+  rows fall to other blocks; the output must not change);
 - ``barriers_only``: every phase given no work (no rows, tiles or windows),
   so the time left is the launch and its grid barriers';
-- ``attention_only``: the LayerNorm and GEMM phases given no rows, so the
-  time left is the attention phase's and the barriers';
-- ``no_attention``: the attention phase given no windows, so the time left
-  is the LayerNorm and GEMM phases' and the barriers'.
+- ``no_rows``: the LayerNorm row phases given no rows;
+- ``no_gemms``: the GEMM phases given no tiles;
+- ``no_attention``: the attention phase given no windows.
 
-The last three give wrong outputs, which are not checked.
-
-Every other variant must give the shipped output bit for bit (the same tiles
-in the same order; only their assignment to blocks changes). Prints one line
-per variant and round, then one JSON line with each variant's ms per round
-(the sum over the four stages) and the card.
+The last four give wrong outputs, which are not checked; ``half_grid`` must
+give the shipped output bit for bit (the same tiles in the same order; only
+their assignment to blocks changes). Prints each copy's registers, spills
+and ptxas's notes on serialised wgmma, one line per variant and round, then
+one JSON line with each variant's ms per round (the sum over the four
+stages) and the card.
 
     python3 scripts/torch_k11_probe.py --rounds 2
 
@@ -49,30 +46,30 @@ from pseldnets_tpu_torch.ops import _cuda, swin_block, swin_stage  # noqa: E402
 
 DEPTHS = (2, 2, 6, 2)
 B = 32
-GRID = "dim3(per_sm * sms)"
+NO_ROWS = ("a.h, M, g);", "a.h, 0, g);", 2)
+NO_WINDOWS = ("a.B * nW, a.att_groups", "0, a.att_groups", 1)
+NO_TILES = ("p.M = M;", "p.M = 0;", 1)
+# name -> (old, new, occurrences)
 EDITS = {
     "shipped": (),
-    "per_sm_1": ((GRID, "dim3((per_sm < 1 ? per_sm : 1) * sms)"),),
-    "per_sm_2": ((GRID, "dim3((per_sm < 2 ? per_sm : 2) * sms)"),),
-    "per_sm_3": ((GRID, "dim3((per_sm < 3 ? per_sm : 3) * sms)"),),
-    "min_blocks_5": (("__launch_bounds__(STAGE_THREADS) swin_stage_kernel",
-                      "__launch_bounds__(STAGE_THREADS, 5) swin_stage_kernel"),),
-    "barriers_only": (("M = a.B * L,", "M = 0,"), ("n_win = a.B * nW;", "n_win = 0;")),
-    "attention_only": (("M = a.B * L,", "M = 0,"),),
-    "no_attention": (("n_win = a.B * nW;", "n_win = 0;"),),
+    "half_grid": (("const int grid = per_sm * sms;", "const int grid = per_sm * sms / 2;", 1),),
+    "barriers_only": (NO_ROWS, NO_WINDOWS, NO_TILES),
+    "no_rows": (NO_ROWS,),
+    "no_gemms": (NO_TILES,),
+    "no_attention": (NO_WINDOWS,),
 }
-UNCHECKED = ("shipped", "barriers_only", "attention_only", "no_attention")
+UNCHECKED = ("shipped", "barriers_only", "no_rows", "no_gemms", "no_attention")
 
 
 def variant(name):
     """A CudaKernel of K11's source with the ``name`` change."""
     src = swin_stage.KERNEL.source.read_text()
     # the copy lives in the build directory: include the shared header by path
-    edits = EDITS[name] + (('#include "swin_common.cuh"',
-                            f'#include "{_cuda.CSRC / "swin_common.cuh"}"'),)
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"swin_stage.cu no longer holds one `{old}`")
+    edits = EDITS[name] + (('#include "swin_fwd_sm90.cuh"',
+                            f'#include "{_cuda.CSRC / "swin_fwd_sm90.cuh"}"', 1),)
+    for old, new, n in edits:
+        if src.count(old) != n:
+            raise RuntimeError(f"swin_stage.cu no longer holds {n} `{old}`")
         src = src.replace(old, new)
     out = _cuda.BUILD / "k11_probe" / f"swin_stage_{name}.cu"
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -119,8 +116,11 @@ def main():
         for line in k.build_log.splitlines():
             if "Compiling entry function" in line:
                 entry = line
-            elif "registers" in line and "swin_stage_kernel" in entry:
+            elif ("registers" in line or "spill" in line) and "swin_stage_kernel" in entry:
                 print(f"  {name}: {line.strip()}", flush=True)
+            elif "Potential Performance Loss" in line and "swin_stage_kernel" in line:
+                # ptxas's notes: C7515 / C7510 a wgmma pipeline serialised
+                print(f"  {name}: {line.strip()[:130]}", flush=True)
 
     gen = torch.Generator().manual_seed(7)
     stages = []

@@ -13,8 +13,8 @@ from pseldnets_tpu_torch.models.factory import init_weights
 from pseldnets_tpu_torch.models.htsat import BasicLayer, PatchMerging, SwinTransformerBlock
 from pseldnets_tpu_torch.models.passt import Block
 from pseldnets_tpu_torch.ops import (conv_block, frontend, frontend_forms, patch_embed,
-                                     swin_block, swin_block_adapt, swin_block_vjp, swin_stage,
-                                     vit_block)
+                                     swin_block, swin_block_adapt, swin_block_vjp, swin_fwd_plan,
+                                     swin_stage, vit_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -127,6 +127,84 @@ def test_swin_block_kernel_matches_plain(card, stage, shift, merge):
     ref = swin_block.swin_block_plain(x, p).float()
     assert got.shape == ref.shape
     assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+
+
+# K2's GEMM forms at the block's shapes, B=2 images of each stage (and a
+# ragged row count): (form, stage, M or None for B H W, N, K)
+_FWD_GEMMS = [(f, i) for i in range(4) for f in ("qkv", "proj", "fc1", "fc2")] + [
+    ("merge", i) for i in range(3)] + [("ragged", 0)]
+
+
+@pytest.mark.parametrize("bn", [64, 128, 192])
+@pytest.mark.parametrize("form,stage", _FWD_GEMMS)
+def test_fwd_gemm_forms_match_plain(card, form, stage, bn):
+    """Each GEMM form of K2/K11's Hopper layer alone (TMA boxes, the tile
+    width, the bias, GELU and residual epilogues, the drop-path scale with
+    a zero, the residual stored through the shifted window -> token map)
+    against its plain version: within 2^-7 of the output's largest
+    magnitude (float32 sums in another order, then one bf16 rounding);
+    two launches give equal bits. A wrong TMA descriptor gives wrong
+    numbers, not a crash."""
+    H, C = 64 >> stage, 96 << stage
+    M, L = 2 * H * H, H * H
+    K, N = {"qkv": (C, 3 * C), "proj": (C, C), "fc1": (C, 4 * C), "fc2": (4 * C, C),
+            "merge": (4 * C, 2 * C), "ragged": (C, 3 * C)}[form]
+    if form == "merge":
+        M //= 4
+    if form == "ragged":
+        M = 333
+    gen = torch.Generator().manual_seed(M + K + N + bn)
+    a = torch.randn(M, K, generator=gen).to(card).bfloat16()
+    w = (torch.randn(K, N, generator=gen) / K ** 0.5).to(card).bfloat16()
+    bias = None if form == "merge" else (torch.randn(N, generator=gen) * 0.3).to(card)
+    kw = {"gelu": form == "fc1"}
+    plain_kw = dict(kw)
+    if form in ("proj", "fc2"):
+        resid = torch.randn(M, N, generator=gen).to(card).bfloat16()
+        scale = torch.tensor([1 / 0.9, 0.0], device=card)  # image 1's branch dropped
+        # the kernel reads column 0 of (images, 2) drop-path masks
+        kw.update(resid=resid, scale=torch.stack([scale, scale], 1), L=L)
+        plain_kw.update(resid=resid, scale=scale, L=L)
+        if form == "proj":  # the window -> token map, shifted where the stage has shifts
+            shift = 4 if stage < 3 else 0
+            kw["geometry"] = (H, H, 8, shift)
+            plain_kw["rows_out"] = swin_fwd_plan.window_rows(2, H, H, 8, shift)
+    got = swin_block.fwd_gemm(a, w, bias, bn=bn, **kw)
+    again = swin_block.fwd_gemm(a, w, bias, bn=bn, **kw)
+    ref = swin_block.fwd_gemm_plain(a, w, bias, **plain_kw)
+    assert torch.equal(got, again)
+    assert got.shape == ref.shape
+    g, r = got.float(), ref.float()
+    assert torch.isfinite(g).all()
+    assert (g - r).abs().max() <= 2.0 ** -7 * r.abs().max()
+
+
+@pytest.mark.parametrize("stage,shift,masks", [(0, 4, "zeros"), (1, 0, "mixed"), (2, 4, "mixed"),
+                                               (3, 0, "zeros"), (1, 4, None)])
+def test_swin_block_kernel_masks_and_repeat(card, stage, shift, masks):
+    """K2 with drop-path masks, every image's zero (both branches dropped:
+    the block is the identity, exactly) or one branch dropped per image,
+    and without masks, B=3: within 2^-6 of the output's largest magnitude
+    of the plain bf16 version; a second launch gives the same bits."""
+    gen = torch.Generator().manual_seed(50 + stage)
+    H, C, nh = 64 >> stage, 96 << stage, 4 << stage
+    blk = SwinTransformerBlock(C, (H, H), nh, 8, shift_size=shift)
+    init_weights(blk, gen)
+    p = swin_block.prepare_block(blk.to(card).eval(), torch.bfloat16)
+    x = torch.randn(3, H * H, C, generator=gen).to(card).bfloat16()
+    m = {"zeros": torch.zeros(3, 2),
+         "mixed": torch.tensor([[1 / 0.9, 0.0], [0.0, 1 / 0.9], [1 / 0.9, 1 / 0.9]]),
+         None: None}[masks]
+    m = m.to(card) if m is not None else None
+    before = swin_block.KERNEL.launches
+    got = swin_block.swin_block_fused(x, p, m)
+    again = swin_block.swin_block_fused(x, p, m)
+    assert swin_block.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    ref = swin_block.swin_block_plain(x, p, m).float()
+    assert (got.float() - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+    if masks == "zeros":
+        assert torch.equal(got, x)
 
 
 @pytest.mark.parametrize("stage,shift", [(0, 4), (1, 0), (2, 4), (3, 0)])
