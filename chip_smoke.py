@@ -164,12 +164,14 @@ def phase_build():
     # HMMA (mma.sync, what WMMA compiles to); in K2's and K11's the same,
     # counted in their own kernels (K2's GEMM fwd_gemm and attention, K11's
     # swin_stage_kernel), since their libraries also hold the backward
-    # layer's kernels of the header they share
+    # layer's kernels of the header they share; K4's the same as K2's (its
+    # GEMMs fwd_gemm and fwd_gemm_two, the attention)
     tool = shutil.which("cuobjdump") or str(Path(_cuda.nvcc()).parent / "cuobjdump")
     for name, need, own in (("K6", ("HGMMA", "UTMALDG", "UTMASTG"), None),
                             ("K7", ("HGMMA", "UTMALDG", "UTMASTG"), None),
                             ("K3", ("HGMMA", "UTMALDG"), None), ("K5", ("HGMMA", "UTMALDG"), None),
                             ("K2", ("HGMMA", "UTMALDG"), r"fwd_gemm|attention_kernel"),
+                            ("K4", ("HGMMA", "UTMALDG"), r"fwd_gemm|attention_kernel"),
                             ("K11", ("HGMMA", "UTMALDG"), r"swin_stage_kernel")):
         lib = kernels()[name].library_path()
         try:
@@ -188,7 +190,7 @@ def phase_build():
             log(f"  {lib.name} SASS of its own kernels ({own}): "
                 + ", ".join(f"{op} {n}" for op, n in counts.items()))
         check(all(counts[op] for op in need), f"{name}'s SASS lacks wgmma or TMA: {counts}")
-        if name in ("K3", "K5", "K2", "K11"):
+        if name in ("K3", "K5", "K2", "K4", "K11"):
             check(counts["HMMA"] == 0, f"{name}'s SASS still has mma.sync (WMMA): {counts}")
 
 
@@ -956,8 +958,34 @@ def phase_serve_adapter(smi):
     k1 = cuda_ms(lambda: folded_wav_features(model, wav, t_out=1024), reps=10)
     log(f"AdapterBit per batch of {B_SERVE} ({smi}): K1 {k1:.3f} ms, K4 x12 {k4_ms:.3f} ms "
         f"(plain {k4_plain:.3f}, bound {k4_bound:.3f}), rest {dt * 1e3 - k1 - k4_ms:.3f} ms")
+    phases = k4_phases(xs, blocks, smi)
     phase_profile("one AdapterBit served batch", lambda: serve(wav))
-    return launches, {"K4": (k4_err, k4_rel, k4_ms, k4_plain, k4_bound, "operations")}
+    return launches, {"K4": (k4_err, k4_rel, k4_ms, k4_plain, k4_bound, "operations", None,
+                             None, {"phases_ms_x12": phases})}
+
+
+def k4_phases(xs, blocks, smi):
+    """K4 by phase over the served batch's twelve blocks (each on its own
+    input; torch.profiler, a phase a launch in swin_fwd_plan.ADAPT_PHASES'
+    order): ms x12 and the GEMM and attention phases' TFLOP/s (the padded
+    adapter width, as the kernel runs it). Returns {phase: ms}."""
+    from pseldnets_tpu_torch.ops import swin_block_adapt as sa
+    from pseldnets_tpu_torch.ops import swin_fwd_plan as plan
+
+    ms = dict.fromkeys(plan.ADAPT_PHASES, 0.0)
+    fl = {}
+    for x, p in zip(xs, blocks):
+        t, _ = plan.launches_ms(lambda: sa.swin_block_adapt_fused(x, p), len(plan.ADAPT_PHASES))
+        for k, v in zip(plan.ADAPT_PHASES, t):
+            ms[k] += v
+        b = p.base
+        for k, v in plan.adapt_phase_flops(x.shape[0] * x.shape[1], b.C, b.fc1_w.shape[1],
+                                           p.ch_pad).items():
+            fl[k] = fl.get(k, 0) + v
+    log(f"K4 by phase x12 at B={B_SERVE} ({smi}): " + ", ".join(
+        f"{k} {v:.3f} ms" + (f" ({fl[k] / v / 1e9:.0f} TFLOP/s)" if fl.get(k) else "")
+        for k, v in ms.items()) + f"; sum {sum(ms.values()):.3f} ms")
+    return {k: round(v, 5) for k, v in ms.items()}
 
 
 def phase_train_adapter(smi):

@@ -1,76 +1,91 @@
 // Kernel K4: the Swin block with AdapterBit bottleneck adapters, forward
-// (serving with masks of ones, and training with drop-path masks).
+// (serving with masks of ones, and training with drop-path masks), for
+// Hopper (sm_90a).
 //
 // Replaces the JAX package's ops/pallas/swin_block_adapt_vjp.py::_fwd_kernel
 // (via _fwd_call: swin_block_adapt_eval and the swin_block_train_adapt
 // forward). With s the constant adapter scalar, masks m (B, 2) float32 and a
 // the block's attention output after proj, window reverse and unshift (bf16,
 // token order):
-//   branch = a + s * (gelu(a Wsa1 + bsa1) Wsa2 + bsa2)           (float32)
-//   y      = x + m0 * branch                                     (float32)
-//   h2     = bf16(LN2(y))
-//   mo     = gelu(h2 fc1 + b1) fc2 + b2 + s * (gelu(h2 Wma1 + bma1) Wma2 + bma2)
-//   out    = bf16(y + m1 * mo)
-// Unlike K2, y stays float32 between the two halves and only out is rounded
-// (swin_block_adapt_vjp.py:126-152). GELU outputs, qkv, P, the heads and a are
-// rounded to bf16 where the Pallas kernel rounds them; GELU uses the exact
-// erff (the Pallas bf16 path uses a fast erf). The spatial adapter is
-// row-wise, so it runs on the token-order rows, as the Pallas kernel does
-// after its window reverse.
+//   gs  = bf16(gelu(a Wsa1 + bsa1))
+//   y   = x + m0 * (a + s * (gs Wsa2 + bsa2))                    (float32)
+//   h2  = bf16(LN2(y))
+//   fg  = bf16(gelu(h2 fc1 + b1)),  gm = bf16(gelu(h2 Wma1 + bma1))
+//   out = bf16(y + m1 * ((fg fc2 + b2) + s * (gm Wma2 + bma2)))
+// Unlike K2, y stays float32 between the two halves, the masks multiply
+// unrounded and only out is rounded (swin_block_adapt_vjp.py:126-152). GELU
+// outputs, qkv, P, the heads and a are rounded to bf16 where the Pallas
+// kernel rounds them; GELU uses the exact erff (the Pallas bf16 path uses a
+// fast erf). The spatial adapter is row-wise, so it runs on the token-order
+// rows, as the Pallas kernel does after its window reverse.
 //
 // The adapter width is the wrapper's: C * mlp_ratio padded with zero columns
-// (Wa1, ba1) and zero rows (Wa2) to a multiple of 32, the GEMM's K step; the
-// padded units compute gelu(0) = 0.
+// (Wa1, ba1) and zero rows (Wa2) to a multiple of 32; the padded units
+// compute gelu(0) = 0. At stage 0 (48 -> 64) the adapter GEMMs have K = 64,
+// one k-block.
 //
 // What bounds it on the H100: K2's 24 M C^2 GEMM FLOPs and 4 M 64 C of
-// attention plus the adapters' 4 M C^2 (two bottlenecks of width C/2, two
-// GEMMs each): tensor-core work above the bf16 balance point, so operations.
+// attention plus the adapters' 8 M C ch: tensor-core work above the bf16
+// balance point, so operations (chip_smoke.py::k4_work).
 //
-// Design (correct and simple first): K2's device code (swin_common.cuh: the
-// LayerNorm-prologue GEMM for qkv, the window attention, proj scattered to
-// token order) with the adapters as four more GEMMs, the GEMMs that feed the
-// float32 residual writing float32, and two row kernels of its own: the
-// float32 residual + LayerNorm that builds y and h2 (swin_adapt_common.cuh)
-// and the final residual. Intermediates go through a workspace in device
-// memory. K2's source is not touched: its served and training variants
-// compile as before.
+// Design, on the Hopper forward layer swin_fwd_sm90.cuh (K2's phase bodies):
+// one launch a phase, in order on the caller's stream, ten a block:
+//   LN1 rows in window order; qkv (F_OUT); the window attention; proj
+//   (F_OUT, a = bf16(acc + b) stored through the window -> token map, no
+//   residual); sa1 (F_OUT with GELU, N = ch); sa2 (F_BRANCH: y in float32
+//   from x, a and the mask); LN2 rows of the float32 y; fc1 and ma1 (F_OUT
+//   with GELU); fc2 and ma2 on one tile (F_ADAPT_OUT: two accumulator
+//   chains through one ring, then out from y and the mask).
+// The GEMMs are the layer's TMA-fed warp-specialised wgmma GEMM; the bf16
+// GEMMs' tile widths and the ring depth are the caller's
+// (ops/swin_block_adapt.py TILES), the float32 forms' width is FW_BN_F32.
+// Intermediates go through a workspace in device memory.
 
-#include "swin_adapt_common.cuh"
+#include "swin_fwd_sm90.cuh"
 
 namespace {
 
-// out = bf16(y + m1 * (mo + s * ta)) over n4 groups of 4 float32 elements
-__global__ void adapt_output_kernel(const float* __restrict__ y, const float* __restrict__ mo,
-                                    const float* __restrict__ ta, const float* __restrict__ masks,
-                                    float s, bf16* __restrict__ out, long n4, long image_len) {
-  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  const float m1 = masks[2 * (i * 4 / image_len) + 1];
-  const float4 yv = reinterpret_cast<const float4*>(y)[i];
-  const float4 mv = reinterpret_cast<const float4*>(mo)[i];
-  const float4 tv = reinterpret_cast<const float4*>(ta)[i];
-  const float yy[4] = {yv.x, yv.y, yv.z, yv.w}, mm[4] = {mv.x, mv.y, mv.z, mv.w};
-  const float tt[4] = {tv.x, tv.y, tv.z, tv.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) out[i * 4 + e] = f2bf(yy[e] + m1 * (mm[e] + s * tt[e]));
-}
-
 struct FwdWorkspace {
-  bf16 *qkv, *attn, *a2d, *gs, *h2, *hid, *hm;
-  float *stats, *t, *y, *ta;
+  bf16 *h, *qkv, *attn, *a, *gs, *hid;  // h: LN1 rows, then LN2's h2; gs, then gm
+  float* y;
   long bytes;
 
-  FwdWorkspace(const AdaptShapes& s, char* base) {
+  FwdWorkspace(const BwdShapes& s, char* base) {
     const long M = s.M();
     const int C = s.C;
     Carver c{base};
-    stats = c.fl(2 * M);
-    qkv = c.bf(M * 3 * C); attn = c.bf(M * C); a2d = c.bf(M * C); gs = c.bf(M * s.ch);
-    h2 = c.bf(M * C); hid = c.bf(M * s.hidden); hm = c.bf(M * s.ch);
-    t = c.fl(M * C); y = c.fl(M * C); ta = c.fl(M * C);
+    h = c.bf(M * C);
+    qkv = c.bf(M * 3 * C);
+    attn = c.bf(M * C);
+    a = c.bf(M * C);
+    gs = c.bf(M * s.ch);
+    hid = c.bf(M * s.hidden);
+    y = c.fl(M * C);
     bytes = c.off;
   }
 };
+
+// the tile choices a call passes (ops/swin_block_adapt.py TILES): the bf16
+// GEMMs' tile widths and the ring depth (0: as deep as fits)
+struct AdaptTiles {
+  int qkv, proj, sa1, fc1, ma1, stages;
+};
+
+bool bad_adapt(const BwdShapes& s, const AdaptTiles& t) {
+  return bad_block(s.H, s.W, s.C, s.nh, s.win, s.hidden) || s.ch < 32 || s.ch % 32 ||
+         bad_bn(t.qkv) || bad_bn(t.proj) || bad_bn(t.sa1) || bad_bn(t.fc1) || bad_bn(t.ma1) ||
+         t.stages < 0 || t.stages == 1;
+}
+
+FwdGemm gemm_args(long M, int N, const float* bias, int gelu, bf16* out) {
+  FwdGemm a{};
+  a.M = static_cast<int>(M);
+  a.N = N;
+  a.bias = bias;
+  a.gelu = gelu;
+  a.out = out;
+  return a;
+}
 
 }  // namespace
 
@@ -83,7 +98,7 @@ extern "C" const char* pt_error_string(int code) {
 extern "C" int swin_block_adapt_forward_workspace(int B, int H, int W, int C, int nh, int win,
                                                   int shift, int hidden, int ch,
                                                   long long* bytes) {
-  const AdaptShapes s{{B, H, W, C, nh, win, shift, hidden}, ch};
+  const BwdShapes s{B, H, W, C, nh, win, shift, hidden, ch};
   *bytes = FwdWorkspace(s, nullptr).bytes;
   return 0;
 }
@@ -93,7 +108,7 @@ extern "C" int swin_block_adapt_forward_workspace(int B, int H, int W, int C, in
 // float32 vectors, bias (nh, 64, 64), shift mask (nW, 64, 64) or null); the
 // adapters' (in, out) bf16 matrices sa1 (C, ch), sa2 (ch, C), ma1, ma2 and
 // float32 biases; s the adapter scalar. out (B*H*W, C) bf16. ws: the forward
-// workspace.
+// workspace. Tiles: each GEMM's tile width and the ring depth.
 extern "C" int swin_block_adapt_forward(
     const bf16* x, const float* masks, const float* ln1_w, const float* ln1_b, const bf16* qkv_w,
     const float* qkv_b, const bf16* proj_w, const float* proj_b, const float* ln2_w,
@@ -101,57 +116,113 @@ extern "C" int swin_block_adapt_forward(
     const float* fc2_b, const bf16* sa1_w, const float* sa1_b, const bf16* sa2_w,
     const float* sa2_b, const bf16* ma1_w, const float* ma1_b, const bf16* ma2_w,
     const float* ma2_b, const float* bias, const float* mask, float s, bf16* out, void* ws_base,
-    int B, int H, int W, int C, int nh, int win, int shift, int hidden, int ch,
-    cudaStream_t stream) {
-  const AdaptShapes sh{{B, H, W, C, nh, win, shift, hidden}, ch};
-  if (bad_shapes(sh)) return static_cast<int>(cudaErrorInvalidValue);
+    int B, int H, int W, int C, int nh, int win, int shift, int hidden, int ch, int bn_qkv,
+    int bn_proj, int bn_sa1, int bn_fc1, int bn_ma1, int stages, cudaStream_t stream) {
+  const BwdShapes sh{B, H, W, C, nh, win, shift, hidden, ch};
+  const AdaptTiles t{bn_qkv, bn_proj, bn_sa1, bn_fc1, bn_ma1, stages};
+  if (bad_adapt(sh, t)) return static_cast<int>(cudaErrorInvalidValue);
   const RowMap g{H * W, H, W, win, shift, C};
   const long M = sh.M();
-  const int nW = (H / win) * (W / win);
   FwdWorkspace ws(sh, static_cast<char*>(ws_base));
-  float* mean = ws.stats;
-  float* rstd = ws.stats + M;
 
-  // LN1 moments, qkv of the shifted windows, attention, proj to token order
-  launch_stats<0>(x, mean, rstd, static_cast<int>(M), C, g, stream);
-  GemmParams p = plain_gemm(g, x, C, qkv_w, 3 * C, M);
-  p.mean = mean; p.rstd = rstd; p.ln_w = ln1_w; p.ln_b = ln1_b; p.bias = qkv_b; p.out = ws.qkv;
-  p.a_window = 1;
-  launch_gemm<A_LN>(p, stream);
-  window_attention_kernel<<<dim3(sh.n_windows(), nh), ATT_THREADS, 0, stream>>>(
-      ws.qkv, bias, mask, ws.attn, C, nW);
-  p = plain_gemm(g, ws.attn, C, proj_w, C, M);
-  p.bias = proj_b; p.out = ws.a2d; p.out_window = 1;
-  launch_gemm<A_PLAIN>(p, stream);
+  // LN1 rows in window order, qkv, the window attention
+  cudaError_t e = ln_rows_launch<LN_WINDOWS>(x, ln1_w, ln1_b, ws.h, (int)M, g, stream);
+  if (e == cudaSuccess)
+    e = fwd_gemm_bn<F_OUT>(t.qkv, ws.h, qkv_w, C, gemm_args(M, 3 * C, qkv_b, 0, ws.qkv),
+                           t.stages, stream);
+  if (e == cudaSuccess)
+    e = attention_launch(ws.qkv, bias, mask, ws.attn, C, nh, sh.nW(), sh.n_windows(), stream);
 
-  // spatial adapter: gs = bf16(gelu(a Wsa1 + b)), t = gs Wsa2 + b (float32)
-  p = plain_gemm(g, ws.a2d, C, sa1_w, ch, M);
-  p.bias = sa1_b; p.gelu = 1; p.out = ws.gs;
-  launch_gemm<A_PLAIN>(p, stream);
-  p = plain_gemm(g, ws.gs, ch, sa2_w, C, M);
-  p.bias = sa2_b; p.out_f32 = ws.t;
-  launch_gemm<A_PLAIN>(p, stream);
-  // y = x + m0 (a + s t) (float32), h2 = bf16(LN2(y))
-  adapt_residual_ln_kernel<<<(unsigned)row_blocks(M), ROW_THREADS, 0, stream>>>(
-      x, ws.a2d, ws.t, masks, s, ln2_w, ln2_b, ws.y, ws.h2, nullptr, nullptr,
-      static_cast<int>(M), H * W, C);
+  // proj: a = bf16(acc + b), through the window -> token map
+  FwdGemm a = gemm_args(M, C, proj_b, 0, ws.a);
+  a.map = MAP_WIN_TO_TOK;
+  a.g = g;
+  if (e == cudaSuccess) e = fwd_gemm_bn<F_OUT>(t.proj, ws.attn, proj_w, C, a, t.stages, stream);
 
-  // MLP and MLP adapter: mo = fc2(gelu(fc1 h2)) (into t), ta = ma2(gelu(ma1 h2))
-  p = plain_gemm(g, ws.h2, C, fc1_w, hidden, M);
-  p.bias = fc1_b; p.gelu = 1; p.out = ws.hid;
-  launch_gemm<A_PLAIN>(p, stream);
-  p = plain_gemm(g, ws.h2, C, ma1_w, ch, M);
-  p.bias = ma1_b; p.gelu = 1; p.out = ws.hm;
-  launch_gemm<A_PLAIN>(p, stream);
-  p = plain_gemm(g, ws.hid, hidden, fc2_w, C, M);
-  p.bias = fc2_b; p.out_f32 = ws.t;
-  launch_gemm<A_PLAIN>(p, stream);
-  p = plain_gemm(g, ws.hm, ch, ma2_w, C, M);
-  p.bias = ma2_b; p.out_f32 = ws.ta;
-  launch_gemm<A_PLAIN>(p, stream);
-  const long n4 = M * C / 4;
-  adapt_output_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
-      ws.y, ws.t, ws.ta, masks, s, out, n4, (long)H * W * C);
-  return static_cast<int>(cudaGetLastError());
+  // spatial adapter: gs = bf16(gelu(a Wsa1 + b)); y = x + m0 (a + s (gs Wsa2 + b))
+  if (e == cudaSuccess)
+    e = fwd_gemm_bn<F_OUT>(t.sa1, ws.a, sa1_w, C, gemm_args(M, ch, sa1_b, 1, ws.gs), t.stages,
+                           stream);
+  a = gemm_args(M, C, sa2_b, 0, nullptr);
+  a.resid = x;
+  a.add = ws.a;
+  a.scale = masks;
+  a.s = s;
+  a.out_f32 = ws.y;
+  a.g = g;
+  if (e == cudaSuccess)
+    e = fwd_gemm_launch<FW_BN_F32, F_BRANCH>(ws.gs, sa2_w, ch, a, t.stages, stream);
+
+  // h2 = bf16(LN2(y)); fg = bf16(gelu(h2 fc1 + b1)); gm = bf16(gelu(h2 Wma1 + b))
+  if (e == cudaSuccess) e = ln_rows_launch<LN_TOKENS>(ws.y, ln2_w, ln2_b, ws.h, (int)M, g, stream);
+  if (e == cudaSuccess)
+    e = fwd_gemm_bn<F_OUT>(t.fc1, ws.h, fc1_w, C, gemm_args(M, hidden, fc1_b, 1, ws.hid),
+                           t.stages, stream);
+  if (e == cudaSuccess)
+    e = fwd_gemm_bn<F_OUT>(t.ma1, ws.h, ma1_w, C, gemm_args(M, ch, ma1_b, 1, ws.gs), t.stages,
+                           stream);
+
+  // out = bf16(y + m1 ((fg fc2 + b2) + s (gm Wma2 + b)))
+  a = gemm_args(M, C, fc2_b, 0, out);
+  a.bias1 = ma2_b;
+  a.y32 = ws.y;
+  a.scale = masks + 1;
+  a.s = s;
+  a.g = g;
+  if (e == cudaSuccess)
+    e = fwd_gemm_two_launch(ws.hid, fc2_w, hidden, ws.gs, ma2_w, ch, a, t.stages, stream);
+  return static_cast<int>(e);
 }
 
+// One of K4's GEMM forms alone, for the tests: epi 0 (F_OUT: bias, GELU
+// when gelu, the output row through the window -> token map of (L, H, W,
+// win, shift) when map), 2 (F_BRANCH: float32 y = x + m0 (add + s (A W +
+// bias)), m0 = m[2 (r / L)]) or 3 (F_ADAPT_OUT: bf16(y32 + m1 ((A W + bias)
+// + s (A1 W1 + bias1))), m1 = m[2 (r / L)]); m points at the masks' column;
+// the float32 forms take width FW_BN_F32 only.
+extern "C" int swin_adapt_gemm(int epi, int bn, int stages, const bf16* A, const bf16* Wt,
+                               const float* bias, int gelu, const bf16* A1, const bf16* W1,
+                               const float* bias1, const bf16* x, const bf16* add,
+                               const float* y32, const float* m, float s, void* out, int M, int N,
+                               int K, int K1, int L, int H, int W, int win, int shift, int map,
+                               cudaStream_t stream) {
+  const bool two = epi == F_ADAPT_OUT;
+  if (bad_bn(bn) || (epi != F_OUT && bn != FW_BN_F32) || stages < 0 || stages == 1 || M < 1 ||
+      N < 8 || N % 8 || K < 8 || K % 8 || (two && (K1 < 8 || K1 % 8)) ||
+      (epi != F_OUT && epi != F_BRANCH && !two) || (epi != F_OUT && (m == nullptr || L < 1)) ||
+      (epi == F_BRANCH && (x == nullptr || add == nullptr || bias == nullptr)) ||
+      (two && (A1 == nullptr || W1 == nullptr || y32 == nullptr || bias == nullptr ||
+               bias1 == nullptr)) ||
+      (map && (epi != F_OUT || win < 1 || H % win || W % win || L != H * W || M % L)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdGemm a = gemm_args(M, N, bias, gelu, static_cast<bf16*>(out));
+  a.map = map ? MAP_WIN_TO_TOK : MAP_NONE;
+  a.g = RowMap{L, H, W, win, shift, 0};
+  a.scale = m;
+  a.s = s;
+  cudaError_t e;
+  if (epi == F_OUT) {
+    e = fwd_gemm_bn<F_OUT>(bn, A, Wt, K, a, stages, stream);
+  } else if (epi == F_BRANCH) {
+    a.out = nullptr;
+    a.out_f32 = static_cast<float*>(out);
+    a.resid = x;
+    a.add = add;
+    e = fwd_gemm_launch<FW_BN_F32, F_BRANCH>(A, Wt, K, a, stages, stream);
+  } else {
+    a.bias1 = bias1;
+    a.y32 = y32;
+    e = fwd_gemm_two_launch(A, Wt, K, A1, W1, K1, a, stages, stream);
+  }
+  return static_cast<int>(e);
+}
+
+// K4's LN2 rows alone, for the tests: h (rows, C) = bf16(LN(y) w + b) of
+// float32 rows y (rows, C), C % 8 == 0, C <= 1536
+extern "C" int swin_adapt_ln_rows(const float* y, const float* w, const float* b, bf16* h,
+                                  int rows, int C, cudaStream_t stream) {
+  if (rows < 1 || C < 8 || C % 8 || C > 8 * 32 * MAX_LN_GROUPS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowMap g{rows, 0, 0, 0, 0, C};
+  return static_cast<int>(ln_rows_launch<LN_TOKENS>(y, w, b, h, rows, g, stream));
+}

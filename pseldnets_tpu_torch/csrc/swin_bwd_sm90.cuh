@@ -3,10 +3,10 @@
 // TMA-fed, warp-specialised wgmma GEMM in the operand forms the backward
 // needs, the window attention forward and backward on wgmma, the LayerNorm
 // and row passes, and one ordered reduction of every split partial. Built on
-// the primitives of sm90_gemm.cuh (TMA, mbarrier rings, wgmma, setmaxnreg);
-// nothing here is shared with the WMMA code of swin_common.cuh, which K4
-// keeps. The forward layer swin_fwd_sm90.cuh (K2, K11) includes this one
-// for its row maps and its window attention helpers, which therefore index
+// the primitives of sm90_gemm.cuh (TMA, mbarrier rings, wgmma, setmaxnreg).
+// The forward layer swin_fwd_sm90.cuh (K2, K11, K4) includes this one for
+// its row maps, its window attention helpers, the shapes and the workspace
+// carver; the attention helpers therefore index
 // by the thread of the warpgroup (a 128-thread block here, one of a
 // 384-thread block's warpgroups in K11).
 //

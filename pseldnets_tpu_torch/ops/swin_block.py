@@ -22,8 +22,8 @@ On a CUDA tensor ``swin_block_fused`` launches the hand-written kernels of
 ``csrc/swin_fwd_sm90.cuh``, with the tile choices of ``TILES``) or raises;
 on a CPU tensor it runs ``swin_block_plain``. ``swin_block_phases_plain``
 chains the plain versions of the kernel's phases (``ln_rows_plain``,
-``fwd_gemm_plain``, the attention of ``attention_rows``) through the row
-maps of ``swin_fwd_plan`` as the C entry chains its launches.
+``fwd_gemm_plain``, ``attention_plain``) through the row maps of
+``swin_fwd_plan`` as the C entry chains its launches.
 """
 
 from dataclasses import dataclass
@@ -242,11 +242,13 @@ def swin_block_plain(x: torch.Tensor, p: SwinBlockParams,
 
 
 def ln_rows_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                  rows: Optional[np.ndarray] = None) -> torch.Tensor:
-    """Plain version of K2's LN rows phase: x (tokens, C) in the compute
-    dtype; rows None (token order), (R,) (the token each row reads) or (R,
-    4) (the merge's 4C gather) -> (R, K) bf16((x - mean) rstd w + b)."""
-    cd = x.dtype
+                  rows: Optional[np.ndarray] = None,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version of the forward layer's LN rows phase: x (tokens, C) in
+    the compute dtype (or float32: K4's y); rows None (token order), (R,)
+    (the token each row reads) or (R, 4) (the merge's 4C gather) -> (R, K)
+    cd((x - mean) rstd w + b), cd ``dtype`` or x's."""
+    cd = dtype or x.dtype
     if rows is None:
         return _ln(x, w, b).to(cd)
     idx = torch.as_tensor(rows, device=x.device)
@@ -260,25 +262,48 @@ def fwd_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor
                    scale: Optional[torch.Tensor] = None, L: int = 0,
                    rows_out: Optional[np.ndarray] = None) -> torch.Tensor:
     """Plain version of K2's GEMM forms: a (M, K) . w (K, N) with float32
-    sums in the compute dtype; without ``resid`` (F_OUT) bf16(acc + bias)
-    or bf16(gelu(acc + bias)); with it (F_RES) out[row r's place] =
-    bf16(resid + bf16(bf16(scale[r // L]) bf16(acc + bias))), the place
-    ``rows_out[r]`` (the window -> token map) or r, scale (images, ) float32
-    or None."""
+    sums in the compute dtype; without ``resid`` (F_OUT) out[row r's place]
+    = bf16(acc + bias) or bf16(gelu(acc + bias)); with it (F_RES) out[row
+    r's place] = bf16(resid + bf16(bf16(scale[r // L]) bf16(acc + bias))),
+    the place ``rows_out[r]`` (the window -> token map) or r, scale
+    (images, ) float32 or None."""
     cd = a.dtype
     v = _mm(a, w)
     if bias is not None:
         v = v + bias
+    dst = slice(None) if rows_out is None else torch.as_tensor(rows_out, device=a.device)
     if resid is None:
-        return (F.gelu(v, approximate="none") if gelu else v).to(cd)
+        v = (F.gelu(v, approximate="none") if gelu else v).to(cd)
+        if rows_out is None:
+            return v
+        out = torch.empty_like(v)
+        out[dst] = v
+        return out
     v = v.to(cd)
     if scale is not None:
         img = torch.arange(a.shape[0], device=a.device) // L
         v = scale.to(cd)[img][:, None] * v
     out = torch.empty_like(resid)
-    dst = slice(None) if rows_out is None else torch.as_tensor(rows_out, device=a.device)
     out[dst] = resid[dst] + v
     return out
+
+
+def attention_plain(qkv: torch.Tensor, p: SwinBlockParams, B: int) -> torch.Tensor:
+    """Plain version of the forward layer's window attention phase: qkv
+    (B*L, 3C) in window order, the compute dtype -> the heads (B*L, C),
+    window order: scores + bias (+ shift mask), float32 softmax, P and the
+    heads rounded, as ``attention_rows`` computes them."""
+    cd = qkv.dtype
+    C = qkv.shape[1] // 3
+    N, nh = p.window ** 2, p.nh
+    q, k, v = (qkv[:, i * C:(i + 1) * C].reshape(-1, N, nh, C // nh).transpose(1, 2)
+               for i in range(3))
+    sc = torch.matmul(q.float(), k.float().transpose(-1, -2)) + p.bias[None]
+    if p.mask is not None:
+        nW = p.mask.shape[0]
+        sc = (sc.reshape(B, nW, nh, N, N) + p.mask[None, :, None]).reshape(-1, nh, N, N)
+    pr = torch.softmax(sc, dim=-1).to(cd)
+    return torch.matmul(pr.float(), v.float()).to(cd).transpose(1, 2).reshape(-1, C)
 
 
 def swin_block_phases_plain(x: torch.Tensor, p: SwinBlockParams,
@@ -292,20 +317,12 @@ def swin_block_phases_plain(x: torch.Tensor, p: SwinBlockParams,
     cd = p.qkv_w.dtype
     B, L, C = x.shape
     _check_masks(dp_masks, p, B)
-    H, W, w, s, nh = p.H, p.W, p.window, p.shift, p.nh
-    N, hd = w * w, C // nh
+    H, W, w, s = p.H, p.W, p.window, p.shift
     x0 = x.to(cd).reshape(B * L, C)
     win_rows = plan.window_rows(B, H, W, w, s)
     h1 = ln_rows_plain(x0, p.ln1_w, p.ln1_b, win_rows)
     qkv = fwd_gemm_plain(h1, p.qkv_w, p.qkv_b)
-    q, k, v = (qkv[:, i * C:(i + 1) * C].reshape(-1, N, nh, hd).transpose(1, 2)
-               for i in range(3))
-    sc = torch.matmul(q.float(), k.float().transpose(-1, -2)) + p.bias[None]
-    if p.mask is not None:
-        nW = p.mask.shape[0]
-        sc = (sc.reshape(B, nW, nh, N, N) + p.mask[None, :, None]).reshape(-1, nh, N, N)
-    pr = torch.softmax(sc, dim=-1).to(cd)
-    attn = torch.matmul(pr.float(), v.float()).to(cd).transpose(1, 2).reshape(-1, C)
+    attn = attention_plain(qkv, p, B)
     m = dp_masks
     y = fwd_gemm_plain(attn, p.proj_w, p.proj_b, resid=x0,
                        scale=None if m is None else m[:, 0], L=L, rows_out=win_rows)

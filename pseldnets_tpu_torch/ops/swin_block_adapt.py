@@ -28,10 +28,14 @@ adapter gets a zero-filled slot for the other (swin_block_adapt_vjp.py:
 371-385), and no grads for it come back.
 
 On a CUDA tensor ``swin_block_adapt_fused`` launches K4
-(``csrc/swin_block_adapt.cu``) and ``swin_block_adapt_backward`` K5
-(``csrc/swin_block_adapt_bwd.cu``, TMA-fed wgmma on the Hopper layer
-``csrc/swin_bwd_sm90.cuh``, K3's ``TILES``), bf16 only, or raise; on a CPU
-tensor they run the plain versions. The backward takes ``want``, the grads to
+(``csrc/swin_block_adapt.cu``: TMA-fed wgmma on the Hopper forward layer
+``csrc/swin_fwd_sm90.cuh``, a launch a phase, the tile choices of ``TILES``)
+and ``swin_block_adapt_backward`` K5 (``csrc/swin_block_adapt_bwd.cu``,
+TMA-fed wgmma on the Hopper backward layer ``csrc/swin_bwd_sm90.cuh``, K3's
+``TILES``), bf16 only, or raise; on a CPU tensor they run the plain
+versions. ``swin_block_adapt_phases_plain`` chains the plain versions of
+K4's phases (``branch_gemm_plain``, ``adapt_out_gemm_plain`` and K2's) as
+its C entry chains its launches. The backward takes ``want``, the grads to
 compute (None: all, the Pallas kernel's set); AdapterBit training asks for
 the biases and adapters only, so the frozen weights' grads cost nothing.
 """
@@ -44,8 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from ..models.htsat import SwinTransformerBlock, window_partition, window_reverse
+from . import swin_fwd_plan as plan
 from ._cuda import CudaKernel, check_cuda_tensor, f32, i32, ptr
-from .swin_block import SwinBlockParams, _check_masks, _ln, _mm, attention_rows, prepare_block
+from .swin_block import (SwinBlockParams, _check_masks, _ln, _mm, attention_plain,
+                         attention_rows, fwd_gemm_plain, ln_rows_plain, prepare_block)
 from .swin_block_vjp import (GRAD_KEYS, _INV_SQRT2, _INV_SQRT2PI, _ln_bwd, _ln_fwd, _mlp_rows,
                              block_parameters, check_aligned, module_grads, tile_args, wanted,
                              wanted_keys)
@@ -53,8 +59,31 @@ from .swin_block_vjp import (GRAD_KEYS, _INV_SQRT2, _INV_SQRT2PI, _ln_bwd, _ln_f
 _WS = [i32] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
 FWD_KERNEL = CudaKernel("swin_block_adapt.cu", {
     "swin_block_adapt_forward_workspace": _WS,
-    "swin_block_adapt_forward": [ptr] * 24 + [f32, ptr, ptr] + [i32] * 9 + [ptr],
+    "swin_block_adapt_forward": [ptr] * 24 + [f32, ptr, ptr] + [i32] * 15 + [ptr],
+    "swin_adapt_gemm": [i32] * 3 + [ptr] * 3 + [i32] + [ptr] * 7 + [f32, ptr] + [i32] * 10
+    + [ptr],
+    "swin_adapt_ln_rows": [ptr] * 4 + [i32] * 2 + [ptr],
 })
+
+# K4's bf16 GEMMs' tile widths (128-row tiles of 64, 128 or 192 columns) at
+# each stage width C, and the ring depth (0: as deep as fits): each GEMM's
+# fastest width at B=32 (scripts/torch_k4_tiles.py). sa2 and fc2 + ma2, the
+# float32 forms, run at width 64 (plan.F32_BN).
+TILES = {
+    96: {"qkv": 64, "proj": 128, "sa1": 64, "fc1": 128, "ma1": 64, "stages": 0},
+    192: {"qkv": 128, "proj": 64, "sa1": 128, "fc1": 128, "ma1": 128, "stages": 0},
+    384: {"qkv": 128, "proj": 64, "sa1": 128, "fc1": 128, "ma1": 128, "stages": 0},
+    768: {"qkv": 128, "proj": 128, "sa1": 64, "fc1": 128, "ma1": 64, "stages": 0},
+}
+DEFAULT_TILES = {"qkv": 128, "proj": 128, "sa1": 64, "fc1": 128, "ma1": 64, "stages": 0}
+
+
+def fwd_tile_args(C: int) -> Tuple[int, ...]:
+    """K4's tile choices at stage width C (``TILES``, else
+    ``DEFAULT_TILES``) as its C entry takes them (``plan.ADAPT_TILE_KEYS``)."""
+    t = TILES.get(C, DEFAULT_TILES)
+    plan.check_adapt_tiles(t)
+    return tuple(int(t[k]) for k in plan.ADAPT_TILE_KEYS)
 BWD_KERNEL = CudaKernel("swin_block_adapt_bwd.cu", {
     "swin_block_adapt_backward_workspace": [i32] * 15 + [ctypes.POINTER(ctypes.c_longlong)],
     "swin_block_adapt_backward": [ptr] * 25 + [f32] + [ptr] * 23 + [i32] * 15 + [ptr],
@@ -165,6 +194,60 @@ def swin_block_adapt_plain(x: torch.Tensor, p: AdaptBlockParams,
     gm = F.gelu(_mm(h2, p.ma1_w) + p.ma1_b, approximate="none").to(cd)
     mo = (_mm(fg, b.fc2_w) + b.fc2_b) + s * (_mm(gm, p.ma2_w) + p.ma2_b)
     return (y + m1 * mo).to(cd)
+
+
+def _image_rows(masks_col: torch.Tensor, M: int, L: int) -> torch.Tensor:
+    """The mask of each row's image (row r in image r // L), as a column."""
+    return masks_col[torch.arange(M, device=masks_col.device) // L][:, None]
+
+
+def branch_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                      add: torch.Tensor, masks0: torch.Tensor, s: float, L: int) -> torch.Tensor:
+    """Plain version of K4's F_BRANCH GEMM form (sa2): float32 y = x + m0
+    (add + s (a w + bias)) over rows r, m0 = masks0[r // L] unrounded, x
+    and add (M, N) in the compute dtype."""
+    t = _mm(a, w) + bias
+    return x.float() + _image_rows(masks0, a.shape[0], L) * (add.float() + s * t)
+
+
+def adapt_out_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, a1: torch.Tensor,
+                         w1: torch.Tensor, bias1: torch.Tensor, y: torch.Tensor,
+                         masks1: torch.Tensor, s: float, L: int) -> torch.Tensor:
+    """Plain version of K4's F_ADAPT_OUT GEMM form (fc2 and ma2 on one
+    tile): cd(y + m1 ((a w + bias) + s (a1 w1 + bias1))) over rows r, m1 =
+    masks1[r // L] unrounded, y (M, N) float32, cd a's dtype."""
+    mo = (_mm(a, w) + bias) + s * (_mm(a1, w1) + bias1)
+    return (y + _image_rows(masks1, a.shape[0], L) * mo).to(a.dtype)
+
+
+def swin_block_adapt_phases_plain(x: torch.Tensor, p: AdaptBlockParams,
+                                  dp_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4's phases in plain PyTorch, chained as ``swin_block_adapt_forward``
+    chains its launches (``plan.ADAPT_PHASES``), through ``swin_fwd_plan``'s
+    row maps: LN1 rows in window order, qkv, the window attention, proj
+    through the window -> token map, sa1 + GELU, sa2's branch into the
+    float32 y, LN2 rows of y, fc1 and ma1 + GELU, fc2 and ma2 into the
+    output. Gives ``swin_block_adapt_plain``'s bits (the CPU tests hold it
+    there)."""
+    b = p.base
+    cd = b.qkv_w.dtype
+    B, L, C = x.shape
+    masks = _ones(x) if dp_masks is None else dp_masks
+    _check_masks(masks, b, B)
+    s = p.scale
+    x0 = x.to(cd).reshape(B * L, C)
+    rows = plan.window_rows(B, b.H, b.W, b.window, b.shift)
+    h1 = ln_rows_plain(x0, b.ln1_w, b.ln1_b, rows)
+    qkv = fwd_gemm_plain(h1, b.qkv_w, b.qkv_b)
+    attn = attention_plain(qkv, b, B)
+    a = fwd_gemm_plain(attn, b.proj_w, b.proj_b, rows_out=rows)
+    gs = fwd_gemm_plain(a, p.sa1_w, p.sa1_b, gelu=True)
+    y = branch_gemm_plain(gs, p.sa2_w, p.sa2_b, x0, a, masks[:, 0], s, L)
+    h2 = ln_rows_plain(y, b.ln2_w, b.ln2_b, dtype=cd)
+    fg = fwd_gemm_plain(h2, b.fc1_w, b.fc1_b, gelu=True)
+    gm = fwd_gemm_plain(h2, p.ma1_w, p.ma1_b, gelu=True)
+    out = adapt_out_gemm_plain(fg, b.fc2_w, b.fc2_b, gm, p.ma2_w, p.ma2_b, y, masks[:, 1], s, L)
+    return out.reshape(B, L, C)
 
 
 def _cut(p: AdaptBlockParams, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -349,17 +432,83 @@ def swin_block_adapt_fused(x: torch.Tensor, p: AdaptBlockParams,
     if x.device.type == "cpu":
         return swin_block_adapt_plain(x, p, dp_masks)
     B, L, C = x.shape
-    check_cuda_tensor("x", x, torch.bfloat16, (B, p.base.H * p.base.W, C))
+    b = p.base
+    check_cuda_tensor("x", x, torch.bfloat16, (B, b.H * b.W, C))
     masks = _ones(x) if dp_masks is None else dp_masks
-    _check_masks(masks, p.base, B)
+    _check_masks(masks, b, B)
     check_cuda_tensor("dp_masks", masks, torch.float32, (B, 2))
     shapes = _check_cuda_params(p, B)
+    plan.check_adapt_block(b.H, b.W, C, b.nh, b.window, b.fc1_w.shape[1], p.ch_pad)
+    check_aligned({"x": x, "dp_masks": masks, "mask": b.mask, **{
+        k_: getattr(b, k_) for k_ in GRAD_KEYS}, **{
+        k_: getattr(p, k_) for k_ in ALL_KEYS[len(GRAD_KEYS):]}})
+    tiles = fwd_tile_args(C)
     ws = _workspace(FWD_KERNEL, "swin_block_adapt_forward_workspace", shapes, x.device)
     out = torch.empty_like(x)
     FWD_KERNEL.launches += 1
     FWD_KERNEL.call("swin_block_adapt_forward", x.data_ptr(), masks.data_ptr(), *_weight_ptrs(p),
-                p.scale, out.data_ptr(), ws.data_ptr(), *shapes)
+                    p.scale, out.data_ptr(), ws.data_ptr(), *shapes, *tiles)
     return out
+
+
+def adapt_gemm(form: str, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               gelu: bool = False, geometry: Optional[Tuple[int, int, int, int]] = None,
+               x: Optional[torch.Tensor] = None, add: Optional[torch.Tensor] = None,
+               a1: Optional[torch.Tensor] = None, w1: Optional[torch.Tensor] = None,
+               bias1: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None,
+               masks: Optional[torch.Tensor] = None, col: int = 0, s: float = 0.0, L: int = 0,
+               bn: int = plan.F32_BN, stages: int = 0) -> torch.Tensor:
+    """One of K4's GEMM forms alone on the card (the C entry
+    ``swin_adapt_gemm``), as its plain version computes it: ``form`` "out"
+    (``fwd_gemm_plain``'s F_OUT, the output rows through the window -> token
+    map of ``geometry`` (H, W, window, shift) when given), "branch"
+    (``branch_gemm_plain``: x, add) or "adapt_out" (``adapt_out_gemm_plain``:
+    a1, w1, bias1, y); a (M, K), w (K, N) bf16, biases float32, masks (images,
+    2) float32 read at column ``col``, image of row r being r // L. The
+    float32 forms take width ``plan.F32_BN`` only."""
+    M, K = a.shape
+    N = w.shape[1]
+    K1 = a1.shape[1] if a1 is not None else 0
+    epi = {"out": 0, "branch": 2, "adapt_out": 3}[form]
+    H, W, win, shift = geometry if geometry is not None else (0, 0, 0, 0)
+    if geometry is not None:
+        L = H * W
+    images = -(-M // L) if L > 0 else 0
+    checks = {"a": (a, torch.bfloat16, (M, K)), "w": (w, torch.bfloat16, (K, N)),
+              "bias": (bias, torch.float32, (N,)), "x": (x, torch.bfloat16, (M, N)),
+              "add": (add, torch.bfloat16, (M, N)), "a1": (a1, torch.bfloat16, (M, K1)),
+              "w1": (w1, torch.bfloat16, (K1, N)), "bias1": (bias1, torch.float32, (N,)),
+              "y": (y, torch.float32, (M, N)), "masks": (masks, torch.float32, (images, 2))}
+    for name, (t, dt, shape) in checks.items():
+        if t is not None:
+            check_cuda_tensor(name, t, dt, shape)
+    check_aligned({k_: t for k_, (t, _, _) in checks.items()})
+    if col not in (0, 1):
+        raise ValueError(f"col: the masks' column, 0 or 1, got {col}")
+    out = torch.empty((M, N), device=a.device,
+                      dtype=torch.float32 if form == "branch" else torch.bfloat16)
+    opt = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    m = masks.data_ptr() + 4 * col if masks is not None else None
+    FWD_KERNEL.call("swin_adapt_gemm", epi, bn, stages, a.data_ptr(), w.data_ptr(), opt(bias),
+                    int(gelu), opt(a1), opt(w1), opt(bias1), opt(x), opt(add), opt(y), m,
+                    float(s), out.data_ptr(), M, N, K, K1, L, H, W, win, shift,
+                    int(geometry is not None))
+    return out
+
+
+def adapt_ln_rows(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4's LN2 row pass alone on the card (the C entry
+    ``swin_adapt_ln_rows``): float32 rows y (R, C) -> bf16 (R, C), as
+    ``ln_rows_plain(y, w, b, dtype=torch.bfloat16)`` computes it."""
+    R, C = y.shape
+    for name, t, dt, shape in (("y", y, torch.float32, (R, C)), ("w", w, torch.float32, (C,)),
+                               ("b", b, torch.float32, (C,))):
+        check_cuda_tensor(name, t, dt, shape)
+    check_aligned({"y": y, "w": w, "b": b})
+    h = torch.empty((R, C), device=y.device, dtype=torch.bfloat16)
+    FWD_KERNEL.call("swin_adapt_ln_rows", y.data_ptr(), w.data_ptr(), b.data_ptr(), h.data_ptr(),
+                    R, C)
+    return h
 
 
 def swin_block_adapt_backward(x: torch.Tensor, p: AdaptBlockParams, dp_masks: torch.Tensor,

@@ -273,6 +273,109 @@ def test_adapter_block_kernels_match_plain(card, stage, shift, positions):
         assert (a - b).abs().max() <= 2.0 ** -6 * b.abs().max(), name
 
 
+# K4's GEMM forms at the adapter block's shapes, B=2 images of each stage:
+# proj through the window -> token map, the adapters' narrow GEMMs (N = ch,
+# or K = ch), sa2's float32 branch, fc2 and ma2 on one tile
+# (the float32 forms, sa2 and fc2 + ma2, run at width swin_fwd_plan.F32_BN)
+_ADAPT_GEMMS = [(f, i, bn) for i in range(4) for f in ("proj", "sa1", "sa2", "ma1", "fc2")
+                for bn in ((swin_fwd_plan.F32_BN,) if f in ("sa2", "fc2")
+                           else swin_fwd_plan.BNS)]
+
+
+@pytest.mark.parametrize("form,stage,bn", _ADAPT_GEMMS)
+def test_adapt_gemm_forms_match_plain(card, form, stage, bn):
+    """Each GEMM form K4 adds to the Hopper forward layer alone, at every
+    stage width and tile width it takes (the float32 forms: 64): F_OUT
+    through the shifted window -> token
+    map, F_OUT + GELU at N = ch (stage 0: the 48-wide adapter padded to
+    64), F_BRANCH (float32 y from x, a and an unrounded mask with a zero,
+    K = ch: one k-block at stage 0), F_ADAPT_OUT (two chains through one
+    ring). Within 2^-7 of the output's largest magnitude of its plain
+    version (float32 outputs too); two launches give equal bits."""
+    H, C = 64 >> stage, 96 << stage
+    ch = -(-C // 2 // 32) * 32
+    M, L = 2 * H * H, H * H
+    K, N = {"proj": (C, C), "sa1": (C, ch), "sa2": (ch, C), "ma1": (C, ch),
+            "fc2": (4 * C, C)}[form]
+    gen = torch.Generator().manual_seed(M + K + N + bn)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(card)  # noqa: E731
+    a, w = rnd(M, K).bfloat16(), (rnd(K, N) / K ** 0.5).bfloat16()
+    bias = rnd(N) * 0.3
+    masks = torch.tensor([[1 / 0.9, 0.0], [0.0, 1 / 0.9]], device=card)
+    run = lambda **kw: swin_block_adapt.adapt_gemm(form_of, a, w, bias, bn=bn, **kw)  # noqa: E731
+    if form in ("proj", "sa1", "ma1"):
+        form_of = "out"
+        kw = {"gelu": form != "proj"}
+        plain_kw = dict(kw)
+        if form == "proj":
+            shift = 4 if stage < 3 else 0
+            kw["geometry"] = (H, H, 8, shift)
+            plain_kw["rows_out"] = swin_fwd_plan.window_rows(2, H, H, 8, shift)
+        ref = swin_block.fwd_gemm_plain(a, w, bias, **plain_kw)
+    elif form == "sa2":
+        form_of = "branch"
+        x, add = rnd(M, N).bfloat16(), rnd(M, N).bfloat16()
+        kw = dict(x=x, add=add, masks=masks, col=0, s=0.1, L=L)
+        ref = swin_block_adapt.branch_gemm_plain(a, w, bias, x, add, masks[:, 0], 0.1, L)
+    else:
+        form_of = "adapt_out"
+        a1, w1 = rnd(M, ch).bfloat16(), (rnd(ch, N) / ch ** 0.5).bfloat16()
+        bias1, y = rnd(N) * 0.3, rnd(M, N)
+        kw = dict(a1=a1, w1=w1, bias1=bias1, y=y, masks=masks, col=1, s=0.1, L=L)
+        ref = swin_block_adapt.adapt_out_gemm_plain(a, w, bias, a1, w1, bias1, y, masks[:, 1],
+                                                    0.1, L)
+    got, again = run(**kw), run(**kw)
+    assert torch.equal(got, again)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    g, r = got.float(), ref.float()
+    assert torch.isfinite(g).all()
+    assert (g - r).abs().max() <= 2.0 ** -7 * r.abs().max()
+    if form == "sa2":  # image 1's mask is 0: y is x there, exactly
+        assert torch.equal(got[L:], x[L:].float())
+
+
+@pytest.mark.parametrize("C", [96, 192, 384, 768])
+def test_adapt_ln_rows_match_plain(card, C):
+    """K4's LN2 row pass over float32 rows alone, at each stage width: within
+    one bf16 ulp (2^-7 of max(|h|, 1)) of ln_rows_plain on the unrounded y;
+    a second launch gives equal bits."""
+    gen = torch.Generator().manual_seed(C)
+    y = (torch.randn(1000, C, generator=gen) * 3.0 + 1.0).to(card)
+    w, b = (torch.rand(C, generator=gen) + 0.5).to(card), torch.randn(C, generator=gen).to(card)
+    got, again = swin_block_adapt.adapt_ln_rows(y, w, b), swin_block_adapt.adapt_ln_rows(y, w, b)
+    assert torch.equal(got, again)
+    ref = swin_block.ln_rows_plain(y, w, b, dtype=torch.bfloat16).float()
+    assert ((got.float() - ref).abs() / ref.abs().clamp(min=1.0)).max() <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4), (2, 0), (2, 4), (3, 0)])
+@pytest.mark.parametrize("masks", [None, "mixed", "zeros"])
+def test_adapter_block_forward_every_stage_and_repeat(card, stage, shift, masks):
+    """K4 at every stage shape and shift, served (masks None) and with
+    drop-path masks (one branch dropped per image, or every mask zero: the
+    block is the identity, exactly), B=3, random adapters (stage 0: 48 ->
+    64): within 2^-6 of the output's largest magnitude of its plain bf16
+    version; a second launch gives the same bits."""
+    blk = _train_block(card, stage, shift, 70 + stage, _ADAPT)[0]
+    p = swin_block_adapt.prepare_adapt_block(blk, torch.bfloat16)
+    H, C = 64 >> stage, 96 << stage
+    gen = torch.Generator().manual_seed(80 + stage + shift)
+    x = torch.randn(3, H * H, C, generator=gen).to(card).bfloat16()
+    m = {"zeros": torch.zeros(3, 2),
+         "mixed": torch.tensor([[1 / 0.9, 0.0], [0.0, 1 / 0.9], [1 / 0.9, 1 / 0.9]]),
+         None: None}[masks]
+    m = m.to(card) if m is not None else None
+    before = swin_block_adapt.FWD_KERNEL.launches
+    got = swin_block_adapt.swin_block_adapt_fused(x, p, m)
+    again = swin_block_adapt.swin_block_adapt_fused(x, p, m)
+    assert swin_block_adapt.FWD_KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    ref = swin_block_adapt.swin_block_adapt_plain(x, p, m).float()
+    assert (got.float() - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+    if masks == "zeros":
+        assert torch.equal(got, x)
+
+
 def test_layer_norm_with_frozen_scale_trains_its_shift(card):
     """On the card, a LayerNorm whose scale is frozen still gives its shift
     a gradient (the AdapterBit freeze), equal to nn.LayerNorm's."""
