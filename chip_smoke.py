@@ -165,14 +165,17 @@ def phase_build():
     # counted in their own kernels (K2's GEMM fwd_gemm and attention, K11's
     # swin_stage_kernel), since their libraries also hold the backward
     # layer's kernels of the header they share; K4's the same as K2's (its
-    # GEMMs fwd_gemm and fwd_gemm_two, the attention)
+    # GEMMs fwd_gemm and fwd_gemm_two, the attention); K9's and K10's wgmma
+    # and TMA loads, and under 512 FFMA (the former float32 DFT loop's
+    # unrolled k step alone held 1024; their epilogues take a few hundred)
     tool = shutil.which("cuobjdump") or str(Path(_cuda.nvcc()).parent / "cuobjdump")
     for name, need, own in (("K6", ("HGMMA", "UTMALDG", "UTMASTG"), None),
                             ("K7", ("HGMMA", "UTMALDG", "UTMASTG"), None),
                             ("K3", ("HGMMA", "UTMALDG"), None), ("K5", ("HGMMA", "UTMALDG"), None),
                             ("K2", ("HGMMA", "UTMALDG"), r"fwd_gemm|attention_kernel"),
                             ("K4", ("HGMMA", "UTMALDG"), r"fwd_gemm|attention_kernel"),
-                            ("K11", ("HGMMA", "UTMALDG"), r"swin_stage_kernel")):
+                            ("K11", ("HGMMA", "UTMALDG"), r"swin_stage_kernel"),
+                            ("K9", ("HGMMA", "UTMALDG"), None), ("K10", ("HGMMA", "UTMALDG"), None)):
         lib = kernels()[name].library_path()
         try:
             sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
@@ -180,7 +183,7 @@ def phase_build():
         except (OSError, subprocess.CalledProcessError):
             log(f"  {lib.name} SASS: not measured (no cuobjdump)")
             continue
-        ops = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")
+        ops = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "FFMA")
         counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
         log(f"  {lib.name} SASS: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
         if own is not None:  # the kernel's own functions only
@@ -192,6 +195,8 @@ def phase_build():
         check(all(counts[op] for op in need), f"{name}'s SASS lacks wgmma or TMA: {counts}")
         if name in ("K3", "K5", "K2", "K4", "K11"):
             check(counts["HMMA"] == 0, f"{name}'s SASS still has mma.sync (WMMA): {counts}")
+        if name in ("K9", "K10"):
+            check(counts["FFMA"] < 512, f"{name}'s SASS keeps an FFMA DFT loop: {counts}")
 
 
 def phase_frontend():
@@ -1918,13 +1923,16 @@ def phase_features_form(smi, name, kw):
     bound, by = bound_ms(nb, f32_flops=fl)
     tables = (frontend_forms._flat_kernel_tables(1024, "hann", 64, 24000, x.device) if name == "K9"
               else frontend_forms._dif_kernel_tables(1024, 64, 24000, x.device))
-    n_tiles, Kp, cols = tables[0].shape
+    n_tiles, _, cols, Kp = tables[0].shape
+    # the DFT GEMM once, and the tensor cores' work: its three split-TF32
+    # products (the mel GEMM's are left out: 1/16 of K9's, 1/8 of K10's)
     gemm = 2.0 * B_SERVE * 4 * 1001 * Kp * cols * n_tiles
     log(f"{name} at B={B_SERVE} ({smi}): vs plain {errs[0]:.3g} dB / {errs[1]:.3g} IV; "
-        f"{ms:.3f} ms ({gemm / 1e12:.3f} TFLOP of DFT, {gemm / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{ms:.3f} ms ({gemm / 1e12:.3f} TFLOP of DFT, {3 * gemm / ms / 1e9:.1f} TFLOP/s of "
+        f"split-TF32 products, {3 * gemm / ms / 1e9 / 495:.0%} of 495 dense TF32), plain "
         f"{plain_ms:.3f} ms, K1 on the same batch {k1_ms:.3f} ms, bound {bound:.4f} ms by {by}")
     return launches, {name: (err, err / ref.abs().max().item(), ms, plain_ms, bound, by, None,
-                             None, {"k1_ms": k1_ms})}
+                             None, {"k1_ms": k1_ms, "tf32_tflop_s": 3 * gemm / ms / 1e9})}
 
 
 def random_stage(i, gen, shifts=None):

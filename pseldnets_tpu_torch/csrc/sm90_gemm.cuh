@@ -3,8 +3,10 @@
 // Used by K6 (vit_block.cu: its four GEMMs, and the same primitives in its
 // attention), K7 (conv_block.cu: its implicit-GEMM mainloop is written
 // beside this one on the same primitives, with 4-D TMA boxes per tap and
-// the weights as a transposed B) and K3/K5 (swin_bwd_sm90.cuh: the Swin
-// block backward's GEMM forms, transposed A included, and wgmma attention).
+// the weights as a transposed B), K3/K5 (swin_bwd_sm90.cuh: the Swin
+// block backward's GEMM forms, transposed A included, and wgmma attention)
+// and K9/K10 (frontend_common.cuh: split-TF32 wgmma with A from registers
+// and float32 TMA boxes).
 //
 //   C (M, N) = A (M, K) . B (N, K)^T     A, B bf16 K-major, float32 sums
 //
@@ -379,6 +381,79 @@ __device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32], const uint32_t (
 }
 
 
+// D (64 x N float32) = A . B^T (+ D), A 64 x 8 tf32 from registers (rows
+// l / 4 and + 8 of the warp's 16, columns l % 4 and + 4: a[0] (r, c), a[1]
+// (r + 8, c), a[2] (r, c + 4), a[3] (r + 8, c + 4), as mma.sync's tf32 A
+// fragment), B N x 8 tf32 from shared memory K-major (tf32 takes no
+// transpose). The tensor core reads the top 19 bits of each register: an
+// operand not already rounded to tf32 is truncated. Used by K9 and K10
+// (frontend_common.cuh) in split-TF32 products.
+template <int N>
+__device__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                              int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// x rounded to tf32 (10 explicit mantissa bits), to nearest with ties away
+// from zero, as a 32-bit pattern whose low 13 bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// the split-TF32 operand: hi = tf32(x), lo = tf32(x - hi); hi + lo is x
+// within 2^-22 of |x|
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -414,13 +489,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor of `rank` dims (innermost first, dims[0] contiguous) with
-// byte strides of the outer dims, read in boxes of `box` elements with the
-// 128-byte swizzle (box[0] = 64; or `swizzle`, box[0] at most its width) and
-// zeros past every edge, negative coordinates included
+// a bf16 tensor (or `dtype`) of `rank` dims (innermost first, dims[0]
+// contiguous) with byte strides of the outer dims, read in boxes of `box`
+// elements with the 128-byte swizzle (box[0] = 64 bf16; or `swizzle`, box[0]
+// at most its width) and zeros past every edge, negative coordinates included
 inline cudaError_t make_tmap(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                              const uint64_t* strides, const uint32_t* box,
-                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                             CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(base) % 16) return cudaErrorMisalignedAddress;
@@ -434,7 +510,7 @@ inline cudaError_t make_tmap(CUtensorMap* map, const void* base, int rank, const
     e[i] = 1;
     if (i < rank - 1) s[i] = strides[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, s,
+  const CUresult r = fn(map, dtype, rank, const_cast<void*>(base), d, s,
                         b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

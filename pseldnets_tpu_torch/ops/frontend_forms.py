@@ -19,11 +19,15 @@ power -> mel -> dB and the normalized FOA intensity vector -> mel.
   even n_fft and hop, hann or hamming, no folds.
 
 On a CUDA tensor the wrapper launches its kernel; on a CPU tensor it runs
-the plain version, which follows the form's own arithmetic in float32 (the
-DFT sums in the kernels' two levels, ``two_level_matmul``) and shares the
-plain epilogue (``features.logmel_iv_from_spectrum``). The
+the plain version, which follows the kernels' arithmetic in float32: the DFT
+in split TF32 (``tf32_split`` of the frames or streams and of the float64
+tables, three products a k step of 8 in the kernels' k order, summed from
+zero over each k-block of 32 and then into a running sum, ``split3_matmul``)
+and the shared plain epilogue (``features.logmel_iv_from_spectrum``). The
 kernels compute only the bins from the first to the last one with a
-non-zero mel weight: the others add nothing to any output.
+non-zero mel weight (the others add nothing to any output) and take the mel
+sums on the tensor cores too (``flat_tables``, ``dif_tables``);
+``launch_plan`` mirrors what they take and refuse.
 """
 
 from functools import lru_cache
@@ -38,19 +42,32 @@ from .features import logmel_iv_filterbank, logmel_iv_from_spectrum
 from .windows import get_window
 
 FLAT_KERNEL = CudaKernel("frontend_flat.cu", {
-    "logmel_iv_flat": [ptr] * 6 + [i32] * 10 + [ptr],
+    "logmel_iv_flat": [ptr] * 5 + [i32] * 10 + [ptr],
 })
 DIF_KERNEL = CudaKernel("frontend_dif.cu", {
-    "logmel_iv_dif": [ptr] * 5 + [i32] * 9 + [f32] * 2 + [ptr],
+    "logmel_iv_dif": [ptr] * 4 + [i32] * 9 + [f32] * 2 + [ptr],
 })
 
 # window -> exact 3-tap frequency response of the periodic cosine window
 # w[n] = a0 + 2 a1 cos(2 pi n / N): X_w[k] = a0 X[k] + a1 (X[k-1] + X[k+1])
 WIN_3TAP = {"hann": (0.5, -0.25), "hamming": (0.54, -0.23)}
 
-BK = 16          # the kernels' k step: tables pad n to a multiple of it
-TILE_BINS = 64   # K9: bins per column tile
+# the kernels' geometry (csrc/frontend_common.cuh)
+BK = 32          # k-block: tables pad k to a multiple of it
+KSTEP = 8        # wgmma's k step: the plain versions sum a step at a time
+CHUNK = 32       # k summed in the tensor cores' accumulator (a k-block) before the running sum
+TILE_BINS = 64   # local bins per column tile (128 columns)
+COLS = 2 * TILE_BINS
+MELS = 64        # the mel GEMM's columns: n_mels <= 64
 DIF_STEP = 31    # K10: sub-bins between column tiles (62 windowed bins)
+FR = 32          # frames per block (two consumer warpgroups of 16)
+THREADS = 384    # two consumer warpgroups and the producer's
+STAGES = 3       # ring depth
+CLUSTER = 1      # CTAs sharing each table tile by TMA multicast
+STAGE_BYTES = 2 * COLS * BK * 4     # a k-block's hi and lo tiles, or a tile's mel tables
+ACC_BYTES = FR * 8 * MELS * 4       # the block's mel sums
+A_SLOTS = {"flat": 4, "dif": 8}     # 16-byte waveform slots a consumer thread and k-block
+SMEM_LIMIT = 232448                 # 227 KB a block
 
 
 def padded_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -85,33 +102,98 @@ def _mel_fb(sample_rate, n_fft, n_mels, like: torch.Tensor) -> torch.Tensor:
                            device=like.device).to(like.dtype)
 
 
-def two_level_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b summed as the kernels sum: a partial product over each k step of
-    BK, the partials added in order (csrc/frontend_common.cuh,
-    "Accumulation"). Works in the operands' dtype."""
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to tf32 (10 explicit mantissa bits), to nearest with
+    ties away from zero: what ``cvt.rna.tf32.f32`` gives, as float32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-TF32 operand of float32 x: hi = tf32(x), lo = tf32(x - hi),
+    as the kernels split the waveform rows on the device."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32_split_np(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The split of float64 (or float32) x on the host, as float32 arrays:
+    x rounded once to the 22 significant bits a split pair holds (to
+    nearest, ties away), then cut exactly into hi (its first 11 bits, a
+    tf32) and lo (the other 11): hi + lo is that rounding, within 2^-22 of
+    |x|."""
+    m, e = np.frexp(np.asarray(x, np.float64))
+    q = np.sign(m) * np.floor(np.abs(m) * 2.0 ** 22 + 0.5)  # 22-bit integer significand
+    hi_q = np.sign(q) * np.floor(np.abs(q) / 2.0 ** 11 + 0.5) * 2.0 ** 11
+    return (np.ldexp(hi_q / 2.0 ** 22, e).astype(np.float32),
+            np.ldexp((q - hi_q) / 2.0 ** 22, e).astype(np.float32))
+
+
+def k_order(Kp: int) -> np.ndarray:
+    """The kernels' k order: inside each k-block of 32, position 8 kk + c of
+    k step kk holds sample 16 (kk // 2) + 4 (c % 4) + 2 (kk % 2) + c // 4, so
+    that the thread holding A columns c and c + 4 of steps 2 j and 2 j + 1
+    loads them as one 16-byte vector of four adjacent samples."""
+    kk, c = np.divmod(np.arange(Kp), KSTEP)
+    return BK * (kk // 4) + 16 * (kk % 4 // 2) + 4 * (c % 4) + 2 * (kk % 2) + c // 4
+
+
+def local_order() -> np.ndarray:
+    """The mel GEMM's k order: position 8 kk + c holds local bin 16 (c % 4)
+    + 2 kk + c // 4 of the tile (thread c % 4 holds locals 16 (c % 4) ..
+    + 15)."""
+    kk, c = np.divmod(np.arange(TILE_BINS), KSTEP)
+    return 16 * (c % 4) + 2 * kk + c // 4
+
+
+def split3_matmul(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor) -> torch.Tensor:
+    """a @ (b_hi + b_lo) as the kernels compute it: a split with
+    ``tf32_split``; in each chunk of CHUNK k from zero, for each k step of 8
+    in order a_lo b_hi, a_hi b_lo and a_hi b_hi added to the chunk's sum (the
+    small products first); the chunks' sums added in order (two levels, as
+    the former float32 kernels summed). a (..., K) float32 with K a multiple
+    of 8, b_hi and b_lo (K, cols) float32."""
+    a_hi, a_lo = tf32_split(a)
     out = None
-    for k0 in range(0, a.shape[-1], BK):
-        part = torch.matmul(a[..., k0:k0 + BK], b[k0:k0 + BK])
+    for c0 in range(0, a.shape[-1], CHUNK):
+        part = None
+        for k0 in range(c0, min(c0 + CHUNK, a.shape[-1]), KSTEP):
+            k = slice(k0, k0 + KSTEP)
+            step = torch.matmul(a_lo[..., k], b_hi[k])
+            part = step if part is None else part + step
+            part = part + torch.matmul(a_hi[..., k], b_lo[k])
+            part = part + torch.matmul(a_hi[..., k], b_hi[k])
         out = part if out is None else out + part
     return out
 
 
+def _pad_k(a: torch.Tensor, K: int) -> torch.Tensor:
+    """The last axis zero-padded to the kernels' Kp and put in their k order."""
+    Kp = -(-K // BK) * BK
+    return F.pad(a, (0, Kp - K))[..., torch.as_tensor(k_order(Kp), device=a.device)]
+
+
 def flat_spectrum(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann"):
-    """The windowed spectrum (B, 4, n_frames, n_fft // 2 + 1) as (re, im),
-    in x's float dtype (float32 for a waveform of another): the framed
-    signal @ the windowed (cos, -sin) DFT table."""
-    dt = x.dtype if x.dtype == torch.float64 else torch.float32
+    """The windowed spectrum (B, 4, n_frames, n_fft // 2 + 1) as (re, im):
+    the framed signal @ the windowed (cos, -sin) DFT table. For a float64
+    waveform in float64; otherwise in float32 as the kernels compute it
+    (``split3_matmul`` on the frames and the table's float64 split)."""
     n_frames = 1 + x.shape[-1] // hop
-    frames = padded_signal(x.to(dt), n_fft, hop).unfold(-1, n_fft, hop)[..., :n_frames, :]
     n_freqs = n_fft // 2 + 1
-    tab = torch.as_tensor(_dft_table(n_fft, window), device=x.device).to(dt)
-    spec = two_level_matmul(frames, tab)
+    if x.dtype == torch.float64:
+        frames = padded_signal(x, n_fft, hop).unfold(-1, n_fft, hop)[..., :n_frames, :]
+        spec = frames @ torch.as_tensor(_dft_table(n_fft, window), device=x.device)
+    else:
+        frames = padded_signal(x.float(), n_fft, hop).unfold(-1, n_fft, hop)[..., :n_frames, :]
+        hi, lo = (torch.as_tensor(t, device=x.device) for t in _split_table(n_fft, window))
+        spec = split3_matmul(_pad_k(frames, n_fft), hi, lo)
     return spec[..., :n_freqs], spec[..., n_freqs:]
 
 
 def dif_spectrum(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann"):
     """The windowed spectrum (B, 4, n_frames, n_fft // 2 + 1) as (re, im),
-    in x's float dtype as ``flat_spectrum``, the DIF way: the sum and difference streams of each frame -> an
+    in float64 or float32 as ``flat_spectrum``, the DIF way: the sum and
+    difference streams of each frame (formed in the working dtype) -> an
     n_fft/2-point DFT of each (even bins, and the pre-twiddled odd bins) ->
     the unwindowed spectrum with X[-1] = conj(X[1]) and X[n_fft/2 + 1] =
     conj(X[n_fft/2 - 1]) -> the 3-tap window."""
@@ -122,9 +204,15 @@ def dif_spectrum(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann"):
     xp = padded_signal(x.to(dt), n_fft, hop)
     lo = xp.unfold(-1, hf, hop)[..., :n_frames, :]
     hi = xp[..., hf:].unfold(-1, hf, hop)[..., :n_frames, :]
-    tabs = [torch.as_tensor(t, device=x.device).to(dt) for t in _dif_tables(n_fft)]
-    even = two_level_matmul(lo + hi, tabs[0])  # (B, 4, T, 2 n_even): bins 0, 2, ..
-    odd = two_level_matmul(lo - hi, tabs[1])   # bins 1, 3, ..
+    tabs = _dif_tables(n_fft)
+    if dt == torch.float64:
+        even, odd = ((lo + hi) @ torch.as_tensor(tabs[0], device=x.device),
+                     (lo - hi) @ torch.as_tensor(tabs[1], device=x.device))
+    else:
+        # bins 0, 2, .. from the sum stream; 1, 3, .. from the difference
+        even, odd = (split3_matmul(_pad_k(a, hf), *(torch.as_tensor(t, device=x.device)
+                                                    for t in _split_dif_table(n_fft, i)))
+                     for i, a in enumerate((lo + hi, lo - hi)))
     n_even, n_odd = tabs[0].shape[1] // 2, tabs[1].shape[1] // 2
     shape = even.shape[:-1] + (hf + 1,)
     re, im = even.new_empty(shape), even.new_empty(shape)
@@ -175,14 +263,15 @@ def logmel_iv_flat(x: torch.Tensor, *, n_fft: int, hop: int, window: str = "hann
     B, _, N = x.shape
     check_cuda_tensor("x", x, torch.float32, (B, 4, N))
     check_launch(N, n_fft, hop, out_dtype)
-    tab, band_m, band_w = _flat_kernel_tables(n_fft, window, n_mels, sample_rate, x.device)
+    plan = launch_plan("flat", B, N, n_fft, hop, n_mels, sample_rate, t_out)
+    tab, fb = _flat_kernel_tables(n_fft, window, n_mels, sample_rate, x.device)
     aff = affine_table(post_affine, n_mels, x.device)
     out = torch.empty((B, 7, t_out, n_mels), device=x.device, dtype=out_dtype)
     FLAT_KERNEL.launches += 1
-    FLAT_KERNEL.call("logmel_iv_flat", x.data_ptr(), tab.data_ptr(), band_m.data_ptr(),
-                     band_w.data_ptr(), aff.data_ptr() if aff is not None else None,
-                     out.data_ptr(), B, N, n_fft, hop, tab.shape[1], tab.shape[0], n_mels,
-                     n_frames, t_out, int(out_dtype == torch.bfloat16))
+    FLAT_KERNEL.call("logmel_iv_flat", x.data_ptr(), tab.data_ptr(), fb.data_ptr(),
+                     aff.data_ptr() if aff is not None else None, out.data_ptr(), B, N, n_fft,
+                     hop, plan["Kp"], plan["n_tiles"], n_mels, n_frames, t_out,
+                     int(out_dtype == torch.bfloat16))
     return out
 
 
@@ -197,14 +286,15 @@ def logmel_iv_dif(x: torch.Tensor, *, n_fft: int, hop: int, window: str = "hann"
     check_cuda_tensor("x", x, torch.float32, (B, 4, N))
     check_dif(n_fft, hop, window)
     check_launch(N, n_fft, hop, torch.float32)
-    tab, band_m, band_w, s0 = _dif_kernel_tables(n_fft, n_mels, sample_rate, x.device)
     n_frames = 1 + N // hop
+    plan = launch_plan("dif", B, N, n_fft, hop, n_mels, sample_rate, n_frames)
+    tab, fb, s0 = _dif_kernel_tables(n_fft, n_mels, sample_rate, x.device)
     out = torch.empty((B, 7, n_frames, n_mels), device=x.device, dtype=torch.float32)
     a0, a1 = WIN_3TAP[window]
     DIF_KERNEL.launches += 1
-    DIF_KERNEL.call("logmel_iv_dif", x.data_ptr(), tab.data_ptr(), band_m.data_ptr(),
-                    band_w.data_ptr(), out.data_ptr(), B, N, n_fft, hop, tab.shape[1],
-                    tab.shape[0], s0, n_mels, n_frames, a0, a1)
+    DIF_KERNEL.call("logmel_iv_dif", x.data_ptr(), tab.data_ptr(), fb.data_ptr(),
+                    out.data_ptr(), B, N, n_fft, hop, plan["Kp"], plan["n_tiles"], s0, n_mels,
+                    n_frames, a0, a1)
     return out
 
 
@@ -225,6 +315,46 @@ def check_launch(N: int, n_fft: int, hop: int, out_dtype: torch.dtype) -> None:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
 
 
+def launch_plan(form: str, B: int, N: int, n_fft: int, hop: int, n_mels: int,
+                sample_rate: int, t_out: int) -> dict:
+    """What the C entries of K9 (``form="flat"``) and K10 (``"dif"``) launch
+    (csrc/frontend_common.cuh ``launch_forms``): the tables' k padding and
+    column tiles, the grid, the ring, shared memory and the TMA boxes;
+    raises ``NotImplementedError`` on what they refuse, before any launch."""
+    if form not in ("flat", "dif"):
+        raise ValueError(f"form must be 'flat' or 'dif', got {form!r}")
+    k_lo, k_hi = weighted_bins(sample_rate, n_fft, n_mels)
+    K = n_fft if form == "flat" else n_fft // 2
+    n_tiles = (-(-(k_hi - k_lo + 1) // TILE_BINS) if form == "flat"
+               else -(-(k_hi - 2 * (k_lo // 2) + 1) // (2 * DIF_STEP)))
+    n_frames = 1 + N // hop
+    blocks = -(-t_out // FR)
+    plan = {"Kp": -(-K // BK) * BK, "n_tiles": n_tiles, "n_frames": n_frames,
+            "grid": (-(-blocks // CLUSTER) * CLUSTER, B), "cluster": CLUSTER,
+            "threads": THREADS, "stages": STAGES,
+            "smem": (STAGES * STAGE_BYTES + ACC_BYTES + 2 * A_SLOTS[form] * (THREADS - 128) * 16
+                     + 16 * STAGES + 1024),
+            # (k, rows) of each TMA box: the tables' hi and lo tiles (split
+            # over the pair), the mel tables' two k-halves
+            "tab_box": (BK, 2 * COLS // CLUSTER), "fb_box": (BK, 2 * MELS),
+            # ring stages a column tile takes: its k-blocks and its mel tables
+            "stages_a_tile": -(-K // BK) + 1}
+    why = []
+    if n_mels > MELS:
+        why.append(f"n_mels={n_mels} > {MELS} (the mel GEMM's columns)")
+    if not 1 <= B <= 65535:
+        why.append(f"B={B} outside the grid's 1..65535")
+    if plan["smem"] > SMEM_LIMIT:
+        why.append(f"{plan['smem']} bytes of shared memory > {SMEM_LIMIT}")
+    if n_tiles * 2 * COLS >= 2 ** 31 or max(plan["tab_box"] + plan["fb_box"]) > 256:
+        why.append("a TMA dimension or box out of range")
+    if t_out < n_frames:
+        why.append(f"t_out={t_out} < n_frames={n_frames}")
+    if why:
+        raise NotImplementedError("the frontend form kernels do not take this: " + "; ".join(why))
+    return plan
+
+
 def affine_table(post_affine, n_mels: int, device) -> Optional[torch.Tensor]:
     """``post_affine`` as the kernels read it: (2, 7, n_mels) float32 on the
     card, or None."""
@@ -238,16 +368,24 @@ def affine_table(post_affine, n_mels: int, device) -> Optional[torch.Tensor]:
 
 @lru_cache(maxsize=8)
 def _dft_table(n_fft: int, window: str) -> np.ndarray:
-    """(n_fft, 2 n_freqs) float32: the windowed cos | -sin over all bins."""
+    """(n_fft, 2 n_freqs) float64: the windowed cos | -sin over all bins."""
     k = np.arange(n_fft // 2 + 1)
     c, s = _trig(n_fft, np.arange(n_fft), k)
     win = get_window(window, n_fft)[:, None]
-    return np.concatenate([win * c, -win * s], axis=1).astype(np.float32)
+    return np.concatenate([win * c, -win * s], axis=1)
+
+
+@lru_cache(maxsize=8)
+def _split_table(n_fft: int, window: str) -> Tuple[np.ndarray, np.ndarray]:
+    """``_dft_table`` split (hi, lo), rows padded to Kp in the kernels' k
+    order: the plain flat form's B operand."""
+    Kp = -(-n_fft // BK) * BK
+    return tf32_split_np(np.pad(_dft_table(n_fft, window), ((0, Kp - n_fft), (0, 0)))[k_order(Kp)])
 
 
 @lru_cache(maxsize=8)
 def _dif_tables(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
-    """The n_fft/2-point DFT tables (n_fft/2, 2 n) float32 as cos | -sin:
+    """The n_fft/2-point DFT tables (n_fft/2, 2 n) float64 as cos | -sin:
     of the sum stream for the even bins 0, 2, .. <= n_fft/2 and of the
     difference stream, pre-twiddled, for the odd bins 1, 3, .. <= n_fft/2."""
     hf = n_fft // 2
@@ -255,8 +393,17 @@ def _dif_tables(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
     out = []
     for bins in (np.arange(0, hf + 1, 2), np.arange(1, hf + 1, 2)):
         c, s = _trig(n_fft, n, bins)
-        out.append(np.concatenate([c, -s], axis=1).astype(np.float32))
+        out.append(np.concatenate([c, -s], axis=1))
     return tuple(out)
+
+
+@lru_cache(maxsize=8)
+def _split_dif_table(n_fft: int, which: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``_dif_tables(n_fft)[which]`` split (hi, lo), rows padded to Kp in the
+    kernels' k order."""
+    hf = n_fft // 2
+    Kp = -(-hf // BK) * BK
+    return tf32_split_np(np.pad(_dif_tables(n_fft)[which], ((0, Kp - hf), (0, 0)))[k_order(Kp)])
 
 
 def _trig(n_fft: int, n: np.ndarray, k: np.ndarray):
@@ -266,79 +413,88 @@ def _trig(n_fft: int, n: np.ndarray, k: np.ndarray):
     return np.cos(ang), np.sin(ang)
 
 
+@lru_cache(maxsize=8)
 def weighted_bins(sample_rate: int, n_fft: int, n_mels: int) -> Tuple[int, int]:
     """The first and last bin with a non-zero mel weight."""
     nz = np.nonzero(logmel_iv_filterbank(sample_rate, n_fft, n_mels).any(axis=1))[0]
     return int(nz[0]), int(nz[-1])
 
 
-def band_tables(fb: np.ndarray, bins: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """For each bin (-1 or past the last: none) the two bands it feeds and
-    their weights, (len, 2) int32 and float32; a bin feeds at most two
-    adjacent mel triangles, and a weight is 0 where it feeds fewer."""
-    m = np.zeros((len(bins), 2), np.int32)
-    w = np.zeros((len(bins), 2), np.float32)
-    for i, k in enumerate(bins):
-        if 0 <= k < fb.shape[0]:
-            nz = np.nonzero(fb[k])[0]
-            if nz.size > 2:
-                raise ValueError(f"bin {k} feeds {nz.size} mel bands: the kernels take two")
-            m[i, :nz.size] = nz
-            w[i, :nz.size] = fb[k, nz]
-    return m, w
+def tile_columns(width: int = COLS) -> Tuple[np.ndarray, np.ndarray]:
+    """For each column of a wgmma accumulator ``width`` wide its complex
+    index and part (0 re / cos, 1 im / -sin): column 8 j + 2 u + part is
+    index (width // 8) u + j, so that thread u of each lane quad holds
+    indices (width // 8) u .. + width // 8 - 1. K9's 128 columns are local
+    bins 16 u + j; each of K10's two 64-column halves is bins 2s + 2i (sum
+    stream) or 2s - 1 + 2i (difference stream), i = 8 u + j."""
+    j, r = np.divmod(np.arange(width), 8)
+    u, part = np.divmod(r, 2)
+    return width // 8 * u + j, part
+
+
+def mel_tiles(fb: np.ndarray, local_bins: np.ndarray) -> np.ndarray:
+    """(n_tiles, 2, 64, 64) float32: per tile the hi and lo mel tables, rows
+    the mels (zero from n_mels on), k the tile's local bins in the mel GEMM's
+    order (``local_order``); ``local_bins`` (n_tiles, 64) gives each local's
+    bin, -1 or past the last bin for one that feeds no band."""
+    n_tiles = local_bins.shape[0]
+    rows = np.zeros((n_tiles, TILE_BINS, MELS))
+    ok = (local_bins >= 0) & (local_bins < fb.shape[0])
+    rows[ok, :fb.shape[1]] = fb[local_bins[ok]]
+    hi, lo = tf32_split_np(rows.transpose(0, 2, 1)[..., local_order()])
+    return np.ascontiguousarray(np.stack([hi, lo], axis=1))
 
 
 def flat_tables(n_fft: int, window: str, n_mels: int, sample_rate: int):
-    """K9's tables: (n_tiles, Kp, 128) float32, per tile of 64 bins from the
-    first weighted one the windowed cos (even columns) and -sin (odd) over
-    n < n_fft, zeros to Kp (n_fft rounded up to the k step); and the bands
-    and weights of each tile's bins, (n_tiles, 64, 2) each."""
+    """K9's tables: (n_tiles, 2, 128, Kp) float32, per tile of 64 bins from
+    the first weighted one the hi and lo parts of the windowed cos and -sin
+    (split from float64), rows the tile's columns (local bin 16 u + j at
+    columns 8 j + 2 u + {0: cos, 1: -sin}), k the samples in the kernels'
+    order (``k_order``), zero from n_fft to Kp (n_fft rounded up to the
+    k-block); and ``mel_tiles`` of each tile's 64 bins."""
     fb = logmel_iv_filterbank(sample_rate, n_fft, n_mels)
-    k_lo, k_hi = weighted_bins(sample_rate, n_fft, n_mels)
-    n_tiles = -(-(k_hi - k_lo + 1) // TILE_BINS)
-    Kp = -(-n_fft // BK) * BK
-    bins = k_lo + np.arange(n_tiles * TILE_BINS)
-    c, s = _trig(n_fft, np.arange(n_fft), bins)
-    keep = bins <= n_fft // 2
+    plan = launch_plan("flat", 1, n_fft, n_fft, 1, n_mels, sample_rate, 1 + n_fft)
+    n_tiles, Kp = plan["n_tiles"], plan["Kp"]
+    k_lo = weighted_bins(sample_rate, n_fft, n_mels)[0]
+    local, part = tile_columns()
     win = get_window(window, n_fft)[:, None]
-    tab = np.zeros((Kp, n_tiles * TILE_BINS, 2))
-    tab[:n_fft, :, 0] = win * c * keep
-    tab[:n_fft, :, 1] = -win * s * keep
-    tab = tab.reshape(Kp, n_tiles, 2 * TILE_BINS).transpose(1, 0, 2)
-    m, w = band_tables(fb, bins)
-    return (np.ascontiguousarray(tab, np.float32), m.reshape(n_tiles, TILE_BINS, 2),
-            w.reshape(n_tiles, TILE_BINS, 2))
+    tab = np.zeros((n_tiles, COLS, Kp))
+    for t in range(n_tiles):
+        bins = k_lo + TILE_BINS * t + local
+        c, s = _trig(n_fft, np.arange(n_fft), bins)
+        tab[t, :, :n_fft] = (np.where(part == 0, win * c, -win * s) * (bins <= n_fft // 2)).T
+    hi, lo = tf32_split_np(tab[..., k_order(Kp)])
+    local_bins = k_lo + TILE_BINS * np.arange(n_tiles)[:, None] + np.arange(TILE_BINS)[None]
+    return np.ascontiguousarray(np.stack([hi, lo], axis=1)), mel_tiles(fb, local_bins)
 
 
 def dif_tables(n_fft: int, n_mels: int, sample_rate: int):
-    """K10's tables and s0: tile t (s = s0 + 31 t) holds in columns 2i,
-    2i + 1 the (cos, -sin) of bin 2s + 2i over the n_fft/2 samples of the
-    sum stream, and in columns 64 + 2i, 65 + 2i those of bin 2s - 1 + 2i for
-    the difference stream, zero for a bin outside 0 .. n_fft/2; (n_tiles,
-    Kp, 128) float32; with the bands and weights of windowed local bin l
-    (bin 2s - 1 + l, l = 1 .. 62; 0 and 63 feed none), (n_tiles, 64, 2)."""
+    """K10's tables and s0: tile t (s = s0 + 31 t) holds in its first 64
+    columns the (cos, -sin) of bin 2s + 2i over the n_fft/2 samples of the
+    sum stream and in its last 64 those of bin 2s - 1 + 2i for the
+    difference stream (i = 8 u + j at columns 8 j + 2 u + part of each
+    half), zero for a bin outside 0 .. n_fft/2; split hi/lo as K9's,
+    (n_tiles, 2, 128, Kp) float32; with ``mel_tiles`` of windowed local bin
+    l (bin 2s - 1 + l, l = 1 .. 62; locals 0 and 63 feed none)."""
     fb = logmel_iv_filterbank(sample_rate, n_fft, n_mels)
     hf = n_fft // 2
-    k_lo, k_hi = weighted_bins(sample_rate, n_fft, n_mels)
-    s0 = k_lo // 2
-    n_tiles = -(-(k_hi - 2 * s0 + 1) // (2 * DIF_STEP))
-    Kp = -(-hf // BK) * BK
+    plan = launch_plan("dif", 1, n_fft, n_fft, 2, n_mels, sample_rate, 1 + n_fft // 2)
+    n_tiles, Kp = plan["n_tiles"], plan["Kp"]
+    s0 = weighted_bins(sample_rate, n_fft, n_mels)[0] // 2
+    idx, part = (np.tile(a, 2) for a in tile_columns(COLS // 2))
+    half = np.arange(COLS) // (COLS // 2)
     n = np.arange(hf)
-    tab = np.zeros((n_tiles, Kp, 2 * TILE_BINS))
-    m = np.zeros((n_tiles, TILE_BINS, 2), np.int32)
-    w = np.zeros((n_tiles, TILE_BINS, 2), np.float32)
-    i = np.arange(TILE_BINS // 2)
+    tab = np.zeros((n_tiles, COLS, Kp))
+    local_bins = np.full((n_tiles, TILE_BINS), -1)
     for t in range(n_tiles):
         s = s0 + DIF_STEP * t
-        for off, bins in ((0, 2 * s + 2 * i), (TILE_BINS, 2 * s - 1 + 2 * i)):
-            c, sn = _trig(n_fft, n, bins)
-            keep = (bins >= 0) & (bins <= hf)
-            tab[t, :hf, off:off + TILE_BINS:2] = c * keep
-            tab[t, :hf, off + 1:off + TILE_BINS:2] = -sn * keep
-        local = 2 * s - 1 + np.arange(TILE_BINS)
-        local[[0, -1]] = -1
-        m[t], w[t] = band_tables(fb, local)
-    return np.ascontiguousarray(tab, np.float32), m, w, s0
+        bins = np.where(half == 0, 2 * s + 2 * idx, 2 * s - 1 + 2 * idx)
+        c, sn = _trig(n_fft, n, bins)
+        keep = (bins >= 0) & (bins <= hf)
+        tab[t, :, :hf] = (np.where(part == 0, c, -sn) * keep).T
+        local_bins[t, 1:TILE_BINS - 1] = 2 * s - 1 + np.arange(1, TILE_BINS - 1)
+    hi, lo = tf32_split_np(tab[..., k_order(Kp)])
+    return (np.ascontiguousarray(np.stack([hi, lo], axis=1)), mel_tiles(fb, local_bins), s0)
 
 
 @lru_cache(maxsize=8)
@@ -350,5 +506,5 @@ def _flat_kernel_tables(n_fft: int, window: str, n_mels: int, sample_rate: int,
 
 @lru_cache(maxsize=8)
 def _dif_kernel_tables(n_fft: int, n_mels: int, sample_rate: int, device: torch.device):
-    tab, m, w, s0 = dif_tables(n_fft, n_mels, sample_rate)
-    return (*(torch.as_tensor(a, device=device) for a in (tab, m, w)), s0)
+    tab, fb, s0 = dif_tables(n_fft, n_mels, sample_rate)
+    return torch.as_tensor(tab, device=device), torch.as_tensor(fb, device=device), s0

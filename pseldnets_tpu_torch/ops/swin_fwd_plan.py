@@ -298,32 +298,37 @@ def launches_ms(fn: Callable[[], object], n: int, reps: int = 3) -> Tuple[List[f
     launch order, and their kernels' names: torch.profiler over ``reps``
     calls (after one), the trace's kernel events in time order, PyTorch's
     own (``at::`` kernels: a fill of default masks) left out. Raises unless
-    the calls show ``n`` launches each, in the same order."""
+    the calls show ``n`` launches each, in the same order; a trace that
+    does not (the profiler recorded nothing, or dropped kernel events) is
+    taken again, up to three times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     marker = torch.zeros(1, device="cuda")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        marker.add_(1)  # the profiler may miss the first kernel of its window
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            ev = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") == "kernel" and not re.search(r"\bat::", e["name"])]
-    finally:
-        os.unlink(path)
-    ev.sort(key=lambda e: e["ts"])
-    ev = ev[-n * reps:]
-    if len(ev) != n * reps or any(e["name"] != ev[i % n]["name"] for i, e in enumerate(ev)):
-        raise RuntimeError(f"expected {reps} calls of {n} launches in order, got "
-                           + ", ".join(e["name"][:40] for e in ev[:2 * n]))
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.add_(1)  # the profiler may miss the first kernel of its window
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                ev = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") == "kernel" and not re.search(r"\bat::", e["name"])]
+        finally:
+            os.unlink(path)
+        ev.sort(key=lambda e: e["ts"])
+        ev = ev[-n * reps:]
+        if len(ev) == n * reps and all(e["name"] == ev[i % n]["name"] for i, e in enumerate(ev)):
+            break
+        if attempt == 2:
+            raise RuntimeError(f"expected {reps} calls of {n} launches in order, got "
+                               + ", ".join(e["name"][:40] for e in ev[:2 * n]))
     ms = [0.0] * n
     for i, e in enumerate(ev):
         ms[i % n] += e["dur"] / 1e3 / reps

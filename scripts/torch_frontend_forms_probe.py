@@ -1,24 +1,45 @@
 #!/usr/bin/env python3
 """Where the time of kernels K9 and K10 (csrc/frontend_{flat,dif}.cu) goes,
-on one card.
+on one card, in one or more checkouts.
 
-Builds copies of each source with one change each and times them at the
-frontend-forms cell's shape (32 ten-second clips, n_fft 1024, hop 240, hann,
-float32 out) with CUDA events, in rounds that alternate the order:
+For each checkout, in a process of its own, builds copies of its K9 and K10
+sources under ``_build/forms_probe/`` with one change each, all with one
+nvcc each in parallel, and times them at the frontend-forms cell's shape (32
+ten-second clips, n_fft 1024, hop 240, hann, float32 out) with CUDA events,
+in rounds that alternate the order.
 
-- ``shipped``: the source as it is;
-- ``one_level``: the DFT summed in one level (every product into the running
-  sum; the two-level partials and their 64 registers gone);
-- ``one_epilogue``: the per-tile epilogue (per-bin values, the DIF 3-tap,
-  the mel scatter and their barriers) run once per block instead of once per
-  column tile, so the time left is the GEMM loop's (the output is wrong and
-  is not checked).
+The split-TF32 wgmma design (its ``frontend_common.cuh`` has the FE_* knobs)
+gets, besides ``shipped``:
 
-``shipped`` and ``one_level`` are checked against the plain versions (8e-4 dB
-/ 7e-5 IV). Prints one line per variant and round, then one JSON line with
-each variant's ms per round.
+- the phases, each copy with one cut (FE_PROBE; outputs wrong, unchecked):
+  ``no_a_loads`` (the waveform fetched for the first k-block only: the A
+  staging's copies), ``no_split`` (hi = the raw float, lo = 0: the split's
+  arithmetic), ``no_epilogue`` (the per-tile values, mel GEMM and sums: the
+  GEMM alone), ``no_table_reads`` (the producer arrives without its TMA
+  loads: the tables' L2 reads), ``one_level`` (no running sum: the cost of
+  draining the accumulator every two k-blocks), ``bare_gemm`` (the wgmma
+  mainloop alone: no loads, split, running sum or epilogue);
+- the sweep, each copy checked against the plain version (8e-4 dB / 7e-5 IV)
+  and for the shipped copy's bits: ``stages2`` (ring depth; 3 ships: the
+  waveform's staging takes the room of deeper rings), ``frames16`` (one consumer warpgroup, 16 frames a block: twice the
+  table reads), ``cluster2`` (pairs of CTAs sharing each table tile by TMA
+  multicast; run in a child process of its own under a time limit).
 
-    python3 scripts/torch_frontend_forms_probe.py --rounds 2
+With ``--accuracy``, only the arithmetic's variants instead: ``chunk2``,
+``chunk4`` (two or four k-blocks summed in the tensor cores before the
+running sum; one ships) and ``four_products`` (a_lo b_lo added too), each
+timed and held against the float64 DFT and the plain version on
+chip_smoke.py's check data (n_fft 512 / hop 100 and 1024 / 240).
+
+The former float32 FMA design gets ``one_level`` (the DFT summed in one
+level) and ``one_epilogue`` (the per-tile epilogue run once a block: the
+GEMM loop's time), made by editing the copy's text as before.
+
+Prints one line per copy and round, and one JSON line per checkout with the
+card's name and power limit, each copy's ms per round and the registers and
+spills ptxas reported.
+
+    python3 scripts/torch_frontend_forms_probe.py _archive/parent . --rounds 2
 
 Needs one CUDA card and nvcc.
 """
@@ -29,111 +50,192 @@ import subprocess
 import sys
 from pathlib import Path
 
-import torch
+# the split-TF32 design's copies: the macros defined before the header
+NEW = {"shipped": {}, "no_a_loads": {"FE_PROBE": 1}, "no_split": {"FE_PROBE": 2},
+       "no_epilogue": {"FE_PROBE": 4}, "no_table_reads": {"FE_PROBE": 8},
+       "one_level": {"FE_PROBE": 16}, "bare_gemm": {"FE_PROBE": 1 | 2 | 4 | 16},
+       "stages2": {"FE_STAGES": 2}, "frames16": {"FE_CWG": 1},
+       "cluster2": {"FE_CLUSTER": 2}, "chunk2": {"FE_CHUNK": 2}, "chunk4": {"FE_CHUNK": 4},
+       "four_products": {"FE_PRODUCTS": 4}}
+# the arithmetic's variants, held against the float64 DFT (--accuracy)
+ACCURACY = ("shipped", "chunk2", "chunk4", "four_products")
+CHECKED = ("shipped", "stages2", "frames16", "cluster2")
+ALONE = ("cluster2",)  # run in a child of their own: a new multicast path may hang
+# the former design's copies: text edits of its sources
+OLD = {"shipped": {}, "one_level": {}, "one_epilogue": {}}
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+RUN = r'''
+import json, sys, torch
+from pathlib import Path
+sys.path.insert(0, ".")
+from pseldnets_tpu_torch.ops import _cuda, frontend_forms
 
-from pseldnets_tpu_torch.ops import _cuda, frontend_forms  # noqa: E402
-
-EPILOGUE = {"frontend_flat.cu": "if ((s + 1) % ksteps == 0) {",
-            "frontend_dif.cu": "if ((s + 1) % ksteps == 0) {"}
+names = json.loads(sys.argv[1]); rounds = int(sys.argv[2])
+src = {"K9": frontend_forms.FLAT_KERNEL, "K10": frontend_forms.DIF_KERNEL}
+common = (_cuda.CSRC / "frontend_common.cuh").read_text()
+new = "FE_PROBE" in common
+defines = json.loads(sys.argv[3])
 ONE_LEVEL = {"frontend_flat.cu": ("p[r][ci * 4 + e] = kk == 0 ? ar[r] * bl[e] : "
                                   "fmaf(ar[r], bl[e], p[r][ci * 4 + e]);",
                                   "c[r][ci * 4 + e] = fmaf(ar[r], bl[e], c[r][ci * 4 + e]);"),
              "frontend_dif.cu": ("p[r][ci * 4 + e] = kk == 0 ? ar * bl[e] : "
                                  "fmaf(ar, bl[e], p[r][ci * 4 + e]);",
                                  "c[r][ci * 4 + e] = fmaf(ar, bl[e], c[r][ci * 4 + e]);")}
-ADD_PARTIALS = "c[r][j] += p[r][j];"
 
-
-def variant(kernel, name):
-    """A CudaKernel of ``kernel``'s source with the ``name`` change."""
-    src_name = kernel.source.name
-    src = kernel.source.read_text()
-    if name == "one_level":
-        old, new = ONE_LEVEL[src_name]
-        edits = ((old, new), (ADD_PARTIALS, ";"))
+def copy(kernel, name):
+    text = kernel.source.read_text()
+    edits = [('#include "frontend_common.cuh"', f'#include "{_cuda.CSRC / "frontend_common.cuh"}"')]
+    if new:
+        head = "".join(f"#define {k} {v}\n" for k, v in defines[name].items())
+        edits[0] = (edits[0][0], head + edits[0][1])
+    elif name == "one_level":
+        edits += [ONE_LEVEL[kernel.source.name], ("c[r][j] += p[r][j];", ";")]
     elif name == "one_epilogue":
-        edits = ((EPILOGUE[src_name], "if (s + 1 == nsteps) {"),)
-    else:
-        edits = ()
-    # the copy lives in the build directory: include the shared header by path
-    edits += (('#include "frontend_common.cuh"',
-               f'#include "{_cuda.CSRC / "frontend_common.cuh"}"'),)
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{src_name} no longer holds one `{old}`")
-        src = src.replace(old, new)
-    out = _cuda.BUILD / "forms_probe" / f"{Path(src_name).stem}_{name}.cu"
+        edits += [("if ((s + 1) % ksteps == 0) {", "if (s + 1 == nsteps) {")]
+    for old, rep in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{kernel.source.name} no longer holds one `{old}`")
+        text = text.replace(old, rep)
+    out = _cuda.BUILD / "forms_probe" / f"{kernel.source.stem}_{name}.cu"
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(src)
-    k = _cuda.CudaKernel(src_name, kernel.functions)
+    out.write_text(text)
+    k = _cuda.CudaKernel(kernel.source.name, kernel.functions)
     k.source = out
     return k
 
+kernels = {(f, n): copy(src[f], n) for f in src for n in names}
+_cuda.build_all(list(kernels.values()))
+regs = {f"{f} {n}": " | ".join(ln.strip() for ln in k.build_log.splitlines()
+                               if "registers" in ln or "spill" in ln)
+        for (f, n), k in kernels.items()}
+torch.backends.cuda.matmul.allow_tf32 = False
+x = torch.randn(32, 4, 240000, device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(0)) * 0.1
+kw = dict(n_fft=1024, hop=240)
+wrap = {"K9": (frontend_forms.logmel_iv_flat, frontend_forms.logmel_iv_flat_plain, "FLAT_KERNEL"),
+        "K10": (frontend_forms.logmel_iv_dif, frontend_forms.logmel_iv_dif_plain, "DIF_KERNEL")}
 
-def cuda_ms(fn, reps=5):
-    fn()
+def run(f, n):
+    attr = wrap[f][2]
+    orig = getattr(frontend_forms, attr)
+    setattr(frontend_forms, attr, kernels[f, n])
+    try:
+        return wrap[f][0](x, **kw)
+    finally:
+        setattr(frontend_forms, attr, orig)
+
+checks = {}
+for f in src:
+    ref = wrap[f][1](x, **kw)
+    base = run(f, names[0])
+    for n in names:
+        if n in json.loads(sys.argv[4]):
+            got = run(f, n)
+            d = (got - ref).abs()
+            checks[f"{f} {n}"] = {"db": d[:, :4].max().item(), "iv": d[:, 4:].max().item(),
+                                  "bits_of_first": bool(torch.equal(got, base))}
+    del ref
+
+def ms(f, n, reps=5):
+    run(f, n)
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        fn()
-    end.record()
+        run(f, n)
+    b.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return a.elapsed_time(b) / reps
+
+times = {f"{f} {n}": [] for f in src for n in names}
+order = [(f, n) for f in src for n in names]
+for r in range(rounds):
+    for f, n in (order if r % 2 == 0 else order[::-1]):
+        times[f"{f} {n}"].append(ms(f, n))
+acc = {}
+if json.loads(sys.argv[5]):
+    # chip_smoke.py's check data: 4 ten-second clips (seed 46, a silent
+    # stretch), at n_fft 512 / hop 100 and 1024 / 240, against the float64
+    # DFT and the plain version
+    from pseldnets_tpu_torch.ops.features import logmel_iv_filterbank, logmel_iv_from_spectrum
+    g = torch.Generator(device="cuda").manual_seed(46)
+    xa = torch.randn(4, 4, 240000, device="cuda", generator=g) * 0.1
+    xa[-1, :, :60000] = 0.0
+    for n_fft, hop in ((512, 100), (1024, 240)):
+        fb64 = torch.as_tensor(logmel_iv_filterbank(24000, n_fft, 64), device="cuda").double()
+        f64 = logmel_iv_from_spectrum(*frontend_forms.flat_spectrum(xa.double(), n_fft, hop), fb64)
+        for f in src:
+            plain = wrap[f][1](xa, n_fft=n_fft, hop=hop)
+            for n in names:
+                attr = wrap[f][2]
+                orig = getattr(frontend_forms, attr)
+                setattr(frontend_forms, attr, kernels[f, n])
+                got = wrap[f][0](xa, n_fft=n_fft, hop=hop)
+                setattr(frontend_forms, attr, orig)
+                e = lambda r: (got.double() - r.double()).abs()[:, :4].max().item()
+                acc[f"{f} {n} {n_fft}/{hop}"] = {"f64": e(f64), "plain": e(plain)}
+            acc[f"{f} plain {n_fft}/{hop}"] = {"f64": (plain.double() - f64).abs()[:, :4].max().item()}
+        del f64
+print(json.dumps({"new": new, "times": times, "checks": checks, "regs": regs, "acc": acc}))
+'''
+
+
+def child(checkout, names, rounds, checked, timeout, accuracy=False):
+    r = subprocess.run([sys.executable, "-c", RUN, json.dumps(names), str(rounds),
+                        json.dumps(NEW), json.dumps(checked), json.dumps(accuracy)],
+                       cwd=checkout, capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise RuntimeError(r.stderr[-4000:])
+    return json.loads(r.stdout.strip().splitlines()[-1])
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("checkouts", type=Path, nargs="*", default=[Path(".")])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--timeout", type=int, default=240,
+                    help="seconds for each child process")
+    ap.add_argument("--accuracy", action="store_true",
+                    help="only the arithmetic's variants, against the float64 DFT on "
+                         "chip_smoke.py's check data, and timed")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {smi}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    forms = {"K9": (frontend_forms.FLAT_KERNEL, frontend_forms.logmel_iv_flat,
-                    frontend_forms.logmel_iv_flat_plain),
-             "K10": (frontend_forms.DIF_KERNEL, frontend_forms.logmel_iv_dif,
-                     frontend_forms.logmel_iv_dif_plain)}
-    names = ("shipped", "one_level", "one_epilogue")
-    kernels = {(f, n): variant(forms[f][0], n) for f in forms for n in names}
-    _cuda.build_all(list(kernels.values()))
-    for (f, n), k in kernels.items():
-        regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"{f} {n}: {' | '.join(regs)}", flush=True)
-
-    x = torch.randn(32, 4, 240000, device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(0)) * 0.1
-    kw = dict(n_fft=1024, hop=240)
-    times = {f"{f} {n}": [] for f in forms for n in names}
-    for f, (orig, wrapper, plain) in forms.items():
-        ref = plain(x, **kw)
-        for n in names:
-            setattr(frontend_forms, "FLAT_KERNEL" if f == "K9" else "DIF_KERNEL", kernels[f, n])
-            got = wrapper(x, **kw)
-            torch.cuda.synchronize()
-            if n != "one_epilogue":
-                d = (got - ref).abs()
-                db, iv = d[:, :4].max().item(), d[:, 4:].max().item()
-                print(f"{f} {n}: vs plain {db:.3g} dB / {iv:.3g} IV", flush=True)
-                if db > 8e-4 or iv > 7e-5:
-                    sys.exit(f"{f} {n} disagrees with its plain version")
-        setattr(frontend_forms, "FLAT_KERNEL" if f == "K9" else "DIF_KERNEL", orig)
-    for r in range(args.rounds):
-        order = [(f, n) for f in forms for n in names]
-        for f, n in (order if r % 2 == 0 else order[::-1]):
-            attr = "FLAT_KERNEL" if f == "K9" else "DIF_KERNEL"
-            orig = getattr(frontend_forms, attr)
-            setattr(frontend_forms, attr, kernels[f, n])
-            ms = cuda_ms(lambda: forms[f][1](x, **kw))
-            setattr(frontend_forms, attr, orig)
-            times[f"{f} {n}"].append(ms)
-            print(f"round {r}: {f} {n} {ms:.3f} ms ({smi})", flush=True)
-    print(json.dumps({"card": smi, "ms": times}))
+    for checkout in args.checkouts:
+        new = "FE_PROBE" in (checkout / "pseldnets_tpu_torch/csrc/frontend_common.cuh").read_text()
+        groups = ([[n for n in NEW if n not in ALONE and n not in ACCURACY[1:]]]
+                  + [["shipped", n] for n in ALONE] if new else [list(OLD)])
+        if new and args.accuracy:
+            groups = [list(ACCURACY)]
+        out = {"checkout": str(checkout), "card": smi, "design": "split-TF32 wgmma" if new
+               else "float32 FMA", "ms": {}, "checks": {}, "regs": {}, "failed": {}}
+        for names in groups:
+            checked = [n for n in names if n in CHECKED] if new else ["shipped", "one_level"]
+            try:
+                res = child(checkout, names, args.rounds, checked, args.timeout,
+                            args.accuracy and new)
+            except (RuntimeError, subprocess.TimeoutExpired) as e:
+                out["failed"][" ".join(names)] = str(e)[-2000:]
+                print(f"{checkout}: {names} failed: {str(e)[-600:]}", flush=True)
+                continue
+            tag = "" if names == groups[0] else f" (beside {names[-1]})"
+            for key, ms in res["times"].items():
+                out["ms"][key + tag] = ms
+                print(f"{checkout}: {key}{tag}: " + ", ".join(f"{v:.3f}" for v in ms)
+                      + f" ms ({smi})", flush=True)
+            out["checks"].update(res["checks"])
+            out["regs"].update(res["regs"])
+            for key, a in res.get("acc", {}).items():
+                out.setdefault("acc", {})[key] = a
+                print(f"{checkout}: max |dB| of {key}: " + ", ".join(
+                    f"vs {k} {v:.3g}" for k, v in a.items()), flush=True)
+        for key, c in out["checks"].items():
+            ok = (c["db"] <= 8e-4 and c["iv"] <= 7e-5
+                  and (c["bits_of_first"] or out["design"] == "float32 FMA"))
+            print(f"{checkout}: {key}: vs plain {c['db']:.3g} dB / {c['iv']:.3g} IV, "
+                  f"bits of shipped {c['bits_of_first']}{'' if ok else '  <- FAILED'}", flush=True)
+        print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

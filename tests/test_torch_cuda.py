@@ -567,20 +567,24 @@ def test_patch_embed_kernel_matches_plain(card, dtype, T):
 
 @pytest.mark.parametrize("kw,kernel", [
     (dict(n_fft=1024, hop=240, radix2=False), "flat"),
+    (dict(n_fft=1024, hop=240, variant="dif"), "dif"),
     (dict(n_fft=1024, hop=240, variant="dif", window="hamming"), "dif"),
+    (dict(n_fft=512, hop=100, radix2=False), "flat"),
     (dict(n_fft=512, hop=100, variant="dif"), "dif"),
-    (dict(n_fft=1024, hop=241), "flat"), (dict(n_fft=1023, hop=241), "flat"),
+    (dict(n_fft=1024, hop=241), "flat"), (dict(n_fft=1023, hop=241, window="hamming"), "flat"),
     (dict(n_fft=2048, hop=240), "flat")])
 def test_frontend_form_kernels_match_plain(card, kw, kernel):
-    """K9 and K10 through fused_logmel_iv's routing, 2 s clips: within the
-    8e-4 dB / 7e-5 IV budget of the form's plain version and of the float32
-    eager extractor; K1 is not launched."""
+    """K9 and K10 through fused_logmel_iv's routing at every shape of
+    chip_smoke.py's FORM_CASES, 2 s clips: within the 8e-4 dB / 7e-5 IV
+    budget of the form's plain version and of the float32 eager extractor;
+    K1 is not launched; a second launch gives the same bits."""
     g = torch.Generator(device=card).manual_seed(61)
     x = torch.randn(2, 4, 48000, device=card, generator=g) * 0.1
     k = frontend_forms.FLAT_KERNEL if kernel == "flat" else frontend_forms.DIF_KERNEL
     before = (k.launches, frontend.KERNEL.launches)
     got = frontend.fused_logmel_iv(x, **kw)
     assert (k.launches, frontend.KERNEL.launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, frontend.fused_logmel_iv(x, **kw))
     shape = {n: v for n, v in kw.items() if n in ("n_fft", "hop", "window")}
     plain = (frontend_forms.logmel_iv_flat_plain if kernel == "flat"
              else frontend_forms.logmel_iv_dif_plain)
@@ -592,13 +596,16 @@ def test_frontend_form_kernels_match_plain(card, kw, kernel):
 
 def test_flat_kernel_folded_form_matches_plain(card):
     """K9 standing in for the DIT kernel at n_fft 2048 with K1's folds
-    (affine, bf16, zero tail to 208 frames): one bf16 ulp."""
+    (affine, bf16, zero tail to 208 frames): one bf16 ulp; a second launch
+    gives the same bits."""
     g = torch.Generator(device=card).manual_seed(62)
     x = torch.randn(2, 4, 48000, device=card, generator=g) * 0.1
     aff = (torch.rand(7, 64, device=card, generator=g) + 0.5,
            torch.randn(7, 64, device=card, generator=g))
     kw = dict(n_fft=2048, hop=240, post_affine=aff, out_dtype=torch.bfloat16, t_out=208)
-    got = frontend.fused_logmel_iv(x, **kw).float()
+    got = frontend.fused_logmel_iv(x, **kw)
+    assert torch.equal(got, frontend.fused_logmel_iv(x, **kw))
+    got = got.float()
     ref = frontend_forms.logmel_iv_flat_plain(x, **kw).float()
     assert got.shape == (2, 7, 208, 64) and not got[:, :, 201:].any()
     assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max() <= 2.0 ** -7

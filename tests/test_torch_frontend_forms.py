@@ -145,55 +145,75 @@ def _finish(acc):
     return out
 
 
-def _scatter(acc, vals, m, w, js):
-    """mel_accumulate: each bin j adds into its two bands, in bin order."""
-    for j in js:
-        for h in range(2):
-            acc[..., m[j, h]] += vals[..., j] * w[j, h]
+def _columns(width):
+    """Column 8 j + 2 u + part of a wgmma accumulator ``width`` wide holds
+    complex index (width // 8) u + j (thread u of a lane quad owns
+    consecutive indices): (index, part) per column."""
+    col = np.arange(width)
+    return width // 8 * ((col % 8) // 2) + col // 8, col % 2
+
+
+def _mel_replay(vals, fb, t):
+    """The mel GEMM of tile t: values (..., 7, 64 locals), position 8 kk + c
+    of its k holding local 16 (c % 4) + 2 kk + c // 4, against the tile's
+    hi + lo mel table (rows the mels)."""
+    kk, c = np.divmod(np.arange(64), 8)
+    order = 16 * (c % 4) + 2 * kk + c // 4
+    table = fb[t, 0].astype(np.float64) + fb[t, 1]
+    return vals[..., order] @ table.T
 
 
 def _replay_flat(x, n_fft, hop, window, n_mels=64):
     """numpy replay of csrc/frontend_flat.cu in float64: rows (frame,
     channel) read from the padded signal at stride hop (zero past n_fft),
-    each tile's (Kp, 128) table, bins as (re, im) column pairs, the seven
-    values per bin and the two-band scatter."""
-    tab, m, w = frontend_forms.flat_tables(n_fft, window, n_mels, SR)
-    n_tiles, Kp, _ = tab.shape
+    each tile's hi + lo table (rows its columns),
+    bins as (re, im) column pairs in the quad layout, the seven values per
+    local bin and the tile's mel GEMM."""
+    tab, fb = frontend_forms.flat_tables(n_fft, window, n_mels, SR)
+    n_tiles, _, cols, Kp = tab.shape
     n_frames = 1 + x.shape[-1] // hop
-    idx = np.arange(n_frames)[:, None] * hop + np.arange(Kp)[None]
-    a = np.where(np.arange(Kp) < n_fft, _padded_sample(x, n_fft // 2, idx), 0.0)
-    acc = np.zeros((x.shape[0], n_frames, 7, n_mels))
+    pos = frontend_forms.k_order(Kp)  # the sample at each k position
+    idx = np.arange(n_frames)[:, None] * hop + pos[None]
+    a = np.where(pos < n_fft, _padded_sample(x, n_fft // 2, idx), 0.0)  # (B, 4, T, Kp)
+    local, part = _columns(cols)
+    acc = np.zeros((x.shape[0], n_frames, 7, 64))
     for t in range(n_tiles):
-        spec = a @ tab[t].astype(np.float64)  # (B, 4, T, 128)
-        vals = _bin_values(spec[..., 0::2].transpose(0, 2, 1, 3),
-                           spec[..., 1::2].transpose(0, 2, 1, 3))  # (B, T, 7, 64)
-        _scatter(acc, vals, m[t], w[t], range(64))
-    return _finish(acc.transpose(0, 2, 1, 3))
+        spec = a @ (tab[t, 0].astype(np.float64) + tab[t, 1]).T  # (B, 4, T, 128)
+        re, im = np.zeros(spec.shape[:-1] + (64,)), np.zeros(spec.shape[:-1] + (64,))
+        re[..., local[part == 0]] = spec[..., part == 0]
+        im[..., local[part == 1]] = spec[..., part == 1]
+        vals = _bin_values(re.transpose(0, 2, 1, 3), im.transpose(0, 2, 1, 3))  # (B, T, 7, 64)
+        acc += _mel_replay(vals, fb, t)
+    return _finish(acc[..., :n_mels].transpose(0, 2, 1, 3))
 
 
 def _replay_dif(x, n_fft, hop, window, n_mels=64):
     """numpy replay of csrc/frontend_dif.cu in float64: the sum and
-    difference streams from the padded signal, each tile's two table
-    halves, the unwindowed local spectrum (local 2i + 1: sum column i, local
-    2i: difference column i), the 3-tap with the conjugate fix-ups at bins
-    0 and n_fft/2 on local bins 1 .. 62, the values and the scatter."""
-    tab, m, w, s0 = frontend_forms.dif_tables(n_fft, n_mels, SR)
-    n_tiles, Kp, _ = tab.shape
+    difference streams from the padded signal, each
+    tile's two table halves (hi + lo), the unwindowed local spectrum (local
+    2i + 1: sum-stream index i, local 2i: difference-stream index i, each
+    half in the quad layout), the 3-tap with the conjugate fix-ups at bins 0
+    and n_fft/2 on local bins 1 .. 62, the values and the mel GEMM."""
+    tab, fb, s0 = frontend_forms.dif_tables(n_fft, n_mels, SR)
+    n_tiles, _, cols, Kp = tab.shape
     hf = n_fft // 2
     a0, a1 = frontend_forms.WIN_3TAP[window]
     n_frames = 1 + x.shape[-1] // hop
-    idx = np.arange(n_frames)[:, None] * hop + np.arange(Kp)[None]
-    keep = np.arange(Kp) < hf
+    pos = frontend_forms.k_order(Kp)
+    idx = np.arange(n_frames)[:, None] * hop + pos[None]
+    keep = pos < hf
     lo = np.where(keep, _padded_sample(x, hf, idx), 0.0)
     hi = np.where(keep, _padded_sample(x, hf, idx + hf), 0.0)
-    acc = np.zeros((x.shape[0], n_frames, 7, n_mels))
+    index, part = _columns(cols // 2)
+    acc = np.zeros((x.shape[0], n_frames, 7, 64))
     for t in range(n_tiles):
         base = 2 * (s0 + frontend_forms.DIF_STEP * t) - 1
-        su = (lo + hi) @ tab[t, :, :64].astype(np.float64)
-        sv = (lo - hi) @ tab[t, :, 64:].astype(np.float64)
-        X = np.zeros(su.shape[:-1] + (64,), complex)
-        X[..., 1::2] = su[..., 0::2] + 1j * su[..., 1::2]
-        X[..., 0::2] = sv[..., 0::2] + 1j * sv[..., 1::2]
+        table = (tab[t, 0].astype(np.float64) + tab[t, 1]).T  # (Kp, 128)
+        X = np.zeros(lo.shape[:-1] + (64,), complex)
+        for stream, half, offset in ((lo + hi, table[:, :64], 1), (lo - hi, table[:, 64:], 0)):
+            s = stream @ half  # (B, 4, T, 64)
+            X[..., 2 * index[part == 0] + offset] += s[..., part == 0]
+            X[..., 2 * index[part == 1] + offset] += 1j * s[..., part == 1]
         xw = np.zeros_like(X)
         for l in range(1, 63):
             left, right = X[..., l - 1], X[..., l + 1]
@@ -203,17 +223,18 @@ def _replay_dif(x, n_fft, hop, window, n_mels=64):
                 right = np.conj(X[..., l - 1])
             xw[..., l] = a0 * X[..., l] + a1 * (left + right)
         vals = _bin_values(xw.real.transpose(0, 2, 1, 3), xw.imag.transpose(0, 2, 1, 3))
-        _scatter(acc, vals, m[t], w[t], range(1, 63))
-    return _finish(acc.transpose(0, 2, 1, 3))
+        acc += _mel_replay(vals, fb, t)
+    return _finish(acc[..., :n_mels].transpose(0, 2, 1, 3))
 
 
 @pytest.mark.parametrize("form,n_fft,hop,window", [
     ("flat", 1024, 240, "hann"), ("flat", 1023, 241, "hamming"), ("flat", 2048, 240, "hann"),
     ("dif", 1024, 240, "hann"), ("dif", 512, 100, "hamming"), ("dif", 2048, 240, "hann")])
 def test_kernel_replays_match_plain(rng, form, n_fft, hop, window):
-    """The kernels' index logic (reflect pad and zero tail, table tiles and
-    column order, the DIF local layout and window edges, the band scatter)
-    replayed in numpy equals the form's plain version: within float32
+    """The kernels' index logic (reflect pad and zero tail, the k order
+    inside each k step, the K-major hi/lo table tiles and their quad column layout, the
+    DIF local layout and window edges, each tile's mel tables over its local
+    bins) replayed in numpy equals the form's plain version: within float32
     rounding of the plain side (1e-3 dB, 1e-5 IV)."""
     x = _wav(rng, N=12000)
     replay, plain = ((_replay_flat, frontend_forms.logmel_iv_flat_plain) if form == "flat"
@@ -238,12 +259,16 @@ def test_dif_spectrum_matches_the_direct_dft(rng, n_fft, hop, window):
     scale = max(float(r.abs().max()) for r in ref)
     for g, r in zip(got, ref):
         assert float((g.double() - r).abs().max()) < 1e-5 * scale
-    tab, m, w, s0 = frontend_forms.dif_tables(1024, 64, SR)
+    tab, fb, s0 = frontend_forms.dif_tables(1024, 64, SR)
     # bin 512 keeps a weight at float64 rounding of 0: its fix-up runs
     assert s0 == 0 and frontend_forms.weighted_bins(SR, 1024, 64) == (1, 512)
-    assert not tab[0, :, 64:66].any() and not w[:, [0, 63]].any()
-    np.testing.assert_allclose(tab[0, :512, 66], np.cos(2 * np.pi * np.arange(512) / 1024),
-                               atol=1e-7)
+    # the difference stream's index 0 (bin -1) sits in columns 64, 65
+    edges = np.isin(frontend_forms.local_order(), [0, 63])
+    assert not tab[0, :, 64:66].any() and not fb[..., edges].any()
+    # index 1 (bin 1): column 64 + 8, its cos over the samples in k order
+    n = frontend_forms.k_order(512)
+    np.testing.assert_allclose(tab[0, 0, 72].astype(np.float64) + tab[0, 1, 72],
+                               np.cos(2 * np.pi * n / 1024), atol=1e-7)
 
 
 class _Route(Exception):
