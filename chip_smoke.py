@@ -13,12 +13,13 @@ PaSST mACCDOA serving (configs/model/passt.yaml, 602 tokens of 768, 7 ViT
 blocks on K6) through passt_fused_forward_from_wav; then CRNN ACCDOA serving
 (configs/model/crnn.yaml: the CNN12 trunk, its six ConvBlocks on K7, and a
 conformer at 2048) through crnn_fused_forward_from_wav; then HTSAT serving
-again with the patch embed on its kernel (K8, patch_embed="kernel"); then
-the frontend's flat and DIF forms (K9, K10) through fused_logmel_iv
-(radix2=False, variant="dif"); then HTSAT serving once more with each Swin
-stage in one launch (K11, swin="stage", the merges unfolded). It checks the outputs, the kernels' launch
-counts on each path and the kernel step against the plain step, and prints
-the times.
+again with the einsum patch embed (patch_embed="einsum"; the other served
+HTSAT paths take K8, the default); then the frontend's flat and DIF forms
+(K9, K10) through fused_logmel_iv (radix2=False, variant="dif"); then HTSAT
+serving once more with each Swin stage in one launch (K11, swin="stage",
+the merges unfolded). It checks the outputs, the kernels' launch counts on
+each path and the kernel step against the plain step, and prints the
+times.
 
     python3 chip_smoke.py
 
@@ -31,6 +32,7 @@ import json
 import math
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -93,6 +95,27 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps):
+    """(device ms, host ms) of fn() a call, means over ``reps`` calls after
+    one warm-up, the calls queued behind a kernel that sleeps while the host
+    launches them: the device time without the host's cost a call, which
+    cuda_ms includes where it is the longer (K8), and that host cost."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~60 ms at the card's clock
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host
+
+
 def bound_ms(nbytes, f32_flops=0.0, bf16_flops=0.0):
     """Least time for the work: the larger of bytes over the memory rate and
     the operations over their peak rates; returns (ms, 'bytes'|'operations')."""
@@ -149,6 +172,29 @@ def expected(**launches):
     return {n: launches.get(n, 0) for n in kernels()}
 
 
+def sass_text(name):
+    """Kernel ``name``'s library as ``cuobjdump -sass`` prints it; None
+    without cuobjdump."""
+    from pseldnets_tpu_torch.ops import _cuda
+
+    tool = shutil.which("cuobjdump") or str(Path(_cuda.nvcc()).parent / "cuobjdump")
+    try:
+        return subprocess.run([tool, "-sass", str(kernels()[name].library_path())],
+                              capture_output=True, text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+
+
+def sass_counts(sass, own=None):
+    """HGMMA/UTMALDG/UTMASTG/HMMA/FFMA counts in SASS text, in its functions
+    matching ``own`` where given."""
+    if own is not None:
+        parts = re.split(r"Function : ", sass)[1:]
+        sass = "".join(p for p in parts if re.search(own, p.split(None, 1)[0]))
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "FFMA")}
+
+
 def phase_build():
     from pseldnets_tpu_torch.ops import _cuda
 
@@ -167,29 +213,25 @@ def phase_build():
     # layer's kernels of the header they share; K4's the same as K2's (its
     # GEMMs fwd_gemm and fwd_gemm_two, the attention); K9's and K10's wgmma
     # and TMA loads, and under 512 FFMA (the former float32 DFT loop's
-    # unrolled k step alone held 1024; their epilogues take a few hundred)
-    tool = shutil.which("cuobjdump") or str(Path(_cuda.nvcc()).parent / "cuobjdump")
+    # unrolled k step alone held 1024; their epilogues take a few hundred);
+    # K8's bf16 kernel (patch_embed_wgmma) wgmma and TMA loads and stores
     for name, need, own in (("K6", ("HGMMA", "UTMALDG", "UTMASTG"), None),
                             ("K7", ("HGMMA", "UTMALDG", "UTMASTG"), None),
                             ("K3", ("HGMMA", "UTMALDG"), None), ("K5", ("HGMMA", "UTMALDG"), None),
                             ("K2", ("HGMMA", "UTMALDG"), r"fwd_gemm|attention_kernel"),
                             ("K4", ("HGMMA", "UTMALDG"), r"fwd_gemm|attention_kernel"),
                             ("K11", ("HGMMA", "UTMALDG"), r"swin_stage_kernel"),
-                            ("K9", ("HGMMA", "UTMALDG"), None), ("K10", ("HGMMA", "UTMALDG"), None)):
+                            ("K9", ("HGMMA", "UTMALDG"), None), ("K10", ("HGMMA", "UTMALDG"), None),
+                            ("K8", ("HGMMA", "UTMALDG", "UTMASTG"), r"patch_embed_wgmma")):
         lib = kernels()[name].library_path()
-        try:
-            sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                                  check=True).stdout
-        except (OSError, subprocess.CalledProcessError):
+        sass = sass_text(name)
+        if sass is None:
             log(f"  {lib.name} SASS: not measured (no cuobjdump)")
             continue
-        ops = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "FFMA")
-        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+        counts = sass_counts(sass)
         log(f"  {lib.name} SASS: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
         if own is not None:  # the kernel's own functions only
-            parts = re.split(r"Function : ", sass)[1:]
-            mine = "".join(p for p in parts if re.search(own, p.split(None, 1)[0]))
-            counts = {op: len(re.findall(rf"\b{op}\b", mine)) for op in ops}
+            counts = sass_counts(sass, own)
             log(f"  {lib.name} SASS of its own kernels ({own}): "
                 + ", ".join(f"{op} {n}" for op, n in counts.items()))
         check(all(counts[op] for op in need), f"{name}'s SASS lacks wgmma or TMA: {counts}")
@@ -503,17 +545,19 @@ def htsat_serving_model():
 def phase_serve(smi):
     import torch
     from pseldnets_tpu_torch.ops import swin_block
-    from pseldnets_tpu_torch.serving import (embed_tokens, folded_wav_features,
-                                             htsat_fused_forward_from_wav,
-                                             prepare_blocks)
+    from pseldnets_tpu_torch.ops.patch_embed import patch_embed_tokens
+    from pseldnets_tpu_torch.serving import (folded_wav_features, htsat_fused_forward_from_wav,
+                                             prepare_blocks, prepare_patch_embed)
 
     model = htsat_serving_model()
     blocks = prepare_blocks(model, torch.bfloat16)
+    embed = prepare_patch_embed(model, torch.bfloat16)
     check(len(blocks) == 12 and sum(p.merge for p in blocks) == 3, "block plan")
     g = torch.Generator(device="cuda").manual_seed(4)
     wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
             for _ in range(SERVE_BATCHES)]
-    serve = lambda w: htsat_fused_forward_from_wav(model, w, blocks=blocks)  # noqa: E731
+    serve = lambda w: htsat_fused_forward_from_wav(  # noqa: E731
+        model, w, blocks=blocks, embed=embed)
     serve(wavs[0])  # warm-up
     torch.cuda.synchronize()
 
@@ -524,7 +568,7 @@ def phase_serve(smi):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
     launches = read_counts()
-    want = expected(K1=SERVE_BATCHES, K2=12 * SERVE_BATCHES)
+    want = expected(K1=SERVE_BATCHES, K8=SERVE_BATCHES, K2=12 * SERVE_BATCHES)
     log(f"served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches {launches} "
         f"(expect {want})")
     check(launches == want, "launch counts")
@@ -563,7 +607,7 @@ def phase_serve(smi):
     k1_plain = cuda_ms(lambda: folded_wav_features(model, wav, t_out=1024,
                                                    use_kernels=False), reps=3)
     with torch.no_grad():
-        xs = [embed_tokens(model, feats, torch.bfloat16)]
+        xs = [patch_embed_tokens(feats, embed)]
         for p in blocks[:-1]:
             xs.append(swin_block.swin_block_fused(xs[-1], p))
     k2_rows, k2_err, k2_rel = [], 0.0, 0.0
@@ -586,7 +630,7 @@ def phase_serve(smi):
     rfft_ms = rfft_yardstick_ms(wav)
     log(f"K1 at B={B_SERVE}: {k1:.4f} ms, bound {k1_bound:.4f} ms by {k1_by}; cuFFT rfft of "
         f"its {B_SERVE * 4 * 1001} windowed frames alone (yardstick) {rfft_ms:.4f} ms ({smi})")
-    b128 = serve_b128(model, blocks, smi)
+    b128 = serve_b128("served", serve, model, smi)
     k2_ms = sum(r[0] for r in k2_rows)
     k2_plain = sum(r[1] for r in k2_rows)
     k2_bound = sum(r[2] for r in k2_rows)
@@ -599,28 +643,28 @@ def phase_serve(smi):
                       "K2": (k2_err, k2_rel, k2_ms, k2_plain, k2_bound, "operations")}
 
 
-def serve_b128(model, blocks, smi, B=128):
-    """One served HTSAT batch at bench.py's B=128 (after a warm-up batch),
-    outside the counted paths: the batch and K1 alone, ms and clips/s."""
+def serve_b128(label, serve, model, smi, B=128):
+    """One batch of ``serve`` (a served HTSAT path, waveform -> outputs) at
+    bench.py's B=128 (after a warm-up batch), outside the counted paths: the
+    batch and K1 alone, ms and clips/s, logged as "<label> at B=128"."""
     import torch
-    from pseldnets_tpu_torch.serving import folded_wav_features, htsat_fused_forward_from_wav
+    from pseldnets_tpu_torch.serving import folded_wav_features
 
     g = torch.Generator(device="cuda").manual_seed(128)
     wav = torch.randn(B, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
     with torch.no_grad():
-        serve = lambda: htsat_fused_forward_from_wav(model, wav, blocks=blocks)  # noqa: E731
-        out = serve()["multi_accdoa"]
+        out = serve(wav)["multi_accdoa"]
         check(out.shape == (B, 100, 117) and bool(torch.isfinite(out).all()),
-              f"served output at B={B}")
+              f"{label} output at B={B}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        serve()
+        serve(wav)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         k1 = cuda_ms(lambda: folded_wav_features(model, wav, t_out=1024), reps=5)
     nb, fl = k1_work(B)
     bound = bound_ms(nb, f32_flops=fl)[0]
-    log(f"served at B={B}: {dt * 1e3:.3f} ms/batch, {B / dt:.1f} clips/s (host clock, one "
+    log(f"{label} at B={B}: {dt * 1e3:.3f} ms/batch, {B / dt:.1f} clips/s (host clock, one "
         f"batch after a warm-up); K1 {k1:.4f} ms (bound {bound:.4f}) ({smi})")
     del wav, out
     return {"batch_ms": dt * 1e3, "clips_per_s": B / dt, "k1_ms": k1, "k1_bound_ms": bound}
@@ -883,23 +927,26 @@ def adapter_model(seed):
 
 def phase_serve_adapter(smi):
     """AdapterBit serving: SERVE_BATCHES batches of B_SERVE 10 s clips through
-    htsat_fused_forward_from_wav (K1, then K4 on every block, PatchMerging
-    unfolded), the output against the plain path, K4 on the batch's own block
-    inputs, and a profile."""
+    htsat_fused_forward_from_wav (K1, K8, then K4 on every block,
+    PatchMerging unfolded), the output against the plain path, K4 on the
+    batch's own block inputs, one batch at B=128, and a profile."""
     import torch
     from pseldnets_tpu_torch.ops import swin_block_adapt as sa
-    from pseldnets_tpu_torch.serving import (embed_tokens, folded_wav_features,
-                                             htsat_fused_forward_from_wav, prepare_blocks)
+    from pseldnets_tpu_torch.ops.patch_embed import patch_embed_tokens
+    from pseldnets_tpu_torch.serving import (folded_wav_features, htsat_fused_forward_from_wav,
+                                             prepare_blocks, prepare_patch_embed)
     from pseldnets_tpu_torch.serving.htsat import patch_merging
 
     model = adapter_model(12)
     blocks = prepare_blocks(model, torch.bfloat16)
+    embed = prepare_patch_embed(model, torch.bfloat16)
     check(len(blocks) == 12 and all(isinstance(p, sa.AdaptBlockParams) for p in blocks)
           and blocks[0].ch == 48 and blocks[0].ch_pad == 64, "adapter block plan")
     g = torch.Generator(device="cuda").manual_seed(13)
     wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
             for _ in range(SERVE_BATCHES)]
-    serve = lambda w: htsat_fused_forward_from_wav(model, w, blocks=blocks)  # noqa: E731
+    serve = lambda w: htsat_fused_forward_from_wav(  # noqa: E731
+        model, w, blocks=blocks, embed=embed)
     serve(wavs[0])  # warm-up
     torch.cuda.synchronize()
 
@@ -910,7 +957,7 @@ def phase_serve_adapter(smi):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SERVE_BATCHES
     launches = read_counts()
-    want = expected(K1=SERVE_BATCHES, K4=12 * SERVE_BATCHES)
+    want = expected(K1=SERVE_BATCHES, K8=SERVE_BATCHES, K4=12 * SERVE_BATCHES)
     log(f"AdapterBit: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches "
         f"{launches} (expect {want})")
     check(launches == want, "AdapterBit serving launch counts")
@@ -937,7 +984,7 @@ def phase_serve_adapter(smi):
     feats = folded_wav_features(model, wav, t_out=1024)
     xs, rows, k4_err, k4_rel = [], [], 0.0, 0.0
     with torch.no_grad():
-        x = embed_tokens(model, feats, torch.bfloat16)
+        x = patch_embed_tokens(feats, embed)
         i = 0
         for layer in model.encoder.layers:
             for _ in layer.blocks:
@@ -964,9 +1011,10 @@ def phase_serve_adapter(smi):
     log(f"AdapterBit per batch of {B_SERVE} ({smi}): K1 {k1:.3f} ms, K4 x12 {k4_ms:.3f} ms "
         f"(plain {k4_plain:.3f}, bound {k4_bound:.3f}), rest {dt * 1e3 - k1 - k4_ms:.3f} ms")
     phases = k4_phases(xs, blocks, smi)
+    b128 = serve_b128("AdapterBit served", serve, model, smi)
     phase_profile("one AdapterBit served batch", lambda: serve(wav))
     return launches, {"K4": (k4_err, k4_rel, k4_ms, k4_plain, k4_bound, "operations", None,
-                             None, {"phases_ms_x12": phases})}
+                             None, {"phases_ms_x12": phases, "served_b128": b128})}
 
 
 def k4_phases(xs, blocks, smi):
@@ -1619,11 +1667,13 @@ def phase_serve_crnn(smi):
 
 
 def phase_patch_embed():
-    """K8 against its plain version at B_CHECK clips: on K1's serving output
-    (ScalarBN folded, bf16, 1024 frames) and on the 5 s trick's input (the
-    batch halves of 5 s features concatenated in time, 1000 frames, ScalarBN,
-    padded to 1024 in the kernel); bf16 within one bf16 ulp (2^-7 of
-    max(|x|, 1)), float32 within 1e-5."""
+    """K8 against its plain version at B 1, 3 and 32 (a lone tile round, a
+    partial one, B=32's persistent rounds with a partial last), on K1's
+    serving output (ScalarBN folded, bf16, 1024 frames) and on the 5 s
+    trick's input (the batch halves of 5 s features concatenated in time,
+    1000 frames, ScalarBN, padded to 1024 by the kernel's TMA zeros); bf16
+    within one bf16 ulp (2^-7 of max(|x|, 1)), float32 within 1e-5; each
+    launched twice for equal bits."""
     import torch
     from pseldnets_tpu_torch.ops.frontend import fused_logmel_iv
     from pseldnets_tpu_torch.ops.patch_embed import (patch_embed_tokens,
@@ -1632,34 +1682,39 @@ def phase_patch_embed():
 
     model = htsat_serving_model()
     g = torch.Generator(device="cuda").manual_seed(44)
-    wav = torch.randn(B_CHECK, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+    wav = torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
     feats = folded_wav_features(model, wav, t_out=1024)
-    raw = fused_logmel_iv(torch.randn(B_CHECK, 4, N_SAMPLES // 2, device="cuda", generator=g)
-                          * 0.1)
-    half = B_CHECK // 2
+    raw = fused_logmel_iv(torch.randn(2 * B_SERVE, 4, N_SAMPLES // 2, device="cuda",
+                                      generator=g) * 0.1)
     with torch.no_grad():
-        five = model.scalar(torch.cat([raw[:half, :, :-1], raw[half:, :, :-1]], dim=2))
-    check(tuple(feats.shape) == (B_CHECK, 7, 1024, 64)
-          and tuple(five.shape) == (half, 7, 1000, 64), "K8 inputs")
+        five = model.scalar(torch.cat([raw[:B_SERVE, :, :-1], raw[B_SERVE:, :, :-1]], dim=2))
+    check(tuple(feats.shape) == (B_SERVE, 7, 1024, 64)
+          and tuple(five.shape) == (B_SERVE, 7, 1000, 64), "K8 inputs")
     for dtype in (torch.bfloat16, torch.float32):
         p = prepare_patch_embed(model, dtype)
-        for what, x in (("serving form", feats), ("5 s trick", five)):
-            x = x.to(dtype)
-            got = patch_embed_tokens(x, p)
-            torch.cuda.synchronize()
-            ref = patch_embed_tokens_plain(x, p)
-            check(got.shape == ref.shape == (x.shape[0], 4096, 96) and got.dtype == dtype,
-                  f"K8 shape {tuple(got.shape)}")
-            err = (got.float() - ref.float()).abs().max().item()
-            if dtype == torch.bfloat16:
-                rel = ((got.float() - ref.float()).abs()
-                       / ref.float().abs().clamp(min=1.0)).max().item()
-                log(f"K8 bf16 {what}: max |d| {err:.3g}, max err {rel:.3g} of max(|x|, 1) "
-                    f"(<= 2^-7)")
-                check(rel <= 2.0 ** -7, f"K8 bf16 disagrees with its plain version ({what})")
-            else:
-                log(f"K8 float32 {what}: max |d| {err:.3g} (<= 1e-5)")
-                check(err <= 1e-5, f"K8 float32 disagrees with its plain version ({what})")
+        for what, xs in (("serving form", feats), ("5 s trick", five)):
+            for B in (1, 3, B_SERVE):
+                x = xs[:B].to(dtype).contiguous()
+                got = patch_embed_tokens(x, p)
+                again = patch_embed_tokens(x, p)
+                torch.cuda.synchronize()
+                ref = patch_embed_tokens_plain(x, p)
+                check(got.shape == ref.shape == (B, 4096, 96) and got.dtype == dtype,
+                      f"K8 shape {tuple(got.shape)}")
+                check(torch.equal(got, again), f"K8 {what} B={B}: two launches differ")
+                err = (got.float() - ref.float()).abs().max().item()
+                if dtype == torch.bfloat16:
+                    rel = ((got.float() - ref.float()).abs()
+                           / ref.float().abs().clamp(min=1.0)).max().item()
+                    log(f"K8 bf16 {what} B={B}: max |d| {err:.3g}, max err {rel:.3g} of "
+                        f"max(|x|, 1) (<= 2^-7), two launches equal")
+                    check(rel <= 2.0 ** -7,
+                          f"K8 bf16 disagrees with its plain version ({what}, B={B})")
+                else:
+                    log(f"K8 float32 {what} B={B}: max |d| {err:.3g} (<= 1e-5), two launches "
+                        f"equal")
+                    check(err <= 1e-5,
+                          f"K8 float32 disagrees with its plain version ({what}, B={B})")
 
 
 def k8_work(B, p):
@@ -1674,14 +1729,19 @@ def k8_work(B, p):
 
 
 def phase_serve_patch(smi):
-    """HTSAT mACCDOA serving with the patch embed on kernel K8
-    (htsat_fused_forward_from_wav(..., patch_embed="kernel")): SERVE_BATCHES
-    batches of B_SERVE 10 s clips (K1 x1, K8 x1, K2 x12 per batch), counted
-    from 0; the output against the plain path, float32, and the einsum
-    path; K8 on the batch's own features, timed beside its plain version
-    and the einsum embed it replaces; the served time beside the einsum
-    path's, in turns in this process; a profile."""
+    """HTSAT mACCDOA serving with the einsum patch embed
+    (htsat_fused_forward_from_wav(..., patch_embed="einsum"); the other
+    served HTSAT paths take K8, the default): SERVE_BATCHES batches of
+    B_SERVE 10 s clips (K1 x1, K2 x12 per batch, K8 x0), counted from 0; the
+    output against the plain path, float32, and the K8 path; the served
+    time beside the K8 path's, in turns in this process ((K8, einsum,
+    einsum, K8) x3 after the counted run); K8 on the batch's own features
+    against its plain version, timed (device time) beside its plain
+    version, the einsum embed and cuDNN's conv of the same wav2img image
+    alone (a yardstick of the conv, not the whole function); K8's SASS
+    counts; a profile."""
     import torch
+    import torch.nn.functional as F
     from pseldnets_tpu_torch.ops.patch_embed import (patch_embed_tokens,
                                                      patch_embed_tokens_plain)
     from pseldnets_tpu_torch.serving import (embed_tokens, folded_wav_features,
@@ -1695,8 +1755,9 @@ def phase_serve_patch(smi):
     wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
             for _ in range(SERVE_BATCHES)]
     serve = lambda w: htsat_fused_forward_from_wav(  # noqa: E731
-        model, w, blocks=blocks, patch_embed="kernel", embed=embed)
-    serve_einsum = lambda w: htsat_fused_forward_from_wav(model, w, blocks=blocks)  # noqa: E731
+        model, w, blocks=blocks, patch_embed="einsum")
+    serve_k8 = lambda w: htsat_fused_forward_from_wav(  # noqa: E731
+        model, w, blocks=blocks, embed=embed)
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -1705,46 +1766,53 @@ def phase_serve_patch(smi):
         return (time.perf_counter() - t0) / SERVE_BATCHES, out
 
     serve(wavs[0])  # warm-up
-    serve_einsum(wavs[0])
+    serve_k8(wavs[0])
     torch.cuda.synchronize()
 
     # the main path: counts from 0, SERVE_BATCHES batches
     zero_counts()
-    dt, outs = timed(serve)
+    dt_e1, outs = timed(serve)
     launches = read_counts()
-    want = expected(K1=SERVE_BATCHES, K8=SERVE_BATCHES, K2=12 * SERVE_BATCHES)
-    log(f"patch-embed kernel: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: "
+    want = expected(K1=SERVE_BATCHES, K2=12 * SERVE_BATCHES)
+    log(f"einsum patch embed: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: "
         f"launches {launches} (expect {want})")
-    check(launches == want, "serving launch counts with the K8 embed")
+    check(launches == want, "serving launch counts with the einsum embed")
     for o in outs:
         check(o.shape == (B_SERVE, 100, 117) and o.dtype == torch.float32
               and torch.isfinite(o).all().item(), f"served output {tuple(o.shape)}")
-    # the einsum path and this one again, in turns: kernel, einsum, einsum, kernel
-    dt_e1, ein = timed(serve_einsum)
-    dt_e2, _ = timed(serve_einsum)
-    dt2, _ = timed(serve)
-    dt_k, dt_e = (dt + dt2) / 2, (dt_e1 + dt_e2) / 2
-    log(f"served with the K8 embed: {dt_k * 1e3:.2f} ms/batch ({dt * 1e3:.2f}, "
-        f"{dt2 * 1e3:.2f}), {B_SERVE / dt_k:.1f} clips/s; einsum embed {dt_e * 1e3:.2f} "
-        f"ms/batch ({dt_e1 * 1e3:.2f}, {dt_e2 * 1e3:.2f}), {B_SERVE / dt_e:.1f} clips/s "
-        f"(host clock, synchronized; {smi})")
+    # the K8 path and this one again, in turns: (K8, einsum, einsum, K8) x3
+    # after the counted einsum run; medians and ranges of the turns
+    k8_dts, e_dts = [], [dt_e1]
+    for _ in range(3):
+        for dts, fn in ((k8_dts, serve_k8), (e_dts, serve), (e_dts, serve), (k8_dts, serve_k8)):
+            t, out = timed(fn)
+            dts.append(t)
+            if fn is serve_k8:
+                k8_outs = out
+    dt_k, dt_e = statistics.median(k8_dts), statistics.median(e_dts)
+    log(f"served with the K8 embed: {dt_k * 1e3:.2f} ms/batch ({min(k8_dts) * 1e3:.2f}-"
+        f"{max(k8_dts) * 1e3:.2f}), {B_SERVE / dt_k:.1f} clips/s; einsum embed {dt_e * 1e3:.2f} "
+        f"ms/batch ({min(e_dts) * 1e3:.2f}-{max(e_dts) * 1e3:.2f}), {B_SERVE / dt_e:.1f} "
+        f"clips/s (medians of {len(k8_dts)} and {len(e_dts)} runs of {SERVE_BATCHES} batches "
+        f"in turns; host clock, synchronized; {smi})")
     plain = htsat_fused_forward_from_wav(model, wavs[0], blocks=blocks, use_kernels=False,
-                                         patch_embed="kernel", embed=embed)["multi_accdoa"]
+                                         patch_embed="einsum")["multi_accdoa"]
     f32 = htsat_fused_forward_from_wav(model, wavs[0], compute_dtype=torch.float32,
-                                       use_kernels=False, patch_embed="kernel")["multi_accdoa"]
+                                       use_kernels=False, patch_embed="einsum")["multi_accdoa"]
     e_plain = (outs[0] - plain).abs().max().item()
     e_f32 = (outs[0] - f32).abs().max().item()
     p_f32 = (plain - f32).abs().max().item()
-    e_ein = (outs[0] - ein[0]).abs().max().item()
-    log(f"served (K8 embed) vs plain bf16 path: max |d| {e_plain:.3g} (<= 5e-2); vs float32 "
-        f"plain path {e_f32:.3g} (plain bf16 {p_f32:.3g}); vs the einsum embed's path "
-        f"{e_ein:.3g} (<= 5e-2, the rounding before the LayerNorm)")
-    check(e_plain <= 5e-2, "served output (K8 embed) disagrees with the plain path")
-    check(e_f32 <= 1.25 * p_f32 + 1e-2, "served output (K8 embed) further from float32")
-    check(e_ein <= 5e-2, "the K8 and einsum embeds' served outputs differ beyond bf16")
+    e_k8 = (outs[0] - k8_outs[0]).abs().max().item()
+    log(f"served (einsum embed) vs plain bf16 path: max |d| {e_plain:.3g} (<= 5e-2); vs "
+        f"float32 plain path {e_f32:.3g} (plain bf16 {p_f32:.3g}); vs the K8 embed's path "
+        f"{e_k8:.3g} (<= 5e-2, the rounding before the LayerNorm)")
+    check(e_plain <= 5e-2, "served output (einsum embed) disagrees with the plain path")
+    check(e_f32 <= 1.25 * p_f32 + 1e-2, "served output (einsum embed) further from float32")
+    check(e_k8 <= 5e-2, "the K8 and einsum embeds' served outputs differ beyond bf16")
 
     # K1 and K8 against their plain versions on the batch's own inputs;
-    # K8 timed beside its plain version and the einsum embed
+    # K8 timed beside its plain version, the einsum embed and cuDNN's conv,
+    # back to back (cuda_ms) and queued behind a sleeping kernel (device_ms)
     wav = wavs[0]
     feats = folded_wav_features(model, wav, t_out=1024)
     ref1 = folded_wav_features(model, wav, t_out=1024, use_kernels=False).float()
@@ -1757,20 +1825,37 @@ def phase_serve_patch(smi):
     k8_rel = k8_err / ref.abs().max().item()
     rel8 = ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
     check(rel8 <= 2.0 ** -7, f"K8 disagrees with its plain version at B={B_SERVE}")
+    proj = model.encoder.patch_embed.proj
     with torch.no_grad():
         e_emb = (embed_tokens(model, feats, torch.bfloat16).float() - ref).abs().max().item()
         k8 = cuda_ms(lambda: patch_embed_tokens(feats, embed), reps=20)
         k8_plain = cuda_ms(lambda: patch_embed_tokens_plain(feats, embed), reps=5)
         k8_einsum = cuda_ms(lambda: embed_tokens(model, feats, torch.bfloat16), reps=20)
+        k8_dev, k8_host = device_ms(lambda: patch_embed_tokens(feats, embed), reps=40)
+        einsum_dev, _ = device_ms(lambda: embed_tokens(model, feats, torch.bfloat16), reps=20)
+        img = model.encoder.reshape_wav2img(feats).contiguous()
+        cw, cb = proj.weight.to(torch.bfloat16), proj.bias.to(torch.bfloat16)
+        conv_ms = cuda_ms(lambda: F.conv2d(img, cw, cb, stride=4), reps=40)
+        conv_dev, _ = device_ms(lambda: F.conv2d(img, cw, cb, stride=4), reps=40)
     nb, fl = k8_work(B_SERVE, embed)
     k8_bound, k8_by = bound_ms(nb, bf16_flops=fl)
+    sass = sass_text("K8")
+    counts = sass_counts(sass, r"patch_embed_wgmma") if sass is not None else None
     log(f"K8 at B={B_SERVE}: max |d| {k8_err:.3g}, max err {rel8:.3g} of max(|x|, 1) (<= "
         f"2^-7); the einsum embed {e_emb:.3g} from it; {k8:.4f} ms (plain {k8_plain:.3f}, "
-        f"einsum embed {k8_einsum:.4f}, bound {k8_bound:.4f} by {k8_by}; {smi})")
-    phase_profile("one served batch with the K8 embed", lambda: serve(wav))
+        f"einsum embed {k8_einsum:.4f}, bound {k8_bound:.4f} by {k8_by}; cuDNN conv of the "
+        f"wav2img image alone (yardstick) {conv_ms:.4f} ms; back to back; queued behind a "
+        f"sleeping kernel: K8 {k8_dev:.4f} ms, einsum embed {einsum_dev:.4f}, conv "
+        f"{conv_dev:.4f}; host {k8_host:.4f} ms a K8 call; {smi})")
+    log(f"K8 bf16 kernel SASS: "
+        + (", ".join(f"{op} {n}" for op, n in counts.items()) if counts else "not measured"))
+    phase_profile("one served batch with the einsum embed", lambda: serve(wav))
     return launches, {"K1": (k1_err, k1_err / ref1.abs().max().item()),
                       "K8": (k8_err, k8_rel, k8, k8_plain, k8_bound, k8_by, None, None,
-                             {"einsum_ms": k8_einsum})}
+                             {"einsum_ms": k8_einsum, "cudnn_conv_ms": conv_ms,
+                              "device_ms": k8_dev, "einsum_device_ms": einsum_dev,
+                              "cudnn_conv_device_ms": conv_dev, "host_ms": k8_host,
+                              "sass": counts})}
 
 
 # (n_fft, hop, window, fused_logmel_iv keywords, the kernel the route takes)
@@ -2058,26 +2143,28 @@ def phase_serve_stage(smi):
     the output against the plain stage path, float32 and the block path;
     the served time beside swin="block", in turns in this process; K11 on
     each stage's own input against its plain version (check_stage), timed
-    beside K2 chained and the plain version; the eager merges timed; a
-    profile."""
+    beside K2 chained and the plain version; the eager merges timed; one
+    batch at B=128; a profile."""
     import torch
+    from pseldnets_tpu_torch.ops.patch_embed import patch_embed_tokens
     from pseldnets_tpu_torch.ops.swin_stage import swin_stage_fused_v2, swin_stage_plain
-    from pseldnets_tpu_torch.serving import (embed_tokens, folded_wav_features,
-                                             htsat_fused_forward_from_wav, prepare_blocks,
-                                             prepare_stages)
+    from pseldnets_tpu_torch.serving import (folded_wav_features, htsat_fused_forward_from_wav,
+                                             prepare_blocks, prepare_patch_embed, prepare_stages)
     from pseldnets_tpu_torch.serving.htsat import patch_merging
 
     model = htsat_serving_model()
     blocks = prepare_blocks(model, torch.bfloat16)
     stages = prepare_stages(model, torch.bfloat16)
+    embed = prepare_patch_embed(model, torch.bfloat16)
     check([sp.depth for sp in stages] == list(DEPTHS)
           and [sp.shifts[-1] for sp in stages] == [4, 4, 4, 0], "stage plan")
     g = torch.Generator(device="cuda").manual_seed(46)
     wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
             for _ in range(SERVE_BATCHES)]
     serve = lambda w: htsat_fused_forward_from_wav(  # noqa: E731
-        model, w, swin="stage", stages=stages)
-    serve_block = lambda w: htsat_fused_forward_from_wav(model, w, blocks=blocks)  # noqa: E731
+        model, w, swin="stage", stages=stages, embed=embed)
+    serve_block = lambda w: htsat_fused_forward_from_wav(  # noqa: E731
+        model, w, blocks=blocks, embed=embed)
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -2093,7 +2180,7 @@ def phase_serve_stage(smi):
     zero_counts()
     dt, outs = timed(serve)
     launches = read_counts()
-    want = expected(K1=SERVE_BATCHES, K11=4 * SERVE_BATCHES)
+    want = expected(K1=SERVE_BATCHES, K8=SERVE_BATCHES, K11=4 * SERVE_BATCHES)
     log(f"one stage per launch: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: "
         f"launches {launches} (expect {want})")
     check(launches == want, "serving launch counts with swin='stage'")
@@ -2135,7 +2222,7 @@ def phase_serve_stage(smi):
     check(rel <= 2.0 ** -7, f"K1 disagrees with its plain version at B={B_SERVE}")
     rows, k11_err, k11_rel, merge_ms = [], 0.0, 0.0, 0.0
     with torch.no_grad():
-        x = embed_tokens(model, feats, torch.bfloat16)
+        x = patch_embed_tokens(feats, embed)
         for i, (layer, sp) in enumerate(zip(model.encoder.layers, stages)):
             got = swin_stage_fused_v2(x, sp)
             err, rel = check_stage(f"K11 stage {i} at B={B_SERVE}", got, x, sp)
@@ -2160,10 +2247,12 @@ def phase_serve_stage(smi):
     log(f"per batch of {B_SERVE} ({smi}): K11 x4 {k11_ms:.3f} ms (K2 x12 on the same stages "
         f"{k2_ms:.3f}, plain {k11_plain:.3f}, bound {k11_bound:.4f}), eager merges x3 "
         f"{merge_ms:.3f} ms")
+    b128 = serve_b128("served with swin='stage'", serve, model, smi)
     phase_profile("one served batch, one Swin stage per launch", lambda: serve(wav))
     return launches, {"K1": (k1_err, k1_err / ref1.abs().max().item()),
                       "K11": (k11_err, k11_rel, k11_ms, k11_plain, k11_bound, k11_by,
-                              None, None, {"k2_chained_ms": k2_ms, "merges_ms": merge_ms})}
+                              None, None, {"k2_chained_ms": k2_ms, "merges_ms": merge_ms,
+                                           "served_b128": b128})}
 
 
 def phase_profile(what, fn):
@@ -2225,7 +2314,7 @@ def main():
     results["serve_stage"] = phase_serve_stage(smi)
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
-    # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the K8 embed, one
+    # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the einsum embed, one
     # call of each frontend form, HTSAT one stage per launch), each counted
     # from 0; errors: the largest over the checks at each path's own shapes,
     # absolute and as a share of the plain output's largest magnitude; ms and
@@ -2233,9 +2322,14 @@ def main():
     # (K3, K5) or per call on a batch (K9, K10); library_ms: one PyTorch call
     # computing the same function (K6, K7), with its error from the plain
     # version as a share of scale; einsum_ms (K8): the einsum embed it
-    # replaces; k1_ms (K9, K10): K1 on the same batch; k2_chained_ms (K11): K2
-    # block after block on the same stage inputs, merges_ms (K11): the three
-    # eager merges between the stages
+    # replaces, cudnn_conv_ms: cuDNN's conv of the wav2img image alone,
+    # *device_ms: the same three queued behind a sleeping kernel (device time
+    # without the host's cost a call), host_ms: that host cost a K8 call,
+    # sass: its bf16 kernel's SASS counts; served_b128 (K1, K4, K11): one batch
+    # of the plain, AdapterBit and stage paths at B=128; k1_ms (K9, K10): K1
+    # on the same batch; k2_chained_ms (K11): K2 block after block on the
+    # same stage inputs, merges_ms (K11): the three eager merges between the
+    # stages
     for name, route_src, replaces in (
             ("K1 fused_logmel_iv", "pseldnets_tpu_torch/csrc/frontend.cu",
              "pseldnets_tpu/ops/pallas/frontend.py:754"),

@@ -1,7 +1,8 @@
 """The HTSAT patch embed as one kernel: kernel K8 and its plain version. The
 counterpart of the JAX package's ``ops/pallas/patch_embed.py::
-patch_embed_tokens``, which ``htsat_fused_forward(..., patch_embed="kernel")``
-calls (serving/htsat.py:119-135).
+patch_embed_tokens``, which its ``htsat_fused_forward(...,
+patch_embed="kernel")`` calls; the port's served HTSAT paths call it by
+default (serving/htsat.py).
 
 (B, C, T, F) normalized features in the compute dtype -> (B, L, E) stage-0
 tokens in the compute dtype: reshape_wav2img (frames zero-padded from T to
@@ -13,10 +14,12 @@ LayerNorm; the einsum embed (serving/htsat.py ``embed_tokens``) rounds the
 conv output before its LayerNorm, so the two differ by up to one rounding
 in bf16.
 
-On a CUDA tensor ``patch_embed_tokens`` launches ``csrc/patch_embed.cu``;
-on a CPU tensor it runs ``patch_embed_tokens_plain``, which nothing on the
-card's served path calls. ``prepare_patch_embed`` lays the weights out once
-per model and dtype.
+On a CUDA tensor ``patch_embed_tokens`` launches ``csrc/patch_embed.cu``
+(bf16: a persistent TMA-fed wgmma kernel, two blocks an SM walking the
+128-token tiles; float32: CUDA-core FMA); on a CPU tensor it runs
+``patch_embed_tokens_plain``, which nothing on the card's served path calls.
+``prepare_patch_embed`` lays the weights out once per model and dtype, in
+the kernel's k order (c, kw, kh), which the plain version reads too.
 """
 
 from dataclasses import dataclass
@@ -31,15 +34,17 @@ KERNEL = CudaKernel("patch_embed.cu", {
 })
 
 LN_EPS = 1e-5
-# the kernel's shapes: HTSAT's published embed width and mel bins
-KERNEL_E, KERNEL_F, KERNEL_TPB = 96, 64, 8
+# the kernel's shapes: HTSAT's published embed width, mel bins and (bf16)
+# channels; time patches a tile (8: a tile is 128 tokens of 32 frames)
+KERNEL_E, KERNEL_F, KERNEL_C, KERNEL_TPB = 96, 64, 7, 8
 
 
 @dataclass
 class PatchEmbedParams:
     """The patch embed's weights in the kernel's layout: ``w`` (C * 16, E)
-    in the compute dtype with w[(c * 4 + kh) * 4 + kw, e] the conv kernel
-    (kh along frequency, kw along time); bias and LayerNorm (E,) float32;
+    in the compute dtype with w[(c * 4 + kw) * 4 + kh, e] the conv kernel
+    (kh along frequency, kw along time: a k pair (2i, 2i + 1) is two
+    adjacent mel bins of one frame); bias and LayerNorm (E,) float32;
     the reshape_wav2img geometry (``t_img`` = spec_size * freq_ratio)."""
 
     w: torch.Tensor
@@ -63,7 +68,7 @@ def prepare_patch_embed(model, compute_dtype: torch.dtype = torch.bfloat16) -> P
     proj, norm = enc.patch_embed.proj, enc.patch_embed.norm
     E = proj.weight.shape[0]
     with torch.no_grad():
-        w = proj.weight.detach().reshape(E, -1).t().contiguous().to(compute_dtype)
+        w = proj.weight.detach().transpose(2, 3).reshape(E, -1).t().contiguous().to(compute_dtype)
         f32 = lambda t: t.detach().float().contiguous()  # noqa: E731
         return PatchEmbedParams(w=w, bias=f32(proj.bias), ln_w=f32(norm.weight),
                                 ln_b=f32(norm.bias), freq_ratio=enc.freq_ratio,
@@ -77,8 +82,8 @@ def patch_embed_tokens_plain(x: torch.Tensor, p: PatchEmbedParams) -> torch.Tens
     fr = p.freq_ratio
     xf = F.pad(x.to(p.dtype).float(), (0, 0, 0, p.t_img - T))
     x7 = xf.reshape(B, C, fr, p.t_img // fr // 4, 4, Fq // 4, 4)  # b c g tp kw fp kh
-    w = p.w.float().t().reshape(-1, C, 4, 4)                      # e c kh kw
-    tok = torch.einsum("bcgtufv,ecvu->bgfte", x7, w) + p.bias
+    w = p.w.float().t().reshape(-1, C, 4, 4)                      # e c kw kh
+    tok = torch.einsum("bcgtufv,ecuv->bgfte", x7, w) + p.bias
     tok = F.layer_norm(tok, (tok.shape[-1],), p.ln_w, p.ln_b, eps=LN_EPS)
     return tok.reshape(B, -1, tok.shape[-1]).to(p.dtype)
 
@@ -86,7 +91,8 @@ def patch_embed_tokens_plain(x: torch.Tensor, p: PatchEmbedParams) -> torch.Tens
 def patch_embed_tokens(x: torch.Tensor, p: PatchEmbedParams) -> torch.Tensor:
     """(B, C, T, F) -> (B, L, E) in the compute dtype, T <= spec_size *
     freq_ratio (the rest is the zero pad): kernel K8 on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor. On the card a shape the kernel does not
+    take raises before any launch."""
     B, C, T, Fq = x.shape
     if T > p.t_img:
         raise ValueError(f"{T} frames > spec_size * freq_ratio = {p.t_img}")
@@ -95,18 +101,23 @@ def patch_embed_tokens(x: torch.Tensor, p: PatchEmbedParams) -> torch.Tensor:
     check_cuda_tensor("x", x, p.dtype, (B, C, T, Fq))
     E = p.w.shape[1]
     tg = p.t_img // p.freq_ratio
-    if (E, Fq) != (KERNEL_E, KERNEL_F) or p.t_img % p.freq_ratio or tg % (4 * KERNEL_TPB):
+    bf16 = p.dtype == torch.bfloat16
+    if ((E, Fq) != (KERNEL_E, KERNEL_F) or p.t_img % p.freq_ratio or tg % (4 * KERNEL_TPB)
+            or (bf16 and C != KERNEL_C)):
         raise NotImplementedError(
-            f"the patch-embed kernel takes E={KERNEL_E}, F={KERNEL_F} and a wav2img group "
-            f"of a multiple of {4 * KERNEL_TPB} frames (got E={E}, F={Fq}, {tg})")
+            f"the patch-embed kernel takes E={KERNEL_E}, F={KERNEL_F}, {KERNEL_C} channels "
+            f"in bf16 and a wav2img group of a multiple of {4 * KERNEL_TPB} frames (got "
+            f"E={E}, F={Fq}, C={C}, {tg}): use patch_embed=\"einsum\"")
     if p.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be float32 or bfloat16, got {p.dtype}")
     for name, t in (("w", p.w), ("bias", p.bias), ("ln_w", p.ln_w), ("ln_b", p.ln_b)):
         check_cuda_tensor(name, t, p.dtype if name == "w" else torch.float32)
+    if any(t.data_ptr() % 16 for t in (x, p.w)):
+        raise ValueError("the patch-embed kernel reads x and w from 16-byte aligned addresses")
     out = torch.empty((B, p.freq_ratio * (Fq // 4) * (tg // 4), E), device=x.device,
                       dtype=p.dtype)
     KERNEL.launches += 1
     KERNEL.call("patch_embed_tokens", x.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(),
                 p.ln_w.data_ptr(), p.ln_b.data_ptr(), out.data_ptr(), B, C, T, p.t_img,
-                p.freq_ratio, int(p.dtype == torch.bfloat16))
+                p.freq_ratio, int(bf16))
     return out

@@ -14,12 +14,16 @@ unfolded (``patch_merging``), as the JAX package's probe composes its stage
 kernel (scripts/perf_r3a_probe.py:53-120); ``swin="block"``, the default,
 runs K2 per block with the merge folds. The stage path takes no adapters.
 
-The patch embed is one reshape + einsum (``patch_embed="einsum"``, the
-default, as in the JAX package) or kernel K8 (``patch_embed="kernel"``,
-ops/patch_embed.py: wav2img, conv, bias and LayerNorm in one pass, the JAX
-package's opt-in Pallas embed). The final LayerNorm, the token-map
-finalize, the tscam conv, the interpolation matmul, the frame mean and the
-tanh stay plain PyTorch, as the JAX package leaves them outside its kernels.
+The patch embed is kernel K8 (``patch_embed="kernel"``, the default:
+ops/patch_embed.py, wav2img, conv, bias and LayerNorm in one pass; the JAX
+package's Pallas embed, opt-in there) or one reshape + einsum
+(``patch_embed="einsum"``, the JAX package's default). The served paths
+take K8 because it was measured faster on the card (PERF.md §6); on the
+card a shape K8 does not take raises, naming ``patch_embed="einsum"``, and
+on a CPU tensor the default runs K8's plain version. The final LayerNorm,
+the token-map finalize, the tscam conv, the interpolation matmul, the frame
+mean and the tanh stay plain PyTorch, as the JAX package leaves them
+outside its kernels.
 ``embed_tokens`` and ``head_tail`` carry autograd: the fused training forward
 (train/fused_forward.py) shares them; the serving callers run under no_grad.
 
@@ -128,7 +132,7 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
                         compute_dtype: torch.dtype = torch.bfloat16,
                         pre_normalized: bool = False,
                         blocks: Optional[List[BlockParams]] = None,
-                        use_kernels: bool = True, patch_embed: str = "einsum",
+                        use_kernels: bool = True, patch_embed: str = "kernel",
                         embed: Optional[PatchEmbedParams] = None, swin: str = "block",
                         stages: Optional[List[StageParams]] = None) -> Dict[str, torch.Tensor]:
     """Eval forward equal to ``model(x)`` up to compute-dtype rounding.
@@ -137,8 +141,9 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
     the frontend kernel) and may be zero-padded to the full reshape_wav2img
     frame count - 10 s clips only. ``blocks``: :func:`prepare_blocks` of this
     model and dtype, to skip preparing the weights on every call.
-    ``patch_embed``: "einsum" or "kernel" (K8; ``embed``: its
-    :func:`prepare_patch_embed` of this model and dtype, likewise).
+    ``patch_embed``: "kernel" (K8, the default; ``embed``: its
+    :func:`prepare_patch_embed` of this model and dtype, likewise) or
+    "einsum".
     ``swin``: "block" (K2 per block, merges folded; K4 with adapters) or
     "stage" (K11 per stage, merges unfolded; ``stages``: its
     :func:`prepare_stages` of this model and dtype, likewise).
@@ -249,17 +254,18 @@ def htsat_fused_forward_from_wav(model: HTSAT, wav, *,
                                  compute_dtype: torch.dtype = torch.bfloat16,
                                  device="cuda",
                                  blocks: Optional[List[BlockParams]] = None,
-                                 use_kernels: bool = True, patch_embed: str = "einsum",
+                                 use_kernels: bool = True, patch_embed: str = "kernel",
                                  embed: Optional[PatchEmbedParams] = None,
                                  swin: str = "block",
                                  stages: Optional[List[StageParams]] = None,
                                  **frontend_kwargs) -> Dict[str, torch.Tensor]:
     """Full serving step from the FOA waveform (B, 4, N) float32: kernel K1
     (features + ScalarBN + cast + frame pad) then the fused model: the patch
-    embed (``patch_embed``: "einsum" or kernel K8), then K2, or K4 for an
-    AdapterBit model (``swin="block"``), or K11 per stage and the unfolded
-    merges (``swin="stage"``). 10-second clips only. ``device`` defaults to the card
-    and raises when CUDA is absent; ``model`` must already live there."""
+    embed (``patch_embed``: kernel K8, the default, or "einsum"), then K2,
+    or K4 for an AdapterBit model (``swin="block"``), or K11 per stage and
+    the unfolded merges (``swin="stage"``). 10-second clips only.
+    ``device`` defaults to the card and raises when CUDA is absent;
+    ``model`` must already live there."""
     device = resolve_device(device)
     wav = torch.as_tensor(wav, dtype=torch.float32, device=device)
     if model.scalar.weight.device != wav.device:

@@ -8,8 +8,9 @@ B=4 x 602 tokens, and its GEMM core at the block's four served GEMM shapes
 with each tile), K7 (the CNN12 trunk's six ConvBlocks, pair mode, B=2), K2
 (the Swin block at each stage shape, B=2, served with the merge fold where
 HTSAT has one, and with drop-path masks), K4 (the block with AdapterBit
-adapters, B=2, with masks), K11 (each whole eval Swin stage, B=2) and K3 and
-K5 (the block backwards, B=2, dx and every grad) on inputs made from fixed
+adapters, B=2, with masks), K11 (each whole eval Swin stage, B=2), K3 and
+K5 (the block backwards, B=2, dx and every grad) and K8 (the patch embed,
+B=3, 1024 and 1000 frames, bf16) on inputs made from fixed
 seeds, saves the outputs in a temporary directory (about 2 GB), and prints
 for each output whether the two checkouts gave the same bits. Exits
 non-zero when a run fails; a difference is reported, not an error (a change
@@ -37,8 +38,9 @@ from pseldnets_tpu_torch.models.passt import Block
 from pseldnets_tpu_torch.config import compose
 from pseldnets_tpu_torch.models.adapters import Adapter, AdaptConfig
 from pseldnets_tpu_torch.models.htsat import PatchMerging, SwinTransformerBlock
-from pseldnets_tpu_torch.ops import (conv_block, frontend, frontend_forms, swin_block,
-                                     swin_block_adapt, swin_block_vjp, swin_stage, vit_block)
+from pseldnets_tpu_torch.ops import (conv_block, frontend, frontend_forms, patch_embed,
+                                     swin_block, swin_block_adapt, swin_block_vjp, swin_stage,
+                                     vit_block)
 
 g = torch.Generator().manual_seed(0)
 out = {}
@@ -120,6 +122,13 @@ for i in range(4):
     sp = swin_stage.prepare_stage(layer.cuda().eval(), torch.bfloat16)
     x = torch.randn(2, H * H, C, generator=g).cuda().bfloat16()
     out[f"K11 stage {i}"] = swin_stage.swin_stage_fused_v2(x, sp)
+vec = lambda s, o: (torch.randn(96, generator=g) * s + o).cuda()
+pe = patch_embed.PatchEmbedParams(
+    w=(torch.randn(112, 96, generator=g) * 0.1).cuda().bfloat16(), bias=vec(0.1, 0.0),
+    ln_w=vec(0.1, 1.0), ln_b=vec(0.1, 0.0), freq_ratio=4, t_img=1024)
+x = torch.randn(3, 7, 1024, 64, generator=g).cuda().bfloat16()
+out["K8 served form B=3"] = patch_embed.patch_embed_tokens(x, pe)
+out["K8 5 s trick B=3"] = patch_embed.patch_embed_tokens(x[:, :, :1000].contiguous(), pe)
 torch.cuda.synchronize()
 torch.save({k: v.cpu() for k, v in out.items()}, sys.argv[1])
 """

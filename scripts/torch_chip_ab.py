@@ -6,8 +6,8 @@ A B B A repeated ``--rounds`` times, each run a process of its own, keeps each
 run's output under ``--out``, reads the times that chip_smoke.py prints (the
 served batch, the training step, the kernels per batch or step (K1 in each
 form, beside cuFFT's rfft of the same frames), the served batch of 128, and the
-AdapterBit, PaSST, CRNN, K8, frontend-form and one-stage-per-launch lines
-where the checkout has them) and prints, per checkout, the median and the
+AdapterBit, PaSST, CRNN, K8, frontend-form and one-stage-per-launch lines,
+each path's batch of 128, where the checkout has them) and prints, per checkout, the median and the
 range of each over its runs as one JSON line. Exits non-zero when a run
 fails.
 
@@ -54,7 +54,15 @@ PATTERNS = {
     "k7_library_ms": r"^CRNN per batch of \d+ .*?K7 x6 .*?library ([\d.]+),",
     "crnn_rest_ms": r"^CRNN per batch of \d+ .*?rest ([-\d.]+) ms",
     "patch_served_ms": r"^served with the K8 embed: ([\d.]+) ms/batch",
+    "einsum_served_ms": r"^served with the K8 embed: .*?; einsum embed ([\d.]+) ms/batch",
     "k8_ms": r"^K8 at B=\d+: .*?; ([\d.]+) ms \(plain",
+    "k8_einsum_embed_ms": r"^K8 at B=\d+: .*?einsum embed ([\d.]+), bound",
+    "k8_cudnn_conv_ms": r"^K8 at B=\d+: .*?\(yardstick\) ([\d.]+) ms",
+    "k8_device_ms": r"^K8 at B=\d+: .*?sleeping kernel: K8 ([\d.]+) ms",
+    "k8_einsum_device_ms": r"^K8 at B=\d+: .*?sleeping kernel: .*?einsum embed ([\d.]+),",
+    "k8_host_ms": r"^K8 at B=\d+: .*?; host ([\d.]+) ms a K8 call",
+    "adapter_served_b128_ms": r"^AdapterBit served at B=128: ([\d.]+) ms/batch",
+    "stage_served_b128_ms": r"^served with swin='stage' at B=128: ([\d.]+) ms/batch",
     "k9_ms": r"^K9 at B=\d+ .*?IV; ([\d.]+) ms \(",
     "k10_ms": r"^K10 at B=\d+ .*?IV; ([\d.]+) ms \(",
     "stage_served_ms": r"^served with swin='stage': ([\d.]+) ms/batch",

@@ -258,13 +258,15 @@ def test_adapter_serving_from_wav_matches_jax(rng):
     wav = (rng.standard_normal((2, 4, 57600)) * 0.1).astype(np.float32)
     swin_block.KERNEL.launches = swin_block_adapt.FWD_KERNEL.launches = 0
     got = htsat_fused_forward_from_wav(tm, wav, compute_dtype=torch.float32, device="cpu",
-                                       n_mels=16)["multi_accdoa"].numpy()
+                                       n_mels=16, patch_embed="einsum")["multi_accdoa"].numpy()
     assert swin_block.KERNEL.launches == swin_block_adapt.FWD_KERNEL.launches == 0
     ref = np.asarray(jax_from_wav(jm, variables, jnp.asarray(wav), compute_dtype=jnp.float32,
-                                  interpret=True, split3=False, **FE)["multi_accdoa"])
+                                  interpret=True, split3=False, patch_embed="einsum",
+                                  **FE)["multi_accdoa"])
     assert got.shape == ref.shape == (2, 24, 45)
     assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
-    bf = htsat_fused_forward_from_wav(tm, wav, device="cpu", n_mels=16)["multi_accdoa"].numpy()
+    bf = htsat_fused_forward_from_wav(tm, wav, device="cpu", n_mels=16,
+                                      patch_embed="einsum")["multi_accdoa"].numpy()
     assert np.abs(bf - got).max() < 5e-2
 
 

@@ -541,28 +541,60 @@ def test_conv_block_kernel_raises_on_what_it_does_not_take(card):
         conv_block.conv3x3_bias_relu(big, wide, torch.zeros(2048, device=card))
 
 
-@pytest.mark.parametrize("dtype,T", [(torch.bfloat16, 1024), (torch.bfloat16, 1000),
-                                     (torch.float32, 1024)])
-def test_patch_embed_kernel_matches_plain(card, dtype, T):
-    """K8 at HTSAT's serving shape (7 x 1024 x 64 -> 4096 x 96, B=2; T=1000
-    zero-padded in the kernel): bf16 within one bf16 ulp (2^-7 of
-    max(|x|, 1)), float32 within 1e-5 of the plain version."""
+@pytest.mark.parametrize("dtype,T,B", [(torch.bfloat16, 1024, 2), (torch.bfloat16, 1000, 2),
+                                       (torch.bfloat16, 1000, 3), (torch.float32, 1024, 2),
+                                       (torch.float32, 1000, 3)])
+def test_patch_embed_kernel_matches_plain(card, dtype, T, B):
+    """K8 at HTSAT's serving shape (7 x 1024 x 64 -> 4096 x 96; T=1000
+    zero-padded in the kernel; B=3 a grid of 96 blocks): bf16 within one
+    bf16 ulp (2^-7 of max(|x|, 1)), float32 within 1e-5 of the plain
+    version; a second launch gives the same bits."""
     gen = torch.Generator().manual_seed(60)
     vec = lambda s, o: (torch.randn(96, generator=gen) * s + o).to(card)  # noqa: E731
     p = patch_embed.PatchEmbedParams(
         w=(torch.randn(112, 96, generator=gen) * 0.1).to(card, dtype), bias=vec(0.1, 0.0),
         ln_w=vec(0.1, 1.0), ln_b=vec(0.1, 0.0), freq_ratio=4, t_img=1024)
-    x = torch.randn(2, 7, T, 64, generator=gen).to(card, dtype)
+    x = torch.randn(B, 7, T, 64, generator=gen).to(card, dtype)
     before = patch_embed.KERNEL.launches
     got = patch_embed.patch_embed_tokens(x, p)
     assert patch_embed.KERNEL.launches == before + 1
+    assert torch.equal(patch_embed.patch_embed_tokens(x, p), got)
     ref = patch_embed.patch_embed_tokens_plain(x, p)
-    assert got.shape == ref.shape == (2, 4096, 96) and got.dtype == dtype
+    assert got.shape == ref.shape == (B, 4096, 96) and got.dtype == dtype
     got, ref = got.float(), ref.float()
     if dtype == torch.bfloat16:
         assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max() <= 2.0 ** -7
     else:
         assert (got - ref).abs().max() <= 1e-5
+
+
+def test_patch_embed_kernel_refuses_other_shapes(card):
+    """A shape K8 does not take (bf16 with 4 channels, an embed width of 64,
+    a served model of embed width 16 on its default embed) raises before
+    any launch, naming the einsum embed; nothing falls back."""
+    from pseldnets_tpu_torch.models import heads
+    from pseldnets_tpu_torch.serving import htsat_fused_forward
+
+    def params(K, E):
+        return patch_embed.PatchEmbedParams(
+            w=torch.zeros(K, E, device=card, dtype=torch.bfloat16),
+            bias=torch.zeros(E, device=card), ln_w=torch.ones(E, device=card),
+            ln_b=torch.zeros(E, device=card), freq_ratio=4, t_img=1024)
+
+    before = patch_embed.KERNEL.launches
+    x4 = torch.zeros(1, 4, 1024, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match='C=4.*patch_embed="einsum"'):
+        patch_embed.patch_embed_tokens(x4, params(64, 96))
+    x7 = torch.zeros(1, 7, 1024, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match='E=64.*patch_embed="einsum"'):
+        patch_embed.patch_embed_tokens(x7, params(112, 64))
+    tm = heads.HTSAT(num_classes=5, in_channels=7, mel_bins=16, num_tracks=3,
+                     tgt_output_frames=24, encoder_kwargs=dict(
+                         spec_size=64, patch_size=4, patch_stride=(4, 4), embed_dim=16,
+                         depths=(2, 2), num_heads=(2, 4), window_size=4, mlp_ratio=2.0))
+    with pytest.raises(NotImplementedError, match='patch_embed="einsum"'):
+        htsat_fused_forward(tm.to(card).eval(), torch.zeros(2, 7, 241, 16, device=card))
+    assert patch_embed.KERNEL.launches == before
 
 
 @pytest.mark.parametrize("kw,kernel", [

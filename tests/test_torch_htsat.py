@@ -50,7 +50,8 @@ def test_htsat_forward_matches_flax_10s(rng):
     assert got.shape == ref.shape == (2, 24, 45)
     # f32 through 4 blocks, 2 merges, conv head: summation order only
     assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
-    fused = htsat_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32)
+    fused = htsat_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32,
+                                patch_embed="einsum")
     assert np.abs(fused["multi_accdoa"].numpy() - ref).max() < 5e-5
 
 
@@ -64,10 +65,11 @@ def test_htsat_forward_matches_flax_5s_trick(rng):
         got = tm(torch.from_numpy(x))["accdoa"].numpy()
     assert got.shape == ref.shape == (4, 12, 15)
     assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
-    fused = htsat_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32)
+    fused = htsat_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32,
+                                patch_embed="einsum")
     ref_fused = np.asarray(jax_fused_forward(jm, variables, jnp.asarray(x),
-                                             compute_dtype=jnp.float32,
-                                             interpret=True)["accdoa"])
+                                             compute_dtype=jnp.float32, interpret=True,
+                                             patch_embed="einsum")["accdoa"])
     assert np.abs(fused["accdoa"].numpy() - ref_fused).max() < 5e-5
 
 
@@ -80,18 +82,18 @@ def test_from_wav_matches_jax_from_wav(rng):
     jm, variables, tm = _models(rng)
     wav = (rng.standard_normal((2, 4, 57600)) * 0.1).astype(np.float32)
     frontend.KERNEL.launches = swin_block.KERNEL.launches = 0
-    got = htsat_fused_forward_from_wav(tm, wav, compute_dtype=torch.float32,
-                                       device="cpu", n_mels=16)["multi_accdoa"].numpy()
+    got = htsat_fused_forward_from_wav(tm, wav, compute_dtype=torch.float32, device="cpu",
+                                       n_mels=16, patch_embed="einsum")["multi_accdoa"].numpy()
     # CPU tensors take the plain versions: no kernel launch is counted
     assert frontend.KERNEL.launches == swin_block.KERNEL.launches == 0
     ref = np.asarray(jax_from_wav(jm, variables, jnp.asarray(wav),
                                   compute_dtype=jnp.float32, interpret=True,
-                                  split3=False, **FE)["multi_accdoa"])
+                                  split3=False, patch_embed="einsum", **FE)["multi_accdoa"])
     assert got.shape == ref.shape == (2, 24, 45)
     assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
     ref3 = np.asarray(jax_from_wav(jm, variables, jnp.asarray(wav),
                                    compute_dtype=jnp.float32, interpret=True,
-                                   split3=True, **FE)["multi_accdoa"])
+                                   split3=True, patch_embed="einsum", **FE)["multi_accdoa"])
     assert np.abs(got - ref3).max() < 5e-3, np.abs(got - ref3).max()
     # and the eager model on the plain features agrees with the fused path
     feats = jax_fused(jnp.asarray(wav), split3=False, interpret=True, **FE)
@@ -124,17 +126,17 @@ def test_from_wav_stage_path_matches_jax_from_wav():
     assert [sp.shifts for sp in stages] == [(0, 2), (0, 2)]
     frontend.KERNEL.launches = swin_block.KERNEL.launches = swin_stage.KERNEL.launches = 0
     got = htsat_fused_forward_from_wav(tm, wav, compute_dtype=torch.float32, device="cpu",
-                                       n_mels=16, swin="stage",
-                                       stages=stages)["multi_accdoa"].numpy()
+                                       n_mels=16, swin="stage", stages=stages,
+                                       patch_embed="einsum")["multi_accdoa"].numpy()
     assert frontend.KERNEL.launches == swin_block.KERNEL.launches == 0
     assert swin_stage.KERNEL.launches == 0
     ref = np.asarray(jax_from_wav(jm, variables, jnp.asarray(wav),
                                   compute_dtype=jnp.float32, interpret=True,
-                                  split3=False, **FE)["multi_accdoa"])
+                                  split3=False, patch_embed="einsum", **FE)["multi_accdoa"])
     assert got.shape == ref.shape == (2, 24, 45)
     assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
     block = htsat_fused_forward_from_wav(tm, wav, compute_dtype=torch.float32, device="cpu",
-                                         n_mels=16)["multi_accdoa"].numpy()
+                                         n_mels=16, patch_embed="einsum")["multi_accdoa"].numpy()
     assert np.abs(got - block).max() < 5e-5, np.abs(got - block).max()
 
 
@@ -146,12 +148,13 @@ def test_stage_path_5s_trick():
     jm, variables, tm = _models(rng, num_tracks=1, T=121)
     x = (rng.standard_normal((4, 7, 121, 16)) * 0.5).astype(np.float32)
     got = htsat_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32,
-                              swin="stage")["accdoa"].numpy()
-    ref = np.asarray(jax_fused_forward(jm, variables, jnp.asarray(x),
-                                       compute_dtype=jnp.float32, interpret=True)["accdoa"])
+                              swin="stage", patch_embed="einsum")["accdoa"].numpy()
+    ref = np.asarray(jax_fused_forward(jm, variables, jnp.asarray(x), compute_dtype=jnp.float32,
+                                       interpret=True, patch_embed="einsum")["accdoa"])
     assert got.shape == ref.shape == (4, 12, 15)
     assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
-    block = htsat_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32)
+    block = htsat_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32,
+                                patch_embed="einsum")
     assert np.abs(got - block["accdoa"].numpy()).max() < 5e-5
 
 

@@ -1,8 +1,11 @@
 """Kernel K8 (the HTSAT patch embed) on the CPU: its plain version against
 the Pallas ``patch_embed_tokens`` in interpret mode, a numpy replay of the
-kernel's block and token index map, and the HTSAT serving paths with
-``patch_embed="kernel"`` (plain, 5 s trick, AdapterBit, from the waveform)
-against the JAX ones on the tiny model of tests/test_serving_fused.py."""
+kernel's persistent tile schedule, fragment loads, weight layout and token
+order, and the HTSAT serving paths with ``patch_embed="kernel"`` (the
+default: plain, 5 s trick, AdapterBit, from the waveform) against the JAX
+ones on the tiny model of tests/test_serving_fused.py."""
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -64,42 +67,157 @@ def test_plain_matches_pallas_interpret(rng, T):
             assert _bf16_ulps(got.float().numpy(), ref) <= 2.0 ** -7
 
 
-def _replay(x, p):
-    """numpy replay of csrc/patch_embed.cu's index logic in float64: per
-    block (b, g, 8 time patches) the gather into the (k, token) patch tile,
-    the tile's tokens times the (k, E) weights, bias and LayerNorm, and the
-    store at token (g 16 + fp) tp_n + tp0 + q."""
+def _row_token(m):
+    """csrc/patch_embed.cu's GEMM row m of a tile -> (fp, tp): bits m0 tp0,
+    m1 fp0, m2 fp2, m3 fp1, m4 fp3, m5 tp1, m6 tp2."""
+    fp = (m >> 1) & 1 | ((m >> 3) & 1) << 1 | ((m >> 2) & 1) << 2 | ((m >> 4) & 1) << 3
+    tp = m & 1 | ((m >> 5) & 1) << 1 | ((m >> 6) & 1) << 2
+    return fp, tp
+
+
+def _col_channel(n):
+    """The kernel's GEMM column n -> embedding channel e."""
+    return 24 * (n // 2 % 4) + 2 * (n // 8) + n % 2
+
+
+def _gemm_col(e):
+    """csrc/patch_embed.cu::gemm_col: channel e -> GEMM column."""
+    return 8 * (e % 24 // 2) + 2 * (e // 24) + e % 2
+
+
+def _swizzle128(c, t, f):
+    """Byte offset of bf16 x[c, t, f] in a stage: TMA's 128-byte swizzle
+    over the box's 128-byte frame rows (16-byte chunk ^= row % 8)."""
+    r = c * 32 + t
+    return r * 128 + ((f // 8) ^ (r % 8)) * 16 + f % 8 * 2
+
+
+def _kernel_const(name):
+    """A ``constexpr int`` of csrc/patch_embed.cu, read from its source."""
+    m = re.search(rf"constexpr int {name} = (\d+);", patch_embed.KERNEL.source.read_text())
+    return int(m.group(1))
+
+
+def _schedule(tiles, sms):
+    """Replay of the bf16 kernel's persistent loop on ``sms`` SMs: the grid
+    min(tiles, CTAS_PER_SM x sms) that launch_wgmma sets; block b's first
+    STAGES loads (tiles b, b + grid, ...), its walk t = b, b + grid, ...
+    waiting on stage it % STAGES for that stage's (it / STAGES)-th load,
+    and the refill of tile t + STAGES grid into the stage just read.
+    Asserts that each wait finds the tile it computes, with that load the
+    only one in flight on its stage, and that no load is left unread.
+    Returns (grid, the tiles each block took)."""
+    stages, grid = _kernel_const("STAGES"), min(tiles, _kernel_const("CTAS_PER_SM") * sms)
+    taken = []
+    for cta in range(grid):
+        loads = [[cta + s * grid] if cta + s * grid < tiles else [] for s in range(stages)]
+        mine = []
+        for it, t in enumerate(range(cta, tiles, grid)):
+            s = it % stages
+            assert len(loads[s]) == it // stages + 1 and loads[s][-1] == t
+            if t + stages * grid < tiles:
+                loads[s].append(t + stages * grid)
+            mine.append(t)
+        assert sum(map(len, loads)) == len(mine)
+        taken.append(mine)
+    return grid, taken
+
+
+def _banks_distinct(byte_addrs, width=4):
+    """Each access's ``width`` bytes land on banks no other access of the
+    same instruction (or 16-byte quarter-warp phase) touches."""
+    banks = [(a // 4 + i) % 32 for a in byte_addrs for i in range(width // 4)]
+    return len(set(banks)) == len(banks)
+
+
+def _replay(x, p, sms=132):
+    """numpy replay of csrc/patch_embed.cu's bf16 map in float64: the
+    persistent schedule (``_schedule``); per tile the 4-D TMA box x[b, :, t0:t0 + 32, :] with zeros
+    past T_in, laid out with the 128-byte swizzle; per thread the A
+    fragments' 4-byte loads from it (rows r, r + 8; k pairs 2 (l % 4), + 8
+    in the (kw, kh) order, one channel a k16 step), the weights B[n, k] =
+    w[k, e(n)] of the permuted columns; per accumulator register its (row,
+    column); the epilogue's bias and LayerNorm over each row's 96 channels,
+    24 a lane; the 16-byte staging stores at token fp * 8 + tp; the TMA
+    store at (g 16 + fp) tp_n + tp0 + tp. Also asserts that every fragment
+    load and every staging store is free of bank conflicts. Returns the
+    tokens."""
     B, C, T_in, Fq = x.shape
     fr, t_img = p.freq_ratio, p.t_img
     tg = t_img // fr
-    tp_n = tg // 4
+    tp_n, tblk = tg // 4, tg // 32
     w = p.w.double().numpy()
-    out = np.zeros((B, fr * 16 * tp_n, w.shape[1]))
-    c, r, f = np.meshgrid(np.arange(C), np.arange(32), np.arange(Fq), indexing="ij")
-    k_idx = (c * 4 + f % 4) * 4 + r % 4
-    t_idx = (f // 4) * 8 + r // 4
-    for blk in range(B * fr * (tp_n // 8)):
-        b, rest = divmod(blk, fr * (tp_n // 8))
-        g, tb = divmod(rest, tp_n // 8)
-        tp0 = tb * 8
-        t = g * tg + tp0 * 4 + r
-        vals = np.where(t < T_in, x[b, c, np.minimum(t, T_in - 1), f], 0.0)
-        ps = np.zeros((C * 16, 128))
-        ps[k_idx, t_idx] = vals
-        acc = ps.T @ w + p.bias.double().numpy()
-        m = acc.mean(-1, keepdims=True)
-        y = (acc - m) / np.sqrt(((acc - m) ** 2).mean(-1, keepdims=True) + 1e-5)
-        y = y * p.ln_w.double().numpy() + p.ln_b.double().numpy()
-        tl = np.arange(128)
-        out[b, (g * 16 + tl // 8) * tp_n + tp0 + tl % 8] = y
+    bias, ln_w, ln_b = (v.double().numpy() for v in (p.bias, p.ln_w, p.ln_b))
+    E = w.shape[1]
+    B_mat = w[:, [_col_channel(n) for n in range(E)]].T  # (N, K)
+    assert [_gemm_col(_col_channel(n)) for n in range(E)] == list(range(E))
+    _, taken = _schedule(B * fr * tblk, sms)
+    out = np.full((B, fr * 16 * tp_n, E), np.nan)
+    lane = np.arange(32)
+    q = lane % 4
+    for cta_tiles in taken:
+        for t in cta_tiles:
+            b, rest = divmod(t, fr * tblk)
+            g, tb = divmod(rest, tblk)
+            tp0 = tb * 8
+            t0 = g * tg + 4 * tp0
+            stage = np.zeros(C * 32 * 64)  # bf16 elements by byte offset / 2
+            cc, tt, ff = np.meshgrid(np.arange(C), np.arange(32), np.arange(64), indexing="ij")
+            frames = t0 + tt
+            vals = np.where(frames < T_in, x[b, cc, np.minimum(frames, T_in - 1), ff], 0.0)
+            stage[_swizzle128(cc, tt, ff) // 2] = vals
+            A = np.full((128, C * 16), np.nan)
+            for wg in range(2):
+                for warp in range(4):
+                    for j in range(4):
+                        m = 64 * wg + 16 * warp + lane // 4 + 8 * (j % 2)
+                        fp, tp = _row_token(m)
+                        tr = 4 * tp + q // 2 + 2 * (j // 2)
+                        f = 4 * fp + 2 * (q % 2)
+                        off = tr * 128 + ((f // 8) ^ (tr % 8)) * 16 + f % 8 * 2
+                        assert (off == _swizzle128(0, tr, f)).all()
+                        for c in range(C):
+                            addr = c * 32 * 128 + off
+                            assert _banks_distinct(addr)
+                            k = 16 * c + 2 * q + 8 * (j // 2)
+                            A[m, k] = stage[addr // 2]
+                            A[m, k + 1] = stage[addr // 2 + 1]
+            assert not np.isnan(A).any()
+            acc = A @ B_mat.T  # (128 rows, 96 GEMM columns)
+            staging = np.full((128, E), np.nan)
+            for wg in range(2):
+                for warp in range(4):
+                    for h in range(2):
+                        m = 64 * wg + 16 * warp + lane // 4 + 8 * h
+                        # registers 4 j + 2 h + i: column 8 j + 2 q + i,
+                        # channel 24 q + 2 j + i
+                        ii = np.array([4 * (c // 2) + 2 * h + c % 2 for c in range(24)])
+                        cols = 8 * (ii[None] // 4) + 2 * q[:, None] + ii[None] % 2
+                        ch = 24 * q[:, None] + np.arange(24)[None]
+                        assert (np.vectorize(_col_channel)(cols) == ch).all()
+                        v = acc[m[:, None], cols] + bias[ch]
+                        mean = v.reshape(8, 4, 24).sum((1, 2)).repeat(4)[:, None] / E
+                        var = ((v - mean) ** 2).reshape(8, 4, 24).sum((1, 2)).repeat(4)[:, None]
+                        y = (v - mean) / np.sqrt(var / E + 1e-5) * ln_w[ch] + ln_b[ch]
+                        fp, tp = _row_token(m)
+                        tok = fp * 8 + tp
+                        for k in range(3):
+                            dst = tok * 192 + 48 * q + 16 * k
+                            for quarter in range(4):
+                                assert _banks_distinct(dst[8 * quarter:8 * quarter + 8], 16)
+                        staging[tok[:, None], ch] = y
+            assert not np.isnan(staging).any()
+            fpi, tpi = np.divmod(np.arange(128), 8)
+            out[b, (g * 16 + fpi) * tp_n + tp0 + tpi] = staging
     return out
 
 
 @pytest.mark.parametrize("T", [1024, 1000])
 def test_kernel_replay_matches_plain(rng, T):
     """The kernel's shapes (E 96, F 64, spec_size 256 x fr 4 as served; T
-    1000 the 5 s trick's concat, zero-padded in the kernel): the replay of
-    its tiles and token order equals the plain version in float32."""
+    1000 the 5 s trick's concat, zero-padded by TMA): the replay of its
+    tiles, fragments, permuted weight columns, row order and token order
+    equals the plain version in float32, conflict-free."""
     E, C = 96, 7
     w = torch.from_numpy(rng.standard_normal((C * 16, E)).astype(np.float32) * 0.1)
     vec = lambda s, o: torch.from_numpy(  # noqa: E731
@@ -111,6 +229,29 @@ def test_kernel_replay_matches_plain(rng, T):
     ref = patch_embed.patch_embed_tokens_plain(torch.from_numpy(x), p).numpy()
     assert got.shape == ref.shape == (1, 4096, E)
     assert np.abs(got - ref).max() < 1e-4, np.abs(got - ref).max()
+
+
+@pytest.mark.parametrize("B", [1, 3, 32])
+def test_tile_schedule_covers_each_tile_once(B):
+    """The kernel's persistent blocks at 132 SMs (two an SM) take every
+    tile of B clips (32 a clip at T_img 1024) exactly once, each from the
+    ring stage its load went to; at B=32 the last round is partial."""
+    tiles = 32 * B
+    grid, taken = _schedule(tiles, 132)
+    assert grid == min(tiles, 2 * 132)
+    assert sorted(t for mine in taken for t in mine) == list(range(tiles))
+    assert {len(mine) for mine in taken} == ({4, 3} if B == 32 else {1})
+
+
+def test_prepared_weights_take_the_kernel_k_order(rng):
+    """prepare_patch_embed lays the conv kernel (E, C, kh, kw) out as w[(c 4
+    + kw) 4 + kh, e], so a k pair (2i, 2i + 1) is two adjacent mel bins of
+    one frame."""
+    _, _, tm = _models(rng)
+    p = prepare_patch_embed(tm, torch.float32)
+    kern = tm.encoder.patch_embed.proj.weight.detach()
+    c, kw, kh = 3, 2, 1
+    assert torch.equal(p.w[(c * 4 + kw) * 4 + kh], kern[:, c, kh, kw])
 
 
 def test_cpu_call_takes_the_plain_version(rng):
@@ -142,7 +283,8 @@ def test_fused_forward_kernel_embed_matches_jax(rng, num_tracks, T, B):
                               patch_embed="kernel")[key].numpy()
     assert got.shape == ref.shape == (B, 24 * T // 241, 15 * num_tracks)
     assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
-    ein = htsat_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32)[key]
+    ein = htsat_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32,
+                              patch_embed="einsum")[key]
     assert np.abs(ein.numpy() - got).max() < 5e-5
 
 
@@ -157,6 +299,25 @@ def test_adapter_fused_forward_kernel_embed_matches_jax(rng):
     got = htsat_fused_forward(tm, torch.from_numpy(x), compute_dtype=torch.float32,
                               patch_embed="kernel")["multi_accdoa"].numpy()
     assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
+
+
+def test_default_embed_is_the_kernel(rng):
+    """The served calls' default embed is K8: on the CPU its plain version,
+    bit for bit the same as patch_embed="kernel", from features and from
+    the waveform, float32 and bf16."""
+    _, _, tm = _models(rng)
+    x = torch.from_numpy((rng.standard_normal((2, 7, 241, 16)) * 0.5).astype(np.float32))
+    wav = (rng.standard_normal((2, 4, 57600)) * 0.1).astype(np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        dflt = htsat_fused_forward(tm, x, compute_dtype=dtype)["multi_accdoa"]
+        kern = htsat_fused_forward(tm, x, compute_dtype=dtype,
+                                   patch_embed="kernel")["multi_accdoa"]
+        assert torch.equal(dflt, kern)
+        dflt = htsat_fused_forward_from_wav(tm, wav, compute_dtype=dtype, device="cpu",
+                                            n_mels=16)["multi_accdoa"]
+        kern = htsat_fused_forward_from_wav(tm, wav, compute_dtype=dtype, device="cpu",
+                                            n_mels=16, patch_embed="kernel")["multi_accdoa"]
+        assert torch.equal(dflt, kern)
 
 
 @pytest.mark.parametrize("embed", ["einsum", "kernel"])
