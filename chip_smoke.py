@@ -17,9 +17,12 @@ again with the einsum patch embed (patch_embed="einsum"; the other served
 HTSAT paths take K8, the default); then the frontend's flat and DIF forms
 (K9, K10) through fused_logmel_iv (radix2=False, variant="dif"); then HTSAT
 serving once more with each Swin stage in one launch (K11, swin="stage",
-the merges unfolded). It checks the outputs, the kernels' launch counts on
-each path and the kernel step against the plain step, and prints the
-times.
+the merges unfolded); then EINV2 (configs/loss/einv2_pit_agg.yaml: two
+HTSAT encoders stitched before every stage) served through
+einv2_htsat_fused_forward_from_wav (K1, the DOA branch's K8, K2 on both
+branches) and trained eagerly through SELDTask (K1). It checks the outputs,
+the kernels' launch counts on each path and the kernel step against the
+plain step, and prints the times.
 
     python3 chip_smoke.py
 
@@ -67,7 +70,8 @@ CRNN_OVERRIDES = ["model=crnn", "loss=accdoa", "model.kwargs.pretrained_path=nul
 CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
                (125, 8, 256, 512), (125, 4, 512, 1024), (125, 2, 1024, 2048))
 PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn",
-         "serve_patch", "features_flat", "features_dif", "serve_stage")
+         "serve_patch", "features_flat", "features_dif", "serve_stage", "serve_einv2",
+         "train_einv2")
 DEPTHS = (2, 2, 6, 2)  # HTSAT's Swin stages (configs/model/htsat.yaml)
 
 
@@ -550,8 +554,8 @@ def phase_serve(smi):
                                              prepare_blocks, prepare_patch_embed)
 
     model = htsat_serving_model()
-    blocks = prepare_blocks(model, torch.bfloat16)
-    embed = prepare_patch_embed(model, torch.bfloat16)
+    blocks = prepare_blocks(model.encoder, torch.bfloat16)
+    embed = prepare_patch_embed(model.encoder, torch.bfloat16)
     check(len(blocks) == 12 and sum(p.merge for p in blocks) == 3, "block plan")
     g = torch.Generator(device="cuda").manual_seed(4)
     wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
@@ -643,19 +647,22 @@ def phase_serve(smi):
                       "K2": (k2_err, k2_rel, k2_ms, k2_plain, k2_bound, "operations")}
 
 
-def serve_b128(label, serve, model, smi, B=128):
+def serve_b128(label, serve, model, smi, B=128, shapes=None):
     """One batch of ``serve`` (a served HTSAT path, waveform -> outputs) at
     bench.py's B=128 (after a warm-up batch), outside the counted paths: the
-    batch and K1 alone, ms and clips/s, logged as "<label> at B=128"."""
+    batch and K1 alone, ms and clips/s, logged as "<label> at B=128".
+    ``shapes``: each output's shape after (B, 100) (mACCDOA's 117 by
+    default)."""
     import torch
     from pseldnets_tpu_torch.serving import folded_wav_features
 
     g = torch.Generator(device="cuda").manual_seed(128)
     wav = torch.randn(B, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
     with torch.no_grad():
-        out = serve(wav)["multi_accdoa"]
-        check(out.shape == (B, 100, 117) and bool(torch.isfinite(out).all()),
-              f"{label} output at B={B}")
+        out = serve(wav)
+        for key, shape in (shapes or {"multi_accdoa": (117,)}).items():
+            check(out[key].shape == (B, 100) + shape and bool(torch.isfinite(out[key]).all()),
+                  f"{label} output {key} at B={B}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         serve(wav)
@@ -938,8 +945,8 @@ def phase_serve_adapter(smi):
     from pseldnets_tpu_torch.serving.htsat import patch_merging
 
     model = adapter_model(12)
-    blocks = prepare_blocks(model, torch.bfloat16)
-    embed = prepare_patch_embed(model, torch.bfloat16)
+    blocks = prepare_blocks(model.encoder, torch.bfloat16)
+    embed = prepare_patch_embed(model.encoder, torch.bfloat16)
     check(len(blocks) == 12 and all(isinstance(p, sa.AdaptBlockParams) for p in blocks)
           and blocks[0].ch == 48 and blocks[0].ch_pad == 64, "adapter block plan")
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -1691,7 +1698,7 @@ def phase_patch_embed():
     check(tuple(feats.shape) == (B_SERVE, 7, 1024, 64)
           and tuple(five.shape) == (B_SERVE, 7, 1000, 64), "K8 inputs")
     for dtype in (torch.bfloat16, torch.float32):
-        p = prepare_patch_embed(model, dtype)
+        p = prepare_patch_embed(model.encoder, dtype)
         for what, xs in (("serving form", feats), ("5 s trick", five)):
             for B in (1, 3, B_SERVE):
                 x = xs[:B].to(dtype).contiguous()
@@ -1749,8 +1756,8 @@ def phase_serve_patch(smi):
                                              prepare_patch_embed)
 
     model = htsat_serving_model()
-    blocks = prepare_blocks(model, torch.bfloat16)
-    embed = prepare_patch_embed(model, torch.bfloat16)
+    blocks = prepare_blocks(model.encoder, torch.bfloat16)
+    embed = prepare_patch_embed(model.encoder, torch.bfloat16)
     g = torch.Generator(device="cuda").manual_seed(45)
     wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
             for _ in range(SERVE_BATCHES)]
@@ -1826,13 +1833,14 @@ def phase_serve_patch(smi):
     rel8 = ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
     check(rel8 <= 2.0 ** -7, f"K8 disagrees with its plain version at B={B_SERVE}")
     proj = model.encoder.patch_embed.proj
+    einsum = lambda: embed_tokens(model.encoder, feats, torch.bfloat16)  # noqa: E731
     with torch.no_grad():
-        e_emb = (embed_tokens(model, feats, torch.bfloat16).float() - ref).abs().max().item()
+        e_emb = (einsum().float() - ref).abs().max().item()
         k8 = cuda_ms(lambda: patch_embed_tokens(feats, embed), reps=20)
         k8_plain = cuda_ms(lambda: patch_embed_tokens_plain(feats, embed), reps=5)
-        k8_einsum = cuda_ms(lambda: embed_tokens(model, feats, torch.bfloat16), reps=20)
+        k8_einsum = cuda_ms(einsum, reps=20)
         k8_dev, k8_host = device_ms(lambda: patch_embed_tokens(feats, embed), reps=40)
-        einsum_dev, _ = device_ms(lambda: embed_tokens(model, feats, torch.bfloat16), reps=20)
+        einsum_dev, _ = device_ms(einsum, reps=20)
         img = model.encoder.reshape_wav2img(feats).contiguous()
         cw, cb = proj.weight.to(torch.bfloat16), proj.bias.to(torch.bfloat16)
         conv_ms = cuda_ms(lambda: F.conv2d(img, cw, cb, stride=4), reps=40)
@@ -2153,9 +2161,9 @@ def phase_serve_stage(smi):
     from pseldnets_tpu_torch.serving.htsat import patch_merging
 
     model = htsat_serving_model()
-    blocks = prepare_blocks(model, torch.bfloat16)
-    stages = prepare_stages(model, torch.bfloat16)
-    embed = prepare_patch_embed(model, torch.bfloat16)
+    blocks = prepare_blocks(model.encoder, torch.bfloat16)
+    stages = prepare_stages(model.encoder, torch.bfloat16)
+    embed = prepare_patch_embed(model.encoder, torch.bfloat16)
     check([sp.depth for sp in stages] == list(DEPTHS)
           and [sp.shifts[-1] for sp in stages] == [4, 4, 4, 0], "stage plan")
     g = torch.Generator(device="cuda").manual_seed(46)
@@ -2255,6 +2263,262 @@ def phase_serve_stage(smi):
                                            "served_b128": b128})}
 
 
+# bench_all.py's einv2_agg: EINV2 dual HTSAT with the AGG loss
+# (configs/loss/einv2_pit_agg.yaml), full width, 13 classes
+EINV2_OVERRIDES = ["loss=einv2_pit_agg", "model.kwargs.pretrained_path=null",
+                   "model.kwargs.audioset_pretrain=false"]
+EINV2_SHAPES = {"sed": (3, 13), "doa": (3, 3)}
+
+
+def einv2_model():
+    """The EINV2 dual HTSAT at full published width, seeded random weights,
+    non-trivial eval ScalarBN statistics, on the card."""
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.models import build_model
+
+    cfg = compose(str(ROOT / "configs"), "train", EINV2_OVERRIDES)
+    model, meta = build_model(cfg, 13, device="cuda", seed=0)
+    check(meta["method"] == "einv2" and meta["backbone"] == "HTSAT", "EINV2 configuration")
+    gen = torch.Generator().manual_seed(17)
+    with torch.no_grad():
+        model.scalar.running_mean.copy_(torch.randn(7, 64, generator=gen) * 5.0 - 20.0)
+        model.scalar.running_var.copy_(torch.rand(7, 64, generator=gen) * 50.0 + 10.0)
+    return model
+
+
+def max_diff(a, b):
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in EINV2_SHAPES)
+
+
+def phase_serve_einv2(smi):
+    """EINV2 dual HTSAT served from the waveform
+    (einv2_htsat_fused_forward_from_wav): SERVE_BATCHES batches of B_SERVE
+    10 s clips (K1 x1, K8 x1 (the DOA branch), K2 x24 (12 a branch) per
+    batch), counted from 0; the outputs against the plain path and float32;
+    K1, K8 and K2 (both branches, every block) on the batch's own inputs
+    against their plain versions, timed; K8 refusing the SED branch's four
+    channels; one batch at B=128; a profile."""
+    import torch
+    from pseldnets_tpu_torch.ops import swin_block
+    from pseldnets_tpu_torch.ops.patch_embed import (patch_embed_tokens,
+                                                     patch_embed_tokens_plain)
+    from pseldnets_tpu_torch.serving import (einv2_htsat_fused_forward_from_wav, embed_tokens,
+                                             folded_wav_features, prepare_einv2,
+                                             prepare_patch_embed)
+    from pseldnets_tpu_torch.serving import einv2 as serving_einv2
+
+    model = einv2_model()
+    params = prepare_einv2(model, torch.bfloat16)
+    check(params.sed.embed is None and params.doa.embed is not None
+          and all(len(b.blocks) == 12 and sum(p.merge for p in b.blocks) == 3
+                  for b in (params.sed, params.doa)), "EINV2 block and embed plan")
+    g = torch.Generator(device="cuda").manual_seed(47)
+    wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(SERVE_BATCHES)]
+    serve = lambda w: einv2_htsat_fused_forward_from_wav(model, w, params=params)  # noqa: E731
+    serve(wavs[0])  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: counts from 0, SERVE_BATCHES batches
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [serve(w) for w in wavs]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SERVE_BATCHES
+    launches = read_counts()
+    want = expected(K1=SERVE_BATCHES, K8=SERVE_BATCHES, K2=24 * SERVE_BATCHES)
+    log(f"EINV2: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips: launches "
+        f"{launches} (expect {want})")
+    check(launches == want, "EINV2 serving launch counts")
+    for o in outs:
+        for key, shape in EINV2_SHAPES.items():
+            check(o[key].shape == (B_SERVE, 100) + shape and o[key].dtype == torch.float32
+                  and torch.isfinite(o[key]).all().item(), f"EINV2 {key} {tuple(o[key].shape)}")
+    log(f"EINV2 served: {dt * 1e3:.2f} ms/batch, {B_SERVE / dt:.1f} clips/s "
+        f"(host clock, synchronized; {smi})")
+
+    # the same path on the plain versions, bf16 and float32
+    plain = einv2_htsat_fused_forward_from_wav(model, wavs[0], params=params,
+                                               use_kernels=False)
+    f32 = einv2_htsat_fused_forward_from_wav(model, wavs[0], compute_dtype=torch.float32,
+                                             use_kernels=False)
+    e_plain, e_f32, p_f32 = max_diff(outs[0], plain), max_diff(outs[0], f32), max_diff(plain, f32)
+    log(f"EINV2 served vs plain bf16 path: max |d| {e_plain:.3g} (<= 5e-2); vs float32 plain "
+        f"path {e_f32:.3g} (plain bf16 {p_f32:.3g}); sed std {f32['sed'].std().item():.3g}, "
+        f"doa std {f32['doa'].std().item():.3g}")
+    check(e_plain <= 5e-2, "EINV2 served output disagrees with the plain path")
+    check(e_f32 <= 1.25 * p_f32 + 1e-2, "EINV2 served output further from float32 than plain")
+
+    # K1 and K8 (the DOA branch) on the batch's own inputs; K8 refuses the
+    # SED branch's four channels before any launch
+    wav = wavs[0]
+    feats = folded_wav_features(model, wav, t_out=1024)
+    ref1 = folded_wav_features(model, wav, t_out=1024, use_kernels=False).float()
+    k1_err = (feats.float() - ref1).abs().max().item()
+    rel = ((feats.float() - ref1).abs() / ref1.abs().clamp(min=1.0)).max().item()
+    check(rel <= 2.0 ** -7, f"K1 disagrees with its plain version at B={B_SERVE} (EINV2)")
+    got = patch_embed_tokens(feats, params.doa.embed).float()
+    ref8 = patch_embed_tokens_plain(feats, params.doa.embed).float()
+    k8_err = (got - ref8).abs().max().item()
+    rel8 = ((got - ref8).abs() / ref8.abs().clamp(min=1.0)).max().item()
+    check(rel8 <= 2.0 ** -7, f"K8 disagrees with its plain version at B={B_SERVE} (EINV2)")
+    sed_feats = feats[:, :4].contiguous()
+    before = read_counts()["K8"]
+    check(raises(lambda: patch_embed_tokens(
+        sed_feats, prepare_patch_embed(model.sed_encoder, torch.bfloat16)), NotImplementedError)
+        and read_counts()["K8"] == before, "K8 must refuse the SED branch's 4 channels")
+    with torch.no_grad():
+        k1 = cuda_ms(lambda: folded_wav_features(model, wav, t_out=1024), reps=10)
+        k8 = cuda_ms(lambda: patch_embed_tokens(feats, params.doa.embed), reps=20)
+        sed_emb = cuda_ms(lambda: embed_tokens(model.sed_encoder, feats[:, :4],
+                                               torch.bfloat16), reps=20)
+
+    # K2 on both branches' own block inputs, recorded from one served batch
+    recorded = []
+
+    def record(x, p):
+        recorded.append((x, p))
+        return orig(x, p)
+
+    orig = serving_einv2.swin_block_fused
+    serving_einv2.swin_block_fused = record
+    try:
+        serve(wav)
+    finally:
+        serving_einv2.swin_block_fused = orig
+    check(len(recorded) == 24, f"recorded {len(recorded)} EINV2 block calls")
+    k2_err = k2_rel = k2_ms = k2_plain = k2_bound = 0.0
+    for j, (x, p) in enumerate(recorded):
+        y = swin_block.swin_block_fused(x, p).float()
+        y0 = swin_block.swin_block_plain(x, p).float()
+        e, sc = (y - y0).abs().max().item(), y0.abs().max().item()
+        check(torch.isfinite(y).all().item() and e <= 2.0 ** -6 * sc,
+              f"K2 EINV2 call {j} disagrees with its plain version at B={B_SERVE}")
+        k2_err, k2_rel = max(k2_err, e), max(k2_rel, e / sc)
+        k2_ms += cuda_ms(lambda: swin_block.swin_block_fused(x, p), reps=5)
+        k2_plain += cuda_ms(lambda: swin_block.swin_block_plain(x, p), reps=2)
+        nb, fl = k2_work(B_SERVE, p)
+        k2_bound += bound_ms(nb, bf16_flops=fl)[0]
+    log(f"K2 on the EINV2 batch's 24 block inputs (both branches): worst {k2_rel:.3g} of "
+        f"scale (<= 2^-6)")
+    log(f"EINV2 per batch of {B_SERVE} ({smi}): K1 {k1:.3f} ms, K8 (DOA) {k8:.3f} ms, "
+        f"einsum embed (SED) {sed_emb:.3f} ms, K2 x24 {k2_ms:.3f} ms (plain {k2_plain:.3f}, "
+        f"bound {k2_bound:.3f}), rest {dt * 1e3 - k1 - k8 - sed_emb - k2_ms:.3f} ms")
+    serve_b128("EINV2 served", serve, model, smi, shapes=EINV2_SHAPES)
+    phase_profile("one EINV2 served batch", lambda: serve(wav))
+    return launches, {"K1": (k1_err, k1_err / ref1.abs().max().item()),
+                      "K2": (k2_err, k2_rel),
+                      "K8": (k8_err, k8_err / ref8.abs().max().item())}
+
+
+def einv2_labels(rng, B, T_label, K_cls=13):
+    """EINV2 targets: up to three active tracks a frame, a random class
+    each, unit DOA vectors where active."""
+    import numpy as np
+
+    act = (rng.random((B, T_label, 3, 1)) < 0.5).astype(np.float32)
+    sed = np.zeros((B, T_label, 3, K_cls), np.float32)
+    np.put_along_axis(sed, rng.integers(0, K_cls, (B, T_label, 3, 1)), act, axis=3)
+    doa = rng.standard_normal((B, T_label, 3, 3)).astype(np.float32)
+    doa /= np.linalg.norm(doa, axis=-1, keepdims=True)
+    return {"sed_label": sed, "doa_label": doa * act}
+
+
+def phase_train_einv2(smi):
+    """Eager EINV2 training through SELDTask (the JAX package trains EINV2
+    eagerly only): SERVE_BATCHES steps of B_TRAIN clips, bf16-mixed,
+    drop-path from a generator (K1 x1 per step, K2/K3 x0), counted from 0;
+    the kernel step against the plain step, in float32 and bf16-mixed; K1's
+    training form on the step's waveforms; a profile."""
+    import numpy as np
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.ops.frontend import fused_logmel_iv_plain
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    cfg = compose(str(ROOT / "configs"), "train",
+                  EINV2_OVERRIDES + ["trainer.precision=bf16-mixed"])
+    task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=100, device="cuda")
+    check(not task.fused_forward and task.compute_dtype == torch.bfloat16,
+          "EINV2 training configuration (eager, bf16-mixed)")
+    task.init_state(0)
+    g = torch.Generator(device="cuda").manual_seed(48)
+    wavs = [torch.randn(B_TRAIN, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(SERVE_BATCHES)]
+    labels = {k: torch.from_numpy(v).cuda()
+              for k, v in einv2_labels(np.random.default_rng(1), B_TRAIN, 100).items()}
+    gen = torch.Generator(device="cuda").manual_seed(49)
+    step = lambda w: task.train_step(w, labels, gen)  # noqa: E731
+    step(wavs[0])  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: counts from 0, SERVE_BATCHES steps
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = [step(w)["loss_all"] for w in wavs]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SERVE_BATCHES
+    launches = read_counts()
+    want = expected(K1=SERVE_BATCHES)
+    log(f"EINV2 trained {SERVE_BATCHES} eager steps of {B_TRAIN} x 10 s clips: launches "
+        f"{launches} (expect {want}); losses {[round(float(v), 6) for v in losses]}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check(launches == want, "EINV2 training launch counts")
+    check(all(np.isfinite(float(v)) for v in losses), "EINV2 training loss not finite")
+    log(f"EINV2 training: {dt * 1e3:.2f} ms/step, {B_TRAIN / dt:.1f} clips/s "
+        f"(host clock, synchronized; {smi})")
+
+    # one kernel step against one plain step, from the same parameters,
+    # batch and drop-path masks. K1 is the step's one kernel, and its
+    # training form is float32: in float32 the two steps differ by K1's
+    # arithmetic alone, and phase_train's rule holds them (the float32 plain
+    # step is both references, so every grad must lie within 2^-7 of its
+    # scale). Under bf16-mixed autocast rounds every activation and
+    # activation grad, and sums that nearly cancel (stage 3's
+    # relative-position-bias grads) move by 3-14% of their scale between
+    # any two bf16 runs and float32 (PERF.md §6): there the loss is held to
+    # 2^-6 and the grads' worst distance is logged.
+    def grads_with(use_kernels, dtype):
+        task.set_use_kernels(use_kernels)
+        task.compute_dtype = dtype
+        losses, grads, _ = task.compute_grads(wavs[0], labels,
+                                              torch.Generator(device="cuda").manual_seed(50))
+        return losses["loss_all"].float().reshape(1), grads
+
+    lk, gk = grads_with(True, torch.float32)
+    lf, gf = grads_with(False, torch.float32)
+    lk16, gk16 = grads_with(True, torch.bfloat16)
+    lp16, gp16 = grads_with(False, torch.bfloat16)
+    task.set_use_kernels(True)
+    task.compute_dtype = torch.bfloat16
+    log(f"EINV2 kernel step vs plain step: loss {lk.item():.6f} (plain {lf.item():.6f}) in "
+        f"float32, {lk16.item():.6f} (plain {lp16.item():.6f}) in bf16-mixed")
+    compare("EINV2 loss (float32)", lk, lf, lf, 2.0 ** -6)
+    compare("EINV2 loss (bf16)", lk16, lp16, lf, 2.0 ** -6)
+    worst = worst16 = noise16 = 0.0
+    for name, a, c, a16, b16 in zip(task.trained_names, gk, gf, gk16, gp16):
+        scale = max(c.abs().max().item(), 1e-30)
+        worst = max(worst, compare(name[-36:], a, c, c, 2.0 ** -4) / scale)
+        worst16 = max(worst16, (a16 - b16).abs().max().item() / scale)
+        noise16 = max(noise16, (b16 - c).abs().max().item() / scale)
+    log(f"EINV2: every parameter grad within {worst:.3g} of its scale of the plain step's in "
+        f"float32; in bf16-mixed within {worst16:.3g}, the plain bf16 step's own distance "
+        f"from float32 up to {noise16:.3g}")
+
+    # K1 in its training form (float32, unfolded) on the step's own waveforms
+    feats = task.extractor(wavs[0])
+    ref = fused_logmel_iv_plain(wavs[0])
+    db = (feats[:, :4] - ref[:, :4]).abs().max().item()
+    iv = (feats[:, 4:] - ref[:, 4:]).abs().max().item()
+    check(torch.isfinite(feats).all().item() and db <= 8e-4 and iv <= 7e-5,
+          f"K1 training form disagrees with its plain version at B={B_TRAIN} (EINV2)")
+    k1_rel = max(db / ref[:, :4].abs().max().item(), iv / ref[:, 4:].abs().max().item())
+    phase_profile("one EINV2 training step", lambda: step(wavs[0]))
+    return launches, {"K1": (max(db, iv), k1_rel)}
+
+
 def phase_profile(what, fn):
     """Device time by kernel over one call of fn (torch.profiler, CUPTI);
     returns the (kernel, ms, count) rows, empty when nothing was recorded."""
@@ -2312,11 +2576,14 @@ def main():
     results["features_dif"] = phase_features_form(smi, "K10", {"variant": "dif"})
     phase_swin_stage()
     results["serve_stage"] = phase_serve_stage(smi)
+    results["serve_einv2"] = phase_serve_einv2(smi)
+    results["train_einv2"] = phase_train_einv2(smi)
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
     # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the einsum embed, one
-    # call of each frontend form, HTSAT one stage per launch), each counted
-    # from 0; errors: the largest over the checks at each path's own shapes,
+    # call of each frontend form, HTSAT one stage per launch, EINV2 served and
+    # trained eagerly), each counted from 0; errors: the largest over the
+    # checks at each path's own shapes,
     # absolute and as a share of the plain output's largest magnitude; ms and
     # bounds per served batch (K1, K2, K4, K6, K7, K8, K11), per training step
     # (K3, K5) or per call on a batch (K9, K10); library_ms: one PyTorch call

@@ -1,3 +1,4 @@
-"""SELD losses in PyTorch (ACCDOA and multi-ACCDOA ADPIT in this slice)."""
+"""SELD losses in PyTorch: ACCDOA, multi-ACCDOA ADPIT and the EINV2 tPIT
+and AGG losses."""
 
-from .losses import AccdoaLoss, AdpitLoss, build_loss  # noqa: F401
+from .losses import AccdoaLoss, AdpitLoss, AggPitLoss, Einv2PitLoss, build_loss  # noqa: F401

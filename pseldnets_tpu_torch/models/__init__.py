@@ -1,3 +1,3 @@
-"""SELD models in PyTorch (HTSAT with ACCDOA / mACCDOA heads in this slice)."""
+"""SELD models in PyTorch: the ACCDOA / mACCDOA heads and the EINV2 heads."""
 
 from .factory import build_model  # noqa: F401

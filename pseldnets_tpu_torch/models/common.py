@@ -1,10 +1,11 @@
 """Shared model plumbing in PyTorch, the counterpart of the JAX package's
 models/common.py: BatchNorm with torch semantics (per-channel "scalar" BN,
-BatchNorm2d), the ViT Mlp and PatchEmbed, the GRU / transformer / conformer
-sequence decoders, and the time-axis interpolate used by every head.
+BatchNorm2d), the ViT Mlp and PatchEmbed, the EINV2 CrossStitch, the GRU /
+transformer / conformer sequence decoders, and the time-axis interpolate used
+by every head.
 
-Parity targets: reference src/models/components/model_utilities.py (Mlp
-:129-171, PatchEmbed :174-213, Decoder :245-269) and
+Parity targets: reference src/models/components/model_utilities.py
+(CrossStitch :35-54, Mlp :129-171, PatchEmbed :174-213, Decoder :245-269) and
 src/models/components/utils.py (interpolate :25-52).
 """
 
@@ -182,6 +183,33 @@ class PatchEmbed(nn.Module):
         if not self.flatten:
             return x
         return self.norm(x.flatten(2).transpose(1, 2))
+
+
+class CrossStitch(nn.Module):
+    """Learnable per-channel 2 x 2 mixing of two branches' features (the JAX
+    package's models/common.py:212-240): ``weight`` (C, 2, 2), init U(0.1,
+    0.9); the channel axis is 1 on 4-D (N, C, T, F) input and -1 on 3-D
+    (N, L, C) tokens. The update is sequential, as the reference's
+    (model_utilities.py:50-53): y mixes with the already mixed x. The
+    products promote with the inputs' dtype (a float32 weight on bf16
+    tokens gives float32)."""
+
+    def __init__(self, feat_dim: int):
+        super().__init__()
+        self.feat_dim = feat_dim
+        self.weight = nn.Parameter(torch.empty(feat_dim, 2, 2).uniform_(0.1, 0.9))
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if x.dim() == 4:
+            shape = (1, self.feat_dim, 1, 1)
+        elif x.dim() == 3:
+            shape = (1, 1, self.feat_dim)
+        else:
+            raise ValueError(f"x must be 3D or 4D, got {x.dim()}D")
+        w = self.weight
+        x_new = w[:, 0, 0].reshape(shape) * x + w[:, 0, 1].reshape(shape) * y
+        y_new = w[:, 1, 0].reshape(shape) * x_new + w[:, 1, 1].reshape(shape) * y
+        return x_new, y_new
 
 
 def _linear_upsample_matrix(t_in: int, ratio: int) -> np.ndarray:

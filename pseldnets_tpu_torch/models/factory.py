@@ -1,6 +1,7 @@
 """Model factory: (method, backbone) -> torch module, the counterpart of the
-JAX package's models/factory.py (the ACCDOA/mACCDOA CRNN, ConvConformer,
-HTSAT and PaSST branches).
+JAX package's models/factory.py: the ACCDOA/mACCDOA CRNN, ConvConformer,
+HTSAT and PaSST heads, and the EINV2 CRNN, ConvConformer, HTSAT,
+HTSAT_SEDDOA and PaSST heads.
 
 Mirrors the reference's lookup (src/models/model_module.py:13-34) including the
 audio_feature -> in_channels mapping (:24-31).
@@ -12,16 +13,13 @@ import torch
 import torch.nn as nn
 
 from ..ops._cuda import resolve_device
-from . import heads
+from . import einv2_heads, heads
 from .adapters import AdaptConfig, Adapter
-from .common import TorchBatchNorm
+from .common import CrossStitch, TorchBatchNorm
 from .conformer import RelativeMultiHeadAttention
 from .htsat import WindowAttention
 from .passt import PaSSTEncoder
 
-# what the JAX package builds and the port does not yet, with the ROADMAP.md
-# queue A step that ports it
-_NOT_PORTED = {"einv2": 7}
 # PaSST encoder kwargs the module does not take (the JAX package's
 # models/factory.py:18)
 _PASST_DROP = ("representation_size", "norm_layer", "act_layer", "attn_drop_rate")
@@ -43,7 +41,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     N(0, 1/fan_in) truncated at 2 sigma with N(0, 0.02) biases, LayerNorm
     and BatchNorm affines 1 + N(0, 0.1) and N(0, 0.1), relative-position
     tables N(0, 0.5) so the bias visibly shapes attention, the conformer's
-    u/v biases xavier-uniform (as flax). BN running stats stay (0, 1).
+    u/v biases xavier-uniform (as flax), CrossStitch weights U(0.1, 0.9)
+    (the JAX init's range). BN running stats stay (0, 1).
     An adapter's fc2 stays zero, as the JAX package initializes it."""
     def randn(p, std, base=0.0):
         p.copy_(base + std * torch.randn(p.shape, generator=generator))
@@ -70,6 +69,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(mod, (nn.LayerNorm, TorchBatchNorm)):
                 randn(mod.weight, 0.1, 1.0)
                 randn(mod.bias, 0.1)
+            elif isinstance(mod, CrossStitch):
+                mod.weight.copy_(0.1 + 0.8 * torch.rand(mod.weight.shape, generator=generator))
             elif isinstance(mod, WindowAttention):
                 randn(mod.relative_position_bias_table, 0.5)
             elif isinstance(mod, PaSSTEncoder):
@@ -102,43 +103,78 @@ def build_model(cfg, num_classes: int, *, device="cuda", seed: int = 0):
     tgt_output_frames = int(kwargs.pop("tgt_output_frames", 100))
     adapt = AdaptConfig(cfg.get("adapt"))  # raises on what is not ported
 
-    for what in (method, backbone):
-        if what in _NOT_PORTED:
-            raise NotImplementedError(
-                f"backbone '{backbone}' for method '{method}' is not ported yet "
-                f"(ROADMAP.md queue A step {_NOT_PORTED[what]})")
-    if method not in ("accdoa", "multi_accdoa") or backbone not in (
+    if method == "einv2":
+        model = _einv2_model(cfg, backbone, num_classes, in_channels, mel_bins, pred_res,
+                             tgt_output_frames, adapt, dict(kwargs))
+    elif method not in ("accdoa", "multi_accdoa") or backbone not in (
             "CRNN", "ConvConformer", "HTSAT", "PASST"):
         raise NotImplementedError(f"backbone '{backbone}' for method '{method}'")
-    num_tracks = 3 if method == "multi_accdoa" else 1
-    enc = dict(kwargs)
-    if backbone in ("CRNN", "ConvConformer"):
+    elif backbone in ("CRNN", "ConvConformer"):
         cls = heads.ConvConformer if backbone == "ConvConformer" else heads.CRNN
         model = cls(num_classes=num_classes, in_channels=in_channels,
-                    encoder=kwargs.get("encoder", "CNN8"),
-                    num_features=tuple(kwargs.get("num_features", (32, 64, 128, 256))),
-                    decoder=cfg["model"].get("decoder"),
-                    num_decoder_layers=int(cfg["model"].get("num_decoder_layers", 2)),
-                    mel_bins=mel_bins, pred_res=pred_res, num_tracks=num_tracks)
+                    **_crnn_kwargs(cfg, kwargs, mel_bins, pred_res),
+                    num_tracks=_num_tracks(method))
     elif backbone == "PASST":  # takes no adapters, as in the JAX package
-        for k in _PASST_DROP:
-            enc.pop(k, None)
-        enc["img_size"] = tuple(enc.get("img_size", (64, 1001)))
-        enc["mlp_ratio"] = float(enc.get("mlp_ratio", 4.0))
         model = heads.PASST(num_classes=num_classes, in_channels=in_channels,
-                            mel_bins=mel_bins, num_tracks=num_tracks,
-                            encoder_kwargs=enc)
+                            mel_bins=mel_bins, num_tracks=_num_tracks(method),
+                            encoder_kwargs=_passt_kwargs(kwargs))
     else:
-        enc["depths"] = tuple(enc.get("depths", (2, 2, 6, 2)))
-        enc["num_heads"] = tuple(enc.get("num_heads", (4, 8, 16, 32)))
-        enc["patch_stride"] = tuple(enc.get("patch_stride", (4, 4)))
-        enc["mlp_ratio"] = float(enc.get("mlp_ratio", 4.0))
         model = heads.HTSAT(num_classes=num_classes, in_channels=in_channels,
-                            mel_bins=mel_bins, pred_res=pred_res, num_tracks=num_tracks,
-                            tgt_output_frames=tgt_output_frames, encoder_kwargs=enc,
-                            adapt=adapt)
+                            mel_bins=mel_bins, pred_res=pred_res,
+                            num_tracks=_num_tracks(method),
+                            tgt_output_frames=tgt_output_frames,
+                            encoder_kwargs=_htsat_kwargs(kwargs), adapt=adapt)
     init_weights(model, torch.Generator().manual_seed(seed))
     meta = {"pretrained_path": pretrained_path,
             "audioset_pretrain": audioset_pretrain,
             "method": method, "backbone": backbone, "in_channels": in_channels}
     return model.to(device).eval(), meta
+
+
+def _num_tracks(method: str) -> int:
+    return 3 if method == "multi_accdoa" else 1
+
+
+def _crnn_kwargs(cfg, kwargs, mel_bins: int, pred_res: int, decoder=None):
+    return dict(encoder=kwargs.get("encoder", "CNN8"),
+                num_features=tuple(kwargs.get("num_features", (32, 64, 128, 256))),
+                decoder=decoder or cfg["model"].get("decoder"),
+                num_decoder_layers=int(cfg["model"].get("num_decoder_layers", 2)),
+                mel_bins=mel_bins, pred_res=pred_res)
+
+
+def _htsat_kwargs(kwargs):
+    enc = dict(kwargs)
+    enc["depths"] = tuple(enc.get("depths", (2, 2, 6, 2)))
+    enc["num_heads"] = tuple(enc.get("num_heads", (4, 8, 16, 32)))
+    enc["patch_stride"] = tuple(enc.get("patch_stride", (4, 4)))
+    enc["mlp_ratio"] = float(enc.get("mlp_ratio", 4.0))
+    return enc
+
+
+def _passt_kwargs(kwargs):
+    enc = {k: v for k, v in kwargs.items() if k not in _PASST_DROP}
+    enc["img_size"] = tuple(enc.get("img_size", (64, 1001)))
+    enc["mlp_ratio"] = float(enc.get("mlp_ratio", 4.0))
+    return enc
+
+
+def _einv2_model(cfg, backbone, num_classes, in_channels, mel_bins, pred_res,
+                 tgt_output_frames, adapt, kwargs):
+    """The EINV2 heads (the JAX package's models/factory.py:98-130)."""
+    if backbone in ("CRNN", "ConvConformer"):
+        decoder = "conformer" if backbone == "ConvConformer" else None
+        return einv2_heads.CRNN(num_classes=num_classes, in_channels=in_channels,
+                                **_crnn_kwargs(cfg, kwargs, mel_bins, pred_res, decoder))
+    if backbone in ("HTSAT", "HTSAT_SEDDOA"):
+        cls = einv2_heads.HTSAT if backbone == "HTSAT" else einv2_heads.HTSAT_SEDDOA
+        return cls(num_classes=num_classes, in_channels=in_channels, mel_bins=mel_bins,
+                   pred_res=pred_res, tgt_output_frames=tgt_output_frames,
+                   encoder_kwargs=_htsat_kwargs(kwargs), adapt=adapt)
+    if backbone == "PASST":
+        return einv2_heads.PASST(num_classes=num_classes, in_channels=in_channels,
+                                 mel_bins=mel_bins, ps_gap=int(cfg["model"].get("ps_gap", 2)),
+                                 decoder=cfg["model"].get("decoder"),
+                                 num_decoder_layers=int(cfg["model"].get("num_decoder_layers", 2)),
+                                 encoder_kwargs=_passt_kwargs(kwargs))
+    raise NotImplementedError(f"backbone '{backbone}' for method 'einv2'")

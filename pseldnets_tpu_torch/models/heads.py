@@ -7,7 +7,7 @@ Parity: reference src/models/accdoa.py (CRNN :12-95, HTSAT :107-246, PaSST
 [track0 x(K) y(K) z(K) | track1 ... | track2 ...].
 """
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -70,6 +70,54 @@ class ConvConformer(CRNN):
         super().__init__(*args, decoder=decoder, **kwargs)
 
 
+def concat_5s(x: torch.Tensor, pred_res: int,
+              tgt_output_frames: int) -> Tuple[torch.Tensor, int, bool]:
+    """The 5 s clip trick of the HTSAT heads (reference accdoa.py:211-240):
+    when (B, C, T, F) clips yield tgt_output_frames / 2 label frames, the
+    two batch halves, each without its last frame, are concatenated in time
+    into 10 s clips. Returns (encoder input, output_frames, five_sec)."""
+    B = x.shape[0]
+    output_frames = x.shape[2] // pred_res
+    five_sec = output_frames < tgt_output_frames
+    if five_sec:
+        if output_frames != tgt_output_frames // 2 or B % 2:
+            raise ValueError("only 5-second (even batch) or 10-second "
+                             "clips are supported")
+        x = torch.cat([x[: B // 2, :, :-1], x[B // 2:, :, :-1]], dim=2)
+    elif output_frames > tgt_output_frames:
+        raise NotImplementedError("output_frames > tgt_output_frames")
+    return x, output_frames, five_sec
+
+
+def tscam_head(tok: torch.Tensor, conv: nn.Conv2d, time_res: int, B: int,
+               output_frames: int, five_sec: bool, tgt_output_frames: int,
+               pred_res: int) -> torch.Tensor:
+    """Token map (B', C, SF, ST) -> tscam conv -> bilinear interpolation by
+    ``time_res`` -> the first tgt_output_frames * pred_res frames (split back
+    into the batch halves after the 5 s trick) -> mean over each label
+    frame's pred_res frames: (B, output_frames, conv outputs)."""
+    x = conv(tok).flatten(2).transpose(1, 2)  # (B', ST, out)
+    x = interpolate(x, ratio=time_res, method="bilinear")
+    x = x[:, : tgt_output_frames * pred_res]
+    if five_sec:
+        half = output_frames * pred_res
+        x = torch.cat([x[:, :half], x[:, half:]], dim=0)
+    return x.reshape(B, output_frames, pred_res, -1).mean(dim=2)
+
+
+def block_masks(enc: HTSATEncoder, training: bool, B: int,
+                dp_masks: Optional[Sequence[torch.Tensor]],
+                generator: Optional[torch.Generator], device) -> Optional[Sequence[torch.Tensor]]:
+    """``dp_masks`` as given, or, in train mode with drop-path rates not all
+    0, one (B, 2) mask per block of ``enc`` drawn from ``generator``."""
+    rates = enc.block_rates()
+    if training and dp_masks is None and any(rates):
+        if generator is None:
+            raise ValueError("train mode with drop-path needs dp_masks or a generator")
+        dp_masks = drop_path_masks(generator, B, rates, device)
+    return dp_masks
+
+
 class HTSAT(nn.Module):
     """HTS-AT backbone + tscam conv head (reference accdoa.py:107-246).
 
@@ -105,29 +153,13 @@ class HTSAT(nn.Module):
 
     def forward(self, x: torch.Tensor, dp_masks: Optional[Sequence[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        B, C, T, Fq = x.shape
-        output_frames = T // self.pred_res
-        five_sec = output_frames < self.tgt_output_frames
-        if five_sec:
-            if output_frames != self.tgt_output_frames // 2 or B % 2:
-                raise ValueError("only 5-second (even batch) or 10-second "
-                                 "clips are supported")
-            x = torch.cat([x[: B // 2, :, :-1], x[B // 2:, :, :-1]], dim=2)
-        elif output_frames > self.tgt_output_frames:
-            raise NotImplementedError("output_frames > tgt_output_frames")
-        rates = self.encoder.block_rates()
-        if self.training and dp_masks is None and any(rates):
-            if generator is None:
-                raise ValueError("train mode with drop-path needs dp_masks or a generator")
-            dp_masks = drop_path_masks(generator, x.shape[0], rates, x.device)
+        B = x.shape[0]
+        x, output_frames, five_sec = concat_5s(x, self.pred_res, self.tgt_output_frames)
+        dp_masks = block_masks(self.encoder, self.training, x.shape[0], dp_masks, generator,
+                               x.device)
         x = self.encoder(self.scalar(x), dp_masks)  # (B', C, SF, ST)
-        x = self.tscam_conv(x).flatten(2).transpose(1, 2)  # (B', ST, out)
-        x = interpolate(x, ratio=self.encoder.time_res, method="bilinear")
-        x = x[:, : self.tgt_output_frames * self.pred_res]
-        if five_sec:
-            half = output_frames * self.pred_res
-            x = torch.cat([x[:, :half], x[:, half:]], dim=0)
-        x = x.reshape(B, output_frames, self.pred_res, -1).mean(dim=2)
+        x = tscam_head(x, self.tscam_conv, self.encoder.time_res, B, output_frames, five_sec,
+                       self.tgt_output_frames, self.pred_res)
         return {self.output_key: torch.tanh(x.float())}
 
 

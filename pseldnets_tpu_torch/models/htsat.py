@@ -294,6 +294,27 @@ class HTSATEncoder(nn.Module):
         x = x.reshape(B, C, Fq, r, target_T // r).transpose(2, 3)
         return x.reshape(B, C, r * Fq, target_T // r)
 
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """reshape_wav2img + the patch embed: (B, C, T, F) -> stage-0 tokens
+        (the reference's forward_patch, htsat.py:547-553; position dropout
+        is not ported)."""
+        return self.patch_embed(self.reshape_wav2img(x))
+
+    def run_stage(self, i: int, x: torch.Tensor,
+                  dp_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """Stage ``i``'s blocks and its PatchMerging; ``dp_masks``: one (B, 2)
+        mask per block of the stage (train mode)."""
+        return self.layers[i](x, dp_masks)
+
+    def stage_masks(self, dp_masks: Optional[Sequence[torch.Tensor]]
+                    ) -> List[Optional[Sequence[torch.Tensor]]]:
+        """One flat list of per-block masks split by stage (None: None for
+        every stage)."""
+        if dp_masks is None:
+            return [None] * self.num_layers
+        ends = np.cumsum(self.depths)
+        return [dp_masks[e - d:e] for d, e in zip(self.depths, ends)]
+
     def finalize(self, x: torch.Tensor) -> torch.Tensor:
         """norm + token-map reshape with frequency unfolding
         (= reference forward_reshape, htsat.py:555-568)."""
@@ -327,10 +348,7 @@ class HTSATEncoder(nn.Module):
         """``dp_masks``: one (B, 2) mask per block, in order (train mode)."""
         if self.training:
             self.check_trainable()
-        x = self.patch_embed(self.reshape_wav2img(x))
-        i = 0
-        for layer in self.layers:
-            n = len(layer.blocks)
-            x = layer(x, None if dp_masks is None else dp_masks[i:i + n])
-            i += n
+        x = self.embed(x)
+        for i, masks in enumerate(self.stage_masks(dp_masks)):
+            x = self.run_stage(i, x, masks)
         return self.finalize(x)

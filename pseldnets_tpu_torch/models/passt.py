@@ -133,6 +133,10 @@ class PaSSTEncoder(nn.Module):
             raise NotImplementedError(TRAIN_NOT_PORTED)
         return self.add_pos_embed(self.patch_embed(x.transpose(2, 3)))
 
+    def run_block(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Block ``i`` alone (the EINV2 cross-stitch hook)."""
+        return self.blocks[i](x)
+
     def token_map(self, x: torch.Tensor) -> torch.Tensor:
         """Normed tokens (B, num_tokens + F'T', E) -> the frequency mean of
         the token map (B, T', E)."""
@@ -148,6 +152,6 @@ class PaSSTEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.forward_before(x)
-        for blk in self.blocks:
-            h = blk(h)
+        for i in range(len(self.blocks)):
+            h = self.run_block(i, h)
         return self.forward_after(h)

@@ -18,7 +18,7 @@ On a CUDA tensor ``patch_embed_tokens`` launches ``csrc/patch_embed.cu``
 (bf16: a persistent TMA-fed wgmma kernel, two blocks an SM walking the
 128-token tiles; float32: CUDA-core FMA); on a CPU tensor it runs
 ``patch_embed_tokens_plain``, which nothing on the card's served path calls.
-``prepare_patch_embed`` lays the weights out once per model and dtype, in
+``prepare_patch_embed`` lays the weights out once per encoder and dtype, in
 the kernel's k order (c, kw, kh), which the plain version reads too.
 """
 
@@ -59,10 +59,10 @@ class PatchEmbedParams:
         return self.w.dtype
 
 
-def prepare_patch_embed(model, compute_dtype: torch.dtype = torch.bfloat16) -> PatchEmbedParams:
-    """K8's weights from an HTSAT head (``model.encoder``); raises unless
-    the patch embed is the 4 x 4 stride-4 one the kernel takes."""
-    enc = model.encoder
+def prepare_patch_embed(enc, compute_dtype: torch.dtype = torch.bfloat16) -> PatchEmbedParams:
+    """K8's weights from an HTSAT encoder (models.htsat.HTSATEncoder);
+    raises unless the patch embed is the 4 x 4 stride-4 one the kernel
+    takes."""
     if enc.patch_size != 4 or tuple(enc.patch_stride) != (4, 4):
         raise NotImplementedError("the fused forward takes the 4x4/4 patch embed")
     proj, norm = enc.patch_embed.proj, enc.patch_embed.norm

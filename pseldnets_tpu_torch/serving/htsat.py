@@ -24,8 +24,11 @@ on a CPU tensor the default runs K8's plain version. The final LayerNorm,
 the token-map finalize, the tscam conv, the interpolation matmul, the frame
 mean and the tanh stay plain PyTorch, as the JAX package leaves them
 outside its kernels.
-``embed_tokens`` and ``head_tail`` carry autograd: the fused training forward
-(train/fused_forward.py) shares them; the serving callers run under no_grad.
+``prepare_blocks``, ``embed_tokens`` and ``head_tail`` take the encoder (and
+the tscam conv) they work on, so the EINV2 heads' two encoders share them
+(serving/einv2.py). ``embed_tokens`` and ``head_tail`` carry autograd: the
+fused training forward (train/fused_forward.py) shares them; the serving
+callers run under no_grad.
 
 Eval only; plain and constant-scalar AdapterBit checkpoints (models/adapters.py
 raises on the rest at build time); 10 s or 5 s clips (the reference's two
@@ -40,8 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.common import _linear_upsample_matrix, layer_norm
-from ..models.heads import HTSAT
-from ..models.htsat import PatchMerging
+from ..models.heads import HTSAT, concat_5s
+from ..models.htsat import HTSATEncoder, PatchMerging
 from ..ops._cuda import resolve_device
 from ..ops.frontend import fused_logmel_iv, fused_logmel_iv_plain
 from ..ops.patch_embed import (PatchEmbedParams, patch_embed_tokens,
@@ -56,13 +59,14 @@ from ..ops.swin_stage import (StageParams, prepare_stage, swin_stage_fused_v2,
 BlockParams = Union[SwinBlockParams, AdaptBlockParams]
 
 
-def prepare_blocks(model: HTSAT,
+def prepare_blocks(enc: HTSATEncoder,
                    compute_dtype: torch.dtype = torch.bfloat16) -> List[BlockParams]:
-    """Every block's kernel-layout weights, in order: K2's, where the last
-    block of each stage but the last carries the stage's PatchMerging, or,
-    for a block with adapters, K4's (no merge fold)."""
+    """Every block's kernel-layout weights of encoder ``enc``, in order:
+    K2's, where the last block of each stage but the last carries the
+    stage's PatchMerging, or, for a block with adapters, K4's (no merge
+    fold)."""
     out = []
-    for layer in model.encoder.layers:
+    for layer in enc.layers:
         for j, blk in enumerate(layer.blocks):
             if has_adapters(blk):
                 out.append(prepare_adapt_block(blk, compute_dtype))
@@ -73,11 +77,11 @@ def prepare_blocks(model: HTSAT,
     return out
 
 
-def prepare_stages(model: HTSAT,
+def prepare_stages(enc: HTSATEncoder,
                    compute_dtype: torch.dtype = torch.bfloat16) -> List[StageParams]:
-    """Every stage's K11 weights, in order (no merge folds); raises on an
-    AdapterBit model."""
-    return [prepare_stage(layer, compute_dtype) for layer in model.encoder.layers]
+    """Every stage's K11 weights of encoder ``enc``, in order (no merge
+    folds); raises on an AdapterBit encoder."""
+    return [prepare_stage(layer, compute_dtype) for layer in enc.layers]
 
 
 def patch_merging(mod: PatchMerging, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -99,16 +103,16 @@ def _ln(x: torch.Tensor, ln: torch.nn.LayerNorm) -> torch.Tensor:
     return layer_norm(x, ln).to(x.dtype)
 
 
-def embed_tokens(model: HTSAT, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """Normalized (B, C, T, F) features -> patch-embedded, LayerNormed tokens
-    (B, H*W, E) in the compute dtype.
+def embed_tokens(enc: HTSATEncoder, x: torch.Tensor,
+                 compute_dtype: torch.dtype) -> torch.Tensor:
+    """Normalized (B, C, T, F) features -> encoder ``enc``'s patch-embedded,
+    LayerNormed tokens (B, H*W, E) in the compute dtype.
 
     reshape_wav2img + the 4x4/4 conv as one row-major reshape + einsum: image
     row g*F+f, column t'' with t = g*(T/fr)+t''; patch row g*(F/4)+f//4,
     column t''//4 - splitting the trailing (T, F) axes in place yields every
     patch index without a transpose (the JAX package's serving/htsat.py:136-157).
     """
-    enc = model.encoder
     fr, spec_size = enc.freq_ratio, enc.spec_size
     sh, sw = enc.patch_stride
     if enc.patch_size != 4 or (sh, sw) != (4, 4):
@@ -140,13 +144,13 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
     ``pre_normalized``: ``x`` already carries the eval ScalarBN (folded into
     the frontend kernel) and may be zero-padded to the full reshape_wav2img
     frame count - 10 s clips only. ``blocks``: :func:`prepare_blocks` of this
-    model and dtype, to skip preparing the weights on every call.
+    model's encoder and dtype, to skip preparing the weights on every call.
     ``patch_embed``: "kernel" (K8, the default; ``embed``: its
-    :func:`prepare_patch_embed` of this model and dtype, likewise) or
+    :func:`prepare_patch_embed` of the encoder and dtype, likewise) or
     "einsum".
     ``swin``: "block" (K2 per block, merges folded; K4 with adapters) or
     "stage" (K11 per stage, merges unfolded; ``stages``: its
-    :func:`prepare_stages` of this model and dtype, likewise).
+    :func:`prepare_stages` of the encoder and dtype, likewise).
     """
     enc = model.encoder
     cd = compute_dtype
@@ -159,65 +163,76 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
             raise NotImplementedError("swin='stage' has no adapters (nor have the JAX "
                                       "package's stage kernels): use swin='block'")
         if stages is None:
-            stages = prepare_stages(model, cd)
+            stages = prepare_stages(enc, cd)
     elif blocks is None:
-        blocks = prepare_blocks(model, cd)
+        blocks = prepare_blocks(enc, cd)
     if patch_embed == "kernel" and embed is None:
-        embed = prepare_patch_embed(model, cd)
+        embed = prepare_patch_embed(enc, cd)
     block_fn = swin_block_fused if use_kernels else swin_block_plain
     stage_fn = swin_stage_fused_v2 if use_kernels else swin_stage_plain
     adapt_fn = swin_block_adapt_fused if use_kernels else swin_block_adapt_plain
 
-    B, C, T, Fq = x.shape
-    if pre_normalized:
-        output_frames = min(T // model.pred_res, model.tgt_output_frames)
-        five_sec = False
-        x = x.to(cd)
-    else:
-        output_frames = T // model.pred_res
-        five_sec = output_frames < model.tgt_output_frames
-        if five_sec:
-            if output_frames != model.tgt_output_frames // 2 or B % 2:
-                raise ValueError("only 5-second (even batch) or 10-second "
-                                 "clips are supported")
-            x = torch.cat([x[: B // 2, :, :-1], x[B // 2:, :, :-1]], dim=2)
-        x = model.scalar(x).to(cd)
-
+    B = x.shape[0]
+    output_frames, five_sec, x = normalized_input(model, x, cd, pre_normalized)
     if patch_embed == "kernel":
         x = (patch_embed_tokens if use_kernels else patch_embed_tokens_plain)(x, embed)
     else:
-        x = embed_tokens(model, x, cd)
+        x = embed_tokens(enc, x, cd)
     if swin == "stage":
         for layer, sp in zip(enc.layers, stages):
             x = stage_fn(x, sp)
             if layer.downsample is not None:
                 x = patch_merging(layer.downsample, x, cd)
-        return head_tail(model, x, cd, B, output_frames, five_sec)
-    i = 0
-    for layer in enc.layers:
-        for _ in layer.blocks:
-            p = blocks[i]
-            i += 1
-            x = adapt_fn(x, p) if isinstance(p, AdaptBlockParams) else block_fn(x, p)
-        if layer.downsample is not None and isinstance(p, AdaptBlockParams):
-            x = patch_merging(layer.downsample, x, cd)
-    return head_tail(model, x, cd, B, output_frames, five_sec)
+    else:
+        for i in range(enc.num_layers):
+            x = run_blocks(enc, blocks, i, x, block_fn, adapt_fn, cd)
+    x = head_tail(model, enc, model.tscam_conv, x, cd, B, output_frames, five_sec)
+    return {model.output_key: torch.tanh(x.float())}
 
 
-def head_tail(model: HTSAT, x: torch.Tensor, compute_dtype: torch.dtype, B: int,
-              output_frames: int, five_sec: bool) -> Dict[str, torch.Tensor]:
-    """Last-stage tokens (B', L, C) -> the head's output dict: final
-    LayerNorm, token map, tscam conv, bilinear interpolation, frame mean and
-    tanh (models.heads.HTSAT), rounded to the compute dtype where the JAX
-    package's fused forwards round."""
-    enc = model.encoder
+def normalized_input(model: torch.nn.Module, x: torch.Tensor, compute_dtype: torch.dtype,
+                     pre_normalized: bool) -> Tuple[int, bool, torch.Tensor]:
+    """An HTSAT head's (B, C, T, F) input -> (output_frames, five_sec, the
+    encoder's normalized input in the compute dtype): the 5 s trick and the
+    eval ScalarBN, or, ``pre_normalized``, the input as it is (10 s clips,
+    possibly zero-padded past the label frames)."""
+    if pre_normalized:
+        return min(x.shape[2] // model.pred_res, model.tgt_output_frames), False, \
+            x.to(compute_dtype)
+    x, output_frames, five_sec = concat_5s(x, model.pred_res, model.tgt_output_frames)
+    return output_frames, five_sec, model.scalar(x).to(compute_dtype)
+
+
+def run_blocks(enc: HTSATEncoder, blocks: List[BlockParams], i: int, x: torch.Tensor,
+               block_fn, adapt_fn, compute_dtype: torch.dtype) -> torch.Tensor:
+    """Stage ``i`` of encoder ``enc`` on its :func:`prepare_blocks` weights:
+    ``block_fn`` (K2 or its plain version) on each block, the merge folded
+    into the last, or ``adapt_fn`` (K4 or its plain version) on a block with
+    adapters and the merge unfolded."""
+    start = sum(enc.depths[:i])
+    layer = enc.layers[i]
+    for p in blocks[start:start + enc.depths[i]]:
+        x = adapt_fn(x, p) if isinstance(p, AdaptBlockParams) else block_fn(x, p)
+    if layer.downsample is not None and isinstance(p, AdaptBlockParams):
+        x = patch_merging(layer.downsample, x, compute_dtype)
+    return x
+
+
+def head_tail(model: torch.nn.Module, enc: HTSATEncoder, conv: torch.nn.Conv2d,
+              x: torch.Tensor, compute_dtype: torch.dtype, B: int, output_frames: int,
+              five_sec: bool) -> torch.Tensor:
+    """Encoder ``enc``'s last-stage tokens (B', L, C) -> the (B,
+    output_frames, out) head output before its activation: final LayerNorm,
+    token map, tscam conv ``conv``, bilinear interpolation and frame mean
+    (models.heads.tscam_head, with ``model``'s tgt_output_frames and
+    pred_res), rounded to the compute dtype where the JAX package's fused
+    forwards round."""
     cd = compute_dtype
     x = enc.token_map(_ln(x, enc.norm))
 
-    # tscam conv head + bilinear interpolate + pooling (models.heads.HTSAT)
-    tw = model.tscam_conv.weight.to(cd).float()
-    x = F.conv2d(x.float(), tw, model.tscam_conv.bias.float(),
-                 padding=model.tscam_conv.padding).to(cd)
+    # tscam conv head + bilinear interpolate + pooling (models.heads.tscam_head)
+    tw = conv.weight.to(cd).float()
+    x = F.conv2d(x.float(), tw, conv.bias.float(), padding=conv.padding).to(cd)
     x = x.flatten(2).transpose(1, 2)  # (B', ST, out)
     m = torch.as_tensor(_linear_upsample_matrix(x.shape[1], enc.time_res),
                         device=x.device).to(cd)
@@ -226,8 +241,7 @@ def head_tail(model: HTSAT, x: torch.Tensor, compute_dtype: torch.dtype, B: int,
     if five_sec:
         half = output_frames * model.pred_res
         x = torch.cat([x[:, :half], x[:, half:]], dim=0)
-    x = x.reshape(B, output_frames, model.pred_res, -1).float().mean(dim=2).to(cd)
-    return {model.output_key: torch.tanh(x.float())}
+    return x.reshape(B, output_frames, model.pred_res, -1).float().mean(dim=2).to(cd)
 
 
 def scalar_bn_affine(model: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -266,6 +280,22 @@ def htsat_fused_forward_from_wav(model: HTSAT, wav, *,
     the unfolded merges (``swin="stage"``). 10-second clips only.
     ``device`` defaults to the card and raises when CUDA is absent;
     ``model`` must already live there."""
+    feats = clip_features(model, model.encoder, wav, "htsat_fused_forward_from_wav",
+                          compute_dtype=compute_dtype, device=device,
+                          use_kernels=use_kernels, **frontend_kwargs)
+    return htsat_fused_forward(model, feats, compute_dtype=compute_dtype,
+                               pre_normalized=True, blocks=blocks,
+                               use_kernels=use_kernels, patch_embed=patch_embed,
+                               embed=embed, swin=swin, stages=stages)
+
+
+def clip_features(model: torch.nn.Module, enc: HTSATEncoder, wav, caller: str, *,
+                  compute_dtype: torch.dtype, device, use_kernels: bool,
+                  **frontend_kwargs) -> torch.Tensor:
+    """10 s FOA waveforms (B, 4, N) -> kernel K1's eval-normalized features
+    of an HTSAT head, zero-padded to encoder ``enc``'s reshape_wav2img frame
+    count, on ``device`` (the card by default; raises when CUDA is absent or
+    ``model`` lives elsewhere, or on a clip of another length)."""
     device = resolve_device(device)
     wav = torch.as_tensor(wav, dtype=torch.float32, device=device)
     if model.scalar.weight.device != wav.device:
@@ -273,14 +303,8 @@ def htsat_fused_forward_from_wav(model: HTSAT, wav, *,
                          f"serving device is {wav.device}")
     n_frames = 1 + wav.shape[-1] // frontend_kwargs.get("hop", 240)
     if (n_frames - 1) // model.pred_res != model.tgt_output_frames:
-        raise ValueError("htsat_fused_forward_from_wav supports 10-second clips "
-                         f"only ({model.tgt_output_frames} label frames), got "
-                         f"{n_frames} frames")
-    enc = model.encoder
-    feats = folded_wav_features(model, wav, compute_dtype=compute_dtype,
-                                t_out=enc.spec_size * enc.freq_ratio,
-                                use_kernels=use_kernels, **frontend_kwargs)
-    return htsat_fused_forward(model, feats, compute_dtype=compute_dtype,
-                               pre_normalized=True, blocks=blocks,
-                               use_kernels=use_kernels, patch_embed=patch_embed,
-                               embed=embed, swin=swin, stages=stages)
+        raise ValueError(f"{caller} supports 10-second clips only "
+                         f"({model.tgt_output_frames} label frames), got {n_frames} frames")
+    return folded_wav_features(model, wav, compute_dtype=compute_dtype,
+                               t_out=enc.spec_size * enc.freq_ratio,
+                               use_kernels=use_kernels, **frontend_kwargs)

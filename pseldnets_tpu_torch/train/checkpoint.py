@@ -10,7 +10,8 @@ the one exception, see models.common.ScalarBN). Values invert the layout
 rules of that package's ``_to_flax_value`` (:119): Dense (in, out) -> Linear
 (out, in), or Conv1d (out, in, 1) for the conformer's pointwise convs; conv
 HWIO -> OIHW; a depthwise kernel (k, 1, C) -> Conv1d (C, 1, k); LayerNorm
-scale -> weight. The q/k/v/out DenseGeneral kernels of a flax attention
+scale -> weight; the EINV2 heads' CrossStitch ``weight`` (C, 2, 2) passes
+through as it is. The q/k/v/out DenseGeneral kernels of a flax attention
 under ``self_attn`` pack into nn.MultiheadAttention's ``in_proj_weight`` /
 ``in_proj_bias`` and ``out_proj`` (the inverse of :220-251).
 """

@@ -8,8 +8,8 @@ AdapterBit adapters runs as ``SwinBlockAdaptTrain``: K4 forward, K5 backward
 PyTorch with autograd: the 5 s clip trick, the train-mode ScalarBN, the
 patch embed (serving/htsat.py::embed_tokens), the unfolded PatchMerging
 between stages (as the JAX package leaves it to XLA, fused_forward.py:
-139-140), the final LayerNorm, token map, tscam conv, interpolation, frame
-mean and tanh (serving/htsat.py::head_tail).
+139-140), the final LayerNorm, token map, tscam conv, interpolation and
+frame mean (serving/htsat.py::head_tail), and the tanh.
 
 The math equals the eager ``model.train()`` forward with the same masks, up
 to the kernels' compute-dtype rounding. The masks come from the caller
@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..models.heads import HTSAT
+from ..models.heads import HTSAT, concat_5s
 from ..models.htsat import drop_path_masks
 from ..ops.swin_block_adapt import has_adapters, swin_block_adapt_train
 from ..ops.swin_block_vjp import swin_block_train
@@ -55,16 +55,10 @@ def htsat_fused_train_forward(model: HTSAT, feats: torch.Tensor, *,
     enc = model.encoder
     enc.check_trainable()
     cd = compute_dtype
-    B, C, T, Fq = feats.shape
-    output_frames = T // model.pred_res
-    five_sec = output_frames < model.tgt_output_frames
-    x = feats
-    if five_sec:
-        if output_frames != model.tgt_output_frames // 2 or B % 2:
-            raise ValueError("only 5-second (even batch) or 10-second clips are supported")
-        x = torch.cat([x[: B // 2, :, :-1], x[B // 2:, :, :-1]], dim=2)
+    B = feats.shape[0]
+    x, output_frames, five_sec = concat_5s(feats, model.pred_res, model.tgt_output_frames)
     x, new_mean, new_var = model.scalar.batch_forward(x)
-    x = embed_tokens(model, x, cd)
+    x = embed_tokens(enc, x, cd)
 
     rates = enc.block_rates()
     if dp_masks is None:
@@ -83,5 +77,6 @@ def htsat_fused_train_forward(model: HTSAT, feats: torch.Tensor, *,
             bi += 1
         if layer.downsample is not None:
             x = patch_merging(layer.downsample, x, cd)
-    preds = head_tail(model, x, cd, B, output_frames, five_sec)
+    x = head_tail(model, enc, model.tscam_conv, x, cd, B, output_frames, five_sec)
+    preds = {model.output_key: torch.tanh(x.float())}
     return preds, {"running_mean": new_mean, "running_var": new_var}

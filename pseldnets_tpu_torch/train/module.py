@@ -8,7 +8,8 @@ frontend (kernel K1 on the card) -> train-mode forward -> loss -> backward
 block on kernels K2/K3 (K4/K5 for AdapterBit blocks; train/fused_forward.py),
 false the eager ``model.train()`` module (under bf16 autocast with bf16-mixed
 precision), the one forward of the CRNN heads (their BatchNorms use batch
-statistics there).
+statistics there) and of the EINV2 heads, which the JAX package also trains
+eagerly only (its train/fused_forward.py:34-44 takes ``heads.HTSAT``).
 
 The freeze policy is the JAX step's (train/module.py:276-295): the
 parameters that ``trainable_mask`` freezes (AdapterBit: all but biases,
@@ -33,7 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..losses import build_loss
-from ..models import build_model
+from ..models import build_model, einv2_heads
 from ..models.factory import init_weights
 from ..models.heads import HTSAT
 from ..ops._cuda import resolve_device
@@ -58,6 +59,10 @@ class TrainState:
 
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+
+# the heads with drop-path, which take masks or a generator
+_DROP_PATH_HEADS = (HTSAT, einv2_heads.HTSAT, einv2_heads.HTSAT_SEDDOA)
 
 
 def _truthy(v) -> bool:
@@ -154,10 +159,11 @@ class SELDTask:
                       dp_masks: Optional[Sequence[torch.Tensor]] = None
                       ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
         """Train-mode forward, drop-path masks given (``dp_masks``, one (B',
-        2) float32 mask per block) or drawn from ``generator`` (HTSAT only:
-        the other heads have no drop-path): (preds, ScalarBN update), the
-        update None on the eager path, whose BatchNorm writes its statistics
-        itself."""
+        2) float32 mask per block; for the EINV2 HTSAT a pair of such lists,
+        SED encoder's and DOA encoder's) or drawn from ``generator`` (the
+        HTSAT heads only: the others have no drop-path): (preds, ScalarBN
+        update), the update None on the eager path, whose BatchNorm writes
+        its statistics itself."""
         self.model.train()
         if self.fused_forward:
             return htsat_fused_train_forward(self.model, feats, dp_masks=dp_masks,
@@ -166,7 +172,7 @@ class SELDTask:
                                              use_kernels=self.use_kernels)
         with torch.autocast(device_type=self.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
-            if isinstance(self.model, HTSAT):  # the one head with drop-path
+            if isinstance(self.model, _DROP_PATH_HEADS):
                 return self.model(feats, dp_masks=dp_masks, generator=generator), None
             if dp_masks is not None:
                 raise ValueError(f"{type(self.model).__name__} takes no drop-path masks")
@@ -189,8 +195,9 @@ class SELDTask:
     def train_step(self, batch_x, targets: Dict, generator: Optional[torch.Generator] = None,
                    dp_masks: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, Any]:
         """One optimizer step on a batch: FOA waveforms (B, 4, samples) and
-        label arrays (``adpit_label`` or ``accdoa_label``). Drop-path masks
-        are ``dp_masks`` or come from ``generator``. Returns the losses as
+        label arrays (``adpit_label``, ``accdoa_label``, or for the EINV2
+        heads ``sed_label`` (B, T, 3, K) and ``doa_label`` (B, T, 3, 3)).
+        Drop-path masks are ``dp_masks`` or come from ``generator``. Returns the losses as
         device tensors (no host synchronization)."""
         if self.state is None:
             raise RuntimeError("call init_state() first")

@@ -10,7 +10,10 @@ with each tile), K7 (the CNN12 trunk's six ConvBlocks, pair mode, B=2), K2
 HTSAT has one, and with drop-path masks), K4 (the block with AdapterBit
 adapters, B=2, with masks), K11 (each whole eval Swin stage, B=2), K3 and
 K5 (the block backwards, B=2, dx and every grad) and K8 (the patch embed,
-B=3, 1024 and 1000 frames, bf16) on inputs made from fixed
+B=3, 1024 and 1000 frames, bf16), and the HTSAT paths around them through
+their entry points (served with K8, with the einsum embed and with
+swin="stage", the eager model, AdapterBit served, the fused training
+forward and its grads; full width, B=2) on inputs made from fixed
 seeds, saves the outputs in a temporary directory (about 2 GB), and prints
 for each output whether the two checkouts gave the same bits. Exits
 non-zero when a run fails; a difference is reported, not an error (a change
@@ -129,6 +132,35 @@ pe = patch_embed.PatchEmbedParams(
 x = torch.randn(3, 7, 1024, 64, generator=g).cuda().bfloat16()
 out["K8 served form B=3"] = patch_embed.patch_embed_tokens(x, pe)
 out["K8 5 s trick B=3"] = patch_embed.patch_embed_tokens(x[:, :, :1000].contiguous(), pe)
+# the HTSAT paths around the kernels, through their entry points
+from pseldnets_tpu_torch.models import build_model
+from pseldnets_tpu_torch.models.htsat import drop_path_masks
+from pseldnets_tpu_torch.serving import htsat_fused_forward_from_wav
+from pseldnets_tpu_torch.train.fused_forward import htsat_fused_train_forward
+over = ["loss=multi_accdoa", "model.kwargs.pretrained_path=null"]
+model, _ = build_model(compose("configs", "train", over), 13, device="cuda", seed=0)
+with torch.no_grad():
+    out["HTSAT served (K1, K8, K2)"] = htsat_fused_forward_from_wav(model, wav)["multi_accdoa"]
+    out["HTSAT served, einsum embed"] = htsat_fused_forward_from_wav(
+        model, wav, patch_embed="einsum")["multi_accdoa"]
+    out["HTSAT served, swin=stage (K11)"] = htsat_fused_forward_from_wav(
+        model, wav, swin="stage")["multi_accdoa"]
+    feats = frontend.fused_logmel_iv(wav)
+    out["HTSAT eager"] = model(feats)["multi_accdoa"]
+am, _ = build_model(compose("configs", "train", over + ["adapt=adapter"]), 13, device="cuda",
+                    seed=1)
+for mod in am.modules():
+    if isinstance(mod, Adapter):
+        mod.fc2.weight.data.copy_(torch.randn(mod.fc2.weight.shape, generator=g) * 0.05)
+with torch.no_grad():
+    out["AdapterBit served (K4)"] = htsat_fused_forward_from_wav(am, wav)["multi_accdoa"]
+model.train()
+masks = [m.cuda() for m in drop_path_masks(torch.Generator().manual_seed(1), 2,
+                                           model.encoder.block_rates())]
+preds, _ = htsat_fused_train_forward(model, feats, dp_masks=masks)
+out["HTSAT fused training forward (K2 masks)"] = preds["multi_accdoa"]
+grads = torch.autograd.grad(preds["multi_accdoa"].square().mean(), list(model.parameters()))
+out["HTSAT fused training grads (K3)"] = torch.cat([t.flatten() for t in grads])
 torch.cuda.synchronize()
 torch.save({k: v.cpu() for k, v in out.items()}, sys.argv[1])
 """

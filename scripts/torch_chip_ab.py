@@ -6,9 +6,9 @@ A B B A repeated ``--rounds`` times, each run a process of its own, keeps each
 run's output under ``--out``, reads the times that chip_smoke.py prints (the
 served batch, the training step, the kernels per batch or step (K1 in each
 form, beside cuFFT's rfft of the same frames), the served batch of 128, and the
-AdapterBit, PaSST, CRNN, K8, frontend-form and one-stage-per-launch lines,
-each path's batch of 128, where the checkout has them) and prints, per checkout, the median and the
-range of each over its runs as one JSON line. Exits non-zero when a run
+AdapterBit, PaSST, CRNN, K8, frontend-form, one-stage-per-launch and EINV2
+lines, each path's batch of 128, where the checkout has them) and prints, per
+checkout, the median and the range of each over its runs as one JSON line. Exits non-zero when a run
 fails.
 
     python3 scripts/torch_chip_ab.py _archive/parent . --rounds 3 --out ab_logs
@@ -67,6 +67,10 @@ PATTERNS = {
     "k10_ms": r"^K10 at B=\d+ .*?IV; ([\d.]+) ms \(",
     "stage_served_ms": r"^served with swin='stage': ([\d.]+) ms/batch",
     "k11_x4_ms": r"^per batch of \d+ .*?K11 x4 ([\d.]+) ms",
+    "einv2_served_ms": r"^EINV2 served: ([\d.]+) ms/batch",
+    "einv2_k2_x24_ms": r"^EINV2 per batch of \d+ .*?K2 x24 ([\d.]+) ms",
+    "einv2_served_b128_ms": r"^EINV2 served at B=128: ([\d.]+) ms/batch",
+    "einv2_train_ms": r"^EINV2 training: ([\d.]+) ms/step",
 }
 
 

@@ -253,7 +253,7 @@ def test_adapter_serving_from_wav_matches_jax(rng):
     mode, unfolded merges, split3=False): < 5e-5. Every block runs K4's
     plain version (no K2 plan, no merge fold); the eager model agrees."""
     jm, variables, tm = _serving_models(rng)
-    blocks = prepare_blocks(tm, torch.float32)
+    blocks = prepare_blocks(tm.encoder, torch.float32)
     assert all(isinstance(p, swin_block_adapt.AdaptBlockParams) for p in blocks)
     wav = (rng.standard_normal((2, 4, 57600)) * 0.1).astype(np.float32)
     swin_block.KERNEL.launches = swin_block_adapt.FWD_KERNEL.launches = 0
@@ -417,7 +417,7 @@ def test_adapterbit_model_builds_with_zero_adapters():
     assert ads[0].fc1.out_features == 48 and ads[-1].fc1.out_features == 384
     assert all(not a.fc2.weight.any() and not a.fc2.bias.any() for a in ads)
     assert all(a.fc1.weight.any() for a in ads)
-    blocks = prepare_blocks(model, torch.bfloat16)
+    blocks = prepare_blocks(model.encoder, torch.bfloat16)
     assert len(blocks) == 12 and all(isinstance(p, swin_block_adapt.AdaptBlockParams)
                                      for p in blocks)
     assert blocks[0].ch_pad == 64 and blocks[0].ch == 48

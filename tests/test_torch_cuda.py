@@ -1,4 +1,5 @@
-"""Kernels K1-K11 on the card against their plain versions (marked
+"""Kernels K1-K11 on the card against their plain versions, and the EINV2
+serving path against its plain path (marked
 ``cuda``: skipped without a CUDA card and nvcc). Imports nothing of JAX, so on
 a machine without JAX it runs with
 
@@ -828,3 +829,40 @@ def test_block_backward_kernels_raise_on_what_they_do_not_take(card, monkeypatch
         swin_block_adapt.swin_block_adapt_backward(ax, ap, am, adout)
     with pytest.raises(NotImplementedError):
         swin_block_vjp.bwd_gemm("nn", x[0], p.qkv_w, bn=96)
+
+
+def test_einv2_served_on_kernels_matches_plain(card):
+    """EINV2 (the dual HTSAT of configs/loss/einv2_pit_agg.yaml, full width,
+    seeded weights) served from 10 s waveforms at B=3: K1 x1, K8 x1 (the DOA
+    branch) and K2 x24 a call, two calls with equal bits, finite outputs
+    within 5e-2 of the plain path; K8 refuses the SED branch's four
+    channels before any launch (that branch takes the einsum embed)."""
+    from pathlib import Path
+
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.models import build_model
+    from pseldnets_tpu_torch.serving import (einv2_htsat_fused_forward_from_wav,
+                                             folded_wav_features, prepare_einv2)
+
+    cfg = compose(str(Path(__file__).resolve().parents[1] / "configs"), "train",
+                  ["loss=einv2_pit_agg", "model.kwargs.pretrained_path=null"])
+    model, _ = build_model(cfg, 13, device=card, seed=2)
+    params = prepare_einv2(model, torch.bfloat16)
+    g = torch.Generator(device=card).manual_seed(11)
+    wav = torch.randn(3, 4, 240000, device=card, generator=g) * 0.1
+    kernels = (frontend.KERNEL, patch_embed.KERNEL, swin_block.KERNEL)
+    before = [k.launches for k in kernels]
+    got = einv2_htsat_fused_forward_from_wav(model, wav, params=params)
+    again = einv2_htsat_fused_forward_from_wav(model, wav, params=params)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 48]
+    plain = einv2_htsat_fused_forward_from_wav(model, wav, params=params, use_kernels=False)
+    for key, shape in (("sed", (3, 100, 3, 13)), ("doa", (3, 100, 3, 3))):
+        assert got[key].shape == shape and torch.isfinite(got[key]).all()
+        assert torch.equal(got[key], again[key])
+        assert (got[key] - plain[key]).abs().max().item() < 5e-2
+    feats = folded_wav_features(model, wav, t_out=1024)
+    sed = patch_embed.prepare_patch_embed(model.sed_encoder, torch.bfloat16)
+    n = patch_embed.KERNEL.launches
+    with pytest.raises(NotImplementedError, match="einsum"):
+        patch_embed.patch_embed_tokens(feats[:, :4].contiguous(), sed)
+    assert patch_embed.KERNEL.launches == n

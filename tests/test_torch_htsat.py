@@ -122,7 +122,7 @@ def test_from_wav_stage_path_matches_jax_from_wav():
     rng = np.random.default_rng(70)
     jm, variables, tm = _models(rng)
     wav = (rng.standard_normal((2, 4, 57600)) * 0.1).astype(np.float32)
-    stages = prepare_stages(tm, torch.float32)
+    stages = prepare_stages(tm.encoder, torch.float32)
     assert [sp.shifts for sp in stages] == [(0, 2), (0, 2)]
     frontend.KERNEL.launches = swin_block.KERNEL.launches = swin_stage.KERNEL.launches = 0
     got = htsat_fused_forward_from_wav(tm, wav, compute_dtype=torch.float32, device="cpu",
@@ -172,7 +172,7 @@ def test_stage_path_raises_on_adapters_and_unknown_values():
     with pytest.raises(NotImplementedError, match="adapters"):
         htsat_fused_forward(am, x, compute_dtype=torch.float32, swin="stage")
     with pytest.raises(NotImplementedError, match="adapters"):
-        prepare_stages(am, torch.float32)
+        prepare_stages(am.encoder, torch.float32)
     _, _, tm = _models(np.random.default_rng(72))
     with pytest.raises(NotImplementedError, match="swin="):
         htsat_fused_forward(tm, x, compute_dtype=torch.float32, swin="window")

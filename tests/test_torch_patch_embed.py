@@ -57,7 +57,7 @@ def test_plain_matches_pallas_interpret(rng, T):
     x = (rng.standard_normal((2, 7, T, 16)) * 0.5).astype(np.float32)
     xp = np.pad(x, ((0, 0), (0, 0), (0, T_IMG - T), (0, 0)))
     for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
-        p = prepare_patch_embed(tm, dtype)
+        p = prepare_patch_embed(tm.encoder, dtype)
         got = patch_embed.patch_embed_tokens_plain(torch.from_numpy(x).to(dtype), p)
         assert got.shape == (2, 4 * 4 * 16, 16) and got.dtype == dtype
         ref = _jax_tokens(variables, xp, jdtype)
@@ -248,7 +248,7 @@ def test_prepared_weights_take_the_kernel_k_order(rng):
     + kw) 4 + kh, e], so a k pair (2i, 2i + 1) is two adjacent mel bins of
     one frame."""
     _, _, tm = _models(rng)
-    p = prepare_patch_embed(tm, torch.float32)
+    p = prepare_patch_embed(tm.encoder, torch.float32)
     kern = tm.encoder.patch_embed.proj.weight.detach()
     c, kw, kh = 3, 2, 1
     assert torch.equal(p.w[(c * 4 + kw) * 4 + kh], kern[:, c, kh, kw])
@@ -256,7 +256,7 @@ def test_prepared_weights_take_the_kernel_k_order(rng):
 
 def test_cpu_call_takes_the_plain_version(rng):
     _, _, tm = _models(rng)
-    p = prepare_patch_embed(tm, torch.float32)
+    p = prepare_patch_embed(tm.encoder, torch.float32)
     x = torch.from_numpy(rng.standard_normal((1, 7, T_IMG, 16)).astype(np.float32))
     patch_embed.KERNEL.launches = 0
     got = patch_embed.patch_embed_tokens(x, p)
