@@ -20,9 +20,12 @@ serving once more with each Swin stage in one launch (K11, swin="stage",
 the merges unfolded); then EINV2 (configs/loss/einv2_pit_agg.yaml: two
 HTSAT encoders stitched before every stage) served through
 einv2_htsat_fused_forward_from_wav (K1, the DOA branch's K8, K2 on both
-branches) and trained eagerly through SELDTask (K1). It checks the outputs,
-the kernels' launch counts on each path and the kernel step against the
-plain step, and prints the times.
+branches) and trained eagerly through SELDTask (K1); then the eval path:
+SELDTask.eval_step on an odd batch (K1, K8, K2), ACS with 256 and 512
+folded clips a launch, run_validation with move_avg and run_test on an in-memory
+datamodule, and one eval step of each other route (K4, K6, K2 x24, K7). It
+checks the outputs, the kernels' launch counts on each path and the kernel
+step against the plain step, and prints the times.
 
     python3 chip_smoke.py
 
@@ -71,7 +74,7 @@ CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
                (125, 8, 256, 512), (125, 4, 512, 1024), (125, 2, 1024, 2048))
 PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn",
          "serve_patch", "features_flat", "features_dif", "serve_stage", "serve_einv2",
-         "train_einv2")
+         "train_einv2", "eval")
 DEPTHS = (2, 2, 6, 2)  # HTSAT's Swin stages (configs/model/htsat.yaml)
 
 
@@ -2519,6 +2522,367 @@ def phase_train_einv2(smi):
     return launches, {"K1": (max(db, iv), k1_rel)}
 
 
+# the eval path: SELDTask.eval_step in the served HTSAT cell's configuration
+# (bench.py's mACCDOA, bf16), B_EVAL clips a batch (the pad path: 32 after
+# the repeat pad)
+EVAL_OVERRIDES = ["loss=multi_accdoa", "model.kwargs.pretrained_path=null",
+                  "trainer.precision=bf16-mixed"]
+B_EVAL = 31
+# the in-memory datamodule: files of EVAL_FILE_SEC seconds cut into 10 s
+# chunks every 5 s (move_avg stitches them), EVAL_LOADER_B chunks a batch
+EVAL_FILES, EVAL_FILE_SEC, EVAL_HOP_SEC, EVAL_LOADER_B = 3, 30, 5, 8
+B_ROUTE = 8  # clips of the one eval_step of each other route
+EVAL_ROUNDS, EVAL_REPS = 7, 10  # eval_step and the served forward timed in turns
+
+
+def eval_task(overrides, seed):
+    """A SELDTask on the card from compose(configs, train, overrides):
+    seeded weights, non-trivial eval ScalarBN statistics; and the seeded
+    generator, for more."""
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    task = SELDTask(compose(str(ROOT / "configs"), "train", overrides),
+                    DatasetSpec(num_classes=13), device="cuda")
+    task.init_state(seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        task.model.scalar.running_mean.copy_(torch.randn(7, 64, generator=gen) * 5.0 - 20.0)
+        task.model.scalar.running_var.copy_(torch.rand(7, 64, generator=gen) * 50.0 + 10.0)
+    return task, gen
+
+
+class MemoryDataModule:
+    """What run_validation and run_test read of a datamodule
+    (``val_dataloader``, ``test_dataloader``, ``paths_dict``,
+    ``valid_gt_dcaseformat``), from seeded arrays: EVAL_FILES files of
+    EVAL_FILE_SEC s, each cut into 10 s chunks every EVAL_HOP_SEC s (the
+    dataset's test segmentation), waveforms and ADPIT labels on the card,
+    DCASE ground truth of up to three events a frame. The CLI's readers
+    (data/dataset.py) read HDF5 labels through h5py, which the card's
+    machine lacks."""
+
+    def __init__(self, seed):
+        import numpy as np
+        import torch
+        from collections import OrderedDict
+
+        rng = np.random.default_rng(seed)
+        frames = EVAL_FILE_SEC * 10
+        per_file = int(np.ceil((frames - 100) / (EVAL_HOP_SEC * 10))) + 1
+        self.paths_dict = OrderedDict((f"fold1_room1_mix{i:03d}.wav", frames)
+                                      for i in range(EVAL_FILES))
+        self.valid_gt_dcaseformat = OrderedDict(
+            (path, {fr: [[int(rng.integers(0, 13)), int(rng.integers(-180, 180)),
+                          int(rng.integers(-60, 60))] for _ in range(int(rng.integers(1, 4)))]
+                    for fr in range(0, frames, 2)}) for path in self.paths_dict)
+        n = per_file * EVAL_FILES
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        self.wavs = torch.randn(n, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+        self.labels = torch.from_numpy(make_labels(rng, n, 100)).cuda()
+        self.batches = [(i, min(i + EVAL_LOADER_B, n)) for i in range(0, n, EVAL_LOADER_B)]
+
+    def val_dataloader(self):
+        return ({"data": self.wavs[a:b], "adpit_label": self.labels[a:b]}
+                for a, b in self.batches)
+
+    def test_dataloader(self):
+        return ({"data": self.wavs[a:b]} for a, b in self.batches)
+
+
+class HostClock:
+    """Wall milliseconds spent in methods (``(owner, name)`` pairs) while
+    the context is active, and their call counts."""
+
+    def __init__(self, *targets):
+        self.targets, self.ms, self.calls = targets, {}, {}
+
+    def __enter__(self):
+        self.saved = [(owner, name, getattr(owner, name)) for owner, name in self.targets]
+        for owner, name, fn in self.saved:
+            def timed(*a, _fn=fn, _name=name, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.ms[_name] = self.ms.get(_name, 0.0) + (time.perf_counter() - t0) * 1e3
+                    self.calls[_name] = self.calls.get(_name, 0) + 1
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def acs_loop(task, x):
+    """ACS as 16 single-rotation eval steps: each rotation's outputs
+    de-rotated, then the mean (the reference's per-rotation loop)."""
+    import torch
+
+    in_perm, in_sign, out_mat = (torch.as_tensor(t, device=x.device) for t in task.acs_tables())
+    outs = []
+    for v in range(len(in_perm)):
+        y = task.eval_step({"data": x[:, in_perm[v]] * in_sign[v][None, :, None]})
+        y = y["multi_accdoa"]
+        B, T = y.shape[:2]
+        y = torch.einsum("ts,bmrsc->bmrtc", out_mat[v], y.reshape(B, T, 3, 3, -1))
+        outs.append(y.reshape(B, T, -1))
+    return torch.stack(outs).mean(0)
+
+
+def folded_errs(task, wav, chunk, blocks, embed):
+    """K1, K8 and K2 x12 on the first ACS chunk's folded batch (``chunk``
+    rotations of ``wav`` in (half, variant, item) order) against their plain
+    versions on the same inputs: K1 within 2^-7 of max(|x|, 1), K8 and each
+    K2 block within 2^-6 of the plain output's scale. -> {kernel: (max |d|,
+    of scale)}."""
+    import torch
+    from pseldnets_tpu_torch.ops import patch_embed, swin_block
+    from pseldnets_tpu_torch.serving import folded_wav_features
+
+    perm, sign, _ = (torch.as_tensor(t, device="cuda") for t in task.acs_tables())
+    folded = task.acs_fold(wav, perm[:chunk], sign[:chunk])
+    n = folded.shape[0]
+    errs = {}
+    with torch.no_grad():
+        feats = folded_wav_features(task.model, folded, t_out=1024)
+        ref = folded_wav_features(task.model, folded, t_out=1024, use_kernels=False).float()
+        del folded
+        err = (feats.float() - ref).abs().max().item()
+        rel = ((feats.float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+        check(rel <= 2.0 ** -7, f"K1 disagrees with its plain version at the folded {n} clips")
+        errs["K1"] = (err, err / ref.abs().max().item())
+        x = patch_embed.patch_embed_tokens(feats, embed)
+        ref = patch_embed.patch_embed_tokens_plain(feats, embed).float()
+        del feats
+        err, scale = (x.float() - ref).abs().max().item(), ref.abs().max().item()
+        check(err <= 2.0 ** -6 * scale, f"K8 disagrees with its plain version at the folded {n} "
+              "clips")
+        errs["K8"] = (err, err / scale)
+        k2 = (0.0, 0.0)
+        for i, p in enumerate(blocks):
+            y = swin_block.swin_block_fused(x, p)
+            ref = swin_block.swin_block_plain(x, p).float()
+            err, scale = (y.float() - ref).abs().max().item(), ref.abs().max().item()
+            check(err <= 2.0 ** -6 * scale,
+                  f"K2 block {i} disagrees with its plain version at the folded {n} clips")
+            k2 = (max(k2[0], err), max(k2[1], err / scale))
+            x = y
+        errs["K2"] = k2
+    log(f"at the folded batch of {n} clips: K1 max |d| {errs['K1'][0]:.3g}, K8 "
+        f"{errs['K8'][0]:.3g} ({errs['K8'][1]:.3g} of scale), K2 x12 {errs['K2'][0]:.3g} "
+        f"({errs['K2'][1]:.3g} of scale)")
+    del x, y, ref
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_eval(smi):
+    """The eval path (SELDTask.eval_step, train/loop.py) at the served
+    HTSAT cell's configuration: SERVE_BATCHES batches of B_EVAL 10 s clips
+    (the repeat pad to 32; K1 x1, K8 x1, K2 x12 a batch) against the plain
+    step, timed beside htsat_fused_forward_from_wav alone; ACS at B=32 (two
+    chunks of 256 folded clips: K1 x2, K8 x2, K2 x24) against its plain
+    version and a loop of 16 single-rotation steps; ACS at the infer CLI's
+    B=128 (four chunks of 512 folded clips: K1 x4, K8 x4, K2 x48) against
+    its plain version; K1, K8 and K2 on both folded batches against their
+    plain versions (folded_errs); run_validation with move_avg
+    and run_test on an in-memory datamodule, the host's milliseconds of the
+    aggregation and the metrics apart from the device's; then one eval_step
+    of each other route (AdapterBit K4, PaSST K6, EINV2 K2 x24, CRNN K7)
+    against its plain step. Every counted run is counted from 0; the path's
+    launches are their sum."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from pseldnets_tpu_torch.metrics import SELDMetrics
+    from pseldnets_tpu_torch.serving import htsat_fused_forward_from_wav
+    from pseldnets_tpu_torch.train import loop
+
+    total = expected()
+
+    def counted(fn):
+        """fn() with every count from 0; its counts added to the path's."""
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        for k, n in got.items():
+            total[k] += n
+        return out, got
+
+    task, _ = eval_task(EVAL_OVERRIDES, 60)
+    model = task.model
+    check(task.eval_route() == "htsat" and task.compute_dtype == torch.bfloat16,
+          f"eval route {task.eval_route()}")
+    g = torch.Generator(device="cuda").manual_seed(61)
+    wavs = [torch.randn(B_EVAL, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(SERVE_BATCHES)]
+    step = lambda w, post=None: task.eval_step({"data": w}, post)  # noqa: E731
+    step(wavs[0])  # warm-up: prepares the route's weights
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    outs, launches = counted(lambda: [step(w)["multi_accdoa"] for w in wavs])
+    dt = (time.perf_counter() - t0) / SERVE_BATCHES
+    want = expected(K1=SERVE_BATCHES, K8=SERVE_BATCHES, K2=12 * SERVE_BATCHES)
+    log(f"eval_step on {SERVE_BATCHES} batches of {B_EVAL} x 10 s clips: launches {launches} "
+        f"(expect {want})")
+    check(launches == want, "eval_step launch counts")
+    for o in outs:
+        check(o.shape == (B_EVAL, 100, 117) and bool(torch.isfinite(o).all()), f"eval {o.shape}")
+    task.set_use_kernels(False)
+    plain = step(wavs[0])["multi_accdoa"]
+    task.compute_dtype = torch.float32
+    f32 = step(wavs[0])["multi_accdoa"]
+    task.compute_dtype = torch.bfloat16
+    task.set_use_kernels(True)
+    e_plain = (outs[0] - plain).abs().max().item()
+    e_f32 = (outs[0] - f32).abs().max().item()
+    p_f32 = (plain - f32).abs().max().item()
+    log(f"eval_step vs plain bf16 step: max |d| {e_plain:.3g} (<= 5e-2); vs float32 plain "
+        f"step {e_f32:.3g} (plain bf16 {p_f32:.3g})")
+    check(e_plain <= 5e-2, "eval_step disagrees with the plain step")
+    check(e_f32 <= 1.25 * p_f32 + 1e-2, "eval_step further from float32 than the plain step")
+    w32 = torch.cat([wavs[0], wavs[0][-1:]])
+    blocks, embed = (task._eval_params("htsat")[k] for k in ("blocks", "embed"))
+    # in turns, EVAL_ROUNDS rounds of EVAL_REPS calls each: the task's own
+    # cost is each round's difference, given as its median and range
+    turns = [(cuda_ms(lambda: step(wavs[0]), reps=EVAL_REPS),
+              cuda_ms(lambda: htsat_fused_forward_from_wav(model, w32, blocks=blocks,
+                                                           embed=embed), reps=EVAL_REPS))
+             for _ in range(EVAL_ROUNDS)]
+    eval_ms, serve_ms, gap = (sorted(v) for v in zip(*((e, f, e - f) for e, f in turns)))
+    mid = EVAL_ROUNDS // 2
+    log(f"eval_step: {dt * 1e3:.2f} ms/batch of {B_EVAL} (host clock, synchronized); in turns "
+        f"({EVAL_ROUNDS} rounds of {EVAL_REPS} calls, CUDA events) {eval_ms[mid]:.3f} "
+        f"({eval_ms[0]:.3f}-{eval_ms[-1]:.3f}) ms beside htsat_fused_forward_from_wav alone on "
+        f"the padded 32 {serve_ms[mid]:.3f} ({serve_ms[0]:.3f}-{serve_ms[-1]:.3f}) ms: the "
+        f"task's own cost {gap[mid]:.3f} ({gap[0]:.3f}-{gap[-1]:.3f}) ms ({smi})")
+
+    # ACS at B=32: 8 rotations folded a forward, 2 chunks of 256 clips
+    wav = torch.randn(32, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+    check(task.acs_chunk(32) == 8, "ACS chunk at B=32")
+    step(wav, "ACS")  # warm-up at the folded batch
+    t0 = time.perf_counter()
+    acs, launches = counted(lambda: step(wav, "ACS")["multi_accdoa"])
+    acs_dt = time.perf_counter() - t0
+    want = expected(K1=2, K8=2, K2=24)
+    log(f"ACS at B=32 (2 chunks of 256 folded clips): launches {launches} (expect {want}); "
+        f"{acs_dt * 1e3:.2f} ms/batch, {32 / acs_dt:.1f} clips/s, {16 * 32 / acs_dt:.1f} "
+        f"rotated clips/s (host clock, synchronized; {smi})")
+    check(launches == want, "ACS launch counts")
+    check(acs.shape == (32, 100, 117) and bool(torch.isfinite(acs).all()), "ACS output")
+    task.set_use_kernels(False)
+    acs_plain = step(wav, "ACS")["multi_accdoa"]
+    task.set_use_kernels(True)
+    looped = acs_loop(task, wav)
+    e_acs = (acs - acs_plain).abs().max().item()
+    e_loop = (acs - looped).abs().max().item()
+    # the loop runs the same kernels on the same tables: only the fold and
+    # de-rotation order differ, so it is held far tighter than the plain path
+    log(f"ACS vs its plain version: max |d| {e_acs:.3g} (<= 5e-2); vs 16 single-rotation "
+        f"eval steps on the kernels {e_loop:.3g} (<= 1e-4)")
+    check(e_acs <= 5e-2, "ACS disagrees with its plain version")
+    check(e_loop <= 1e-4, "ACS disagrees with the loop of single-rotation steps")
+
+    errs = {256: folded_errs(task, wav, 8, blocks, embed)}
+    del wav
+
+    # ACS at the infer CLI's B=128 (configs/model/htsat.yaml): 4 rotations
+    # folded a forward, 4 chunks of 512 clips, K1's input 1.97e9 bytes
+    wav = torch.randn(128, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+    check(task.acs_chunk(128) == 4, "ACS chunk at B=128")
+    step(wav, "ACS")  # warm-up at the folded batch
+    t0 = time.perf_counter()
+    acs, launches = counted(lambda: step(wav, "ACS")["multi_accdoa"])
+    acs_dt = time.perf_counter() - t0
+    want = expected(K1=4, K8=4, K2=48)
+    log(f"ACS at B=128 (4 chunks of 512 folded clips): launches {launches} (expect {want}); "
+        f"{acs_dt * 1e3:.2f} ms/batch, {128 / acs_dt:.1f} clips/s, {16 * 128 / acs_dt:.1f} "
+        f"rotated clips/s (host clock, synchronized; {smi})")
+    check(launches == want, "ACS launch counts at B=128")
+    check(acs.shape == (128, 100, 117) and bool(torch.isfinite(acs).all()), "ACS output")
+    task.set_use_kernels(False)
+    acs_plain = step(wav, "ACS")["multi_accdoa"]
+    task.set_use_kernels(True)
+    e_acs = (acs - acs_plain).abs().max().item()
+    log(f"ACS at B=128 vs its plain version: max |d| {e_acs:.3g} (<= 5e-2)")
+    check(e_acs <= 5e-2, "ACS at B=128 disagrees with its plain version")
+    del acs, acs_plain
+    errs[512] = folded_errs(task, wav, 4, blocks, embed)
+    torch.cuda.empty_cache()
+
+    # run_validation (move_avg) and run_test on the in-memory datamodule
+    dm = MemoryDataModule(62)
+    task.cfg["post_processing"] = "move_avg"
+    task.cfg["data"]["test_hoplen_sec"] = EVAL_HOP_SEC
+    metrics = SELDMetrics(nb_classes=13, doa_threshold=20)
+    host = ((loop.Aggregator, "aggregate"), (loop.Aggregator, "to_dcase_polar"),
+            (SELDMetrics, "update_seld_scores"), (SELDMetrics, "compute_seld_scores"))
+    n_b = len(dm.batches)
+    with HostClock(*host, (loop.Aggregator, "append"), (type(task), "eval_step")) as clock:
+        t0 = time.perf_counter()
+        (macro, micro, losses), launches = counted(
+            lambda: loop.run_validation(task, dm, metrics))
+        val_s = time.perf_counter() - t0
+    want = expected(K1=n_b, K8=n_b, K2=12 * n_b)
+    check(launches == want, f"run_validation launch counts {launches}")
+    host_ms = sum(clock.ms[n] for _, n in host)
+    log(f"run_validation (move_avg, {EVAL_FILES} files of {EVAL_FILE_SEC} s, "
+        f"{len(dm.wavs)} chunks of 10 s every {EVAL_HOP_SEC} s, {n_b} batches): launches "
+        f"{launches}; {val_s * 1e3:.1f} ms in all, eval_step {clock.ms['eval_step']:.1f} ms "
+        f"(queued), the fetch in Aggregator.append {clock.ms['append']:.1f} ms, the host's "
+        f"aggregation and metrics {host_ms:.1f} ms ({host_ms / n_b:.2f} ms a batch: "
+        + ", ".join(f"{n} {clock.ms[n]:.1f}" for _, n in host) + f") ({smi})")
+    log(f"  macro {macro}; micro {micro}; losses {losses}")
+    vals = list(macro.values()) + list(micro.values()) + list(losses.values())
+    check(all(np.isfinite(v) for v in vals) and len(vals) == 13, "a metric is not finite")
+    with tempfile.TemporaryDirectory() as out:
+        _, launches = counted(lambda: loop.run_test(task, dm, Path(out) / "submissions"))
+        csvs = sorted((Path(out) / "submissions").glob("*.csv"))
+        check(len(csvs) == EVAL_FILES and all(c.stat().st_size for c in csvs),
+              "run_test submissions")
+    check(launches == want, f"run_test launch counts {launches}")
+    log(f"run_test: launches {launches}, {len(csvs)} submission CSVs")
+    task.cfg["post_processing"] = None
+    del task, model, dm, wavs, outs, wav
+    torch.cuda.empty_cache()
+
+    # one eval_step of each other route, against its plain step
+    for name, over, prep, want in (
+            ("AdapterBit", EVAL_OVERRIDES + ADAPT, randomize_adapters,
+             expected(K1=1, K8=1, K4=12)),
+            ("PaSST", PASST_OVERRIDES + EVAL_OVERRIDES[2:], None, expected(K1=1, K6=7)),
+            ("EINV2", EINV2_OVERRIDES + EVAL_OVERRIDES[2:], None, expected(K1=1, K8=1, K2=24)),
+            ("CRNN", CRNN_OVERRIDES + EVAL_OVERRIDES[2:], randomize_bn_stats,
+             expected(K1=1, K7=6))):
+        task, gen = eval_task(over, 63)
+        if prep is not None:
+            prep(task.model, gen)
+        w = torch.randn(B_ROUTE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+        step(w)  # warm-up
+        out, launches = counted(lambda: step(w))
+        check(launches == want, f"{name} eval_step launch counts {launches}")
+        task.set_use_kernels(False)
+        ref = step(w)
+        diff = max((out[k] - ref[k]).abs().max().item() for k in ref)
+        log(f"{name} eval_step (route {task.eval_route()}, {B_ROUTE} clips): launches "
+            f"{ {k: v for k, v in launches.items() if v} }, vs plain step max |d| {diff:.3g} "
+            f"(<= 5e-2)")
+        check(all(bool(torch.isfinite(v).all()) for v in out.values()), f"{name} output")
+        check(diff <= 5e-2, f"{name} eval_step disagrees with its plain step")
+        del task, out, ref
+        torch.cuda.empty_cache()
+    log(f"eval path launches: {total}")
+    # the kernels line takes each kernel's largest error over both folded batches
+    return total, {k: tuple(max(e[k][i] for e in errs.values()) for i in range(2))
+                   for k in ("K1", "K8", "K2")}
+
+
 def phase_profile(what, fn):
     """Device time by kernel over one call of fn (torch.profiler, CUPTI);
     returns the (kernel, ms, count) rows, empty when nothing was recorded."""
@@ -2578,6 +2942,7 @@ def main():
     results["serve_stage"] = phase_serve_stage(smi)
     results["serve_einv2"] = phase_serve_einv2(smi)
     results["train_einv2"] = phase_train_einv2(smi)
+    results["eval"] = phase_eval(smi)
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
     # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the einsum embed, one

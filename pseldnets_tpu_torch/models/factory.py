@@ -47,6 +47,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     def randn(p, std, base=0.0):
         p.copy_(base + std * torch.randn(p.shape, generator=generator))
 
+    def drawn(p, init, **kw):
+        # drawn into a CPU tensor, then copied: the values do not depend on
+        # the device p lives on (a CPU generator cannot fill a CUDA tensor)
+        t = torch.empty(p.shape, dtype=p.dtype)
+        init(t, generator=generator, **kw)
+        p.copy_(t)
+
     def fan_in_normal(w):
         w.copy_(torch.randn(w.shape, generator=generator).clamp_(-2, 2)
                 / math.sqrt(w[0].numel()))
@@ -64,8 +71,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                     else:
                         randn(p, 0.02)
             elif isinstance(mod, RelativeMultiHeadAttention):
-                nn.init.xavier_uniform_(mod.u_bias, generator=generator)
-                nn.init.xavier_uniform_(mod.v_bias, generator=generator)
+                drawn(mod.u_bias, nn.init.xavier_uniform_)
+                drawn(mod.v_bias, nn.init.xavier_uniform_)
             elif isinstance(mod, (nn.LayerNorm, TorchBatchNorm)):
                 randn(mod.weight, 0.1, 1.0)
                 randn(mod.bias, 0.1)
@@ -77,8 +84,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 for p in (mod.cls_token, mod.dist_token, mod.new_pos_embed,
                           mod.freq_new_pos_embed, mod.time_new_pos_embed):
                     if p is not None:
-                        nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
-                                              generator=generator)
+                        drawn(p, nn.init.trunc_normal_, std=0.02, a=-0.04, b=0.04)
         for mod in model.modules():
             if isinstance(mod, Adapter):
                 mod.fc2.weight.zero_()

@@ -6,7 +6,16 @@ tree of numpy arrays onto the port's module. Keys come from
 map with its conformer rewrite (``_CONFORMER_MAP``, :43-63), so the port's
 parameter names are the reference's torch keys and a later change can load
 the released checkpoints with no second map (the fused ScalarBN (C, F) is
-the one exception, see models.common.ScalarBN). Values invert the layout
+the one exception, see models.common.ScalarBN).
+
+``load_seld_inference_ckpt`` loads a reference-format SELD checkpoint (a
+``.ckpt``/``.pth`` written by torch: Lightning's ``state_dict``, a
+``model`` entry or a raw dict) into the port's model, as the JAX package's
+train/checkpoint.py:146-167, :414-420 reads one: the ``sed_model.``,
+``net.`` and ``_orig_mod.`` prefixes stripped, ``af_extractor.*`` dropped,
+the reference's per-channel ScalarBN rows ``scalar.{c}.<leaf>`` stacked into
+the fused (C, F) leaves (the JAX side: checkpoint.py:201-216), then a strict
+load that raises on any key missing or left over. Values invert the layout
 rules of that package's ``_to_flax_value`` (:119): Dense (in, out) -> Linear
 (out, in), or Conv1d (out, in, 1) for the conformer's pointwise convs; conv
 HWIO -> OIHW; a depthwise kernel (k, 1, C) -> Conv1d (C, 1, k); LayerNorm
@@ -18,7 +27,7 @@ under ``self_attn`` pack into nn.MultiheadAttention's ``in_proj_weight`` /
 
 import re
 from collections import OrderedDict
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -197,4 +206,78 @@ def jax_to_torch_state_dict(variables: Mapping,
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
     """Copy a flax variable tree into ``model`` (strict both ways)."""
     model.load_state_dict(jax_to_torch_state_dict(variables, model), strict=True)
+    return model
+
+
+# buffers a reference checkpoint carries that the port rebuilds and does not
+# store (the JAX loader leaves them unused too, train/checkpoint.py:281-284)
+_REBUILT_SUFFIXES = ("num_batches_tracked", ".pe", "relative_position_index", "attn_mask")
+_BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def strip_prefixes(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Drop the reference's wrapper prefixes from every key (the JAX
+    package's strip_prefixes, checkpoint.py:161-167)."""
+    out = {}
+    for k, v in sd.items():
+        for pre in ("sed_model.", "net.", "_orig_mod."):
+            k = k.replace(pre, "")
+        out[k] = v
+    return out
+
+
+def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
+    """``torch.load`` on the CPU with the reference's unwrap rules
+    (``ckpt["state_dict"]``, else ``ckpt["model"]``, else the raw dict) and
+    the prefix strips."""
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        sd = ckpt["state_dict"]
+    elif isinstance(ckpt, dict) and "model" in ckpt:
+        sd = ckpt["model"]
+    else:
+        sd = ckpt
+    return strip_prefixes({k: v.detach().cpu() if isinstance(v, torch.Tensor)
+                           else torch.as_tensor(np.asarray(v)) for k, v in sd.items()})
+
+
+def stack_scalar_rows(sd: Mapping[str, torch.Tensor],
+                      model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The reference's per-channel rows ``<name>.{c}.<leaf>`` of every fused
+    ScalarBN of ``model`` stacked into its (C, F) ``<name>.<leaf>``; raises
+    where a row is missing."""
+    from ..models.common import ScalarBN
+
+    out = dict(sd)
+    for name, mod in model.named_modules():
+        if not isinstance(mod, ScalarBN):
+            continue
+        for leaf in _BN_LEAVES:
+            rows = [f"{name}.{c}.{leaf}" for c in range(mod.weight.shape[0])]
+            missing = [r for r in rows if r not in out]
+            if missing:
+                raise KeyError(f"checkpoint lacks ScalarBN rows {missing}")
+            out[f"{name}.{leaf}"] = torch.stack(
+                [torch.as_tensor(out.pop(r), dtype=torch.float32) for r in rows], dim=0)
+    return out
+
+
+def load_seld_inference_ckpt(model: torch.nn.Module, ckpt_path) -> torch.nn.Module:
+    """Load a reference-format SELD checkpoint (the whole model, heads
+    included) into ``model`` for inference (the JAX package's
+    load_seld_inference_ckpt, checkpoint.py:414-420). Strict: a model key
+    the checkpoint does not fill, or a checkpoint key the model lacks
+    (other than the rebuilt buffers), raises ``KeyError``."""
+    sd = {k: v for k, v in load_torch_state_dict(ckpt_path).items()
+          if not k.startswith("af_extractor")}
+    sd = stack_scalar_rows(sd, model)
+    want = model.state_dict()
+    sd = {k: v for k, v in sd.items() if k in want or not k.endswith(_REBUILT_SUFFIXES)}
+    missing = sorted(set(want) - set(sd))
+    unused = sorted(set(sd) - set(want))
+    if missing or unused:
+        raise KeyError(f"checkpoint {ckpt_path}: model keys it lacks {missing[:20]} "
+                       f"({len(missing)} in all), keys the model lacks {unused[:20]} "
+                       f"({len(unused)} in all)")
+    model.load_state_dict({k: v.to(want[k].dtype) for k, v in sd.items()}, strict=True)
     return model

@@ -866,3 +866,63 @@ def test_einv2_served_on_kernels_matches_plain(card):
     with pytest.raises(NotImplementedError, match="einsum"):
         patch_embed.patch_embed_tokens(feats[:, :4].contiguous(), sed)
     assert patch_embed.KERNEL.launches == n
+
+
+@pytest.mark.parametrize("batch", [32, 128])
+def test_acs_folded_batch_on_kernels_matches_plain(card, batch):
+    """The eval step's ACS (HTSAT mACCDOA at full width, bf16, seeded
+    weights) at B=32, eight rotations folded into each forward (256 clips a
+    launch, two chunks: K1 x2, K8 x2, K2 x24), and at the infer CLI's B=128,
+    four rotations a forward (512 clips a launch, four chunks: K1 x4, K8 x4,
+    K2 x48); the averaged outputs within 5e-2 of the plain path's; on the
+    first chunk's folded batch, K1 within 2^-7 of max(|x|, 1) of its plain
+    version, K8 and each K2 block within 2^-6 of the plain output's scale on
+    the same inputs."""
+    from pathlib import Path
+
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.serving import folded_wav_features
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    cfg = compose(str(Path(__file__).resolve().parents[1] / "configs"), "train",
+                  ["loss=multi_accdoa", "model.kwargs.pretrained_path=null",
+                   "trainer.precision=bf16-mixed"])
+    task = SELDTask(cfg, DatasetSpec(num_classes=13), device=card)
+    task.init_state(0)
+    model = task.model
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        model.scalar.running_mean.copy_(torch.randn(7, 64, generator=gen) * 5.0 - 20.0)
+        model.scalar.running_var.copy_(torch.rand(7, 64, generator=gen) * 50.0 + 10.0)
+    g = torch.Generator(device=card).manual_seed(12)
+    wav = torch.randn(batch, 4, 240000, device=card, generator=g) * 0.1
+    chunk = task.acs_chunk(batch)
+    assert chunk == {32: 8, 128: 4}[batch]
+    kernels = (frontend.KERNEL, patch_embed.KERNEL, swin_block.KERNEL)
+    before = [k.launches for k in kernels]
+    got = task.eval_step({"data": wav}, post_processing="ACS")["multi_accdoa"]
+    n = 16 // chunk
+    assert [k.launches - b for k, b in zip(kernels, before)] == [n, n, 12 * n]
+    task.set_use_kernels(False)
+    plain = task.eval_step({"data": wav}, post_processing="ACS")["multi_accdoa"]
+    task.set_use_kernels(True)
+    assert got.shape == (batch, 100, 117) and torch.isfinite(got).all()
+    assert (got - plain).abs().max().item() < 5e-2
+    del plain
+
+    perm, sign, _ = (torch.as_tensor(t, device=card) for t in task.acs_tables())
+    folded = task.acs_fold(wav, perm[:chunk], sign[:chunk])
+    assert folded.shape == (chunk * batch, 4, 240000)
+    blocks, embed = (task._eval_params("htsat")[k] for k in ("blocks", "embed"))
+    with torch.no_grad():
+        feats = folded_wav_features(model, folded, t_out=1024)
+        ref = folded_wav_features(model, folded, t_out=1024, use_kernels=False).float()
+        assert ((feats.float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2 ** -7
+        x = patch_embed.patch_embed_tokens(feats, embed)
+        ref = patch_embed.patch_embed_tokens_plain(feats, embed).float()
+        assert (x.float() - ref).abs().max().item() <= 2 ** -6 * ref.abs().max().item()
+        for p in blocks:
+            y = swin_block.swin_block_fused(x, p)
+            ref = swin_block.swin_block_plain(x, p).float()
+            assert (y.float() - ref).abs().max().item() <= 2 ** -6 * ref.abs().max().item()
+            x = y

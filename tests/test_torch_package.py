@@ -57,12 +57,34 @@ def test_importing_every_module_loads_no_jax():
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(len([m for m in sys.modules if m.startswith('pseldnets_tpu_torch')]), bad)\n"
+        "print(' '.join(m for m in sys.modules if m.startswith('pseldnets_tpu_torch')))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert int(r.stdout.split()[0]) >= 15
+    loaded = set(r.stdout.splitlines()[1].split())
+    assert {f"pseldnets_tpu_torch.{m}" for m in (
+        "metrics.seld", "metrics.dcase", "data.dataset", "data.datamodule", "data.sampler",
+        "utils.audio_io", "cli.infer", "cli.evaluate", "entry", "train.loop")} <= loaded
+
+
+def test_cli_imports_without_h5py():
+    """The card's machine has no h5py: the CLI, the data package and the
+    eval loop import without it (the dataset readers import it where they
+    open a file)."""
+    code = ("import sys\n"
+            "sys.modules['h5py'] = None  # import h5py raises ImportError\n"
+            "import pseldnets_tpu_torch.cli.infer, pseldnets_tpu_torch.data\n"
+            "import pseldnets_tpu_torch.train.loop, pseldnets_tpu_torch.entry\n"
+            "from pseldnets_tpu_torch.data.dataset import USER_DATASETS\n"
+            "assert sorted(USER_DATASETS) == ['accdoa', 'einv2', 'multi_accdoa']\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
 
 
 def test_default_device_is_the_card():
@@ -183,4 +205,4 @@ def test_chip_smoke_builds_every_kernel_source():
             "swin_stage.cu"} <= sources
     assert list(chip_smoke.kernels()) == [f"K{i}" for i in range(1, 12)]
     assert {"serve_crnn", "serve_patch", "features_flat", "features_dif",
-            "serve_stage"} <= set(chip_smoke.PATHS)
+            "serve_stage", "serve_einv2", "train_einv2", "eval"} <= set(chip_smoke.PATHS)
