@@ -74,7 +74,7 @@ CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
                (125, 8, 256, 512), (125, 4, 512, 1024), (125, 2, 1024, 2048))
 PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn",
          "serve_patch", "features_flat", "features_dif", "serve_stage", "serve_einv2",
-         "train_einv2", "eval")
+         "train_einv2", "eval", "fit")
 DEPTHS = (2, 2, 6, 2)  # HTSAT's Swin stages (configs/model/htsat.yaml)
 
 
@@ -696,6 +696,78 @@ def make_labels(rng, B, T_label, K_cls=13):
     return adpit
 
 
+def hold_k1_train(task, wav):
+    """K1 in its training form (unfolded, float32) on a step's waveforms
+    against its plain version, with phase_frontend's feature budget (8e-4
+    dB, 7e-5 IV). -> (max |d|, of scale)."""
+    import torch
+    from pseldnets_tpu_torch.ops.frontend import fused_logmel_iv_plain
+
+    feats = task.extractor(wav)
+    ref = fused_logmel_iv_plain(wav)
+    B = wav.shape[0]
+    check(feats.shape == ref.shape == (B, 7, 1001, 64) and feats.dtype == torch.float32,
+          f"K1 training form shape {tuple(feats.shape)}")
+    db = (feats[:, :4] - ref[:, :4]).abs().max().item()
+    iv = (feats[:, 4:] - ref[:, 4:]).abs().max().item()
+    log(f"K1 at B={B} (training form, float32): max |dB| {db:.3g} (<= 8e-4), "
+        f"max |IV| {iv:.3g} (<= 7e-5)")
+    check(torch.isfinite(feats).all().item() and db <= 8e-4 and iv <= 7e-5,
+          f"K1 training form disagrees with its plain version at B={B}")
+    return max(db, iv), max(db / ref[:, :4].abs().max().item(),
+                            iv / ref[:, 4:].abs().max().item())
+
+
+def record_block_backwards(task, wav, labels, seed):
+    """The inputs of every K3 call of one ``task.compute_grads`` on (wav,
+    labels), drop-path masks drawn from ``seed``: [(x, p, masks, dout,
+    want)], the plain step asking for every grad."""
+    import torch
+    from pseldnets_tpu_torch.ops import swin_block_vjp
+
+    recorded = []
+    orig = swin_block_vjp.swin_block_backward
+
+    def record(x, p, m, dout, want=None):
+        recorded.append((x, p, m, dout, want))
+        return orig(x, p, m, dout, want)
+
+    swin_block_vjp.swin_block_backward = record
+    try:
+        task.compute_grads(wav, labels, torch.Generator(device="cuda").manual_seed(seed))
+    finally:
+        swin_block_vjp.swin_block_backward = orig
+    check(len(recorded) == 12, f"recorded {len(recorded)} block backwards")
+    check(all(set(r[4]) == set(swin_block_vjp.GRAD_KEYS) for r in recorded),
+          "the plain step asks K3 for every grad")
+    return recorded
+
+
+def hold_train_block(x, p, m, dout, j):
+    """K2 with masks and K3 on one block's recorded training inputs
+    against their plain versions, each within 2^-6 of the plain output's
+    scale (phase_swin_block's rule). -> (K2 max |d|, of scale, K3 max |d|,
+    worst of scale over dx and the grads)."""
+    import torch
+    from pseldnets_tpu_torch.ops import swin_block_vjp
+
+    B = x.shape[0]
+    y = swin_block_vjp.swin_block_fused(x, p, m).float()
+    y0 = swin_block_vjp.swin_block_plain(x, p, m).float()
+    e2, s = (y - y0).abs().max().item(), y0.abs().max().item()
+    check(torch.isfinite(y).all().item() and e2 <= 2.0 ** -6 * s,
+          f"K2 with masks, block {j}, disagrees at B={B}")
+    dx, gr = swin_block_vjp.swin_block_backward(x, p, m, dout)
+    dx0, g0 = swin_block_vjp.swin_block_backward_plain(x, p, m, dout)
+    e3 = worst = 0.0
+    for name, a, b in [("dx", dx, dx0)] + [(k, gr[k], g0[k]) for k in gr]:
+        e = (a.float() - b.float()).abs().max().item()
+        sc = b.float().abs().max().item()
+        check(e <= 2.0 ** -6 * sc, f"K3 block {j} {name} disagrees at B={B}")
+        e3, worst = max(e3, e), max(worst, e / sc)
+    return e2, e2 / s, e3, worst
+
+
 def phase_train(smi):
     """Full-width B=32 training steps through SELDTask (kernels K1, K2 with
     masks, K3), the kernel step against the plain step, K3 on the step's own
@@ -704,7 +776,6 @@ def phase_train(smi):
     import torch
     from pseldnets_tpu_torch.config import compose
     from pseldnets_tpu_torch.ops import swin_block_vjp
-    from pseldnets_tpu_torch.ops.frontend import fused_logmel_iv_plain
     from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
 
     cfg = compose(str(ROOT / "configs"), "train", TRAIN_OVERRIDES)
@@ -764,56 +835,18 @@ def phase_train(smi):
     # K1 in its training form (unfolded, float32) on the step's own B=32
     # waveforms, with phase_frontend's feature budget, and timed
     wav = wavs[0]
-    feats = task.extractor(wav)
-    ref = fused_logmel_iv_plain(wav)
-    check(feats.shape == ref.shape == (B_TRAIN, 7, 1001, 64) and feats.dtype == torch.float32,
-          f"K1 training form shape {tuple(feats.shape)}")
-    db = (feats[:, :4] - ref[:, :4]).abs().max().item()
-    iv = (feats[:, 4:] - ref[:, 4:]).abs().max().item()
-    k1_err = max(db, iv)
-    k1_rel = max(db / ref[:, :4].abs().max().item(), iv / ref[:, 4:].abs().max().item())
-    log(f"K1 at B={B_TRAIN} (training form, float32): max |dB| {db:.3g} (<= 8e-4), "
-        f"max |IV| {iv:.3g} (<= 7e-5)")
-    check(torch.isfinite(feats).all().item() and db <= 8e-4 and iv <= 7e-5,
-          f"K1 training form disagrees with its plain version at B={B_TRAIN}")
+    k1_err, k1_rel = hold_k1_train(task, wav)
     k1_ms = cuda_ms(lambda: task.extractor(wav), reps=10)
 
     # K3 on the step's own B=32 block inputs, recorded from one step
-    recorded = []
-
-    def record(x, p, m, dout, want=None):
-        recorded.append((x, p, m, dout, want))
-        return orig(x, p, m, dout, want)
-
+    recorded = record_block_backwards(task, wavs[1], labels, 9)
     orig = swin_block_vjp.swin_block_backward
-    swin_block_vjp.swin_block_backward = record
-    try:
-        task.compute_grads(wavs[1], labels, torch.Generator(device="cuda").manual_seed(9))
-    finally:
-        swin_block_vjp.swin_block_backward = orig
-    check(len(recorded) == 12, f"recorded {len(recorded)} block backwards")
     k2_err = k2_rel = k3_err = k3_rel = 0.0
     rows = []
-    check(all(set(r[4]) == set(swin_block_vjp.GRAD_KEYS) for r in recorded),
-          "the plain step asks K3 for every grad")
     for j, (x, p, m, dout, _) in enumerate(reversed(recorded)):
-        # K2 with masks on the block's own input, phase_swin_block's 2^-6
-        y = swin_block_vjp.swin_block_fused(x, p, m).float()
-        y0 = swin_block_vjp.swin_block_plain(x, p, m).float()
-        e, s = (y - y0).abs().max().item(), y0.abs().max().item()
-        check(torch.isfinite(y).all().item() and e <= 2.0 ** -6 * s,
-              f"K2 with masks, block {j}, disagrees at B={B_TRAIN}")
-        k2_err, k2_rel = max(k2_err, e), max(k2_rel, e / s)
-        k2_block_rel = e / s
-        dx, gr = orig(x, p, m, dout)
-        dx0, g0 = swin_block_vjp.swin_block_backward_plain(x, p, m, dout)
-        worst_rel = 0.0
-        for name, a, b in [("dx", dx, dx0)] + [(k, gr[k], g0[k]) for k in gr]:
-            e = (a.float() - b.float()).abs().max().item()
-            s = b.float().abs().max().item()
-            check(e <= 2.0 ** -6 * s, f"K3 block {j} {name} disagrees at B={B_TRAIN}")
-            k3_err, worst_rel = max(k3_err, e), max(worst_rel, e / s)
-        k3_rel = max(k3_rel, worst_rel)
+        e2, k2_block_rel, e3, worst_rel = hold_train_block(x, p, m, dout, j)
+        k2_err, k2_rel = max(k2_err, e2), max(k2_rel, k2_block_rel)
+        k3_err, k3_rel = max(k3_err, e3), max(k3_rel, worst_rel)
         t = cuda_ms(lambda: orig(x, p, m, dout), reps=5)
         tp = cuda_ms(lambda: swin_block_vjp.swin_block_backward_plain(x, p, m, dout), reps=1)
         t2 = cuda_ms(lambda: swin_block_vjp.swin_block_fused(x, p, m), reps=5)
@@ -2883,13 +2916,251 @@ def phase_eval(smi):
                    for k in ("K1", "K8", "K2")}
 
 
-def phase_profile(what, fn):
-    """Device time by kernel over one call of fn (torch.profiler, CUPTI);
-    returns the (kernel, ms, count) rows, empty when nothing was recorded."""
+# the fit path: train/loop.py's fit at the training cell's configuration
+# (TRAIN_OVERRIDES, B_TRAIN), FIT_EPOCHS epochs of FIT_STEPS steps, a
+# validation of the in-memory files after each (move_avg)
+FIT_STEPS, FIT_EPOCHS = 4, 2
+FIT_TURNS, FIT_TURN_STEPS = 4, 16  # rounds, and steps a side, of fit in turns with bare steps
+
+
+class FitDataModule(MemoryDataModule):
+    """MemoryDataModule's validation files and FIT_STEPS train batches of
+    B_TRAIN ten-second clips as host numpy arrays, as data/datamodule.py's
+    ``collate`` yields them (waveforms, ADPIT labels, ov), the same batches
+    every epoch: the copy to the device is part of what fit runs."""
+
+    def __init__(self, seed):
+        import numpy as np
+        import torch
+
+        super().__init__(seed)
+        rng = np.random.default_rng(seed + 1)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        self.train = [{"data": (torch.randn(B_TRAIN, 4, N_SAMPLES, device="cuda", generator=g)
+                                * 0.1).cpu().numpy(),
+                       "adpit_label": make_labels(rng, B_TRAIN, 100), "ov": ["1"] * B_TRAIN}
+                      for _ in range(FIT_STEPS)]
+
+    def steps_per_epoch(self):
+        return len(self.train)
+
+    def train_dataloader(self, num_batches=None):
+        n = len(self.train) if num_batches is None else num_batches
+        return (self.train[i % len(self.train)] for i in range(n))
+
+
+def task_state(task):
+    """What an exact resume restores, cloned on the card: the model's
+    tensors, the optimizer's state and groups (without ``lr_fn``), step,
+    epoch and best score."""
+    import torch
+
+    opt = task.state.optimizer.state_dict()
+    return ({k: v.clone() for k, v in task.model.state_dict().items()},
+            {i: {k: v.clone() if torch.is_tensor(v) else v for k, v in st.items()}
+             for i, st in opt["state"].items()},
+            [{k: v for k, v in g.items() if k != "lr_fn"} for g in opt["param_groups"]],
+            task.state.step, task.state.epoch, task.state.best_score)
+
+
+def same_state(a, b):
+    """Whether two ``task_state``s are equal bit for bit."""
+    import torch
+
+    def eq(x, y):
+        return torch.equal(x, y) if torch.is_tensor(x) else x == y
+
+    return (a[0].keys() == b[0].keys() and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+            and a[1].keys() == b[1].keys()
+            and all(st.keys() == b[1][i].keys() and all(eq(v, b[1][i][k]) for k, v in st.items())
+                    for i, st in a[1].items())
+            and a[2:] == b[2:])
+
+
+def phase_fit(smi):
+    """train/loop.py's fit at full width on the card: HTSAT mACCDOA,
+    TRAIN_OVERRIDES (bf16-mixed, fused forward, drop-path 0.1), B_TRAIN,
+    FIT_EPOCHS epochs of FIT_STEPS steps from host numpy batches (K1 x1, K2
+    x12, K3 x12 a step), a validation after each (move_avg, the in-memory
+    files: K1 x1, K8 x1, K2 x12 a batch), checkpoints into a temporary
+    directory. Checks the metrics.jsonl lines, the best and last files,
+    the exact resume from last.ckpt (bit for bit against the state at the
+    save), the best file's validation score, K1, K2 with masks and K3 on
+    the main run's step inputs against their plain versions, a resumed
+    third epoch; times the steps inside fit (from host batches and from
+    device-resident ones) in turns with bare train_steps, splits the epoch
+    end, and profiles one more epoch (the device's idle share)."""
+    import copy
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.metrics import SELDMetrics
+    from pseldnets_tpu_torch.train import loop
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    tmp = tempfile.TemporaryDirectory()
+    out = Path(tmp.name) / "run"
+    cfg = compose(str(ROOT / "configs"), "train", TRAIN_OVERRIDES + [
+        f"trainer.max_epochs={FIT_EPOCHS}", "logger=csv", f"paths.log_dir={tmp.name}/logs"])
+    cfg["post_processing"] = "move_avg"
+    cfg["data"]["test_hoplen_sec"] = EVAL_HOP_SEC
+
+    def epochs(n):
+        c = copy.deepcopy(cfg)
+        c["trainer"]["max_epochs"] = n
+        return c
+
+    def new_task():
+        return SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=FIT_STEPS,
+                        device="cuda")
+
+    dm = FitDataModule(70)
+    task = new_task()
+    check(task.fused_forward and task.compute_dtype == torch.bfloat16, "fit configuration")
+    task.init_state(0)
+    host = ((loop.Aggregator, "aggregate"), (loop.Aggregator, "to_dcase_polar"),
+            (SELDMetrics, "update_seld_scores"), (SELDMetrics, "compute_seld_scores"))
+    timings = []
+
+    # the main path: counts from 0, one fit of FIT_EPOCHS epochs
+    zero_counts()
+    with HostClock(*host, (loop.Aggregator, "append"), (SELDTask, "eval_step")) as clock:
+        t0 = time.perf_counter()
+        loop.fit(task, dm, cfg, out, timings=timings)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    n_val = len(dm.batches)
+    n_steps = FIT_EPOCHS * FIT_STEPS
+    want = expected(K1=n_steps + FIT_EPOCHS * n_val, K2=12 * (n_steps + FIT_EPOCHS * n_val),
+                    K3=12 * n_steps, K8=FIT_EPOCHS * n_val)
+    log(f"fit: {FIT_EPOCHS} epochs of {FIT_STEPS} steps of {B_TRAIN} x 10 s clips, a "
+        f"validation of {n_val} batches after each, {fit_s:.2f} s: launches {launches} "
+        f"(expect {want})")
+    check(launches == want, "fit launch counts")
+    lines = [json.loads(s) for s in (out / "metrics.jsonl").read_text().splitlines()]
+    check([ln["epoch"] for ln in lines] == list(range(1, FIT_EPOCHS + 1)), "fit epoch lines")
+    for ln in lines:
+        vals = (list(ln["train"].values()) + list(ln["val"]["losses"].values())
+                + list(ln["val"]["macro"].values()) + list(ln["val"]["micro"].values()))
+        check(all(np.isfinite(v) for v in vals), f"fit epoch {ln['epoch']}: a value not finite")
+        log(f"  epoch {ln['epoch']}: lr {ln['lr']}, train {ln['train']}, val macro "
+            f"{ln['val']['macro']}, val losses {ln['val']['losses']}")
+    best_line = min(lines, key=lambda ln: ln["val"]["macro"]["SELD_scr"])
+    ckpts = sorted(p.name for p in (out / "checkpoints").iterdir())
+    check(ckpts == [f"epoch_{best_line['epoch']:03d}.ckpt", "last.ckpt"], f"checkpoints {ckpts}")
+    host_ms = sum(clock.ms.get(n, 0.0) for _, n in host)
+    for t in timings:
+        log(f"  epoch {t['epoch']}: steps {t['train_s'] * 1e3 / FIT_STEPS:.2f} ms/step inside fit "
+            f"(host clock, until the epoch's losses are fetched), validation "
+            f"{t['val_s'] * 1e3:.1f} ms, checkpoints {t['ckpt_bytes']} bytes written in "
+            f"{t['ckpt_s'] * 1e3:.1f} ms ({smi})")
+    log(f"  validations ({FIT_EPOCHS} x {n_val} batches): eval_step {clock.ms['eval_step']:.1f} "
+        f"ms (queued), the fetch in Aggregator.append {clock.ms['append']:.1f} ms, the host's "
+        f"decoding and metrics {host_ms:.1f} ms ("
+        + ", ".join(f"{n} {clock.ms.get(n, 0.0):.1f}" for _, n in host) + ")")
+
+    # the exact resume: a new task from last.ckpt against the state at the save
+    saved = task_state(task)
+    task2 = new_task()
+    task2.init_state(0, ckpt_path=str(out / "checkpoints" / "last.ckpt"))
+    check(same_state(task_state(task2), saved), "last.ckpt does not restore the state bit for bit")
+    log(f"last.ckpt restores {len(saved[0])} model tensors, {len(saved[1])} optimizer states, "
+        f"step {saved[3]}, epoch {saved[4]}, best {saved[5]} bit for bit")
+    del saved
+    # the best file, loaded as weights, scores its epoch's validation again
+    task2.init_state(0, ckpt_path=str(out / "checkpoints" / ckpts[0]))
+    macro, _, _ = loop.run_validation(task2, dm, SELDMetrics(nb_classes=13, doa_threshold=20))
+    d_best = abs(macro["SELD_scr"] - best_line["val"]["macro"]["SELD_scr"])
+    log(f"{ckpts[0]} + run_validation: SELD_scr {macro['SELD_scr']!r} against the epoch line's "
+        f"{best_line['val']['macro']['SELD_scr']!r}, |d| {d_best:.3g} (<= 1e-6)")
+    check(d_best <= 1e-6, "the best checkpoint does not reproduce its validation score")
+
+    # K1, K2 with masks and K3 on the main run's step inputs: one step of its
+    # end state on fit's second batch (scripts/torch_fit_grad_drift.py
+    # follows K3 against its plain versions over more epochs)
+    dev = [(torch.from_numpy(b["data"]).cuda(), {"adpit_label": torch.from_numpy(
+        b["adpit_label"]).cuda()}) for b in dm.train]
+    w1, lab1 = dev[1]
+    k1 = hold_k1_train(task, dev[0][0])
+    k2 = k3 = (0.0, 0.0)
+    for j, (x, p, m, dout, _) in enumerate(reversed(record_block_backwards(task, w1, lab1, 72))):
+        e2, r2, e3, r3 = hold_train_block(x, p, m, dout, j)
+        k2, k3 = (max(k2[0], e2), max(k2[1], r2)), (max(k3[0], e3), max(k3[1], r3))
+    log(f"on fit's step inputs (epoch {FIT_EPOCHS}'s end state): K1 max |d| {k1[0]:.3g}, K2 "
+        f"with masks {k2[1]:.3g} and K3 {k3[1]:.3g} of scale (<= 2^-6)")
+
+    # the resumed third epoch (a fresh task from last.ckpt)
+    task2.init_state(0, ckpt_path=str(out / "checkpoints" / "last.ckpt"))
+    more = []
+    loop.fit(task2, dm, epochs(FIT_EPOCHS + 1), out, timings=more)
+    lines = [json.loads(s) for s in (out / "metrics.jsonl").read_text().splitlines()]
+    check(lines[-1]["epoch"] == FIT_EPOCHS + 1 and task2.state.epoch == FIT_EPOCHS + 1
+          and task2.state.step == (FIT_EPOCHS + 1) * FIT_STEPS
+          and np.isfinite(lines[-1]["train"]["loss_all"]), "the resumed epoch")
+    log(f"resumed epoch {lines[-1]['epoch']}: train {lines[-1]['train']}, val macro "
+        f"{lines[-1]['val']['macro']}")
+
+    # steps inside fit in turns with bare train_steps (phase_train's step) on
+    # device-resident copies of the same batches, FIT_TURN_STEPS steps a side
+    # (the batches repeated): fit from the host batches (pinned and copied by
+    # its thread), bare, fit from the device-resident copies (no copy), the
+    # order reversed every other round
+    reps = FIT_TURN_STEPS // FIT_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    dm_host, dm_dev = copy.copy(dm), copy.copy(dm)
+    dm_host.train = dm.train * reps
+    dm_dev.train = [{"data": w, "adpit_label": lab["adpit_label"], "ov": b["ov"]}
+                    for (w, lab), b in zip(dev, dm.train)] * reps
+
+    def bare():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w, lab in dev * reps:
+            task2.train_step(w, lab, gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / FIT_TURN_STEPS
+
+    def in_fit(d):
+        loop.fit(task2, d, epochs(task2.state.epoch + 1), out, timings=more)
+        return more[-1]["train_s"] * 1e3 / FIT_TURN_STEPS
+
+    sides = {"host": lambda: in_fit(dm_host), "bare": bare, "device": lambda: in_fit(dm_dev)}
+    turns = {k: [] for k in sides}
+    for r in range(FIT_TURNS):
+        for k in (list(sides) if r % 2 == 0 else list(sides)[::-1]):
+            turns[k].append(sides[k]())
+    log(f"steps inside fit against bare train_steps, in turns ({FIT_TURNS} rounds of "
+        f"{FIT_TURN_STEPS} steps a side; host clock; median (range) ms a step): "
+        + ", ".join(f"{k} {statistics.median(v):.2f} ({min(v):.2f}-{max(v):.2f})"
+                    for k, v in turns.items()) + f"; fit from host batches, bare "
+        f"train_step, fit from device-resident batches ({smi})")
+    for t in more:
+        log(f"  epoch {t['epoch']}: validation {t['val_s'] * 1e3:.1f} ms, checkpoints "
+            f"{t['ckpt_bytes']} bytes written in {t['ckpt_s'] * 1e3:.1f} ms")
+
+    # one more epoch under torch.profiler: the device's idle share over an epoch
+    phase_profile(f"one epoch of fit ({FIT_STEPS} steps, a validation, checkpoints)",
+                  lambda: loop.fit(task2, dm, epochs(task2.state.epoch + 1), out), warm=False)
+
+    del task, task2, dev, dm
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    return launches, {"K1": k1, "K2": k2, "K3": k3}
+
+
+def phase_profile(what, fn, warm=True):
+    """Device time by kernel over one call of fn (torch.profiler, CUPTI),
+    after a warm-up call unless ``warm`` is false; returns the (kernel, ms,
+    count) rows, empty when nothing was recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2943,11 +3214,12 @@ def main():
     results["serve_einv2"] = phase_serve_einv2(smi)
     results["train_einv2"] = phase_train_einv2(smi)
     results["eval"] = phase_eval(smi)
+    results["fit"] = phase_fit(smi)
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
     # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the einsum embed, one
     # call of each frontend form, HTSAT one stage per launch, EINV2 served and
-    # trained eagerly), each counted from 0; errors: the largest over the
+    # trained eagerly, the eval path, fit), each counted from 0; errors: the largest over the
     # checks at each path's own shapes,
     # absolute and as a share of the plain output's largest magnitude; ms and
     # bounds per served batch (K1, K2, K4, K6, K7, K8, K11), per training step

@@ -8,6 +8,16 @@ parameter names are the reference's torch keys and a later change can load
 the released checkpoints with no second map (the fused ScalarBN (C, F) is
 the one exception, see models.common.ScalarBN).
 
+``save_training_ckpt`` writes the port's own training checkpoint in the
+reference's Lightning layout (one ``torch.save`` of a dict, written to a
+temporary name and renamed): ``state_dict`` holds the model under the
+reference's keys with the ``net.`` prefix and every fused ScalarBN unstacked
+into its per-channel rows (``unstack_scalar_rows``), so either package's
+``load_seld_inference_ckpt`` reads it; a ``last.ckpt`` also carries
+``optimizer_states``, ``global_step``, ``epoch`` and ``best_score``
+(``is_training_ckpt``), which ``restore_training_ckpt`` puts back bit for
+bit. This replaces the JAX package's orbax directories (train/loop.py:431-457).
+
 ``load_seld_inference_ckpt`` loads a reference-format SELD checkpoint (a
 ``.ckpt``/``.pth`` written by torch: Lightning's ``state_dict``, a
 ``model`` entry or a raw dict) into the port's model, as the JAX package's
@@ -25,8 +35,10 @@ under ``self_attn`` pack into nn.MultiheadAttention's ``in_proj_weight`` /
 ``in_proj_bias`` and ``out_proj`` (the inverse of :220-251).
 """
 
+import os
 import re
 from collections import OrderedDict
+from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -226,11 +238,10 @@ def strip_prefixes(sd: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
-    """``torch.load`` on the CPU with the reference's unwrap rules
-    (``ckpt["state_dict"]``, else ``ckpt["model"]``, else the raw dict) and
-    the prefix strips."""
-    ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
+def unwrap_state_dict(ckpt: Any) -> Dict[str, torch.Tensor]:
+    """A loaded checkpoint's weights on the CPU under the reference's unwrap
+    rules (``ckpt["state_dict"]``, else ``ckpt["model"]``, else the raw
+    dict) and the prefix strips."""
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         sd = ckpt["state_dict"]
     elif isinstance(ckpt, dict) and "model" in ckpt:
@@ -239,6 +250,11 @@ def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
         sd = ckpt
     return strip_prefixes({k: v.detach().cpu() if isinstance(v, torch.Tensor)
                            else torch.as_tensor(np.asarray(v)) for k, v in sd.items()})
+
+
+def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
+    """``torch.load`` on the CPU, then ``unwrap_state_dict``."""
+    return unwrap_state_dict(torch.load(str(path), map_location="cpu", weights_only=False))
 
 
 def stack_scalar_rows(sd: Mapping[str, torch.Tensor],
@@ -262,14 +278,16 @@ def stack_scalar_rows(sd: Mapping[str, torch.Tensor],
     return out
 
 
-def load_seld_inference_ckpt(model: torch.nn.Module, ckpt_path) -> torch.nn.Module:
+def load_seld_inference_ckpt(model: torch.nn.Module, ckpt_path,
+                             ckpt: Optional[Any] = None) -> torch.nn.Module:
     """Load a reference-format SELD checkpoint (the whole model, heads
     included) into ``model`` for inference (the JAX package's
-    load_seld_inference_ckpt, checkpoint.py:414-420). Strict: a model key
-    the checkpoint does not fill, or a checkpoint key the model lacks
-    (other than the rebuilt buffers), raises ``KeyError``."""
-    sd = {k: v for k, v in load_torch_state_dict(ckpt_path).items()
-          if not k.startswith("af_extractor")}
+    load_seld_inference_ckpt, checkpoint.py:414-420); ``ckpt``, where given,
+    is the file already loaded. Strict: a model key the checkpoint does not
+    fill, or a checkpoint key the model lacks (other than the rebuilt
+    buffers), raises ``KeyError``."""
+    sd = (load_torch_state_dict(ckpt_path) if ckpt is None else unwrap_state_dict(ckpt))
+    sd = {k: v for k, v in sd.items() if not k.startswith("af_extractor")}
     sd = stack_scalar_rows(sd, model)
     want = model.state_dict()
     sd = {k: v for k, v in sd.items() if k in want or not k.endswith(_REBUILT_SUFFIXES)}
@@ -281,3 +299,88 @@ def load_seld_inference_ckpt(model: torch.nn.Module, ckpt_path) -> torch.nn.Modu
                        f"({len(unused)} in all)")
     model.load_state_dict({k: v.to(want[k].dtype) for k, v in sd.items()}, strict=True)
     return model
+
+def unstack_scalar_rows(sd: Mapping[str, torch.Tensor],
+                        model: torch.nn.Module) -> "OrderedDict[str, torch.Tensor]":
+    """The inverse of ``stack_scalar_rows``: each fused ScalarBN leaf
+    ``<name>.<leaf>`` (C, F) of ``model`` as the reference's rows
+    ``<name>.{c}.<leaf>`` (F,), the other keys as they are, in order."""
+    from ..models.common import ScalarBN
+
+    fused = {f"{name}.{leaf}": name for name, mod in model.named_modules()
+             if isinstance(mod, ScalarBN) for leaf in _BN_LEAVES}
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for k, v in sd.items():
+        if k not in fused:
+            out[k] = v
+            continue
+        for c in range(v.shape[0]):
+            out[f"{fused[k]}.{c}.{k.rsplit('.', 1)[1]}"] = v[c].clone()
+    return out
+
+
+# what a port last.ckpt carries besides the weights (an exact resume)
+TRAINING_KEYS = ("optimizer_states", "global_step", "epoch", "best_score")
+
+
+def model_state_rows(model: torch.nn.Module) -> "OrderedDict[str, torch.Tensor]":
+    """``model``'s weights and statistics on the CPU under the reference's
+    Lightning keys: ``net.`` prefixed, ScalarBN rows unstacked."""
+    sd = unstack_scalar_rows({k: v.detach().to("cpu", copy=True)
+                              for k, v in model.state_dict().items()}, model)
+    return OrderedDict((f"net.{k}", v) for k, v in sd.items())
+
+
+def optimizer_state(opt: torch.optim.Optimizer) -> Dict[str, Any]:
+    """``opt.state_dict()`` on the CPU without the groups' ``lr_fn``
+    schedules (closures, which do not pickle; ``build_optimizer`` makes them
+    again on load)."""
+    sd = opt.state_dict()
+    return {"state": {i: {k: v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor) else v
+                          for k, v in st.items()} for i, st in sd["state"].items()},
+            "param_groups": [{k: v for k, v in g.items() if k != "lr_fn"}
+                             for g in sd["param_groups"]]}
+
+
+def save_training_ckpt(path, model: torch.nn.Module,
+                       optimizer: Optional[torch.optim.Optimizer] = None,
+                       **fields: Any) -> int:
+    """One ``torch.save`` of {"state_dict": ``model_state_rows(model)``,
+    "optimizer_states": [``optimizer_state``] when ``optimizer`` is given,
+    and ``fields`` (``global_step``, ``epoch``, ``best_score``)} to a
+    temporary name, then renamed onto ``path``. -> bytes written."""
+    path = Path(path)
+    ckpt: Dict[str, Any] = {"state_dict": model_state_rows(model)}
+    if optimizer is not None:
+        ckpt["optimizer_states"] = [optimizer_state(optimizer)]
+    ckpt.update(fields)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(ckpt, str(tmp))
+    os.replace(tmp, path)
+    return path.stat().st_size
+
+
+def is_training_ckpt(ckpt: Any) -> bool:
+    """Whether a loaded checkpoint is a port ``last.ckpt``: a dict that
+    carries every one of ``TRAINING_KEYS``."""
+    return isinstance(ckpt, dict) and all(k in ckpt for k in TRAINING_KEYS)
+
+
+def restore_training_ckpt(path, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                          ckpt: Optional[Any] = None) -> Dict[str, Any]:
+    """Exact resume from a port ``last.ckpt`` (``ckpt``, where given, is the
+    file already loaded): the weights and statistics (strictly, through
+    ``load_seld_inference_ckpt``) and the optimizer's state, each group
+    keeping its ``lr_fn``. -> {"global_step", "epoch", "best_score"}."""
+    if ckpt is None:
+        ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
+    if not is_training_ckpt(ckpt):
+        raise KeyError(f"{path} is not a training checkpoint: it lacks "
+                       f"{[k for k in TRAINING_KEYS if k not in ckpt]}")
+    load_seld_inference_ckpt(model, path, ckpt)
+    fns = [g["lr_fn"] for g in optimizer.param_groups]
+    optimizer.load_state_dict(ckpt["optimizer_states"][0])
+    for g, fn in zip(optimizer.param_groups, fns):
+        g["lr_fn"] = fn
+    return {"global_step": int(ckpt["global_step"]), "epoch": int(ckpt["epoch"]),
+            "best_score": float(ckpt["best_score"])}

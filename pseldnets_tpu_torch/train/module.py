@@ -22,9 +22,13 @@ them: augmentation (non-empty ``augment.type``, AugMix, ``rotate.on_device``:
 step 5), tensor parallelism (``trainer.tensor_parallel`` > 1: step 11),
 LoRA and the eager-only adapter settings (models/adapters.py: step 6), PaSST
 training (models/passt.py: step 8) and a conformer or transformer decoder
-that trains with dropout (models/common.py ``check_no_dropout``: step 9). The
-epoch loop, data loading, checkpoint save and resume and the
-``src/train.py`` entry point are the rest of step 4.
+that trains with dropout (models/common.py ``check_no_dropout``: step 9).
+
+The step comes in two halves, as in the JAX task (:473-506):
+``prepare_batch`` takes the loader's batch to the device (on the card from
+pinned memory on a side stream) and keeps its ``ov`` list;
+``train_step_prepared`` waits on that copy and steps. train/loop.py's
+``fit`` runs the first half a batch ahead on a thread of its own.
 
 Eval (``eval_step``): the route of the JAX package's ``_select_fused_eval``
 (:337-374), taken on every device: an HTSAT to serving/htsat.py (K1, K8,
@@ -38,10 +42,12 @@ eval ScalarBN, the cast and the frame pad folded, as served); other clips
 CPU, or with ``use_kernels=False``, the same functions run the kernels'
 plain versions. An odd batch is padded with repeats of its last clip and
 sliced back (:527-555); ``post_processing="ACS"`` folds the 16 rotations
-into the batch (:557-654). ``init_state(ckpt_path=...)`` loads a
-reference-format checkpoint (train/checkpoint.py).
+into the batch (:557-654). ``init_state(ckpt_path=...)`` resumes exactly
+from the port's ``last.ckpt`` and loads any other ``.ckpt`` (the port's
+best, the reference's) as weights (train/checkpoint.py).
 """
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -58,7 +64,7 @@ from ..ops._cuda import resolve_device
 from ..ops.features import LogmelIVExtractor, make_extractor
 from ..ops.frontend import frontend_route
 from ..ops.swin_block_adapt import has_adapters
-from .checkpoint import load_seld_inference_ckpt
+from .checkpoint import is_training_ckpt, load_seld_inference_ckpt, restore_training_ckpt
 from .fused_forward import htsat_fused_train_forward, supports_fused_train
 from .optim import build_optimizer, optimizer_step, trainable_mask
 
@@ -75,11 +81,26 @@ class DatasetSpec:
 
 @dataclass
 class TrainState:
-    """The optimizer (and its state) and the step count; the parameters and
-    the batch statistics live in ``SELDTask.model``."""
+    """The optimizer (and its state), the step count, and the epochs done
+    and best validation score so far (train/loop.py's ``fit`` keeps both);
+    the parameters and the batch statistics live in ``SELDTask.model``."""
 
     optimizer: torch.optim.Optimizer
     step: int = 0
+    epoch: int = 0
+    best_score: float = math.inf
+
+
+@dataclass
+class PreparedBatch:
+    """A batch on the task's device (``prepare_batch``): waveforms (B, 4,
+    samples) float32, the label tensors, the raw batch's ``ov`` list (or
+    None), and on the card the event of the copy that made them."""
+
+    x: torch.Tensor
+    targets: Dict[str, torch.Tensor]
+    ov: Optional[List[str]] = None
+    event: Optional[Any] = None
 
 
 # the heads with drop-path, which take masks or a generator
@@ -144,6 +165,7 @@ class SELDTask:
         self.state: Optional[TrainState] = None
         self._eval_cache = None
         self._eval_tensors = None
+        self._copy_stream = None
 
     def set_use_kernels(self, use_kernels: bool) -> None:
         """Run the kernels (True) or their plain versions (False) on the same
@@ -155,42 +177,49 @@ class SELDTask:
     def init_state(self, seed: Optional[int] = None,
                    ckpt_path: Optional[str] = None) -> TrainState:
         """Seeded random float32 parameters, fresh batch statistics and a
-        fresh optimizer state; then, with ``ckpt_path``, the reference-format
-        checkpoint there loaded strictly over them (train/checkpoint.py),
-        in the JAX order (module.py:186-209): a ``ckpt_path`` wins over
-        ``model.kwargs.pretrained_path``. A directory is the JAX package's
-        orbax checkpoint, and raises: the port's own checkpoint format
-        comes with ROADMAP.md queue A step 4. Without ``ckpt_path``, raises
-        where the JAX step would load ``pretrained_path`` (a non-empty path
-        that exists): the port has no AudioSet loader yet, and random
-        weights would silently stand in for the checkpoint."""
+        fresh optimizer state; then, with ``ckpt_path``, the file there, in
+        the JAX order (module.py:186-209): a ``ckpt_path`` wins over
+        ``model.kwargs.pretrained_path``. The port's ``last.ckpt`` (a file
+        that carries ``optimizer_states``, ``global_step``, ``epoch`` and
+        ``best_score``) is an exact resume: weights, batch statistics,
+        optimizer state, step, epoch and best score (the JAX rule for a
+        directory with ``opt_state``, src/train.py:60-63, loop.py:394-411).
+        Any other file, the port's best and the reference's ``.ckpt``
+        included, loads strictly as weights (train/checkpoint.py). A
+        directory (the JAX package's orbax checkpoint) raises: the port
+        reads only ``.ckpt`` files. Without ``ckpt_path``, raises where the
+        JAX step would load ``pretrained_path`` (a non-empty path that
+        exists): the port has no AudioSet loader yet, and random weights
+        would silently stand in for the checkpoint."""
         pretrained = self.meta.get("pretrained_path")
         if ckpt_path and os.path.isdir(str(ckpt_path)):
             raise NotImplementedError(
-                f"ckpt_path={str(ckpt_path)!r} is a directory (an orbax checkpoint): the "
-                "port's checkpoint format is not ported yet (ROADMAP.md queue A, step 4)")
+                f"ckpt_path={str(ckpt_path)!r} is a directory (the JAX package's orbax "
+                "checkpoint): the port reads only .ckpt files (one torch.save each), its own "
+                "and the reference's")
         if not ckpt_path and pretrained and os.path.exists(str(pretrained)):
             raise NotImplementedError(
                 f"loading pretrained_path={pretrained!r} is not ported yet "
                 "(ROADMAP.md queue A, step 17)")
+        ckpt = (torch.load(str(ckpt_path), map_location="cpu", weights_only=False)
+                if ckpt_path else None)
         seed = int(self.cfg.get("seed", 0)) if seed is None else int(seed)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         with torch.no_grad():
             self.model.scalar.running_mean.zero_()
             self.model.scalar.running_var.fill_(1.0)
-        if ckpt_path:
-            load_seld_inference_ckpt(self.model, ckpt_path)
-        self.model.train()
         optimizer, self.lr_fn = build_optimizer(self.cfg, zip(self.names, self.params),
                                                 self.steps_per_epoch)
-        self.state = TrainState(optimizer=optimizer)
-        return self.state
-
-    def _to_device(self, batch_x, targets: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        x = torch.as_tensor(batch_x, dtype=torch.float32, device=self.device)
-        t = {k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
-             for k, v in targets.items() if k.endswith("label")}
-        return x, t
+        state = TrainState(optimizer=optimizer)
+        if is_training_ckpt(ckpt):
+            got = restore_training_ckpt(ckpt_path, self.model, optimizer, ckpt)
+            state.step, state.epoch, state.best_score = (got["global_step"], got["epoch"],
+                                                         got["best_score"])
+        elif ckpt is not None:
+            load_seld_inference_ckpt(self.model, ckpt_path, ckpt)
+        self.model.train()
+        self.state = state
+        return state
 
     def forward_train(self, feats: torch.Tensor, generator: Optional[torch.Generator] = None,
                       dp_masks: Optional[Sequence[torch.Tensor]] = None
@@ -220,7 +249,11 @@ class SELDTask:
         """Frontend -> forward -> loss -> grads of ``self.trained`` (the
         frozen parameters get none); returns (losses, grads, ScalarBN update
         or None). Changes no parameter."""
-        x, tgt = self._to_device(batch_x, targets)
+        prepared = self._on_step_stream(self.prepare_batch({"data": batch_x, **targets}))
+        return self._grads(prepared.x, prepared.targets, generator, dp_masks)
+
+    def _grads(self, x: torch.Tensor, tgt: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator], dp_masks):
         with torch.no_grad():
             feats = self.extractor(x) if self.extractor is not None else x
         preds, bs = self.forward_train(feats, generator, dp_masks)
@@ -236,16 +269,76 @@ class SELDTask:
         heads ``sed_label`` (B, T, 3, K) and ``doa_label`` (B, T, 3, 3)).
         Drop-path masks are ``dp_masks`` or come from ``generator``. Returns the losses as
         device tensors (no host synchronization)."""
+        prepared = self.prepare_batch({"data": batch_x, **targets})
+        return self.train_step_prepared(prepared, generator, dp_masks)[0]
+
+    def _host_to_device(self, v) -> torch.Tensor:
+        """One host array or tensor as float32 on the task's device; on the
+        card from pinned memory without blocking (run on the copy stream)."""
+        t = v.float() if isinstance(v, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def prepare_batch(self, batch: Dict) -> PreparedBatch:
+        """The host half of a step (the JAX task's prepare_batch,
+        module.py:483-498): the loader's batch (numpy arrays, as
+        data/datamodule.py's ``collate`` yields them, or tensors) to the
+        device, and the raw batch's ``ov`` list, which feeds the ov
+        statistics. On the card a host array is copied from pinned memory on
+        a side stream, and the copy's event goes with the batch; a tensor
+        already on the device is taken as it is. Prepare batches in loader
+        order from one thread (fit's pipeline does)."""
+        ov = list(batch["ov"]) if "ov" in batch else None
+        arrays = {k: v for k, v in batch.items() if k == "data" or k.endswith("label")}
+        dev = self.device
+        out = {k: v.float() for k, v in arrays.items()
+               if isinstance(v, torch.Tensor) and v.device.type == dev.type
+               and dev.index in (None, v.device.index)}
+        host = {k: v for k, v in arrays.items() if k not in out}
+        event = None
+        if host and self.device.type == "cuda":
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._copy_stream):
+                out.update({k: self._host_to_device(v) for k, v in host.items()})
+                event = torch.cuda.Event()
+                event.record(self._copy_stream)
+        else:
+            out.update({k: self._host_to_device(v) for k, v in host.items()})
+        return PreparedBatch(out.pop("data"), out, ov, event)
+
+    def _on_step_stream(self, prepared: PreparedBatch) -> PreparedBatch:
+        """The current stream waits on the batch's copy, and the batch's
+        tensors are marked as used there, so the caching allocator does not
+        hand their memory back to the copy stream early."""
+        if prepared.event is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(prepared.event)
+            for t in (prepared.x, *prepared.targets.values()):
+                t.record_stream(current)
+        return prepared
+
+    def train_step_prepared(self, prepared: PreparedBatch,
+                            generator: Optional[torch.Generator] = None,
+                            dp_masks: Optional[Sequence[torch.Tensor]] = None
+                            ) -> Tuple[Dict[str, Any], Optional[List[str]]]:
+        """The device half of a step over a ``prepare_batch`` result, on the
+        step's stream once the batch's copy is done. -> (losses as device
+        tensors, the raw batch's ``ov`` list)."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
-        losses, grads, bs = self.compute_grads(batch_x, targets, generator, dp_masks)
+        self._on_step_stream(prepared)
+        losses, grads, bs = self._grads(prepared.x, prepared.targets, generator, dp_masks)
         optimizer_step(self.state.optimizer, self.trained, grads, self.state.step, self.max_norm)
         if bs is not None:
             with torch.no_grad():
                 self.model.scalar.running_mean.copy_(bs["running_mean"])
                 self.model.scalar.running_var.copy_(bs["running_var"])
         self.state.step += 1
-        return {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in losses.items()}
+        return ({k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in losses.items()},
+                prepared.ov)
 
     # ---------------------------------------------------------------- eval
     def eval_route(self) -> str:

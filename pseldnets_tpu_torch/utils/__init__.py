@@ -1,1 +1,1 @@
-"""Host utilities: audio IO."""
+"""Host utilities: audio IO, loggers and the config printer."""

@@ -926,3 +926,117 @@ def test_acs_folded_batch_on_kernels_matches_plain(card, batch):
             ref = swin_block.swin_block_plain(x, p).float()
             assert (y.float() - ref).abs().max().item() <= 2 ** -6 * ref.abs().max().item()
             x = y
+
+
+class _CardData:
+    """What ``fit`` reads of a datamodule, seeded: 2 train batches of 2
+    ten-second clips at 24 kHz (host numpy arrays, as ``collate`` yields
+    them; multi-ACCDOA ADPIT labels, one source a frame on track A), the
+    same each epoch, and two 20 s validation files in four 10 s chunks
+    with DCASE ground truth."""
+
+    def __init__(self, seed):
+        import numpy as np
+        from collections import OrderedDict
+
+        rng = np.random.default_rng(seed)
+
+        def labels(n):
+            lab = np.zeros((n, 100, 6, 4, 13), np.float32)
+            cls = rng.integers(0, 13, (n, 100))
+            doa = rng.standard_normal((n, 100, 3)).astype(np.float32)
+            doa /= np.linalg.norm(doa, axis=-1, keepdims=True)
+            b, t = np.meshgrid(np.arange(n), np.arange(100), indexing="ij")
+            lab[b, t, 0, 0, cls] = 1.0
+            for ax in range(3):
+                lab[b, t, 0, 1 + ax, cls] = doa[..., ax]
+            return lab
+
+        def wavs(n):
+            return (rng.standard_normal((n, 4, 240000)) * 0.1).astype(np.float32)
+
+        self.train = [{"data": wavs(2), "adpit_label": labels(2), "ov": ["1", "1"]}
+                      for _ in range(2)]
+        self.paths_dict = OrderedDict((f"fold1_room1_mix{i:03d}.wav", 200) for i in range(2))
+        self.valid_gt_dcaseformat = OrderedDict(
+            (p, {fr: [[int(rng.integers(0, 13)), int(rng.integers(-180, 180)),
+                       int(rng.integers(-60, 60))]] for fr in range(0, 200, 2)})
+            for p in self.paths_dict)
+        w, lab = wavs(4), labels(4)
+        self.val = [{"data": w[i:i + 2], "adpit_label": lab[i:i + 2]} for i in (0, 2)]
+
+    def steps_per_epoch(self):
+        return len(self.train)
+
+    def train_dataloader(self, num_batches=None):
+        n = len(self.train) if num_batches is None else num_batches
+        return iter([self.train[i % len(self.train)] for i in range(n)])
+
+    def val_dataloader(self):
+        return iter(self.val)
+
+
+def test_fit_on_kernels_matches_plain_and_resumes(card, tmp_path):
+    """Two epochs of ``fit`` (2 steps of 2 ten-second clips, a validation
+    of 4 clips after each) of the HTSAT mACCDOA at the kernels' widths
+    (HTSAT's published widths, depths cut to (2, 2, 2, 2); bf16-mixed, fused
+    forward, drop-path 0.1 from fit's seeded generator), on K1/K2/K3 (the
+    validations on K1/K8/K2), against the same fit on the plain versions:
+    each epoch's train and validation losses within 2^-6 of scale, the rate
+    equal, every parameter within 2.01 lr a step; then ``init_state`` from
+    the kernel run's first-epoch ``last.ckpt`` restores parameters,
+    statistics, optimizer state, step, epoch and best score bit for bit."""
+    import json
+    from pathlib import Path
+
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.train import loop
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    cfg = compose(str(Path(__file__).resolve().parents[1] / "configs"), "train",
+                  ["loss=multi_accdoa", "model.kwargs.pretrained_path=null",
+                   "trainer.precision=bf16-mixed", "trainer.fused_forward=true",
+                   "model.kwargs.depths=[2,2,2,2]", "trainer.max_epochs=2", "logger=csv",
+                   f"paths.log_dir={tmp_path}/logs", "seed=8"])
+    dm = _CardData(21)
+    kernels = (frontend.KERNEL, patch_embed.KERNEL, swin_block.KERNEL, swin_block_vjp.KERNEL)
+    lines, finals = {}, {}
+    for use_kernels in (True, False):
+        task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=2, device=card,
+                        use_kernels=use_kernels)
+        task.init_state(3)
+        before = [k.launches for k in kernels]
+        out = tmp_path / f"kernels_{use_kernels}"
+        loop.fit(task, dm, cfg, out)
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        # train: K1 x1, K2 x8, K3 x8 a step; validation: K1 x1, K8 x1, K2 x8 a batch
+        assert launched == ([8, 4, 64, 32] if use_kernels else [0, 0, 0, 0]), launched
+        lines[use_kernels] = [json.loads(s)
+                              for s in (out / "metrics.jsonl").read_text().splitlines()]
+        finals[use_kernels] = {k: v.float() for k, v in task.model.state_dict().items()}
+    for got, want in zip(lines[True], lines[False]):
+        assert got["epoch"] == want["epoch"] and got["lr"] == want["lr"]
+        for part in (got["train"], got["val"]["losses"]):
+            ref = want["train"] if part is got["train"] else want["val"]["losses"]
+            for k, v in ref.items():
+                assert abs(part[k] - v) <= 2 ** -6 * max(abs(v), 1e-3), k
+    lr = float(cfg["model"]["optimizer"]["kwargs"]["lr"])
+    for k, v in finals[False].items():
+        assert (finals[True][k] - v).abs().max().item() <= 2.01 * lr * 4, k
+
+    task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=2, device=card)
+    task.init_state(3)
+    loop.fit(task, dm, dict(cfg, trainer=dict(cfg["trainer"], max_epochs=1)), tmp_path / "one")
+    saved = ({k: v.clone() for k, v in task.model.state_dict().items()},
+             task.state.optimizer.state_dict(), task.state.step, task.state.epoch,
+             task.state.best_score)
+    saved_opt = {i: {k: v.clone() if torch.is_tensor(v) else v for k, v in st.items()}
+                 for i, st in saved[1]["state"].items()}
+    task.init_state(3, ckpt_path=str(tmp_path / "one" / "checkpoints" / "last.ckpt"))
+    for k, v in task.model.state_dict().items():
+        assert torch.equal(v, saved[0][k]), k
+    for i, st in task.state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v.cpu(), saved_opt[i][k].cpu()) if torch.is_tensor(v) \
+                else v == saved_opt[i][k], (i, k)
+    assert (task.state.step, task.state.epoch, task.state.best_score) == saved[2:]

@@ -67,17 +67,20 @@ def test_importing_every_module_loads_no_jax():
     loaded = set(r.stdout.splitlines()[1].split())
     assert {f"pseldnets_tpu_torch.{m}" for m in (
         "metrics.seld", "metrics.dcase", "data.dataset", "data.datamodule", "data.sampler",
-        "utils.audio_io", "cli.infer", "cli.evaluate", "entry", "train.loop")} <= loaded
+        "utils.audio_io", "cli.infer", "cli.evaluate", "entry", "train.loop", "cli.train",
+        "cli.preproc", "preproc.preprocess", "utils.utilities")} <= loaded
 
 
 def test_cli_imports_without_h5py():
-    """The card's machine has no h5py: the CLI, the data package and the
-    eval loop import without it (the dataset readers import it where they
-    open a file)."""
+    """The card's machine has no h5py: the CLIs, the data and preproc
+    packages, the loops and the loggers import without it (the dataset
+    readers and the label writers import it where they open a file)."""
     code = ("import sys\n"
             "sys.modules['h5py'] = None  # import h5py raises ImportError\n"
             "import pseldnets_tpu_torch.cli.infer, pseldnets_tpu_torch.data\n"
             "import pseldnets_tpu_torch.train.loop, pseldnets_tpu_torch.entry\n"
+            "import pseldnets_tpu_torch.cli.train, pseldnets_tpu_torch.cli.preproc\n"
+            "import pseldnets_tpu_torch.preproc, pseldnets_tpu_torch.utils.utilities\n"
             "from pseldnets_tpu_torch.data.dataset import USER_DATASETS\n"
             "assert sorted(USER_DATASETS) == ['accdoa', 'einv2', 'multi_accdoa']\n"
             "print('ok')\n")
@@ -88,11 +91,16 @@ def test_cli_imports_without_h5py():
 
 
 def test_default_device_is_the_card():
+    from pseldnets_tpu_torch.cli import train as train_cli
+
     cfg = compose(str(ROOT / "configs"), "train", OVERRIDES)
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(cfg, 13)
+    # the training CLI raises before it reads any data: no silent CPU run
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(OVERRIDES)
     tm = heads.HTSAT(num_classes=5, mel_bins=16, num_tracks=3, tgt_output_frames=24,
                      encoder_kwargs=ENC).eval()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -118,16 +126,30 @@ def test_full_size_model_from_configs():
 
 
 @pytest.mark.parametrize("override,match", [
+    ("ckpt_path={orbax_dir}", "reads only .ckpt files"),
     ("adapt=adapter adapt.adapt_kwargs.adapter_scalar=learnable_scalar", "queue A step 6"),
     ("adapt=lora", "queue A step 6"),
     ("model=crnn loss=einv2_pit model.kwargs.num_features=[8,8,8,8,8,8]", "queue A step 9"),
     ("model=passt loss=einv2_pit model.kwargs.depth=1 model.kwargs.embed_dim=24 "
      "model.kwargs.num_heads=2", "queue A step 8")])
-def test_unported_settings_raise(override, match):
+def test_unported_settings_raise(tmp_path, override, match):
     """What the port does not run raises naming its ROADMAP.md queue A
     step: adapter settings at build time; the EINV2 CRNN, whose conformer
     trains with dropout 0.1, and EINV2 PaSST at their first train-mode
-    forward (both build, narrowed here)."""
+    forward (both build, narrowed here); and ``init_state`` on a
+    ``ckpt_path`` directory (the JAX package's orbax checkpoint: the port
+    reads only .ckpt files)."""
+    if "{orbax_dir}" in override:
+        from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+        (tmp_path / "last" / "d").mkdir(parents=True)
+        cfg = compose(str(ROOT / "configs"), "train",
+                      OVERRIDES + [override.format(orbax_dir=tmp_path / "last")])
+        task = SELDTask(cfg, DatasetSpec(num_classes=13), device="cpu")
+        with pytest.raises(NotImplementedError, match=match):
+            task.init_state(0, ckpt_path=cfg["ckpt_path"])
+        assert task.state is None
+        return
     cfg = compose(str(ROOT / "configs"), "train", OVERRIDES + override.split())
     with pytest.raises(NotImplementedError, match=match):
         model, _ = build_model(cfg, 13, device="cpu")
