@@ -23,7 +23,11 @@ einv2_htsat_fused_forward_from_wav (K1, the DOA branch's K8, K2 on both
 branches) and trained eagerly through SELDTask (K1); then the eval path:
 SELDTask.eval_step on an odd batch (K1, K8, K2), ACS with 256 and 512
 folded clips a launch, run_validation with move_avg and run_test on an in-memory
-datamodule, and one eval step of each other route (K4, K6, K2 x24, K7). It
+datamodule, and one eval step of each other route (K4, K6, K2 x24, K7); then
+fit to a checkpoint; then the shipped training recipes: experiment=synth_maccdoa
+(AugMix, 96 clips a step on K1, K2, K3) from a synthetic AudioSet HTSAT file
+through load_pretrained's surgery, and a SELD fine-tune
+(experiment=starss23/finetune_maccdoa_augmix1) from its best file. It
 checks the outputs, the kernels' launch counts on each path and the kernel
 step against the plain step, and prints the times.
 
@@ -74,7 +78,7 @@ CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
                (125, 8, 256, 512), (125, 4, 512, 1024), (125, 2, 1024, 2048))
 PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn",
          "serve_patch", "features_flat", "features_dif", "serve_stage", "serve_einv2",
-         "train_einv2", "eval", "fit")
+         "train_einv2", "eval", "fit", "finetune")
 DEPTHS = (2, 2, 6, 2)  # HTSAT's Swin stages (configs/model/htsat.yaml)
 
 
@@ -718,10 +722,11 @@ def hold_k1_train(task, wav):
                             iv / ref[:, 4:].abs().max().item())
 
 
-def record_block_backwards(task, wav, labels, seed):
+def record_block_backwards(task, wav, labels, seed, feats=None):
     """The inputs of every K3 call of one ``task.compute_grads`` on (wav,
-    labels), drop-path masks drawn from ``seed``: [(x, p, masks, dout,
-    want)], the plain step asking for every grad."""
+    labels), or of one ``task.grads_on`` on given augmented (features,
+    labels) ``feats``, drop-path masks drawn from ``seed``: [(x, p,
+    masks, dout, want)], the step asking for every grad."""
     import torch
     from pseldnets_tpu_torch.ops import swin_block_vjp
 
@@ -733,8 +738,12 @@ def record_block_backwards(task, wav, labels, seed):
         return orig(x, p, m, dout, want)
 
     swin_block_vjp.swin_block_backward = record
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     try:
-        task.compute_grads(wav, labels, torch.Generator(device="cuda").manual_seed(seed))
+        if feats is None:
+            task.compute_grads(wav, labels, gen)
+        else:
+            task.grads_on(*feats, gen)
     finally:
         swin_block_vjp.swin_block_backward = orig
     check(len(recorded) == 12, f"recorded {len(recorded)} block backwards")
@@ -3152,6 +3161,311 @@ def phase_fit(smi):
     return launches, {"K1": k1, "K2": k2, "K3": k3}
 
 
+# the shipped training recipes (phase_finetune): experiment=synth_maccdoa
+# (AugMix: the loader's B_TRAIN clips become 3 x B_TRAIN) from a synthetic
+# AudioSet HTSAT file, FT_EPOCHS epochs of fit on FitDataModule's FIT_STEPS
+# batches, then experiment=starss23/finetune_maccdoa_augmix1 from the best
+# file, FT_TUNE_STEPS steps and one validation batch; bf16-mixed, fused forward
+FT_EPOCHS, FT_TUNE_STEPS = 2, 2
+FT_OVERRIDES = ["trainer.precision=bf16-mixed", "trainer.fused_forward=true"]
+BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def audioset_htsat_file(path, model, gen):
+    """A synthetic file shaped as the released AudioSet HTSAT checkpoint
+    (HTSAT-fullset-imagenet-768d-32000hz): ``model``'s encoder keys (the
+    768-d layout: embed 96, depths 2-2-6-2) under ``sed_model.``, a
+    1-channel ``patch_embed.proj.weight``, ``bn0.*`` over the 64 mels, and
+    ``head.*`` / ``tscam_conv.*`` keys, which the load skips; seeded values
+    (weights N(0, 0.02), LayerNorm scales 1 + N(0, 0.02)) on the CPU. ->
+    the state dict without the prefix."""
+    import torch
+
+    def randn(*shape, std=0.02):
+        return torch.randn(shape, generator=gen) * std
+
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.startswith("encoder."):
+            name = k[len("encoder."):]
+            one_d_scale = v.dim() == 1 and name.endswith("weight")
+            sd[name] = 1.0 + randn(*v.shape) if one_d_scale else randn(*v.shape)
+    w = sd["patch_embed.proj.weight"]
+    sd["patch_embed.proj.weight"] = randn(w.shape[0], 1, *w.shape[2:], std=0.25)
+    F, E = model.scalar.weight.shape[1], model.encoder.norm.weight.shape[0]
+    sd.update({"bn0.weight": 1.0 + randn(F, std=0.1), "bn0.bias": randn(F, std=0.1),
+               "bn0.running_mean": randn(F, std=3.0) - 20.0,
+               "bn0.running_var": 20.0 + 40.0 * torch.rand(F, generator=gen),
+               "bn0.num_batches_tracked": torch.tensor(100000),
+               "head.weight": randn(527, E), "head.bias": randn(527),
+               "tscam_conv.weight": randn(527, E, 2, 3), "tscam_conv.bias": randn(527)})
+    torch.save({"state_dict": {f"sed_model.{k}": v for k, v in sd.items()}}, str(path))
+    return sd
+
+
+def phase_finetune(smi):
+    """The shipped training recipes through SELDTask, train/loop.py's fit
+    and load_pretrained at full width (HTSAT mACCDOA, bf16-mixed, fused
+    forward). (a) experiment=synth_maccdoa (augment=augmix: specaug, crop,
+    freqshift, rotate, trackmix, wavmix, AugMix) with audioset_pretrain and
+    a synthetic AudioSet HTSAT file: the surgery checked bit for bit (the
+    patch embed repeated over 7 channels and divided by 7, bn0 in every
+    ScalarBN row, the skipped head keeping the seed's init, the backbone
+    the file's), then FT_EPOCHS epochs of fit of FIT_STEPS steps of B_TRAIN
+    loader clips, 3 x B_TRAIN reaching the model (K1 x1, K2 x12, K3 x12 a
+    step) with a validation before (the recipe's sanity pass) and after
+    each (K1, K8, K2 x12 a batch). Then one
+    step's augmentation twice from the same generator and RandomState
+    states (bit-identical features), the kernel step against the plain
+    step on those features (phase_train's rule), K1, K2 with masks and K3
+    at the step's B=96 against their plain versions, the TF chain's own
+    time, the host half's time, a profiled step. (b)
+    experiment=starss23/finetune_maccdoa_augmix1 from (a)'s best file: the
+    backbone (a)'s, the head the seed's init, FT_TUNE_STEPS steps and one
+    validation batch (K1, K8, K2)."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.train import loop
+    from pseldnets_tpu_torch.augment import Rotation, WavMix
+    from pseldnets_tpu_torch.train.checkpoint import load_torch_state_dict, stack_scalar_rows
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    n_model = 3 * B_TRAIN
+
+    def task_of(over, steps):
+        cfg = compose(str(ROOT / "configs"), "train", over + FT_OVERRIDES + [
+            "logger=csv", f"paths.log_dir={tmp.name}/logs"])
+        cfg["post_processing"] = "move_avg"
+        cfg["data"]["test_hoplen_sec"] = EVAL_HOP_SEC
+        return cfg, SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=steps,
+                             device="cuda")
+
+    def timed_init(task, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task.init_state(seed)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # (a) the AudioSet file and the pre-training recipe
+    path = root / "HTSAT-fullset-imagenet-768d-32000hz.ckpt"
+    _, fresh = task_of(["experiment=synth_maccdoa", "model.kwargs.pretrained_path=null"],
+                       FIT_STEPS)
+    fresh.init_state(0)
+    sd = audioset_htsat_file(path, fresh.model, torch.Generator().manual_seed(80))
+    cfg, task = task_of(["experiment=synth_maccdoa", "model.kwargs.audioset_pretrain=true",
+                         f"model.kwargs.pretrained_path={path}",
+                         f"trainer.max_epochs={FT_EPOCHS}"], FIT_STEPS)
+    check(task.augmix and task.fused_forward and task.compute_dtype == torch.bfloat16
+          and task.aug_type == ["specaug", "crop", "freqshift", "rotate", "trackmix", "wavmix"]
+          and not task.rotate_on_device, "synth_maccdoa configuration")
+    load_a = timed_init(task, 0)
+    rep = task.pretrained_report
+    got, init = task.model.state_dict(), fresh.model.state_dict()
+    check(rep["missing"] == [] and sorted(rep["skipped"]) == ["tscam_conv.bias",
+                                                              "tscam_conv.weight"],
+          f"AudioSet load report {rep}")
+    w = sd["patch_embed.proj.weight"]
+    check(torch.equal(got["encoder.patch_embed.proj.weight"].cpu(), w.repeat(1, 7, 1, 1) / 7),
+          "the patch embed is not the file's repeated over 7 channels and divided by 7")
+    for leaf in BN_LEAVES:
+        check(torch.equal(got[f"scalar.{leaf}"].cpu(), sd[f"bn0.{leaf}"].expand(7, -1)),
+              f"a ScalarBN {leaf} row is not bn0's")
+    for k in rep["skipped"]:
+        check(torch.equal(got[k], init[k]), f"{k} does not keep the seed's init")
+    enc = [k for k in got if k.startswith("encoder.") and k != "encoder.patch_embed.proj.weight"]
+    check(all(torch.equal(got[k].cpu(), sd[k[len("encoder."):]]) for k in enc),
+          "the encoder is not the file's")
+    log(f"finetune (a): experiment=synth_maccdoa from a synthetic AudioSet HTSAT file "
+        f"({path.stat().st_size} bytes, {len(sd)} keys): init_state with the load {load_a:.3f} s "
+        f"({smi}); patch embed = file / 7 over 7 channels, 7 x 4 ScalarBN rows = bn0, "
+        f"{len(enc) + 1} encoder keys loaded, skipped {rep['skipped']} at the seed's init, "
+        f"unused {len(rep['unused'])} file keys, all bit for bit")
+    del fresh, init
+
+    # fit: FT_EPOCHS epochs of FIT_STEPS AugMix steps, counted from 0
+    dm = FitDataModule(90)
+    out = root / "run"
+    timings = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    loop.fit(task, dm, cfg, out, timings=timings)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the recipe's num_sanity_val_steps=-1: a whole validation before training
+    n_val, n_steps = len(dm.batches), FT_EPOCHS * FIT_STEPS
+    n_vals = (FT_EPOCHS + 1) * n_val
+    want = expected(K1=n_steps + n_vals, K2=12 * (n_steps + n_vals), K3=12 * n_steps, K8=n_vals)
+    log(f"finetune (a) fit: {FT_EPOCHS} epochs of {FIT_STEPS} AugMix steps ({B_TRAIN} loader "
+        f"clips, {n_model} to the model), a validation of {n_val} batches before (the "
+        f"recipe's sanity pass) and after each, "
+        f"{fit_s:.2f} s: launches {launches} (expect {want}); peak device memory "
+        f"{peak:.2f} GiB at B={n_model} ({smi})")
+    check(launches == want, "finetune fit launch counts")
+    lines = [json.loads(s) for s in (out / "metrics.jsonl").read_text().splitlines()]
+    check([ln["epoch"] for ln in lines] == list(range(1, FT_EPOCHS + 1)), "finetune epoch lines")
+    for ln in lines:
+        vals = (list(ln["train"].values()) + list(ln["val"]["losses"].values())
+                + list(ln["val"]["macro"].values()))
+        check(all(np.isfinite(v) for v in vals), f"finetune epoch {ln['epoch']}: not finite")
+        log(f"  epoch {ln['epoch']}: train {ln['train']}, ov {ln['ov_stat']}, val macro "
+            f"{ln['val']['macro']}")
+    for t in timings:
+        ms = t["train_s"] * 1e3 / FIT_STEPS
+        log(f"  epoch {t['epoch']}: {ms:.2f} ms/step inside fit (host clock, until the "
+            f"epoch's losses are fetched), {B_TRAIN * 1e3 / ms:.1f} loader clips/s, "
+            f"{n_model * 1e3 / ms:.1f} clips/s to the model; validation "
+            f"{t['val_s'] * 1e3:.1f} ms ({smi})")
+    best_line = min(lines, key=lambda ln: ln["val"]["macro"]["SELD_scr"])
+    best = out / "checkpoints" / f"epoch_{best_line['epoch']:03d}.ckpt"
+    check(best.exists(), f"{best.name} missing")
+
+    # one step's augmentation twice from the same states: bit-identical
+    batch = dm.train[0]
+    gen_state, np_state = task.aug_generator.get_state(), task._np_rng.get_state()
+    parts = ((SELDTask, "host_augment"), (SELDTask, "sample_aug_flags"),
+             (SELDTask, "_host_to_device"))
+    prepared = []
+    for _ in range(2):
+        task.aug_generator.set_state(gen_state)
+        task._np_rng.set_state(np_state)
+        with HostClock(*parts) as clock, HostClock((Rotation, "__call__")) as rot, \
+                HostClock((WavMix, "__call__")) as wav:
+            t0 = time.perf_counter()
+            p = task.prepare_batch(batch)
+            host_ms = (time.perf_counter() - t0) * 1e3
+        prepared.append((p, task.step_inputs(task._on_step_stream(p))))
+    (p, (feats, tgt)), (_, (feats2, tgt2)) = prepared
+    check(feats.shape == (n_model, 7, 1001, 64) and torch.equal(feats, feats2)
+          and all(torch.equal(tgt[k], tgt2[k]) for k in tgt),
+          "the augmented features differ between two runs from the same states")
+    log(f"finetune (a): one step's augmentation twice from the same generator and "
+        f"RandomState states: {tuple(feats.shape)} features and labels bit-identical; flags "
+        f"{p.flags.int().tolist()} (specaug, crop, freqshift, trackmix a copy); the host "
+        f"half {host_ms:.1f} ms: host_augment {clock.ms['host_augment']:.1f} (of it rotate "
+        f"{rot.ms['__call__']:.1f}, wavmix {wav.ms['__call__']:.1f}, the rest the "
+        f"triplication), flags {clock.ms['sample_aug_flags']:.2f}, "
+        f"the pinned copies {clock.ms['_host_to_device']:.1f}, the rest (the loader "
+        f"batch's host copy) {host_ms - clock.ms['host_augment'] - clock.ms['sample_aug_flags'] - clock.ms['_host_to_device']:.1f} "
+        f"(host clock, {smi})")
+    del feats2, tgt2, prepared
+
+    # the kernel step against the plain step on the same augmented features
+    def grads_with(use_kernels, dtype):
+        task.set_use_kernels(use_kernels)
+        task.compute_dtype = dtype
+        losses, grads, _ = task.grads_on(feats, tgt, torch.Generator(device="cuda").manual_seed(81))
+        return losses["loss_all"].float().reshape(1), grads
+
+    lk, gk = grads_with(True, torch.bfloat16)
+    lp, gp = grads_with(False, torch.bfloat16)
+    lf, gf = grads_with(False, torch.float32)
+    task.set_use_kernels(True)
+    task.compute_dtype = torch.bfloat16
+    log(f"finetune (a) kernel step vs plain step at B={n_model}: loss {lk.item():.6f} (plain "
+        f"bf16 {lp.item():.6f}, float32 {lf.item():.6f}; {smi})")
+    compare("loss", lk, lp, lf, 2.0 ** -6)
+    worst = 0.0
+    for name, a, b, c in zip(task.trained_names, gk, gp, gf):
+        worst = max(worst, compare(name[-36:], a, b, c, 2.0 ** -4)
+                    / max(c.abs().max().item(), 1e-30))
+    log(f"every parameter grad within {worst:.3g} of its scale of the plain step's")
+    del gk, gp, gf
+
+    # K1, K2 with masks and K3 at B=96 on the step's own inputs
+    k1 = hold_k1_train(task, p.x)
+    k2 = k3 = (0.0, 0.0)
+    for j, (x, bp, m, dout, _) in enumerate(reversed(
+            record_block_backwards(task, None, None, 83, feats=(feats, tgt)))):
+        e2, r2, e3, r3 = hold_train_block(x, bp, m, dout, j)
+        k2, k3 = (max(k2[0], e2), max(k2[1], r2)), (max(k3[0], e3), max(k3[1], r3))
+    log(f"on the AugMix step's inputs at B={n_model}: K1 max |d| {k1[0]:.3g}, K2 with masks "
+        f"{k2[1]:.3g} and K3 {k3[1]:.3g} of scale (<= 2^-6; {smi})")
+
+    # the TF chain's own time: both AugMix copies' chains on the step's features
+    n = B_TRAIN
+
+    def chain():
+        for c in range(2):
+            sl = slice((c + 1) * n, (c + 2) * n)
+            task._apply_tf_chain(feats[sl], {k: v[sl] for k, v in tgt.items()}, p.flags[c],
+                                 p.ov1_mask[sl])
+
+    chain_dev, chain_host = device_ms(chain, reps=5)
+    chain_ms = cuda_ms(chain, reps=5)
+    k1_ms = cuda_ms(lambda: task.extractor(p.x), reps=3)
+    log(f"TF chain a step (two copies of {n}: specaug, crop, freqshift, trackmix drawn, applied "
+        f"and gated): {chain_ms:.3f} ms back to back, {chain_dev:.3f} ms device (queued), "
+        f"{chain_host:.3f} ms host a call; K1 at B={n_model} {k1_ms:.3f} ms ({smi})")
+    phase_profile(f"one AugMix step ({B_TRAIN} -> {n_model} clips)",
+                  lambda: task.train_step(batch["data"], {"adpit_label": batch["adpit_label"],
+                                                          "ov": batch["ov"]},
+                                          torch.Generator(device="cuda").manual_seed(84)))
+    del feats, tgt, p, task
+    torch.cuda.empty_cache()
+
+    # (b) the SELD fine-tune from (a)'s best file
+    tune_over = ["experiment=starss23/finetune_maccdoa_augmix1",
+                 f"model.kwargs.pretrained_path={best}"]
+    cfg_b, tune = task_of(tune_over, FT_TUNE_STEPS)
+    check(tune.augmix and tune.aug_type == ["specaug", "crop", "freqshift", "rotate"]
+          and len(tune.wave_augs["rotate"].trans) == 2 and not tune.rotate_on_device
+          and tune.meta["audioset_pretrain"] is False, "finetune_maccdoa_augmix1 configuration")
+    load_b = timed_init(tune, 1)
+    _, fresh = task_of(tune_over[:1] + ["model.kwargs.pretrained_path=null"], FT_TUNE_STEPS)
+    fresh.init_state(1)
+    rep = tune.pretrained_report
+    saved = stack_scalar_rows(load_torch_state_dict(best), tune.model)
+    got, init = tune.model.state_dict(), fresh.model.state_dict()
+    check(rep["missing"] == [] and sorted(rep["skipped"]) == ["tscam_conv.bias",
+                                                              "tscam_conv.weight"],
+          f"SELD load report {rep}")
+    for k, v in got.items():
+        ref = init[k] if k in rep["skipped"] else saved[k].to(v.device)
+        check(torch.equal(v, ref), f"{k}: not {'the init' if k in rep['skipped'] else 'the file'}")
+    del fresh, init, saved
+    log(f"finetune (b): experiment=starss23/finetune_maccdoa_augmix1 from {best.name}: "
+        f"init_state with the load {load_b:.3f} s ({smi}); {len(got) - 2} keys (a)'s, "
+        f"tscam_conv at the seed's init, bit for bit")
+    gen = torch.Generator(device="cuda").manual_seed(85)
+    vb = next(iter(dm.val_dataloader()))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = [tune.train_step(b["data"], {"adpit_label": b["adpit_label"], "ov": b["ov"]}, gen)
+              ["loss_all"] for b in dm.train[:FT_TUNE_STEPS]]
+    torch.cuda.synchronize()
+    tune_ms = (time.perf_counter() - t0) * 1e3 / FT_TUNE_STEPS
+    pred = tune.eval_step(vb)
+    torch.cuda.synchronize()
+    launches_b = read_counts()
+    nb = vb["data"].shape[0]
+    want_b = expected(K1=FT_TUNE_STEPS + 1, K2=12 * (FT_TUNE_STEPS + 1), K3=12 * FT_TUNE_STEPS,
+                      K8=1)
+    log(f"finetune (b): {FT_TUNE_STEPS} steps ({tune_ms:.2f} ms/step, host clock, from host "
+        f"batches, {smi}) and one validation batch of {nb}: launches {launches_b} (expect "
+        f"{want_b}); losses {[round(float(v), 6) for v in losses]}")
+    check(launches_b == want_b, "fine-tune launch counts")
+    check(all(np.isfinite(float(v)) for v in losses), "fine-tune loss not finite")
+    check(pred["multi_accdoa"].shape == (nb, 100, 117)
+          and bool(torch.isfinite(pred["multi_accdoa"]).all()), "fine-tune validation output")
+    del tune, dm
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    total = {k: launches[k] + launches_b[k] for k in launches}
+    return total, {"K1": k1, "K2": k2, "K3": k3}
+
+
 def phase_profile(what, fn, warm=True):
     """Device time by kernel over one call of fn (torch.profiler, CUPTI),
     after a warm-up call unless ``warm`` is false; returns the (kernel, ms,
@@ -3215,11 +3529,13 @@ def main():
     results["train_einv2"] = phase_train_einv2(smi)
     results["eval"] = phase_eval(smi)
     results["fit"] = phase_fit(smi)
+    results["finetune"] = phase_finetune(smi)
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
     # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the einsum embed, one
     # call of each frontend form, HTSAT one stage per launch, EINV2 served and
-    # trained eagerly, the eval path, fit), each counted from 0; errors: the largest over the
+    # trained eagerly, the eval path, fit, the shipped recipes' pre-training
+    # and fine-tune), each counted from 0; errors: the largest over the
     # checks at each path's own shapes,
     # absolute and as a share of the plain output's largest magnitude; ms and
     # bounds per served batch (K1, K2, K4, K6, K7, K8, K11), per training step

@@ -7,9 +7,15 @@ train/loop.py's ``fit`` into ``paths.output_dir`` (``metrics.jsonl``,
     python -m pseldnets_tpu_torch.cli.train experiment=... k=v ...
     python -m pseldnets_tpu_torch.cli.train --device cpu ckpt_path=.../last.ckpt ...
 
-``ckpt_path`` naming the port's ``last.ckpt`` resumes training exactly;
-any other ``.ckpt`` (the port's best, the reference's) starts from its
-weights. ``trainer.detect_anomaly`` turns on
+The shipped recipes run as they are composed: ``experiment=synth_maccdoa``
+(AugMix: configs/augment/augmix.yaml) from the AudioSet file that
+``model.kwargs.pretrained_path`` names, and the ``experiment=<dataset>/
+finetune_*`` recipes from a SELD checkpoint there (``audioset_pretrain:
+false``); the two ``l3das22/finetune_maccdoa_ov1mono*`` recipes build and
+load, and their mono data path raises at the dataset (ROADMAP.md queue A
+step 6). ``ckpt_path`` naming the port's ``last.ckpt`` resumes training
+exactly; any other ``.ckpt`` (the port's best, the reference's) starts
+from its weights, and wins over ``pretrained_path``. ``trainer.detect_anomaly`` turns on
 ``torch.autograd.set_detect_anomaly``. It runs on the card unless
 ``--device cpu`` (or ``main(device="cpu")``) asks for the CPU, where the
 kernels' plain versions run. The dataset readers need ``h5py`` for the

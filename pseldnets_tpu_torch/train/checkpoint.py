@@ -18,6 +18,14 @@ into its per-channel rows (``unstack_scalar_rows``), so either package's
 (``is_training_ckpt``), which ``restore_training_ckpt`` puts back bit for
 bit. This replaces the JAX package's orbax directories (train/loop.py:431-457).
 
+``load_pretrained`` is the JAX package's load-time surgery
+(train/checkpoint.py:297-411) on the port's keys: an AudioSet file's patch
+embed (or CNN14's first conv) repeated over the input channels and divided
+by their count, bn0 copied into every ScalarBN row, PaSST's pos-embeds
+centre-cropped or linearly resized, the per-backbone skips; or a
+SELD-pretrained whole model with the head skips. It returns the JAX
+report: missing, skipped and unused keys.
+
 ``load_seld_inference_ckpt`` loads a reference-format SELD checkpoint (a
 ``.ckpt``/``.pth`` written by torch: Lightning's ``state_dict``, a
 ``model`` entry or a raw dict) into the port's model, as the JAX package's
@@ -299,6 +307,215 @@ def load_seld_inference_ckpt(model: torch.nn.Module, ckpt_path,
                        f"({len(unused)} in all)")
     model.load_state_dict({k: v.to(want[k].dtype) for k, v in sd.items()}, strict=True)
     return model
+
+# ---------------------------------------------------------------------------
+# load-time surgery (the JAX package's train/checkpoint.py:179-411)
+# ---------------------------------------------------------------------------
+def convert_state_dict(model: torch.nn.Module, torch_sd: Mapping[str, torch.Tensor],
+                       skip=lambda k: False, special: Optional[Dict[str, Any]] = None,
+                       strict: bool = True) -> Dict[str, list]:
+    """Fill ``model`` from a reference-keyed torch state dict (the JAX
+    package's convert_state_dict, checkpoint.py:179-291, on the port's own
+    keys, which are the reference's): each fused ScalarBN leaf (C, F) from
+    the rows ``scalar.{c}.<leaf>``, a key in ``special`` from
+    ``special[key](torch_sd, model shape)``, a key that ``skip`` names kept at its
+    initial value, every other key copied as it is (its shape must be the
+    model's). -> the report {"missing", "skipped", "unused"}: model keys
+    the dict lacks (a ScalarBN leaf as ``scalar.*.<leaf>``), model keys
+    skipped, and dict keys not used (the rebuilt buffers left out). Where
+    the JAX report lists a q/k/v-packed attention key once per part, this
+    one lists it once. ``strict`` raises ``KeyError`` on any missing key,
+    before anything is written."""
+    from ..models.common import ScalarBN
+
+    special = special or {}
+    scalar = {name for name, mod in model.named_modules() if isinstance(mod, ScalarBN)}
+    want = model.state_dict()
+    new: Dict[str, torch.Tensor] = {}
+    missing, skipped, used = [], [], set()
+    for key, init in want.items():
+        mod, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+        if mod in scalar:
+            rows = []
+            for c in range(init.shape[0]):
+                rk = f"scalar.{c}.{leaf}"
+                if rk not in torch_sd:
+                    break
+                rows.append(torch.as_tensor(torch_sd[rk], dtype=torch.float32))
+                used.add(rk)
+            if len(rows) == init.shape[0]:
+                new[key] = torch.stack(rows, dim=0)
+            else:
+                missing.append("scalar.*." + leaf)
+            continue
+        if key in special:
+            new[key] = special[key](torch_sd, tuple(init.shape))
+            used.add(key)
+        elif skip(key):
+            skipped.append(key)
+            continue
+        elif key not in torch_sd:
+            missing.append(key)
+            continue
+        else:
+            new[key] = torch.as_tensor(torch_sd[key])
+            used.add(key)
+        if tuple(new[key].shape) != tuple(init.shape):
+            raise ValueError(f"shape mismatch for {key}: {tuple(new[key].shape)} vs "
+                             f"{tuple(init.shape)}")
+    # unused: the rebuilt buffers left out, as the JAX report does (:281-285)
+    report = {"missing": missing, "skipped": skipped,
+              "unused": [k for k in torch_sd if k not in used
+                         and not k.endswith(_REBUILT_SUFFIXES)]}
+    if strict and missing:
+        raise KeyError(f"missing torch keys for the model: {missing[:20]} ({len(missing)} total)")
+    with torch.no_grad():
+        for key, v in new.items():
+            want[key].copy_(v.to(want[key].dtype))
+    return report
+
+
+def _replicate_patch_embed(in_channels: int):
+    """patch_embed.proj.weight (O, 1, kh, kw) repeated across the C input
+    channels and divided by C (reference accdoa.py:179-181; a (O, C0, kh,
+    kw) weight tiled C / C0 times and divided by C / C0)."""
+
+    def fn(sd, target_shape):
+        w = torch.as_tensor(sd["patch_embed.proj.weight"], dtype=torch.float32)
+        rep = in_channels if w.shape[1] == 1 else in_channels // w.shape[1]
+        return w.repeat(1, rep, 1, 1) / rep
+
+    return fn
+
+
+def _resize_pos_embed(key: str, axis: int):
+    """PaSST pos-embed (1, E, F, 1) or (1, E, 1, T) to the model's length
+    along ``axis`` (reference accdoa.py:277-298): a centre crop where the
+    file's grid is at least as long, else the linear resize of
+    ``jax.image.resize(..., "linear")`` when growing: half-pixel centres,
+    the edges held (``F.interpolate``, bilinear, align_corners False)."""
+
+    def fn(sd, target_shape):
+        v = torch.as_tensor(sd[key], dtype=torch.float32)
+        ori, tgt = v.shape[axis], target_shape[axis]
+        if ori >= tgt:
+            start = int((ori - tgt) / 2)
+            return v.narrow(axis, start, tgt)
+        size = list(v.shape[2:])
+        size[axis - 2] = tgt
+        return torch.nn.functional.interpolate(v, size=tuple(size), mode="bilinear",
+                                               align_corners=False)
+
+    return fn
+
+
+def _replicate_cnn_first_conv(in_channels: int):
+    """conv_block1.conv1.weight (O, 1|C0, 3, 3) tiled to C input channels
+    and divided by the repeat (the JAX package's checkpoint.py:433-440)."""
+
+    def fn(sd, target_shape):
+        w = torch.as_tensor(sd["conv_block1.conv1.weight"], dtype=torch.float32)
+        rep = in_channels // w.shape[1]
+        return w.repeat(1, rep, 1, 1) / rep
+
+    return fn
+
+
+def _wrap_prefixed(fn, prefix):
+    """``fn`` on the dict with ``prefix`` stripped from the keys that carry
+    it (the stripped keys win over unprefixed ones, as in checkpoint.py:423-430)."""
+
+    def wrapped(sd, target_shape):
+        merged = dict(sd)
+        merged.update({k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)})
+        return fn(merged, target_shape)
+
+    return wrapped
+
+
+def _bn0_rows(sd, in_ch: int) -> Dict[str, Any]:
+    """bn0's statistics and affine copied into every ScalarBN row
+    (reference accdoa.py:186-191)."""
+    return {f"scalar.{c}.{leaf}": sd[f"bn0.{leaf}"] for c in range(in_ch) for leaf in _BN_LEAVES}
+
+
+def load_pretrained(model: torch.nn.Module, ckpt_path, meta: Mapping[str, Any],
+                    strict: bool = True) -> Dict[str, list]:
+    """The reference's ``load_ckpts`` for every (method, backbone): the JAX
+    package's load_pretrained (checkpoint.py:333-411) on the port's model,
+    ``meta`` from models.factory.build_model. AudioSet files
+    (``audioset_pretrain``): HTSAT and HTSAT_SEDDOA under ``encoder.``, the
+    EINV2 HTSAT's two encoders under ``sed_encoder.`` (4 channels) and
+    ``doa_encoder.`` (``in_channels``), the patch embed replicated; PaSST
+    likewise with its pos-embeds cropped or resized and ``head.0`` kept;
+    CRNN and ConvConformer under ``convs.`` (``sed_convs.``/``doa_convs.``
+    for EINV2), the first conv replicated; bn0 into every ScalarBN row; the
+    per-backbone skips as regexes (checkpoint.py:356-401). Otherwise a
+    SELD-pretrained whole model with the head, tscam, adapter, LoRA and
+    ``af_extractor`` keys skipped, not strict (:406-411). -> the report of
+    ``convert_state_dict``."""
+    sd = load_torch_state_dict(ckpt_path)
+    backbone = meta["backbone"]
+    in_ch = meta["in_channels"]
+    if meta.get("audioset_pretrain", True):
+        dual = meta.get("method") == "einv2"
+        if backbone in ("HTSAT", "HTSAT_SEDDOA"):
+            encs = ((("sed_encoder.", 4), ("doa_encoder.", in_ch)) if dual and backbone == "HTSAT"
+                    else (("encoder.", in_ch),))
+            special = {pre + "patch_embed.proj.weight": _wrap_prefixed(_replicate_patch_embed(c),
+                                                                        pre)
+                       for pre, c in encs}
+            torch_like = {f"{pre}{k}": v for pre, _ in encs for k, v in sd.items()}
+            torch_like.update({k: v for k, v in sd.items() if k.startswith("bn0")})
+            torch_like.update(_bn0_rows(sd, in_ch))
+            skip = lambda k: (".tscam_conv" in k or k.startswith("tscam_conv")  # noqa: E731
+                              or "head" in k or "adapter" in k or "lora" in k
+                              or k.startswith("fc."))
+            return convert_state_dict(model, torch_like, skip=skip, special=special,
+                                      strict=strict)
+        if backbone == "PASST":
+            encs = ((("sed_encoder.", 4), ("doa_encoder.", in_ch)) if dual
+                    else (("encoder.", in_ch),))
+            special = {}
+            for pre, c in encs:
+                special[pre + "patch_embed.proj.weight"] = _wrap_prefixed(
+                    _replicate_patch_embed(c), pre)
+                special[pre + "time_new_pos_embed"] = _wrap_prefixed(
+                    _resize_pos_embed("time_new_pos_embed", 3), pre)
+                special[pre + "freq_new_pos_embed"] = _wrap_prefixed(
+                    _resize_pos_embed("freq_new_pos_embed", 2), pre)
+            torch_like = {f"{pre}{k}": v for pre, _ in encs for k, v in sd.items()}
+            if "bn0.weight" in sd:
+                torch_like.update(_bn0_rows(sd, in_ch))
+            # PaSST files: 'head.0.*' (a LayerNorm) is loaded, other head keys skipped
+            skip = lambda k: (("head" in k and not re.search(r"head\.0\.(weight|bias)$", k))  # noqa: E731
+                              or "adapter" in k or "lora" in k
+                              or re.search(r"(^|\.)fc(_sed|_doa)?\.", k) is not None
+                              or "stitch" in k or re.search(r"(^|\.)decoder", k) is not None)
+            return convert_state_dict(model, torch_like, skip=skip, special=special,
+                                      strict=strict)
+        if backbone in ("CRNN", "ConvConformer"):
+            encs = (("sed_convs.", 4), ("doa_convs.", in_ch)) if dual else (("convs.", in_ch),)
+            torch_like, special = {}, {}
+            for pre, c in encs:
+                torch_like.update({pre + k: v for k, v in sd.items()})
+                special[pre + "conv_block1.conv1.weight"] = _wrap_prefixed(
+                    _replicate_cnn_first_conv(c), pre)
+            torch_like.update(_bn0_rows(sd, in_ch))
+            skip = lambda k: (re.search(r"(^|\.)fc", k) is not None or "stitch" in k  # noqa: E731
+                              or re.search(r"(^|\.)decoder", k) is not None
+                              or re.search(r"(sed|doa)_track", k) is not None)
+            return convert_state_dict(model, torch_like, skip=skip, special=special,
+                                      strict=strict)
+        raise NotImplementedError(backbone)
+
+    # DataSynthSELD-pretrained: whole-model state dict with head skips
+    # (reference accdoa.py:192-202 / einv2.py:264-272)
+    skip = lambda k: (k.startswith(("fc.", "head", "tscam_conv.", "sed_tscam_conv."))  # noqa: E731
+                      or "lora" in k or "adapter" in k or k.startswith("fc_sed")
+                      or k.startswith("af_extractor"))
+    return convert_state_dict(model, sd, skip=skip, strict=False)
+
 
 def unstack_scalar_rows(sd: Mapping[str, torch.Tensor],
                         model: torch.nn.Module) -> "OrderedDict[str, torch.Tensor]":

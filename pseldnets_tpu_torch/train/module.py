@@ -17,9 +17,20 @@ adapters and the head) get ``requires_grad`` False, so they receive no
 gradient and stay out of the clip's global norm, as ``stop_gradient`` keeps
 them out there; gradients still flow through them to what trains.
 
+Augmentation (the JAX task's registry and step, :65-95, :222-275,
+:447-497): ``prepare_batch`` runs the host half, AugMix's triplication then
+the waveform augs (rotate, wavmix) in numpy from the task's
+``np.random.RandomState`` (``_np_rng``, seeded from ``cfg["seed"]``), then
+draws the TF flags from it, in that order; the step rotates on the device
+where ``rotate.on_device`` asks (and wavmix is off), runs the frontend,
+then the TF chain on the features (SpecAugment, Crop, FreqShift,
+TrackMixDevice in the fixed ``TF_AUG_ORDER``, each gated by its flag with
+``torch.where``, the flags a device tensor: no host synchronization), one
+chain for each AugMix copy, from the task's ``torch.Generator``
+(``aug_generator``, on the task's device, seeded from ``cfg["seed"]``).
+
 Not in this slice, and raising with the ROADMAP.md queue A step that brings
-them: augmentation (non-empty ``augment.type``, AugMix, ``rotate.on_device``:
-step 5), tensor parallelism (``trainer.tensor_parallel`` > 1: step 11),
+them: tensor parallelism (``trainer.tensor_parallel`` > 1: step 11),
 LoRA and the eager-only adapter settings (models/adapters.py: step 6), PaSST
 training (models/passt.py: step 8) and a conformer or transformer decoder
 that trains with dropout (models/common.py ``check_no_dropout``: step 9).
@@ -28,7 +39,8 @@ The step comes in two halves, as in the JAX task (:473-506):
 ``prepare_batch`` takes the loader's batch to the device (on the card from
 pinned memory on a side stream) and keeps its ``ov`` list;
 ``train_step_prepared`` waits on that copy and steps. train/loop.py's
-``fit`` runs the first half a batch ahead on a thread of its own.
+``fit`` runs the first half a batch ahead on a thread of its own (one
+thread: the loader's order, so the host draws stay deterministic).
 
 Eval (``eval_step``): the route of the JAX package's ``_select_fused_eval``
 (:337-374), taken on every device: an HTSAT to serving/htsat.py (K1, K8,
@@ -44,9 +56,12 @@ plain versions. An odd batch is padded with repeats of its last clip and
 sliced back (:527-555); ``post_processing="ACS"`` folds the 16 rotations
 into the batch (:557-654). ``init_state(ckpt_path=...)`` resumes exactly
 from the port's ``last.ckpt`` and loads any other ``.ckpt`` (the port's
-best, the reference's) as weights (train/checkpoint.py).
+best, the reference's) as weights (train/checkpoint.py); without it,
+``model.kwargs.pretrained_path`` loads where it exists, with the JAX
+package's load-time surgery (train/checkpoint.py ``load_pretrained``).
 """
 
+import itertools
 import math
 import os
 from dataclasses import dataclass
@@ -55,6 +70,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..augment import (Crop, FreqShift, Rotation, RotationDevice, SpecAugment,
+                       TrackMixDevice, WavMix)
 from ..losses import build_loss
 from ..models import build_model, einv2_heads, heads
 from ..models.common import NO_DECODER
@@ -64,7 +81,8 @@ from ..ops._cuda import resolve_device
 from ..ops.features import LogmelIVExtractor, make_extractor
 from ..ops.frontend import frontend_route
 from ..ops.swin_block_adapt import has_adapters
-from .checkpoint import is_training_ckpt, load_seld_inference_ckpt, restore_training_ckpt
+from .checkpoint import (is_training_ckpt, load_pretrained, load_seld_inference_ckpt,
+                         restore_training_ckpt)
 from .fused_forward import htsat_fused_train_forward, supports_fused_train
 from .optim import build_optimizer, optimizer_step, trainable_mask
 
@@ -91,16 +109,26 @@ class TrainState:
     best_score: float = math.inf
 
 
+# canonical device-chain order (the JAX package's TF_AUG_ORDER, module.py:36;
+# the reference shuffles the chain's order, a documented deviation there)
+TF_AUG_ORDER = ("specaug", "crop", "freqshift", "trackmix")
+
+
 @dataclass
 class PreparedBatch:
     """A batch on the task's device (``prepare_batch``): waveforms (B, 4,
-    samples) float32, the label tensors, the raw batch's ``ov`` list (or
-    None), and on the card the event of the copy that made them."""
+    samples) float32 after the host augmentation, the label tensors, the
+    raw batch's ``ov`` list (or None), on the card the event of the copy
+    that made them, and with a TF chain configured its flags (2,
+    len(TF_AUG_ORDER)) bool and the ov1 mask (B,) bool of the augmented
+    batch, on the device."""
 
     x: torch.Tensor
     targets: Dict[str, torch.Tensor]
     ov: Optional[List[str]] = None
     event: Optional[Any] = None
+    flags: Optional[torch.Tensor] = None
+    ov1_mask: Optional[torch.Tensor] = None
 
 
 # the heads with drop-path, which take masks or a generator
@@ -129,10 +157,6 @@ class SELDTask:
         precision = str(trainer.get("precision", "32-true"))
         self.compute_dtype = torch.bfloat16 if "bf16" in precision else torch.float32
 
-        aug = cfg.get("augment") or {}
-        if list(aug.get("type", []) or []) or aug.get("AugMix", False) or \
-                (aug.get("rotate") or {}).get("on_device", False):
-            raise NotImplementedError("augmentation is not ported yet (ROADMAP queue A, step 5)")
         if int(trainer.get("tensor_parallel", 1) or 1) > 1:
             raise NotImplementedError("tensor parallelism is not ported yet "
                                       "(ROADMAP queue A, step 11)")
@@ -142,6 +166,7 @@ class SELDTask:
         self.extractor = make_extractor(cfg, use_kernels=use_kernels)
         self.loss = build_loss(cfg["model"]["loss"])
         self.loss_type = cfg["model"]["loss"].get("loss_type", "loss_all")
+        self._build_augmentation(cfg)
 
         ff = trainer.get("fused_forward", "auto")
         if isinstance(ff, str) and ff.lower() == "auto":
@@ -162,10 +187,41 @@ class SELDTask:
         self.trained: List[torch.nn.Parameter] = [p for p, m in zip(self.params, mask) if m]
         self.max_norm = trainer.get("gradient_clip_val")
         self.lr_fn = None
+        self.pretrained_report: Optional[Dict[str, List[str]]] = None
         self.state: Optional[TrainState] = None
         self._eval_cache = None
         self._eval_tensors = None
         self._copy_stream = None
+
+    def _build_augmentation(self, cfg) -> None:
+        """The augmentation registry (the JAX task's, module.py:65-95): the
+        host waveform augs on ``_np_rng``, the device TF augs, device
+        rotation where ``rotate.on_device`` asks and wavmix is off, and the
+        TF chain's combinations (reference model_module.py:61-78)."""
+        aug = cfg.get("augment") or {"type": [], "AugMix": False}
+        self.aug_type = list(aug.get("type", []) or [])
+        self.augmix = bool(aug.get("AugMix", False))
+        data = cfg["data"]
+        xy_ratio = data["sample_rate"] / data["hoplen"] * self.label_res
+        seed = int(cfg.get("seed", 2024))
+        self._np_rng = np.random.RandomState(seed)
+        self.aug_generator = torch.Generator(device=self.device).manual_seed(seed)
+        rotate_cfg = _kw(aug.get("rotate"))
+        on_device = rotate_cfg.pop("on_device", False)
+        self.wave_augs = {"rotate": Rotation(**rotate_cfg, rng=self._np_rng),
+                          "wavmix": WavMix(**_kw(aug.get("wavmix")), rng=self._np_rng)}
+        self.tf_augs = {"specaug": SpecAugment(xy_ratio=xy_ratio, **_kw(aug.get("specaug"))),
+                        "crop": Crop(**_kw(aug.get("crop"))),
+                        "freqshift": FreqShift(**_kw(aug.get("freqshift"))),
+                        # trackmix runs on the features only, as in the JAX task
+                        "trackmix": TrackMixDevice(**_kw(aug.get("trackmix")))}
+        self.rotate_on_device = (_truthy(on_device) and "rotate" in self.aug_type
+                                 and "wavmix" not in self.aug_type)
+        self.rotate_device = RotationDevice(**rotate_cfg) if self.rotate_on_device else None
+        aug_tf = [a for a in self.aug_type if a in TF_AUG_ORDER]
+        self.aug_tf_comb = []
+        for n in range(1, len(aug_tf) + 1):
+            self.aug_tf_comb += list(itertools.combinations(aug_tf, n))
 
     def set_use_kernels(self, use_kernels: bool) -> None:
         """Run the kernels (True) or their plain versions (False) on the same
@@ -177,30 +233,28 @@ class SELDTask:
     def init_state(self, seed: Optional[int] = None,
                    ckpt_path: Optional[str] = None) -> TrainState:
         """Seeded random float32 parameters, fresh batch statistics and a
-        fresh optimizer state; then, with ``ckpt_path``, the file there, in
-        the JAX order (module.py:186-209): a ``ckpt_path`` wins over
-        ``model.kwargs.pretrained_path``. The port's ``last.ckpt`` (a file
-        that carries ``optimizer_states``, ``global_step``, ``epoch`` and
-        ``best_score``) is an exact resume: weights, batch statistics,
-        optimizer state, step, epoch and best score (the JAX rule for a
-        directory with ``opt_state``, src/train.py:60-63, loop.py:394-411).
-        Any other file, the port's best and the reference's ``.ckpt``
-        included, loads strictly as weights (train/checkpoint.py). A
-        directory (the JAX package's orbax checkpoint) raises: the port
-        reads only ``.ckpt`` files. Without ``ckpt_path``, raises where the
-        JAX step would load ``pretrained_path`` (a non-empty path that
-        exists): the port has no AudioSet loader yet, and random weights
-        would silently stand in for the checkpoint."""
+        fresh optimizer state; then the JAX order (module.py:186-209): a
+        ``ckpt_path`` wins over ``model.kwargs.pretrained_path``. The port's
+        ``last.ckpt`` (a file that carries ``optimizer_states``,
+        ``global_step``, ``epoch`` and ``best_score``) is an exact resume:
+        weights, batch statistics, optimizer state, step, epoch and best
+        score (the JAX rule for a directory with ``opt_state``,
+        src/train.py:60-63, loop.py:394-411). Any other file, the port's
+        best and the reference's ``.ckpt`` included, loads strictly as
+        weights (train/checkpoint.py). A ``ckpt_path`` directory (the JAX
+        package's orbax checkpoint) raises: the port reads only ``.ckpt``
+        files. Without ``ckpt_path``, ``pretrained_path`` loads whenever it
+        exists (``load_pretrained``: the AudioSet surgery, or a
+        SELD-pretrained whole model with the head skips; its report in
+        ``pretrained_report``), before the optimizer is built; a file that
+        is not a checkpoint, or a directory, raises as ``torch.load``
+        does."""
         pretrained = self.meta.get("pretrained_path")
         if ckpt_path and os.path.isdir(str(ckpt_path)):
             raise NotImplementedError(
                 f"ckpt_path={str(ckpt_path)!r} is a directory (the JAX package's orbax "
                 "checkpoint): the port reads only .ckpt files (one torch.save each), its own "
                 "and the reference's")
-        if not ckpt_path and pretrained and os.path.exists(str(pretrained)):
-            raise NotImplementedError(
-                f"loading pretrained_path={pretrained!r} is not ported yet "
-                "(ROADMAP.md queue A, step 17)")
         ckpt = (torch.load(str(ckpt_path), map_location="cpu", weights_only=False)
                 if ckpt_path else None)
         seed = int(self.cfg.get("seed", 0)) if seed is None else int(seed)
@@ -208,6 +262,9 @@ class SELDTask:
         with torch.no_grad():
             self.model.scalar.running_mean.zero_()
             self.model.scalar.running_var.fill_(1.0)
+        self.pretrained_report = None
+        if ckpt is None and pretrained and os.path.exists(str(pretrained)):
+            self.pretrained_report = load_pretrained(self.model, pretrained, self.meta)
         optimizer, self.lr_fn = build_optimizer(self.cfg, zip(self.names, self.params),
                                                 self.steps_per_epoch)
         state = TrainState(optimizer=optimizer)
@@ -245,17 +302,81 @@ class SELDTask:
             return self.model(feats), None
 
     def compute_grads(self, batch_x, targets: Dict, generator: Optional[torch.Generator] = None,
-                      dp_masks: Optional[Sequence[torch.Tensor]] = None):
-        """Frontend -> forward -> loss -> grads of ``self.trained`` (the
-        frozen parameters get none); returns (losses, grads, ScalarBN update
-        or None). Changes no parameter."""
+                      dp_masks: Optional[Sequence[torch.Tensor]] = None,
+                      aug_draws: Optional[Dict] = None):
+        """Host augmentation -> frontend -> TF chain -> forward -> loss ->
+        grads of ``self.trained`` (the frozen parameters get none); returns
+        (losses, grads, ScalarBN update or None). Changes no parameter.
+        ``targets`` may carry the batch's ``ov`` list."""
         prepared = self._on_step_stream(self.prepare_batch({"data": batch_x, **targets}))
-        return self._grads(prepared.x, prepared.targets, generator, dp_masks)
+        return self._grads(prepared, generator, dp_masks, aug_draws)
 
-    def _grads(self, x: torch.Tensor, tgt: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator], dp_masks):
+    def step_inputs(self, prepared: PreparedBatch, aug_draws: Optional[Dict] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The augmentation half of a step (the JAX step, module.py:250-275)
+        on a prepared batch: device rotation of the waveforms where
+        configured, the frontend (K1 on the card), then the TF chain on the
+        features, one chain for each AugMix copy (clean, copy 1, copy 2
+        thirds). -> (features, label tensors). Random draws come from
+        ``aug_generator``, or from ``aug_draws`` where given: {"rotate":
+        RotationDevice draws, "chains": [{aug name: its draws}, one dict a
+        chain]}."""
+        x, tgt = prepared.x, prepared.targets
+        aug_draws = aug_draws or {}
         with torch.no_grad():
+            if self.rotate_device is not None:
+                d = aug_draws.get("rotate") or self.rotate_device.draw(self.aug_generator, x.shape)
+                x, tgt = self.rotate_device.apply(x, tgt, d)
             feats = self.extractor(x) if self.extractor is not None else x
+            if not self.aug_tf_comb:
+                return feats, tgt
+            chains = aug_draws.get("chains") or [None, None]
+            flags, ov1 = prepared.flags, prepared.ov1_mask
+            if not self.augmix:
+                return self._apply_tf_chain(feats, tgt, flags[0], ov1, chains[0])
+            n = feats.shape[0] // 3
+            parts = [(feats[:n], {k: v[:n] for k, v in tgt.items()})]
+            for c in range(2):
+                sl = slice((c + 1) * n, (c + 2) * n if c == 0 else None)
+                parts.append(self._apply_tf_chain(feats[sl], {k: v[sl] for k, v in tgt.items()},
+                                                  flags[c], ov1[sl], chains[c]))
+            feats = torch.cat([p[0] for p in parts], dim=0)
+            tgt = {k: torch.cat([p[1][k] for p in parts], dim=0) for k in tgt}
+        return feats, tgt
+
+    def _apply_tf_chain(self, feats: torch.Tensor, targets: Dict[str, torch.Tensor],
+                        flags: torch.Tensor, ov1_mask: torch.Tensor,
+                        draws: Optional[Dict] = None):
+        """The configured TF augs in ``TF_AUG_ORDER``, each drawn (or taken
+        from ``draws``) and applied, its result kept where its flag is set
+        (a 0-d device bool, through ``torch.where``: no host sync). The
+        fixed order is the JAX package's documented deviation from the
+        reference's shuffled chains (module.py:222-242)."""
+        for i, name in enumerate(TF_AUG_ORDER):
+            if name not in self.aug_type:
+                continue
+            aug = self.tf_augs[name]
+            d = draws[name] if draws else aug.draw(self.aug_generator, feats.shape)
+            if name == "trackmix":
+                aug_x, aug_t = aug.apply(feats, targets, d, ov1_mask)
+            else:
+                aug_x, aug_t = aug.apply(feats, targets, d)
+            take = flags[i]
+            feats = torch.where(take, aug_x, feats)
+            targets = {k: torch.where(take, aug_t[k], v) if "label" in k else v
+                       for k, v in targets.items()}
+        return feats, targets
+
+    def _grads(self, prepared: PreparedBatch, generator: Optional[torch.Generator], dp_masks,
+               aug_draws: Optional[Dict] = None):
+        feats, tgt = self.step_inputs(prepared, aug_draws)
+        return self.grads_on(feats, tgt, generator, dp_masks)
+
+    def grads_on(self, feats: torch.Tensor, tgt: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None,
+                 dp_masks: Optional[Sequence[torch.Tensor]] = None):
+        """Forward -> loss -> grads on given (augmented) features: (losses,
+        grads, ScalarBN update or None)."""
         preds, bs = self.forward_train(feats, generator, dp_masks)
         losses = self.loss(preds, tgt)
         grads = torch.autograd.grad(losses[self.loss_type], self.trained, allow_unused=True)
@@ -263,37 +384,97 @@ class SELDTask:
         return losses, grads, bs
 
     def train_step(self, batch_x, targets: Dict, generator: Optional[torch.Generator] = None,
-                   dp_masks: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, Any]:
+                   dp_masks: Optional[Sequence[torch.Tensor]] = None,
+                   aug_draws: Optional[Dict] = None) -> Dict[str, Any]:
         """One optimizer step on a batch: FOA waveforms (B, 4, samples) and
         label arrays (``adpit_label``, ``accdoa_label``, or for the EINV2
-        heads ``sed_label`` (B, T, 3, K) and ``doa_label`` (B, T, 3, 3)).
-        Drop-path masks are ``dp_masks`` or come from ``generator``. Returns the losses as
+        heads ``sed_label`` (B, T, 3, K) and ``doa_label`` (B, T, 3, 3)),
+        and where given the batch's ``ov`` list. Drop-path masks are
+        ``dp_masks`` or come from ``generator``. Returns the losses as
         device tensors (no host synchronization)."""
         prepared = self.prepare_batch({"data": batch_x, **targets})
-        return self.train_step_prepared(prepared, generator, dp_masks)[0]
+        return self.train_step_prepared(prepared, generator, dp_masks, aug_draws)[0]
 
     def _host_to_device(self, v) -> torch.Tensor:
-        """One host array or tensor as float32 on the task's device; on the
-        card from pinned memory without blocking (run on the copy stream)."""
-        t = v.float() if isinstance(v, torch.Tensor) else \
-            torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        """One host array or tensor on the task's device (float32, booleans
+        kept); on the card from pinned memory without blocking (run on the
+        copy stream)."""
+        if isinstance(v, torch.Tensor):
+            t = v if v.dtype == torch.bool else v.float()
+        else:
+            v = np.asarray(v)
+            t = torch.from_numpy(np.ascontiguousarray(
+                v, dtype=np.bool_ if v.dtype == np.bool_ else np.float32))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    @property
+    def host_augments(self) -> bool:
+        """Whether ``prepare_batch`` changes the batch on the host: AugMix,
+        a host rotation or wavmix."""
+        return (self.augmix or "wavmix" in self.aug_type
+                or ("rotate" in self.aug_type and not self.rotate_on_device))
+
+    def sample_aug_flags(self) -> np.ndarray:
+        """(2, len(TF_AUG_ORDER)) booleans: per-AugMix-copy random subset of
+        the configured TF augs, drawn from ``_np_rng`` (the JAX task's,
+        module.py:447-457; reference augment_data, model_module.py:115-121)."""
+        flags = np.zeros((2, len(TF_AUG_ORDER)), bool)
+        if not self.aug_tf_comb:
+            return flags
+        for c in range(2):
+            combo = self.aug_tf_comb[self._np_rng.randint(len(self.aug_tf_comb))]
+            for i, name in enumerate(TF_AUG_ORDER):
+                flags[c, i] = name in combo
+        return flags
+
+    def host_augment(self, batch_x: np.ndarray, targets: Dict) -> Tuple:
+        """AugMix triplication + waveform augs, host-side (the JAX task's,
+        module.py:459-471; reference common_step model_module.py:47-57 +
+        data_copy :83-90): rotate, then wavmix, from ``_np_rng``."""
+        if self.augmix:
+            batch_x = np.concatenate([batch_x] * 3, axis=0)
+            targets = {k: (np.concatenate([v] * 3, axis=0)
+                           if isinstance(v, np.ndarray) else list(v) * 3)
+                       for k, v in targets.items()}
+        if "rotate" in self.aug_type and not self.rotate_on_device:
+            batch_x, targets = self.wave_augs["rotate"](batch_x, targets)
+        if "wavmix" in self.aug_type:
+            batch_x, targets = self.wave_augs["wavmix"](batch_x, targets)
+        return batch_x, targets
+
     def prepare_batch(self, batch: Dict) -> PreparedBatch:
         """The host half of a step (the JAX task's prepare_batch,
-        module.py:483-498): the loader's batch (numpy arrays, as
-        data/datamodule.py's ``collate`` yields them, or tensors) to the
-        device, and the raw batch's ``ov`` list, which feeds the ov
-        statistics. On the card a host array is copied from pinned memory on
-        a side stream, and the copy's event goes with the batch; a tensor
-        already on the device is taken as it is. Prepare batches in loader
-        order from one thread (fit's pipeline does)."""
+        module.py:476-497): the host augmentation (``host_augment``, on
+        copies of the loader's arrays: a tensor is brought to the host for
+        it), then the TF flags (``sample_aug_flags``), both from
+        ``_np_rng`` in that order, then the batch (numpy arrays, as
+        data/datamodule.py's ``collate`` yields them, or tensors), the flags
+        and the ov1 mask of the augmented batch's ``ov`` to the device. The
+        raw batch's ``ov`` list, which feeds the ov statistics, goes with
+        it. On the card a host array is copied from pinned memory on a side
+        stream, and the copy's event goes with the batch; a tensor already
+        on the device is taken as it is. Prepare batches in loader order
+        from one thread (fit's pipeline does)."""
         ov = list(batch["ov"]) if "ov" in batch else None
+        if self.host_augments:
+            copy = not self.augmix  # the triplication copies already
+            x = _host_array(batch["data"], copy)
+            targets = {k: _host_array(v, copy) if (k.endswith("label")
+                                                   or isinstance(v, torch.Tensor))
+                       else v for k, v in batch.items() if k != "data"}
+            x, targets = self.host_augment(x, targets)
+            batch = {"data": x, **targets}
         arrays = {k: v for k, v in batch.items() if k == "data" or k.endswith("label")}
+        if self.aug_tf_comb:
+            aug_ov = batch.get("ov")
+            if aug_ov is None or len(aug_ov) == 0:
+                aug_ov = ["1"] * batch["data"].shape[0]
+            arrays["_flags"] = self.sample_aug_flags()
+            arrays["_ov1"] = np.asarray(aug_ov) == "1"
         dev = self.device
-        out = {k: v.float() for k, v in arrays.items()
+        out = {k: v if v.dtype == torch.bool else v.float() for k, v in arrays.items()
                if isinstance(v, torch.Tensor) and v.device.type == dev.type
                and dev.index in (None, v.device.index)}
         host = {k: v for k, v in arrays.items() if k not in out}
@@ -307,7 +488,8 @@ class SELDTask:
                 event.record(self._copy_stream)
         else:
             out.update({k: self._host_to_device(v) for k, v in host.items()})
-        return PreparedBatch(out.pop("data"), out, ov, event)
+        flags, ov1 = out.pop("_flags", None), out.pop("_ov1", None)
+        return PreparedBatch(out.pop("data"), out, ov, event, flags, ov1)
 
     def _on_step_stream(self, prepared: PreparedBatch) -> PreparedBatch:
         """The current stream waits on the batch's copy, and the batch's
@@ -316,13 +498,16 @@ class SELDTask:
         if prepared.event is not None:
             current = torch.cuda.current_stream(self.device)
             current.wait_event(prepared.event)
-            for t in (prepared.x, *prepared.targets.values()):
-                t.record_stream(current)
+            for t in (prepared.x, *prepared.targets.values(), prepared.flags,
+                      prepared.ov1_mask):
+                if t is not None:
+                    t.record_stream(current)
         return prepared
 
     def train_step_prepared(self, prepared: PreparedBatch,
                             generator: Optional[torch.Generator] = None,
-                            dp_masks: Optional[Sequence[torch.Tensor]] = None
+                            dp_masks: Optional[Sequence[torch.Tensor]] = None,
+                            aug_draws: Optional[Dict] = None
                             ) -> Tuple[Dict[str, Any], Optional[List[str]]]:
         """The device half of a step over a ``prepare_batch`` result, on the
         step's stream once the batch's copy is done. -> (losses as device
@@ -330,7 +515,7 @@ class SELDTask:
         if self.state is None:
             raise RuntimeError("call init_state() first")
         self._on_step_stream(prepared)
-        losses, grads, bs = self._grads(prepared.x, prepared.targets, generator, dp_masks)
+        losses, grads, bs = self._grads(prepared, generator, dp_masks, aug_draws)
         optimizer_step(self.state.optimizer, self.trained, grads, self.state.step, self.max_norm)
         if bs is not None:
             with torch.no_grad():
@@ -532,3 +717,19 @@ class SELDTask:
             part = y.sum(0).reshape(B, T, -1)
             total = part if total is None else total + part
         return {key: total / len(in_perm)}
+
+
+def _kw(cfg_entry) -> Dict:
+    """An augmentation's config entry as keyword arguments (no _target_)."""
+    d = dict(cfg_entry or {})
+    d.pop("_target_", None)
+    return d
+
+
+def _host_array(v, copy: bool = True) -> np.ndarray:
+    """A batch array as float32 numpy on the host, copied where ``copy``
+    (the host augmentation writes into its arrays: without AugMix's
+    triplication, into the loader's own)."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().to("cpu", torch.float32).numpy()
+    return np.array(v, dtype=np.float32, copy=True) if copy else np.asarray(v, np.float32)

@@ -1040,3 +1040,62 @@ def test_fit_on_kernels_matches_plain_and_resumes(card, tmp_path):
             assert torch.equal(v.cpu(), saved_opt[i][k].cpu()) if torch.is_tensor(v) \
                 else v == saved_opt[i][k], (i, k)
     assert (task.state.step, task.state.epoch, task.state.best_score) == saved[2:]
+
+
+def test_augmix_step_at_b96_on_kernels_matches_plain(card):
+    """One ``experiment=synth_maccdoa`` step (AugMix: 32 loader clips become
+    96, the host's rotate and wavmix, the device TF chains on each copy) of
+    the HTSAT mACCDOA at its published widths, depths cut to (2, 2, 2, 2),
+    bf16-mixed, fused forward: the augmentation run twice from the same
+    generator and RandomState states gives bit-identical features (K1 x1 a
+    run); the step's forward and backward on the kernels (K2 x8, K3 x8 at
+    B=96) against the plain step on those features, with one drop-path
+    generator seed: the loss within 2^-6 and every grad within 2^-4 of
+    scale, each no further from float32 than the plain bf16 step
+    (chip_smoke.py's phase_train rule)."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    cfg = compose(str(Path(__file__).resolve().parents[1] / "configs"), "train",
+                  ["experiment=synth_maccdoa", "model.kwargs.pretrained_path=null",
+                   "trainer.precision=bf16-mixed", "trainer.fused_forward=true",
+                   "model.kwargs.depths=[2,2,2,2]"])
+    task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=2, device=card)
+    assert task.augmix and task.fused_forward
+    task.init_state(3)
+    dm = _CardData(5)
+    rng = np.random.default_rng(6)
+    batch = {"data": (rng.standard_normal((32, 4, 240000)) * 0.1).astype(np.float32),
+             "adpit_label": np.concatenate([dm.train[0]["adpit_label"]] * 16),
+             "ov": ["1"] * 32}
+    gen, np_state = task.aug_generator.get_state(), task._np_rng.get_state()
+    before = frontend.KERNEL.launches
+    feats, tgt = task.step_inputs(task.prepare_batch(batch))
+    task.aug_generator.set_state(gen)
+    task._np_rng.set_state(np_state)
+    feats2, tgt2 = task.step_inputs(task.prepare_batch(batch))
+    assert frontend.KERNEL.launches == before + 2
+    assert feats.shape == (96, 7, 1001, 64) and torch.equal(feats, feats2)
+    assert all(torch.equal(tgt[k], tgt2[k]) for k in tgt)
+
+    def grads(use_kernels, dtype):
+        task.set_use_kernels(use_kernels)
+        task.compute_dtype = dtype
+        counts = [k.launches for k in (swin_block.KERNEL, swin_block_vjp.KERNEL)]
+        losses, g, _ = task.grads_on(feats, tgt, torch.Generator(device=card).manual_seed(9))
+        done = [k.launches - c for k, c in zip((swin_block.KERNEL, swin_block_vjp.KERNEL), counts)]
+        assert done == ([8, 8] if use_kernels else [0, 0]), done
+        return [losses["loss_all"].float().reshape(1)] + [x.float() for x in g]
+
+    k16, p16, p32 = grads(True, torch.bfloat16), grads(False, torch.bfloat16), grads(
+        False, torch.float32)
+    for i, (a, b, c) in enumerate(zip(k16, p16, p32)):
+        scale = c.abs().max().item()
+        tol = 2.0 ** -6 if i == 0 else 2.0 ** -4
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= tol * scale, i
+        assert (a - c).abs().max().item() <= 1.25 * (b - c).abs().max().item() + 2 ** -7 * scale, i

@@ -488,15 +488,17 @@ def test_factory_builds_every_einv2_backbone(loss, backbone):
 
 
 def test_seddoa_experiment_builds():
-    """configs/experiment/synth_seddoa_agg.yaml with its augment override
-    taken back (augmentation is queue A step 5): the task builds the
-    full-width HTSAT_SEDDOA with the AGG loss; synth_einv2_agg builds the
-    dual-encoder HTSAT."""
+    """configs/experiment/synth_seddoa_agg.yaml with its shipped
+    augmentation: the task builds the full-width HTSAT_SEDDOA with the AGG
+    loss and the experiment's augmentation (augmix.yaml, as the JAX
+    package composes it); synth_einv2_agg builds the dual-encoder HTSAT."""
     for exp, cls in (("synth_seddoa_agg", einv2_heads.HTSAT_SEDDOA),
                      ("synth_einv2_agg", einv2_heads.HTSAT)):
-        cfg = compose(str(ROOT / "configs"), "train",
-                      [f"experiment={exp}", "augment.type=[]", "augment.AugMix=false",
-                       "model.kwargs.pretrained_path=null"])
+        over = [f"experiment={exp}", "model.kwargs.pretrained_path=null"]
+        cfg = compose(str(ROOT / "configs"), "train", over)
         task = SELDTask(cfg, DatasetSpec(num_classes=13), device="cpu")
         assert type(task.model) is cls and not task.fused_forward
         assert type(task.loss).__name__ == "AggPitLoss"
+        aug = jax_compose_configs(over)["augment"]
+        assert task.aug_type == list(aug["type"]) and task.augmix is bool(aug["AugMix"]) is True
+        assert "trackmix" in task.aug_type and "wavmix" in task.aug_type and task.aug_tf_comb

@@ -2,7 +2,7 @@
 and ADPIT losses, the optimizers against optax, train-mode ScalarBN against
 flax, the fused training forward (plain versions of K2/K3) against the JAX
 one in interpret mode, and one SELDTask step against the JAX SELDTask; plus
-the settings this slice does not port, which raise."""
+the settings the port does not train yet, which raise."""
 
 from pathlib import Path
 
@@ -392,8 +392,6 @@ EINV2_CRNN_TRAIN = TINY_CRNN + ["loss=einv2_pit", "model.decoder=conformer"]
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ("augment=augmix", NotImplementedError, "step 5"),
-    ("augment.type=[specaug]", NotImplementedError, "step 5"),
     ("+trainer.tensor_parallel=2", NotImplementedError, "step 11"),
     pytest.param(EINV2_PASST_TRAIN, NotImplementedError, "step 8", id="einv2-passt-train"),
     pytest.param(EINV2_CRNN_TRAIN, NotImplementedError, "step 9", id="einv2-crnn-conformer-train"),
@@ -430,9 +428,13 @@ def test_task_defaults_to_the_card():
 
 @pytest.mark.parametrize("kind", ["file", "directory"])
 def test_init_state_raises_on_an_existing_pretrained_path(tmp_path, kind):
-    """C2: where the JAX init_state would load ``pretrained_path`` (a path
-    that exists, file or directory), the port raises naming queue A step 17
-    instead of training from random weights."""
+    """Where the JAX init_state loads ``pretrained_path`` (a path that
+    exists), the port loads it too (tests/test_torch_pretrained.py); a file
+    that is not a checkpoint raises the error the JAX package's load raises
+    on it (torch.load's), and so does a directory, instead of training from
+    random weights."""
+    from pseldnets_tpu.train.checkpoint import load_torch_state_dict as jax_load
+
     path = tmp_path / "pretrained.ckpt"
     if kind == "file":
         path.write_bytes(b"not a checkpoint")
@@ -442,7 +444,9 @@ def test_init_state_raises_on_an_existing_pretrained_path(tmp_path, kind):
                   TINY_TASK + [f"model.kwargs.pretrained_path={path}"])
     task = SELDTask(cfg, DatasetSpec(num_classes=3), steps_per_epoch=2, device="cpu")
     assert task.meta["pretrained_path"] == str(path)
-    with pytest.raises(NotImplementedError, match="step 17"):
+    with pytest.raises(Exception) as jax_err:
+        jax_load(str(path))
+    with pytest.raises(type(jax_err.value)):
         task.init_state(0)
     assert task.state is None
 

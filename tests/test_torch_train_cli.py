@@ -6,9 +6,11 @@ decoder) with multi-ACCDOA for two epochs from a weights-only ``.ckpt`` of
 seeded noise (so that the scores see detections), ``cli.infer`` on its best
 checkpoint reproduces the validation scores of that epoch's line, and the
 train CLI resumes from ``last.ckpt`` to a third epoch. One epoch each of
-``loss=accdoa`` and ``loss=einv2_pit`` runs through the train CLI too. The
-JAX e2e flow's ``augment=augmix`` is left out: augmentation is not ported
-(ROADMAP.md queue A step 5). The preproc outputs are held against the JAX
+``loss=accdoa`` and ``loss=einv2_pit`` runs through the train CLI too. With
+the JAX e2e flow's ``augment=augmix`` (tests/test_e2e.py:101) the chain
+trains, infers from its best file, and fine-tunes from that file as a
+SELD-pretrained ``model.kwargs.pretrained_path`` (``audioset_pretrain:
+false``, ``augment=augmix1``). The preproc outputs are held against the JAX
 package's in tests/test_torch_preproc.py."""
 
 import json
@@ -23,7 +25,9 @@ from pseldnets_tpu_torch.cli import preproc as port_preproc
 from pseldnets_tpu_torch.cli import train as port_train
 from pseldnets_tpu_torch.config import compose
 from pseldnets_tpu_torch.models import build_model
-from pseldnets_tpu_torch.train.checkpoint import save_training_ckpt
+from pseldnets_tpu_torch.train.checkpoint import (load_torch_state_dict, save_training_ckpt,
+                                                  stack_scalar_rows)
+from pseldnets_tpu_torch.train.module import SELDTask
 from test_torch_infer_cli import FS, K, _make_corpus
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -146,3 +150,48 @@ def test_one_epoch_of_other_heads(preprocessed, loss):
         f"loss={loss}", "mode=valid", f"ckpt_path={run}/checkpoints/epoch_001.ckpt",
         f"paths.output_dir={work}/infer_{loss}"]), device="cpu")
     assert abs(macro["SELD_scr"] - line["val"]["macro"]["SELD_scr"]) <= 1e-6
+
+
+@pytest.mark.parametrize("loss", ["multi_accdoa", "einv2_pit"])
+def test_augmix_train_infer_and_finetune_cli(preprocessed, loss):
+    """tests/test_e2e.py's flow with ``augment=augmix`` (specaug, crop,
+    freqshift, rotate, trackmix, wavmix, AugMix): one epoch through the
+    train CLI (finite losses, a validation, both checkpoints), the infer CLI
+    on the best file scoring as the epoch's line; then the fine-tune: the
+    best file as ``model.kwargs.pretrained_path`` with
+    ``audioset_pretrain=false`` and ``augment=augmix1`` loads every key but
+    the head's (the task built from those overrides holds the file's
+    weights, its head the seed's init), and one epoch of it trains through
+    the train CLI."""
+    root, work = preprocessed
+    run = work / f"run_augmix_{loss}"
+    port_train.main(["--device", "cpu", *_overrides(
+        root, work, [f"loss={loss}", "augment=augmix", "seed=6", "trainer.max_epochs=1",
+                     f"paths.output_dir={run}"])])
+    (line,) = _lines(run)
+    assert all(np.isfinite(v) for v in line["train"].values())
+    assert np.isfinite(line["val"]["macro"]["SELD_scr"])
+    best = run / "checkpoints" / "epoch_001.ckpt"
+    assert sorted(p.name for p in (run / "checkpoints").iterdir()) == [best.name, "last.ckpt"]
+    macro = port_infer.main(_overrides(root, work, [
+        f"loss={loss}", "mode=valid", f"ckpt_path={best}",
+        f"paths.output_dir={work}/infer_augmix_{loss}"]), device="cpu")
+    assert abs(macro["SELD_scr"] - line["val"]["macro"]["SELD_scr"]) <= 1e-6
+
+    tune = [f"loss={loss}", "augment=augmix1", "seed=7", "trainer.max_epochs=1",
+            f"model.kwargs.pretrained_path={best}", "model.kwargs.audioset_pretrain=false"]
+    task = SELDTask(compose(str(ROOT / "configs"), "train", _overrides(root, work, tune)),
+                    type("Spec", (), {"num_classes": K, "max_ov": 3})(), device="cpu")
+    task.init_state(7)
+    rep = task.pretrained_report
+    assert rep["missing"] == [] and rep["skipped"] and set(rep["unused"]) == set(rep["skipped"])
+    assert all(k.startswith(("fc.", "fc_sed")) for k in rep["skipped"])
+    saved = stack_scalar_rows(load_torch_state_dict(best), task.model)
+    for k, v in task.model.state_dict().items():
+        if k not in rep["skipped"]:
+            assert torch.equal(v, saved[k]), k
+    port_train.main(["--device", "cpu", *_overrides(
+        root, work, tune + [f"paths.output_dir={work}/run_tune_{loss}"])])
+    (tuned,) = _lines(work / f"run_tune_{loss}")
+    assert all(np.isfinite(v) for v in tuned["train"].values())
+    assert np.isfinite(tuned["val"]["macro"]["SELD_scr"])
