@@ -20,14 +20,21 @@ serving once more with each Swin stage in one launch (K11, swin="stage",
 the merges unfolded); then EINV2 (configs/loss/einv2_pit_agg.yaml: two
 HTSAT encoders stitched before every stage) served through
 einv2_htsat_fused_forward_from_wav (K1, the DOA branch's K8, K2 on both
-branches) and trained eagerly through SELDTask (K1); then the eval path:
+branches) and trained eagerly through SELDTask (K1); then PaSST ACCDOA
+training (configs/model/passt.yaml at full width, eager under bf16 autocast
+as in the JAX package: K1), with the shipped kwargs and with the structured
+frequency patchout, drop-path and position dropout, and one validation of
+it (K1, K6); then the eval path:
 SELDTask.eval_step on an odd batch (K1, K8, K2), ACS with 256 and 512
 folded clips a launch, run_validation with move_avg and run_test on an in-memory
 datamodule, and one eval step of each other route (K4, K6, K2 x24, K7); then
 fit to a checkpoint; then the shipped training recipes: experiment=synth_maccdoa
 (AugMix, 96 clips a step on K1, K2, K3) from a synthetic AudioSet HTSAT file
 through load_pretrained's surgery, and a SELD fine-tune
-(experiment=starss23/finetune_maccdoa_augmix1) from its best file. It
+(experiment=starss23/finetune_maccdoa_augmix1) from its best file, and the
+two L3DAS22 mono recipes (experiment=l3das22/finetune_maccdoa_ov1mono and
+its AdapterBit form: K2/K3 and K4/K5) from it on clips the mono_adapter
+spatialisation made. It
 checks the outputs, the kernels' launch counts on each path and the kernel
 step against the plain step, and prints the times.
 
@@ -78,7 +85,7 @@ CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
                (125, 8, 256, 512), (125, 4, 512, 1024), (125, 2, 1024, 2048))
 PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn",
          "serve_patch", "features_flat", "features_dif", "serve_stage", "serve_einv2",
-         "train_einv2", "eval", "fit", "finetune")
+         "train_einv2", "train_passt", "eval", "fit", "finetune")
 DEPTHS = (2, 2, 6, 2)  # HTSAT's Swin stages (configs/model/htsat.yaml)
 
 
@@ -2564,6 +2571,175 @@ def phase_train_einv2(smi):
     return launches, {"K1": (max(db, iv), k1_rel)}
 
 
+# PaSST training (BASELINE.json config 4, the ACCDOA head): configs/model/
+# passt.yaml at full width (768, depth 7, 602 tokens), bf16-mixed, eager as in
+# the JAX package; then the structured frequency patchout (402 tokens) with
+# drop-path and position dropout
+PASST_TRAIN = ["model=passt", "loss=accdoa", "model.kwargs.pretrained_path=null",
+               "model.kwargs.audioset_pretrain=false", "trainer.precision=bf16-mixed"]
+PASST_PATCHOUT = ["model.kwargs.s_patchout_f=2", "model.kwargs.drop_path_rate=0.1",
+                  "model.kwargs.drop_rate=0.1"]
+
+
+def accdoa_labels(adpit):
+    """ADPIT labels (B, T, 6, 4, K) -> ACCDOA labels (B, T, 3K): track A's
+    activity-scaled x, y, z blocks."""
+    B, T = adpit.shape[:2]
+    return adpit[:, :, 0, 1:].reshape(B, T, -1)
+
+
+def phase_train_passt(smi):
+    """PaSST ACCDOA training through SELDTask.train_step, eager under
+    bf16 autocast (PASST_TRAIN): SERVE_BATCHES steps of B_TRAIN clips with
+    the shipped kwargs, then with PASST_PATCHOUT, the draws from a
+    generator (K1 x1 a step, no other kernel), counted from 0; for each
+    the kernel step against the plain-frontend step on the same draws
+    (float32: loss within 2^-6, every grad within 2^-4 of its scale;
+    bf16-mixed: the loss within 2^-6 of the plain bf16 step's, the grads'
+    distance logged), K1's training form on the step's waveforms,
+    peak memory, a profile. Then one run_validation of the patchout task
+    through an in-memory datamodule with ACCDOA labels (fit's PaSST
+    validation: K1 x1, K6 x7 a batch), and K6 on a validation batch's
+    block inputs against its plain version."""
+    import numpy as np
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.metrics import SELDMetrics
+    from pseldnets_tpu_torch.models import heads
+    from pseldnets_tpu_torch.ops import vit_block
+    from pseldnets_tpu_torch.serving import folded_wav_features, prepare_vit_blocks
+    from pseldnets_tpu_torch.serving.passt import passt_tokens
+    from pseldnets_tpu_torch.train import loop
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    total = expected()
+    k1 = (0.0, 0.0)
+    labels = torch.from_numpy(accdoa_labels(make_labels(np.random.default_rng(2), B_TRAIN,
+                                                        100))).cuda()
+    for name, extra, tokens in (("shipped kwargs", [], 602),
+                                ("s_patchout_f=2, drop-path 0.1, drop_rate 0.1",
+                                 PASST_PATCHOUT, 402)):
+        cfg = compose(str(ROOT / "configs"), "train", PASST_TRAIN + extra)
+        task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=100, device="cuda")
+        enc = task.model.encoder
+        check(isinstance(task.model, heads.PASST) and not task.fused_forward
+              and task.compute_dtype == torch.bfloat16 and len(enc.blocks) == 7
+              and enc.embed_dim == 768, "PaSST training configuration (eager, bf16-mixed)")
+        task.init_state(0)
+        g = torch.Generator(device="cuda").manual_seed(90)
+        wavs = [torch.randn(B_TRAIN, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+                for _ in range(SERVE_BATCHES)]
+        gen = torch.Generator(device="cuda").manual_seed(91)
+        step = lambda w: task.train_step(w, {"accdoa_label": labels}, gen)  # noqa: E731
+        # warm-up, the tokens that reach block 0 read from the step itself
+        seen = []
+        hook = enc.blocks[0].register_forward_pre_hook(
+            lambda _m, args: seen.append(tuple(args[0].shape)))
+        step(wavs[0])
+        hook.remove()
+        torch.cuda.synchronize()
+        check(seen == [(B_TRAIN, tokens, 768)],
+              f"PaSST train tokens at block 0 {seen} (expect {tokens})")
+
+        # the main path: counts from 0, SERVE_BATCHES steps
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = [step(w)["loss_all"] for w in wavs]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / SERVE_BATCHES
+        launches = read_counts()
+        want = expected(K1=SERVE_BATCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"PaSST ({name}) trained {SERVE_BATCHES} eager steps of {B_TRAIN} x 10 s clips, "
+            f"{tokens} tokens: launches {launches} (expect {want}); losses "
+            f"{[round(float(v), 6) for v in losses]}; peak device memory {peak:.2f} GiB")
+        check(launches == want, "PaSST training launch counts")
+        check(all(np.isfinite(float(v)) for v in losses), "PaSST training loss not finite")
+        total = {k: total[k] + launches[k] for k in total}
+        log(f"PaSST training ({name}): {dt * 1e3:.2f} ms/step, {B_TRAIN / dt:.1f} clips/s "
+            f"(host clock, synchronized; {smi})")
+
+        # one kernel step against one plain-frontend step, the same weights,
+        # batch and draws (phase_train_einv2's rule: in float32 the steps
+        # differ by K1's arithmetic alone; the bf16 step's loss is logged)
+        def grads_with(use_kernels, dtype):
+            task.set_use_kernels(use_kernels)
+            task.compute_dtype = dtype
+            losses, grads, _ = task.compute_grads(
+                wavs[0], {"accdoa_label": labels}, torch.Generator(device="cuda").manual_seed(92))
+            return losses["loss_all"].float().reshape(1), grads
+
+        lk, gk = grads_with(True, torch.float32)
+        lf, gf = grads_with(False, torch.float32)
+        lk16, gk16 = grads_with(True, torch.bfloat16)
+        lp16, gp16 = grads_with(False, torch.bfloat16)
+        task.set_use_kernels(True)
+        log(f"PaSST ({name}) kernel step vs plain step: loss {lk.item():.6f} (plain "
+            f"{lf.item():.6f}) in float32, {lk16.item():.6f} (plain {lp16.item():.6f}) in "
+            f"bf16-mixed")
+        compare("PaSST loss (float32)", lk, lf, lf, 2.0 ** -6)
+        compare("PaSST loss (bf16)", lk16, lp16, lf, 2.0 ** -6)
+        worst = worst16 = noise16 = 0.0
+        for pname, a, c, a16, b16 in zip(task.trained_names, gk, gf, gk16, gp16):
+            scale = max(c.abs().max().item(), 1e-30)
+            worst = max(worst, compare(pname[-36:], a, c, c, 2.0 ** -4) / scale)
+            worst16 = max(worst16, (a16 - b16).abs().max().item() / scale)
+            noise16 = max(noise16, (b16 - c).abs().max().item() / scale)
+        log(f"PaSST ({name}): every parameter grad within {worst:.3g} of its scale of the "
+            f"plain step's in float32; in bf16-mixed within {worst16:.3g}, the plain bf16 "
+            f"step's own distance from float32 up to {noise16:.3g}")
+        del gk, gf, gk16, gp16
+        e = hold_k1_train(task, wavs[0])
+        k1 = (max(k1[0], e[0]), max(k1[1], e[1]))
+        phase_profile(f"one PaSST training step ({name})", lambda: step(wavs[0]))
+        if not extra:
+            del task, wavs
+            torch.cuda.empty_cache()
+
+    # fit's PaSST validation: run_validation on the patchout task (eval: the
+    # whole grid), an in-memory datamodule with ACCDOA labels
+    dm = AccdoaMemoryDataModule(93)
+    n_b = len(dm.batches)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    macro, micro, vlosses = loop.run_validation(task, dm, SELDMetrics(nb_classes=13,
+                                                                      doa_threshold=20))
+    val_s = time.perf_counter() - t0
+    launches = read_counts()
+    want = expected(K1=n_b, K6=7 * n_b)
+    log(f"PaSST run_validation ({len(dm.wavs)} chunks, {n_b} batches): launches {launches} "
+        f"(expect {want}); {val_s * 1e3:.1f} ms; macro {macro}; losses {vlosses} ({smi})")
+    check(launches == want, "PaSST validation launch counts")
+    vals = list(macro.values()) + list(micro.values()) + list(vlosses.values())
+    check(all(np.isfinite(v) for v in vals), "a PaSST validation metric is not finite")
+    total = {k: total[k] + launches[k] for k in total}
+
+    # K6 on the first validation batch's seven block inputs
+    model = task.model.eval()
+    blocks = prepare_vit_blocks(model, torch.bfloat16)
+    wav = dm.wavs[:EVAL_LOADER_B]
+    with torch.no_grad():
+        xs = [passt_tokens(model, folded_wav_features(model, wav), torch.bfloat16)]
+        for p in blocks[:-1]:
+            xs.append(vit_block.vit_block_fused(xs[-1], p))
+    check(xs[0].shape == (EVAL_LOADER_B, 602, 768), f"validation tokens {tuple(xs[0].shape)}")
+    k6 = (0.0, 0.0)
+    for i, (x, p) in enumerate(zip(xs, blocks)):
+        ref = vit_block.vit_block_plain(x, p).float()
+        scale = ref.abs().max().item()
+        err = (vit_block.vit_block_fused(x, p).float() - ref).abs().max().item()
+        check(err <= 2.0 ** -6 * scale, f"K6 validation block {i} disagrees with its plain "
+              "version")
+        k6 = (max(k6[0], err), max(k6[1], err / scale))
+    log(f"K6 on a validation batch's 7 block inputs (B={EVAL_LOADER_B}): max |d| {k6[0]:.3g}, "
+        f"{k6[1]:.3g} of scale (<= 2^-6)")
+    del task, dm, xs, wavs
+    torch.cuda.empty_cache()
+    return total, {"K1": k1, "K6": k6}
+
+
 # the eval path: SELDTask.eval_step in the served HTSAT cell's configuration
 # (bench.py's mACCDOA, bf16), B_EVAL clips a batch (the pad path: 32 after
 # the repeat pad)
@@ -2631,6 +2807,20 @@ class MemoryDataModule:
 
     def test_dataloader(self):
         return ({"data": self.wavs[a:b]} for a, b in self.batches)
+
+
+class AccdoaMemoryDataModule(MemoryDataModule):
+    """MemoryDataModule with ACCDOA labels (track A's) in place of ADPIT."""
+
+    def __init__(self, seed):
+        import torch
+
+        super().__init__(seed)
+        self.labels = torch.from_numpy(accdoa_labels(self.labels.cpu().numpy())).cuda()
+
+    def val_dataloader(self):
+        return ({"data": self.wavs[a:b], "accdoa_label": self.labels[a:b]}
+                for a, b in self.batches)
 
 
 class HostClock:
@@ -3165,8 +3355,11 @@ def phase_fit(smi):
 # (AugMix: the loader's B_TRAIN clips become 3 x B_TRAIN) from a synthetic
 # AudioSet HTSAT file, FT_EPOCHS epochs of fit on FitDataModule's FIT_STEPS
 # batches, then experiment=starss23/finetune_maccdoa_augmix1 from the best
-# file, FT_TUNE_STEPS steps and one validation batch; bf16-mixed, fused forward
-FT_EPOCHS, FT_TUNE_STEPS = 2, 2
+# file, FT_TUNE_STEPS steps and one validation batch; then the two L3DAS22
+# mono recipes from that file, FT_MONO_STEPS steps each on clips the port's
+# mono_adapter spatialisation made; bf16-mixed, fused forward
+FT_EPOCHS, FT_TUNE_STEPS, FT_MONO_STEPS = 2, 2, 2
+MONO_SAMPLES = 320000  # 10 s at L3DAS22's 32 kHz
 FT_OVERRIDES = ["trainer.precision=bf16-mixed", "trainer.fused_forward=true"]
 BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
 
@@ -3461,9 +3654,109 @@ def phase_finetune(smi):
           and bool(torch.isfinite(pred["multi_accdoa"]).all()), "fine-tune validation output")
     del tune, dm
     torch.cuda.empty_cache()
+    launches_c = phase_mono_recipes(smi, task_of, best)
     tmp.cleanup()
-    total = {k: launches[k] + launches_b[k] for k in launches}
+    total = {k: launches[k] + launches_b[k] + launches_c[k] for k in launches}
     return total, {"K1": k1, "K2": k2, "K3": k3}
+
+
+def mono_batches(seed):
+    """FT_MONO_STEPS host batches of B_TRAIN 10 s L3DAS22 clips made as the
+    mono_adapter data path makes them: a mono waveform and a single-source
+    label (make_labels) through data/dataset.py's generate_spatial_samples,
+    one RandomState for all."""
+    import numpy as np
+    from pseldnets_tpu_torch.data.dataset import generate_spatial_samples
+
+    rs = np.random.RandomState(seed)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(FT_MONO_STEPS):
+        clips = [generate_spatial_samples((rs.randn(MONO_SAMPLES) * 0.1).astype(np.float32),
+                                          "multi_accdoa", rs, adpit_label=lab)
+                 for lab in make_labels(rng, B_TRAIN, 100)]
+        out.append({"data": np.stack([c[0] for c in clips]).astype(np.float32),
+                    "adpit_label": np.stack([c[1] for c in clips]), "ov": ["1"] * B_TRAIN})
+    return out
+
+
+def phase_mono_recipes(smi, task_of, best):
+    """The two L3DAS22 mono recipes (experiment=l3das22/
+    finetune_maccdoa_ov1mono{,_adapterbit}: adapt=mono_finetune trains
+    every parameter on K2/K3, mono_adapter the AdapterBit adapters, biases
+    and head on K4/K5) from ``best``: FT_MONO_STEPS steps of B_TRAIN
+    spatialised clips each (K1 x1 and K2, K3 or K4, K5 x12 a step), counted
+    from 0, then the kernel step against the plain step on the first batch
+    (phase_finetune's rule). -> the launches of both."""
+    import numpy as np
+    import torch
+
+    batches = mono_batches(86)
+    x = batches[0]["data"][0]  # channels 1-3 are channel 0 panned
+    gains = x[1:] @ x[0] / (x[0] @ x[0])
+    check(np.allclose(x[1:], gains[:, None] * x[0], atol=1e-6), "mono batches")
+    total = expected()
+    for exp, kernels_a_step in (("l3das22/finetune_maccdoa_ov1mono", {"K2": 12, "K3": 12}),
+                                ("l3das22/finetune_maccdoa_ov1mono_adapterbit",
+                                 {"K4": 12, "K5": 12})):
+        _, task = task_of([f"experiment={exp}", f"model.kwargs.pretrained_path={best}"],
+                          FT_MONO_STEPS)
+        check(task.cfg["adapt"]["method"] == "mono_adapter" and task.fused_forward
+              and task.cfg["data"]["sample_rate"] == 32000 and not task.augmix,
+              f"{exp} configuration")
+        task.init_state(2)
+        rep = task.pretrained_report
+        check(rep is not None and rep["missing"] == [], f"{exp} load report {rep}")
+        frozen = {n: p.detach().clone() for n, p in zip(task.names, task.params)
+                  if not p.requires_grad}
+        gen = torch.Generator(device="cuda").manual_seed(87)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = [task.train_step(b["data"], {"adpit_label": b["adpit_label"], "ov": b["ov"]},
+                                  gen)["loss_all"] for b in batches]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FT_MONO_STEPS
+        launches = read_counts()
+        want = expected(K1=FT_MONO_STEPS,
+                        **{k: v * FT_MONO_STEPS for k, v in kernels_a_step.items()})
+        log(f"{exp} from {best.name}: {FT_MONO_STEPS} steps of {B_TRAIN} spatialised 10 s "
+            f"clips at 32 kHz ({ms:.2f} ms/step, host clock, from host batches; "
+            f"{len(task.trained)} of {len(task.params)} parameter tensors train, "
+            f"{len(frozen)} frozen): launches {launches} (expect {want}); losses "
+            f"{[round(float(v), 6) for v in losses]} ({smi})")
+        check(launches == want, f"{exp} launch counts")
+        check(all(np.isfinite(float(v)) for v in losses), f"{exp} loss not finite")
+        named = dict(zip(task.names, task.params))
+        check(all(torch.equal(named[n], v) for n, v in frozen.items()),
+              f"{exp}: a frozen parameter moved")
+        total = {k: total[k] + launches[k] for k in total}
+
+        def grads_with(use_kernels, dtype):
+            task.set_use_kernels(use_kernels)
+            task.compute_dtype = dtype
+            b = batches[0]
+            losses, grads, _ = task.compute_grads(
+                b["data"], {"adpit_label": b["adpit_label"]},
+                torch.Generator(device="cuda").manual_seed(88))
+            return losses["loss_all"].float().reshape(1), grads
+
+        lk, gk = grads_with(True, torch.bfloat16)
+        lp, gp = grads_with(False, torch.bfloat16)
+        lf, gf = grads_with(False, torch.float32)
+        task.set_use_kernels(True)
+        task.compute_dtype = torch.bfloat16
+        log(f"{exp} kernel step vs plain step: loss {lk.item():.6f} (plain bf16 "
+            f"{lp.item():.6f}, float32 {lf.item():.6f})")
+        compare("loss", lk, lp, lf, 2.0 ** -6)
+        worst = 0.0
+        for name, a, b, c in zip(task.trained_names, gk, gp, gf):
+            worst = max(worst, compare(name[-36:], a, b, c, 2.0 ** -4)
+                        / max(c.abs().max().item(), 1e-30))
+        log(f"{exp}: every trained grad within {worst:.3g} of its scale of the plain step's")
+        del task, gk, gp, gf
+        torch.cuda.empty_cache()
+    return total
 
 
 def phase_profile(what, fn, warm=True):
@@ -3527,6 +3820,7 @@ def main():
     results["serve_stage"] = phase_serve_stage(smi)
     results["serve_einv2"] = phase_serve_einv2(smi)
     results["train_einv2"] = phase_train_einv2(smi)
+    results["train_passt"] = phase_train_passt(smi)
     results["eval"] = phase_eval(smi)
     results["fit"] = phase_fit(smi)
     results["finetune"] = phase_finetune(smi)
@@ -3534,8 +3828,9 @@ def main():
     # launches: the sum over the main paths' runs (served batches and training
     # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the einsum embed, one
     # call of each frontend form, HTSAT one stage per launch, EINV2 served and
-    # trained eagerly, the eval path, fit, the shipped recipes' pre-training
-    # and fine-tune), each counted from 0; errors: the largest over the
+    # trained eagerly, PaSST trained with its validation, the eval path, fit,
+    # the shipped recipes' pre-training, fine-tune and mono recipes), each
+    # counted from 0; errors: the largest over the
     # checks at each path's own shapes,
     # absolute and as a share of the plain output's largest magnitude; ms and
     # bounds per served batch (K1, K2, K4, K6, K7, K8, K11), per training step

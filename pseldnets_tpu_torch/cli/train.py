@@ -11,9 +11,17 @@ The shipped recipes run as they are composed: ``experiment=synth_maccdoa``
 (AugMix: configs/augment/augmix.yaml) from the AudioSet file that
 ``model.kwargs.pretrained_path`` names, and the ``experiment=<dataset>/
 finetune_*`` recipes from a SELD checkpoint there (``audioset_pretrain:
-false``); the two ``l3das22/finetune_maccdoa_ov1mono*`` recipes build and
-load, and their mono data path raises at the dataset (ROADMAP.md queue A
-step 6). ``ckpt_path`` naming the port's ``last.ckpt`` resumes training
+false``); the two ``l3das22/finetune_maccdoa_ov1mono*`` recipes
+(``adapt=mono_finetune``/``mono_adapter``) train on clips the dataset
+spatialises from their first channel (data/dataset.py
+``generate_spatial_samples``). ``model=passt`` trains PaSST eagerly with
+``loss=multi_accdoa``, ``accdoa`` or ``einv2_pit(_agg)`` (the EINV2 dual
+PaSST); ``model.kwargs.img_size`` must be (n_mels, the chunk's frames
+1 + samples / hop), and ``model.kwargs.{s_patchout_f,u_patchout,
+drop_rate,drop_path_rate}`` turn on the structured frequency and the
+token patchout, position dropout and drop-path (``s_patchout_t`` drops
+output frames, so a SELD step with it raises, as in the JAX package).
+``ckpt_path`` naming the port's ``last.ckpt`` resumes training
 exactly; any other ``.ckpt`` (the port's best, the reference's) starts
 from its weights, and wins over ``pretrained_path``. ``trainer.detect_anomaly`` turns on
 ``torch.autograd.set_detect_anomaly``. It runs on the card unless

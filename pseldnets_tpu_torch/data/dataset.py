@@ -9,7 +9,7 @@ mono_adapter path, ov statistics).
 No torch: items are plain numpy dicts; batching/prefetch in datamodule.py.
 A copy of the JAX package's data/dataset.py, but ``h5py`` is imported in
 the readers (the package imports without it), and the mono_adapter
-spatialisation raises: it is not ported yet (ROADMAP.md queue A step 6).
+spatialisation's bare asserts raise ValueError.
 """
 
 from collections import OrderedDict
@@ -25,10 +25,60 @@ WAV_FORMAT_DATASETS = ["official", "STARSS23", "DCASE2021", "L3DAS22", "synth"]
 
 
 def generate_spatial_samples(audio, method, rng=None, **kwargs):
-    """Mono -> synthetic-FOA panning for the mono_adapter path (reference
-    src/data/data.py:17-59): not ported yet."""
-    raise NotImplementedError("the mono_adapter spatialisation is not ported yet "
-                              "(ROADMAP.md queue A step 6)")
+    """Mono -> synthetic-FOA panning for the mono_adapter path (the JAX
+    package's data/dataset.py:25-68; reference src/data/data.py:17-59):
+    one direction drawn from ``rng`` (azimuth in [-180, 180), elevation in
+    [-90, 90) degrees, in that order), the first channel panned to W, Y, Z,
+    X, and the labels' single source moved to it. Single-source targets
+    only: more than one active source in a frame raises."""
+    rng = rng or np.random
+    if audio.ndim == 2:
+        audio = audio[0]
+    azi = rng.randint(-180, 180)
+    ele = rng.randint(-90, 90)
+    x = np.cos(np.deg2rad(azi)) * np.cos(np.deg2rad(ele))
+    y = np.sin(np.deg2rad(azi)) * np.cos(np.deg2rad(ele))
+    z = np.sin(np.deg2rad(ele))
+    w = audio
+    audio = np.stack((w, y * audio, z * audio, x * audio), axis=0)
+
+    if method == "einv2":
+        sed_label, doa_label = kwargs["sed_label"], kwargs["doa_label"]
+        _single_source(sed_label.sum(axis=-2))
+        doa_label = np.zeros_like(doa_label)
+        act = sed_label.sum(axis=(-1, -2))
+        doa_label[..., 0, 0] = act * x
+        doa_label[..., 0, 1] = act * y
+        doa_label[..., 0, 2] = act * z
+        return audio, sed_label, doa_label
+    if method == "accdoa":
+        accdoa_label = kwargs["accdoa_label"]
+        K = accdoa_label.shape[-1] // 4
+        se = accdoa_label[:, :K]
+        _single_source(se.sum(axis=-1))
+        out = np.zeros_like(accdoa_label)
+        out[..., K:2 * K] = x * se
+        out[..., 2 * K:3 * K] = y * se
+        out[..., 3 * K:] = z * se
+        return audio, out
+    if method == "multi_accdoa":
+        adpit_label = kwargs["adpit_label"]
+        se = adpit_label[:, :, 0, :]
+        _single_source(se.sum(axis=(-1, -2)))
+        out = np.zeros_like(adpit_label)
+        out[:, :, 0, :] = se
+        out[:, :, 1, :] = x * se
+        out[:, :, 2, :] = y * se
+        out[:, :, 3, :] = z * se
+        return audio, out
+    raise ValueError(method)
+
+
+def _single_source(active) -> None:
+    """The JAX package's assert: at most one active source a frame."""
+    if active.max() > 1:
+        raise ValueError("the mono_adapter spatialisation takes single-source labels; a "
+                         f"frame has {active.max()} active sources")
 
 
 class BaseSegmentDataset:

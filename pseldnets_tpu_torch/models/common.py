@@ -1,16 +1,17 @@
 """Shared model plumbing in PyTorch, the counterpart of the JAX package's
 models/common.py: BatchNorm with torch semantics (per-channel "scalar" BN,
-BatchNorm2d), the ViT Mlp and PatchEmbed, the EINV2 CrossStitch, the GRU /
+BatchNorm2d), the ViT Mlp, PatchEmbed and drop-path, the EINV2 CrossStitch, the GRU /
 transformer / conformer sequence decoders, and the time-axis interpolate used
 by every head.
 
 Parity targets: reference src/models/components/model_utilities.py
-(CrossStitch :35-54, Mlp :129-171, PatchEmbed :174-213, Decoder :245-269) and
+(CrossStitch :35-54, Mlp :129-171, PatchEmbed :174-213, DropPath :216-242,
+Decoder :245-269) and
 src/models/components/utils.py (interpolate :25-52).
 """
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +29,37 @@ def check_no_dropout(module: nn.Module, rate: float, what: str) -> None:
     if module.training and rate:
         raise NotImplementedError(f"training {what} with dropout {rate} is not ported "
                                   "yet (ROADMAP.md queue A step 9)")
+
+
+def drop_path_masks(generator: Optional[torch.Generator], B: int, rates: Sequence[float],
+                    device=None) -> List[torch.Tensor]:
+    """Per-block (B, 2) float32 drop-path masks (attention branch, MLP
+    branch), drawn from ``generator``: ones where the block's rate is 0,
+    else Bernoulli(keep) / keep with keep = 1 - rate (the JAX package's
+    train/fused_forward.py:119-128; reference model_utilities.py:216-231).
+
+    This is the one mask format of the port. The HTSAT blocks (eager and
+    fused) multiply a branch by the mask as it is; ``drop_path`` (PaSST)
+    takes the 0/1 draw back from it (mask > 0) and divides by keep, in the
+    JAX package's arithmetic for that model."""
+    out = []
+    for rate in rates:
+        if rate > 0.0:
+            keep = 1.0 - float(rate)
+            u = torch.rand((B, 2), generator=generator, device=device)
+            out.append((u < keep).float() / keep)
+        else:
+            out.append(torch.ones((B, 2), device=device))
+    return out
+
+
+def drop_path(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """Stochastic depth of a residual branch ``x`` (B, ...) in the JAX
+    package's arithmetic (models/common.py:111-118): x / keep * m in x's
+    dtype, keep = 1 - rate, m each sample's 0/1 draw, taken from ``mask``
+    (B,), a column of a ``drop_path_masks`` mask."""
+    m = (mask > 0).to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+    return x / (1.0 - float(rate)) * m
 
 
 class TorchBatchNorm(nn.Module):

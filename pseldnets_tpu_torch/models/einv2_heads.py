@@ -9,14 +9,15 @@ reference's torch keys. Output dict: {"sed": (B, T, 3, K) logits, "doa":
 (B, T, 3, 3) tanh}, float32.
 
 Train mode follows the single-branch heads (models/heads.py): the HTSAT
-heads take drop-path masks (``dp_masks``: for HTSAT a pair of flat
-per-block lists, SED encoder's then DOA encoder's; for HTSAT_SEDDOA one
-list) or draw them from ``generator``; a CRNN decoder that trains with
-dropout raises (ROADMAP.md queue A step 9), as does PaSST training (step
-8). The JAX package calls the CRNN's track decoders without a
-``deterministic`` flag (einv2_heads.py:72-73), so they run in eval form
-there even in training; the port trains them as the reference does and
-raises where that needs dropout.
+and PaSST heads take drop-path masks (``dp_masks``: for HTSAT and PaSST a
+pair of flat per-block lists, SED encoder's then DOA encoder's; for
+HTSAT_SEDDOA one list) or draw them from ``generator``, and PaSST its
+patchout draws as a pair too (``patchout_draws``); a CRNN decoder that
+trains with dropout raises (ROADMAP.md queue A step 9). The JAX package
+calls the CRNN's track decoders without a ``deterministic`` flag
+(einv2_heads.py:72-73), so they run in eval form there even in training;
+the port trains them as the reference does and raises where that needs
+dropout.
 """
 
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -27,9 +28,9 @@ import torch.nn as nn
 from .adapters import NO_ADAPT, AdaptConfig
 from .backbone import CNN
 from .common import CrossStitch, Decoder, ScalarBN, interpolate
-from .heads import block_masks, concat_5s, tscam_head
+from .heads import block_masks, concat_5s, passt_draws, tscam_head
 from .htsat import HTSATEncoder
-from .passt import PaSSTEncoder
+from .passt import PaSSTEncoder, PatchoutDraws
 
 SED_IN_CHANNELS = 4  # the SED branch sees the four log-mel channels
 
@@ -178,8 +179,11 @@ class HTSAT_SEDDOA(nn.Module):
 class PASST(nn.Module):
     """Two PaSST encoders stitched before every ``ps_gap``-th block, three
     track decoders a branch stitched pairwise, per-track fc layers
-    (reference einv2.py:446-576). Eval only: the encoders raise in train
-    mode (ROADMAP.md queue A step 8)."""
+    (reference einv2.py:446-576). In train mode each encoder takes its own
+    patchout draws and drop-path masks (``patchout_draws``, ``dp_masks``:
+    (SED encoder's, DOA encoder's) pairs), drawn from ``generator`` where
+    not given, the SED encoder's first, as the JAX package calls its
+    forward_before first (einv2_heads.py:238-239)."""
 
     def __init__(self, num_classes: int, in_channels: int = 7, mel_bins: int = 64,
                  ps_gap: int = 2, decoder: Optional[str] = None, num_decoder_layers: int = 2,
@@ -200,15 +204,24 @@ class PASST(nn.Module):
         self.fc_sed = nn.ModuleList(nn.Linear(E, num_classes) for _ in range(3))
         self.fc_doa = nn.ModuleList(nn.Linear(E, 3) for _ in range(3))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                dp_masks: Optional[Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]] = None,
+                generator: Optional[torch.Generator] = None,
+                patchout_draws: Optional[Tuple[PatchoutDraws, PatchoutDraws]] = None
+                ) -> Dict[str, torch.Tensor]:
+        encs = (self.sed_encoder, self.doa_encoder)
+        draws = [passt_draws(enc, self.training, x.shape[0], d, m, generator, x.device)
+                 for enc, d, m in zip(encs, patchout_draws or (None, None),
+                                      dp_masks or (None, None))]
+        (d_sed, m_sed), (d_doa, m_doa) = draws
         x = self.scalar(x)
-        x_sed = self.sed_encoder.forward_before(x[:, :SED_IN_CHANNELS])
-        x_doa = self.doa_encoder.forward_before(x)
+        x_sed = self.sed_encoder.forward_before(x[:, :SED_IN_CHANNELS], d_sed)
+        x_doa = self.doa_encoder.forward_before(x, d_doa)
         for i in range(len(self.sed_encoder.blocks)):
             if i % self.ps_gap == 0:
                 x_sed, x_doa = self.stitch1[i // self.ps_gap](x_sed, x_doa)
-            x_sed = self.sed_encoder.run_block(i, x_sed)
-            x_doa = self.doa_encoder.run_block(i, x_doa)
+            x_sed = self.sed_encoder.run_block(i, x_sed, None if m_sed is None else m_sed[i])
+            x_doa = self.doa_encoder.run_block(i, x_doa, None if m_doa is None else m_doa[i])
         x_sed = self.sed_encoder.forward_after(x_sed)
         x_doa = self.doa_encoder.forward_after(x_doa)
         sed, doa = [], []

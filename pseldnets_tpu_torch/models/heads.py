@@ -14,10 +14,10 @@ import torch.nn as nn
 
 from .adapters import NO_ADAPT, AdaptConfig
 from .backbone import CNN
-from .common import Decoder, ScalarBN, interpolate
+from .common import Decoder, ScalarBN, drop_path_masks, interpolate
 from .conformer import ConformerBlocks
-from .htsat import HTSATEncoder, drop_path_masks
-from .passt import PaSSTEncoder
+from .htsat import HTSATEncoder
+from .passt import PaSSTEncoder, PatchoutDraws
 
 
 class CRNN(nn.Module):
@@ -105,11 +105,12 @@ def tscam_head(tok: torch.Tensor, conv: nn.Conv2d, time_res: int, B: int,
     return x.reshape(B, output_frames, pred_res, -1).mean(dim=2)
 
 
-def block_masks(enc: HTSATEncoder, training: bool, B: int,
+def block_masks(enc: nn.Module, training: bool, B: int,
                 dp_masks: Optional[Sequence[torch.Tensor]],
                 generator: Optional[torch.Generator], device) -> Optional[Sequence[torch.Tensor]]:
     """``dp_masks`` as given, or, in train mode with drop-path rates not all
-    0, one (B, 2) mask per block of ``enc`` drawn from ``generator``."""
+    0, one (B, 2) mask per block of ``enc`` (an HTSAT or PaSST encoder)
+    drawn from ``generator``."""
     rates = enc.block_rates()
     if training and dp_masks is None and any(rates):
         if generator is None:
@@ -165,8 +166,13 @@ class HTSAT(nn.Module):
 
 class PASST(nn.Module):
     """PaSST backbone + linear head (reference accdoa.py:249-329): ScalarBN
-    -> encoder -> fc on the (B, T', E) token map -> tanh. Eval only (the
-    encoder raises in train mode)."""
+    -> encoder -> fc on the (B, T', E) token map -> tanh.
+
+    In train mode the ScalarBN uses batch statistics, and the encoder takes
+    its patchout draws (``patchout_draws``, a ``models.passt.PatchoutDraws``)
+    and drop-path masks (``dp_masks``, one (B, 2) mask per block), each
+    drawn from ``generator`` where not given (the patchout draws first, as
+    the JAX package's forward_before precedes its blocks)."""
 
     def __init__(self, num_classes: int, in_channels: int = 7, mel_bins: int = 64,
                  num_tracks: int = 1, encoder_kwargs: Dict[str, Any] = None):
@@ -180,6 +186,24 @@ class PASST(nn.Module):
     def output_key(self) -> str:
         return "accdoa" if self.num_tracks == 1 else "multi_accdoa"
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        fm = self.encoder(self.scalar(x))
+    def forward(self, x: torch.Tensor, dp_masks: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None,
+                patchout_draws: Optional[PatchoutDraws] = None) -> Dict[str, torch.Tensor]:
+        draws, dp_masks = passt_draws(self.encoder, self.training, x.shape[0], patchout_draws,
+                                      dp_masks, generator, x.device)
+        fm = self.encoder(self.scalar(x), draws, dp_masks)
         return {self.output_key: torch.tanh(self.fc(fm).float())}
+
+
+def passt_draws(enc: PaSSTEncoder, training: bool, B: int, draws: Optional[PatchoutDraws],
+                dp_masks: Optional[Sequence[torch.Tensor]],
+                generator: Optional[torch.Generator], device
+                ) -> Tuple[Optional[PatchoutDraws], Optional[Sequence[torch.Tensor]]]:
+    """A PaSST encoder's train-mode draws: ``draws`` and ``dp_masks`` as
+    given, the missing ones drawn from ``generator``, patchout first;
+    (None, None) in eval."""
+    if not training:
+        return None, None
+    if draws is None:
+        draws = enc.draw(generator, B, device)
+    return draws, block_masks(enc, training, B, dp_masks, generator, device)

@@ -13,8 +13,8 @@ ops/swin_block_vjp.py instead, or, for blocks that carry AdapterBit adapters
 (``adapt``, models/adapters.py), those of ops/swin_block_adapt.py.
 
 Train mode has stochastic depth (drop-path) only: the per-block (B, 2) masks
-come from the caller (``drop_path_masks`` draws them from an explicit
-generator); no module keeps random state. Attention, projection and
+come from the caller (``models.common.drop_path_masks`` draws them from an
+explicit generator); no module keeps random state. Attention, projection and
 position dropout are not ported and raise when their rate is not 0.
 """
 
@@ -68,23 +68,6 @@ def shift_attn_mask(H: int, W: int, w: int, shift: int) -> np.ndarray:
     win = win.reshape(-1, w * w)
     mask = win[:, None, :] - win[:, :, None]
     return np.where(mask != 0, -100.0, 0.0).astype(np.float32)
-
-
-def drop_path_masks(generator: Optional[torch.Generator], B: int, rates: Sequence[float],
-                    device=None) -> List[torch.Tensor]:
-    """Per-block (B, 2) float32 drop-path scales (attention branch, MLP
-    branch): ones where the block's rate is 0, else Bernoulli(keep) / keep
-    with keep = 1 - rate (the JAX package's train/fused_forward.py:119-128;
-    reference model_utilities.py:216-231), drawn from ``generator``."""
-    out = []
-    for rate in rates:
-        if rate > 0.0:
-            keep = 1.0 - float(rate)
-            u = torch.rand((B, 2), generator=generator, device=device)
-            out.append((u < keep).float() / keep)
-        else:
-            out.append(torch.ones((B, 2), device=device))
-    return out
 
 
 def window_and_shift(H: int, W: int, window: int, shift: int) -> Tuple[int, int]:

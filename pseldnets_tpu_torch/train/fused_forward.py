@@ -24,7 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..models.heads import HTSAT, concat_5s
-from ..models.htsat import drop_path_masks
+from ..models.common import drop_path_masks
 from ..ops.swin_block_adapt import has_adapters, swin_block_adapt_train
 from ..ops.swin_block_vjp import swin_block_train
 from ..serving.htsat import embed_tokens, head_tail, patch_merging

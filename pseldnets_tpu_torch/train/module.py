@@ -8,8 +8,9 @@ frontend (kernel K1 on the card) -> train-mode forward -> loss -> backward
 block on kernels K2/K3 (K4/K5 for AdapterBit blocks; train/fused_forward.py),
 false the eager ``model.train()`` module (under bf16 autocast with bf16-mixed
 precision), the one forward of the CRNN heads (their BatchNorms use batch
-statistics there) and of the EINV2 heads, which the JAX package also trains
-eagerly only (its train/fused_forward.py:34-44 takes ``heads.HTSAT``).
+statistics there), of PaSST and of the EINV2 heads, which the JAX package
+also trains eagerly only (its train/fused_forward.py:34-44 takes
+``heads.HTSAT``).
 
 The freeze policy is the JAX step's (train/module.py:276-295): the
 parameters that ``trainable_mask`` freezes (AdapterBit: all but biases,
@@ -29,11 +30,16 @@ TrackMixDevice in the fixed ``TF_AUG_ORDER``, each gated by its flag with
 chain for each AugMix copy, from the task's ``torch.Generator``
 (``aug_generator``, on the task's device, seeded from ``cfg["seed"]``).
 
+PaSST (single head and EINV2) trains eagerly, as in the JAX package
+(:312-315): its patchout draws (the time-pos-embed crop, the three
+patchout forms, position dropout; ``patchout_draws``) and drop-path masks
+come from the step's ``generator`` unless injected.
+
 Not in this slice, and raising with the ROADMAP.md queue A step that brings
 them: tensor parallelism (``trainer.tensor_parallel`` > 1: step 11),
-LoRA and the eager-only adapter settings (models/adapters.py: step 6), PaSST
-training (models/passt.py: step 8) and a conformer or transformer decoder
-that trains with dropout (models/common.py ``check_no_dropout``: step 9).
+LoRA and the eager-only adapter settings (models/adapters.py: step 6) and a
+conformer or transformer decoder that trains with dropout
+(models/common.py ``check_no_dropout``: step 9).
 
 The step comes in two halves, as in the JAX task (:473-506):
 ``prepare_batch`` takes the loader's batch to the device (on the card from
@@ -131,8 +137,20 @@ class PreparedBatch:
     ov1_mask: Optional[torch.Tensor] = None
 
 
-# the heads with drop-path, which take masks or a generator
-_DROP_PATH_HEADS = (HTSAT, einv2_heads.HTSAT, einv2_heads.HTSAT_SEDDOA)
+# the heads with drop-path, which take masks or a generator; of them only
+# the PaSST heads take patchout draws
+_DROP_PATH_HEADS = (HTSAT, einv2_heads.HTSAT, einv2_heads.HTSAT_SEDDOA, heads.PASST,
+                    einv2_heads.PASST)
+
+
+def _check_frames(preds: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor]) -> None:
+    """Every output has the label frames (axis 1)."""
+    want = {t.shape[1] for k, t in targets.items() if k.endswith("label")}
+    got = {p.shape[1] for p in preds.values()}
+    if len(want) == 1 and got != want:
+        raise ValueError(f"the model gives {sorted(got)} output frames where the labels have "
+                         f"{sorted(want)} (PaSST's s_patchout_t drops time patches, and with "
+                         "them output frames; the JAX package's step fails here too)")
 
 
 def _truthy(v) -> bool:
@@ -279,37 +297,42 @@ class SELDTask:
         return state
 
     def forward_train(self, feats: torch.Tensor, generator: Optional[torch.Generator] = None,
-                      dp_masks: Optional[Sequence[torch.Tensor]] = None
+                      dp_masks: Optional[Sequence[torch.Tensor]] = None,
+                      patchout_draws=None
                       ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
         """Train-mode forward, drop-path masks given (``dp_masks``, one (B',
-        2) float32 mask per block; for the EINV2 HTSAT a pair of such lists,
-        SED encoder's and DOA encoder's) or drawn from ``generator`` (the
-        HTSAT heads only: the others have no drop-path): (preds, ScalarBN
-        update), the update None on the eager path, whose BatchNorm writes
-        its statistics itself."""
+        2) float32 mask per block; for the EINV2 HTSAT and PaSST a pair of
+        such lists, SED encoder's and DOA encoder's) or drawn from
+        ``generator`` (the HTSAT and PaSST heads only: the others have no
+        drop-path); PaSST's patchout draws (``patchout_draws``: a
+        ``models.passt.PatchoutDraws``, for the EINV2 PaSST a pair) likewise,
+        passed on only when given (any other forward refuses the keyword):
+        (preds, ScalarBN update), the update None on the eager path, whose
+        BatchNorm writes its statistics itself."""
         self.model.train()
+        extra = {} if patchout_draws is None else {"patchout_draws": patchout_draws}
         if self.fused_forward:
             return htsat_fused_train_forward(self.model, feats, dp_masks=dp_masks,
                                              generator=generator,
                                              compute_dtype=self.compute_dtype,
-                                             use_kernels=self.use_kernels)
+                                             use_kernels=self.use_kernels, **extra)
         with torch.autocast(device_type=self.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
             if isinstance(self.model, _DROP_PATH_HEADS):
-                return self.model(feats, dp_masks=dp_masks, generator=generator), None
+                return self.model(feats, dp_masks=dp_masks, generator=generator, **extra), None
             if dp_masks is not None:
                 raise ValueError(f"{type(self.model).__name__} takes no drop-path masks")
-            return self.model(feats), None
+            return self.model(feats, **extra), None
 
     def compute_grads(self, batch_x, targets: Dict, generator: Optional[torch.Generator] = None,
                       dp_masks: Optional[Sequence[torch.Tensor]] = None,
-                      aug_draws: Optional[Dict] = None):
+                      aug_draws: Optional[Dict] = None, patchout_draws=None):
         """Host augmentation -> frontend -> TF chain -> forward -> loss ->
         grads of ``self.trained`` (the frozen parameters get none); returns
         (losses, grads, ScalarBN update or None). Changes no parameter.
         ``targets`` may carry the batch's ``ov`` list."""
         prepared = self._on_step_stream(self.prepare_batch({"data": batch_x, **targets}))
-        return self._grads(prepared, generator, dp_masks, aug_draws)
+        return self._grads(prepared, generator, dp_masks, aug_draws, patchout_draws)
 
     def step_inputs(self, prepared: PreparedBatch, aug_draws: Optional[Dict] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -368,16 +391,19 @@ class SELDTask:
         return feats, targets
 
     def _grads(self, prepared: PreparedBatch, generator: Optional[torch.Generator], dp_masks,
-               aug_draws: Optional[Dict] = None):
+               aug_draws: Optional[Dict] = None, patchout_draws=None):
         feats, tgt = self.step_inputs(prepared, aug_draws)
-        return self.grads_on(feats, tgt, generator, dp_masks)
+        return self.grads_on(feats, tgt, generator, dp_masks, patchout_draws)
 
     def grads_on(self, feats: torch.Tensor, tgt: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None,
-                 dp_masks: Optional[Sequence[torch.Tensor]] = None):
+                 dp_masks: Optional[Sequence[torch.Tensor]] = None, patchout_draws=None):
         """Forward -> loss -> grads on given (augmented) features: (losses,
-        grads, ScalarBN update or None)."""
-        preds, bs = self.forward_train(feats, generator, dp_masks)
+        grads, ScalarBN update or None). Outputs whose frames are not the
+        labels' raise (PaSST's time patchout drops output frames; the JAX
+        step fails there in its loss)."""
+        preds, bs = self.forward_train(feats, generator, dp_masks, patchout_draws)
+        _check_frames(preds, tgt)
         losses = self.loss(preds, tgt)
         grads = torch.autograd.grad(losses[self.loss_type], self.trained, allow_unused=True)
         grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, self.trained)]
@@ -385,15 +411,17 @@ class SELDTask:
 
     def train_step(self, batch_x, targets: Dict, generator: Optional[torch.Generator] = None,
                    dp_masks: Optional[Sequence[torch.Tensor]] = None,
-                   aug_draws: Optional[Dict] = None) -> Dict[str, Any]:
+                   aug_draws: Optional[Dict] = None, patchout_draws=None) -> Dict[str, Any]:
         """One optimizer step on a batch: FOA waveforms (B, 4, samples) and
         label arrays (``adpit_label``, ``accdoa_label``, or for the EINV2
         heads ``sed_label`` (B, T, 3, K) and ``doa_label`` (B, T, 3, 3)),
-        and where given the batch's ``ov`` list. Drop-path masks are
-        ``dp_masks`` or come from ``generator``. Returns the losses as
-        device tensors (no host synchronization)."""
+        and where given the batch's ``ov`` list. Drop-path masks and
+        PaSST's patchout draws are ``dp_masks`` and ``patchout_draws`` or
+        come from ``generator``. Returns the losses as device tensors (no
+        host synchronization)."""
         prepared = self.prepare_batch({"data": batch_x, **targets})
-        return self.train_step_prepared(prepared, generator, dp_masks, aug_draws)[0]
+        return self.train_step_prepared(prepared, generator, dp_masks, aug_draws,
+                                        patchout_draws)[0]
 
     def _host_to_device(self, v) -> torch.Tensor:
         """One host array or tensor on the task's device (float32, booleans
@@ -507,7 +535,7 @@ class SELDTask:
     def train_step_prepared(self, prepared: PreparedBatch,
                             generator: Optional[torch.Generator] = None,
                             dp_masks: Optional[Sequence[torch.Tensor]] = None,
-                            aug_draws: Optional[Dict] = None
+                            aug_draws: Optional[Dict] = None, patchout_draws=None
                             ) -> Tuple[Dict[str, Any], Optional[List[str]]]:
         """The device half of a step over a ``prepare_batch`` result, on the
         step's stream once the batch's copy is done. -> (losses as device
@@ -515,7 +543,7 @@ class SELDTask:
         if self.state is None:
             raise RuntimeError("call init_state() first")
         self._on_step_stream(prepared)
-        losses, grads, bs = self._grads(prepared, generator, dp_masks, aug_draws)
+        losses, grads, bs = self._grads(prepared, generator, dp_masks, aug_draws, patchout_draws)
         optimizer_step(self.state.optimizer, self.trained, grads, self.state.step, self.max_norm)
         if bs is not None:
             with torch.no_grad():

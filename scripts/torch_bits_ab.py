@@ -134,7 +134,7 @@ out["K8 served form B=3"] = patch_embed.patch_embed_tokens(x, pe)
 out["K8 5 s trick B=3"] = patch_embed.patch_embed_tokens(x[:, :, :1000].contiguous(), pe)
 # the HTSAT paths around the kernels, through their entry points
 from pseldnets_tpu_torch.models import build_model
-from pseldnets_tpu_torch.models.htsat import drop_path_masks
+from pseldnets_tpu_torch.models.common import drop_path_masks
 from pseldnets_tpu_torch.serving import htsat_fused_forward_from_wav
 from pseldnets_tpu_torch.train.fused_forward import htsat_fused_train_forward
 over = ["loss=multi_accdoa", "model.kwargs.pretrained_path=null"]

@@ -32,7 +32,7 @@ from pseldnets_tpu_torch.models import build_model, einv2_heads
 from pseldnets_tpu_torch.models.adapters import AdaptConfig
 from pseldnets_tpu_torch.models.common import CrossStitch
 from pseldnets_tpu_torch.models.heads import tscam_head
-from pseldnets_tpu_torch.models.htsat import drop_path_masks
+from pseldnets_tpu_torch.models.common import drop_path_masks
 from pseldnets_tpu_torch.ops import frontend, patch_embed, swin_block
 from pseldnets_tpu_torch.serving import (einv2_htsat_fused_forward,
                                          einv2_htsat_fused_forward_from_wav, prepare_einv2)
@@ -42,7 +42,7 @@ from pseldnets_tpu_torch.train.checkpoint import (_flatten, flax_to_torch_key,
 from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
 from pseldnets_tpu_torch.train.optim import build_optimizer, trainable_mask
 from test_torch_crnn import _random_stats
-from test_torch_swin_block import randomize
+from test_torch_swin_block import abstract_init, randomize
 from test_torch_train import ROOT, TINY_TASK, _JaxSpec, einv2_labels
 
 ENC = dict(spec_size=64, patch_size=4, patch_stride=(4, 4), embed_dim=16,
@@ -87,8 +87,7 @@ def _pair(rng, kind, T=241, drop_path=0.0, decoder=None, adapt=None):
         jm = jax_einv2.PASST(encoder_kwargs=tuple(PASST_ENC.items()), **kw)
         tm = einv2_heads.PASST(encoder_kwargs=PASST_ENC, **kw)
         shape = (2, 7, 101, 16)
-    v = flax.core.unfreeze(jm.init({"params": jax.random.PRNGKey(0)}, jnp.zeros(shape),
-                                   train=False))
+    v = abstract_init(jm, jnp.zeros(shape), train=False)  # every leaf is replaced
     variables = {"params": randomize(v["params"], rng),
                  "batch_stats": _random_stats(v["batch_stats"], rng)}
     load_jax_variables(tm, variables)

@@ -1,8 +1,13 @@
 """The port's PaSST ACCDOA/mACCDOA model, its ViT block (plain version of
 kernel K6) and its serving path against the JAX package, tiny configurations
 (tests/test_serving_fused.py:173-226), weights moved across by the bridge;
-the JAX Pallas kernels run in interpret mode."""
+the JAX Pallas kernels run in interpret mode. The train-mode forward
+against model.apply(train=True) with the JAX draws recorded and injected
+(the EINV2 dual PaSST and the SELDTask steps: test_torch_passt_train.py)."""
 
+import contextlib
+import dataclasses
+import zlib
 from pathlib import Path
 
 import jax
@@ -11,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from pseldnets_tpu.models import einv2_heads as jax_einv2
 from pseldnets_tpu.models import heads as jax_heads
 from pseldnets_tpu.models.passt import Block as JaxBlock
 from pseldnets_tpu.ops.pallas.vit_block import vit_block_fused as jax_vit_block
@@ -18,15 +24,16 @@ from pseldnets_tpu.serving import passt_fused_forward as jax_fused_forward
 from pseldnets_tpu.serving import passt_fused_forward_from_wav as jax_from_wav
 from pseldnets_tpu.train.checkpoint import flax_to_torch_key as jax_key
 from pseldnets_tpu_torch.config import compose
-from pseldnets_tpu_torch.models import build_model, heads
-from pseldnets_tpu_torch.models.passt import Block
+from pseldnets_tpu_torch.models import build_model, einv2_heads, heads
+from pseldnets_tpu_torch.models.passt import Block, PatchoutDraws
 from pseldnets_tpu_torch.ops import frontend, vit_block
 from pseldnets_tpu_torch.serving import (passt_fused_forward, passt_fused_forward_from_wav,
                                          prepare_vit_blocks)
 from pseldnets_tpu_torch.train.checkpoint import (_flatten, flax_to_torch_key,
                                                   jax_to_torch_state_dict, load_jax_variables)
-from test_torch_swin_block import randomize
+from test_torch_swin_block import abstract_init, randomize
 
+ROOT = Path(__file__).resolve().parents[1]
 ENC = dict(u_patchout=0, s_patchout_t=0, s_patchout_f=0, img_size=(16, 101), patch_size=16,
            stride=10, embed_dim=32, depth=2, num_heads=2, mlp_ratio=4.0, qkv_bias=True,
            distilled=True, drop_rate=0.0, drop_path_rate=0.0)
@@ -244,19 +251,202 @@ def test_from_wav_needs_the_card_and_a_full_clip(rng):
         passt_fused_forward_from_wav(tm, wav[..., :12000], device="cpu")
 
 
-@pytest.mark.parametrize("setting", [{}, {"u_patchout": 10}, {"s_patchout_t": 2},
-                                     {"s_patchout_f": 1}, {"drop_rate": 0.1},
-                                     {"drop_path_rate": 0.1}])
-def test_train_mode_raises(rng, setting):
-    """A PaSST with a train-only setting builds and serves in eval mode; a
-    train-mode forward raises, naming the PaSST training step."""
-    tm = heads.PASST(num_classes=5, in_channels=7, mel_bins=16, num_tracks=3,
-                     encoder_kwargs=dict(ENC, **setting))
-    x = torch.from_numpy((rng.standard_normal((2, 7, 101, 16)) * 0.5).astype(np.float32))
+# a geometry whose crop has room: patch 16, stride 9 (an odd patch - stride)
+# on 99 frames gives 10 time patches against the time pos-embed's 11
+# columns, so the JAX crop offset is 0 or 1; 64 mels give 7 frequency rows.
+# At the shipped patch 16, stride 10 the conv's grid always equals the
+# pos-embed's, and the offset is always 0.
+CROP_ENC = dict(ENC, img_size=(64, 99), stride=9)
+TRAIN_SETTINGS = [{}, {"u_patchout": 10}, {"s_patchout_t": 2}, {"s_patchout_f": 1},
+                  {"drop_rate": 0.1}, {"drop_path_rate": 0.5}, {"u_patchout": 7},
+                  {"s_patchout_f": 1, "u_patchout": 6, "drop_rate": 0.1,
+                   "drop_path_rate": 0.5}]
+
+
+@contextlib.contextmanager
+def recorded_jax_draws():
+    """Every value jax.random.randint / permutation / bernoulli / uniform
+    returns while the context is open, as (name, array) in call order: the
+    JAX PaSST's crop, patchout and position-dropout draws
+    (models/passt.py:142-188) and its DropPath masks' uniforms
+    (models/common.py:111-118). Traced calls (flax checks an existing
+    parameter's shape against its initializer's) are left out."""
+    rec = []
+    saved = {n: getattr(jax.random, n) for n in ("randint", "permutation", "bernoulli",
+                                                 "uniform")}
+
+    def wrap(name, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            if not isinstance(out, jax.core.Tracer):
+                rec.append((name, np.asarray(out)))
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(jax.random, n, wrap(n, fn))
+    try:
+        yield rec
+    finally:
+        for n, fn in saved.items():
+            setattr(jax.random, n, fn)
+
+
+def _next(it, name):
+    got, value = next(it)
+    assert got == name, (got, name)
+    return value
+
+
+def take_patchout_draws(it, enc) -> PatchoutDraws:
+    """One JAX encoder's forward_before draws as the port's PatchoutDraws:
+    the crop's offset, the sorted keep-sets, the position-dropout mask."""
+    d = PatchoutDraws(offset=torch.tensor(int(_next(it, "randint"))))
+    for name, key in (("keep_t", "s_patchout_t"), ("keep_f", "s_patchout_f"),
+                      ("keep_u", "u_patchout")):
+        if enc.get(key):
+            perm = _next(it, "permutation")
+            setattr(d, name, torch.from_numpy(np.sort(perm[:len(perm) - enc[key]])).long())
+    if enc.get("drop_rate", 0) > 0:
+        d.pos_keep = torch.from_numpy(np.array(_next(it, "bernoulli")))
+    return d
+
+
+def take_block_mask(it, rate, B):
+    """One JAX block's two DropPath draws (attention branch, then MLP
+    branch) as the port's (B, 2) mask in ``drop_path_masks``'s format,
+    floor(keep + u) / keep; ones where the block's rate is 0 (it draws
+    nothing)."""
+    if not rate:
+        return torch.ones(B, 2)
+    keep = 1.0 - rate
+    m = np.stack([np.floor(keep + _next(it, "uniform").reshape(-1)) for _ in range(2)], 1)
+    return torch.from_numpy((m / keep).astype(np.float32))
+
+
+def port_draws(rec, enc, B, n_encoders):
+    """A JAX PaSST apply's recorded draws -> the port's: one PatchoutDraws
+    and one list of (B, 2) block masks an encoder. The JAX EINV2 PaSST
+    draws both encoders' forward_before first (SED's, then DOA's), then
+    runs the blocks interleaved (SED block i, DOA block i)."""
+    it = iter(rec)
+    draws = [take_patchout_draws(it, enc) for _ in range(n_encoders)]
+    masks = [[] for _ in range(n_encoders)]
+    for rate in _rates(enc):
+        for m in masks:
+            m.append(take_block_mask(it, rate, B))
+    assert next(it, None) is None
+    return draws, masks
+
+
+def _rates(enc):
+    depth = enc["depth"]
+    return [enc.get("drop_path_rate", 0.0) * i / max(depth - 1, 1) for i in range(depth)]
+
+
+def _train_pair(rng, setting, einv2):
+    """(JAX model, variables, port model in train mode, input) on CROP_ENC
+    with ``setting``: the single mACCDOA head or the EINV2 dual PaSST."""
+    enc = dict(CROP_ENC, **setting)
+    x = (rng.standard_normal((3, 7, 99, 64)) * 0.5).astype(np.float32)
+    if einv2:
+        kw = dict(num_classes=5, in_channels=7, mel_bins=64, ps_gap=1, decoder=None,
+                  num_decoder_layers=1)
+        jm = jax_einv2.PASST(encoder_kwargs=tuple(enc.items()), **kw)
+        tm = einv2_heads.PASST(encoder_kwargs=enc, **kw)
+    else:
+        kw = dict(num_classes=5, in_channels=7, mel_bins=64, num_tracks=3)
+        jm = jax_heads.PASST(encoder_kwargs=tuple(enc.items()), **kw)
+        tm = heads.PASST(encoder_kwargs=enc, **kw)
+    v = abstract_init(jm, jnp.asarray(x), train=False)
+    variables = {"params": randomize(v["params"], rng),
+                 "batch_stats": {"scalar": {"bn": {"running_mean": np.zeros((7, 64), np.float32),
+                                                   "running_var": np.ones((7, 64), np.float32)}}}}
+    load_jax_variables(tm, variables)
+    return jm, variables, tm.train(), x, enc
+
+
+@pytest.mark.parametrize("setting", TRAIN_SETTINGS)
+def test_train_mode_raises(setting):
+    """A PaSST built with the train-only ``setting`` in eval mode against
+    the JAX model.apply(train=False), float32, within 5e-5 and with the full
+    grid's frames (eval ignores patchout, dropout and drop-path). Then the
+    single mACCDOA head's train-mode forward (batch-statistics
+    ScalarBN, the time-pos-embed crop, patchout, position dropout,
+    drop-path) against the JAX model.apply(train=True), float32, the JAX
+    draws injected: within 5e-5, the batch statistics within 1e-6. Time
+    patchout gives JAX's shorter output; a token patchout that leaves a
+    count not divisible by the frequency rows raises in both packages (JAX
+    in its reshape, the port a ValueError). (The name is kept from when
+    PaSST training was not ported and this test held that it raised.)"""
+    check_train_forward(setting, einv2=False)
+
+
+def check_train_forward(setting, einv2):
+    rng = np.random.default_rng(zlib.crc32(repr((setting, einv2)).encode()))
+    jm, variables, tm, x, enc = _train_pair(rng, setting, einv2)
+    ref = jm.apply(variables, jnp.asarray(x), train=False)
     with torch.no_grad():
-        assert tm.eval()(x)["multi_accdoa"].shape == (2, 10, 45)
-        with pytest.raises(NotImplementedError, match="queue A step 8"):
-            tm.train()(x)
+        got = tm.eval()(torch.from_numpy(x))
+    for k, r in ref.items():
+        r = np.asarray(r)
+        assert got[k].shape == r.shape and r.shape[1] == 10, (k, r.shape)
+        err = np.abs(got[k].numpy() - r).max()
+        assert err < 5e-5, (k, err)
+    tm.train()
+    rngs = {"dropout": jax.random.PRNGKey(5), "patchout": jax.random.PRNGKey(6)}
+    apply = lambda: jm.apply(variables, jnp.asarray(x), train=True,  # noqa: E731
+                             mutable=["batch_stats"], rngs=rngs)
+    divides = (7 - enc.get("s_patchout_f", 0)) * 10
+    if (divides - enc.get("u_patchout", 0)) % (7 - enc.get("s_patchout_f", 0)):
+        with pytest.raises(TypeError, match="reshape"):
+            apply()
+        with pytest.raises(ValueError, match="token map"), torch.no_grad():
+            tm(torch.from_numpy(x), generator=torch.Generator().manual_seed(0))
+        return
+    with recorded_jax_draws() as rec:
+        ref, new_vars = apply()
+    draws, masks = port_draws(rec, enc, x.shape[0], 2 if einv2 else 1)
+    if not setting:  # the crop moved: offset 1 of {0, 1}
+        assert all(int(d.offset) == 1 for d in draws)
+    if enc.get("drop_path_rate"):
+        assert any((m == 0).any() for ms in masks for m in ms)
+    if einv2:
+        got = tm(torch.from_numpy(x), dp_masks=tuple(masks), patchout_draws=tuple(draws))
+    else:
+        got = tm(torch.from_numpy(x), dp_masks=masks[0], patchout_draws=draws[0])
+    frames = 10 - enc.get("s_patchout_t", 0) - enc.get("u_patchout", 0) // (
+        7 - enc.get("s_patchout_f", 0))
+    for k, r in ref.items():
+        r = np.asarray(r)
+        assert got[k].shape == r.shape and r.shape[1] == frames, (k, r.shape)
+        err = np.abs(got[k].detach().numpy() - r).max()
+        assert err < 5e-5, (k, err)
+    bn = new_vars["batch_stats"]["scalar"]["bn"]
+    for k in ("running_mean", "running_var"):
+        np.testing.assert_allclose(getattr(tm.scalar, k).numpy(), np.asarray(bn[k]),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_train_draws_are_checked():
+    """A train-mode encoder refuses to run without its draws, and draws
+    that lack one its settings take (the crop's offset where the crop has
+    room, a keep-set, the position-dropout mask); ``draw`` gives them all."""
+    enc = heads.PASST(num_classes=5, in_channels=7, mel_bins=64, num_tracks=3,
+                      encoder_kwargs=dict(CROP_ENC, s_patchout_f=1, drop_rate=0.1)).encoder
+    assert enc.crop_room == 2 and heads.PASST(
+        num_classes=5, encoder_kwargs=WAV_ENC).encoder.crop_room == 1
+    x = torch.zeros(2, 7, 99, 64)
+    enc.train()
+    with pytest.raises(ValueError, match="needs its patchout draws"):
+        enc.forward_before(x)
+    full = enc.draw(torch.Generator().manual_seed(0), 2)
+    for name in ("offset", "keep_f", "pos_keep"):
+        with pytest.raises(ValueError, match=f"lack {name}"):
+            enc.forward_before(x, dataclasses.replace(full, **{name: None}))
+    with torch.no_grad():
+        assert enc.forward_before(x, full).shape == (2, 2 + 6 * 10, 32)
+        assert enc.eval().forward_before(x).shape == (2, 2 + 7 * 10, 32)
 
 
 def test_vit_block_wrapper_routes_and_raises(rng):

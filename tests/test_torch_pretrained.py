@@ -326,6 +326,58 @@ def test_load_reads_the_file_as_jax_does(tmp_path):
             np.testing.assert_array_equal(got[k].numpy(), ref[k])
 
 
+@pytest.mark.parametrize("method", ["accdoa", "multi_accdoa", "einv2"])
+def test_spatial_samples_match_jax(method):
+    """The mono_adapter spatialisation (data/dataset.py
+    ``generate_spatial_samples``) against the JAX package's from the same
+    RandomState, bit for bit over three clips in turn (a 4-channel clip, of
+    which the first channel is panned, then mono ones): the FOA audio, the
+    labels, and the state the draws leave. Two sources in a frame raise
+    (the JAX package asserts)."""
+    from pseldnets_tpu.data.dataset import generate_spatial_samples as jax_spatial
+    from pseldnets_tpu_torch.data.dataset import generate_spatial_samples
+
+    rng = np.random.default_rng(6)
+    T, K = 20, 13
+    a, b = np.random.RandomState(2024), np.random.RandomState(2024)
+    for i in range(3):
+        audio = rng.standard_normal((4, 3200) if i == 0 else (3200,)).astype(np.float32)
+        cls = rng.integers(0, K, T)
+        act = rng.random(T) < 0.6
+        if method == "accdoa":
+            se = np.zeros((T, K), np.float32)
+            se[np.arange(T), cls] = act
+            kw = {"accdoa_label": np.concatenate([se, rng.standard_normal((T, 3 * K))],
+                                                 1).astype(np.float32)}
+        elif method == "multi_accdoa":
+            lab = rng.standard_normal((T, 6, 4, K)).astype(np.float32)
+            lab[:, :, 0] = 0.0
+            lab[np.arange(T), 0, 0, cls] = act
+            kw = {"adpit_label": lab}
+        else:
+            sed = np.zeros((T, 3, K), np.float32)
+            sed[np.arange(T), 0, cls] = act
+            kw = {"sed_label": sed, "doa_label": rng.standard_normal((T, 3, 3)).astype(np.float32)}
+        got = generate_spatial_samples(audio, method, a, **{k: v.copy() for k, v in kw.items()})
+        ref = jax_spatial(audio, method, b, **{k: v.copy() for k, v in kw.items()})
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and np.array_equal(g, r)
+        assert a.randint(1 << 30) == b.randint(1 << 30)
+    two = {k: v.copy() for k, v in kw.items()}
+    key = {"accdoa": "accdoa_label", "multi_accdoa": "adpit_label", "einv2": "sed_label"}[method]
+    if method == "accdoa":
+        two[key][0, :2] = 1.0
+    elif method == "multi_accdoa":
+        two[key][0, 0, 0, :2] = 1.0
+    else:  # two tracks of one class (the JAX check sums over the tracks)
+        two[key][0, :2, 0] = 1.0
+    with pytest.raises(ValueError, match="single-source"):
+        generate_spatial_samples(audio, method, a, **two)
+    with pytest.raises(AssertionError):
+        jax_spatial(audio, method, b, **two)
+
+
 FINETUNES = sorted(str(p.relative_to(ROOT / "configs" / "experiment"))[:-5]
                    for p in (ROOT / "configs" / "experiment").glob("*/finetune_*.yaml"))
 
@@ -339,9 +391,8 @@ def test_shipped_recipes_build_and_load(exp, tmp_path):
     augmentation (the JAX task's registry), ``init_state`` loads the file
     with no key missing (AdapterBit: the adapters skipped), and one AugMix
     step of one clip trains where the recipe has augmentation. The mono
-    recipes (``adapt=mono_finetune``/``mono_adapter``) build and load
-    here; their mono data path raises at the dataset, naming queue A step
-    6."""
+    recipes (``adapt=mono_finetune``/``mono_adapter``) take one step on a
+    clip their data path (``generate_spatial_samples``) spatialised."""
     over = TINY_HTSAT + ["data.train_chunklen_sec=2.4"]  # 241 frames, 24 label frames
     path = tmp_path / "pretrained.ckpt"
     if exp == "synth_maccdoa":
@@ -364,11 +415,21 @@ def test_shipped_recipes_build_and_load(exp, tmp_path):
     assert rep is not None and rep["missing"] == [], rep["missing"]
     if "adapterbit" in exp:
         assert any("adapter" in k for k in rep["skipped"])
-    if "mono" in exp:
+    if "mono" in exp:  # one step on a clip the mono data path spatialised
         from pseldnets_tpu_torch.data.dataset import generate_spatial_samples
 
-        with pytest.raises(NotImplementedError, match="step 6"):
-            generate_spatial_samples(np.zeros((1, 10)), "mono")
+        rng = np.random.default_rng(5)
+        n = int(cfg["data"]["train_chunklen_sec"] * cfg["data"]["sample_rate"])
+        lab = np.zeros((24, 6, 4, 13), np.float32)
+        lab[:12, 0, 0, 2] = 1.0
+        mono = (rng.standard_normal((4, n)) * 0.1).astype(np.float32)
+        wav, lab = generate_spatial_samples(mono, "multi_accdoa", np.random.RandomState(3),
+                                            adpit_label=lab)
+        assert wav.shape == (4, n) and np.array_equal(wav[0], mono[0])
+        losses = task.train_step(wav[None].astype(np.float32),
+                                 {"adpit_label": lab[None], "ov": ["1"]},
+                                 torch.Generator().manual_seed(0))
+        assert np.isfinite(float(losses["loss_all"])) and task.state.step == 1
     if not task.augmix:
         return
     rng = np.random.default_rng(4)

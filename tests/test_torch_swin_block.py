@@ -19,6 +19,14 @@ H = W = 16
 C, NH, WIN = 32, 4, 8
 
 
+def abstract_init(model, x, **kw):
+    """A flax model's variables as zeros of their shapes and dtypes, from an
+    abstract init (``jax.eval_shape``: none of an eager init's op-by-op
+    compiles), for ``randomize`` to fill; keys in sorted order."""
+    shapes = jax.eval_shape(lambda x: model.init({"params": jax.random.PRNGKey(0)}, x, **kw), x)
+    return jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+
+
 def randomize(tree, rng):
     """Every leaf of a flax tree replaced by seeded numpy noise: kernels
     N(0, 1/fan_in), LayerNorm scales 1 + N(0, 0.1), everything else

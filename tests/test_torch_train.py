@@ -2,7 +2,7 @@
 and ADPIT losses, the optimizers against optax, train-mode ScalarBN against
 flax, the fused training forward (plain versions of K2/K3) against the JAX
 one in interpret mode, and one SELDTask step against the JAX SELDTask; plus
-the settings the port does not train yet, which raise."""
+the settings that do not train, which raise."""
 
 from pathlib import Path
 
@@ -24,7 +24,7 @@ from pseldnets_tpu_torch.config import compose
 from pseldnets_tpu_torch.losses import build_loss
 from pseldnets_tpu_torch.models import heads
 from pseldnets_tpu_torch.models.common import ScalarBN
-from pseldnets_tpu_torch.models.htsat import drop_path_masks
+from pseldnets_tpu_torch.models.common import drop_path_masks
 from pseldnets_tpu_torch.train.checkpoint import jax_to_torch_state_dict, load_jax_variables
 from pseldnets_tpu_torch.train.fused_forward import htsat_fused_train_forward
 from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
@@ -350,16 +350,27 @@ def test_seld_task_crnn_step_matches_jax(monkeypatch, decoder):
     assert n_far <= 0.005 * n_all, (n_far, n_all)
 
 
-@pytest.mark.parametrize("over,match", [
-    (TINY_CRNN + ["model.decoder=conformer"], "step 9"),
-    (["model=passt", "loss=multi_accdoa", "model.kwargs.pretrained_path=null",
-      "model.kwargs.depth=1", "model.kwargs.embed_dim=24", "model.kwargs.num_heads=2",
-      "data.train_chunklen_sec=2"], "step 8"),
+# PaSST with time patchout: 2 s chunks (20 label frames) and s_patchout_t=2,
+# which leaves 18 output frames
+PASST_TIME_PATCHOUT = ["model=passt", "model.kwargs.pretrained_path=null",
+                       "model.kwargs.depth=1", "model.kwargs.embed_dim=24",
+                       "model.kwargs.num_heads=2", "model.kwargs.img_size=[64,201]",
+                       "model.kwargs.s_patchout_t=2", "data.train_chunklen_sec=2"]
+
+
+# the ids the cases had when PaSST training was not ported and raised
+@pytest.mark.parametrize("over,error,match", [
+    pytest.param(TINY_CRNN + ["model.decoder=conformer"], NotImplementedError, "step 9",
+                 id="over0-step 9"),
+    pytest.param(PASST_TIME_PATCHOUT + ["loss=multi_accdoa"], ValueError,
+                 r"\[18\] output frames where the labels have \[20\]", id="over1-step 8"),
 ])
-def test_seld_task_unported_training_raises(over, match):
-    """C1: the conformer at its shipped dropout 0.1 and PaSST's training
-    forward raise NotImplementedError naming their ROADMAP step, not a
-    TypeError."""
+def test_seld_task_unported_training_raises(over, error, match):
+    """C1: the conformer at its shipped dropout 0.1 raises NotImplementedError
+    naming its ROADMAP step, not a TypeError. PaSST trains, but its time
+    patchout drops output frames: the step raises ValueError where the JAX
+    step fails in its loss (the JAX ADPIT loss refuses 18 frames against 20
+    here too)."""
     rng = np.random.default_rng(12)
     task = SELDTask(compose(str(ROOT / "configs"), "train", over),
                     DatasetSpec(num_classes=3), steps_per_epoch=2, device="cpu")
@@ -368,8 +379,13 @@ def test_seld_task_unported_training_raises(over, match):
     labels = ({"adpit_label": _adpit_labels(rng, 2, 20, 3)}
               if task.model.output_key == "multi_accdoa"
               else {"accdoa_label": rng.uniform(-1, 1, (2, 20, 9)).astype(np.float32)})
-    with pytest.raises(NotImplementedError, match=match):
-        task.train_step(wav, labels)
+    with pytest.raises(error, match=match):
+        task.train_step(wav, labels, torch.Generator().manual_seed(0))
+    if error is ValueError:
+        with pytest.raises(TypeError):
+            jax_build_loss(dict(task.cfg["model"]["loss"]))(
+                {"multi_accdoa": jnp.zeros((2, 18, 27))},
+                {"adpit_label": jnp.asarray(labels["adpit_label"])})
 
 
 def einv2_labels(rng, B, T, K):
@@ -383,25 +399,27 @@ def einv2_labels(rng, B, T, K):
     return {"sed_label": sed, "doa_label": doa * act}
 
 
-# EINV2 heads whose training forward is not ported: PaSST (step 8) and the
-# CRNN with the shipped conformer dropout 0.1 (step 9), whole override lists
-EINV2_PASST_TRAIN = ["model=passt", "loss=einv2_pit", "model.kwargs.pretrained_path=null",
-                     "model.kwargs.depth=1", "model.kwargs.embed_dim=24",
-                     "model.kwargs.num_heads=2", "data.train_chunklen_sec=2"]
+# EINV2 heads that raise at their first step, whole override lists: the
+# dual PaSST with time patchout (its output frames fall short of the labels',
+# as in the JAX package) and the CRNN with the shipped conformer dropout 0.1
+# (step 9)
+EINV2_PASST_TRAIN = PASST_TIME_PATCHOUT + ["loss=einv2_pit"]
 EINV2_CRNN_TRAIN = TINY_CRNN + ["loss=einv2_pit", "model.decoder=conformer"]
 
 
 @pytest.mark.parametrize("override,error,match", [
     ("+trainer.tensor_parallel=2", NotImplementedError, "step 11"),
-    pytest.param(EINV2_PASST_TRAIN, NotImplementedError, "step 8", id="einv2-passt-train"),
+    pytest.param(EINV2_PASST_TRAIN, ValueError, "output frames", id="einv2-passt-train"),
     pytest.param(EINV2_CRNN_TRAIN, NotImplementedError, "step 9", id="einv2-crnn-conformer-train"),
     ("model.kwargs.attn_drop_rate=0.1", ValueError, "fused_forward=true"),
 ])
 def test_unported_training_settings_raise(override, error, match):
     """A setting (one override on the tiny HTSAT task with the fused
-    forward) raises as the task is built; an EINV2 head whose training
-    forward is not ported (a whole override list) builds and raises at its
-    first step, naming its ROADMAP.md step."""
+    forward) raises as the task is built; an EINV2 head that cannot train in
+    a setting (a whole override list) builds and raises at its first step:
+    the CRNN's conformer dropout naming its ROADMAP.md step, the dual
+    PaSST's time patchout because it drops output frames (the JAX step
+    fails there too)."""
     if isinstance(override, str):
         cfg = compose(str(ROOT / "configs"), "train",
                       TINY_TASK + ["trainer.fused_forward=true", override])
@@ -415,7 +433,7 @@ def test_unported_training_settings_raise(override, error, match):
     task.init_state(0)
     wav = (rng.standard_normal((2, 4, 48000)) * 0.1).astype(np.float32)
     with pytest.raises(error, match=match):
-        task.train_step(wav, einv2_labels(rng, 2, 20, 3))
+        task.train_step(wav, einv2_labels(rng, 2, 20, 3), torch.Generator().manual_seed(0))
 
 
 def test_task_defaults_to_the_card():

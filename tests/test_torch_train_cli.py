@@ -14,6 +14,7 @@ false``, ``augment=augmix1``). The preproc outputs are held against the JAX
 package's in tests/test_torch_preproc.py."""
 
 import json
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -28,7 +29,7 @@ from pseldnets_tpu_torch.models import build_model
 from pseldnets_tpu_torch.train.checkpoint import (load_torch_state_dict, save_training_ckpt,
                                                   stack_scalar_rows)
 from pseldnets_tpu_torch.train.module import SELDTask
-from test_torch_infer_cli import FS, K, _make_corpus
+from test_torch_infer_cli import CLIP_SEC, FS, K, _make_corpus
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -195,3 +196,85 @@ def test_augmix_train_infer_and_finetune_cli(preprocessed, loss):
     (tuned,) = _lines(work / f"run_tune_{loss}")
     assert all(np.isfinite(v) for v in tuned["train"].values())
     assert np.isfinite(tuned["val"]["macro"]["SELD_scr"])
+
+
+# tiny widths on the corpus: PaSST (4 s at hop 160: 401 frames, 40 label
+# frames; 16 mels make one frequency row) with position dropout and
+# drop-path; the two mono recipes' HTSAT at hop 320 (201 frames)
+PASST_CLI = ["model=passt", "loss=multi_accdoa", "model.kwargs.pretrained_path=null",
+             "model.kwargs.audioset_pretrain=false", "model.kwargs.depth=2",
+             "model.kwargs.embed_dim=24", "model.kwargs.num_heads=2",
+             "model.kwargs.img_size=[16,401]", "model.kwargs.drop_rate=0.1",
+             "model.kwargs.drop_path_rate=0.1"]
+MONO_CLI = ["model.kwargs.pretrained_path=null", "data.hoplen=320", "model.kwargs.spec_size=64",
+            "model.kwargs.embed_dim=8", "model.kwargs.depths=[1,1]",
+            "model.kwargs.num_heads=[2,4]", "model.kwargs.window_size=4",
+            "model.kwargs.tgt_output_frames=40"]
+
+
+@pytest.fixture(scope="module")
+def mono_corpus(preprocessed):
+    """A single-source training set beside the corpus (``train1_ov1``: the
+    first two training clips' audio, one event a labelled frame, as the
+    mono recipes' spatialisation needs), preprocessed by the port's CLI."""
+    root, work = preprocessed
+    rng = np.random.default_rng(9)
+    foa, meta = root / "train1_ov1" / "foa", root / "train1_ov1" / "metadata"
+    foa.mkdir(parents=True)
+    meta.mkdir(parents=True)
+    for i in range(2):
+        stem = f"fold0_room0_mix{i:03d}"
+        shutil.copy(root / "train2_ov1" / "foa" / f"{stem}.flac", foa)
+        with open(meta / f"{stem}.csv", "w") as f:
+            for frame in range(0, CLIP_SEC * 10, 3):
+                f.write(f"{frame},{int(rng.integers(0, K))},0,"
+                        f"{int(rng.integers(-180, 180))},{int(rng.integers(-60, 60))}\n")
+    port_preproc.main(_overrides(root, work, ["dataset=train1_ov1", "wav_format=.flac"]))
+    return root, work
+
+
+@pytest.mark.parametrize("recipe", [
+    pytest.param(PASST_CLI, id="passt"),
+    pytest.param(["experiment=l3das22/finetune_maccdoa_ov1mono"] + MONO_CLI, id="mono"),
+    pytest.param(["experiment=l3das22/finetune_maccdoa_ov1mono_adapterbit"] + MONO_CLI,
+                 id="mono_adapterbit")])
+def test_passt_and_mono_recipes_train_cli(request, recipe):
+    """One epoch of 2 steps through the train CLI on the corpus: PaSST
+    (``model=passt``, eager, its draws from fit's generator) and the two
+    L3DAS22 mono recipes, whose training clips the dataset spatialises
+    from their first channel (``adapt=mono_finetune``: every parameter
+    trains; ``mono_adapter``: the AdapterBit adapters, biases and head).
+    Finite losses, a validation, both checkpoints; the mono runs' training
+    set is spatialised (a clip's Y, Z, X channels are its W scaled) and
+    its validation set is not."""
+    from pseldnets_tpu_torch.data import SELDDataModule, get_dataset
+
+    name = recipe[0].split("=")[1].split("/")[-1]
+    mono = "mono" in name
+    root, work = request.getfixturevalue("mono_corpus" if mono else "preprocessed")
+    run = work / f"run_{name}"
+    data = [o for o in _overrides(root, work) if not o.startswith("model")]
+    if mono:
+        data.append("data.train_dataset={train1_ov1: [fold0_room0]}")
+    over = recipe[:1] + data + recipe[1:] + [
+        "model.batch_size=2", "seed=8", "trainer.max_epochs=1",
+        "trainer.limit_train_batches=2", f"paths.output_dir={run}"]
+    state = port_train.main(["--device", "cpu", *over])
+    (line,) = _lines(run)
+    assert state.step == 2
+    assert all(np.isfinite(v) for v in line["train"].values())
+    assert np.isfinite(line["val"]["macro"]["SELD_scr"])
+    assert sorted(p.name for p in (run / "checkpoints").iterdir()) == ["epoch_001.ckpt",
+                                                                       "last.ckpt"]
+    cfg = compose(str(ROOT / "configs"), "train", over)
+    if not mono:
+        assert cfg["model"]["backbone"] == "PASST"
+        return
+    assert cfg["adapt"]["method"] == "mono_adapter"
+    dm = SELDDataModule(cfg, get_dataset("train1_ov1", cfg), stage="fit")
+
+    def panned(x):  # channels 1-3 are channel 0 scaled
+        gains = x[1:] @ x[0] / (x[0] @ x[0])
+        return np.allclose(x[1:], gains[:, None] * x[0], atol=1e-6)
+
+    assert panned(dm.train_set[0]["data"]) and not panned(dm.val_set[0]["data"])
