@@ -85,7 +85,7 @@ CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
                (125, 8, 256, 512), (125, 4, 512, 1024), (125, 2, 1024, 2048))
 PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn",
          "serve_patch", "features_flat", "features_dif", "serve_stage", "serve_einv2",
-         "train_einv2", "train_passt", "eval", "fit", "finetune")
+         "train_einv2", "train_passt", "train_crnn", "train_lora", "eval", "fit", "finetune")
 DEPTHS = (2, 2, 6, 2)  # HTSAT's Swin stages (configs/model/htsat.yaml)
 
 
@@ -2588,6 +2588,22 @@ def accdoa_labels(adpit):
     return adpit[:, :, 0, 1:].reshape(B, T, -1)
 
 
+def grads_with(task, wav, targets, seed, use_kernels, dtype):
+    """One ``task.compute_grads`` on (wav, targets) with the kernels or
+    their plain versions in ``dtype``, the draws from a fresh generator of
+    ``seed`` (the same masks each time): (loss (1,), grads)."""
+    import torch
+
+    was = (task.use_kernels, task.compute_dtype)
+    task.set_use_kernels(use_kernels)
+    task.compute_dtype = dtype
+    losses, grads, _ = task.compute_grads(wav, targets,
+                                          torch.Generator(device="cuda").manual_seed(seed))
+    task.set_use_kernels(was[0])
+    task.compute_dtype = was[1]
+    return losses["loss_all"].float().reshape(1), grads
+
+
 def phase_train_passt(smi):
     """PaSST ACCDOA training through SELDTask.train_step, eager under
     bf16 autocast (PASST_TRAIN): SERVE_BATCHES steps of B_TRAIN clips with
@@ -2663,18 +2679,11 @@ def phase_train_passt(smi):
         # one kernel step against one plain-frontend step, the same weights,
         # batch and draws (phase_train_einv2's rule: in float32 the steps
         # differ by K1's arithmetic alone; the bf16 step's loss is logged)
-        def grads_with(use_kernels, dtype):
-            task.set_use_kernels(use_kernels)
-            task.compute_dtype = dtype
-            losses, grads, _ = task.compute_grads(
-                wavs[0], {"accdoa_label": labels}, torch.Generator(device="cuda").manual_seed(92))
-            return losses["loss_all"].float().reshape(1), grads
-
-        lk, gk = grads_with(True, torch.float32)
-        lf, gf = grads_with(False, torch.float32)
-        lk16, gk16 = grads_with(True, torch.bfloat16)
-        lp16, gp16 = grads_with(False, torch.bfloat16)
-        task.set_use_kernels(True)
+        target = {"accdoa_label": labels}
+        lk, gk = grads_with(task, wavs[0], target, 92, True, torch.float32)
+        lf, gf = grads_with(task, wavs[0], target, 92, False, torch.float32)
+        lk16, gk16 = grads_with(task, wavs[0], target, 92, True, torch.bfloat16)
+        lp16, gp16 = grads_with(task, wavs[0], target, 92, False, torch.bfloat16)
         log(f"PaSST ({name}) kernel step vs plain step: loss {lk.item():.6f} (plain "
             f"{lf.item():.6f}) in float32, {lk16.item():.6f} (plain {lp16.item():.6f}) in "
             f"bf16-mixed")
@@ -2738,6 +2747,313 @@ def phase_train_passt(smi):
     del task, dm, xs, wavs
     torch.cuda.empty_cache()
     return total, {"K1": k1, "K6": k6}
+
+
+# configs/model/crnn.yaml (CNN14-Conformer: CNN12 64..2048, one conformer
+# layer, its dropout 0.1) trained as bench_all.py:167-191 composes it, bf16
+CRNN_TRAIN = CRNN_OVERRIDES + ["trainer.precision=bf16-mixed"]
+
+
+def feature_sensitivity(task, wav, targets, seed, gf, scales):
+    """How far the float32 plain step's grads move with its features alone:
+    the plain step again on the plain features (its run-to-run spread) and
+    on the plain features moved by K1's measured error, each element's sign
+    drawn at random (K1's error without its structure), the dropout masks
+    from a fresh generator of ``seed`` each time. -> per parameter (spread,
+    moved) as shares of ``scales``, from the grads ``gf``."""
+    import torch
+
+    was = (task.use_kernels, task.compute_dtype)
+    task.compute_dtype = torch.float32
+    prepared = task._on_step_stream(task.prepare_batch({"data": wav, **targets}))
+    feats = {}
+    for use in (False, True):
+        task.set_use_kernels(use)
+        feats[use], tgt = task.step_inputs(prepared)
+    task.set_use_kernels(was[0])
+    err = (feats[True] - feats[False]).abs()
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    signs = torch.randint(0, 2, err.shape, generator=g, device="cuda").float() * 2 - 1
+    out = []
+    for f in (feats[False], feats[False] + err * signs):
+        _, grads, _ = task.grads_on(f, tgt, torch.Generator(device="cuda").manual_seed(seed))
+        out.append([(a - c).abs().max().item() / sc for a, c, sc in zip(grads, gf, scales)])
+    task.compute_dtype = was[1]
+    return list(zip(*out))
+
+
+def hold_step_against_plain(task, what, wav, targets, seed):
+    """The rule phase_train_passt states for a step whose only kernel is
+    K1: the kernel step against the plain-frontend step on the same
+    weights, batch and draws, in float32 (the loss within 2^-6 of its
+    scale, every parameter grad within 2^-4 of its own scale, or of 2^-14
+    of the largest grad where its own is below that) and in bf16-mixed
+    (the loss within 2^-6 of the plain bf16 step's; the grads' distance
+    logged beside the plain bf16 step's own distance from float32), the
+    worst grad named. Each float32 grad is also held within 4x (plus 2^-12
+    of its scale) of how far the plain step's grad moves when its features
+    move by K1's error with random signs (``feature_sensitivity``): a step
+    this sensitive to its features (the CNN14-Conformer's deep convs move
+    by up to 2^-5 of scale) needs 2^-4, and a fault on the K1 path would
+    stand out above its features' own sensitivity. -> the worst float32
+    grad distance as a share of its scale."""
+    import torch
+
+    lk, gk = grads_with(task, wav, targets, seed, True, torch.float32)
+    lf, gf = grads_with(task, wav, targets, seed, False, torch.float32)
+    lk16, gk16 = grads_with(task, wav, targets, seed, True, torch.bfloat16)
+    lp16, gp16 = grads_with(task, wav, targets, seed, False, torch.bfloat16)
+    log(f"{what} kernel step vs plain step: loss {lk.item():.6f} (plain {lf.item():.6f}) in "
+        f"float32, {lk16.item():.6f} (plain {lp16.item():.6f}) in bf16-mixed")
+    compare(f"{what} loss (float32)", lk, lf, lf, 2.0 ** -6)
+    compare(f"{what} loss (bf16)", lk16, lp16, lf, 2.0 ** -6)
+    # a grad at float32 noise (the key projections' biases: softmax ignores
+    # a constant added to every key, so their true grad is 0) is held
+    # against 2^-14 of the largest grad instead of its own scale
+    floor = 2.0 ** -14 * max(c.abs().max().item() for c in gf)
+    scales = [max(c.abs().max().item(), floor) for c in gf]
+    sens = feature_sensitivity(task, wav, targets, seed, gf, scales)
+    worst, worst16, noise16, rels = (0.0, ""), 0.0, 0.0, []
+    for pname, a, c, a16, b16, scale, (_, moved) in zip(task.trained_names, gk, gf, gk16,
+                                                         gp16, scales, sens):
+        rel = (a - c).abs().max().item() / scale
+        check(torch.isfinite(a).all().item() and rel <= min(2.0 ** -4, 4 * moved + 2.0 ** -12),
+              f"{what}: the {pname} grad {rel:.3g} of its scale from the plain step's (its "
+              f"features' sensitivity {moved:.3g})")
+        worst = max(worst, (rel, pname))
+        rels.append(rel)
+        worst16 = max(worst16, (a16 - b16).abs().max().item() / scale)
+        noise16 = max(noise16, (b16 - c).abs().max().item() / scale)
+    log(f"{what}: every parameter grad within {worst[0]:.3g} of its scale of the plain "
+        f"step's in float32 (<= 2^-4 and <= 4x its sensitivity + 2^-12, scales floored at "
+        f"{floor:.3g}; the worst {worst[1]}); in bf16-mixed within "
+        f"{worst16:.3g}, the plain bf16 step's own distance from float32 up to {noise16:.3g}")
+    spread = max(sp for sp, _ in sens)
+    ratios = sorted(r / max(mv, 1e-12) for r, (_, mv) in zip(rels, sens))
+    log(f"{what}: float32 grads' sensitivity to the features: the plain step again on the "
+        f"same features within {spread:.3g} of scale; on features moved by K1's error with "
+        f"random signs within {max(mv for _, mv in sens):.3g}; K1's gap over that moved gap, "
+        f"per parameter: median {ratios[len(ratios) // 2]:.3g}, largest {ratios[-1]:.3g}")
+    order = sorted(range(len(rels)), key=lambda i: -rels[i])[:6]
+    for i in order:
+        log(f"  {task.trained_names[i]}: K1 gap {rels[i]:.3g}, moved {sens[i][1]:.3g}, "
+            f"spread {sens[i][0]:.3g}")
+    return worst[0]
+
+
+def timed_steps(task, what, step, wavs, smi):
+    """``step`` on each of ``wavs`` after a warm-up on the first, counted
+    from 0 (K1 one launch a step, no other kernel): -> (launches, ms a
+    step); logs the losses, peak memory and clips/s."""
+    import numpy as np
+    import torch
+
+    step(wavs[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = [step(w)["loss_all"] for w in wavs]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / len(wavs)
+    launches = read_counts()
+    want = expected(K1=len(wavs))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{what}: {len(wavs)} eager steps of {B_TRAIN} x 10 s clips: launches {launches} "
+        f"(expect {want}); losses {[round(float(v), 6) for v in losses]}; {dt * 1e3:.2f} "
+        f"ms/step, {B_TRAIN / dt:.1f} clips/s (host clock, synchronized); peak device memory "
+        f"{peak:.2f} GiB ({smi})")
+    check(launches == want, f"{what} launch counts")
+    check(all(np.isfinite(float(v)) for v in losses), f"{what}: a loss is not finite")
+    return launches, dt * 1e3
+
+
+def phase_train_crnn(smi):
+    """CNN14-Conformer training (CRNN_TRAIN: model=crnn ACCDOA, CNN12 at
+    2048, one conformer layer with its dropout 0.1, eager under bf16
+    autocast, the masks from the step's generator): SERVE_BATCHES steps of
+    B_TRAIN clips, then one with ``model.decoder=transformer`` (its dropout
+    0.1 too), each counted from 0 (K1 x1 a step, no other kernel); the
+    conformer step against the plain-frontend step on the same generator
+    state (``hold_step_against_plain``), K1's training form, a profile; then
+    one run_validation of the conformer task on an in-memory datamodule
+    with ACCDOA labels (the CRNN eval route, serving/crnn.py: K1 x1, K7 x6 a
+    batch) and K7 on a validation batch's six ConvBlock inputs against its
+    plain version."""
+    import numpy as np
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.metrics import SELDMetrics
+    from pseldnets_tpu_torch.models import heads
+    from pseldnets_tpu_torch.ops.conv_block import conv3x3_bias_relu, conv3x3_bias_relu_plain
+    from pseldnets_tpu_torch.serving import folded_wav_features, prepare_crnn
+    from pseldnets_tpu_torch.serving.crnn import avg_pool, trunk_input
+    from pseldnets_tpu_torch.train import loop
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    total = expected()
+    targets = {"accdoa_label": torch.from_numpy(
+        accdoa_labels(make_labels(np.random.default_rng(4), B_TRAIN, 100))).cuda()}
+    g = torch.Generator(device="cuda").manual_seed(94)
+    wavs = [torch.randn(B_TRAIN, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(SERVE_BATCHES)]
+    k1 = k7 = (0.0, 0.0)
+    for decoder, extra, n_steps in (("conformer", [], SERVE_BATCHES),
+                                    ("transformer", ["model.decoder=transformer"], 1)):
+        what = f"CRNN training ({decoder} decoder)"
+        task = SELDTask(compose(str(ROOT / "configs"), "train", CRNN_TRAIN + extra),
+                        DatasetSpec(num_classes=13), steps_per_epoch=100, device="cuda")
+        m = task.model
+        dec = m.decoder if decoder == "conformer" else m.decoder.decoder
+        rate = (dec.layers[0].sequential[0].module.dropout if decoder == "conformer"
+                else dec.layers[0].dropout)
+        check(isinstance(m, heads.CRNN) and m.num_features[-1] == 2048
+              and m.decoder_kind == decoder and rate == 0.1 and not task.fused_forward
+              and task.compute_dtype == torch.bfloat16,
+              f"{what} configuration (CNN12 at 2048, dropout 0.1, eager, bf16-mixed)")
+        task.init_state(0)
+        gen = torch.Generator(device="cuda").manual_seed(95)
+        step = lambda w: task.train_step(w, targets, gen)  # noqa: E731
+        launches, _ = timed_steps(task, what, step, wavs[:n_steps], smi)
+        total = {k: total[k] + launches[k] for k in total}
+        phase_profile(f"one {what} step ({smi})", lambda: step(wavs[0]))
+        if decoder != "conformer":
+            break
+        hold_step_against_plain(task, what, wavs[0], targets, 96)
+        e = hold_k1_train(task, wavs[0])
+        k1 = (max(k1[0], e[0]), max(k1[1], e[1]))
+
+        # fit's CRNN validation: run_validation on the trained conformer task
+        dm = AccdoaMemoryDataModule(97)
+        n_b = len(dm.batches)
+        check(task.eval_route() == "crnn", f"CRNN eval route {task.eval_route()}")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        macro, micro, vlosses = loop.run_validation(task, dm, SELDMetrics(nb_classes=13,
+                                                                          doa_threshold=20))
+        val_s = time.perf_counter() - t0
+        launches = read_counts()
+        want = expected(K1=n_b, K7=6 * n_b)
+        log(f"CRNN run_validation ({len(dm.wavs)} chunks, {n_b} batches): launches {launches} "
+            f"(expect {want}); {val_s * 1e3:.1f} ms; macro {macro}; losses {vlosses} ({smi})")
+        check(launches == want, "CRNN validation launch counts")
+        vals = list(macro.values()) + list(micro.values()) + list(vlosses.values())
+        check(all(np.isfinite(v) for v in vals), "a CRNN validation metric is not finite")
+        total = {k: total[k] + launches[k] for k in total}
+
+        # K7 on the first validation batch's six ConvBlock inputs
+        model = task.model.eval()
+        params = prepare_crnn(model, torch.bfloat16)
+        with torch.no_grad():
+            feats = folded_wav_features(model, dm.wavs[:EVAL_LOADER_B])
+            xs = [trunk_input(feats, torch.bfloat16, params.blocks[0].w1.shape[2])]
+            for p in params.blocks[:-1]:
+                xs.append(avg_pool(conv3x3_bias_relu(xs[-1], p.w1, p.b1, p.w2, p.b2), p.pool))
+            for i, (x, p) in enumerate(zip(xs, params.blocks)):
+                args = (x, p.w1, p.b1, p.w2, p.b2)
+                ref = conv3x3_bias_relu_plain(*args).float()
+                scale = ref.abs().max().item()
+                err = (conv3x3_bias_relu(*args).float() - ref).abs().max().item()
+                check(err <= 2.0 ** -6 * scale, f"K7 validation block {i} disagrees with its "
+                      "plain version")
+                k7 = (max(k7[0], err), max(k7[1], err / scale))
+        log(f"K7 on a validation batch's 6 ConvBlock inputs (B={EVAL_LOADER_B}): max |d| "
+            f"{k7[0]:.3g}, {k7[1]:.3g} of scale (<= 2^-6)")
+        del task, dm, xs, feats, model, params
+        torch.cuda.empty_cache()
+    del task, wavs
+    torch.cuda.empty_cache()
+    return total, {"K1": k1, "K7": k7}
+
+
+# the full-width HTSAT (configs/model/htsat.yaml) trained eagerly: LoRA
+# (configs/adapt/lora.yaml), the eager-only AdapterBit settings and the drop
+# rates, none of which the kernels take
+HTSAT_EAGER_TRAIN = ["loss=multi_accdoa", "model.kwargs.pretrained_path=null",
+                     "model.kwargs.audioset_pretrain=false", "trainer.precision=bf16-mixed"]
+EAGER_SETTINGS = (("LoRA", ["adapt=lora"], SERVE_BATCHES),
+                  ("AdapterBit, learnable scalar, relu, new_adapter",
+                   ["adapt=adapter", "adapt.adapt_kwargs.adapter_scalar=learnable_scalar",
+                    "adapt.adapt_kwargs.act_layer=relu",
+                    "+adapt.adapt_kwargs.new_adapter.mlp_ratio=0.25"], 1),
+                  ("drop_rate = attn_drop_rate = 0.1",
+                   ["model.kwargs.drop_rate=0.1", "model.kwargs.attn_drop_rate=0.1"], 1))
+
+
+def phase_train_lora(smi):
+    """HTSAT mACCDOA training on the eager modules (HTSAT_EAGER_TRAIN,
+    bf16-mixed, B_TRAIN clips): SERVE_BATCHES steps with LoRA, one with the
+    eager-only AdapterBit settings (its frozen parameters unchanged after
+    it), one with the drop rates, each counted from 0 (K1 x1 a step, no
+    other kernel: the patch embed and the blocks run eagerly, as the JAX
+    package routes them; eval takes the eager route too, but for the drop
+    rates); then the LoRA task's eval batch (route "eager": K1 x1), the
+    LoRA step against the plain-frontend step on the same generator state,
+    K1's training form, a profile of each setting's step."""
+    import numpy as np
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.models.adapters import has_lora
+    from pseldnets_tpu_torch.models.heads import HTSAT
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    total = expected()
+    targets = {"adpit_label": torch.from_numpy(
+        make_labels(np.random.default_rng(5), B_TRAIN, 100)).cuda()}
+    g = torch.Generator(device="cuda").manual_seed(98)
+    wavs = [torch.randn(B_TRAIN, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(SERVE_BATCHES)]
+    k1 = (0.0, 0.0)
+    for name, extra, n_steps in EAGER_SETTINGS:
+        what = f"HTSAT training ({name})"
+        task = SELDTask(compose(str(ROOT / "configs"), "train", HTSAT_EAGER_TRAIN + extra),
+                        DatasetSpec(num_classes=13), steps_per_epoch=100, device="cuda")
+        enc = task.model.encoder
+        # eval ignores dropout: the drop rates keep the kernels' eval route
+        route = "htsat" if name.startswith("drop") else "eager"
+        check(isinstance(task.model, HTSAT) and enc.embed_dim == 96 and sum(enc.depths) == 12
+              and not task.fused_forward and task.eval_route() == route,
+              f"{what}: the full-width HTSAT trained eagerly, eval route {task.eval_route()}")
+        check(has_lora(enc) == (name == "LoRA"), f"{what}: LoRA layers")
+        task.init_state(0)
+        before = {n: p.detach().clone() for n, p in task.model.named_parameters()
+                  if not p.requires_grad}
+        check(bool(before) == name.startswith("AdapterBit"), f"{what}: the frozen set")
+        gen = torch.Generator(device="cuda").manual_seed(99)
+        step = lambda w: task.train_step(w, targets, gen)  # noqa: E731
+        launches, _ = timed_steps(task, what, step, wavs[:n_steps], smi)
+        total = {k: total[k] + launches[k] for k in total}
+        params = dict(task.model.named_parameters())
+        check(all(torch.equal(params[n], v) for n, v in before.items()),
+              f"{what}: a frozen parameter moved")
+        if before:
+            log(f"{what}: the {len(before)} frozen parameters unchanged after "
+                f"{n_steps + 1} steps")
+        phase_profile(f"one {what} step ({smi})", lambda: step(wavs[0]))
+        if name != "LoRA":
+            del task
+            continue
+        lora_b = [p for n, p in params.items() if n.endswith("lora_B")]
+        check(len(lora_b) == 12 * 4 + 3 and all(p.abs().max() > 0 for p in lora_b),
+              "LoRA: every qkv/proj/fc1/fc2 and merge lora_B trained away from zero")
+        zero_counts()
+        out = task.eval_step({"data": wavs[0]})["multi_accdoa"]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want = expected(K1=1)
+        log(f"{what}: an eval batch on route {task.eval_route()!r}: launches {launches} "
+            f"(expect {want})")
+        check(launches == want and out.shape == (B_TRAIN, 100, 117)
+              and torch.isfinite(out).all().item(), "LoRA eval batch")
+        total = {k: total[k] + launches[k] for k in total}
+        hold_step_against_plain(task, what, wavs[0], targets, 100)
+        e = hold_k1_train(task, wavs[0])
+        k1 = (max(k1[0], e[0]), max(k1[1], e[1]))
+        del task
+    del wavs
+    torch.cuda.empty_cache()
+    return total, {"K1": k1}
 
 
 # the eval path: SELDTask.eval_step in the served HTSAT cell's configuration
@@ -3821,6 +4137,8 @@ def main():
     results["serve_einv2"] = phase_serve_einv2(smi)
     results["train_einv2"] = phase_train_einv2(smi)
     results["train_passt"] = phase_train_passt(smi)
+    results["train_crnn"] = phase_train_crnn(smi)
+    results["train_lora"] = phase_train_lora(smi)
     results["eval"] = phase_eval(smi)
     results["fit"] = phase_fit(smi)
     results["finetune"] = phase_finetune(smi)
@@ -3828,7 +4146,9 @@ def main():
     # launches: the sum over the main paths' runs (served batches and training
     # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the einsum embed, one
     # call of each frontend form, HTSAT one stage per launch, EINV2 served and
-    # trained eagerly, PaSST trained with its validation, the eval path, fit,
+    # trained eagerly, PaSST trained with its validation, the CRNN trained with
+    # its dropout and its validation, HTSAT trained eagerly with LoRA, the
+    # eager-only adapters and the drop rates, the eval path, fit,
     # the shipped recipes' pre-training, fine-tune and mono recipes), each
     # counted from 0; errors: the largest over the
     # checks at each path's own shapes,

@@ -21,6 +21,13 @@ PaSST); ``model.kwargs.img_size`` must be (n_mels, the chunk's frames
 drop_rate,drop_path_rate}`` turn on the structured frequency and the
 token patchout, position dropout and drop-path (``s_patchout_t`` drops
 output frames, so a SELD step with it raises, as in the JAX package).
+``model=crnn`` (CNN14-Conformer) trains with its conformer's dropout 0.1
+(and ``model.decoder=transformer`` with the transformer's), ``adapt=lora``
+and the eager-only adapter settings (``adapt.adapt_kwargs.adapter_scalar=
+learnable_scalar``, ``act_layer``, ``new_adapter``) train HTSAT on the
+eager modules, and so do ``model.kwargs.drop_rate`` /
+``model.kwargs.attn_drop_rate``; the masks come from the step's
+generator.
 ``ckpt_path`` naming the port's ``last.ckpt`` resumes training
 exactly; any other ``.ckpt`` (the port's best, the reference's) starts
 from its weights, and wins over ``pretrained_path``. ``trainer.detect_anomaly`` turns on

@@ -1,8 +1,9 @@
 """Shared model plumbing in PyTorch, the counterpart of the JAX package's
 models/common.py: BatchNorm with torch semantics (per-channel "scalar" BN,
-BatchNorm2d), the ViT Mlp, PatchEmbed and drop-path, the EINV2 CrossStitch, the GRU /
-transformer / conformer sequence decoders, and the time-axis interpolate used
-by every head.
+BatchNorm2d), the ViT Mlp, PatchEmbed and drop-path, dropout from drawn
+keep-masks (``DropoutDraws``), the EINV2 CrossStitch, the GRU / transformer
+/ conformer sequence decoders, and the time-axis interpolate used by every
+head.
 
 Parity targets: reference src/models/components/model_utilities.py
 (CrossStitch :35-54, Mlp :129-171, PatchEmbed :174-213, DropPath :216-242,
@@ -18,17 +19,71 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .adapters import NO_ADAPT, AdaptConfig, Adapter
+from .adapters import NO_ADAPT, AdaptConfig, AdaptConv, AdaptDense, Adapter
 
 NO_DECODER = (None, "None", "null", "identity")
 
 
-def check_no_dropout(module: nn.Module, rate: float, what: str) -> None:
-    """Train mode with dropout is not ported: raise when ``module`` (a CRNN
-    decoder's) trains with a rate other than 0 (eval ignores dropout)."""
-    if module.training and rate:
-        raise NotImplementedError(f"training {what} with dropout {rate} is not ported "
-                                  "yet (ROADMAP.md queue A step 9)")
+class DropoutDraws:
+    """A train-mode forward's dropout keep-masks, taken by its dropout sites
+    in call order (``keep``): the injected ``masks`` one after the other
+    (bool, True where kept; a test feeds the JAX package's draws in that
+    package's order), or else Bernoulli(keep) masks drawn on the device
+    from ``generator``, never from the global generator. No module keeps
+    random state."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 masks: Optional[Sequence[torch.Tensor]] = None):
+        self.generator = generator
+        self.masks = None if masks is None else list(masks)
+        self.taken = 0
+
+    def keep(self, shape: Sequence[int], rate: float, device) -> torch.Tensor:
+        """The next site's (shape) bool keep-mask, P(True) = 1 - rate."""
+        if self.masks is not None:
+            if self.taken >= len(self.masks):
+                raise ValueError(f"a dropout site past the {len(self.masks)} injected masks")
+            m = self.masks[self.taken]
+            self.taken += 1
+            if tuple(m.shape) != tuple(shape):
+                raise ValueError(f"injected dropout mask {self.taken - 1} has shape "
+                                 f"{tuple(m.shape)}, the site {tuple(shape)}")
+            return m.to(device=device, dtype=torch.bool)
+        if self.generator is None:
+            raise ValueError("train mode with dropout needs dropout draws or a generator")
+        return torch.rand(tuple(shape), generator=self.generator, device=device) < 1.0 - rate
+
+    def check_used(self) -> None:
+        """Every injected mask was taken."""
+        if self.masks is not None and self.taken != len(self.masks):
+            raise ValueError(f"{len(self.masks)} dropout masks injected, {self.taken} taken")
+
+
+def dropout(x: torch.Tensor, rate: float, drops: Optional[DropoutDraws],
+            training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout`` (linen/stochastic.py:99-107): select(m, x / keep,
+    0) in x's dtype with a keep-mask of x's shape from ``drops``; x as it is
+    in eval or at rate 0. Train mode with a rate needs ``drops``."""
+    if not training or not rate:
+        return x
+    if drops is None:
+        raise ValueError("train mode with dropout needs dropout draws or a generator")
+    m = drops.keep(x.shape, rate, x.device)
+    return torch.where(m, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def dropout_weights(w: torch.Tensor, rate: float, drops: Optional[DropoutDraws],
+                    training: bool, shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The attention-weights dropout of flax ``nn.MultiHeadDotProductAttention``
+    (linen/attention.py:153-161): w * (m / keep) in w's dtype, the mask of
+    ``shape`` (flax broadcasts one (1, 1, T, S) mask over batch and heads)
+    broadcast over w; w as it is in eval or at rate 0."""
+    if not training or not rate:
+        return w
+    if drops is None:
+        raise ValueError("train mode with dropout needs dropout draws or a generator")
+    m = drops.keep(w.shape if shape is None else shape, rate, w.device)
+    return w * (m.to(w.dtype) / (1.0 - rate))
 
 
 def drop_path_masks(generator: Optional[torch.Generator], B: int, rates: Sequence[float],
@@ -170,25 +225,38 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Mlp(nn.Module):
-    """ViT MLP: fc1 -> exact erf GELU -> fc2, plus a parallel bottleneck
-    ``adapter`` on the input when the config has an MlpAdapter:
-    ``fc2(gelu(fc1 x)) + adapter(x)`` (reference model_utilities.py:129-171)."""
+    """ViT MLP: fc1 -> exact erf GELU -> dropout -> fc2, plus the parallel
+    bottleneck ``adapter`` (and ``adapter_ds``, the config's
+    ``new_adapter``) on the input when the config has an MlpAdapter, ->
+    dropout: ``drop(fc2(drop(gelu(fc1 x))) + (adapter(x) + adapter_ds(x)))``
+    (reference model_utilities.py:129-171; the JAX package's Mlp,
+    common.py:131-163). fc1 and fc2 carry the config's LoRA terms. Dropout
+    (rate ``drop``) takes its masks from ``drops`` in train mode."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 adapt: AdaptConfig = NO_ADAPT):
+                 adapt: AdaptConfig = NO_ADAPT, drop: float = 0.0):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.drop = float(drop)
+        self.fc1 = AdaptDense(in_features, hidden_features, **adapt.lora_linear_args())
+        self.fc2 = AdaptDense(hidden_features, out_features, **adapt.lora_linear_args())
         self.adapter = (Adapter(in_features, **adapt.adapter_args())
                         if adapt.mlp_adapter else None)
+        self.adapter_ds = (Adapter(in_features, **adapt.ds_adapter_args())
+                           if adapt.mlp_adapter and adapt.new_adapter else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.fc2(F.gelu(self.fc1(x), approximate="none"))
-        return h if self.adapter is None else h + self.adapter(x)
+    def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
+        h = dropout(F.gelu(self.fc1(x), approximate="none"), self.drop, drops, self.training)
+        h = self.fc2(h)
+        if self.adapter is not None:
+            xs = self.adapter(x)
+            h = h + (xs if self.adapter_ds is None else xs + self.adapter_ds(x))
+        return dropout(h, self.drop, drops, self.training)
 
 
 class PatchEmbed(nn.Module):
-    """2D patch embedding conv + LayerNorm (reference model_utilities.py:174-213).
+    """2D patch embedding conv + LayerNorm (reference model_utilities.py:174-213);
+    the conv carries the config's LoRA term (the JAX package's
+    common.py:200-202).
 
     Input NCHW; output (B, N, C) tokens in row-major (H', W') order, or with
     ``flatten=False`` the conv's NCHW map (B, C, H', W') and no norm (PaSST
@@ -197,15 +265,15 @@ class PatchEmbed(nn.Module):
 
     def __init__(self, img_size: Tuple[int, int], patch_size: Tuple[int, int],
                  patch_stride: Tuple[int, int], in_chans: int, embed_dim: int,
-                 use_norm: bool = True, flatten: bool = True):
+                 use_norm: bool = True, flatten: bool = True, adapt: AdaptConfig = NO_ADAPT):
         super().__init__()
         self.img_size = tuple(img_size)
         self.flatten = flatten
         use_norm = use_norm and flatten
         pad = ((patch_size[0] - patch_stride[0]) // 2,
                (patch_size[1] - patch_stride[1]) // 2)
-        self.proj = nn.Conv2d(in_chans, embed_dim, kernel_size=tuple(patch_size),
-                              stride=tuple(patch_stride), padding=pad)
+        self.proj = AdaptConv(in_chans, embed_dim, tuple(patch_size), tuple(patch_stride), pad,
+                              **adapt.lora_conv_args())
         self.norm = LayerNorm(embed_dim) if use_norm else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -286,9 +354,15 @@ class TorchGRU(nn.GRU):
 
 class TransformerEncoderLayer(nn.Module):
     """torch nn.TransformerEncoderLayer, post-LN and relu (the JAX package's
-    models/common.py:331), with its parameter names: ``self_attn``
+    models/common.py:331-355), with its parameter names: ``self_attn``
     (packed ``in_proj_weight``), ``linear1``, ``linear2``, ``norm1``,
-    ``norm2``. Training with dropout raises."""
+    ``norm2``. In train mode with dropout, four draws from ``drops`` in the
+    JAX order: the attention weights' mask ((1, 1, T, T), broadcast over
+    batch and heads, flax's attention form), then the attention output, the
+    relu and the second linear's (``nn.Dropout``'s form). The attention
+    runs explicitly from ``self_attn``'s packed parameters in both modes,
+    since ``nn.MultiheadAttention`` takes no mask of ours; ``self_attn``
+    only holds them, under the reference's keys."""
 
     def __init__(self, d_model: int, nhead: int = 8, dim_feedforward: int = 2048,
                  dropout: float = 0.1):
@@ -300,10 +374,26 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        check_no_dropout(self, self.dropout, "the transformer decoder")
-        x = self.norm1(x + self.self_attn(x, x, x, need_weights=False)[0])
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+    def _attention(self, x: torch.Tensor, drops: Optional[DropoutDraws]) -> torch.Tensor:
+        """flax's dot-product attention (q / sqrt(D), softmax in x's dtype,
+        the weights' dropout) on ``self_attn``'s q/k/v rows and out_proj."""
+        att = self.self_attn
+        B, T, E = x.shape
+        H = att.num_heads
+        q, k, v = (F.linear(x, w, b).reshape(B, T, H, E // H) for w, b in
+                   zip(att.in_proj_weight.chunk(3), att.in_proj_bias.chunk(3)))
+        w = torch.einsum("bqhd,bkhd->bhqk", q / math.sqrt(E // H), k)
+        w = dropout_weights(torch.softmax(w, dim=-1), self.dropout, drops, self.training,
+                            (1, 1, T, T))
+        ctx = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v).reshape(B, T, E)
+        return att.out_proj(ctx)
+
+    def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
+        def drop(h):
+            return dropout(h, self.dropout, drops, self.training)
+
+        x = self.norm1(x + drop(self._attention(x, drops)))
+        return self.norm2(x + drop(self.linear2(drop(F.relu(self.linear1(x))))))
 
 
 class TransformerEncoder(nn.Module):
@@ -314,9 +404,9 @@ class TransformerEncoder(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(TransformerEncoderLayer(d_model) for _ in range(num_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, drops)
         return x
 
 
@@ -341,5 +431,9 @@ class Decoder(nn.Module):
         else:
             raise NotImplementedError(f"decoder '{decoder}' is not implemented")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.decoder is None else self.decoder(x)
+    def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
+        """``drops``: the conformer's or transformer's dropout masks in train
+        mode (the GRU has no dropout)."""
+        if self.decoder is None:
+            return x
+        return self.decoder(x) if self.kind == "gru" else self.decoder(x, drops)

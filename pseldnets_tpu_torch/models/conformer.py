@@ -11,17 +11,24 @@ five residual modules and a LayerNorm, the pointwise convs are
 ``Conv1d(k=1)`` and the depthwise one ``Conv1d(groups=C)``. The reference's
 positional-encoding buffer is computed on the fly, not stored.
 
-Training with dropout raises (eval ignores it).
+In train mode each block draws its dropout (rate 0.1, not a config key, as
+in the JAX ConformerBlock) at seven sites from the forward's
+``models.common.DropoutDraws``, in the JAX package's order: the first
+feed-forward module's two (after the SiLU, after fc2), the attention
+weights, the attention module's output, the conv module's output, the
+second feed-forward module's two; each in ``nn.Dropout``'s form. Eval
+ignores dropout.
 """
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import TorchBatchNorm, check_no_dropout
+from .common import DropoutDraws, TorchBatchNorm, dropout
 
 
 def sinusoid_position_encoding(length: int, d_model: int) -> np.ndarray:
@@ -49,8 +56,8 @@ class Residual(nn.Module):
         self.module = module
         self.factor = factor
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.factor * self.module(x)
+    def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
+        return x + self.factor * self.module(x, drops)
 
 
 class FeedForwardModule(nn.Module):
@@ -61,9 +68,13 @@ class FeedForwardModule(nn.Module):
             nn.LayerNorm(dim, eps=1e-5), nn.Linear(dim, dim * expansion), nn.SiLU(),
             nn.Dropout(dropout), nn.Linear(dim * expansion, dim), nn.Dropout(dropout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        check_no_dropout(self, self.dropout, "the conformer feed-forward module")
-        return self.sequential(x)
+    def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
+        """LayerNorm -> fc1 -> SiLU -> dropout -> fc2 -> dropout (the
+        ``sequential``'s Dropout entries, indices 3 and 5, hold no
+        parameters: the drawn masks apply in their places)."""
+        s = self.sequential
+        h = dropout(F.silu(s[1](s[0](x))), self.dropout, drops, self.training)
+        return dropout(s[4](h), self.dropout, drops, self.training)
 
 
 class RelativeMultiHeadAttention(nn.Module):
@@ -82,8 +93,8 @@ class RelativeMultiHeadAttention(nn.Module):
         self.u_bias = nn.Parameter(torch.zeros(num_heads, D))
         self.v_bias = nn.Parameter(torch.zeros(num_heads, D))
 
-    def forward(self, x: torch.Tensor, pos_emb: torch.Tensor) -> torch.Tensor:
-        check_no_dropout(self, self.dropout, "the conformer attention")
+    def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
+                drops: Optional[DropoutDraws] = None) -> torch.Tensor:
         B, T, _ = x.shape
         H = self.num_heads
         D = self.d_model // H
@@ -96,12 +107,14 @@ class RelativeMultiHeadAttention(nn.Module):
         pos = torch.einsum("bthd,zshd->bhts", (q + self.v_bias.to(q.dtype)).float(), p.float())
         score = (content + relative_shift(pos)) / math.sqrt(self.d_model)
         attn = torch.softmax(score, dim=-1).to(x.dtype)
+        attn = dropout(attn, self.dropout, drops, self.training)
         ctx = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, T, self.d_model)
         return self.out_proj(ctx)
 
 
 class MultiHeadedSelfAttentionModule(nn.Module):
-    """LayerNorm -> relative MHSA with the sinusoid table of the sequence."""
+    """LayerNorm -> relative MHSA with the sinusoid table of the sequence ->
+    dropout (the JAX ConformerBlock's, conformer.py:141-142)."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
@@ -109,11 +122,11 @@ class MultiHeadedSelfAttentionModule(nn.Module):
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
         self.attention = RelativeMultiHeadAttention(d_model, num_heads, dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        check_no_dropout(self, self.dropout, "the conformer attention module")
+    def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
         B, T, C = x.shape
         pos = torch.as_tensor(sinusoid_position_encoding(T, C), device=x.device).to(x.dtype)
-        return self.attention(self.layer_norm(x), pos[None])
+        h = self.attention(self.layer_norm(x), pos[None], drops)
+        return dropout(h, self.dropout, drops, self.training)
 
 
 class PointwiseConv1d(nn.Module):
@@ -156,9 +169,10 @@ class ConformerConvModule(nn.Module):
             DepthwiseConv1d(dim, kernel_size), TorchBatchNorm((dim,), reduce_axes=(0, 1)),
             nn.SiLU(), PointwiseConv1d(dim, dim), nn.Dropout(dropout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        check_no_dropout(self, self.dropout, "the conformer conv module")
-        return self.sequential(x)
+    def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
+        """The ``sequential`` up to its last Dropout (index 8), then the
+        drawn mask in its place."""
+        return dropout(self.sequential[:8](x), self.dropout, drops, self.training)
 
 
 class ConformerBlock(nn.Module):
@@ -172,8 +186,10 @@ class ConformerBlock(nn.Module):
             Residual(FeedForwardModule(encoder_dim, ffn_expansion, dropout), 0.5),
             nn.LayerNorm(encoder_dim, eps=1e-5))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.sequential(x)
+    def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
+        for residual in self.sequential[:4]:
+            x = residual(x, drops)
+        return self.sequential[4](x)
 
 
 class ConformerBlocks(nn.Module):
@@ -182,7 +198,9 @@ class ConformerBlocks(nn.Module):
         self.layers = nn.ModuleList(ConformerBlock(encoder_dim, num_heads)
                                     for _ in range(num_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
+        """``drops``: the blocks' dropout masks in train mode (seven a
+        block)."""
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, drops)
         return x

@@ -12,12 +12,14 @@ Train mode follows the single-branch heads (models/heads.py): the HTSAT
 and PaSST heads take drop-path masks (``dp_masks``: for HTSAT and PaSST a
 pair of flat per-block lists, SED encoder's then DOA encoder's; for
 HTSAT_SEDDOA one list) or draw them from ``generator``, and PaSST its
-patchout draws as a pair too (``patchout_draws``); a CRNN decoder that
-trains with dropout raises (ROADMAP.md queue A step 9). The JAX package
-calls the CRNN's track decoders without a ``deterministic`` flag
-(einv2_heads.py:72-73), so they run in eval form there even in training;
-the port trains them as the reference does and raises where that needs
-dropout.
+patchout draws as a pair too (``patchout_draws``); every head takes its
+dropout masks (an HTSAT's drop rates, a conformer or transformer
+decoder's) as ``dropout_draws`` (one ``DropoutDraws`` or list of keep-masks
+for the whole forward, in its call order) or draws them from
+``generator``. The JAX package calls the CRNN's track decoders without a
+``deterministic`` flag (einv2_heads.py:72-73), so they run in eval form
+there even in training; the port trains them as the reference does, with
+their dropout (a deviation ROADMAP.md records).
 """
 
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -28,7 +30,8 @@ import torch.nn as nn
 from .adapters import NO_ADAPT, AdaptConfig
 from .backbone import CNN
 from .common import CrossStitch, Decoder, ScalarBN, interpolate
-from .heads import block_masks, concat_5s, passt_draws, tscam_head
+from .heads import (block_masks, check_draws, concat_5s, passt_draws, train_draws,
+                    tscam_head)
 from .htsat import HTSATEncoder
 from .passt import PaSSTEncoder, PatchoutDraws
 
@@ -68,9 +71,14 @@ class CRNN(nn.Module):
             self.add_module(f"fc_sed_track{i}", nn.Linear(nf[-1], num_classes))
             self.add_module(f"fc_doa_track{i}", nn.Linear(nf[-1], 3))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                dropout_draws=None) -> Dict[str, torch.Tensor]:
+        """In train mode the track decoders' dropout masks come from
+        ``dropout_draws`` or ``generator``, SED track 1 then DOA track 1,
+        and so on."""
         N, _, T, _ = x.shape
         output_frames = T // self.pred_res
+        drops = train_draws(self.training, dropout_draws, generator)
         x = self.scalar(x)
         x_sed, x_doa = x[:, :SED_IN_CHANNELS], x
         n = len(self.num_features)
@@ -82,12 +90,13 @@ class CRNN(nn.Module):
         x_doa = self.doa_convs.run_block(n - 1, x_doa).mean(dim=3).transpose(1, 2)
         sed, doa = [], []
         for i in range(1, 4):
-            s, d = self.stitch[-4 + i](getattr(self, f"sed_track{i}")(x_sed),
-                                       getattr(self, f"doa_track{i}")(x_doa))
+            s, d = self.stitch[-4 + i](getattr(self, f"sed_track{i}")(x_sed, drops),
+                                       getattr(self, f"doa_track{i}")(x_doa, drops))
             s = interpolate(s, ratio=8).reshape(N, output_frames, self.pred_res, -1).mean(dim=2)
             d = interpolate(d, ratio=8).reshape(N, output_frames, self.pred_res, -1).mean(dim=2)
             sed.append(getattr(self, f"fc_sed_track{i}")(s))
             doa.append(getattr(self, f"fc_doa_track{i}")(d))
+        check_draws(drops)
         return _stack_tracks(sed, doa)
 
 
@@ -117,25 +126,27 @@ class HTSAT(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 dp_masks: Optional[Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                dropout_draws=None) -> Dict[str, torch.Tensor]:
         """``dp_masks``: (SED encoder's, DOA encoder's) flat per-block mask
-        lists, or None (drawn from ``generator`` in train mode, SED first)."""
+        lists, or None (drawn from ``generator`` in train mode, SED first);
+        then the dropout masks in the JAX call order (SED embed, DOA embed,
+        then stage by stage SED's and DOA's)."""
         B = x.shape[0]
         x, output_frames, five_sec = concat_5s(x, self.pred_res, self.tgt_output_frames)
         encs = (self.sed_encoder, self.doa_encoder)
-        if self.training:
-            for enc in encs:
-                enc.check_trainable()
         masks = [enc.stage_masks(block_masks(enc, self.training, x.shape[0], m, generator,
                                              x.device))
                  for enc, m in zip(encs, dp_masks or (None, None))]
+        drops = train_draws(self.training, dropout_draws, generator)
         x = self.scalar(x)
-        x_sed = self.sed_encoder.embed(x[:, :SED_IN_CHANNELS])
-        x_doa = self.doa_encoder.embed(x)
+        x_sed = self.sed_encoder.embed(x[:, :SED_IN_CHANNELS], drops)
+        x_doa = self.doa_encoder.embed(x, drops)
         for i, stitch in enumerate(self.stitch1):
             x_sed, x_doa = stitch(x_sed, x_doa)
-            x_sed = self.sed_encoder.run_stage(i, x_sed, masks[0][i])
-            x_doa = self.doa_encoder.run_stage(i, x_doa, masks[1][i])
+            x_sed = self.sed_encoder.run_stage(i, x_sed, masks[0][i], drops)
+            x_doa = self.doa_encoder.run_stage(i, x_doa, masks[1][i], drops)
+        check_draws(drops)
         frames = (B, output_frames, five_sec, self.tgt_output_frames, self.pred_res)
         sed = tscam_head(self.sed_encoder.finalize(x_sed), self.sed_tscam_conv,
                          self.sed_encoder.time_res, *frames)
@@ -163,12 +174,15 @@ class HTSAT_SEDDOA(nn.Module):
                                         kernel_size=(enc.SF, 3), padding=(0, 1))
 
     def forward(self, x: torch.Tensor, dp_masks: Optional[Sequence[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                dropout_draws=None) -> Dict[str, torch.Tensor]:
         B = x.shape[0]
         x, output_frames, five_sec = concat_5s(x, self.pred_res, self.tgt_output_frames)
         dp_masks = block_masks(self.encoder, self.training, x.shape[0], dp_masks, generator,
                                x.device)
-        tok = self.encoder(self.scalar(x), dp_masks)
+        drops = train_draws(self.training, dropout_draws, generator)
+        tok = self.encoder(self.scalar(x), dp_masks, drops)
+        check_draws(drops)
         frames = (B, output_frames, five_sec, self.tgt_output_frames, self.pred_res)
         sed = tscam_head(tok, self.sed_tscam_conv, self.encoder.time_res, *frames)
         doa = tscam_head(tok, self.doa_tscam_conv, self.encoder.time_res, *frames)
@@ -207,12 +221,13 @@ class PASST(nn.Module):
     def forward(self, x: torch.Tensor,
                 dp_masks: Optional[Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]] = None,
                 generator: Optional[torch.Generator] = None,
-                patchout_draws: Optional[Tuple[PatchoutDraws, PatchoutDraws]] = None
-                ) -> Dict[str, torch.Tensor]:
+                patchout_draws: Optional[Tuple[PatchoutDraws, PatchoutDraws]] = None,
+                dropout_draws=None) -> Dict[str, torch.Tensor]:
         encs = (self.sed_encoder, self.doa_encoder)
         draws = [passt_draws(enc, self.training, x.shape[0], d, m, generator, x.device)
                  for enc, d, m in zip(encs, patchout_draws or (None, None),
                                       dp_masks or (None, None))]
+        drops = train_draws(self.training, dropout_draws, generator)
         (d_sed, m_sed), (d_doa, m_doa) = draws
         x = self.scalar(x)
         x_sed = self.sed_encoder.forward_before(x[:, :SED_IN_CHANNELS], d_sed)
@@ -226,7 +241,9 @@ class PASST(nn.Module):
         x_doa = self.doa_encoder.forward_after(x_doa)
         sed, doa = [], []
         for i in range(3):
-            s, d = self.stitch2[i](self.sed_decoder[i](x_sed), self.doa_decoder[i](x_doa))
+            s, d = self.stitch2[i](self.sed_decoder[i](x_sed, drops),
+                                   self.doa_decoder[i](x_doa, drops))
             sed.append(self.fc_sed[i](s))
             doa.append(self.fc_doa[i](d))
+        check_draws(drops)
         return _stack_tracks(sed, doa)

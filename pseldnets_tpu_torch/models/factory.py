@@ -14,7 +14,7 @@ import torch.nn as nn
 
 from ..ops._cuda import resolve_device
 from . import einv2_heads, heads
-from .adapters import AdaptConfig, Adapter
+from .adapters import AdaptConfig, AdaptConv, AdaptDense, Adapter
 from .common import CrossStitch, TorchBatchNorm
 from .conformer import RelativeMultiHeadAttention
 from .htsat import WindowAttention
@@ -43,7 +43,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     tables N(0, 0.5) so the bias visibly shapes attention, the conformer's
     u/v biases xavier-uniform (as flax), CrossStitch weights U(0.1, 0.9)
     (the JAX init's range). BN running stats stay (0, 1).
-    An adapter's fc2 stays zero, as the JAX package initializes it."""
+    An adapter's fc2 stays zero and a learnable adapter scale one, a LoRA
+    ``lora_A`` is N(0, 1/fan_in) and its ``lora_B`` zero, as the JAX package
+    initializes them (so a fresh adapter or LoRA term adds nothing)."""
     def randn(p, std, base=0.0):
         p.copy_(base + std * torch.randn(p.shape, generator=generator))
 
@@ -89,6 +91,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             if isinstance(mod, Adapter):
                 mod.fc2.weight.zero_()
                 mod.fc2.bias.zero_()
+                if mod.scale is None:
+                    mod.weight.fill_(1.0)
+            elif isinstance(mod, AdaptDense) and mod.lora_r:
+                fan_in_normal(mod.lora_A)
+                mod.lora_B.zero_()
+            elif isinstance(mod, AdaptConv) and mod.lora_r:
+                mod.lora_B.weight.zero_()
 
 
 def build_model(cfg, num_classes: int, *, device="cuda", seed: int = 0):
@@ -107,7 +116,7 @@ def build_model(cfg, num_classes: int, *, device="cuda", seed: int = 0):
     pretrained_path = kwargs.pop("pretrained_path", None)
     audioset_pretrain = kwargs.pop("audioset_pretrain", True)
     tgt_output_frames = int(kwargs.pop("tgt_output_frames", 100))
-    adapt = AdaptConfig(cfg.get("adapt"))  # raises on what is not ported
+    adapt = AdaptConfig(cfg.get("adapt"))  # the HTSAT heads' AdapterBit or LoRA
 
     if method == "einv2":
         model = _einv2_model(cfg, backbone, num_classes, in_channels, mel_bins, pred_res,

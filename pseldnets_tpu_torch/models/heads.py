@@ -14,7 +14,7 @@ import torch.nn as nn
 
 from .adapters import NO_ADAPT, AdaptConfig
 from .backbone import CNN
-from .common import Decoder, ScalarBN, drop_path_masks, interpolate
+from .common import Decoder, DropoutDraws, ScalarBN, drop_path_masks, interpolate
 from .conformer import ConformerBlocks
 from .htsat import HTSATEncoder
 from .passt import PaSSTEncoder, PatchoutDraws
@@ -25,7 +25,14 @@ class CRNN(nn.Module):
     accdoa.py:12-95): ScalarBN -> CNN -> frequency mean -> decoder ->
     repeat-interpolate x8 (the three time pools) -> mean over ``pred_res``
     frames -> fc -> tanh. The conformer sits directly under ``decoder``; the
-    other decoders under ``decoder.decoder`` (the reference's keys)."""
+    other decoders under ``decoder.decoder`` (the reference's keys).
+
+    In train mode the BatchNorms use batch statistics and the conformer or
+    transformer decoder drops out (rate 0.1, as the JAX CRNN passes
+    ``deterministic=not train`` to its decoder, heads.py:64-71): its masks
+    are ``dropout_draws`` (a ``models.common.DropoutDraws`` or a list of
+    injected keep-masks in the JAX order) or are drawn from
+    ``generator``."""
 
     ENCODER_BLOCKS = {"CNN8": 4, "CNN12": 6}
 
@@ -53,11 +60,14 @@ class CRNN(nn.Module):
     def output_key(self) -> str:
         return "accdoa" if self.num_tracks == 1 else "multi_accdoa"
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                dropout_draws=None) -> Dict[str, torch.Tensor]:
         B, _, T, _ = x.shape
         output_frames = T // self.pred_res
+        drops = train_draws(self.training, dropout_draws, generator)
         x = self.convs(self.scalar(x))          # (B, C, T', F')
-        x = self.decoder(x.mean(dim=3).transpose(1, 2))  # (B, T', C)
+        x = self.decoder(x.mean(dim=3).transpose(1, 2), drops)  # (B, T', C)
+        check_draws(drops)
         x = interpolate(x, ratio=8)
         x = x.reshape(B, output_frames, self.pred_res, -1).mean(dim=2)
         return {self.output_key: torch.tanh(self.fc(x).float())}
@@ -105,6 +115,24 @@ def tscam_head(tok: torch.Tensor, conv: nn.Conv2d, time_res: int, B: int,
     return x.reshape(B, output_frames, pred_res, -1).mean(dim=2)
 
 
+def train_draws(training: bool, dropout_draws, generator: Optional[torch.Generator]
+                ) -> Optional[DropoutDraws]:
+    """A train-mode forward's dropout draws: ``dropout_draws`` as given (a
+    ``DropoutDraws`` or a list of injected keep-masks), else draws from
+    ``generator``; None in eval."""
+    if not training:
+        return None
+    if isinstance(dropout_draws, DropoutDraws):
+        return dropout_draws
+    return DropoutDraws(generator, dropout_draws)
+
+
+def check_draws(drops: Optional[DropoutDraws]) -> None:
+    """Every injected dropout mask was taken by the forward."""
+    if drops is not None:
+        drops.check_used()
+
+
 def block_masks(enc: nn.Module, training: bool, B: int,
                 dp_masks: Optional[Sequence[torch.Tensor]],
                 generator: Optional[torch.Generator], device) -> Optional[Sequence[torch.Tensor]]:
@@ -125,7 +153,9 @@ class HTSAT(nn.Module):
     In train mode the ScalarBN uses batch statistics and the blocks take
     drop-path masks: ``dp_masks`` (one (B', 2) mask per block, B' the
     encoder batch) or, when the rates are not all 0, masks drawn from
-    ``generator``.
+    ``generator``; with ``drop_rate`` / ``attn_drop_rate`` the encoder's
+    dropout masks likewise (``dropout_draws``: a ``DropoutDraws`` or a list
+    of keep-masks in the JAX order), drawn after the drop-path masks.
 
     Handles the 5 s clip trick: when the incoming clip yields
     tgt_output_frames/2 label frames, the two batch halves are concatenated
@@ -153,12 +183,15 @@ class HTSAT(nn.Module):
         return "accdoa" if self.num_tracks == 1 else "multi_accdoa"
 
     def forward(self, x: torch.Tensor, dp_masks: Optional[Sequence[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                dropout_draws=None) -> Dict[str, torch.Tensor]:
         B = x.shape[0]
         x, output_frames, five_sec = concat_5s(x, self.pred_res, self.tgt_output_frames)
         dp_masks = block_masks(self.encoder, self.training, x.shape[0], dp_masks, generator,
                                x.device)
-        x = self.encoder(self.scalar(x), dp_masks)  # (B', C, SF, ST)
+        drops = train_draws(self.training, dropout_draws, generator)
+        x = self.encoder(self.scalar(x), dp_masks, drops)  # (B', C, SF, ST)
+        check_draws(drops)
         x = tscam_head(x, self.tscam_conv, self.encoder.time_res, B, output_frames, five_sec,
                        self.tgt_output_frames, self.pred_res)
         return {self.output_key: torch.tanh(x.float())}

@@ -12,10 +12,21 @@ run each block through the kernels of ops/swin_block.py and
 ops/swin_block_vjp.py instead, or, for blocks that carry AdapterBit adapters
 (``adapt``, models/adapters.py), those of ops/swin_block_adapt.py.
 
-Train mode has stochastic depth (drop-path) only: the per-block (B, 2) masks
+Train mode has stochastic depth (drop-path): the per-block (B, 2) masks
 come from the caller (``models.common.drop_path_masks`` draws them from an
-explicit generator); no module keeps random state. Attention, projection and
-position dropout are not ported and raise when their rate is not 0.
+explicit generator). With ``drop_rate`` / ``attn_drop_rate`` it has the
+JAX package's dropout too, its masks from the forward's
+``models.common.DropoutDraws`` in the JAX order (models/htsat.py:133-140,
+:373-377; common.py:156-162): position dropout after the patch embed, then
+in each block the attention weights (``attn_drop_rate``), the projection,
+the MLP's two (``drop_rate``), all in ``nn.Dropout``'s form. No module
+keeps random state.
+
+``adapt`` (models/adapters.py) adds the AdapterBit bottlenecks, or with
+LoRA turns qkv, proj, the MLP's fc1/fc2, the merges' reduction and the
+patch embed into ``AdaptDense``/``AdaptConv`` layers; the kernels take
+neither LoRA nor the eager-only adapter settings, which train and evaluate
+on these modules.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -25,8 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .adapters import NO_ADAPT, AdaptConfig, Adapter
-from .common import LayerNorm, Mlp, PatchEmbed
+from .adapters import NO_ADAPT, AdaptConfig, AdaptDense, Adapter
+from .common import DropoutDraws, LayerNorm, Mlp, PatchEmbed, dropout
 
 
 def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -80,14 +91,18 @@ def window_and_shift(H: int, W: int, window: int, shift: int) -> Tuple[int, int]
 
 class WindowAttention(nn.Module):
     """W-MSA with relative position bias (htsat.py:53-148); with a
-    SpatialAdapter, ``a + adapter(a)`` on the projection's output a."""
+    SpatialAdapter, ``a + adapter(a)`` on the projection's output a. In
+    train mode the attention weights drop out at ``attn_drop`` and the
+    projection's output at ``proj_drop`` (masks from ``drops``)."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
-                 qkv_bias: bool = True, adapt: AdaptConfig = NO_ADAPT):
+                 qkv_bias: bool = True, adapt: AdaptConfig = NO_ADAPT,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.attn_drop, self.proj_drop = float(attn_drop), float(proj_drop)
+        self.qkv = AdaptDense(dim, 3 * dim, bias=qkv_bias, **adapt.lora_linear_args())
+        self.proj = AdaptDense(dim, dim, **adapt.lora_linear_args())
         self.adapter = (Adapter(dim, **adapt.adapter_args())
                         if adapt.spatial_adapter else None)
         self.relative_position_bias_table = nn.Parameter(
@@ -103,7 +118,8 @@ class WindowAttention(nn.Module):
         b = self.relative_position_bias_table[self.relative_position_index]
         return b.reshape(n, n, self.num_heads).permute(2, 0, 1).float()
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                drops: Optional[DropoutDraws] = None) -> torch.Tensor:
         B_, N, C = x.shape
         nh = self.num_heads
         hd = C // nh
@@ -116,7 +132,9 @@ class WindowAttention(nn.Module):
             attn = attn.reshape(B_ // nW, nW, nh, N, N) + mask[None, :, None]
             attn = attn.reshape(B_, nh, N, N)
         attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+        attn = dropout(attn, self.attn_drop, drops, self.training)
         x = self.proj(torch.matmul(attn, v).transpose(1, 2).reshape(B_, N, C))
+        x = dropout(x, self.proj_drop, drops, self.training)
         return x if self.adapter is None else x + self.adapter(x)
 
 
@@ -124,11 +142,13 @@ class SwinTransformerBlock(nn.Module):
     """(htsat.py:152-268). ``dp_masks`` (B, 2): per-image drop-path scales
     of the attention and MLP branches, y = x + m0 * attn, out = y + m1 * mlp
     (None: the identity, as in eval). ``adapt`` adds the AdapterBit
-    bottlenecks (``attn.adapter``, ``mlp.adapter``)."""
+    bottlenecks (``attn.adapter``, ``mlp.adapter``, ``mlp.adapter_ds``) or
+    the LoRA terms. ``drops``: the dropout masks in train mode."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int], num_heads: int,
                  window_size: int = 8, shift_size: int = 0, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, adapt: AdaptConfig = NO_ADAPT):
+                 qkv_bias: bool = True, adapt: AdaptConfig = NO_ADAPT, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         self.dim, self.input_resolution = dim, tuple(input_resolution)
         self.num_heads = num_heads
@@ -136,15 +156,17 @@ class SwinTransformerBlock(nn.Module):
         self.window_size, self.shift_size = window_and_shift(H, W, window_size,
                                                              shift_size)
         self.norm1 = LayerNorm(dim)
-        self.attn = WindowAttention(dim, self.window_size, num_heads, qkv_bias, adapt)
+        self.attn = WindowAttention(dim, self.window_size, num_heads, qkv_bias, adapt,
+                                    attn_drop=attn_drop, proj_drop=drop)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, adapt)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, adapt, drop=drop)
         mask = (torch.as_tensor(shift_attn_mask(H, W, self.window_size,
                                                 self.shift_size))
                 if self.shift_size > 0 else None)
         self.register_buffer("attn_mask", mask, persistent=False)
 
-    def forward(self, x: torch.Tensor, dp_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dp_masks: Optional[torch.Tensor] = None,
+                drops: Optional[DropoutDraws] = None) -> torch.Tensor:
         H, W = self.input_resolution
         w, shift = self.window_size, self.shift_size
         B, L, C = x.shape
@@ -152,27 +174,29 @@ class SwinTransformerBlock(nn.Module):
         h = self.norm1(x).reshape(B, H, W, C)
         if shift > 0:
             h = torch.roll(h, shifts=(-shift, -shift), dims=(1, 2))
-        h = self.attn(window_partition(h, w), self.attn_mask)
+        h = self.attn(window_partition(h, w), self.attn_mask, drops)
         h = window_reverse(h, w, H, W)
         if shift > 0:
             h = torch.roll(h, shifts=(shift, shift), dims=(1, 2))
         h = h.reshape(B, H * W, C)
         if dp_masks is None:
             x = shortcut + h
-            return x + self.mlp(self.norm2(x))
+            return x + self.mlp(self.norm2(x), drops)
         m = dp_masks.to(h.dtype)
         x = shortcut + m[:, 0, None, None] * h
-        return x + m[:, 1, None, None] * self.mlp(self.norm2(x))
+        return x + m[:, 1, None, None] * self.mlp(self.norm2(x), drops)
 
 
 class PatchMerging(nn.Module):
-    """2x2 token merge + linear reduction (htsat.py:272-311)."""
+    """2x2 token merge + linear reduction (htsat.py:272-311), with the
+    config's LoRA term."""
 
-    def __init__(self, input_resolution: Tuple[int, int], dim: int):
+    def __init__(self, input_resolution: Tuple[int, int], dim: int,
+                 adapt: AdaptConfig = NO_ADAPT):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
         self.norm = LayerNorm(4 * dim)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = AdaptDense(4 * dim, 2 * dim, bias=False, **adapt.lora_linear_args())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         H, W = self.input_resolution
@@ -189,20 +213,22 @@ class BasicLayer(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int], depth: int,
                  num_heads: int, window_size: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, downsample: bool = False,
-                 adapt: AdaptConfig = NO_ADAPT):
+                 adapt: AdaptConfig = NO_ADAPT, drop: float = 0.0, attn_drop: float = 0.0):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(dim, input_resolution, num_heads, window_size,
                                  shift_size=0 if i % 2 == 0 else window_size // 2,
-                                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, adapt=adapt)
+                                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, adapt=adapt,
+                                 drop=drop, attn_drop=attn_drop)
             for i in range(depth)])
-        self.downsample = (PatchMerging(input_resolution, dim)
+        self.downsample = (PatchMerging(input_resolution, dim, adapt)
                            if downsample else None)
 
     def forward(self, x: torch.Tensor,
-                dp_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                dp_masks: Optional[Sequence[torch.Tensor]] = None,
+                drops: Optional[DropoutDraws] = None) -> torch.Tensor:
         for i, blk in enumerate(self.blocks):
-            x = blk(x, None if dp_masks is None else dp_masks[i])
+            x = blk(x, None if dp_masks is None else dp_masks[i], drops)
         if self.downsample is not None:
             x = self.downsample(x)
         return x
@@ -234,13 +260,14 @@ class HTSATEncoder(nn.Module):
         self.num_heads, self.window_size = tuple(num_heads), window_size
         self.patch_embed = PatchEmbed((spec_size, spec_size), (patch_size, patch_size),
                                       self.patch_stride, in_chans, embed_dim,
-                                      use_norm=patch_norm)
+                                      use_norm=patch_norm, adapt=adapt)
         grid = (spec_size // self.patch_stride[0], spec_size // self.patch_stride[1])
         self.layers = nn.ModuleList([
             BasicLayer(int(embed_dim * 2 ** i),
                        (grid[0] // 2 ** i, grid[1] // 2 ** i), self.depths[i],
                        self.num_heads[i], window_size, mlp_ratio, qkv_bias,
-                       downsample=i < self.num_layers - 1, adapt=adapt)
+                       downsample=i < self.num_layers - 1, adapt=adapt,
+                       drop=self.drop_rate, attn_drop=self.attn_drop_rate)
             for i in range(self.num_layers)])
         self.norm = LayerNorm(self.num_features)
 
@@ -277,17 +304,20 @@ class HTSATEncoder(nn.Module):
         x = x.reshape(B, C, Fq, r, target_T // r).transpose(2, 3)
         return x.reshape(B, C, r * Fq, target_T // r)
 
-    def embed(self, x: torch.Tensor) -> torch.Tensor:
-        """reshape_wav2img + the patch embed: (B, C, T, F) -> stage-0 tokens
-        (the reference's forward_patch, htsat.py:547-553; position dropout
-        is not ported)."""
-        return self.patch_embed(self.reshape_wav2img(x))
+    def embed(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
+        """reshape_wav2img + the patch embed + position dropout (train
+        mode, ``drop_rate``): (B, C, T, F) -> stage-0 tokens (the
+        reference's forward_patch, htsat.py:547-553 with pos_drop)."""
+        x = self.patch_embed(self.reshape_wav2img(x))
+        return dropout(x, self.drop_rate, drops, self.training)
 
     def run_stage(self, i: int, x: torch.Tensor,
-                  dp_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                  dp_masks: Optional[Sequence[torch.Tensor]] = None,
+                  drops: Optional[DropoutDraws] = None) -> torch.Tensor:
         """Stage ``i``'s blocks and its PatchMerging; ``dp_masks``: one (B, 2)
-        mask per block of the stage (train mode)."""
-        return self.layers[i](x, dp_masks)
+        mask per block of the stage, ``drops`` the dropout masks (train
+        mode)."""
+        return self.layers[i](x, dp_masks, drops)
 
     def stage_masks(self, dp_masks: Optional[Sequence[torch.Tensor]]
                     ) -> List[Optional[Sequence[torch.Tensor]]]:
@@ -318,20 +348,12 @@ class HTSATEncoder(nn.Module):
         (reference htsat.py:446-447)."""
         return [float(r) for r in np.linspace(0, self.drop_path_rate, sum(self.depths))]
 
-    def check_trainable(self) -> None:
-        """Train mode ports drop-path only."""
-        if self.drop_rate or self.attn_drop_rate:
-            raise NotImplementedError(
-                f"training with drop_rate={self.drop_rate} / attn_drop_rate="
-                f"{self.attn_drop_rate}: only drop-path is ported (the published "
-                "HTSAT configuration sets both to 0)")
-
     def forward(self, x: torch.Tensor,
-                dp_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        """``dp_masks``: one (B, 2) mask per block, in order (train mode)."""
-        if self.training:
-            self.check_trainable()
-        x = self.embed(x)
+                dp_masks: Optional[Sequence[torch.Tensor]] = None,
+                drops: Optional[DropoutDraws] = None) -> torch.Tensor:
+        """``dp_masks``: one (B, 2) mask per block, in order; ``drops``: the
+        dropout masks (train mode)."""
+        x = self.embed(x, drops)
         for i, masks in enumerate(self.stage_masks(dp_masks)):
-            x = self.run_stage(i, x, masks)
+            x = self.run_stage(i, x, masks, drops)
         return self.finalize(x)

@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..models.adapters import check_kernels
 from ._cuda import CudaKernel, check_cuda_tensor, i32, ptr
 
 KERNEL = CudaKernel("patch_embed.cu", {
@@ -62,9 +63,10 @@ class PatchEmbedParams:
 def prepare_patch_embed(enc, compute_dtype: torch.dtype = torch.bfloat16) -> PatchEmbedParams:
     """K8's weights from an HTSAT encoder (models.htsat.HTSATEncoder);
     raises unless the patch embed is the 4 x 4 stride-4 one the kernel
-    takes."""
+    takes, without LoRA."""
     if enc.patch_size != 4 or tuple(enc.patch_stride) != (4, 4):
         raise NotImplementedError("the fused forward takes the 4x4/4 patch embed")
+    check_kernels(enc.patch_embed)
     proj, norm = enc.patch_embed.proj, enc.patch_embed.norm
     E = proj.weight.shape[0]
     with torch.no_grad():

@@ -47,6 +47,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..models.adapters import check_kernels
 from ..models.htsat import SwinTransformerBlock, window_partition, window_reverse
 from . import swin_fwd_plan as plan
 from ._cuda import CudaKernel, check_cuda_tensor, f32, i32, ptr
@@ -138,6 +139,7 @@ def prepare_adapt_block(block: SwinTransformerBlock,
     ads = block_adapters(block)
     if not ads:
         raise ValueError("the block carries no adapter: use ops.swin_block")
+    check_kernels(block)
     scales = {m.scale for m in ads.values()}
     if len(scales) != 1:
         raise ValueError(f"the block's adapters have different scalars {sorted(scales)}")

@@ -22,11 +22,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..models.adapters import check_kernels
 from . import swin_fwd_plan as plan
 from ._cuda import CudaKernel, check_cuda_tensor, i32, ptr
 from .swin_block import (SwinBlockParams, check_aligned, prepare_block, swin_block_plain,
                          tiles_for)
-from .swin_block_adapt import has_adapters
 
 KERNEL = CudaKernel("swin_stage.cu", {
     "swin_stage_forward": [ptr] * 22 + [i32] * 15 + [ptr],
@@ -95,9 +95,8 @@ def prepare_stage(layer, compute_dtype: torch.dtype) -> StageParams:
     stage kernels have none), on blocks of differing geometry and on shifts
     other than 0 and one base shift."""
     blocks = list(layer.blocks)
-    if any(has_adapters(b) for b in blocks):
-        raise NotImplementedError("the whole-stage kernel has no adapters: serve an "
-                                  "AdapterBit model with swin='block'")
+    for b in blocks:
+        check_kernels(b, adapters=False)
     ps = [prepare_block(b, compute_dtype) for b in blocks]
     geo = {(p.H, p.W, p.nh, p.window, p.C, p.fc1_w.shape[1]) for p in ps}
     if len(geo) != 1:

@@ -30,12 +30,12 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..models.adapters import check_kernels
 from ..models.einv2_heads import HTSAT, SED_IN_CHANNELS
 from ..models.htsat import HTSATEncoder
 from ..ops.patch_embed import (PatchEmbedParams, patch_embed_tokens,
                                patch_embed_tokens_plain, prepare_patch_embed)
 from ..ops.swin_block import SwinBlockParams, swin_block_fused, swin_block_plain
-from ..ops.swin_block_adapt import has_adapters
 from .htsat import (clip_features, embed_tokens, head_tail, normalized_input, prepare_blocks,
                     run_blocks)
 
@@ -58,11 +58,10 @@ class Einv2Params:
 def prepare_einv2(model: HTSAT, compute_dtype: torch.dtype = torch.bfloat16) -> Einv2Params:
     """Both encoders' kernel-layout weights: K2's per block, K8's for the
     DOA branch's embed (the SED branch takes the einsum embed). Raises on
-    an encoder with adapters."""
-    encs = (model.sed_encoder, model.doa_encoder)
-    if any(has_adapters(b) for enc in encs for layer in enc.layers for b in layer.blocks):
-        raise NotImplementedError("the fused EINV2 forward takes no adapters (nor does the "
-                                  "JAX package's)")
+    an encoder with adapters or LoRA, which the JAX package's EINV2 forward
+    takes neither."""
+    for enc in (model.sed_encoder, model.doa_encoder):
+        check_kernels(enc, adapters=False)
     return Einv2Params(sed=Einv2Branch(prepare_blocks(model.sed_encoder, compute_dtype), None),
                        doa=Einv2Branch(prepare_blocks(model.doa_encoder, compute_dtype),
                                        prepare_patch_embed(model.doa_encoder, compute_dtype)))

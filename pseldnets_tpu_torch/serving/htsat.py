@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..models.adapters import check_kernels
 from ..models.common import _linear_upsample_matrix, layer_norm
 from ..models.heads import HTSAT, concat_5s
 from ..models.htsat import HTSATEncoder, PatchMerging
@@ -51,8 +52,9 @@ from ..ops.patch_embed import (PatchEmbedParams, patch_embed_tokens,
                                patch_embed_tokens_plain, prepare_patch_embed)
 from ..ops.swin_block import (SwinBlockParams, prepare_block, swin_block_fused,
                               swin_block_plain)
-from ..ops.swin_block_adapt import (AdaptBlockParams, has_adapters, prepare_adapt_block,
-                                    swin_block_adapt_fused, swin_block_adapt_plain)
+from ..ops.swin_block_adapt import (AdaptBlockParams, has_adapters,
+                                    prepare_adapt_block, swin_block_adapt_fused,
+                                    swin_block_adapt_plain)
 from ..ops.swin_stage import (StageParams, prepare_stage, swin_stage_fused_v2,
                               swin_stage_plain)
 
@@ -68,6 +70,7 @@ def prepare_blocks(enc: HTSATEncoder,
     out = []
     for layer in enc.layers:
         for j, blk in enumerate(layer.blocks):
+            check_kernels(blk)
             if has_adapters(blk):
                 out.append(prepare_adapt_block(blk, compute_dtype))
                 continue
@@ -117,6 +120,7 @@ def embed_tokens(enc: HTSATEncoder, x: torch.Tensor,
     sh, sw = enc.patch_stride
     if enc.patch_size != 4 or (sh, sw) != (4, 4):
         raise NotImplementedError("the fused forward takes the 4x4/4 patch embed")
+    check_kernels(enc.patch_embed)
     Bc, Cc, Tcur, Fc = x.shape
     x = F.pad(x.to(compute_dtype), (0, 0, 0, spec_size * fr - Tcur))
     x7 = x.reshape(Bc, Cc, fr, spec_size // sw, sw, Fc // sh, sh)
@@ -159,9 +163,7 @@ def htsat_fused_forward(model: HTSAT, x: torch.Tensor, *,
     if swin not in SWINS:
         raise NotImplementedError(f"swin={swin!r}: the port takes {SWINS}")
     if swin == "stage":
-        if any(has_adapters(b) for layer in enc.layers for b in layer.blocks):
-            raise NotImplementedError("swin='stage' has no adapters (nor have the JAX "
-                                      "package's stage kernels): use swin='block'")
+        check_kernels(enc, adapters=False)  # an AdapterBit model serves with swin='block'
         if stages is None:
             stages = prepare_stages(enc, cd)
     elif blocks is None:

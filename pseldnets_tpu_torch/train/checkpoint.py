@@ -130,10 +130,24 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return flat
 
 
+_LORA = ("lora_A", "lora_B")
+
+
+def _torch_key(path: Tuple[str, ...], val: np.ndarray) -> Optional[str]:
+    """A leaf's torch key: ``flax_to_torch_key``, plus ``.weight`` for a
+    conv LoRA factor (4-D), which the port and the reference hold as a
+    Conv2d (the suffix the JAX loader adds, checkpoint.py:264-269)."""
+    key = flax_to_torch_key(path)
+    return f"{key}.weight" if path[-1] in _LORA and np.ndim(val) == 4 else key
+
+
 def _to_torch_value(path: Tuple[str, ...], val: np.ndarray) -> np.ndarray:
     """Invert the JAX package's _to_flax_value layout rules for one leaf."""
     v = np.array(val, dtype=np.float32)  # a writable copy
-    if path[-1] == "kernel":
+    if path[-1] in _LORA:
+        # dense (in, r) / (r, out) -> (r, in) / (out, r); conv HWIO -> OIHW
+        v = v.T if v.ndim == 2 else v.transpose(3, 2, 0, 1)
+    elif path[-1] == "kernel":
         if v.ndim == 2 and len(path) >= 2 and path[-2] in _POINTWISE:
             v = v.T[:, :, None]  # Dense (in, out) -> pointwise Conv1d (out, in, 1)
         elif v.ndim == 2:
@@ -191,7 +205,7 @@ def jax_to_torch_state_dict(variables: Mapping,
     for coll in ("params", "batch_stats"):
         for path, val in _flatten(variables.get(coll, {})).items():
             piece = _attention_piece(path)
-            key = flax_to_torch_key(path) if piece is None else piece[0]
+            key = _torch_key(path, val) if piece is None else piece[0]
             if key is None:
                 raise KeyError(f"no torch key for {coll}/{'/'.join(path)}")
             if piece is not None and piece[2] >= 0:

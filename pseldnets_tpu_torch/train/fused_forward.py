@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..models.adapters import kernel_refusal
 from ..models.heads import HTSAT, concat_5s
 from ..models.common import drop_path_masks
 from ..ops.swin_block_adapt import has_adapters, swin_block_adapt_train
@@ -33,9 +34,10 @@ __all__ = ["supports_fused_train", "drop_path_masks", "htsat_fused_train_forward
 
 
 def supports_fused_train(model) -> bool:
-    """An HTSAT whose adapters the kernels run (``AdaptConfig.kernels_support``)
-    with zero attention / projection / position dropout."""
-    if not isinstance(model, HTSAT) or not model.adapt.kernels_support():
+    """An HTSAT whose adapters the kernels run (``kernel_refusal``: no LoRA,
+    no eager-only adapter setting) with zero attention / projection
+    / position dropout (the JAX package's train/fused_forward.py:34-44)."""
+    if not isinstance(model, HTSAT) or kernel_refusal(model) is not None:
         return False
     enc = model.encoder
     return enc.drop_rate == 0.0 and enc.attn_drop_rate == 0.0
@@ -52,8 +54,10 @@ def htsat_fused_train_forward(model: HTSAT, feats: torch.Tensor, *,
     head's output dict and the ScalarBN's new ``running_mean`` /
     ``running_var`` (not yet written into the model). ``use_kernels=False``
     runs the kernels' plain versions on the same device."""
+    if not supports_fused_train(model):
+        raise ValueError("the fused training forward takes an HTSAT without LoRA, eager-only "
+                         "adapter settings or dropout")
     enc = model.encoder
-    enc.check_trainable()
     cd = compute_dtype
     B = feats.shape[0]
     x, output_frames, five_sec = concat_5s(feats, model.pred_res, model.tgt_output_frames)

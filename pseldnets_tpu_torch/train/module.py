@@ -33,13 +33,17 @@ chain for each AugMix copy, from the task's ``torch.Generator``
 PaSST (single head and EINV2) trains eagerly, as in the JAX package
 (:312-315): its patchout draws (the time-pos-embed crop, the three
 patchout forms, position dropout; ``patchout_draws``) and drop-path masks
-come from the step's ``generator`` unless injected.
+come from the step's ``generator`` unless injected. So do the dropout
+masks (``dropout_draws``, models/common.py ``DropoutDraws``) of the CRNN's
+conformer or transformer decoder (rate 0.1, the shipped ``model=crnn``),
+of an HTSAT with ``drop_rate``/``attn_drop_rate`` and of the EINV2 heads'
+decoders. An HTSAT with LoRA or an eager-only adapter setting (a learnable
+``adapter_scalar``, ``new_adapter``, a non-gelu ``act_layer``) or a drop
+rate trains and evaluates on the eager modules, as the JAX package routes
+it (:137-151, :337-374); ``trainer.fused_forward=true`` refuses it.
 
 Not in this slice, and raising with the ROADMAP.md queue A step that brings
-them: tensor parallelism (``trainer.tensor_parallel`` > 1: step 11),
-LoRA and the eager-only adapter settings (models/adapters.py: step 6) and a
-conformer or transformer decoder that trains with dropout
-(models/common.py ``check_no_dropout``: step 9).
+it: tensor parallelism (``trainer.tensor_parallel`` > 1: step 11).
 
 The step comes in two halves, as in the JAX task (:473-506):
 ``prepare_batch`` takes the loader's batch to the device (on the card from
@@ -80,13 +84,13 @@ from ..augment import (Crop, FreqShift, Rotation, RotationDevice, SpecAugment,
                        TrackMixDevice, WavMix)
 from ..losses import build_loss
 from ..models import build_model, einv2_heads, heads
+from ..models.adapters import kernel_refusal
 from ..models.common import NO_DECODER
 from ..models.factory import init_weights
 from ..models.heads import HTSAT
 from ..ops._cuda import resolve_device
 from ..ops.features import LogmelIVExtractor, make_extractor
 from ..ops.frontend import frontend_route
-from ..ops.swin_block_adapt import has_adapters
 from .checkpoint import (is_training_ckpt, load_pretrained, load_seld_inference_ckpt,
                          restore_training_ckpt)
 from .fused_forward import htsat_fused_train_forward, supports_fused_train
@@ -137,8 +141,9 @@ class PreparedBatch:
     ov1_mask: Optional[torch.Tensor] = None
 
 
-# the heads with drop-path, which take masks or a generator; of them only
-# the PaSST heads take patchout draws
+# the heads with drop-path, which take its masks; every head takes the
+# step's generator and injected dropout masks, only the PaSST heads
+# patchout draws
 _DROP_PATH_HEADS = (HTSAT, einv2_heads.HTSAT, einv2_heads.HTSAT_SEDDOA, heads.PASST,
                     einv2_heads.PASST)
 
@@ -193,7 +198,9 @@ class SELDTask:
             self.fused_forward = _truthy(ff)
             if self.fused_forward and not supports_fused_train(self.model):
                 raise ValueError("trainer.fused_forward=true requires an HTSAT with zero "
-                                 "attention / projection / position dropout")
+                                 "attention / projection / position dropout and no LoRA or "
+                                 "eager-only adapter setting (constant-scalar gelu adapters "
+                                 "run on the kernels)")
         named = list(self.model.named_parameters())
         self.names: List[str] = [n for n, _ in named]
         self.params: List[torch.nn.Parameter] = [p for _, p in named]
@@ -298,41 +305,52 @@ class SELDTask:
 
     def forward_train(self, feats: torch.Tensor, generator: Optional[torch.Generator] = None,
                       dp_masks: Optional[Sequence[torch.Tensor]] = None,
-                      patchout_draws=None
+                      patchout_draws=None, dropout_draws=None
                       ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
         """Train-mode forward, drop-path masks given (``dp_masks``, one (B',
         2) float32 mask per block; for the EINV2 HTSAT and PaSST a pair of
         such lists, SED encoder's and DOA encoder's) or drawn from
         ``generator`` (the HTSAT and PaSST heads only: the others have no
         drop-path); PaSST's patchout draws (``patchout_draws``: a
-        ``models.passt.PatchoutDraws``, for the EINV2 PaSST a pair) likewise,
-        passed on only when given (any other forward refuses the keyword):
-        (preds, ScalarBN update), the update None on the eager path, whose
-        BatchNorm writes its statistics itself."""
+        ``models.passt.PatchoutDraws``, for the EINV2 PaSST a pair) and the
+        dropout masks (``dropout_draws``: a ``models.common.DropoutDraws``
+        or the list of keep-masks in the forward's call order) likewise,
+        passed on only when given: (preds, ScalarBN update), the update
+        None on the eager path, whose BatchNorm writes its statistics
+        itself."""
         self.model.train()
-        extra = {} if patchout_draws is None else {"patchout_draws": patchout_draws}
         if self.fused_forward:
+            if patchout_draws is not None or dropout_draws is not None:
+                raise ValueError("the fused HTSAT forward takes no patchout draws and has no "
+                                 "dropout")
             return htsat_fused_train_forward(self.model, feats, dp_masks=dp_masks,
                                              generator=generator,
                                              compute_dtype=self.compute_dtype,
-                                             use_kernels=self.use_kernels, **extra)
+                                             use_kernels=self.use_kernels)
+        kw = {"generator": generator}
+        if patchout_draws is not None:
+            kw["patchout_draws"] = patchout_draws
+        if dropout_draws is not None:
+            kw["dropout_draws"] = dropout_draws
+        if isinstance(self.model, _DROP_PATH_HEADS):
+            kw["dp_masks"] = dp_masks
+        elif dp_masks is not None:
+            raise ValueError(f"{type(self.model).__name__} takes no drop-path masks")
         with torch.autocast(device_type=self.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
-            if isinstance(self.model, _DROP_PATH_HEADS):
-                return self.model(feats, dp_masks=dp_masks, generator=generator, **extra), None
-            if dp_masks is not None:
-                raise ValueError(f"{type(self.model).__name__} takes no drop-path masks")
-            return self.model(feats, **extra), None
+            return self.model(feats, **kw), None
 
     def compute_grads(self, batch_x, targets: Dict, generator: Optional[torch.Generator] = None,
                       dp_masks: Optional[Sequence[torch.Tensor]] = None,
-                      aug_draws: Optional[Dict] = None, patchout_draws=None):
+                      aug_draws: Optional[Dict] = None, patchout_draws=None,
+                      dropout_draws=None):
         """Host augmentation -> frontend -> TF chain -> forward -> loss ->
         grads of ``self.trained`` (the frozen parameters get none); returns
         (losses, grads, ScalarBN update or None). Changes no parameter.
         ``targets`` may carry the batch's ``ov`` list."""
         prepared = self._on_step_stream(self.prepare_batch({"data": batch_x, **targets}))
-        return self._grads(prepared, generator, dp_masks, aug_draws, patchout_draws)
+        return self._grads(prepared, generator, dp_masks, aug_draws, patchout_draws,
+                           dropout_draws)
 
     def step_inputs(self, prepared: PreparedBatch, aug_draws: Optional[Dict] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -391,18 +409,19 @@ class SELDTask:
         return feats, targets
 
     def _grads(self, prepared: PreparedBatch, generator: Optional[torch.Generator], dp_masks,
-               aug_draws: Optional[Dict] = None, patchout_draws=None):
+               aug_draws: Optional[Dict] = None, patchout_draws=None, dropout_draws=None):
         feats, tgt = self.step_inputs(prepared, aug_draws)
-        return self.grads_on(feats, tgt, generator, dp_masks, patchout_draws)
+        return self.grads_on(feats, tgt, generator, dp_masks, patchout_draws, dropout_draws)
 
     def grads_on(self, feats: torch.Tensor, tgt: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None,
-                 dp_masks: Optional[Sequence[torch.Tensor]] = None, patchout_draws=None):
+                 dp_masks: Optional[Sequence[torch.Tensor]] = None, patchout_draws=None,
+                 dropout_draws=None):
         """Forward -> loss -> grads on given (augmented) features: (losses,
         grads, ScalarBN update or None). Outputs whose frames are not the
         labels' raise (PaSST's time patchout drops output frames; the JAX
         step fails there in its loss)."""
-        preds, bs = self.forward_train(feats, generator, dp_masks, patchout_draws)
+        preds, bs = self.forward_train(feats, generator, dp_masks, patchout_draws, dropout_draws)
         _check_frames(preds, tgt)
         losses = self.loss(preds, tgt)
         grads = torch.autograd.grad(losses[self.loss_type], self.trained, allow_unused=True)
@@ -411,17 +430,19 @@ class SELDTask:
 
     def train_step(self, batch_x, targets: Dict, generator: Optional[torch.Generator] = None,
                    dp_masks: Optional[Sequence[torch.Tensor]] = None,
-                   aug_draws: Optional[Dict] = None, patchout_draws=None) -> Dict[str, Any]:
+                   aug_draws: Optional[Dict] = None, patchout_draws=None,
+                   dropout_draws=None) -> Dict[str, Any]:
         """One optimizer step on a batch: FOA waveforms (B, 4, samples) and
         label arrays (``adpit_label``, ``accdoa_label``, or for the EINV2
         heads ``sed_label`` (B, T, 3, K) and ``doa_label`` (B, T, 3, 3)),
-        and where given the batch's ``ov`` list. Drop-path masks and
-        PaSST's patchout draws are ``dp_masks`` and ``patchout_draws`` or
-        come from ``generator``. Returns the losses as device tensors (no
+        and where given the batch's ``ov`` list. Drop-path masks, PaSST's
+        patchout draws and the dropout masks are ``dp_masks``,
+        ``patchout_draws`` and ``dropout_draws`` or come from
+        ``generator``. Returns the losses as device tensors (no
         host synchronization)."""
         prepared = self.prepare_batch({"data": batch_x, **targets})
         return self.train_step_prepared(prepared, generator, dp_masks, aug_draws,
-                                        patchout_draws)[0]
+                                        patchout_draws, dropout_draws)[0]
 
     def _host_to_device(self, v) -> torch.Tensor:
         """One host array or tensor on the task's device (float32, booleans
@@ -535,7 +556,8 @@ class SELDTask:
     def train_step_prepared(self, prepared: PreparedBatch,
                             generator: Optional[torch.Generator] = None,
                             dp_masks: Optional[Sequence[torch.Tensor]] = None,
-                            aug_draws: Optional[Dict] = None, patchout_draws=None
+                            aug_draws: Optional[Dict] = None, patchout_draws=None,
+                            dropout_draws=None
                             ) -> Tuple[Dict[str, Any], Optional[List[str]]]:
         """The device half of a step over a ``prepare_batch`` result, on the
         step's stream once the batch's copy is done. -> (losses as device
@@ -543,7 +565,8 @@ class SELDTask:
         if self.state is None:
             raise RuntimeError("call init_state() first")
         self._on_step_stream(prepared)
-        losses, grads, bs = self._grads(prepared, generator, dp_masks, aug_draws, patchout_draws)
+        losses, grads, bs = self._grads(prepared, generator, dp_masks, aug_draws, patchout_draws,
+                                        dropout_draws)
         optimizer_step(self.state.optimizer, self.trained, grads, self.state.step, self.max_norm)
         if bs is not None:
             with torch.no_grad():
@@ -557,15 +580,15 @@ class SELDTask:
     def eval_route(self) -> str:
         """The eval forward this model takes (the JAX package's
         ``_select_fused_eval``, module.py:337-374, on every device): "htsat",
-        "passt", "einv2", "crnn" or "eager"."""
+        "passt", "einv2", "crnn" or "eager" (an HTSAT with LoRA or an
+        eager-only adapter setting, the EINV2 HTSAT with adapters or LoRA,
+        the other heads)."""
         m = self.model
-        if isinstance(m, heads.HTSAT) and m.adapt.kernels_support():
+        if isinstance(m, heads.HTSAT) and kernel_refusal(m) is None:
             return "htsat"
         if isinstance(m, heads.PASST):
             return "passt"
-        if isinstance(m, einv2_heads.HTSAT) and not any(
-                has_adapters(b) for enc in (m.sed_encoder, m.doa_encoder)
-                for layer in enc.layers for b in layer.blocks):
+        if isinstance(m, einv2_heads.HTSAT) and kernel_refusal(m, adapters=False) is None:
             return "einv2"
         if isinstance(m, heads.CRNN) and (m.decoder_kind == "conformer"
                                           or m.decoder_kind in NO_DECODER):

@@ -17,6 +17,7 @@ from pseldnets_tpu_torch.models.factory import init_weights
 from pseldnets_tpu_torch.models.htsat import SwinTransformerBlock
 from pseldnets_tpu_torch.ops import swin_block, swin_block_adapt as sa
 from pseldnets_tpu_torch.ops import swin_fwd_plan as plan
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 # HTSAT's stages: (H = W, C, nh); hidden 4 C, the adapter C / 2 padded to 32
 STAGES = ((64, 96, 4), (32, 192, 8), (16, 384, 16), (8, 768, 32))

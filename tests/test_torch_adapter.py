@@ -21,12 +21,13 @@ from pseldnets_tpu.serving import htsat_fused_forward_from_wav as jax_from_wav
 from pseldnets_tpu.train.module import SELDTask as JaxTask
 from pseldnets_tpu_torch.config import compose
 from pseldnets_tpu_torch.models import build_model, heads
-from pseldnets_tpu_torch.models.adapters import AdaptConfig, Adapter
+from pseldnets_tpu_torch.models.adapters import AdaptConfig, Adapter, kernel_refusal
 from pseldnets_tpu_torch.models.htsat import SwinTransformerBlock
 from pseldnets_tpu_torch.ops import swin_block, swin_block_adapt
 from pseldnets_tpu_torch.serving import htsat_fused_forward_from_wav, prepare_blocks
 from pseldnets_tpu_torch.train.checkpoint import jax_to_torch_state_dict, load_jax_variables
 from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_htsat import ENC, FE
 from test_torch_swin_block import randomize
 from test_torch_swin_vjp import PARAM_NAMES, _masks
@@ -385,24 +386,58 @@ def test_layer_norm_with_frozen_scale_trains_its_shift(rng):
     assert torch.allclose(gb_fn, gb_ref, atol=1e-6)
 
 
+def _refusal(cfg, adapters=True):
+    """``kernel_refusal`` of a tiny block built with adapt config ``cfg``."""
+    return kernel_refusal(SwinTransformerBlock(C, (H, W), NH, WIN, adapt=AdaptConfig(cfg)),
+                          adapters)
+
+
 def test_kernels_support_coerces_the_scalar():
-    """adapter_scalar as a numeric string (a command-line override) runs on
-    the kernels; a bool, the learnable keyword, new_adapter, a non-gelu
-    activation and LoRA raise naming queue A step 6."""
+    """adapter_scalar as a numeric string (a command-line override) or a
+    bool builds the constant float(value) the JAX Adapter takes, and the
+    kernels run such a block (``kernel_refusal`` is None); the JAX
+    AdaptConfig's kernels_support sends a numeric string to its eager
+    modules and a bool to its kernels, the same arithmetic either way. The
+    learnable keyword, new_adapter, a non-gelu activation and LoRA build the
+    JAX forms (the learnable scale a parameter of ones; None raises
+    TypeError in both) and run on the eager modules, where the JAX
+    AdaptConfig's kernels_support sends them too; a route that takes no
+    adapter (K11's stages, the EINV2 forward) refuses any adapter."""
     ok = AdaptConfig(_adapt_cfg(BOTH, "0.1"))
-    assert ok.kernels_support() and ok.adapter_args() == {"mlp_ratio": 0.5, "adapter_scalar": 0.1}
+    assert ok.adapter_args() == {"mlp_ratio": 0.5, "adapter_scalar": 0.1, "act_layer": "gelu"}
+    assert _refusal(_adapt_cfg(BOTH, "0.1")) is None
+    assert not JaxAdaptConfig(_adapt_cfg(BOTH, "0.1")).kernels_support()
+    assert "adapters" in _refusal(_adapt_cfg(BOTH, "0.1"), adapters=False)
     assert AdaptConfig(_adapt_cfg(BOTH, 1)).adapter_args()["adapter_scalar"] == 1.0
-    assert AdaptConfig(None).kernels_support() and not AdaptConfig(None).mlp_adapter
-    for bad in (True, "learnable_scalar", None):
-        with pytest.raises(NotImplementedError, match="queue A step 6"):
-            AdaptConfig(_adapt_cfg(BOTH, bad))
-    for kw in ({"act_layer": "relu"}, {"new_adapter": {"mlp_ratio": 0.25}}):
+    assert _refusal(None) is None and _refusal(None, adapters=False) is None
+    assert not AdaptConfig(None).mlp_adapter
+    assert Adapter(8, **AdaptConfig(_adapt_cfg(BOTH, True)).adapter_args()).scale == 1.0
+    assert _refusal(_adapt_cfg(BOTH, True)) is None
+    assert JaxAdaptConfig(_adapt_cfg(BOTH, True)).kernels_support()
+    learnable_cfg = _adapt_cfg(BOTH, "learnable_scalar")
+    assert "learnable" in _refusal(learnable_cfg)
+    assert not JaxAdaptConfig(learnable_cfg).kernels_support()
+    learnable = Adapter(8, **AdaptConfig(learnable_cfg).adapter_args())
+    assert learnable.scale is None
+    assert torch.equal(learnable.weight, torch.ones(1)) and learnable.weight.requires_grad
+    with pytest.raises(TypeError):
+        AdaptConfig(_adapt_cfg(BOTH, None)).adapter_args()
+    with pytest.raises(TypeError):
+        float(JaxAdaptConfig(_adapt_cfg(BOTH, None)).adapter_args()["adapter_scalar"])
+    for kw, why in (({"act_layer": "relu"}, "non-gelu"),
+                    ({"new_adapter": {"mlp_ratio": 0.25}}, "new_adapter")):
         cfg = _adapt_cfg(BOTH)
         cfg["adapt_kwargs"].update(kw)
-        with pytest.raises(NotImplementedError, match="queue A step 6"):
-            AdaptConfig(cfg)
-    with pytest.raises(NotImplementedError, match="queue A step 6"):
-        AdaptConfig({"method": "lora"})
+        assert why in _refusal(cfg)
+        assert not JaxAdaptConfig(cfg).kernels_support()
+    assert AdaptConfig(cfg).ds_adapter_args() == {"mlp_ratio": 0.25, "adapter_scalar": 1.0,
+                                                  "act_layer": "gelu"}
+    lora_cfg = {"method": "lora", "linear_kwargs": {"r": 16, "lora_alpha": 1}}
+    lora = AdaptConfig(lora_cfg)
+    assert "LoRA" in _refusal(lora_cfg) and not JaxAdaptConfig(lora_cfg).kernels_support()
+    assert lora.lora_linear_args() == {"lora_r": 16, "lora_alpha": 1.0}
+    assert lora.lora_conv_args() == {"lora_r": 0, "lora_alpha": 1.0}
+    assert AdaptConfig(None).lora_linear_args() == {"lora_r": 0}
 
 
 def test_adapterbit_model_builds_with_zero_adapters():

@@ -25,6 +25,7 @@ from pseldnets_tpu_torch.augment.tf_device import beta
 from pseldnets_tpu_torch.config import compose
 from pseldnets_tpu_torch.train.checkpoint import jax_to_torch_state_dict, load_jax_variables
 from pseldnets_tpu_torch.train.module import TF_AUG_ORDER, DatasetSpec, SELDTask
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_train import TINY_TASK, _JaxSpec
 
 ROOT = Path(__file__).resolve().parents[1]

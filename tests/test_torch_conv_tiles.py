@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from pseldnets_tpu_torch.ops import conv_block
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 # (T, F) of the CNN12 trunk's six ConvBlocks at 10 s, then ragged shapes
 TRUNK = ((1001, 64, 8, 64), (500, 32, 64, 128), (250, 16, 128, 256), (125, 8, 256, 512),

@@ -21,11 +21,14 @@ from pseldnets_tpu.serving import crnn_fused_forward_from_wav as jax_from_wav
 from pseldnets_tpu.train.checkpoint import flax_to_torch_key as jax_key
 from pseldnets_tpu_torch.config import compose
 from pseldnets_tpu_torch.models import build_model, heads
+from pseldnets_tpu_torch.models.common import DropoutDraws
 from pseldnets_tpu_torch.ops import conv_block, frontend
 from pseldnets_tpu_torch.serving import (crnn_fused_forward, crnn_fused_forward_from_wav,
                                          prepare_crnn)
 from pseldnets_tpu_torch.train.checkpoint import (_flatten, flax_to_torch_key,
                                                   jax_to_torch_state_dict, load_jax_variables)
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+from test_torch_passt import recorded_jax_draws
 from test_torch_swin_block import randomize
 
 CONFIGS = str(Path(__file__).resolve().parents[1] / "configs")
@@ -254,10 +257,96 @@ def test_crnn_from_configs_builds_and_is_seeded():
         heads.CRNN(num_classes=3, encoder="CNN12", num_features=FEATS)
 
 
+def _bernoulli_masks(rec):
+    """The dropout draws a JAX forward recorded (``recorded_jax_draws``), in
+    call order, as the port's injected keep-masks."""
+    return [torch.from_numpy(np.array(v)) for name, v in rec if name == "bernoulli"]
+
+
+def _check_train_forward(rng, decoder, n_masks):
+    """The CRNN with ``decoder`` at its dropout 0.1 in train mode (the
+    trunk's and the conformer's BatchNorms on batch statistics) against
+    flax model.apply(train=True) with the JAX draws recorded and injected,
+    float32: outputs < 5e-5, the new batch statistics within 1e-6; without
+    draws or a generator the forward raises ValueError."""
+    jm, variables, tm = _models(rng, decoder)
+    x = _feats(rng)
+    with recorded_jax_draws() as rec:
+        ref, upd = jm.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"],
+                            rngs={"dropout": jax.random.PRNGKey(3)})
+    masks = _bernoulli_masks(rec)
+    assert len(masks) == n_masks and not all(bool(m.all()) for m in masks)
+    tm.train()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), dropout_draws=masks)["accdoa"].numpy()
+    ref = np.asarray(ref["accdoa"])
+    assert got.shape == ref.shape == (2, 8, 12)
+    assert np.abs(got - ref).max() < 5e-5, np.abs(got - ref).max()
+    sd = jax_to_torch_state_dict(dict(variables, batch_stats=upd["batch_stats"]), tm)
+    for k, v in tm.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(v.numpy(), sd[k].numpy(), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="dropout draws or a generator"):
+        tm(torch.from_numpy(x))
+    return tm, x
+
+
 def test_conformer_train_mode_with_dropout_raises(rng):
-    _, _, tm = _models(rng)
-    with pytest.raises(NotImplementedError, match="dropout 0.1"):
-        tm.train()(torch.from_numpy(_feats(rng)))
+    """(Its name kept from when training with dropout raised.) The shipped
+    conformer decoder's seven dropout sites a block (ff1 x2, attention
+    weights, attention output, conv output, ff2 x2) in train mode against
+    flax, as ``_check_train_forward`` states; from a generator two forwards
+    on the same seed agree and another seed differs."""
+    tm, x = _check_train_forward(rng, "conformer", 7)
+    with torch.no_grad():
+        a, b, c = (tm(torch.from_numpy(x), generator=torch.Generator().manual_seed(s))["accdoa"]
+                   for s in (5, 5, 6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_transformer_train_mode_matches_flax(rng):
+    """The transformer decoder (two layers) in train mode against flax, as
+    ``_check_train_forward`` states: four draws a layer, the attention
+    weights' (1, 1, T, T) mask broadcast over batch and heads (flax's
+    multiply form) first."""
+    _check_train_forward(rng, "transformer", 8)
+
+
+@pytest.mark.parametrize("decoder", ["conformer", "transformer"])
+def test_einv2_track_decoders_match_jax_decoder(rng, decoder):
+    """The EINV2 CRNN's six track decoders, module by module, in train mode
+    against the JAX ``Decoder`` applied with deterministic=False on the same
+    (bridged) weights and the JAX draws injected, float32: < 5e-5. The JAX
+    EINV2 CRNN itself calls them in eval form while training (its
+    einv2_heads.py:72-73); the port trains them, a deviation ROADMAP.md
+    records. The whole head then trains from a generator, deterministic in
+    its seed."""
+    from pseldnets_tpu.models import einv2_heads as jax_einv2
+    from pseldnets_tpu.models.common import Decoder as JaxDecoder
+    from pseldnets_tpu_torch.models import einv2_heads
+
+    kw = dict(num_classes=4, in_channels=7, encoder="CNN8", num_features=FEATS,
+              decoder=decoder, num_decoder_layers=_layers(decoder), mel_bins=16, pred_res=10)
+    v = jax_einv2.CRNN(**kw).init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 7, 80, 16)))
+    variables = {"params": randomize(flax.core.unfreeze(v["params"]), rng),
+                 "batch_stats": _random_stats(flax.core.unfreeze(v["batch_stats"]), rng)}
+    tm = einv2_heads.CRNN(**kw)
+    load_jax_variables(tm, variables)
+    tm.train()
+    jd = JaxDecoder(decoder, FEATS[-1], num_layers=_layers(decoder))
+    x = (rng.standard_normal((2, 10, FEATS[-1])) * 0.5).astype(np.float32)
+    for i, name in enumerate(f"{b}_track{t}" for b in ("sed", "doa") for t in (1, 2, 3)):
+        sub = {c: variables[c][name] for c in variables if name in variables[c]}
+        with recorded_jax_draws() as rec:
+            ref = jd.apply(sub, jnp.asarray(x), deterministic=False, mutable=["batch_stats"],
+                           rngs={"dropout": jax.random.PRNGKey(i)})[0]
+        with torch.no_grad():
+            got = getattr(tm, name)(torch.from_numpy(x), DropoutDraws(masks=_bernoulli_masks(rec)))
+        assert np.abs(got.numpy() - np.asarray(ref)).max() < 5e-5, name
+    wav_x = torch.from_numpy(_feats(rng, T=80))
+    with torch.no_grad():
+        a, b = (tm(wav_x, generator=torch.Generator().manual_seed(1)) for _ in range(2))
+    assert all(torch.isfinite(a[k]).all() and torch.equal(a[k], b[k]) for k in a)
 
 
 # --- the fused forward and serving from the waveform -------------------------

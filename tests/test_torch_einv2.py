@@ -41,7 +41,9 @@ from pseldnets_tpu_torch.train.checkpoint import (_flatten, flax_to_torch_key,
                                                   jax_to_torch_state_dict, load_jax_variables)
 from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
 from pseldnets_tpu_torch.train.optim import build_optimizer, trainable_mask
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_crnn import _random_stats
+from test_torch_passt import recorded_jax_draws, take_block_mask
 from test_torch_swin_block import abstract_init, randomize
 from test_torch_train import ROOT, TINY_TASK, _JaxSpec, einv2_labels
 
@@ -65,13 +67,14 @@ def rng(request):
     return np.random.default_rng(zlib.crc32(request.node.name.encode()))
 
 
-def _pair(rng, kind, T=241, drop_path=0.0, decoder=None, adapt=None):
+def _pair(rng, kind, T=241, drop_path=0.0, decoder=None, adapt=None, **enc_kw):
     """(JAX model, variables, port model in eval mode, input shape) with
     seeded random weights (every leaf, the stitches included) and BN
-    statistics, carried across by the bridge."""
+    statistics, carried across by the bridge; ``enc_kw`` adds to an HTSAT's
+    encoder arguments."""
     if kind in ("HTSAT", "HTSAT_SEDDOA"):
         kw = dict(num_classes=5, in_channels=7, mel_bins=16, tgt_output_frames=24)
-        enc = dict(ENC, drop_path_rate=drop_path)
+        enc = dict(ENC, drop_path_rate=drop_path, **enc_kw)
         jm = getattr(jax_einv2, kind)(encoder_kwargs=tuple(enc.items()),
                                       adapt=JaxAdaptConfig(adapt), **kw)
         tm = getattr(einv2_heads, kind)(encoder_kwargs=enc, adapt=AdaptConfig(adapt), **kw)
@@ -310,6 +313,37 @@ def test_embed_routes_and_refusals(rng, monkeypatch):
 
 
 # --- training -------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["HTSAT", "HTSAT_SEDDOA"])
+def test_drop_rates_train_forward_matches_jax(rng, kind):
+    """The EINV2 HTSATs with drop_rate = attn_drop_rate = 0.1 and drop-path
+    0.2 in train mode against the JAX model.apply(train=True), the JAX draws
+    recorded and injected: the dropout masks in the JAX call order (for the
+    dual encoder: SED's embed, DOA's, then stage by stage SED's blocks and
+    DOA's, four masks a block), the DropPath uniforms of each stage split
+    into each encoder's block masks. float32: within 5e-5."""
+    jm, variables, tm, shape = _pair(rng, kind, drop_path=0.2, drop_rate=0.1,
+                                     attn_drop_rate=0.1)
+    x = _x(rng, shape)
+    with recorded_jax_draws() as rec:
+        ref, _ = jm.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"],
+                          rngs={"dropout": jax.random.PRNGKey(5)})
+    drops = [torch.from_numpy(np.array(v)) for name, v in rec if name == "bernoulli"]
+    uniforms = iter([r for r in rec if r[0] == "uniform"])
+    encs = (tm.sed_encoder, tm.doa_encoder) if kind == "HTSAT" else (tm.encoder,)
+    rates, masks, start = encs[0].block_rates(), tuple([] for _ in encs), 0
+    for depth in ENC["depths"]:
+        for m in masks:  # a stage's blocks, SED's then DOA's
+            m.extend(take_block_mask(uniforms, r, shape[0]) for r in rates[start:start + depth])
+        start += depth
+    assert next(uniforms, None) is None
+    assert len(drops) == len(encs) * (1 + 4 * sum(ENC["depths"]))
+    assert not all(bool(m.all()) for m in drops) and not all(bool(m.all()) for m in masks[-1])
+    with torch.no_grad():
+        got = tm.train()(torch.from_numpy(x), dp_masks=masks if kind == "HTSAT" else masks[0],
+                         dropout_draws=drops)
+    assert _max_diff(got, ref) < 5e-5, _max_diff(got, ref)
+
 
 def test_train_forward_with_masks_equals_stages_by_hand(rng):
     """Drop-path 0.2: the train-mode forward with injected (SED, DOA) masks

@@ -27,6 +27,7 @@ from pseldnets_tpu_torch.config import compose
 from pseldnets_tpu_torch.ops import frontend
 from pseldnets_tpu_torch.train.checkpoint import jax_to_torch_state_dict, load_jax_variables
 from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_swin_block import randomize
 
 ROOT = Path(__file__).resolve().parents[1]

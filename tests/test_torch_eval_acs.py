@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from pseldnets_tpu_torch.train.module import SELDTask
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_eval import HTSAT, _max_diff, _pair, _wav
 
 

@@ -39,6 +39,7 @@ from pseldnets_tpu_torch.train import loop
 from pseldnets_tpu_torch.train.checkpoint import (TRAINING_KEYS, jax_to_torch_state_dict,
                                                   load_jax_variables)
 from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_swin_block import randomize
 from test_torch_train import TINY_TASK, _JaxSpec, _adpit_labels
 

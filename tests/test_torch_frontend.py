@@ -11,6 +11,7 @@ from pseldnets_tpu.ops.features import LogmelIVExtractor as JaxExtractor
 from pseldnets_tpu.ops.pallas.frontend import fused_logmel_iv as jax_fused
 from pseldnets_tpu_torch.ops import frontend
 from pseldnets_tpu_torch.ops.features import LogmelIVExtractor
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 FE = dict(n_fft=1024, hop=240, window="hann", n_mels=16, sample_rate=24000)
 

@@ -16,6 +16,7 @@ from pseldnets_tpu.ops.features import LogmelIVExtractor as JaxExtractor
 from pseldnets_tpu.ops.pallas import frontend as jax_frontend
 from pseldnets_tpu_torch.ops import frontend, frontend_forms
 from pseldnets_tpu_torch.ops.features import LogmelIVExtractor, logmel_iv
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 SR = 24000
 

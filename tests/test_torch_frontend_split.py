@@ -10,6 +10,7 @@ import torch
 
 from pseldnets_tpu_torch.ops import frontend_forms as ff
 from pseldnets_tpu_torch.ops.features import logmel_iv_filterbank, logmel_iv_from_spectrum
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 SR = 24000
 

@@ -18,6 +18,7 @@ from pseldnets_tpu_torch.ops import frontend, swin_block, swin_stage
 from pseldnets_tpu_torch.serving import (htsat_fused_forward,
                                          htsat_fused_forward_from_wav, prepare_stages)
 from pseldnets_tpu_torch.train.checkpoint import load_jax_variables
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_swin_block import randomize
 
 ENC = dict(spec_size=64, patch_size=4, patch_stride=(4, 4), embed_dim=16,

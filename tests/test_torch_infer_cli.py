@@ -34,6 +34,7 @@ from pseldnets_tpu_torch.cli import infer as port_infer
 from pseldnets_tpu_torch.models import build_model
 from pseldnets_tpu_torch.train.checkpoint import jax_to_torch_state_dict
 from pseldnets_tpu_torch.utils import audio_io as port_audio
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_swin_block import randomize
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -15,6 +15,7 @@ from pseldnets_tpu import metrics as jm
 from pseldnets_tpu.train import loop as jloop
 from pseldnets_tpu_torch import metrics as tm
 from pseldnets_tpu_torch.train import loop as tloop
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 K = 5
 

@@ -14,13 +14,16 @@ import pytest
 import torch
 
 from pseldnets_tpu.models import heads as jax_heads
+from pseldnets_tpu.models.adapters import AdaptConfig as JaxAdaptConfig
 from pseldnets_tpu.train.checkpoint import flax_to_torch_key as jax_key
 from pseldnets_tpu_torch.config import compose
 from pseldnets_tpu_torch.models import build_model, heads
+from pseldnets_tpu_torch.models.adapters import AdaptConfig
 from pseldnets_tpu_torch.ops import frontend, swin_block
 from pseldnets_tpu_torch.serving import htsat_fused_forward_from_wav, prepare_blocks
 from pseldnets_tpu_torch.train.checkpoint import (_flatten, flax_to_torch_key,
-                                                  jax_to_torch_state_dict)
+                                                  jax_to_torch_state_dict, unstack_scalar_rows)
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "pseldnets_tpu_torch"
@@ -125,11 +128,18 @@ def test_full_size_model_from_configs():
     assert sum(p.merge for p in blocks) == 3 and blocks[-1].shift == 0
 
 
+# the ids the cases had when these settings were not ported and raised
 @pytest.mark.parametrize("override,match", [
     ("ckpt_path={orbax_dir}", "reads only .ckpt files"),
-    ("adapt=adapter adapt.adapt_kwargs.adapter_scalar=learnable_scalar", "queue A step 6"),
-    ("adapt=lora", "queue A step 6"),
-    ("model=crnn loss=einv2_pit model.kwargs.num_features=[8,8,8,8,8,8]", "queue A step 9"),
+    pytest.param("adapt=adapter adapt.adapt_kwargs.adapter_scalar=learnable_scalar",
+                 "fused_forward=true",
+                 id="adapt=adapter adapt.adapt_kwargs.adapter_scalar=learnable_scalar-queue A "
+                    "step 6"),
+    pytest.param("adapt=lora", "fused_forward=true", id="adapt=lora-queue A step 6"),
+    pytest.param("model=crnn loss=einv2_pit model.kwargs.num_features=[8,8,8,8,8,8]",
+                 "dropout draws or a generator",
+                 id="model=crnn loss=einv2_pit model.kwargs.num_features=[8,8,8,8,8,8]-queue A "
+                    "step 9"),
     # (its id is the one the case had when EINV2 PaSST training raised)
     pytest.param("model=passt loss=einv2_pit model.kwargs.depth=1 model.kwargs.embed_dim=24 "
                  "model.kwargs.num_heads=2 model.kwargs.img_size=[64,80] "
@@ -137,14 +147,15 @@ def test_full_size_model_from_configs():
                  id="model=passt loss=einv2_pit model.kwargs.depth=1 "
                     "model.kwargs.embed_dim=24 model.kwargs.num_heads=2-queue A step 8")])
 def test_unported_settings_raise(tmp_path, override, match):
-    """What the port does not run raises naming its ROADMAP.md queue A
-    step: adapter settings at build time; the EINV2 CRNN, whose conformer
-    trains with dropout 0.1, at its first train-mode forward (it builds,
-    narrowed here); and ``init_state`` on a ``ckpt_path`` directory (the
-    JAX package's orbax checkpoint: the port reads only .ckpt files). What
-    the JAX package does not run either raises ValueError: an EINV2 PaSST
-    whose token patchout leaves 43 tokens for a token map of 6 frequency
-    rows (JAX fails in its reshape)."""
+    """What the port does not run raises: ``init_state`` on a ``ckpt_path``
+    directory (the JAX package's orbax checkpoint: the port reads only
+    .ckpt files) naming what it reads. What the JAX package does not run
+    either raises ValueError: an EINV2 PaSST whose token patchout leaves 43
+    tokens for a token map of 6 frequency rows (JAX fails in its reshape);
+    the eager-only adapters and LoRA (which now train on the eager modules)
+    with ``trainer.fused_forward=true``. The EINV2 CRNN (narrowed), whose
+    conformer trains with dropout 0.1, raises ValueError at a train-mode
+    forward without dropout draws or a generator."""
     if "{orbax_dir}" in override:
         from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
 
@@ -157,8 +168,17 @@ def test_unported_settings_raise(tmp_path, override, match):
         assert task.state is None
         return
     cfg = compose(str(ROOT / "configs"), "train", OVERRIDES + override.split())
-    error = ValueError if match == "token map" else NotImplementedError
-    with pytest.raises(error, match=match):
+    if match == "fused_forward=true":
+        from pseldnets_tpu_torch.models.adapters import kernel_refusal
+        from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+        assert kernel_refusal(build_model(cfg, 13, device="cpu")[0]) is not None
+        forced = compose(str(ROOT / "configs"), "train",
+                         OVERRIDES + override.split() + ["trainer.fused_forward=true"])
+        with pytest.raises(ValueError, match=match):
+            SELDTask(forced, DatasetSpec(num_classes=13), device="cpu")
+        return
+    with pytest.raises(ValueError, match=match):
         model, _ = build_model(cfg, 13, device="cpu")
         kw = {"generator": torch.Generator().manual_seed(0)} if "passt" in override else {}
         model.train()(torch.zeros(2, 7, 80, 64), **kw)
@@ -185,31 +205,68 @@ def test_wrappers_count_launches_only_on_cuda(rng):
     assert frontend.KERNEL.launches == swin_block.KERNEL.launches == 0
 
 
-def _tiny_variables():
+def _tiny_variables(adapt=None):
     jm = jax_heads.HTSAT(num_classes=5, in_channels=7, mel_bins=16, num_tracks=3,
-                         tgt_output_frames=24, encoder_kwargs=tuple(ENC.items()))
+                         tgt_output_frames=24, encoder_kwargs=tuple(ENC.items()),
+                         adapt=JaxAdaptConfig(adapt))
     v = jm.init({"params": jax.random.PRNGKey(0)}, jax.numpy.zeros((1, 7, 241, 16)),
                 train=False)
     return jax.tree_util.tree_map(np.asarray, {"params": v["params"],
                                                "batch_stats": v["batch_stats"]})
 
 
+# LoRA (dense and conv) and the eager-only adapters (the learnable scale,
+# the second bottleneck adapter_ds)
+BRIDGE_ADAPT = (None, {"method": "lora", "linear_kwargs": {"r": 4}, "conv_kwargs": {"r": 3}},
+                {"method": "adapter", "adapt_kwargs": {
+                    "position": ["MlpAdapter", "SpatialAdapter"], "type": "adapter",
+                    "mlp_ratio": 0.5, "adapter_scalar": "learnable_scalar",
+                    "new_adapter": {"mlp_ratio": 0.25}}})
+
+
 def test_bridge_maps_every_key_both_ways():
-    variables = _tiny_variables()
-    tm = heads.HTSAT(num_classes=5, mel_bins=16, num_tracks=3, tgt_output_frames=24,
-                     encoder_kwargs=ENC)
-    sd = jax_to_torch_state_dict(variables, tm)
-    assert set(sd) == set(tm.state_dict())
-    # the copied key map agrees with the JAX package's on every HTSAT leaf
-    for coll in ("params", "batch_stats"):
-        for path in _flatten(variables[coll]):
-            assert flax_to_torch_key(path) == jax_key(path), path
-    # reference names: Linear/LayerNorm/conv weights under the torch keys
-    assert sd["encoder.layers.0.blocks.1.attn.qkv.weight"].shape == (48, 16)
-    assert sd["encoder.layers.0.downsample.reduction.weight"].shape == (32, 64)
-    assert sd["encoder.patch_embed.proj.weight"].shape == (16, 7, 4, 4)
-    assert sd["tscam_conv.weight"].shape == (45, 32, 2, 3)
-    assert sd["scalar.running_var"].shape == (7, 16)
+    """The bridge on the tiny HTSAT tree, plain, with LoRA and with the
+    eager-only adapters: strict both ways (a leaf the model lacks and a model
+    key the tree does not fill raise), the copied key map agreeing with the
+    JAX package's on every leaf, and the JAX loader (convert_state_dict)
+    reading the port's state dict back into the flax tree exactly: LoRA
+    dense (r, in)/(out, r), LoRA conv OIHW under ``lora_A.weight``/
+    ``lora_B.weight``, the learnable scale under ``adapter.weight`` (the key
+    map's LN-scale rule), ``adapter_ds``."""
+    from pseldnets_tpu.train.checkpoint import convert_state_dict as jax_convert
+
+    for adapt in BRIDGE_ADAPT:
+        variables = _tiny_variables(adapt)
+        tm = heads.HTSAT(num_classes=5, mel_bins=16, num_tracks=3, tgt_output_frames=24,
+                         encoder_kwargs=ENC, adapt=AdaptConfig(adapt))
+        sd = jax_to_torch_state_dict(variables, tm)
+        assert set(sd) == set(tm.state_dict())
+        # the copied key map agrees with the JAX package's on every HTSAT leaf
+        for coll in ("params", "batch_stats"):
+            for path in _flatten(variables[coll]):
+                assert flax_to_torch_key(path) == jax_key(path), path
+        back, report = jax_convert({k: v.numpy() for k, v in unstack_scalar_rows(sd, tm).items()},
+                                   variables)
+        assert not report["missing"] and not report["unused"]
+        for coll in ("params", "batch_stats"):
+            flat_back = _flatten(back[coll])
+            for path, v in _flatten(variables[coll]).items():
+                assert np.array_equal(np.asarray(flat_back[path]), v), path
+        # reference names: Linear/LayerNorm/conv weights under the torch keys
+        assert sd["encoder.layers.0.blocks.1.attn.qkv.weight"].shape == (48, 16)
+        assert sd["encoder.layers.0.downsample.reduction.weight"].shape == (32, 64)
+        assert sd["encoder.patch_embed.proj.weight"].shape == (16, 7, 4, 4)
+        assert sd["tscam_conv.weight"].shape == (45, 32, 2, 3)
+        assert sd["scalar.running_var"].shape == (7, 16)
+        if adapt and adapt["method"] == "lora":
+            assert sd["encoder.layers.0.blocks.1.attn.qkv.lora_A"].shape == (4, 16)
+            assert sd["encoder.layers.0.blocks.1.attn.qkv.lora_B"].shape == (48, 4)
+            assert sd["encoder.layers.0.downsample.reduction.lora_B"].shape == (32, 4)
+            assert sd["encoder.patch_embed.proj.lora_A.weight"].shape == (3, 7, 4, 4)
+            assert sd["encoder.patch_embed.proj.lora_B.weight"].shape == (16, 3, 1, 1)
+        elif adapt:
+            assert sd["encoder.layers.0.blocks.1.attn.adapter.weight"].shape == (1,)
+            assert sd["encoder.layers.0.blocks.1.mlp.adapter_ds.fc1.weight"].shape == (4, 16)
     # a leaf the model lacks, and a model key the tree does not fill, raise
     extra = dict(variables, params=dict(variables["params"], stray={"kernel": np.zeros((2, 2))}))
     with pytest.raises(KeyError, match="stray"):
@@ -235,4 +292,5 @@ def test_chip_smoke_builds_every_kernel_source():
             "swin_stage.cu"} <= sources
     assert list(chip_smoke.kernels()) == [f"K{i}" for i in range(1, 12)]
     assert {"serve_crnn", "serve_patch", "features_flat", "features_dif",
-            "serve_stage", "serve_einv2", "train_einv2", "eval"} <= set(chip_smoke.PATHS)
+            "serve_stage", "serve_einv2", "train_einv2", "train_passt", "train_crnn",
+            "train_lora", "eval"} <= set(chip_smoke.PATHS)

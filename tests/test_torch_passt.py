@@ -31,6 +31,7 @@ from pseldnets_tpu_torch.serving import (passt_fused_forward, passt_fused_forwar
                                          prepare_vit_blocks)
 from pseldnets_tpu_torch.train.checkpoint import (_flatten, flax_to_torch_key,
                                                   jax_to_torch_state_dict, load_jax_variables)
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_swin_block import abstract_init, randomize
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -344,13 +345,14 @@ def _rates(enc):
     return [enc.get("drop_path_rate", 0.0) * i / max(depth - 1, 1) for i in range(depth)]
 
 
-def _train_pair(rng, setting, einv2):
+def _train_pair(rng, setting, einv2, decoder=None):
     """(JAX model, variables, port model in train mode, input) on CROP_ENC
-    with ``setting``: the single mACCDOA head or the EINV2 dual PaSST."""
+    with ``setting``: the single mACCDOA head or the EINV2 dual PaSST (its
+    track decoders ``decoder``)."""
     enc = dict(CROP_ENC, **setting)
     x = (rng.standard_normal((3, 7, 99, 64)) * 0.5).astype(np.float32)
     if einv2:
-        kw = dict(num_classes=5, in_channels=7, mel_bins=64, ps_gap=1, decoder=None,
+        kw = dict(num_classes=5, in_channels=7, mel_bins=64, ps_gap=1, decoder=decoder,
                   num_decoder_layers=1)
         jm = jax_einv2.PASST(encoder_kwargs=tuple(enc.items()), **kw)
         tm = einv2_heads.PASST(encoder_kwargs=enc, **kw)

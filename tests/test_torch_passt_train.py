@@ -8,14 +8,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from pseldnets_tpu.config import compose as jax_compose
 from pseldnets_tpu.train.module import SELDTask as JaxTask
 from pseldnets_tpu_torch.config import compose
 from pseldnets_tpu_torch.train.checkpoint import jax_to_torch_state_dict, load_jax_variables
 from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
-from test_torch_passt import (ROOT, TRAIN_SETTINGS, check_train_forward, port_draws,
-                              recorded_jax_draws)
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
+from test_torch_passt import (ROOT, TRAIN_SETTINGS, _train_pair, check_train_forward,
+                              port_draws, recorded_jax_draws)
 from test_torch_train import _adpit_labels, _JaxSpec, einv2_labels
 
 
@@ -26,6 +28,29 @@ def test_einv2_train_mode_matches_jax(setting):
     blocks' masks interleaved as the JAX blocks run, a stitch before every
     block; the crop alone, then every setting at once."""
     check_train_forward(setting, einv2=True)
+
+
+def test_einv2_decoders_drop_out_as_jax():
+    """The EINV2 dual PaSST with transformer track decoders (one layer, its
+    dropout 0.1) in train mode against the JAX model.apply(train=True),
+    whose decoders take ``deterministic=not train`` (its
+    einv2_heads.py:263-264): the crop's draws and the decoders' dropout
+    masks (four a decoder, SED track i then DOA track i) recorded and
+    injected, float32: within 5e-5."""
+    rng = np.random.default_rng(23)
+    jm, variables, tm, x, enc = _train_pair(rng, {}, True, decoder="transformer")
+    with recorded_jax_draws() as rec:
+        ref, _ = jm.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"],
+                          rngs={"dropout": jax.random.PRNGKey(5),
+                                "patchout": jax.random.PRNGKey(6)})
+    drops = [torch.from_numpy(np.array(v)) for name, v in rec if name == "bernoulli"]
+    draws, masks = port_draws([r for r in rec if r[0] != "bernoulli"], enc, x.shape[0], 2)
+    assert len(drops) == 6 * 4 and not all(bool(m.all()) for m in drops)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), dp_masks=tuple(masks), patchout_draws=tuple(draws),
+                 dropout_draws=drops)
+    for k in ("sed", "doa"):
+        assert np.abs(got[k].numpy() - np.asarray(ref[k])).max() < 5e-5, k
 
 
 # the step tests' tiny PaSST: 2 s chunks (201 frames, 20 label frames) at

@@ -18,6 +18,7 @@ from pseldnets_tpu.serving import htsat_fused_forward_from_wav as jax_from_wav
 from pseldnets_tpu_torch.ops import patch_embed
 from pseldnets_tpu_torch.serving import (htsat_fused_forward, htsat_fused_forward_from_wav,
                                          prepare_patch_embed)
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_adapter import _serving_models
 from test_torch_htsat import FE, _models
 

@@ -21,6 +21,7 @@ from pseldnets_tpu_torch.config import compose
 from pseldnets_tpu_torch.data.datasets import get_dataset
 from pseldnets_tpu_torch.preproc import Preprocess
 from pseldnets_tpu_torch.utils.audio_io import write_wav
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parents[1]
 FS = 16000

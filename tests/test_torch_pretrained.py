@@ -27,6 +27,7 @@ from pseldnets_tpu_torch.models import build_model
 from pseldnets_tpu_torch.train.checkpoint import (jax_to_torch_state_dict, load_jax_variables,
                                                   load_pretrained, save_training_ckpt)
 from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parents[1]
 K = 3

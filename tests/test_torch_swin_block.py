@@ -14,6 +14,7 @@ from pseldnets_tpu.ops.pallas.swin_block import swin_block_fused as jax_block_fu
 from pseldnets_tpu_torch.models.htsat import PatchMerging, SwinTransformerBlock
 from pseldnets_tpu_torch.ops import swin_block
 from pseldnets_tpu_torch.train.checkpoint import load_jax_variables
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 H = W = 16
 C, NH, WIN = 32, 4, 8

@@ -14,6 +14,7 @@ import torch
 
 from pseldnets_tpu_torch.models.htsat import window_partition, window_reverse
 from pseldnets_tpu_torch.ops import swin_block_vjp, swin_bwd_plan as plan
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 # HTSAT's stages: (H = W, C, nh); hidden 4 C, the adapter width C / 2 padded to 32
 STAGES = ((64, 96, 4), (32, 192, 8), (16, 384, 16), (8, 768, 32))

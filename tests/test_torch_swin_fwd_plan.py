@@ -17,6 +17,7 @@ from pseldnets_tpu_torch.models.htsat import (PatchMerging, SwinTransformerBlock
                                               window_partition, window_reverse)
 from pseldnets_tpu_torch.ops import swin_block, swin_stage
 from pseldnets_tpu_torch.ops import swin_fwd_plan as plan
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 # HTSAT's stages: (H = W, C, nh, depth); hidden 4 C
 STAGES = ((64, 96, 4, 2), (32, 192, 8, 2), (16, 384, 16, 6), (8, 768, 32, 2))

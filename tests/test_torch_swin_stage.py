@@ -17,6 +17,7 @@ from pseldnets_tpu.ops.pallas.swin_block import swin_stage_fused_v2 as jax_stage
 from pseldnets_tpu_torch.models.htsat import BasicLayer, SwinTransformerBlock
 from pseldnets_tpu_torch.ops import swin_block, swin_stage
 from pseldnets_tpu_torch.train.checkpoint import load_jax_variables
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_swin_block import randomize
 
 C, NH, WIN = 32, 4, 8

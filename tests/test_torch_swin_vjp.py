@@ -15,6 +15,7 @@ from pseldnets_tpu.ops.pallas.swin_block import swin_block_fused as jax_block_fu
 from pseldnets_tpu.ops.pallas.swin_block_vjp import _bwd_call
 from pseldnets_tpu_torch.ops import swin_block, swin_block_vjp
 from pseldnets_tpu_torch.train.checkpoint import jax_to_torch_state_dict
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_swin_block import H, NH, W, WIN, _block_pair
 
 PARAM_NAMES = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",

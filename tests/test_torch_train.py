@@ -1,8 +1,9 @@
 """The port's training slice against the JAX package on the CPU: the ACCDOA
 and ADPIT losses, the optimizers against optax, train-mode ScalarBN against
 flax, the fused training forward (plain versions of K2/K3) against the JAX
-one in interpret mode, and one SELDTask step against the JAX SELDTask; plus
-the settings that do not train, which raise."""
+one in interpret mode, and one SELDTask step against the JAX SELDTask (the
+CRNN's with its decoder dropout, the JAX draws injected); plus the settings
+that do not train, which raise."""
 
 from pathlib import Path
 
@@ -29,6 +30,7 @@ from pseldnets_tpu_torch.train.checkpoint import jax_to_torch_state_dict, load_j
 from pseldnets_tpu_torch.train.fused_forward import htsat_fused_train_forward
 from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
 from pseldnets_tpu_torch.train.optim import build_optimizer, optimizer_step
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_swin_block import randomize
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -291,32 +293,21 @@ TINY_CRNN = ["model=crnn", "loss=accdoa", "model.kwargs.pretrained_path=null",
              "model.kwargs.num_features=[8,8,8,8,8,8]", "data.train_chunklen_sec=2"]
 
 
-def _zero_dropout(model: torch.nn.Module) -> None:
-    """Every dropout rate of ``model`` set to 0."""
-    for mod in model.modules():
-        if isinstance(mod, torch.nn.Dropout):
-            mod.p = 0.0
-        elif isinstance(getattr(mod, "dropout", None), float):
-            mod.dropout = 0.0
-
-
-@pytest.mark.parametrize("decoder", ["null", "conformer"])
-def test_seld_task_crnn_step_matches_jax(monkeypatch, decoder):
+@pytest.mark.parametrize("decoder", ["null", "conformer", "transformer", "ConvConformer"])
+def test_seld_task_crnn_step_matches_jax(decoder):
     """C1: one eager CRNN SELDTask.train_step (CNN12 of width 8, ACCDOA,
     float32, B=2: frontend, ScalarBN and trunk BatchNorms on batch
     statistics, decoder, loss, clip, AdamW) against the JAX SELDTask's step
-    from the same weights and batch, with no decoder and with the conformer
-    at dropout 0 on both sides. Bounds of test_seld_task_step_matches_jax,
-    at the CRNN config's learning rate."""
-    import functools
-
-    from pseldnets_tpu.models import conformer as jax_conformer
+    from the same weights and batch: with no decoder, with the shipped
+    conformer and with the transformer at their dropout 0.1, and the
+    ConvConformer backbone; the JAX step's dropout draws recorded from an
+    unjitted apply on its key (fold_in(key, 1)) and injected. Bounds of
+    test_seld_task_step_matches_jax, at the CRNN config's learning rate."""
+    from test_torch_passt import recorded_jax_draws
 
     rng = np.random.default_rng(11)
-    over = TINY_CRNN + [f"model.decoder={decoder}"]
-    if decoder == "conformer":
-        monkeypatch.setattr(jax_conformer, "ConformerBlock",
-                            functools.partial(jax_conformer.ConformerBlock, dropout=0.0))
+    over = TINY_CRNN + (["model.backbone=ConvConformer"] if decoder == "ConvConformer"
+                        else [f"model.decoder={decoder}"])
     cfg_j = jax_compose(str(ROOT / "configs"), "train", over)
     task_j = JaxTask(cfg_j, _JaxSpec(), steps_per_epoch=2, num_devices=1)
     state = task_j.init_state(jax.random.PRNGKey(0))
@@ -324,17 +315,20 @@ def test_seld_task_crnn_step_matches_jax(monkeypatch, decoder):
                                                     "batch_stats": state.batch_stats})
     wav = (rng.standard_normal((2, 4, 48000)) * 0.1).astype(np.float32)
     lab = rng.uniform(-1, 1, (2, 20, 9)).astype(np.float32)
-    new_state, losses_j, _ = task_j.train_step(state, {"data": wav, "accdoa_label": lab},
-                                               jax.random.PRNGKey(1))
+    key = jax.random.PRNGKey(1)
+    new_state, losses_j, _ = task_j.train_step(state, {"data": wav, "accdoa_label": lab}, key)
+    with recorded_jax_draws() as rec:
+        task_j.model.apply(variables, jnp.zeros((2, 7, 201, 64)), train=True,
+                           mutable=["batch_stats"], rngs={"dropout": jax.random.fold_in(key, 1)})
+    drops = [torch.from_numpy(np.array(v)) for name, v in rec if name == "bernoulli"]
+    assert len(drops) == {"null": 0, "transformer": 4}.get(decoder, 7)  # one layer
 
     cfg = compose(str(ROOT / "configs"), "train", over)
     task = SELDTask(cfg, DatasetSpec(num_classes=3), steps_per_epoch=2, device="cpu")
     assert not task.fused_forward
-    if decoder == "conformer":
-        _zero_dropout(task.model)
     task.init_state(0)
     load_jax_variables(task.model, variables)
-    losses = task.train_step(wav, {"accdoa_label": lab})
+    losses = task.train_step(wav, {"accdoa_label": lab}, dropout_draws=drops)
     assert abs(float(losses["loss_all"]) - float(losses_j["loss_all"])) < 1e-5
     ref = jax_to_torch_state_dict(jax.tree_util.tree_map(
         np.asarray, {"params": new_state.params, "batch_stats": new_state.batch_stats}))
@@ -358,19 +352,21 @@ PASST_TIME_PATCHOUT = ["model=passt", "model.kwargs.pretrained_path=null",
                        "model.kwargs.s_patchout_t=2", "data.train_chunklen_sec=2"]
 
 
-# the ids the cases had when PaSST training was not ported and raised
+# the ids the cases had when PaSST and CRNN-dropout training were not ported
+# and raised
 @pytest.mark.parametrize("over,error,match", [
-    pytest.param(TINY_CRNN + ["model.decoder=conformer"], NotImplementedError, "step 9",
-                 id="over0-step 9"),
+    pytest.param(TINY_CRNN + ["model.decoder=conformer"], ValueError,
+                 "dropout draws or a generator", id="over0-step 9"),
     pytest.param(PASST_TIME_PATCHOUT + ["loss=multi_accdoa"], ValueError,
                  r"\[18\] output frames where the labels have \[20\]", id="over1-step 8"),
 ])
 def test_seld_task_unported_training_raises(over, error, match):
-    """C1: the conformer at its shipped dropout 0.1 raises NotImplementedError
-    naming its ROADMAP step, not a TypeError. PaSST trains, but its time
-    patchout drops output frames: the step raises ValueError where the JAX
-    step fails in its loss (the JAX ADPIT loss refuses 18 frames against 20
-    here too)."""
+    """C1: the conformer at its shipped dropout 0.1 trains from the step's
+    generator (a finite loss, the same loss again from a generator of the
+    same seed) and raises ValueError without one, not a TypeError. PaSST
+    trains, but its time patchout drops output frames: the step raises
+    ValueError where the JAX step fails in its loss (the JAX ADPIT loss
+    refuses 18 frames against 20 here too)."""
     rng = np.random.default_rng(12)
     task = SELDTask(compose(str(ROOT / "configs"), "train", over),
                     DatasetSpec(num_classes=3), steps_per_epoch=2, device="cpu")
@@ -379,9 +375,15 @@ def test_seld_task_unported_training_raises(over, error, match):
     labels = ({"adpit_label": _adpit_labels(rng, 2, 20, 3)}
               if task.model.output_key == "multi_accdoa"
               else {"accdoa_label": rng.uniform(-1, 1, (2, 20, 9)).astype(np.float32)})
+    generator = torch.Generator().manual_seed(0)
+    if "generator" in match:
+        losses = [task.compute_grads(wav, labels, torch.Generator().manual_seed(0))[0]["loss_all"]
+                  for _ in range(2)]
+        assert torch.isfinite(losses[0]) and torch.equal(losses[0], losses[1])
+        generator = None
     with pytest.raises(error, match=match):
-        task.train_step(wav, labels, torch.Generator().manual_seed(0))
-    if error is ValueError:
+        task.train_step(wav, labels, generator)
+    if generator is not None:  # the JAX loss refuses PaSST's 18 frames too
         with pytest.raises(TypeError):
             jax_build_loss(dict(task.cfg["model"]["loss"]))(
                 {"multi_accdoa": jnp.zeros((2, 18, 27))},
@@ -399,10 +401,10 @@ def einv2_labels(rng, B, T, K):
     return {"sed_label": sed, "doa_label": doa * act}
 
 
-# EINV2 heads that raise at their first step, whole override lists: the
-# dual PaSST with time patchout (its output frames fall short of the labels',
-# as in the JAX package) and the CRNN with the shipped conformer dropout 0.1
-# (step 9)
+# EINV2 heads whole override lists: the dual PaSST with time patchout (its
+# output frames fall short of the labels', as in the JAX package) and the
+# CRNN with the shipped conformer dropout 0.1, which needs the step's
+# generator
 EINV2_PASST_TRAIN = PASST_TIME_PATCHOUT + ["loss=einv2_pit"]
 EINV2_CRNN_TRAIN = TINY_CRNN + ["loss=einv2_pit", "model.decoder=conformer"]
 
@@ -410,16 +412,17 @@ EINV2_CRNN_TRAIN = TINY_CRNN + ["loss=einv2_pit", "model.decoder=conformer"]
 @pytest.mark.parametrize("override,error,match", [
     ("+trainer.tensor_parallel=2", NotImplementedError, "step 11"),
     pytest.param(EINV2_PASST_TRAIN, ValueError, "output frames", id="einv2-passt-train"),
-    pytest.param(EINV2_CRNN_TRAIN, NotImplementedError, "step 9", id="einv2-crnn-conformer-train"),
+    pytest.param(EINV2_CRNN_TRAIN, ValueError, "dropout draws or a generator",
+                 id="einv2-crnn-conformer-train"),
     ("model.kwargs.attn_drop_rate=0.1", ValueError, "fused_forward=true"),
 ])
 def test_unported_training_settings_raise(override, error, match):
     """A setting (one override on the tiny HTSAT task with the fused
-    forward) raises as the task is built; an EINV2 head that cannot train in
-    a setting (a whole override list) builds and raises at its first step:
-    the CRNN's conformer dropout naming its ROADMAP.md step, the dual
-    PaSST's time patchout because it drops output frames (the JAX step
-    fails there too)."""
+    forward) raises as the task is built; an EINV2 head (a whole override
+    list) builds and raises at its first step: the CRNN, whose track
+    decoders drop out, trains a step from a generator and raises ValueError
+    without one; the dual PaSST's time patchout raises because it drops
+    output frames (the JAX step fails there too)."""
     if isinstance(override, str):
         cfg = compose(str(ROOT / "configs"), "train",
                       TINY_TASK + ["trainer.fused_forward=true", override])
@@ -432,8 +435,14 @@ def test_unported_training_settings_raise(override, error, match):
     assert not task.fused_forward
     task.init_state(0)
     wav = (rng.standard_normal((2, 4, 48000)) * 0.1).astype(np.float32)
+    labels = einv2_labels(rng, 2, 20, 3)
+    generator = torch.Generator().manual_seed(0)
+    if "generator" in match:
+        losses = task.train_step(wav, labels, generator)
+        assert all(torch.isfinite(v) for v in losses.values() if torch.is_tensor(v))
+        generator = None
     with pytest.raises(error, match=match):
-        task.train_step(wav, einv2_labels(rng, 2, 20, 3), torch.Generator().manual_seed(0))
+        task.train_step(wav, labels, generator)
 
 
 def test_task_defaults_to_the_card():

@@ -29,6 +29,7 @@ from pseldnets_tpu_torch.models import build_model
 from pseldnets_tpu_torch.train.checkpoint import (load_torch_state_dict, save_training_ckpt,
                                                   stack_scalar_rows)
 from pseldnets_tpu_torch.train.module import SELDTask
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 from test_torch_infer_cli import CLIP_SEC, FS, K, _make_corpus
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -206,6 +207,10 @@ PASST_CLI = ["model=passt", "loss=multi_accdoa", "model.kwargs.pretrained_path=n
              "model.kwargs.embed_dim=24", "model.kwargs.num_heads=2",
              "model.kwargs.img_size=[16,401]", "model.kwargs.drop_rate=0.1",
              "model.kwargs.drop_path_rate=0.1"]
+# configs/model/crnn.yaml (CNN12 + one conformer layer, its dropout 0.1)
+# narrowed; CNN12's six frequency pools need 64 mels
+CRNN_CLI = ["model=crnn", "loss=accdoa", "model.kwargs.num_features=[8,8,8,8,16,16]",
+            "data.n_mels=64"]
 MONO_CLI = ["model.kwargs.pretrained_path=null", "data.hoplen=320", "model.kwargs.spec_size=64",
             "model.kwargs.embed_dim=8", "model.kwargs.depths=[1,1]",
             "model.kwargs.num_heads=[2,4]", "model.kwargs.window_size=4",
@@ -235,12 +240,16 @@ def mono_corpus(preprocessed):
 
 @pytest.mark.parametrize("recipe", [
     pytest.param(PASST_CLI, id="passt"),
+    pytest.param(CRNN_CLI, id="crnn"),
     pytest.param(["experiment=l3das22/finetune_maccdoa_ov1mono"] + MONO_CLI, id="mono"),
     pytest.param(["experiment=l3das22/finetune_maccdoa_ov1mono_adapterbit"] + MONO_CLI,
                  id="mono_adapterbit")])
 def test_passt_and_mono_recipes_train_cli(request, recipe):
     """One epoch of 2 steps through the train CLI on the corpus: PaSST
-    (``model=passt``, eager, its draws from fit's generator) and the two
+    (``model=passt``, eager, its draws from fit's generator), the
+    CNN14-Conformer (``model=crnn`` narrowed, its conformer's dropout 0.1
+    drawn from fit's generator; the shipped ``pretrained_path`` is absent,
+    so it starts from the seed's weights) and the two
     L3DAS22 mono recipes, whose training clips the dataset spatialises
     from their first channel (``adapt=mono_finetune``: every parameter
     trains; ``mono_adapter``: the AdapterBit adapters, biases and head).
@@ -268,7 +277,8 @@ def test_passt_and_mono_recipes_train_cli(request, recipe):
                                                                        "last.ckpt"]
     cfg = compose(str(ROOT / "configs"), "train", over)
     if not mono:
-        assert cfg["model"]["backbone"] == "PASST"
+        assert cfg["model"]["backbone"] == {"passt": "PASST", "crnn": "CRNN"}[name]
+        assert name != "crnn" or cfg["model"]["decoder"] == "conformer"
         return
     assert cfg["adapt"]["method"] == "mono_adapter"
     dm = SELDDataModule(cfg, get_dataset("train1_ov1", cfg), stage="fit")
