@@ -34,8 +34,10 @@ through load_pretrained's surgery, and a SELD fine-tune
 (experiment=starss23/finetune_maccdoa_augmix1) from its best file, and the
 two L3DAS22 mono recipes (experiment=l3das22/finetune_maccdoa_ov1mono and
 its AdapterBit form: K2/K3 and K4/K5) from it on clips the mono_adapter
-spatialisation made. It
-checks the outputs, the kernels' launch counts on each path and the kernel
+spatialisation made; then data-parallel training (parallel/mesh.py): the
+training steps on one NCCL rank against the same steps without a process
+group, and on two gloo ranks sharing the card against one process on the
+global batch. It checks the outputs, the kernels' launch counts on each path and the kernel
 step against the plain step, and prints the times.
 
     python3 chip_smoke.py
@@ -85,7 +87,8 @@ CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
                (125, 8, 256, 512), (125, 4, 512, 1024), (125, 2, 1024, 2048))
 PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn",
          "serve_patch", "features_flat", "features_dif", "serve_stage", "serve_einv2",
-         "train_einv2", "train_passt", "train_crnn", "train_lora", "eval", "fit", "finetune")
+         "train_einv2", "train_passt", "train_crnn", "train_lora", "eval", "fit", "finetune",
+         "train_ddp1", "train_ddp2")
 DEPTHS = (2, 2, 6, 2)  # HTSAT's Swin stages (configs/model/htsat.yaml)
 
 
@@ -4075,6 +4078,214 @@ def phase_mono_recipes(smi, task_of, best):
     return total
 
 
+# data-parallel training (phase_train_ddp1, phase_train_ddp2): the full
+# width HTSAT step of phase_train (TRAIN_OVERRIDES: bf16-mixed, fused, drop-
+# path 0.1) in a torch.distributed group; DDP_STEPS timed steps a run
+DDP_STEPS = 5
+DDP2_STEPS = 3
+
+
+def ddp_batch(B):
+    """phase_train's global batch: B 10 s clips from a CUDA generator of
+    seed 6 (the same values in every process) and bench_train.py's labels."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    wavs = [torch.randn(B, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(DDP_STEPS)]
+    labels = torch.from_numpy(make_labels(np.random.default_rng(0), B, 100)).cuda()
+    return wavs, labels
+
+
+def ddp_steps(task, wavs, labels, rows=slice(None)):
+    """A warm-up step, then one step a batch (``rows`` of each), the
+    drop-path masks from a generator of seed 7: -> (launches counted from
+    0 over the timed steps, ms a step (host clock, synchronized), losses)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    mine = labels[rows].contiguous()
+    step = lambda w: task.train_step(w[rows].contiguous(), {"adpit_label": mine}, gen)  # noqa: E731
+    step(wavs[0])
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = [step(w)["loss_all"] for w in wavs]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(wavs)
+    return read_counts(), ms, [float(v) for v in losses]
+
+
+def phase_train_ddp1(smi):
+    """``train_ddp1``: DDP_STEPS full-width steps of B_TRAIN on one rank of
+    an NCCL group on cuda:0 (the grads' all-reduce over one flat buffer,
+    the state broadcast from rank 0; with one rank the BatchNorm statistics
+    and the draws are the one process's), against the same steps with no
+    process group: every parameter and statistic bit-identical, K1 x1, K2
+    x12, K3 x12 a step; the ms a step of each, whose difference is the
+    collectives' cost on one card."""
+    import tempfile
+
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.parallel import init_data_parallel, shutdown, world
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    cfg = compose(str(ROOT / "configs"), "train", TRAIN_OVERRIDES)
+    wavs, labels = ddp_batch(B_TRAIN)
+    dev = torch.device("cuda", 0)
+    runs = {}
+    for grouped in (False, True):
+        store = tempfile.TemporaryDirectory()
+        if grouped:
+            init_data_parallel(0, 1, "nccl", f"file://{store.name}/store", dev)
+        try:
+            task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=100, device=dev)
+            task.init_state(0)
+            launches, ms, losses = ddp_steps(task, wavs, labels)
+            check(world() == 1, "one rank")
+            runs[grouped] = (launches, ms, losses,
+                             {k: v.clone() for k, v in task.model.state_dict().items()})
+        finally:
+            shutdown()
+            store.cleanup()
+        del task
+    launches, ms, losses, state = runs[True]
+    want = expected(K1=DDP_STEPS, K2=12 * DDP_STEPS, K3=12 * DDP_STEPS)
+    log(f"train_ddp1: {DDP_STEPS} steps of {B_TRAIN} on one NCCL rank: launches {launches} "
+        f"(expect {want}); losses {[round(v, 6) for v in losses]}; {ms:.2f} ms/step, "
+        f"without a process group {runs[False][1]:.2f} ms/step (host clock, synchronized; "
+        f"{smi})")
+    check(launches == want, "train_ddp1 launch counts")
+    check(losses == runs[False][2], "train_ddp1 losses differ from the steps without a group")
+    differ = [k for k, v in runs[False][3].items() if not torch.equal(v, state[k])]
+    check(not differ, f"train_ddp1: {differ[:5]} differ from the steps without a group")
+    log(f"train_ddp1: all {len(state)} parameters and statistics bit-identical to the steps "
+        f"without a process group")
+    torch.cuda.empty_cache()
+    return launches, {}
+
+
+def _ddp2_rank(rank, world, init_method, out):
+    """One rank of phase_train_ddp2 on cuda:0 in a gloo group: rank 0
+    builds the kernels (a cache hit after phase_build) and the other waits
+    at a barrier; then the global batch's rows rank::world, the grads of
+    the first (averaged over the ranks) and its loss (the ranks' mean), and
+    DDP2_STEPS timed steps; the ranks' states compared bit for bit through
+    a broadcast of rank 0's; its record to ``out``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.ops import _cuda
+    from pseldnets_tpu_torch.parallel import (all_reduce_mean_, barrier, init_data_parallel,
+                                              shutdown)
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    dev = torch.device("cuda", 0)
+    init_data_parallel(rank, world, "gloo", init_method, dev)
+    try:
+        if rank == 0:
+            _cuda.build_all(list(kernels().values()))
+        barrier()
+        cfg = compose(str(ROOT / "configs"), "train", TRAIN_OVERRIDES)
+        task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=100, device=dev)
+        task.init_state(0)
+        wavs, labels = ddp_batch(B_TRAIN)
+        rows = slice(rank, None, world)
+        losses, grads, _ = task.compute_grads(wavs[0][rows].contiguous(),
+                                              {"adpit_label": labels[rows].contiguous()},
+                                              torch.Generator(device="cuda").manual_seed(8))
+        loss = losses["loss_all"].detach().float().reshape(1)
+        all_reduce_mean_(grads + [loss])
+        launches, ms, step_losses = ddp_steps(task, wavs[:DDP2_STEPS], labels, rows)
+        flat = torch.cat([v.float().reshape(-1) for v in task.model.state_dict().values()])
+        mine = flat.clone()
+        torch.distributed.broadcast(flat, 0)
+        same = torch.tensor([float(torch.equal(flat, mine))], device=dev)
+        torch.distributed.all_reduce(same)
+        record = {"launches": launches, "ms": ms, "losses": step_losses,
+                  "identical": bool(same.item() == world), "loss": float(loss.item())}
+        if rank == 0:
+            record["grads"] = [g.cpu() for g in grads]
+        torch.save(record, str(Path(out) / f"rank{rank}.pt"))
+    finally:
+        shutdown()
+
+
+def phase_train_ddp2(smi):
+    """``train_ddp2``: two ranks sharing cuda:0 in a gloo group (NCCL
+    refuses two ranks on one device, and the machine has one card), B =
+    B_TRAIN / 2 clips each, rows rank::2 of phase_train's global batch: the
+    first batch's grads averaged over the ranks and its loss against the
+    one-process kernel step at B_TRAIN on the same batch and drop-path
+    masks (hold_step_against_plain's rule: the loss within 2^-6 of its
+    scale, every grad within 2^-4 of its own scale, floored at 2^-14 of the
+    largest), then DDP2_STEPS steps (K1 x1, K2 x12, K3 x12 a step on each
+    rank), after which the ranks' parameters and statistics are
+    bit-identical; ms a step of two ranks sharing one card."""
+    import multiprocessing as mp
+    import tempfile
+
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    W = 2
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_ddp2_rank, args=(r, W, f"file://{out}/store", out))
+                 for r in range(W)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 420
+        for p in procs:
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        check(codes == [0] * W, f"train_ddp2 ranks exited with {codes}")
+        recs = [torch.load(str(Path(out) / f"rank{r}.pt"), weights_only=False)
+                for r in range(W)]
+
+    cfg = compose(str(ROOT / "configs"), "train", TRAIN_OVERRIDES)
+    task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=100, device="cuda")
+    task.init_state(0)
+    wavs, labels = ddp_batch(B_TRAIN)
+    losses, gf, _ = task.compute_grads(wavs[0], {"adpit_label": labels},
+                                       torch.Generator(device="cuda").manual_seed(8))
+    lf = float(losses["loss_all"].detach())
+    lk = recs[0]["loss"]
+    log(f"train_ddp2: the two ranks' step (B={B_TRAIN // W} each) vs the one-process kernel "
+        f"step at B={B_TRAIN}: loss {lk:.6f} (one process {lf:.6f})")
+    check(abs(lk - lf) <= 2.0 ** -6 * abs(lf), "train_ddp2 loss disagrees")
+    floor = 2.0 ** -14 * max(g.abs().max().item() for g in gf)
+    worst = (0.0, "")
+    for name, a, c in zip(task.trained_names, recs[0]["grads"], gf):
+        scale = max(c.abs().max().item(), floor)
+        rel = (a.cuda() - c).abs().max().item() / scale
+        check(torch.isfinite(a).all().item() and rel <= 2.0 ** -4,
+              f"train_ddp2: the {name} grad {rel:.3g} of its scale from the one-process step's")
+        worst = max(worst, (rel, name))
+    log(f"train_ddp2: every reduced grad within {worst[0]:.3g} of its scale of the one-process "
+        f"step's (<= 2^-4, scales floored at {floor:.3g}; the worst {worst[1]})")
+    want = expected(K1=DDP2_STEPS, K2=12 * DDP2_STEPS, K3=12 * DDP2_STEPS)
+    for r, rec in enumerate(recs):
+        log(f"train_ddp2 rank {r}: {DDP2_STEPS} steps of {B_TRAIN // W}: launches "
+            f"{rec['launches']} (expect {want}); losses {[round(v, 6) for v in rec['losses']]}; "
+            f"{rec['ms']:.2f} ms/step, two ranks sharing one card over gloo (host clock, "
+            f"synchronized; {smi})")
+        check(rec["launches"] == want, f"train_ddp2 rank {r} launch counts")
+        check(rec["identical"], "train_ddp2: the ranks' parameters differ after the steps")
+    log("train_ddp2: the ranks' parameters and statistics bit-identical after the steps")
+    del task
+    torch.cuda.empty_cache()
+    return {n: sum(rec["launches"][n] for rec in recs) for n in kernels()}, {}
+
+
 def phase_profile(what, fn, warm=True):
     """Device time by kernel over one call of fn (torch.profiler, CUPTI),
     after a warm-up call unless ``warm`` is false; returns the (kernel, ms,
@@ -4142,6 +4353,8 @@ def main():
     results["eval"] = phase_eval(smi)
     results["fit"] = phase_fit(smi)
     results["finetune"] = phase_finetune(smi)
+    results["train_ddp1"] = phase_train_ddp1(smi)
+    results["train_ddp2"] = phase_train_ddp2(smi)
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
     # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the einsum embed, one
@@ -4149,7 +4362,9 @@ def main():
     # trained eagerly, PaSST trained with its validation, the CRNN trained with
     # its dropout and its validation, HTSAT trained eagerly with LoRA, the
     # eager-only adapters and the drop rates, the eval path, fit,
-    # the shipped recipes' pre-training, fine-tune and mono recipes), each
+    # the shipped recipes' pre-training, fine-tune and mono recipes, the
+    # data-parallel steps on one NCCL rank and on two gloo ranks, both
+    # ranks' launches), each
     # counted from 0; errors: the largest over the
     # checks at each path's own shapes,
     # absolute and as a share of the plain output's largest magnitude; ms and

@@ -10,13 +10,16 @@ src/augment/rotate.py): per-sample random channel permutation + sign flips of
 the (Y, Z, X) waveform channels with the matching DOA label rotation, run
 on the device before the frontend. Used only when wavmix is not in the
 chain (the reference applies rotate BEFORE wavmix on the host; SELDTask
-keeps the host Rotation otherwise).
+keeps the host Rotation otherwise). Under data parallelism ``draw`` draws
+for the global batch and keeps this rank's clips (``parallel.batch_rows``).
 """
 
 from typing import Dict
 
 import numpy as np
 import torch
+
+from ..parallel import batch_rows
 
 # (xx, yy, zz) label permutation -> (s_x, s_y, s_z) source waveform channels
 _TRANS48 = {
@@ -36,10 +39,13 @@ class RotationDevice:
     def draw(self, generator, shape) -> Dict[str, torch.Tensor]:
         B = shape[0]
         dev = generator.device
-        return {"apply": torch.rand((B,), generator=generator, device=dev),
-                "index": torch.randint(0, len(self.perm_table), (B,), generator=generator,
-                                       device=dev),
-                "signs": torch.rand((B, 3), generator=generator, device=dev) < 0.5}
+        P = len(self.perm_table)
+        return {"apply": batch_rows(lambda n: torch.rand((n,), generator=generator, device=dev),
+                                    B),
+                "index": batch_rows(lambda n: torch.randint(0, P, (n,), generator=generator,
+                                                            device=dev), B),
+                "signs": batch_rows(lambda n: torch.rand((n, 3), generator=generator,
+                                                         device=dev), B) < 0.5}
 
     def apply(self, batch_x: torch.Tensor, batch_target: Dict, draws: Dict):
         B = batch_x.shape[0]

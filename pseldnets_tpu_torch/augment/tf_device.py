@@ -12,6 +12,13 @@ truncation by ``.to(torch.int32)``, SpecAugment's raw-float frequency
 bounds, FreqShift's reflect pad, TrackMixDevice's argsort pairing), so the
 JAX draws given to ``apply`` give the JAX outputs.
 
+Under data parallelism every per-clip draw comes through
+``parallel.batch_rows``: ``draw`` draws for the global batch (W times the
+rank's N clips) and keeps this rank's rows, so the ranks' draws together
+are one process's on the global batch. TrackMixDevice pairs the ov1 clips
+within the rank's batch, as the reference's DDP does (each rank mixes its
+own batch).
+
 torch's Beta and Gamma samplers take no generator: ``beta`` draws
 Beta(a, a) as X / (X + Y) of two Gamma(a) draws from the generator's normals
 and uniforms (``gamma``), so every draw comes from the generator given.
@@ -28,6 +35,8 @@ from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import batch_rows
 
 # candidates a Gamma draw tries: Marsaglia-Tsang accepts each with
 # probability above 0.95 at a >= 1, so all GAMMA_ROUNDS fail with
@@ -69,6 +78,17 @@ def _uniform(generator, shape):
     return torch.rand(tuple(shape), generator=generator, device=generator.device)
 
 
+def _clip_uniform(generator, shape, axis: int = 0):
+    """Uniforms of ``shape`` whose ``axis`` is the batch's clips, this
+    rank's rows of the global batch's (``parallel.batch_rows``)."""
+    shape = tuple(shape)
+
+    def draw(n):
+        return _uniform(generator, shape[:axis] + (n,) + shape[axis + 1:])
+
+    return batch_rows(draw, shape[axis], axis)
+
+
 class SpecAugment:
     def __init__(self, xy_ratio, T=40, F=8, mT=4, mF=2, mask_value=0.0, **_):
         self.T = T
@@ -83,10 +103,10 @@ class SpecAugment:
         """Time-mask lengths and starts (mT, N), then per freq mask i the
         lengths and starts (N, C), stacked (mF, N, C): uniforms in [0, 1)."""
         N, C = shape[:2]
-        return {"t_value": _uniform(generator, (self.mT, N)),
-                "t_start": _uniform(generator, (self.mT, N)),
-                "f_value": _uniform(generator, (self.mF, N, C)),
-                "f_start": _uniform(generator, (self.mF, N, C))}
+        return {"t_value": _clip_uniform(generator, (self.mT, N), 1),
+                "t_start": _clip_uniform(generator, (self.mT, N), 1),
+                "f_value": _clip_uniform(generator, (self.mF, N, C), 1),
+                "f_start": _clip_uniform(generator, (self.mF, N, C), 1)}
 
     def apply(self, batch_x: torch.Tensor, batch_target: Dict, draws: Dict):
         N, C, T_dim, F_dim = batch_x.shape
@@ -137,7 +157,7 @@ class Crop:
         """Rectangle lengths and starts in time and in frequency, (mC, N, C)
         uniforms each."""
         N, C = shape[:2]
-        u = [_uniform(generator, (self.mC, N, C)) for _ in range(4)]
+        u = [_clip_uniform(generator, (self.mC, N, C), 1) for _ in range(4)]
         return dict(zip(("t_value", "t_start", "f_value", "f_start"), u))
 
     def apply(self, batch_x: torch.Tensor, batch_target: Dict, draws: Dict):
@@ -178,10 +198,11 @@ class FreqShift:
         where true), or the configured direction."""
         N, F_dim = shape[0], shape[-1]
         dev = generator.device
-        apply = _uniform(generator, (N,))
-        shift = torch.randint(0, max(self._range(F_dim), 1), (N,), generator=generator, device=dev)
+        apply = _clip_uniform(generator, (N,))
+        shift = batch_rows(lambda n: torch.randint(0, max(self._range(F_dim), 1), (n,),
+                                                   generator=generator, device=dev), N)
         if self.direction is None:
-            up = _uniform(generator, (N,)) < 0.5
+            up = _clip_uniform(generator, (N,)) < 0.5
         else:
             up = torch.full((N,), self.direction == "up", device=dev)
         return {"apply": apply, "shift": shift, "up": up}
@@ -219,7 +240,8 @@ class TrackMixDevice:
         """The ordering jitter, uniforms (B,), and the mixing weights,
         Beta(alpha, alpha) (B,)."""
         B = shape[0]
-        return {"order": _uniform(generator, (B,)), "lam": beta(generator, self.alpha, (B,))}
+        return {"order": _clip_uniform(generator, (B,)),
+                "lam": batch_rows(lambda n: beta(generator, self.alpha, (n,)), B)}
 
     def apply(self, batch_x: torch.Tensor, batch_target: Dict, draws: Dict,
               ov1_mask: torch.Tensor):

@@ -3,27 +3,21 @@
 Parity: reference src/data/components/sampler.py — infinite shuffled sampler
 yielding rank-strided slices of a (batch_size x world_size) global batch with
 last-batch supplement; identical shuffles on every rank via the shared seed.
-The rank and the number of replicas are torch.distributed's when a process
-group is up, else 0 and 1. A copy of the JAX package's data/sampler.py.
+The rank and the number of replicas are the process group's
+(parallel/mesh.py), else 0 and 1. A copy of the JAX package's data/sampler.py.
 """
 
 import numpy as np
+
+from .. import parallel
 
 
 class DistributedBatchSampler:
     def __init__(self, clip_num, batch_size=1, seed=2023, data_indices=None,
                  shuffle=True, last_batch_supplement=True, rank=None,
                  num_replicas=None):
-        if rank is None or num_replicas is None:
-            import torch.distributed as dist
-
-            up = dist.is_available() and dist.is_initialized()
-            if rank is None:
-                rank = dist.get_rank() if up else 0
-            if num_replicas is None:
-                num_replicas = dist.get_world_size() if up else 1
-        self.rank = rank
-        self.num_replicas = num_replicas
+        self.rank = parallel.rank() if rank is None else rank
+        self.num_replicas = parallel.world() if num_replicas is None else num_replicas
         self.clip_num = clip_num
         self.batch_size = batch_size * self.num_replicas
 

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import all_reduce_sum, batch_rows, world
 from .adapters import NO_ADAPT, AdaptConfig, AdaptConv, AdaptDense, Adapter
 
 NO_DECODER = (None, "None", "null", "identity")
@@ -30,16 +31,26 @@ class DropoutDraws:
     (bool, True where kept; a test feeds the JAX package's draws in that
     package's order), or else Bernoulli(keep) masks drawn on the device
     from ``generator``, never from the global generator. No module keeps
-    random state."""
+    random state.
+
+    ``batch`` is the forward's batch B: a site's leading axis holds B clips
+    (times windows, clip-major). Under data parallelism a drawn mask with
+    that axis comes through ``parallel.batch_rows``: every rank draws the
+    global batch's mask and keeps its own clips' rows. A mask without a
+    batch axis (flax's (1, 1, T, S) attention-weights mask) is the same on
+    every rank, from the shared seed. Injected masks are the rank's own."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
-                 masks: Optional[Sequence[torch.Tensor]] = None):
+                 masks: Optional[Sequence[torch.Tensor]] = None, batch: Optional[int] = None):
         self.generator = generator
         self.masks = None if masks is None else list(masks)
+        self.batch = batch
         self.taken = 0
 
-    def keep(self, shape: Sequence[int], rate: float, device) -> torch.Tensor:
-        """The next site's (shape) bool keep-mask, P(True) = 1 - rate."""
+    def keep(self, shape: Sequence[int], rate: float, device,
+             batched: bool = True) -> torch.Tensor:
+        """The next site's (shape) bool keep-mask, P(True) = 1 - rate;
+        ``batched``: whether its leading axis is the batch's."""
         if self.masks is not None:
             if self.taken >= len(self.masks):
                 raise ValueError(f"a dropout site past the {len(self.masks)} injected masks")
@@ -51,7 +62,17 @@ class DropoutDraws:
             return m.to(device=device, dtype=torch.bool)
         if self.generator is None:
             raise ValueError("train mode with dropout needs dropout draws or a generator")
-        return torch.rand(tuple(shape), generator=self.generator, device=device) < 1.0 - rate
+        shape = tuple(shape)
+        if not batched or world() == 1:
+            return torch.rand(shape, generator=self.generator, device=device) < 1.0 - rate
+        B = self.batch
+        if B is None or shape[0] % B:
+            raise ValueError(f"a dropout site of shape {shape} under data parallelism needs "
+                             f"the forward's batch (got {B}) to divide its leading axis")
+        rest = (shape[0] // B,) + shape[1:]
+        u = batch_rows(lambda n: torch.rand((n,) + rest, generator=self.generator,
+                                            device=device), B)
+        return u.reshape(shape) < 1.0 - rate
 
     def check_used(self) -> None:
         """Every injected mask was taken."""
@@ -82,7 +103,7 @@ def dropout_weights(w: torch.Tensor, rate: float, drops: Optional[DropoutDraws],
         return w
     if drops is None:
         raise ValueError("train mode with dropout needs dropout draws or a generator")
-    m = drops.keep(w.shape if shape is None else shape, rate, w.device)
+    m = drops.keep(w.shape if shape is None else shape, rate, w.device, batched=shape is None)
     return w * (m.to(w.dtype) / (1.0 - rate))
 
 
@@ -92,6 +113,8 @@ def drop_path_masks(generator: Optional[torch.Generator], B: int, rates: Sequenc
     branch), drawn from ``generator``: ones where the block's rate is 0,
     else Bernoulli(keep) / keep with keep = 1 - rate (the JAX package's
     train/fused_forward.py:119-128; reference model_utilities.py:216-231).
+    Under data parallelism each mask is this rank's rows of the global
+    batch's (``parallel.batch_rows``).
 
     This is the one mask format of the port. The HTSAT blocks (eager and
     fused) multiply a branch by the mask as it is; ``drop_path`` (PaSST)
@@ -101,7 +124,7 @@ def drop_path_masks(generator: Optional[torch.Generator], B: int, rates: Sequenc
     for rate in rates:
         if rate > 0.0:
             keep = 1.0 - float(rate)
-            u = torch.rand((B, 2), generator=generator, device=device)
+            u = batch_rows(lambda n: torch.rand((n, 2), generator=generator, device=device), B)
             out.append((u < keep).float() / keep)
         else:
             out.append(torch.ones((B, 2), device=device))
@@ -123,6 +146,11 @@ class TorchBatchNorm(nn.Module):
     32-75): eval normalizes with the running statistics; training with the
     biased batch variance, and moves the running mean and the unbiased
     (n / (n - 1)) running variance by momentum 0.1; eps 1e-5. Output float32.
+
+    Under data parallelism (a group of W > 1 ranks) training takes the
+    global batch's statistics, as the JAX step does under GSPMD: whatever
+    ``trainer.sync_batchnorm`` says (the reference's gpu recipe sets it),
+    the statistics are always global there. Eval is unchanged.
     """
 
     momentum = 0.1
@@ -154,11 +182,24 @@ class TorchBatchNorm(nn.Module):
 
     def batch_forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Training-mode BN without side effects: (output, new running mean,
-        new running variance)."""
+        new running variance). Under W > 1 ranks the statistics are the
+        global batch's, in two passes through the differentiable
+        all-reduce (``parallel.all_reduce_sum``): the mean from the summed
+        local sums, then the variance from the summed squared deviations
+        from that mean. Every rank holds a batch of one size (the sampler
+        gives each B clips), so n, for the unbiased running variance, is W
+        times the local count; nothing is read back to the host."""
         xf = x.float()
-        mean = xf.mean(dim=self.reduce_axes)
-        var = ((xf - mean.reshape(self._bshape(x))) ** 2).mean(dim=self.reduce_axes)
         n = math.prod(x.shape[ax] for ax in self.reduce_axes)
+        W = world()
+        if W > 1:
+            n *= W
+            mean = all_reduce_sum(xf.sum(dim=self.reduce_axes)) / n
+            sq = ((xf - mean.reshape(self._bshape(x))) ** 2).sum(dim=self.reduce_axes)
+            var = all_reduce_sum(sq) / n
+        else:
+            mean = xf.mean(dim=self.reduce_axes)
+            var = ((xf - mean.reshape(self._bshape(x))) ** 2).mean(dim=self.reduce_axes)
         with torch.no_grad():
             new_mean = (1 - self.momentum) * self.running_mean + self.momentum * mean
             new_var = ((1 - self.momentum) * self.running_var

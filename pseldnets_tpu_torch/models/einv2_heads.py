@@ -78,7 +78,7 @@ class CRNN(nn.Module):
         and so on."""
         N, _, T, _ = x.shape
         output_frames = T // self.pred_res
-        drops = train_draws(self.training, dropout_draws, generator)
+        drops = train_draws(self.training, dropout_draws, generator, N)
         x = self.scalar(x)
         x_sed, x_doa = x[:, :SED_IN_CHANNELS], x
         n = len(self.num_features)
@@ -138,7 +138,7 @@ class HTSAT(nn.Module):
         masks = [enc.stage_masks(block_masks(enc, self.training, x.shape[0], m, generator,
                                              x.device))
                  for enc, m in zip(encs, dp_masks or (None, None))]
-        drops = train_draws(self.training, dropout_draws, generator)
+        drops = train_draws(self.training, dropout_draws, generator, x.shape[0])
         x = self.scalar(x)
         x_sed = self.sed_encoder.embed(x[:, :SED_IN_CHANNELS], drops)
         x_doa = self.doa_encoder.embed(x, drops)
@@ -180,7 +180,7 @@ class HTSAT_SEDDOA(nn.Module):
         x, output_frames, five_sec = concat_5s(x, self.pred_res, self.tgt_output_frames)
         dp_masks = block_masks(self.encoder, self.training, x.shape[0], dp_masks, generator,
                                x.device)
-        drops = train_draws(self.training, dropout_draws, generator)
+        drops = train_draws(self.training, dropout_draws, generator, x.shape[0])
         tok = self.encoder(self.scalar(x), dp_masks, drops)
         check_draws(drops)
         frames = (B, output_frames, five_sec, self.tgt_output_frames, self.pred_res)
@@ -227,7 +227,7 @@ class PASST(nn.Module):
         draws = [passt_draws(enc, self.training, x.shape[0], d, m, generator, x.device)
                  for enc, d, m in zip(encs, patchout_draws or (None, None),
                                       dp_masks or (None, None))]
-        drops = train_draws(self.training, dropout_draws, generator)
+        drops = train_draws(self.training, dropout_draws, generator, x.shape[0])
         (d_sed, m_sed), (d_doa, m_doa) = draws
         x = self.scalar(x)
         x_sed = self.sed_encoder.forward_before(x[:, :SED_IN_CHANNELS], d_sed)

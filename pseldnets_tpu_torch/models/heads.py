@@ -64,7 +64,7 @@ class CRNN(nn.Module):
                 dropout_draws=None) -> Dict[str, torch.Tensor]:
         B, _, T, _ = x.shape
         output_frames = T // self.pred_res
-        drops = train_draws(self.training, dropout_draws, generator)
+        drops = train_draws(self.training, dropout_draws, generator, B)
         x = self.convs(self.scalar(x))          # (B, C, T', F')
         x = self.decoder(x.mean(dim=3).transpose(1, 2), drops)  # (B, T', C)
         check_draws(drops)
@@ -115,16 +115,19 @@ def tscam_head(tok: torch.Tensor, conv: nn.Conv2d, time_res: int, B: int,
     return x.reshape(B, output_frames, pred_res, -1).mean(dim=2)
 
 
-def train_draws(training: bool, dropout_draws, generator: Optional[torch.Generator]
-                ) -> Optional[DropoutDraws]:
+def train_draws(training: bool, dropout_draws, generator: Optional[torch.Generator],
+                batch: int) -> Optional[DropoutDraws]:
     """A train-mode forward's dropout draws: ``dropout_draws`` as given (a
     ``DropoutDraws`` or a list of injected keep-masks), else draws from
-    ``generator``; None in eval."""
+    ``generator``; None in eval. ``batch``: the clips on the leading axis
+    of the forward's dropout sites (after the 5 s trick, the encoder's)."""
     if not training:
         return None
     if isinstance(dropout_draws, DropoutDraws):
+        if dropout_draws.batch is None:
+            dropout_draws.batch = batch
         return dropout_draws
-    return DropoutDraws(generator, dropout_draws)
+    return DropoutDraws(generator, dropout_draws, batch)
 
 
 def check_draws(drops: Optional[DropoutDraws]) -> None:
@@ -189,7 +192,7 @@ class HTSAT(nn.Module):
         x, output_frames, five_sec = concat_5s(x, self.pred_res, self.tgt_output_frames)
         dp_masks = block_masks(self.encoder, self.training, x.shape[0], dp_masks, generator,
                                x.device)
-        drops = train_draws(self.training, dropout_draws, generator)
+        drops = train_draws(self.training, dropout_draws, generator, x.shape[0])
         x = self.encoder(self.scalar(x), dp_masks, drops)  # (B', C, SF, ST)
         check_draws(drops)
         x = tscam_head(x, self.tscam_conv, self.encoder.time_res, B, output_frames, five_sec,

@@ -27,6 +27,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ..parallel import batch_rows
 from .common import LayerNorm, Mlp, PatchEmbed, drop_path
 
 LN_EPS = 1e-6  # timm ViT's LayerNorm eps
@@ -168,7 +169,10 @@ class PaSSTEncoder(nn.Module):
         T'), the time, frequency and token keep-sets, the position-dropout
         mask. Settings that draw nothing leave their entry None (a crop
         with no room is offset 0); a generator is needed only where
-        something is drawn."""
+        something is drawn. Under data parallelism the position-dropout
+        mask is this rank's rows of the global batch's
+        (``parallel.batch_rows``); the others have no batch axis and are
+        the same on every rank."""
         Fg, Tg = self.patch_grid
         room = self.crop_room
         kept_t, kept_f = Tg - self.s_patchout_t, Fg - self.s_patchout_f
@@ -187,8 +191,9 @@ class PaSSTEncoder(nn.Module):
         if self.u_patchout:
             d.keep_u = _keep_set(generator, kept_t * kept_f, self.u_patchout, device)
         if self.drop_rate > 0:
-            shape = (B, self.num_tokens + N, self.embed_dim)
-            d.pos_keep = torch.rand(shape, generator=generator, device=device) < (
+            shape = (self.num_tokens + N, self.embed_dim)
+            d.pos_keep = batch_rows(lambda n: torch.rand((n,) + shape, generator=generator,
+                                                         device=device), B) < (
                 1.0 - self.drop_rate)
         return d
 

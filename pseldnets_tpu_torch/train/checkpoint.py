@@ -17,6 +17,8 @@ into its per-channel rows (``unstack_scalar_rows``), so either package's
 ``optimizer_states``, ``global_step``, ``epoch`` and ``best_score``
 (``is_training_ckpt``), which ``restore_training_ckpt`` puts back bit for
 bit. This replaces the JAX package's orbax directories (train/loop.py:431-457).
+In a process group rank 0 alone writes (``save_training_ckpt`` refuses on
+another rank) and every rank reads: a resume loads ``last.ckpt`` on each.
 
 ``load_pretrained`` is the JAX package's load-time surgery
 (train/checkpoint.py:297-411) on the port's keys: an AudioSet file's patch
@@ -51,6 +53,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel import rank
 
 _LIST_NAMES = ("layers", "blocks", "stitch", "stitch1", "stitch2",
                "sed_decoder", "doa_decoder", "fc_sed", "fc_doa")
@@ -579,7 +583,10 @@ def save_training_ckpt(path, model: torch.nn.Module,
     """One ``torch.save`` of {"state_dict": ``model_state_rows(model)``,
     "optimizer_states": [``optimizer_state``] when ``optimizer`` is given,
     and ``fields`` (``global_step``, ``epoch``, ``best_score``)} to a
-    temporary name, then renamed onto ``path``. -> bytes written."""
+    temporary name, then renamed onto ``path``. -> bytes written. In a
+    process group only rank 0 writes; another rank raises."""
+    if rank() != 0:
+        raise RuntimeError(f"rank {rank()} asked to write {path}: only rank 0 writes checkpoints")
     path = Path(path)
     ckpt: Dict[str, Any] = {"state_dict": model_state_rows(model)}
     if optimizer is not None:

@@ -17,6 +17,12 @@ to the kernels' compute-dtype rounding. The masks come from the caller
 torch's generator cannot replay the JAX package's draw order
 (``fold_in(dropout_rng, bi)``, fused_forward.py:119-128), so tests inject
 that package's masks.
+
+Under data parallelism each rank runs K2 and K3 on its own clips (the JAX
+package's shard_map block runner, train/fused_forward.py:47-71): its masks
+are its rows of the global batch's (``drop_path_masks`` through
+``parallel.batch_rows``), and the ScalarBN's statistics are the global
+batch's (models/common.py ``TorchBatchNorm.batch_forward``).
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple

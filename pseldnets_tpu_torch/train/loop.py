@@ -20,6 +20,18 @@ per-epoch ``metrics.jsonl`` line and the port's checkpoints
 nothing from the device: ``_PreparedBatchPipeline`` prepares the next batch
 (its copy to the device) on a thread while the step runs, and the losses
 stay on the device until the epoch end.
+
+In a process group (data parallelism, parallel/mesh.py) every rank runs
+``fit`` on its own batches: the steps average their grads over the ranks;
+at an epoch's end one all-reduce averages its train losses and sums its ov
+counts over the ranks, so the line is the global batches' as one
+process's would be; rank 0 alone writes checkpoints, ``metrics.jsonl`` and
+the loggers, and a barrier follows its writes; rank 0's early-stopping
+decision is broadcast, so every rank leaves the loop at the same epoch.
+Validation runs the whole set on every rank without a collective, as in
+the JAX package (``make_local_mesh``, docs/PARITY.md deviation #3). Every
+collective is issued from the loop's thread; the prefetch thread issues
+none.
 """
 
 import json
@@ -27,7 +39,7 @@ import logging
 import time
 from collections import OrderedDict
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +49,7 @@ from ..metrics import (SELDMetrics, accdoa_label_to_dcase_format,
                        get_accdoa_labels, get_multi_accdoa_labels,
                        multi_accdoa_to_dcase_format, to_metrics_format,
                        track_to_dcase_format, write_output_format_file)
+from ..parallel import all_reduce_mean_, barrier, broadcast_flag, is_up, rank, world
 from .checkpoint import save_training_ckpt
 
 log = logging.getLogger("pseldnets")
@@ -353,6 +366,23 @@ class _PreparedBatchPipeline:
         self.close()
 
 
+def epoch_over_ranks(means: Dict[str, float], counts: Dict[str, int], device
+                     ) -> Tuple[Dict[str, float], Dict[str, int]]:
+    """An epoch's train-loss ``means`` averaged and its ov ``counts`` summed
+    over the ranks of the process group, in one float64 all-reduce on
+    ``device`` (every rank ran as many steps on as many clips); both as
+    they are without a group."""
+    if not is_up():
+        return means, counts
+    t = torch.tensor(list(means.values()) + list(counts.values()), dtype=torch.float64,
+                     device=device)
+    all_reduce_mean_([t])
+    vals = t.tolist()
+    n = len(means)
+    return (dict(zip(means, vals[:n])),
+            {k: int(round(v * world())) for k, v in zip(counts, vals[n:])})
+
+
 def effective_steps_per_epoch(datamodule, cfg) -> int:
     """Steps actually run per epoch, honoring trainer.limit_train_batches.
     The OPTIMIZER must be built with this same number — the per-epoch LR
@@ -379,7 +409,7 @@ def fit(task, datamodule, cfg, output_dir, timings: Optional[list] = None):
     epoch's steps, from the start of its first step until its losses are
     fetched, which waits for the device), ``val_s`` (0.0 without a
     validation), ``ckpt_s`` and ``ckpt_bytes`` (the checkpoints written)."""
-    from ..utils.utilities import flatten_metrics, instantiate_loggers, process_rank
+    from ..utils.utilities import flatten_metrics, instantiate_loggers
 
     output_dir = Path(output_dir)
     state = task.state
@@ -391,8 +421,9 @@ def fit(task, datamodule, cfg, output_dir, timings: Optional[list] = None):
     steps_per_epoch = effective_steps_per_epoch(datamodule, cfg)
 
     # multi-process: checkpoints and metric files are written by rank zero
-    # only (every rank holds the whole state); every rank validates
-    is_main = process_rank() == 0
+    # only (every rank holds the whole state); every rank validates, without
+    # a collective
+    is_main = rank() == 0
     loggers = instantiate_loggers(cfg.get("logger"), output_dir) if is_main else []
     limit_val = trainer_cfg.get("limit_val_batches")
     if limit_val is not None:
@@ -419,8 +450,8 @@ def fit(task, datamodule, cfg, output_dir, timings: Optional[list] = None):
         run_validation(task, datamodule, metrics, limit_batches=None if sanity < 0 else sanity)
 
     # profile: N captures the first N train steps (torch.profiler, a Chrome
-    # trace under <output_dir>/profile)
-    profile_steps = int(cfg.get("profile", 0) or 0)
+    # trace under <output_dir>/profile; rank zero's only)
+    profile_steps = int(cfg.get("profile", 0) or 0) if is_main else 0
     prof = None
     if profile_steps:
         from torch.profiler import ProfilerActivity, profile
@@ -464,9 +495,10 @@ def fit(task, datamodule, cfg, output_dir, timings: Optional[list] = None):
             step_in_epoch = 0
             state.epoch = epoch
             lr = float(task.lr_fn(state.step))
-            log_line = {"epoch": epoch, "lr": lr,
-                        "train": {k: m.compute() for k, m in train_losses.items()},
-                        "ov_stat": dict(stat), "wall_s": round(time.time() - t0, 1)}
+            train_means, ov_stat = epoch_over_ranks(
+                {k: m.compute() for k, m in train_losses.items()}, dict(stat), task.device)
+            log_line = {"epoch": epoch, "lr": lr, "train": train_means,
+                        "ov_stat": ov_stat, "wall_s": round(time.time() - t0, 1)}
             t_val = time.time()
             train_s = t_val - t_epoch
             train_losses = {k: MeanMeter() for k in task.loss.loss_dict_keys}
@@ -494,6 +526,7 @@ def fit(task, datamodule, cfg, output_dir, timings: Optional[list] = None):
                 ckpt_bytes += save_training_ckpt(ckpt_dir / "last.ckpt", task.model,
                                                  state.optimizer, global_step=state.step,
                                                  epoch=epoch, best_score=state.best_score)
+            barrier()  # every rank past rank 0's writes
             if timings is not None:
                 timings.append({"epoch": epoch, "train_s": train_s, "val_s": t_ckpt - t_val,
                                 "ckpt_s": time.time() - t_ckpt, "ckpt_bytes": ckpt_bytes})
@@ -505,11 +538,15 @@ def fit(task, datamodule, cfg, output_dir, timings: Optional[list] = None):
             flat = flatten_metrics(log_line)
             for lg in loggers:
                 lg.log_metrics(flat, epoch)
+            reason = None
             if early_stopping is not None and "val" in log_line:
                 reason = early_stopping.should_stop(flat)
-                if reason:
-                    log.info("early stopping at epoch %d: %s", epoch, reason)
-                    break
+            # rank 0 decides for every rank: a rank that left alone would
+            # leave the others waiting in their next collective
+            if broadcast_flag(bool(reason), task.device):
+                log.info("early stopping at epoch %d: %s", epoch,
+                         reason or "rank 0 stopped")
+                break
             if epoch >= max_epochs:
                 break
     finally:

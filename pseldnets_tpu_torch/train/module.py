@@ -42,6 +42,25 @@ decoders. An HTSAT with LoRA or an eager-only adapter setting (a learnable
 rate trains and evaluates on the eager modules, as the JAX package routes
 it (:137-151, :337-374); ``trainer.fused_forward=true`` refuses it.
 
+Data parallelism (the JAX task over its ``('data',)`` mesh, module.py:
+101-125): inside a ``torch.distributed`` group of W processes, one device
+each (parallel/mesh.py; cli/train.py starts them), a step on each rank's B
+clips is the one-process step on the global batch of W * B clips, up to
+float32 summation order. ``init_state`` ends with rank 0's state broadcast
+(``broadcast_state``); the training BatchNorms take the global batch's
+statistics (models/common.py ``TorchBatchNorm.batch_forward``); the step's
+device-side per-clip draws (drop-path, the dropout masks with a batch axis,
+the TF chain's, the device rotation's) are this rank's rows of the global
+batch's (``parallel.batch_rows``), while draws without a batch axis and the
+host half's ``_np_rng`` are the same on every rank; and the trained grads
+are averaged over the ranks (``all_reduce_mean_``, one flat buffer) before
+the clip, which so sees the global norm, as optax does in the JAX step.
+The grads come from ``torch.autograd.grad``, which fires no
+``DistributedDataParallel`` hook: the reduction is explicit. Injected draws
+(``dp_masks``, ``dropout_draws``, ``aug_draws``, ``patchout_draws``) are the
+rank's own. The 5 s clip trick and TrackMix pair clips within a rank's
+batch, as the reference's DDP does.
+
 Not in this slice, and raising with the ROADMAP.md queue A step that brings
 it: tensor parallelism (``trainer.tensor_parallel`` > 1: step 11).
 
@@ -91,6 +110,7 @@ from ..models.heads import HTSAT
 from ..ops._cuda import resolve_device
 from ..ops.features import LogmelIVExtractor, make_extractor
 from ..ops.frontend import frontend_route
+from ..parallel import all_reduce_mean_, broadcast_state
 from .checkpoint import (is_training_ckpt, load_pretrained, load_seld_inference_ckpt,
                          restore_training_ckpt)
 from .fused_forward import htsat_fused_train_forward, supports_fused_train
@@ -273,7 +293,9 @@ class SELDTask:
         SELD-pretrained whole model with the head skips; its report in
         ``pretrained_report``), before the optimizer is built; a file that
         is not a checkpoint, or a directory, raises as ``torch.load``
-        does."""
+        does. In a process group every rank loads the same files, then
+        takes rank 0's parameters and statistics (``broadcast_state``, the
+        JAX ``replicate``)."""
         pretrained = self.meta.get("pretrained_path")
         if ckpt_path and os.path.isdir(str(ckpt_path)):
             raise NotImplementedError(
@@ -299,6 +321,7 @@ class SELDTask:
                                                          got["best_score"])
         elif ckpt is not None:
             load_seld_inference_ckpt(self.model, ckpt_path, ckpt)
+        broadcast_state(self.model)
         self.model.train()
         self.state = state
         return state
@@ -561,12 +584,15 @@ class SELDTask:
                             ) -> Tuple[Dict[str, Any], Optional[List[str]]]:
         """The device half of a step over a ``prepare_batch`` result, on the
         step's stream once the batch's copy is done. -> (losses as device
-        tensors, the raw batch's ``ov`` list)."""
+        tensors, the raw batch's ``ov`` list). In a process group the grads
+        are averaged over the ranks before the clip and the optimizer; the
+        losses stay this rank's (fit averages an epoch's over the ranks)."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
         self._on_step_stream(prepared)
         losses, grads, bs = self._grads(prepared, generator, dp_masks, aug_draws, patchout_draws,
                                         dropout_draws)
+        all_reduce_mean_(grads)
         optimizer_step(self.state.optimizer, self.trained, grads, self.state.step, self.max_norm)
         if bs is not None:
             with torch.no_grad():

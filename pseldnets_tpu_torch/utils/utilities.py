@@ -5,21 +5,14 @@ helpers no caller uses are left out).
 Parity: reference src/utils/utilities.py — rich config tree printing
 (:145-203), param counting — plus logger backends (TensorBoard / CSV /
 JSONL, and wandb/mlflow/neptune/comet/aim with loud JSONL fallbacks)
-instantiated from the reference's configs/logger/* `_target_` strings. Rank
-zero is torch.distributed's when a process group is up, else this process.
+instantiated from the reference's configs/logger/* `_target_` strings. The
+process's rank is parallel/mesh.py's ``rank``.
 """
 
 import json
 import logging
 from pathlib import Path
 from typing import Dict, Iterable, Optional
-
-
-def process_rank() -> int:
-    """torch.distributed's rank when a process group is up, else 0."""
-    import torch.distributed as dist
-
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 def count_params(params: Iterable) -> int:

@@ -71,7 +71,7 @@ def test_importing_every_module_loads_no_jax():
     assert {f"pseldnets_tpu_torch.{m}" for m in (
         "metrics.seld", "metrics.dcase", "data.dataset", "data.datamodule", "data.sampler",
         "utils.audio_io", "cli.infer", "cli.evaluate", "entry", "train.loop", "cli.train",
-        "cli.preproc", "preproc.preprocess", "utils.utilities")} <= loaded
+        "cli.preproc", "preproc.preprocess", "utils.utilities", "parallel.mesh")} <= loaded
 
 
 def test_cli_imports_without_h5py():
