@@ -37,8 +37,13 @@ its AdapterBit form: K2/K3 and K4/K5) from it on clips the mono_adapter
 spatialisation made; then data-parallel training (parallel/mesh.py): the
 training steps on one NCCL rank against the same steps without a process
 group, and on two gloo ranks sharing the card against one process on the
-global batch. It checks the outputs, the kernels' launch counts on each path and the kernel
-step against the plain step, and prints the times.
+global batch; then tensor-parallel training (parallel/tp.py,
+trainer.tensor_parallel=2: two gloo model ranks sharing the card, the
+eager modules split by heads and MLP columns) against one process; then
+the mic features (LogmelExtractor on 1 and 4 channels, GCC-PHAT,
+SALSA-lite) on the card against the CPU. It checks the outputs, the
+kernels' launch counts on each path and the kernel step against the plain
+step, and prints the times.
 
     python3 chip_smoke.py
 
@@ -88,7 +93,7 @@ CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
 PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn",
          "serve_patch", "features_flat", "features_dif", "serve_stage", "serve_einv2",
          "train_einv2", "train_passt", "train_crnn", "train_lora", "eval", "fit", "finetune",
-         "train_ddp1", "train_ddp2")
+         "train_ddp1", "train_ddp2", "train_tp2", "features_mic")
 DEPTHS = (2, 2, 6, 2)  # HTSAT's Swin stages (configs/model/htsat.yaml)
 
 
@@ -4213,29 +4218,20 @@ def _ddp2_rank(rank, world, init_method, out):
         shutdown()
 
 
-def phase_train_ddp2(smi):
-    """``train_ddp2``: two ranks sharing cuda:0 in a gloo group (NCCL
-    refuses two ranks on one device, and the machine has one card), B =
-    B_TRAIN / 2 clips each, rows rank::2 of phase_train's global batch: the
-    first batch's grads averaged over the ranks and its loss against the
-    one-process kernel step at B_TRAIN on the same batch and drop-path
-    masks (hold_step_against_plain's rule: the loss within 2^-6 of its
-    scale, every grad within 2^-4 of its own scale, floored at 2^-14 of the
-    largest), then DDP2_STEPS steps (K1 x1, K2 x12, K3 x12 a step on each
-    rank), after which the ranks' parameters and statistics are
-    bit-identical; ms a step of two ranks sharing one card."""
+def ranks_on_card(target, W, what):
+    """``target(rank, W, init_method, out)`` in W spawned processes sharing
+    cuda:0 (a gloo group over a file store), each writing its record to
+    ``out/rank{r}.pt``; -> the records, after every rank exited with 0
+    within 420 s (a rank still running then is ended)."""
     import multiprocessing as mp
     import tempfile
 
     import torch
-    from pseldnets_tpu_torch.config import compose
-    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
 
-    W = 2
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out:
         ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_ddp2_rank, args=(r, W, f"file://{out}/store", out))
+        procs = [ctx.Process(target=target, args=(r, W, f"file://{out}/store", out))
                  for r in range(W)]
         for p in procs:
             p.start()
@@ -4247,9 +4243,28 @@ def phase_train_ddp2(smi):
             if p.is_alive():
                 p.terminate()
                 p.join()
-        check(codes == [0] * W, f"train_ddp2 ranks exited with {codes}")
-        recs = [torch.load(str(Path(out) / f"rank{r}.pt"), weights_only=False)
+        check(codes == [0] * W, f"{what} ranks exited with {codes}")
+        return [torch.load(str(Path(out) / f"rank{r}.pt"), weights_only=False)
                 for r in range(W)]
+
+
+def phase_train_ddp2(smi):
+    """``train_ddp2``: two ranks sharing cuda:0 in a gloo group (NCCL
+    refuses two ranks on one device, and the machine has one card), B =
+    B_TRAIN / 2 clips each, rows rank::2 of phase_train's global batch: the
+    first batch's grads averaged over the ranks and its loss against the
+    one-process kernel step at B_TRAIN on the same batch and drop-path
+    masks (hold_step_against_plain's rule: the loss within 2^-6 of its
+    scale, every grad within 2^-4 of its own scale, floored at 2^-14 of the
+    largest), then DDP2_STEPS steps (K1 x1, K2 x12, K3 x12 a step on each
+    rank), after which the ranks' parameters and statistics are
+    bit-identical; ms a step of two ranks sharing one card."""
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    W = 2
+    recs = ranks_on_card(_ddp2_rank, W, "train_ddp2")
 
     cfg = compose(str(ROOT / "configs"), "train", TRAIN_OVERRIDES)
     task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=100, device="cuda")
@@ -4284,6 +4299,227 @@ def phase_train_ddp2(smi):
     del task
     torch.cuda.empty_cache()
     return {n: sum(rec["launches"][n] for rec in recs) for n in kernels()}, {}
+
+
+TP_STEPS = 3
+# the eager full-width HTSAT (fused_forward auto takes the eager modules
+# under tensor parallelism), bf16-mixed, drop-path 0.1
+TP_OVERRIDES = TRAIN_OVERRIDES + ["trainer.fused_forward=auto"]
+
+
+def _tp2_rank(rank, world, init_method, out):
+    """One rank of phase_train_tp2 on cuda:0 in a gloo group, laid out as
+    one data row of two model ranks: rank 0 builds the kernels (a cache hit
+    after phase_build) and the other waits; the first batch's grads (the
+    split ones gathered to full width) and loss, TP_STEPS timed steps of
+    the whole batch (both model ranks read it), one step profiled on rank
+    0, the gathered states compared through a broadcast of rank 0's; its
+    record to ``out``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.ops import _cuda
+    from pseldnets_tpu_torch.parallel import barrier, init_data_parallel, model_world, shutdown
+    from pseldnets_tpu_torch.parallel import tp as tensor_parallel
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    dev = torch.device("cuda", 0)
+    init_data_parallel(rank, world, "gloo", init_method, dev)
+    try:
+        if rank == 0:
+            _cuda.build_all(list(kernels().values()))
+        barrier()
+        cfg = compose(str(ROOT / "configs"), "train",
+                      TP_OVERRIDES + [f"trainer.tensor_parallel={world}"])
+        task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=100, device=dev)
+        check(model_world() == world and not task.fused_forward, "train_tp2 layout")
+        task.init_state(0)
+        wavs, labels = ddp_batch(B_TRAIN)
+        losses, grads, _ = task.compute_grads(wavs[0], {"adpit_label": labels},
+                                              torch.Generator(device="cuda").manual_seed(8))
+        split = [(n, g) for n, g in zip(task.trained_names, grads) if n in task.tp_plan]
+        full = dict(zip([n for n, _ in split], tensor_parallel.gather_tensors(
+            [g for _, g in split], [task.tp_plan[n] for n, _ in split])))
+        torch.cuda.reset_peak_memory_stats(dev)
+        launches, ms, step_losses = ddp_steps(task, wavs[:TP_STEPS], labels)
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        step = lambda: task.train_step(wavs[0], {"adpit_label": labels}, gen)  # noqa: E731
+        if rank == 0:  # its device busy share, by kernel
+            phase_profile("train_tp2 rank 0's step", step, warm=False)
+        else:
+            step()
+        state = task.full_model().state_dict()
+        flat = torch.cat([v.float().reshape(-1) for v in state.values()])
+        mine = flat.clone()
+        torch.distributed.broadcast(flat, 0)
+        same = torch.tensor([float(torch.equal(flat, mine))], device=dev)
+        torch.distributed.all_reduce(same)
+        record = {"launches": launches, "ms": ms, "losses": step_losses,
+                  "identical": bool(same.item() == world),
+                  "loss": float(losses["loss_all"].detach()), "n_split": len(task.tp_plan),
+                  "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        if rank == 0:
+            record["grads"] = [full.get(n, g).cpu() for n, g in zip(task.trained_names, grads)]
+        torch.save(record, str(Path(out) / f"rank{rank}.pt"))
+    finally:
+        shutdown()
+
+
+def phase_train_tp2(smi):
+    """``train_tp2``: tensor parallelism (trainer.tensor_parallel=2) on two
+    gloo ranks sharing cuda:0 (one data row of two model ranks: each holds
+    half the heads of every attention, half of every MLP's columns and half
+    of each merge's input), the full-width HTSAT mACCDOA eager step,
+    bf16-mixed, B_TRAIN clips on each, against one process's eager step on
+    the same batch and drop-path generator: the loss within 1e-3 relative,
+    every grad within 3e-2 of its scale (floored at 2^-14 of the largest),
+    or within 4x the one-process bf16 step's largest distance from float32
+    (``hold_bf16_grads``); then
+    TP_STEPS steps on each rank (K1 x1 a step, no K2/K3: the kernels take
+    whole weight matrices), after which the ranks' gathered parameters and
+    statistics are bit-identical; ms a step of the two ranks sharing one
+    card, rank 0's device busy share (torch.profiler), peak memory."""
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.train.module import DatasetSpec, SELDTask
+
+    W = 2
+    recs = ranks_on_card(_tp2_rank, W, "train_tp2")
+
+    wavs, labels = ddp_batch(B_TRAIN)
+    ref = {}
+    for dtype in ("bf16-mixed", "32-true"):
+        cfg = compose(str(ROOT / "configs"), "train", TP_OVERRIDES + [
+            "trainer.fused_forward=false", f"trainer.precision={dtype}"])
+        task = SELDTask(cfg, DatasetSpec(num_classes=13), steps_per_epoch=100, device="cuda")
+        task.init_state(0)
+        losses, g, _ = task.compute_grads(wavs[0], {"adpit_label": labels},
+                                          torch.Generator(device="cuda").manual_seed(8))
+        ref[dtype] = (float(losses["loss_all"].detach()), [x.detach() for x in g])
+        names = task.trained_names
+        del task
+        torch.cuda.empty_cache()
+    lf, gf = ref["bf16-mixed"]
+    g32 = ref["32-true"][1]
+    lk = recs[0]["loss"]
+    log(f"train_tp2: the two model ranks' step (B={B_TRAIN} on each, {recs[0]['n_split']} "
+        f"tensors split) vs one process's eager step: loss {lk:.6f} (one process {lf:.6f}, "
+        f"float32 {ref['32-true'][0]:.6f})")
+    check(abs(lk - lf) <= 1e-3 * abs(lf), "train_tp2 loss disagrees")
+    hold_bf16_grads("train_tp2", names, recs[0]["grads"], gf, g32)
+    want = expected(K1=TP_STEPS)
+    for r, rec in enumerate(recs):
+        log(f"train_tp2 rank {r}: {TP_STEPS} steps of {B_TRAIN}: launches {rec['launches']} "
+            f"(expect {want}); losses {[round(v, 6) for v in rec['losses']]}; {rec['ms']:.2f} "
+            f"ms/step, two model ranks sharing one card over gloo (host clock, synchronized); "
+            f"peak device memory {rec['peak_gib']:.2f} GiB ({smi})")
+        check(rec["launches"] == want, f"train_tp2 rank {r} launch counts")
+        check(rec["identical"], "train_tp2: the ranks' gathered parameters differ")
+    log("train_tp2: the ranks' gathered parameters and statistics bit-identical after the steps")
+    torch.cuda.empty_cache()
+    return {n: sum(rec["launches"][n] for rec in recs) for n in kernels()}, {}
+
+
+def hold_bf16_grads(what, names, got, gf, g32):
+    """Grads ``got`` of a bf16 step (split over model ranks) against one
+    process's bf16 step ``gf``: each within 3e-2 of its scale (floored at
+    2^-14 of the largest), or, where bf16 rounding alone moves a grad
+    further, within 4x the one-process bf16 step's largest distance from
+    its float32 step ``g32`` over all grads (two bf16 steps differ by
+    bf16's rounding, heavy-tailed in a grad's largest element; the split
+    layers keep their partial sums in float32, parallel/tp.py). -> the
+    worst distance as a share of scale."""
+    floor = 2.0 ** -14 * max(g.abs().max().item() for g in gf)
+    scales = [max(g.abs().max().item(), floor) for g in gf]
+    noise = max((c - c32).abs().max().item() / sc for c, c32, sc in zip(gf, g32, scales))
+    worst, widened = (0.0, ""), []
+    for name, a, c, c32, scale in zip(names, got, gf, g32, scales):
+        a = a.to(c.device)
+        rel = (a - c).abs().max().item() / scale
+        check(a.isfinite().all().item() and rel <= max(3e-2, 4 * noise),
+              f"{what}: the {name} grad {rel:.3g} of its scale from the one-process step's "
+              f"(the one-process bf16 step up to {noise:.3g} from float32)")
+        if rel > 3e-2:
+            widened.append((name, round(rel, 4), round((a - c32).abs().max().item() / scale, 4)))
+        worst = max(worst, (rel, name))
+    log(f"{what}: every grad within {worst[0]:.3g} of its scale of the one-process step's "
+        f"(<= 3e-2, or 4x the one-process bf16 step's largest distance from float32, "
+        f"{noise:.3g}: (name, distance, its distance from float32) {widened or 'none needed'}; "
+        f"scales floored at {floor:.3g}; the worst {worst[1]})")
+    return worst[0]
+
+
+MIC_CLIPS, MIC_CHECK = 32, 4  # clips timed on the card; clips held against the CPU
+# the SALSA-lite paper's limits (no shipped config has a data.salsalite entry)
+SALSALITE = {"fmin_doa": 50.0, "fmax_doa": 2000.0, "fmax_spectra": 9000.0}
+
+
+def phase_features_mic(smi):
+    """``features_mic``: the mic features on the card (no kernel of the
+    port: the JAX package has no Pallas kernel for them) at 10 s, 24 kHz,
+    n_fft 1024, hop 240, 64 mels or lags: LogmelExtractor (the windowed-DFT
+    STFT, cuDNN's float32 convolution with TF32 off) on 1 and 4 channels,
+    GCC-PHAT of the 6 pairs and SALSA-lite (SALSALITE) on the FFT STFT of
+    4 channels, each on MIC_CHECK clips against the same function on the
+    CPU: log-mel within 1e-3 dB, GCC-PHAT lags within 1e-4, SALSA-lite's
+    log power within 1e-5 of the largest power (in the power domain) and
+    its phase within 1e-4 as the wrapped angle times the bin's
+    cross-spectrum magnitude, of the largest; then each timed on
+    MIC_CLIPS clips."""
+    import numpy as np
+    import torch
+    from pseldnets_tpu_torch.config import compose
+    from pseldnets_tpu_torch.ops.features import (LogmelExtractor, gcc_phat, salsa_lite,
+                                                  salsa_lite_bins)
+    from pseldnets_tpu_torch.ops.stft import stft
+
+    cfg = compose(str(ROOT / "configs"), "train", ["data.audio_feature=logmel"])
+    data = cfg["data"]
+    sr, n_fft, hop, mels = (int(data[k]) for k in ("sample_rate", "nfft", "hoplen", "n_mels"))
+    check((sr, n_fft, hop, mels) == (24000, 1024, 240, 64), "the mic features' shape")
+    ex = LogmelExtractor(cfg)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(MIC_CLIPS, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+    salsa_args = (sr, n_fft, *SALSALITE.values())
+
+    def spectra(w):
+        return stft(w, n_fft, hop, "hann")
+
+    funcs = {"logmel_1ch": lambda w: ex(w[:, :1]), "logmel_4ch": lambda w: ex(w),
+             "gcc_phat": lambda w: gcc_phat(*spectra(w), mels),
+             "salsa_lite": lambda w: salsa_lite(*spectra(w), *salsa_args)}
+    lo, _, cut = salsa_lite_bins(*salsa_args)
+    f = torch.arange(n_fft // 2 + 1, dtype=torch.float64)[lo:cut]
+    delta = 2.0 * math.pi * sr / (n_fft * 343.0)
+    zero_counts()
+    out, errs = {}, {}
+    for name, fn in funcs.items():
+        got = fn(x[:MIC_CHECK]).double().cpu()
+        want = fn(x[:MIC_CHECK].cpu()).double()
+        check(got.shape == want.shape and torch.isfinite(got).all().item(), f"{name} shape")
+        if name.startswith("logmel"):
+            err, bound = (got - want).abs().max().item(), 1e-3
+        elif name == "gcc_phat":
+            err, bound = (got - want).abs().max().item(), 1e-4
+        else:
+            pg, pw = 10.0 ** (got[:, :4] / 10.0), 10.0 ** (want[:, :4] / 10.0)
+            err_p = (pg - pw).abs().max().item() / pw.max().item()
+            turn = (got[:, 4:] - want[:, 4:]) * delta * f
+            turn = ((turn + math.pi) % (2 * math.pi) - math.pi).abs()
+            mag = (pw[:, 1:] * pw[:, :1]).sqrt()
+            err_a = (turn * mag).max().item() / mag.max().item()
+            check(err_p <= 1e-5, f"salsa_lite log power {err_p:.3g} of the largest power")
+            err, bound = err_a, 1e-4
+        check(err <= bound, f"{name}: the card's {err:.3g} from the CPU's (bound {bound})")
+        ms = cuda_ms(lambda: fn(x), 5)
+        out[name] = {"shape": list(fn(x).shape), "ms": ms, "err": err, "bound": bound}
+        log(f"features_mic {name}: {MIC_CLIPS} clips of 10 s -> {out[name]['shape']} in "
+            f"{ms:.3f} ms on the device; {MIC_CHECK} clips within {err:.3g} of the CPU's "
+            f"(<= {bound}) ({smi})")
+    launches = read_counts()
+    check(launches == expected(), f"features_mic launched {launches}: no kernel expected")
+    log(f"features_mic: launches {launches} (no kernel of the port on this path)")
+    return launches, {}
 
 
 def phase_profile(what, fn, warm=True):
@@ -4355,6 +4591,8 @@ def main():
     results["finetune"] = phase_finetune(smi)
     results["train_ddp1"] = phase_train_ddp1(smi)
     results["train_ddp2"] = phase_train_ddp2(smi)
+    results["train_tp2"] = phase_train_tp2(smi)
+    results["features_mic"] = phase_features_mic(smi)
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
     # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the einsum embed, one
@@ -4364,7 +4602,8 @@ def main():
     # eager-only adapters and the drop rates, the eval path, fit,
     # the shipped recipes' pre-training, fine-tune and mono recipes, the
     # data-parallel steps on one NCCL rank and on two gloo ranks, both
-    # ranks' launches), each
+    # ranks' launches, the tensor-parallel steps on two gloo ranks, both
+    # ranks' launches, and the mic features, none), each
     # counted from 0; errors: the largest over the
     # checks at each path's own shapes,
     # absolute and as a share of the plain output's largest magnitude; ms and

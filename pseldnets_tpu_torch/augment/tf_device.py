@@ -9,8 +9,8 @@ TrackMix's ordering jitter, under the names ``apply`` reads. ``apply(x,
 targets, draws)`` is deterministic and keeps the JAX arithmetic in float32
 in the JAX order (``uniform * T``, then ``uniform * (T_dim - value)``,
 truncation by ``.to(torch.int32)``, SpecAugment's raw-float frequency
-bounds, FreqShift's reflect pad, TrackMixDevice's argsort pairing), so the
-JAX draws given to ``apply`` give the JAX outputs.
+bounds, FreqShift's pad in every ``jnp.pad`` mode, TrackMixDevice's argsort
+pairing), so the JAX draws given to ``apply`` give the JAX outputs.
 
 Under data parallelism every per-clip draw comes through
 ``parallel.batch_rows``: ``draw`` draws for the global batch (W times the
@@ -180,13 +180,58 @@ class Crop:
 
 
 
+# jnp.pad's modes (numpy's), which the JAX FreqShift passes on (tf_device.py:108)
+PAD_MODES = ("constant", "edge", "reflect", "symmetric", "wrap", "linear_ramp", "maximum",
+             "mean", "median", "minimum", "empty")
+
+
+def pad_last(x: torch.Tensor, R: int, mode: str) -> torch.Tensor:
+    """``x`` (N, C, T, F) padded by R on both ends of its last axis as ``jnp.pad`` pads
+    it in ``mode`` with its defaults: ``constant`` with 0, ``edge``,
+    ``reflect``, ``symmetric`` and ``wrap`` by index, ``linear_ramp`` from 0
+    at the outer end towards the edge value (exclusive), the statistics
+    (``maximum``, ``mean``, ``median`` (the mean of the two middle values of
+    an even count), ``minimum``) of the whole axis, and ``empty`` as zeros
+    (what ``jnp.pad`` gives on the CPU: its ``empty`` is ``zeros``)."""
+    if mode == "reflect":
+        return F.pad(x, (R, R, 0, 0), mode="reflect")
+    if mode in ("constant", "empty"):
+        return F.pad(x, (R, R))
+    n = x.shape[-1]
+    if mode in ("edge", "symmetric", "wrap"):
+        i = torch.arange(-R, n + R, device=x.device)
+        if mode == "edge":
+            i = i.clamp(0, n - 1)
+        elif mode == "wrap":
+            i = i % n
+        else:
+            i = i % (2 * n)
+            i = torch.where(i < n, i, 2 * n - 1 - i)
+        return x.index_select(-1, i)
+    if mode == "linear_ramp":
+        step = torch.arange(R, device=x.device, dtype=x.dtype) / R  # 0, 1/R, ..., (R-1)/R
+        left = x[..., :1] * step
+        right = (x[..., -1:] * step).flip(-1)
+        return torch.cat([left, x, right], dim=-1)
+    if mode in ("maximum", "minimum", "mean"):
+        stat = {"maximum": torch.amax, "minimum": torch.amin, "mean": torch.mean}[mode](
+            x, dim=-1, keepdim=True)
+    elif mode == "median":
+        srt = x.sort(dim=-1).values
+        stat = (srt[..., (n - 1) // 2:(n - 1) // 2 + 1] + srt[..., n // 2:n // 2 + 1]) / 2
+    else:
+        raise ValueError(f"FreqShift mode {mode!r}: jnp.pad takes {PAD_MODES}")
+    side = stat.expand(*x.shape[:-1], R)
+    return torch.cat([side, x, side], dim=-1)
+
+
 class FreqShift:
     def __init__(self, p=0.5, shift_range=15, direction=None, mode="reflect", **_):
         self.p = p
         self.shift_range = shift_range
         self.direction = None if direction in (None, "None", "none") else direction
-        if mode != "reflect":  # the one mode the configs ship (augment/default.yaml)
-            raise NotImplementedError(f"FreqShift mode {mode!r}: the port pads with 'reflect'")
+        if mode not in PAD_MODES:
+            raise ValueError(f"FreqShift mode {mode!r}: jnp.pad takes {PAD_MODES}")
         self.mode = mode
 
     def _range(self, F_dim: int) -> int:
@@ -212,7 +257,7 @@ class FreqShift:
         R = self._range(F_dim)
         apply = draws["apply"] < self.p
         shift = draws["shift"].to(torch.int64)
-        pad = F.pad(batch_x, (R, R, 0, 0), mode="reflect")
+        pad = pad_last(batch_x, R, self.mode)
         f = torch.arange(F_dim, device=batch_x.device)
         # up: content moves up (pad left by s, keep first F) -> src = f - s + R
         # down: pad right by s, drop first s -> src = f + s + R

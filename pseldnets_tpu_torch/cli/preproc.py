@@ -6,29 +6,37 @@ corpus; STARSS23 eval (no metadata) gets its indexes only. It composes
 
     python -m pseldnets_tpu_torch.cli.preproc dataset=STARSS23 wav_format=.wav
 
-It runs on the host only (numpy, the audio decoder, ``h5py`` for the label
-files). A feature other than logmelIV/logmel (offline mic features) raises:
-they are not ported (ROADMAP.md queue A steps 1/10).
+It runs on the host (numpy, the audio decoder, ``h5py`` for the label and
+feature files), apart from the offline mic features that a feature other
+than logmelIV/logmel asks for (``logmelgcc``, ``salsalite``:
+``Preprocess.extract_mic_features``), whose STFT, log-mel, GCC-PHAT and
+SALSA-lite run on the card, or with ``--device cpu`` on the CPU; without a
+card and without ``--device cpu`` that step raises::
+
+    python -m pseldnets_tpu_torch.cli.preproc --device cpu data=mic_salsalite dataset=...
 """
 
 import sys
 from typing import List, Optional
 
-from .infer import REPO
+from .infer import REPO, split_device
 
 
-def main(argv: Optional[List[str]] = None):
+def main(argv: Optional[List[str]] = None, device: str = "cuda"):
+    """Preprocess as the config says; ``--device`` (or ``device``) is where
+    the offline mic features are computed."""
     from ..config import compose
     from ..data.datasets import get_dataset
     from ..preproc import Preprocess
 
-    cfg = compose(str(REPO / "configs"), "preproc", list(sys.argv[1:] if argv is None else argv))
+    argv, device = split_device(list(sys.argv[1:] if argv is None else argv), device)
+    cfg = compose(str(REPO / "configs"), "preproc", argv)
     dataset = get_dataset(cfg.get("dataset", "synth"), cfg)
     preproc = Preprocess(cfg, dataset)
     if cfg.get("dataset") == "L3DAS22":
         preproc.extract_l3das22_label()
     if cfg["data"]["audio_feature"] not in ("logmelIV", "logmel"):
-        preproc.extract_mic_features()
+        preproc.extract_mic_features(device)
     preproc.extract_index()
     if not (cfg.get("dataset") == "STARSS23" and cfg.get("dataset_type") == "eval"):
         preproc.extract_accdoa_label()

@@ -50,6 +50,17 @@ in the reference's Lightning DDP and the JAX package's multi-process runs:
 a step trains on N times as many clips. Like the JAX package, the CLI
 reads ``devices``, not ``strategy``, and the BatchNorm statistics are
 global under N > 1 whatever ``sync_batchnorm`` says (train/module.py).
+
+Tensor parallelism (``trainer.tensor_parallel`` tp > 1, the JAX package's
+additive knob; parallel/tp.py): the N ranks (spawned or torchrun's) are laid
+out as N / tp data rows of tp model ranks, rank r at data index r // tp and
+model index r % tp; tp must divide N. Each data row reads
+``model.batch_size`` clips a step (the sampler's data rows), so a step
+trains on N / tp times as many; every model rank of a row holds its part of
+the split layers, and the model trains on the eager modules::
+
+    python -m pseldnets_tpu_torch.cli.train trainer=gpu trainer.devices=4 \
+        trainer.tensor_parallel=2 ...   # 2 data rows x 2 model ranks
 """
 
 import logging
@@ -197,6 +208,7 @@ def train(cfg, device):
     import torch
 
     from ..data import SELDDataModule, get_dataset
+    from ..parallel import init_layout
     from ..train.loop import effective_steps_per_epoch, fit
     from ..train.module import SELDTask
     from ..utils.utilities import count_params, print_config_tree
@@ -210,6 +222,8 @@ def train(cfg, device):
         torch.autograd.set_detect_anomaly(True)
         log.info("trainer.detect_anomaly: torch.autograd anomaly detection on")
 
+    # the (data, model) layout before the sampler, which reads the data world
+    init_layout(int((cfg.get("trainer") or {}).get("tensor_parallel", 1) or 1))
     dataset = get_dataset(list(cfg["data"]["train_dataset"].keys())[0], cfg)
     datamodule = SELDDataModule(cfg, dataset, stage="fit")
     log.info("train clips: %d, val clips: %d", len(datamodule.train_set), len(datamodule.val_set))

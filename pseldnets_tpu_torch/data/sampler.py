@@ -3,8 +3,9 @@
 Parity: reference src/data/components/sampler.py — infinite shuffled sampler
 yielding rank-strided slices of a (batch_size x world_size) global batch with
 last-batch supplement; identical shuffles on every rank via the shared seed.
-The rank and the number of replicas are the process group's
-(parallel/mesh.py), else 0 and 1. A copy of the JAX package's data/sampler.py.
+The rank and the number of replicas are the process group's data index
+and data world (parallel/mesh.py; under tensor parallelism the model ranks
+of a data row read one batch), else 0 and 1. A copy of the JAX package's data/sampler.py.
 """
 
 import numpy as np
@@ -16,8 +17,9 @@ class DistributedBatchSampler:
     def __init__(self, clip_num, batch_size=1, seed=2023, data_indices=None,
                  shuffle=True, last_batch_supplement=True, rank=None,
                  num_replicas=None):
-        self.rank = parallel.rank() if rank is None else rank
-        self.num_replicas = parallel.world() if num_replicas is None else num_replicas
+        self.rank = parallel.data_rank() if rank is None else rank
+        self.num_replicas = (parallel.data_world() if num_replicas is None
+                             else num_replicas)
         self.clip_num = clip_num
         self.batch_size = batch_size * self.num_replicas
 

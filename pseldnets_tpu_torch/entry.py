@@ -11,7 +11,9 @@ K8 and K2 x12 on the card; their plain versions on the CPU).
 
 ``dryrun_multichip(n)``, the counterpart of the JAX package's
 ``__graft_entry__.dryrun_multichip``: one data-parallel training step over
-n processes on the CPU (gloo), started by the train CLI's launcher.
+n processes on the CPU (gloo), started by the train CLI's launcher, and for
+an even n of 4 or more, as the JAX dryrun (:233-246), one tensor-parallel
+step over (data = n / 2, model = 2) on the same processes.
 """
 
 import tempfile
@@ -69,37 +71,65 @@ def dryrun_multichip(n: int) -> None:
     drop-path masks from a generator of one seed. Checks that every rank
     ends the step with bit-identical parameters and BatchNorm statistics
     and that the loss is finite, then prints ``dryrun_multichip(n): ok,
-    loss_all=<the ranks' mean>``. The tensor-parallel step of the JAX
-    dryrun (parallel/tp.py) is not ported yet: it waits for the next slice
-    (ROADMAP.md queue A, step 11)."""
+    loss_all=<the ranks' mean>``. For an even n of 4 or more, the same
+    processes then take one tensor-parallel step (``trainer.
+    tensor_parallel=2``, the eager modules: data = n / 2 rows of 2 model
+    ranks, each row on its rows of a global batch of n / 2 * DRYRUN_B
+    clips), check that every rank's gathered parameters are bit-identical
+    and its loss finite, and print ``dryrun tp(data=n/2,model=2): ok,
+    loss_all=...``, as the JAX dryrun does."""
     from .cli.train import spawn
     from .config import compose
 
     cfg = compose(str(REPO / "configs"), "train", DRYRUN_OVERRIDES)
+    tp = n >= 4 and n % 2 == 0
+    cfg_tp = compose(str(REPO / "configs"), "train", DRYRUN_OVERRIDES + [
+        "trainer.fused_forward=auto", "trainer.tensor_parallel=2"]) if tp else None
     with tempfile.TemporaryDirectory(prefix="pseldnets_dryrun_") as out:
-        spawn(n, _dryrun_rank, (cfg, out), "cpu")
+        spawn(n, _dryrun_ranks, (cfg, cfg_tp, out), "cpu")
         got = [torch.load(str(Path(out) / f"rank{r}.pt"), weights_only=True) for r in range(n)]
-    for r in range(1, n):
+        got_tp = [torch.load(str(Path(out) / "tp" / f"rank{r}.pt"), weights_only=True)
+                  for r in range(n)] if tp else None
+    loss = _dryrun_check(f"dryrun_multichip({n})", got)
+    print(f"dryrun_multichip({n}): ok, loss_all={loss:.6f}", flush=True)
+    if tp:
+        loss = _dryrun_check(f"dryrun tp(data={n // 2},model=2)", got_tp)
+        print(f"dryrun tp(data={n // 2},model=2): ok, loss_all={loss:.6f}", flush=True)
+
+
+def _dryrun_check(what: str, got) -> float:
+    """Every rank's state bit-identical to rank 0's, the ranks' mean loss
+    finite: -> that loss."""
+    for r in range(1, len(got)):
         for k, v in got[0]["state"].items():
             if not torch.equal(v, got[r]["state"][k]):
-                raise AssertionError(f"dryrun_multichip({n}): rank {r}'s {k} differs from "
-                                     "rank 0's after the step")
+                raise AssertionError(f"{what}: rank {r}'s {k} differs from rank 0's after "
+                                     "the step")
     loss = float(np.mean([g["loss_all"] for g in got]))
     if not np.isfinite(loss):
-        raise AssertionError(f"dryrun_multichip({n}): loss {loss}")
-    print(f"dryrun_multichip({n}): ok, loss_all={loss:.6f}", flush=True)
+        raise AssertionError(f"{what}: loss {loss}")
+    return loss
+
+
+def _dryrun_ranks(cfg, cfg_tp, out: str, device) -> None:
+    """One rank of ``dryrun_multichip``: the data-parallel step, then, with
+    ``cfg_tp``, the tensor-parallel one (its records under ``out/tp``)."""
+    _dryrun_rank(cfg, out, device)
+    if cfg_tp is not None:
+        (Path(out) / "tp").mkdir(exist_ok=True)
+        _dryrun_rank(cfg_tp, str(Path(out) / "tp"), device)
 
 
 def _dryrun_rank(cfg, out: str, device) -> None:
-    """One rank of ``dryrun_multichip``: the step on its rows, then its state
-    and loss written to ``out``."""
-    from .parallel import rank, world
+    """One rank's step on its data rows, then its full-width state and loss
+    written to ``out``."""
+    from .parallel import data_rank, data_world, rank
     from .train.module import DatasetSpec, SELDTask
 
     task = SELDTask(cfg, DatasetSpec(num_classes=DRYRUN_CLASSES), steps_per_epoch=10,
                     device=device)
     task.init_state()
-    W, r = world(), rank()
+    W, r = data_world(), data_rank()
     data = cfg["data"]
     samples = int(data["train_chunklen_sec"] * data["sample_rate"])
     frames = int(data["train_chunklen_sec"] / 0.1)
@@ -110,5 +140,6 @@ def _dryrun_rank(cfg, out: str, device) -> None:
     labels = np.concatenate([act, act * doa], axis=3).astype(np.float32)
     losses = task.train_step(wav[r::W], {"adpit_label": labels[r::W]},
                              torch.Generator(device=device).manual_seed(1))
-    torch.save({"state": {k: v.detach().cpu() for k, v in task.model.state_dict().items()},
-                "loss_all": float(losses["loss_all"])}, str(Path(out) / f"rank{r}.pt"))
+    state = task.full_model().state_dict()
+    torch.save({"state": {k: v.detach().cpu() for k, v in state.items()},
+                "loss_all": float(losses["loss_all"])}, str(Path(out) / f"rank{rank()}.pt"))

@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel import all_reduce_sum, batch_rows, world
+from ..parallel import all_reduce_sum, batch_rows, data_world
 from .adapters import NO_ADAPT, AdaptConfig, AdaptConv, AdaptDense, Adapter
 
 NO_DECODER = (None, "None", "null", "identity")
@@ -63,7 +63,7 @@ class DropoutDraws:
         if self.generator is None:
             raise ValueError("train mode with dropout needs dropout draws or a generator")
         shape = tuple(shape)
-        if not batched or world() == 1:
+        if not batched or data_world() == 1:
             return torch.rand(shape, generator=self.generator, device=device) < 1.0 - rate
         B = self.batch
         if B is None or shape[0] % B:
@@ -81,15 +81,25 @@ class DropoutDraws:
 
 
 def dropout(x: torch.Tensor, rate: float, drops: Optional[DropoutDraws],
-            training: bool) -> torch.Tensor:
+            training: bool, part: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """flax ``nn.Dropout`` (linen/stochastic.py:99-107): select(m, x / keep,
     0) in x's dtype with a keep-mask of x's shape from ``drops``; x as it is
-    in eval or at rate 0. Train mode with a rate needs ``drops``."""
+    in eval or at rate 0. Train mode with a rate needs ``drops``. ``part``
+    (axis, full width, start): x is this model rank's part of a tensor split
+    over the model ranks (parallel/tp.py); the mask is drawn, or injected,
+    at the full width and the rank keeps its part, so the model ranks draw
+    alike."""
     if not training or not rate:
         return x
     if drops is None:
         raise ValueError("train mode with dropout needs dropout draws or a generator")
-    m = drops.keep(x.shape, rate, x.device)
+    if part is None:
+        m = drops.keep(x.shape, rate, x.device)
+    else:
+        axis, width, start = part
+        full = list(x.shape)
+        full[axis] = width
+        m = drops.keep(full, rate, x.device).narrow(axis, start, x.shape[axis])
     return torch.where(m, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -191,7 +201,7 @@ class TorchBatchNorm(nn.Module):
         times the local count; nothing is read back to the host."""
         xf = x.float()
         n = math.prod(x.shape[ax] for ax in self.reduce_axes)
-        W = world()
+        W = data_world()
         if W > 1:
             n *= W
             mean = all_reduce_sum(xf.sum(dim=self.reduce_axes)) / n
@@ -285,8 +295,13 @@ class Mlp(nn.Module):
         self.adapter_ds = (Adapter(in_features, **adapt.ds_adapter_args())
                            if adapt.mlp_adapter and adapt.new_adapter else None)
 
+    # under tensor parallelism (parallel/tp.py): (axis, full width, first
+    # column) of this rank's fc1 columns, which its first dropout keeps
+    tp_part = None
+
     def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
-        h = dropout(F.gelu(self.fc1(x), approximate="none"), self.drop, drops, self.training)
+        h = dropout(F.gelu(self.fc1(x), approximate="none"), self.drop, drops, self.training,
+                    self.tp_part)
         h = self.fc2(h)
         if self.adapter is not None:
             xs = self.adapter(x)

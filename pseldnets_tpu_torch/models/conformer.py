@@ -68,12 +68,17 @@ class FeedForwardModule(nn.Module):
             nn.LayerNorm(dim, eps=1e-5), nn.Linear(dim, dim * expansion), nn.SiLU(),
             nn.Dropout(dropout), nn.Linear(dim * expansion, dim), nn.Dropout(dropout))
 
+    # under tensor parallelism (parallel/tp.py, which splits sequential.1
+    # and .4 as the JAX package's fc1/fc2): (axis, full width, first
+    # column) of this rank's fc1 columns, which its first dropout keeps
+    tp_part = None
+
     def forward(self, x: torch.Tensor, drops: Optional[DropoutDraws] = None) -> torch.Tensor:
         """LayerNorm -> fc1 -> SiLU -> dropout -> fc2 -> dropout (the
         ``sequential``'s Dropout entries, indices 3 and 5, hold no
         parameters: the drawn masks apply in their places)."""
         s = self.sequential
-        h = dropout(F.silu(s[1](s[0](x))), self.dropout, drops, self.training)
+        h = dropout(F.silu(s[1](s[0](x))), self.dropout, drops, self.training, self.tp_part)
         return dropout(s[4](h), self.dropout, drops, self.training)
 
 

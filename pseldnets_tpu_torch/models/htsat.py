@@ -112,19 +112,25 @@ class WindowAttention(nn.Module):
             torch.as_tensor(relative_position_index(window_size).reshape(-1)),
             persistent=False)
 
+    # under tensor parallelism (parallel/tp.py): (axis, full width, first
+    # head) of this rank's heads, which its attention-dropout mask keeps
+    tp_part = None
+
     def rel_bias(self) -> torch.Tensor:
-        """(nh, N, N) float32 bias gathered from the table."""
+        """(nh, N, N) float32 bias gathered from the table (the rank's heads
+        under tensor parallelism)."""
         n = self.window_size ** 2
         b = self.relative_position_bias_table[self.relative_position_index]
-        return b.reshape(n, n, self.num_heads).permute(2, 0, 1).float()
+        return b.reshape(n, n, -1).permute(2, 0, 1).float()
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 drops: Optional[DropoutDraws] = None) -> torch.Tensor:
         B_, N, C = x.shape
-        nh = self.num_heads
-        hd = C // nh
-        qkv = self.qkv(x).reshape(B_, N, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        hd = self.dim // self.num_heads
+        # nh: the heads qkv gives, all of them or, split, this rank's
+        qkv = self.qkv(x).reshape(B_, N, 3, -1, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B_, nh, N, hd)
+        nh = q.shape[1]
         attn = torch.matmul(q * hd ** -0.5, k.transpose(-1, -2))
         attn = attn + self.rel_bias()[None]
         if mask is not None:
@@ -132,8 +138,8 @@ class WindowAttention(nn.Module):
             attn = attn.reshape(B_ // nW, nW, nh, N, N) + mask[None, :, None]
             attn = attn.reshape(B_, nh, N, N)
         attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-        attn = dropout(attn, self.attn_drop, drops, self.training)
-        x = self.proj(torch.matmul(attn, v).transpose(1, 2).reshape(B_, N, C))
+        attn = dropout(attn, self.attn_drop, drops, self.training, self.tp_part)
+        x = self.proj(torch.matmul(attn, v).transpose(1, 2).reshape(B_, N, nh * hd))
         x = dropout(x, self.proj_drop, drops, self.training)
         return x if self.adapter is None else x + self.adapter(x)
 

@@ -63,18 +63,19 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int = 12, qkv_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
-        H = self.num_heads
-        D = C // H
-        qkv = self.qkv(x).reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
+        D = self.head_dim
+        # all the heads, or split by heads (parallel/tp.py) this rank's
+        qkv = self.qkv(x).reshape(B, N, 3, -1, D).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
         attn = torch.matmul((q * D ** -0.5).float(), k.float().transpose(-1, -2))
         attn = torch.softmax(attn, dim=-1).to(x.dtype)
-        x = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, C)
+        x = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, -1)
         return self.proj(x)
 
 

@@ -1,10 +1,21 @@
-"""logmel + FOA intensity-vector frontend in PyTorch, the counterpart of the
-JAX package's ops/features.py (LogmelIVExtractor path and make_extractor).
+"""The audio feature extractors in PyTorch, the counterpart of the JAX
+package's ops/features.py.
 
-Behavioral parity target (reference src/utils/feature.py:20-56,93-117): STFT ->
-power-mel (HTK scale, slaney norm, fmin=20, fmax=fs/2) -> 10*log10 dB
-(amin=1e-10) concatenated with the L2-normalized FOA intensity vector
-projected onto the mel basis; output (B, 4+3, T, n_mels).
+Behavioral parity targets (reference src/utils/feature.py):
+* ``LogmelIVExtractor``: STFT -> power-mel (HTK scale, slaney norm, fmin=20,
+  fmax=fs/2) -> 10*log10 dB (amin=1e-10) concatenated with the
+  L2-normalized FOA intensity vector projected onto the mel basis; output
+  (B, 4+3, T, n_mels) (feature.py:20-56,93-117);
+* ``LogmelExtractor``: the same log-mel without the IV, any channel count
+  (feature.py:59-91);
+* ``gcc_phat``: the PHAT-weighted cross-correlation of every channel pair,
+  its centre lags (feature.py:164-175);
+* ``salsa_lite``: the per-channel log power spectra and the normalized
+  inter-channel phase within [lower_bin, cutoff_bin) (feature.py:177-192).
+
+The last three run eagerly on any device (the JAX package has no Pallas
+kernel for them); the offline mic preprocessing (preproc/preprocess.py)
+takes the two pair features.
 
 This is the plain version of the fused frontend kernel K1 (ops/frontend.py),
 its epilogue (``logmel_iv_from_spectrum``) that of the flat and DIF forms
@@ -90,17 +101,90 @@ class LogmelIVExtractor:
                          mel_fb=self.mel_fb.to(x.device))
 
 
+class LogmelExtractor:
+    """logmel frontend for any channel count (mono or mic; the JAX
+    package's features.py:123-146): the windowed-DFT STFT, power -> mel
+    (HTK scale, slaney norm, fmin 20, fmax fs / 2) -> 10 log10 dB, eagerly
+    on the input's device."""
+
+    def __init__(self, cfg):
+        data = cfg["data"]
+        self.n_fft = int(data["nfft"])
+        self.hop = int(data["hoplen"])
+        self.window = str(data["window"])
+        self.sr = int(data["sample_rate"])
+        self.n_mels = int(data["n_mels"])
+        self.mel_fb = torch.as_tensor(logmel_iv_filterbank(self.sr, self.n_fft, self.n_mels))
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, samples) -> (B, C, n_frames, n_mels) float32."""
+        if x.ndim != 3:
+            raise ValueError(f"expected (batch, channels, samples), got {tuple(x.shape)}")
+        real, imag = stft_dft(x, self.n_fft, self.hop, self.window)
+        return power_to_db(_mel_project(real * real + imag * imag, self.mel_fb.to(x.device)))
+
+
+def gcc_phat(real: torch.Tensor, imag: torch.Tensor, n_lags: int) -> torch.Tensor:
+    """GCC-PHAT of every channel pair (m, n), m < n, in that order, of
+    onesided spectra (B, C, T, F): -> (B, C (C - 1) / 2, T, n_lags), the
+    centre lags as [last n_lags / 2 | first n_lags / 2] (the JAX package's
+    features.py:149-169). The phase is exp(i angle(R)), as the reference's
+    (feature.py:171): a zero cross-spectrum bin maps to 1, not to 0 / 0."""
+    C = real.shape[1]
+    spec = torch.complex(real.float(), imag.float())
+    outs = []
+    for m in range(C):
+        for n in range(m + 1, C):
+            angle = torch.angle(torch.conj(spec[:, m]) * spec[:, n])
+            cc = torch.fft.irfft(torch.polar(torch.ones_like(angle), angle), dim=-1)
+            outs.append(torch.cat([cc[..., -n_lags // 2:], cc[..., :n_lags // 2]], dim=-1))
+    return torch.stack(outs, dim=1).to(real.dtype)
+
+
+def salsa_lite_bins(sr: int, n_fft: int, fmin_doa: float, fmax_doa: float,
+                    fmax_spectra: float):
+    """(lower_bin, upper_bin, cutoff_bin) of SALSA-lite (features.py:172-177)."""
+    lower_bin = max(int(np.floor(fmin_doa * n_fft / float(sr))), 1)
+    upper_bin = int(np.floor(min(fmax_doa, sr // 2) * n_fft / float(sr)))
+    cutoff_bin = int(np.floor(fmax_spectra * n_fft / float(sr)))
+    if upper_bin > cutoff_bin:
+        raise ValueError(f"fmax_doa's bin {upper_bin} is above fmax_spectra's {cutoff_bin}")
+    return lower_bin, upper_bin, cutoff_bin
+
+
+def salsa_lite(real: torch.Tensor, imag: torch.Tensor, sr: int, n_fft: int,
+               fmin_doa: float, fmax_doa: float, fmax_spectra: float) -> torch.Tensor:
+    """SALSA-lite of spectra (B, C, T, F): -> (B, 2C - 1, T, cutoff - lower),
+    the per-channel log power spectra (floored at ``AMIN_DB``), then the
+    phase of each channel against the first, divided by its bin's
+    2 pi f / c (features.py:172-207). As in the reference (feature.py:
+    182-183), the phase is zeroed from index ``upper_bin`` of the SLICED
+    range on, i.e. from absolute bin lower_bin + upper_bin."""
+    lower_bin, upper_bin, cutoff_bin = salsa_lite_bins(sr, n_fft, fmin_doa, fmax_doa,
+                                                       fmax_spectra)
+    delta = 2.0 * np.pi * sr / (n_fft * 343.0)
+    freq_idx = np.arange(n_fft // 2 + 1, dtype=np.float32)
+    freq_idx[0] = 1.0
+    spec = torch.complex(real.float(), imag.float())
+    phase = torch.angle(spec[:, 1:] * torch.conj(spec[:, :1]))
+    phase = phase / (delta * torch.as_tensor(freq_idx, device=real.device))
+    keep = (np.arange(cutoff_bin - lower_bin) < upper_bin).astype(np.float32)
+    phase = phase[..., lower_bin:cutoff_bin] * torch.as_tensor(keep, device=real.device)
+    logspec = 10.0 * torch.log10(torch.clamp(real * real + imag * imag, min=AMIN_DB))
+    return torch.cat([logspec[..., lower_bin:cutoff_bin], phase.to(real.dtype)], dim=1)
+
+
 def make_extractor(cfg, use_kernels: bool = True):
     """The on-device frontend for ``cfg.data.audio_feature`` (the JAX
     package's make_extractor, features.py:210-220): logmelIV ->
-    LogmelIVExtractor; features other than logmel are read pre-extracted
-    (None); the mono/mic logmel extractor is not ported yet (ROADMAP queue
-    A, step 1)."""
+    LogmelIVExtractor, logmel -> LogmelExtractor; the other features
+    (salsalite, logmelgcc) are read pre-extracted from the offline
+    preprocessing (None)."""
     feat = cfg["data"]["audio_feature"]
     if feat == "logmelIV":
         return LogmelIVExtractor(cfg, use_kernels=use_kernels)
     if feat == "logmel":
-        raise NotImplementedError("LogmelExtractor is not ported yet (ROADMAP queue A, step 1)")
+        return LogmelExtractor(cfg)
     return None
 
 

@@ -5,8 +5,10 @@ reference extractors (src/utils/feature.py:28-31): center=True, reflect padding,
 onesided, no normalization, win_length = n_fft.
 
 ``stft_dft`` computes the windowed DFT as one strided convolution, so the
-(..., n_frames, n_fft) frame tensor is never materialized. Both functions
-return (real, imag) with layout (..., n_frames, n_freqs): time-major.
+(..., n_frames, n_fft) frame tensor is never materialized; ``stft`` frames
+the signal and takes ``torch.fft.rfft`` (the JAX package's FFT ``stft``,
+stft.py:77, which its offline mic features use). Both return (real, imag)
+with layout (..., n_frames, n_freqs): time-major.
 """
 
 import numpy as np
@@ -66,3 +68,11 @@ def stft_dft(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann",
     out = F.conv1d(sig, kernel, stride=hop)  # (N, 2*n_freqs, n_frames)
     out = out.transpose(1, 2).reshape(lead + (out.shape[2], 2 * n_freqs))
     return out[..., :n_freqs].to(x.dtype), out[..., n_freqs:].to(x.dtype)
+
+
+def stft(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann", center: bool = True):
+    """FFT STFT: the windowed frames through ``torch.fft.rfft``, in x's
+    dtype (the JAX package's ``stft``, stft.py:77-83)."""
+    win = torch.as_tensor(get_window(window, n_fft), dtype=x.dtype, device=x.device)
+    spec = torch.fft.rfft(frame_signal(x, n_fft, hop, center) * win, dim=-1)
+    return spec.real.to(x.dtype), spec.imag.to(x.dtype)

@@ -10,12 +10,13 @@ Parity targets (reference src/preproc/preprocess.py):
 * extract_adpit_label      — 6-dummy-track a0/b0b1/c0c1c2 slot labels (:346-461)
 * extract_l3das22_label    — start/end/XYZ csv -> DCASE framewise metadata (:566-611)
 * extract_mic_features     — offline logmel+GCC-PHAT or SALSA-lite per-clip HDF5
-  (:525-563): not ported (ROADMAP.md queue A steps 1/10); it raises. No
-  shipped data config needs it: all are logmelIV.
+  (:525-563), computed on a torch device (the card by default)
 
 A copy of the JAX package's preproc/preprocess.py (:1-326), on the port's
-metrics/dcase.py and utils/audio_io.py. ``h5py`` is imported where a label
-file is written or a feature file read, so the module imports without it.
+metrics/dcase.py, utils/audio_io.py and ops/. ``h5py`` is imported where a
+label or feature file is written or read, so the module imports without
+it; the card's machine has none, so the files are written on a host that
+has it.
 """
 
 import shutil
@@ -25,7 +26,7 @@ from pathlib import Path
 import numpy as np
 
 from ..metrics.dcase import load_output_format_file, segment_index
-from ..utils.audio_io import audio_info
+from ..utils.audio_io import audio_info, load_audio
 
 
 def _pmap(fn, items, num_workers: int, processes: bool = False):
@@ -276,9 +277,53 @@ class Preprocess:
                         f.write(f"{fr},{ev[0]},{ev[1]},{ev[2]},{ev[3]}\n")
 
     # ------------------------------------------------------------ mic features
-    def extract_mic_features(self):
-        """Offline logmel+GCC-PHAT or SALSA-lite features (the JAX package's
-        preprocess.py:290-326): not ported."""
-        raise NotImplementedError(
-            f"offline mic features (audio_feature={self.audio_feature!r}: gcc_phat, "
-            "salsa_lite) are not ported yet (ROADMAP.md queue A steps 1/10)")
+    def mic_features(self, wav: np.ndarray, device="cuda") -> np.ndarray:
+        """One mic recording (C, N) -> its feature (C', T, F) float32, T =
+        N // hoplen frames of the FFT STFT, computed on ``device``: for
+        ``logmelgcc`` the log-mel of each channel on the librosa (slaney)
+        filterbank, floored 80 dB below the channel's peak (librosa's
+        top_db), then the GCC-PHAT of each pair at n_mels lags; for
+        ``salsalite`` SALSA-lite with ``data.salsalite``'s limits (the JAX
+        package's preprocess.py:290-326)."""
+        import torch
+
+        from ..ops._cuda import resolve_device
+        from ..ops.features import gcc_phat, salsa_lite
+        from ..ops.mel import mel_filterbank
+        from ..ops.stft import stft
+
+        dev = resolve_device(device)
+        nb_frames = wav.shape[1] // self.hoplen
+        x = torch.as_tensor(np.asarray(wav, np.float32), device=dev)[None]
+        re, im = (t[:, :, :nb_frames] for t in stft(x, self.nfft, self.hoplen, "hann"))
+        if self.audio_feature == "logmelgcc":
+            fb = torch.as_tensor(mel_filterbank(self.fs, self.nfft, self.n_mels, scale="slaney",
+                                                norm="slaney").astype(np.float32), device=dev)
+            logmel = 10.0 * torch.log10(torch.clamp((re * re + im * im) @ fb, min=1e-10))[0]
+            peak = logmel.amax(dim=(1, 2), keepdim=True)
+            logmel = torch.maximum(logmel, peak - 80.0)
+            feature = torch.cat([logmel, gcc_phat(re, im, self.n_mels)[0]], dim=0)
+        elif self.audio_feature == "salsalite":
+            sl = self.cfg["data"]["salsalite"]
+            feature = salsa_lite(re, im, self.fs, self.nfft, sl["fmin_doa"], sl["fmax_doa"],
+                                 sl["fmax_spectra"])[0]
+        else:
+            raise NotImplementedError(self.audio_feature)
+        return feature.float().cpu().numpy()
+
+    def extract_mic_features(self, device="cuda"):
+        """Offline mic features (``mic_features``, on ``device``) of every
+        recording of the mic directory, one ``feature`` dataset per file in
+        ``<feature_h5_dir>/<stem>.h5`` (the directory made anew)."""
+        import h5py
+
+        from ..ops._cuda import resolve_device
+
+        device = resolve_device(device)  # no card: raise before anything is written
+        if self.feature_h5_dir.is_dir():
+            shutil.rmtree(self.feature_h5_dir)
+        self.feature_h5_dir.mkdir(parents=True)
+        for file in sorted(self.data_dir["mic"].glob("*" + self.wav_format)):
+            feature = self.mic_features(load_audio(file), device)
+            with h5py.File(self.feature_h5_dir / (file.stem + ".h5"), "w") as hf:
+                hf.create_dataset("feature", data=feature)

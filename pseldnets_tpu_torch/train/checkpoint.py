@@ -15,9 +15,10 @@ reference's keys with the ``net.`` prefix and every fused ScalarBN unstacked
 into its per-channel rows (``unstack_scalar_rows``), so either package's
 ``load_seld_inference_ckpt`` reads it; a ``last.ckpt`` also carries
 ``optimizer_states``, ``global_step``, ``epoch`` and ``best_score``
-(``is_training_ckpt``), which ``restore_training_ckpt`` puts back bit for
-bit. This replaces the JAX package's orbax directories (train/loop.py:431-457).
-In a process group rank 0 alone writes (``save_training_ckpt`` refuses on
+(``is_training_ckpt``), which ``SELDTask.init_state`` puts back bit for
+bit (the weights through ``load_seld_inference_ckpt``, the optimizer's
+state through ``load_optimizer_state``). This replaces the JAX package's
+orbax directories (train/loop.py:431-457). In a process group rank 0 alone writes (``save_training_ckpt`` refuses on
 another rank) and every rank reads: a resume loads ``last.ckpt`` on each.
 
 ``load_pretrained`` is the JAX package's load-time surgery
@@ -566,11 +567,11 @@ def model_state_rows(model: torch.nn.Module) -> "OrderedDict[str, torch.Tensor]"
     return OrderedDict((f"net.{k}", v) for k, v in sd.items())
 
 
-def optimizer_state(opt: torch.optim.Optimizer) -> Dict[str, Any]:
-    """``opt.state_dict()`` on the CPU without the groups' ``lr_fn``
-    schedules (closures, which do not pickle; ``build_optimizer`` makes them
-    again on load)."""
-    sd = opt.state_dict()
+def optimizer_state(opt: Any) -> Dict[str, Any]:
+    """``opt.state_dict()`` (or a state dict ``opt`` itself) on the CPU
+    without the groups' ``lr_fn`` schedules (closures, which do not pickle;
+    ``build_optimizer`` makes them again on load)."""
+    sd = opt if isinstance(opt, dict) else opt.state_dict()
     return {"state": {i: {k: v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor) else v
                           for k, v in st.items()} for i, st in sd["state"].items()},
             "param_groups": [{k: v for k, v in g.items() if k != "lr_fn"}
@@ -578,19 +579,22 @@ def optimizer_state(opt: torch.optim.Optimizer) -> Dict[str, Any]:
 
 
 def save_training_ckpt(path, model: torch.nn.Module,
-                       optimizer: Optional[torch.optim.Optimizer] = None,
+                       optimizer: Optional[Any] = None,
                        **fields: Any) -> int:
     """One ``torch.save`` of {"state_dict": ``model_state_rows(model)``,
-    "optimizer_states": [``optimizer_state``] when ``optimizer`` is given,
-    and ``fields`` (``global_step``, ``epoch``, ``best_score``)} to a
-    temporary name, then renamed onto ``path``. -> bytes written. In a
-    process group only rank 0 writes; another rank raises."""
+    "optimizer_states": [``optimizer_state``] when ``optimizer`` is given
+    (an optimizer, or its ``optimizer_state`` already made: under tensor
+    parallelism the gathered full-width one), and ``fields``
+    (``global_step``, ``epoch``, ``best_score``)} to a temporary name, then
+    renamed onto ``path``. -> bytes written. In a process group only rank
+    0 writes; another rank raises."""
     if rank() != 0:
         raise RuntimeError(f"rank {rank()} asked to write {path}: only rank 0 writes checkpoints")
     path = Path(path)
     ckpt: Dict[str, Any] = {"state_dict": model_state_rows(model)}
     if optimizer is not None:
-        ckpt["optimizer_states"] = [optimizer_state(optimizer)]
+        ckpt["optimizer_states"] = [optimizer if isinstance(optimizer, dict)
+                                    else optimizer_state(optimizer)]
     ckpt.update(fields)
     tmp = path.with_name(path.name + ".tmp")
     torch.save(ckpt, str(tmp))
@@ -604,21 +608,15 @@ def is_training_ckpt(ckpt: Any) -> bool:
     return isinstance(ckpt, dict) and all(k in ckpt for k in TRAINING_KEYS)
 
 
-def restore_training_ckpt(path, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                          ckpt: Optional[Any] = None) -> Dict[str, Any]:
-    """Exact resume from a port ``last.ckpt`` (``ckpt``, where given, is the
-    file already loaded): the weights and statistics (strictly, through
-    ``load_seld_inference_ckpt``) and the optimizer's state, each group
-    keeping its ``lr_fn``. -> {"global_step", "epoch", "best_score"}."""
-    if ckpt is None:
-        ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
-    if not is_training_ckpt(ckpt):
-        raise KeyError(f"{path} is not a training checkpoint: it lacks "
-                       f"{[k for k in TRAINING_KEYS if k not in ckpt]}")
-    load_seld_inference_ckpt(model, path, ckpt)
-    fns = [g["lr_fn"] for g in optimizer.param_groups]
-    optimizer.load_state_dict(ckpt["optimizer_states"][0])
-    for g, fn in zip(optimizer.param_groups, fns):
-        g["lr_fn"] = fn
+def training_fields(ckpt: Mapping[str, Any]) -> Dict[str, Any]:
+    """A ``last.ckpt``'s {"global_step", "epoch", "best_score"}."""
     return {"global_step": int(ckpt["global_step"]), "epoch": int(ckpt["epoch"]),
             "best_score": float(ckpt["best_score"])}
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, sd: Mapping[str, Any]) -> None:
+    """``optimizer.load_state_dict(sd)``, each group keeping its ``lr_fn``."""
+    fns = [g["lr_fn"] for g in optimizer.param_groups]
+    optimizer.load_state_dict(sd)
+    for g, fn in zip(optimizer.param_groups, fns):
+        g["lr_fn"] = fn

@@ -49,7 +49,7 @@ from ..metrics import (SELDMetrics, accdoa_label_to_dcase_format,
                        get_accdoa_labels, get_multi_accdoa_labels,
                        multi_accdoa_to_dcase_format, to_metrics_format,
                        track_to_dcase_format, write_output_format_file)
-from ..parallel import all_reduce_mean_, barrier, broadcast_flag, is_up, rank, world
+from ..parallel import all_reduce_mean_, barrier, broadcast_flag, data_world, is_up, rank
 from .checkpoint import save_training_ckpt
 
 log = logging.getLogger("pseldnets")
@@ -369,9 +369,10 @@ class _PreparedBatchPipeline:
 def epoch_over_ranks(means: Dict[str, float], counts: Dict[str, int], device
                      ) -> Tuple[Dict[str, float], Dict[str, int]]:
     """An epoch's train-loss ``means`` averaged and its ov ``counts`` summed
-    over the ranks of the process group, in one float64 all-reduce on
-    ``device`` (every rank ran as many steps on as many clips); both as
-    they are without a group."""
+    over the data column of the process group (under tensor parallelism
+    the model ranks of a data row hold one batch), in one float64
+    all-reduce on ``device`` (every rank ran as many steps on as many
+    clips); both as they are without a group."""
     if not is_up():
         return means, counts
     t = torch.tensor(list(means.values()) + list(counts.values()), dtype=torch.float64,
@@ -380,7 +381,7 @@ def epoch_over_ranks(means: Dict[str, float], counts: Dict[str, int], device
     vals = t.tolist()
     n = len(means)
     return (dict(zip(means, vals[:n])),
-            {k: int(round(v * world())) for k, v in zip(counts, vals[n:])})
+            {k: int(round(v * data_world())) for k, v in zip(counts, vals[n:])})
 
 
 def effective_steps_per_epoch(datamodule, cfg) -> int:
@@ -421,8 +422,8 @@ def fit(task, datamodule, cfg, output_dir, timings: Optional[list] = None):
     steps_per_epoch = effective_steps_per_epoch(datamodule, cfg)
 
     # multi-process: checkpoints and metric files are written by rank zero
-    # only (every rank holds the whole state); every rank validates, without
-    # a collective
+    # only (every rank holds the whole state, or under tensor parallelism
+    # gathers it); every rank validates the whole set
     is_main = rank() == 0
     loggers = instantiate_loggers(cfg.get("logger"), output_dir) if is_main else []
     limit_val = trainer_cfg.get("limit_val_batches")
@@ -512,20 +513,23 @@ def fit(task, datamodule, cfg, output_dir, timings: Optional[list] = None):
                          {k: round(v, 4) for k, v in macro.items()})
             t_ckpt = time.time()
             ckpt_bytes = 0
+            # the full-width model and optimizer state (gathered over the
+            # model ranks under tensor parallelism, a collective: every rank)
+            ckpt_model, ckpt_opt = task.full_model(), task.checkpoint_optimizer()
             if "val" in log_line and log_line["val"]["macro"]["SELD_scr"] < state.best_score:
                 state.best_score = log_line["val"]["macro"]["SELD_scr"]
                 if is_main:
                     # save_top_k=1 (reference configs/callbacks/default.yaml)
                     best = ckpt_dir / f"epoch_{epoch:03d}.ckpt"
-                    ckpt_bytes += save_training_ckpt(best, task.model, global_step=state.step,
+                    ckpt_bytes += save_training_ckpt(best, ckpt_model, global_step=state.step,
                                                      epoch=epoch)
                     for old in ckpt_dir.glob("epoch_*.ckpt"):
                         if old.name != best.name:
                             old.unlink()
             if is_main:
-                ckpt_bytes += save_training_ckpt(ckpt_dir / "last.ckpt", task.model,
-                                                 state.optimizer, global_step=state.step,
-                                                 epoch=epoch, best_score=state.best_score)
+                ckpt_bytes += save_training_ckpt(ckpt_dir / "last.ckpt", ckpt_model, ckpt_opt,
+                                                 global_step=state.step, epoch=epoch,
+                                                 best_score=state.best_score)
             barrier()  # every rank past rank 0's writes
             if timings is not None:
                 timings.append({"epoch": epoch, "train_s": train_s, "val_s": t_ckpt - t_val,

@@ -61,8 +61,23 @@ The grads come from ``torch.autograd.grad``, which fires no
 rank's own. The 5 s clip trick and TrackMix pair clips within a rank's
 batch, as the reference's DDP does.
 
-Not in this slice, and raising with the ROADMAP.md queue A step that brings
-it: tensor parallelism (``trainer.tensor_parallel`` > 1: step 11).
+Tensor parallelism (the JAX task over its 2-D ``(data, model)`` mesh,
+module.py:97-117; parallel/tp.py): ``trainer.tensor_parallel`` tp > 1 lays
+the group's W ranks out as W / tp data rows of tp model ranks
+(``parallel.init_layout``; tp must divide W, ValueError otherwise) and
+trains a split copy of the model: ``init_state`` initialises and loads the
+full-width model (``_full``), broadcasts it, then takes this model rank's
+part (``parallel.tp.split_model``), so a step over ``data x model`` ranks is
+the one-process step on the global batch up to float32 summation order.
+The data parallelism above runs over the data column; the grads of the
+split parameters are the rank's own, and the clip sums their squares over
+the model row. ``fused_forward: auto`` takes the eager modules under tp >
+1 and ``true`` raises, as in the JAX task (:130-151): the kernels take
+whole weight matrices. Eval gathers the parameters into the full-width
+model on every rank (``full_model``) and runs the eval routes on it, on the
+whole validation set, as the JAX task evaluates on its local 1-D mesh;
+``full_model`` / ``checkpoint_optimizer`` give train/loop.py the gathered
+parameters and AdamW moments for checkpoints, which a load splits again.
 
 The step comes in two halves, as in the JAX task (:473-506):
 ``prepare_batch`` takes the loader's batch to the device (on the card from
@@ -110,9 +125,10 @@ from ..models.heads import HTSAT
 from ..ops._cuda import resolve_device
 from ..ops.features import LogmelIVExtractor, make_extractor
 from ..ops.frontend import frontend_route
-from ..parallel import all_reduce_mean_, broadcast_state
-from .checkpoint import (is_training_ckpt, load_pretrained, load_seld_inference_ckpt,
-                         restore_training_ckpt)
+from ..parallel import all_reduce_mean_, broadcast_state, init_layout, model_rank
+from ..parallel import tp as tensor_parallel
+from .checkpoint import (is_training_ckpt, load_optimizer_state, load_pretrained,
+                         load_seld_inference_ckpt, optimizer_state, training_fields)
 from .fused_forward import htsat_fused_train_forward, supports_fused_train
 from .optim import build_optimizer, optimizer_step, trainable_mask
 
@@ -200,9 +216,8 @@ class SELDTask:
         precision = str(trainer.get("precision", "32-true"))
         self.compute_dtype = torch.bfloat16 if "bf16" in precision else torch.float32
 
-        if int(trainer.get("tensor_parallel", 1) or 1) > 1:
-            raise NotImplementedError("tensor parallelism is not ported yet "
-                                      "(ROADMAP queue A, step 11)")
+        self.tp_size = int(trainer.get("tensor_parallel", 1) or 1)
+        init_layout(self.tp_size)  # ValueError where tp does not divide the ranks
 
         self.model, self.meta = build_model(cfg, self.num_classes, device=self.device,
                                             seed=int(cfg.get("seed", 0)))
@@ -213,23 +228,26 @@ class SELDTask:
 
         ff = trainer.get("fused_forward", "auto")
         if isinstance(ff, str) and ff.lower() == "auto":
-            self.fused_forward = supports_fused_train(self.model)
+            # tp > 1: the kernels take whole weight matrices
+            self.fused_forward = supports_fused_train(self.model) and self.tp_size == 1
         else:
             self.fused_forward = _truthy(ff)
-            if self.fused_forward and not supports_fused_train(self.model):
+            if self.fused_forward and (not supports_fused_train(self.model)
+                                       or self.tp_size > 1):
                 raise ValueError("trainer.fused_forward=true requires an HTSAT with zero "
                                  "attention / projection / position dropout and no LoRA or "
                                  "eager-only adapter setting (constant-scalar gelu adapters "
-                                 "run on the kernels)")
-        named = list(self.model.named_parameters())
-        self.names: List[str] = [n for n, _ in named]
-        self.params: List[torch.nn.Parameter] = [p for _, p in named]
-        mask = trainable_mask(self.names, (cfg.get("adapt") or {}).get("method", "none"))
-        for p, trains in zip(self.params, mask):
-            p.requires_grad_(trains)
-        # the parameters that train, in model order, and their names
-        self.trained_names: List[str] = [n for n, m in zip(self.names, mask) if m]
-        self.trained: List[torch.nn.Parameter] = [p for p, m in zip(self.params, mask) if m]
+                                 "run on the kernels), and tensor_parallel=1")
+        # under tensor parallelism: the full-width model (init, loads, eval,
+        # checkpoints) and what this model rank holds of it (self.model)
+        self._full: Optional[torch.nn.Module] = None
+        self.tp_plan: Dict[str, tensor_parallel.Shard] = {}
+        if self.tp_size > 1:
+            self._full = self.model
+            self.tp_plan = tensor_parallel.tp_plan(self._full, self.tp_size)
+            self.model = tensor_parallel.split_model(self._full, self.tp_size, model_rank())
+        self._gathered = None
+        self._bind_params()
         self.max_norm = trainer.get("gradient_clip_val")
         self.lr_fn = None
         self.pretrained_report: Optional[Dict[str, List[str]]] = None
@@ -237,6 +255,25 @@ class SELDTask:
         self._eval_cache = None
         self._eval_tensors = None
         self._copy_stream = None
+
+    def _bind_params(self) -> None:
+        """The model's parameters and names, the freeze policy's
+        ``requires_grad`` (on the full-width model too), and the parameters
+        that train, in model order, with their names and whether each is
+        split over the model ranks."""
+        named = list(self.model.named_parameters())
+        self.names: List[str] = [n for n, _ in named]
+        self.params: List[torch.nn.Parameter] = [p for _, p in named]
+        mask = trainable_mask(self.names, (self.cfg.get("adapt") or {}).get("method", "none"))
+        for p, trains in zip(self.params, mask):
+            p.requires_grad_(trains)
+        if self._full is not None:
+            trains = dict(zip(self.names, mask))
+            for n, p in self._full.named_parameters():
+                p.requires_grad_(trains[n])
+        self.trained_names: List[str] = [n for n, m in zip(self.names, mask) if m]
+        self.trained: List[torch.nn.Parameter] = [p for p, m in zip(self.params, mask) if m]
+        self.trained_split: List[bool] = [n in self.tp_plan for n in self.trained_names]
 
     def _build_augmentation(self, cfg) -> None:
         """The augmentation registry (the JAX task's, module.py:65-95): the
@@ -295,7 +332,11 @@ class SELDTask:
         is not a checkpoint, or a directory, raises as ``torch.load``
         does. In a process group every rank loads the same files, then
         takes rank 0's parameters and statistics (``broadcast_state``, the
-        JAX ``replicate``)."""
+        JAX ``replicate``). Under tensor parallelism all of that happens on
+        the full-width model, which each rank then splits (its statistics
+        first taken from the split model, whose training moved them); the
+        optimizer is built on the split parameters, and a ``last.ckpt``'s
+        gathered moments are split as they are."""
         pretrained = self.meta.get("pretrained_path")
         if ckpt_path and os.path.isdir(str(ckpt_path)):
             raise NotImplementedError(
@@ -305,26 +346,112 @@ class SELDTask:
         ckpt = (torch.load(str(ckpt_path), map_location="cpu", weights_only=False)
                 if ckpt_path else None)
         seed = int(self.cfg.get("seed", 0)) if seed is None else int(seed)
-        init_weights(self.model, torch.Generator().manual_seed(seed))
+        full = self.model if self._full is None else self._full
+        if self._full is not None:
+            _copy_buffers(self.model, full)
+        init_weights(full, torch.Generator().manual_seed(seed))
         with torch.no_grad():
-            self.model.scalar.running_mean.zero_()
-            self.model.scalar.running_var.fill_(1.0)
+            full.scalar.running_mean.zero_()
+            full.scalar.running_var.fill_(1.0)
         self.pretrained_report = None
         if ckpt is None and pretrained and os.path.exists(str(pretrained)):
-            self.pretrained_report = load_pretrained(self.model, pretrained, self.meta)
+            self.pretrained_report = load_pretrained(full, pretrained, self.meta)
+        if ckpt is not None:  # a last.ckpt's weights, or any other file's
+            load_seld_inference_ckpt(full, ckpt_path, ckpt)
+        broadcast_state(full)
+        if self._full is not None:
+            self.model = tensor_parallel.split_model(full, self.tp_size, model_rank())
+            self._bind_params()
+            self._gathered = self._eval_cache = self._eval_tensors = None
         optimizer, self.lr_fn = build_optimizer(self.cfg, zip(self.names, self.params),
                                                 self.steps_per_epoch)
         state = TrainState(optimizer=optimizer)
         if is_training_ckpt(ckpt):
-            got = restore_training_ckpt(ckpt_path, self.model, optimizer, ckpt)
+            sd = ckpt["optimizer_states"][0]
+            load_optimizer_state(optimizer, sd if self._full is None
+                                 else self._split_optimizer_state(sd, optimizer))
+            got = training_fields(ckpt)
             state.step, state.epoch, state.best_score = (got["global_step"], got["epoch"],
                                                          got["best_score"])
-        elif ckpt is not None:
-            load_seld_inference_ckpt(self.model, ckpt_path, ckpt)
-        broadcast_state(self.model)
         self.model.train()
         self.state = state
         return state
+
+    # ------------------------------------------------- tensor parallelism
+    def _optimizer_names(self, optimizer: torch.optim.Optimizer) -> List[str]:
+        """The parameter name of each index of ``optimizer``'s state."""
+        name_of = {id(p): n for n, p in zip(self.names, self.params)}
+        return [name_of[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+    def _split_optimizer_state(self, sd: Dict[str, Any], optimizer: torch.optim.Optimizer
+                               ) -> Dict[str, Any]:
+        """A full-width optimizer state (a ``last.ckpt``'s) with this model
+        rank's part of each split parameter's tensors (those of the full
+        parameter's shape: AdamW's moments)."""
+        names = self._optimizer_names(optimizer)
+        full = dict(self._full.named_parameters())
+        m = model_rank()
+        state = {}
+        for i, st in sd["state"].items():
+            n = names[int(i)]
+            shard = self.tp_plan.get(n)
+            state[i] = {k: tensor_parallel.split_tensor(v, shard, m)
+                        if shard is not None and isinstance(v, torch.Tensor)
+                        and v.shape == full[n].shape else v for k, v in st.items()}
+        return {"state": state, "param_groups": sd["param_groups"]}
+
+    def full_model(self) -> torch.nn.Module:
+        """The full-width model, which the eval routes run and checkpoints
+        hold: ``self.model``, or under tensor parallelism the unsplit model
+        with the gathered parameters and the statistics (gathered again, a
+        collective over the model row on every rank, whenever the split
+        model changed since)."""
+        if self._full is None:
+            return self.model
+        key = tuple((t.data_ptr(), t._version)
+                    for t in self.model.state_dict(keep_vars=True).values())
+        if self._gathered != key:
+            tensor_parallel.gather_into(self.model, self._full, self.tp_plan)
+            self._gathered = key
+        return self._full
+
+    @torch.no_grad()
+    def load_full_state(self, state_dict: Dict[str, torch.Tensor]) -> None:
+        """Full-width weights and statistics (the unsplit model's
+        ``state_dict`` keys) into the model, strictly; under tensor
+        parallelism into the full-width model, then this rank's part copied
+        into the split parameters in place (the optimizer keeps them)."""
+        if self._full is None:
+            self.model.load_state_dict(state_dict, strict=True)
+            return
+        self._full.load_state_dict(state_dict, strict=True)
+        full = dict(self._full.named_parameters())
+        m = model_rank()
+        for n, p in self.model.named_parameters():
+            shard = self.tp_plan.get(n)
+            p.copy_(full[n] if shard is None else tensor_parallel.split_tensor(full[n], shard, m))
+        _copy_buffers(self._full, self.model)
+
+    def checkpoint_optimizer(self):
+        """What a ``last.ckpt`` holds of the optimizer: the optimizer, or
+        under tensor parallelism its ``optimizer_state`` with the split
+        parameters' tensors gathered to full width (one collective over the
+        model row; every rank calls it)."""
+        opt = self.state.optimizer
+        if self._full is None:
+            return opt
+        sd = opt.state_dict()
+        names = self._optimizer_names(opt)
+        shape = {n: p.shape for n, p in zip(self.names, self.params)}
+        todo = [(i, k, v) for i, st in sd["state"].items() for k, v in st.items()
+                if names[i] in self.tp_plan and isinstance(v, torch.Tensor)
+                and v.shape == shape[names[i]]]
+        full = tensor_parallel.gather_tensors([v for _, _, v in todo],
+                                              [self.tp_plan[names[i]] for i, _, _ in todo])
+        state = {i: dict(st) for i, st in sd["state"].items()}
+        for (i, k, _), v in zip(todo, full):
+            state[i][k] = v
+        return optimizer_state({"state": state, "param_groups": sd["param_groups"]})
 
     def forward_train(self, feats: torch.Tensor, generator: Optional[torch.Generator] = None,
                       dp_masks: Optional[Sequence[torch.Tensor]] = None,
@@ -593,7 +720,8 @@ class SELDTask:
         losses, grads, bs = self._grads(prepared, generator, dp_masks, aug_draws, patchout_draws,
                                         dropout_draws)
         all_reduce_mean_(grads)
-        optimizer_step(self.state.optimizer, self.trained, grads, self.state.step, self.max_norm)
+        optimizer_step(self.state.optimizer, self.trained, grads, self.state.step, self.max_norm,
+                       self.trained_split if self._full is not None else None)
         if bs is not None:
             with torch.no_grad():
                 self.model.scalar.running_mean.copy_(bs["running_mean"])
@@ -609,7 +737,7 @@ class SELDTask:
         "passt", "einv2", "crnn" or "eager" (an HTSAT with LoRA or an
         eager-only adapter setting, the EINV2 HTSAT with adapters or LoRA,
         the other heads)."""
-        m = self.model
+        m = self.full_model()
         if isinstance(m, heads.HTSAT) and kernel_refusal(m) is None:
             return "htsat"
         if isinstance(m, heads.PASST):
@@ -624,16 +752,18 @@ class SELDTask:
     def _eval_params(self, route: str) -> Dict[str, Any]:
         """The route's kernel-layout weights in the compute dtype, prepared
         once and kept while no parameter or statistic changes (an in-place
-        write, an optimizer step or a load, bumps a tensor's version)."""
+        write, an optimizer step, a load or a gather bumps a tensor's
+        version)."""
         from .. import serving
 
+        m = self.full_model()
         if self._eval_tensors is None:  # the model's leaves, listed once
-            self._eval_tensors = list(self.model.state_dict(keep_vars=True).values())
+            self._eval_tensors = list(m.state_dict(keep_vars=True).values())
         key = (route, self.compute_dtype,
                tuple((t.data_ptr(), t._version) for t in self._eval_tensors))
         if self._eval_cache is not None and self._eval_cache[0] == key:
             return self._eval_cache[1]
-        cd, m = self.compute_dtype, self.model
+        cd = self.compute_dtype
         with torch.no_grad():
             if route == "htsat":
                 params = {"blocks": serving.prepare_blocks(m.encoder, cd),
@@ -663,7 +793,7 @@ class SELDTask:
         except NotImplementedError:
             return False
         n_frames = 1 + x.shape[-1] // ex.hop
-        m = self.model
+        m = self.full_model()
         if isinstance(m, heads.PASST):
             return n_frames == m.encoder.img_size[1]
         if isinstance(m, (heads.HTSAT, einv2_heads.HTSAT)):
@@ -675,15 +805,16 @@ class SELDTask:
         device -> the head's outputs, float32, through the eval route."""
         from .. import serving
 
+        m = self.full_model()
         route = self.eval_route()
-        if self.model.training:
-            self.model.eval()
+        if m.training:
+            m.eval()
         if route == "eager":
             with torch.no_grad(), torch.autocast(
                     device_type=self.device.type, dtype=torch.bfloat16,
                     enabled=self.compute_dtype == torch.bfloat16):
                 feats = self.extractor(x) if self.extractor is not None else x
-                out = self.model(feats)
+                out = m(feats)
             return {k: v.float() for k, v in out.items()}
         kw = dict(compute_dtype=self.compute_dtype, use_kernels=self.use_kernels,
                   **self._eval_params(route))
@@ -693,14 +824,14 @@ class SELDTask:
                   "passt": serving.passt_fused_forward_from_wav,
                   "einv2": serving.einv2_htsat_fused_forward_from_wav,
                   "crnn": serving.crnn_fused_forward_from_wav}[route]
-            return fn(self.model, x, device=self.device, n_fft=ex.n_fft, hop=ex.hop,
+            return fn(m, x, device=self.device, n_fft=ex.n_fft, hop=ex.hop,
                       window=ex.window, n_mels=ex.n_mels, sample_rate=ex.sr, **kw)
         with torch.no_grad():
             feats = self.extractor(x) if self.extractor is not None else x
         fn = {"htsat": serving.htsat_fused_forward, "passt": serving.passt_fused_forward,
               "einv2": serving.einv2_htsat_fused_forward,
               "crnn": serving.crnn_fused_forward}[route]
-        return fn(self.model, feats, **kw)
+        return fn(m, feats, **kw)
 
     def eval_step(self, batch: Dict, post_processing: Optional[str] = None
                   ) -> Dict[str, torch.Tensor]:
@@ -794,6 +925,15 @@ class SELDTask:
             part = y.sum(0).reshape(B, T, -1)
             total = part if total is None else total + part
         return {key: total / len(in_perm)}
+
+
+def _copy_buffers(src: torch.nn.Module, dst: torch.nn.Module) -> None:
+    """``src``'s buffers into ``dst``'s of the same names."""
+    got = dict(dst.named_buffers())
+    with torch.no_grad():
+        for n, b in src.named_buffers():
+            if n in got:
+                got[n].copy_(b)
 
 
 def _kw(cfg_entry) -> Dict:

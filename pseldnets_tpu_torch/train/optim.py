@@ -55,9 +55,22 @@ def epoch_schedule(base_lr: float, sched_cfg: Optional[Dict],
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
-    """g *= max_norm / ||g|| when ||g|| > max_norm, in place (optax)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         split: Optional[Sequence[bool]] = None) -> None:
+    """g *= max_norm / ||g|| when ||g|| > max_norm, in place (optax).
+    ``split`` (tensor parallelism, parallel/tp.py): which grads are this
+    model rank's part of a split parameter; their squares are summed over
+    the model row, the replicated ones' (equal on every model rank) counted
+    once, so the norm is the one process's."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if split is None or not any(split):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        from ..parallel.tp import sum_over_model_
+
+        mine = torch.tensor(list(split), device=norms.device)
+        sq = sum_over_model_((norms[mine].float() ** 2).sum())
+        norm = torch.sqrt(sq + (norms[~mine].float() ** 2).sum())
     torch._foreach_mul_(grads, torch.clamp(max_norm / norm, max=1.0))
 
 
@@ -149,13 +162,15 @@ def build_optimizer(cfg, named_params: Sequence[Tuple[str, torch.Tensor]],
 @torch.no_grad()
 def optimizer_step(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor],
                    grads: List[torch.Tensor], step: int,
-                   max_norm: Optional[float] = None) -> None:
+                   max_norm: Optional[float] = None,
+                   split: Optional[Sequence[bool]] = None) -> None:
     """Update ``step`` (counted from 0): clip ``grads`` (one per trained
     parameter; frozen ones have none and stay out of the norm) by their
-    global norm when ``max_norm`` is set, give each group its rate for the
-    step, and step the optimizer."""
+    global norm when ``max_norm`` is set (``split``: which are split over
+    the model ranks, ``clip_by_global_norm_``), give each group its rate
+    for the step, and step the optimizer."""
     if max_norm:
-        clip_by_global_norm_(grads, float(max_norm))
+        clip_by_global_norm_(grads, float(max_norm), split)
     for p, g in zip(params, grads):
         p.grad = g
     for group in opt.param_groups:

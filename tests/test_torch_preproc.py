@@ -5,7 +5,8 @@ corpus (FLAC, up to 2 events a frame; tests/test_e2e.py's), STARSS23 eval
 converted to frame-wise metadata first). Each CLI writes into its own
 ``paths.hdf5_dir``: the index CSVs are byte-equal, every HDF5 label dataset
 (accdoa, track, adpit) equal in name, dtype and values, and the L3DAS22
-frame-wise CSVs byte-equal. Offline mic features raise."""
+frame-wise CSVs byte-equal. Offline mic features run on the card unless the
+CPU is asked for, and raise without one."""
 
 import csv
 from pathlib import Path
@@ -160,18 +161,26 @@ def test_l3das22_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("feature", ["salsalite", "logmelgcc"])
-def test_offline_mic_features_raise(tmp_path, feature):
-    """A feature other than logmelIV/logmel raises naming its ROADMAP.md
-    steps, through the class and through the CLI, before anything is
-    written."""
-    rng = np.random.default_rng(34)
+def test_offline_mic_features_raise(tmp_path, monkeypatch, feature):
+    """The offline mic features run on the card unless ``--device cpu``
+    asks for the CPU: without a card, ``extract_mic_features`` and the CLI
+    raise before any feature file is written; with ``--device cpu`` the CLI
+    writes one a recording (their values against the JAX package's:
+    tests/test_torch_features_mic.py)."""
+    from test_torch_features_mic import SALSALITE, _mic_corpus, _mic_overrides
+
     root = tmp_path / "datasets"
-    _foa_corpus(root, rng, "train2_ov1", "fold0_room0", 1, sec=2)
-    over = _overrides(root, tmp_path / "hdf5", ["dataset=train2_ov1",
-                                                f"data.audio_feature={feature}"])
+    _mic_corpus(root, np.random.default_rng(34), n_clips=1)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    over = _mic_overrides(root, tmp_path / "hdf5", feature) + [
+        f"+data.salsalite.{k}={v}" for k, v in SALSALITE.items()]
     cfg = compose(str(ROOT / "configs"), "preproc", over)
-    with pytest.raises(NotImplementedError, match="steps 1/10"):
+    assert cfg["data"]["salsalite"] == SALSALITE
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         Preprocess(cfg, get_dataset("train2_ov1", cfg)).extract_mic_features()
-    with pytest.raises(NotImplementedError, match="steps 1/10"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_preproc.main(over)
-    assert not (tmp_path / "hdf5").exists()
+    assert not list((tmp_path / "hdf5").rglob("*.h5"))
+    port_preproc.main(["--device", "cpu"] + over)
+    assert [p.name for p in (tmp_path / "hdf5").rglob("*.h5")
+            if "feature" in p.parts] == ["fold1_room1_mix000.h5"]

@@ -149,7 +149,8 @@ def test_backward_wrapper_counts_launches_only_on_cuda(rng):
     to the plain version. The training extractor does the same with K1."""
     from pseldnets_tpu_torch.config import compose
     from pseldnets_tpu_torch.ops import frontend
-    from pseldnets_tpu_torch.ops.features import LogmelIVExtractor, make_extractor
+    from pseldnets_tpu_torch.ops.features import (LogmelExtractor, LogmelIVExtractor,
+                                                  make_extractor)
     from test_torch_train import ROOT, TINY_TASK
 
     _, _, tblk, x = _block_pair(rng, 4)
@@ -170,9 +171,12 @@ def test_backward_wrapper_counts_launches_only_on_cuda(rng):
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         ext(wav.to("meta"))
     assert swin_block_vjp.KERNEL.launches == frontend.KERNEL.launches == 0
-    with pytest.raises(NotImplementedError, match="queue A, step 1"):
-        make_extractor(compose(str(ROOT / "configs"), "train",
-                               ["loss=multi_accdoa", "data.audio_feature=logmel"]))
+    # audio_feature=logmel: the eager LogmelExtractor (no kernel; ported
+    # since this check held that it raised), which launches nothing either
+    mono = make_extractor(compose(str(ROOT / "configs"), "train",
+                                  ["loss=multi_accdoa", "data.audio_feature=logmel"]))
+    assert isinstance(mono, LogmelExtractor) and mono(wav[:, :1]).shape == (1, 1, 21, 64)
+    assert swin_block_vjp.KERNEL.launches == frontend.KERNEL.launches == 0
     # the tiny task's hop >= n_fft: the JAX package keeps it off its kernel too
     tiny = LogmelIVExtractor(compose(str(ROOT / "configs"), "train", TINY_TASK))
     assert tiny.hop >= tiny.n_fft
