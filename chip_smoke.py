@@ -15,7 +15,12 @@ blocks on K6) through passt_fused_forward_from_wav; then CRNN ACCDOA serving
 conformer at 2048) through crnn_fused_forward_from_wav; then HTSAT serving
 again with the einsum patch embed (patch_embed="einsum"; the other served
 HTSAT paths take K8, the default); then the frontend's flat and DIF forms
-(K9, K10) through fused_logmel_iv (radix2=False, variant="dif"); then HTSAT
+(K9, K10) through fused_logmel_iv (radix2=False, variant="dif"), each
+also at 128 mels; then PaSST at its published 128 mel bins and HTSAT at 128
+mels (freq_ratio 2, hop 480) served through SELDTask's eval route (K1, K6;
+K1, K8 at 128 bins, K2), with the frontend forms and K1 at 96, 128 and 256
+mels and K8 at 128 and 256 bins held against their plain versions before;
+then HTSAT
 serving once more with each Swin stage in one launch (K11, swin="stage",
 the merges unfolded); then EINV2 (configs/loss/einv2_pit_agg.yaml: two
 HTSAT encoders stitched before every stage) served through
@@ -91,7 +96,8 @@ CRNN_OVERRIDES = ["model=crnn", "loss=accdoa", "model.kwargs.pretrained_path=nul
 CRNN_BLOCKS = ((1001, 64, 7, 64), (500, 32, 64, 128), (250, 16, 128, 256),
                (125, 8, 256, 512), (125, 4, 512, 1024), (125, 2, 1024, 2048))
 PATHS = ("serve", "train", "serve_adapter", "train_adapter", "serve_passt", "serve_crnn",
-         "serve_patch", "features_flat", "features_dif", "serve_stage", "serve_einv2",
+         "serve_patch", "features_flat", "features_dif", "serve_passt128", "serve_htsat128",
+         "serve_stage", "serve_einv2",
          "train_einv2", "train_passt", "train_crnn", "train_lora", "eval", "fit", "finetune",
          "train_ddp1", "train_ddp2", "train_tp2", "features_mic")
 DEPTHS = (2, 2, 6, 2)  # HTSAT's Swin stages (configs/model/htsat.yaml)
@@ -238,8 +244,10 @@ def phase_build():
     # swin_stage_kernel), since their libraries also hold the backward
     # layer's kernels of the header they share; K4's the same as K2's (its
     # GEMMs fwd_gemm and fwd_gemm_two, the attention); K9's and K10's wgmma
-    # and TMA loads, and under 512 FFMA (the former float32 DFT loop's
-    # unrolled k step alone held 1024; their epilogues take a few hundred);
+    # and TMA loads, and under 512 FFMA in each of their two forms (narrow,
+    # and wide: n_mels > 64), counted in each form's kernel (the former
+    # float32 DFT loop's unrolled k step alone held 1024; an epilogue takes
+    # a few hundred);
     # K8's bf16 kernel (patch_embed_wgmma) wgmma and TMA loads and stores
     for name, need, own in (("K6", ("HGMMA", "UTMALDG", "UTMASTG"), None),
                             ("K7", ("HGMMA", "UTMALDG", "UTMASTG"), None),
@@ -264,7 +272,14 @@ def phase_build():
         if name in ("K3", "K5", "K2", "K4", "K11"):
             check(counts["HMMA"] == 0, f"{name}'s SASS still has mma.sync (WMMA): {counts}")
         if name in ("K9", "K10"):
-            check(counts["FFMA"] < 512, f"{name}'s SASS keeps an FFMA DFT loop: {counts}")
+            for form, fn in (("narrow", r"logmel_iv_forms_kernelILb[01]ELb0E"),
+                             ("wide", r"logmel_iv_forms_kernelILb[01]ELb1E")):
+                counts = sass_counts(sass, fn)
+                log(f"  {lib.name} SASS of its {form} form: "
+                    + ", ".join(f"{op} {n}" for op, n in counts.items()))
+                check(all(counts[op] for op in need) and counts["FFMA"] < 512,
+                      f"{name}'s {form} form lacks wgmma or TMA or keeps an FFMA DFT loop: "
+                      f"{counts}")
 
 
 def phase_frontend():
@@ -452,23 +467,23 @@ def phase_swin_block_train():
                 compare(f"K3 {k}", g[k], g16[k], g32[k], 2.0 ** -6)
 
 
-def k1_work(B, n_fft=1024, hop=240, t_out=1024, out_bytes=2, affine=True):
+def k1_work(B, n_fft=1024, hop=240, t_out=1024, out_bytes=2, affine=True, n_mels=64):
     """Bytes and float32 FLOPs of the frontend's function (K1, and K9 and
     K10 at their shapes) on B 10 s clips: per frame and channel the window
     and a real FFT of n_fft (2.5 n log2 n FLOPs), then power, the normalized
     IV and the mel projection on non-zero weights, of the n_frames real
     frames; waveform, filterbank, window and affine read once, the output
-    (t_out frames of out_bytes) written once. The function's bound, not the
-    algorithm's: a DFT as a GEMM does far more."""
+    (t_out frames of n_mels, out_bytes each) written once. The function's
+    bound, not the algorithm's: a DFT as a GEMM does far more."""
     from pseldnets_tpu_torch.ops.features import logmel_iv_filterbank
 
     n_frames, n_freqs = 1 + N_SAMPLES // hop, n_fft // 2 + 1
-    fb = logmel_iv_filterbank(24000, n_fft, 64)
+    fb = logmel_iv_filterbank(24000, n_fft, n_mels)
     nnz = int((fb != 0).sum())
     fft = n_fft + 2.5 * n_fft * math.log2(n_fft)
     per_frame = 4 * fft + 4 * n_freqs * 3 + n_freqs * 15 + 7 * nnz * 2
-    nbytes = (B * 4 * N_SAMPLES * 4 + B * 7 * t_out * 64 * out_bytes
-              + fb.size * 4 + n_fft * 4 + (2 * 7 * 64 * 4 if affine else 0))
+    nbytes = (B * 4 * N_SAMPLES * 4 + B * 7 * t_out * n_mels * out_bytes
+              + fb.size * 4 + n_fft * 4 + (2 * 7 * n_mels * 4 if affine else 0))
     return nbytes, B * n_frames * per_frame
 
 
@@ -1740,7 +1755,10 @@ def phase_patch_embed():
     trick's input (the batch halves of 5 s features concatenated in time,
     1000 frames, ScalarBN, padded to 1024 by the kernel's TMA zeros); bf16
     within one bf16 ulp (2^-7 of max(|x|, 1)), float32 within 1e-5; each
-    launched twice for equal bits."""
+    launched twice for equal bits. Then at 128 and 256 mel bins (HTSAT's
+    spec_size 256 at freq_ratio 2 and 1) on K1's served form at those
+    widths, random embed weights, the same checks, and the bf16 form timed
+    at B_SERVE beside its plain version and bound."""
     import torch
     from pseldnets_tpu_torch.ops.frontend import fused_logmel_iv
     from pseldnets_tpu_torch.ops.patch_embed import (patch_embed_tokens,
@@ -1782,16 +1800,76 @@ def phase_patch_embed():
                         f"equal")
                     check(err <= 1e-5,
                           f"K8 float32 disagrees with its plain version ({what}, B={B})")
+    hold_patch_embed_wide()
 
 
-def k8_work(B, p):
-    """Bytes and bf16 FLOPs of K8's function on B clips: the (B, 7, 1024,
-    64) bf16 features read once, the (B, 4096, 96) bf16 tokens written once,
-    the weights read once; 2 K E FLOPs per token for the conv (K = 7 x 16)
-    and ~8 E for bias and LayerNorm."""
+def hold_patch_embed_wide():
+    """K8 at F = 256 mel bins (freq_ratio 1, 256 image frames; F = 128 is
+    held on serve_htsat128's own batch, ``phase_serve_wide``): on K1's
+    served HTSAT form at that width (hop 960: 251 frames, the rest TMA's
+    zero pad), random E = 96 embed weights, bf16 and float32 at B 1, 3 and
+    B_SERVE, two launches bitwise equal, bf16 within one bf16 ulp of the
+    plain version, float32 within 1e-5; the bf16 form timed at B_SERVE
+    (WIDE_TIMES)."""
+    import torch
+    from pseldnets_tpu_torch.ops.frontend import fused_logmel_iv
+    from pseldnets_tpu_torch.ops.patch_embed import (PatchEmbedParams, patch_embed_tokens,
+                                                     patch_embed_tokens_plain)
+
+    for F, fr, hop in ((256, 1, 960),):
+        g = torch.Generator(device="cuda").manual_seed(F)
+        wav = torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+        aff = (torch.rand(7, F, device="cuda", generator=g) * 0.1 + 0.02,
+               torch.randn(7, F, device="cuda", generator=g) * 0.1 + 2.0)
+        feats = fused_logmel_iv(wav, hop=hop, n_mels=F, post_affine=aff,
+                                out_dtype=torch.bfloat16, t_out=256 * fr)
+        check(tuple(feats.shape) == (B_SERVE, 7, 256 * fr, F), f"K8 input at F={F}")
+        w = torch.randn(7 * 16, 96, device="cuda", generator=g) * 0.1
+        vec = lambda o: torch.randn(96, device="cuda", generator=g) * 0.1 + o  # noqa: E731
+        bias, ln_w, ln_b = vec(0.0), vec(1.0), vec(0.0)
+        for dtype in (torch.bfloat16, torch.float32):
+            p = PatchEmbedParams(w=w.to(dtype).contiguous(), bias=bias, ln_w=ln_w, ln_b=ln_b,
+                                 freq_ratio=fr, t_img=256 * fr)
+            for B in (1, 3, B_SERVE):
+                x = feats[:B].to(dtype).contiguous()
+                got = patch_embed_tokens(x, p)
+                again = patch_embed_tokens(x, p)
+                torch.cuda.synchronize()
+                ref = patch_embed_tokens_plain(x, p)
+                check(got.shape == ref.shape == (B, 4096, 96) and got.dtype == dtype,
+                      f"K8 shape {tuple(got.shape)} at F={F}")
+                check(torch.equal(got, again), f"K8 F={F} B={B}: two launches differ")
+                err = (got.float() - ref.float()).abs().max().item()
+                rel = ((got.float() - ref.float()).abs()
+                       / ref.float().abs().clamp(min=1.0)).max().item()
+                ok = rel <= 2.0 ** -7 if dtype == torch.bfloat16 else err <= 1e-5
+                log(f"K8 {str(dtype)[6:]} F={F} B={B}: max |d| {err:.3g}, max err {rel:.3g} "
+                    f"of max(|x|, 1) (bf16 <= 2^-7, float32 |d| <= 1e-5), two launches equal")
+                check(ok, f"K8 {dtype} F={F} B={B} disagrees with its plain version")
+            if dtype == torch.bfloat16:
+                x = feats
+                ms = cuda_ms(lambda: patch_embed_tokens(x, p), reps=20)
+                dev, host = device_ms(lambda: patch_embed_tokens(x, p), reps=40)
+                plain_ms = cuda_ms(lambda: patch_embed_tokens_plain(x, p), reps=5)
+                nb, fl = k8_work(B_SERVE, p, F)
+                b_ms, by = bound_ms(nb, bf16_flops=fl)
+                WIDE_TIMES.setdefault("K8", {})[f"F={F} bf16, B={B_SERVE}"] = {
+                    "ms": ms, "device_ms": dev, "host_ms": host, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": by}
+                log(f"K8 bf16 F={F} at B={B_SERVE}: {ms:.4f} ms back to back, {dev:.4f} ms "
+                    f"queued (host {host:.4f} ms a call), plain {plain_ms:.3f} ms, bound "
+                    f"{b_ms:.4f} ms by {by}")
+
+
+def k8_work(B, p, F=64):
+    """Bytes and bf16 FLOPs of K8's function on B clips of F mel bins: the
+    (B, 7, t_img, F) bf16 features read once (t_img 1024 at 64 bins, 512 at
+    128, 256 at 256), the (B, t_img F / 16, 96) bf16 tokens (4096 a clip)
+    written once, the weights read once; 2 K E FLOPs per token for the conv
+    (K = 7 x 16) and ~8 E for bias and LayerNorm."""
     K, E = p.w.shape
-    tokens = B * 4096
-    nbytes = B * 7 * 1024 * 64 * 2 + tokens * E * 2 + p.w.numel() * 2 + 3 * E * 4
+    tokens = B * p.t_img * F // 16
+    nbytes = B * 7 * p.t_img * F * 2 + tokens * E * 2 + p.w.numel() * 2 + 3 * E * 4
     return nbytes, tokens * (2 * K * E + 8 * E)
 
 
@@ -1936,6 +2014,13 @@ FORM_CASES = ((1024, 240, "hann", {"radix2": False}, "K9"),
               (1023, 241, "hamming", {}, "K9"),
               (2048, 240, "hann", {}, "K9"))
 FEATURE_BUDGET = (8e-4, 7e-5)  # max |dB| log-mel, max |IV|
+WIDE_MELS = (96, 128, 256)    # the mel widths over 64 the frontend forms take
+# measurements at mel widths over 64, by kernel: each kernel's row of the
+# `kernels` line carries its entry as "wide_mels"
+WIDE_TIMES = {}
+# each wide FORM_CASES case's share of its allowance under ``wide_check``,
+# beside the controls' (a TF32 DFT, a bf16 mel table; K10's 3-tap)
+WIDE_CONTROLS = []
 
 
 def feature_errs(a, b):
@@ -1946,6 +2031,117 @@ def feature_errs(a, b):
 
 def within_budget(errs):
     return errs[0] <= FEATURE_BUDGET[0] and errs[1] <= FEATURE_BUDGET[1]
+
+
+# Over 64 mels the low bands hold one bin or none, and a one-bin band can
+# sit 70-80 dB under its frame's loudest in a valley of the spectrum. A
+# float32 DFT's error in a bin is set by the frame's energy, not the bin's,
+# so its dB error in a band grows as the band's power falls: every float32
+# form misses the float64 DFT by more than 8e-4 dB in such a valley (the
+# float32 eager extractor by up to 2.8e-3 dB on this script's check data).
+# So a form over 64 mels is held, in its log-mel channels, to 8e-4 dB of
+# its plain version and of float64 in every band within 50 dB of its
+# frame's loudest (WIDE_DEPTH, from float64), and in a deeper band to the
+# larger of 8e-4 dB and what one float32 DFT's rounding can move that band
+# by (``wide_bound``), DEEP_MARGIN times over against float64 and twice
+# that against the plain version (two DFTs' rounding); the IV channels to
+# 7e-5. A TF32 DFT and a bf16 mel table miss it (``wide_controls``).
+WIDE_DEPTH = 1e-5
+DEEP_MARGIN = 2.0
+
+
+def wide_bound(x, n_fft, hop, window, n_mels, spec64):
+    """(B, 4, n_frames, n_mels) float64: the most one float32 DFT's rounding
+    moves each band, in dB. A bin's error e_k moves the band's power p =
+    sum_k w_k |X_k|^2 by at most 2 d sqrt(W p) + d^2 W, W = sum_k w_k, where
+    d bounds |e_k| in the frame: the independent float32 eager extractor's
+    DFT (ops/stft.py::stft_dft) against the float64 one ``spec64``, its
+    largest bin error over the batch relative to each frame's rms bin
+    amplitude, times the frame's rms."""
+    import torch
+    from pseldnets_tpu_torch.ops.features import logmel_iv_filterbank
+    from pseldnets_tpu_torch.ops.stft import stft_dft
+
+    re64, im64 = spec64
+    re32, im32 = stft_dft(x.float(), n_fft, hop, window)
+    T = min(re32.shape[2], re64.shape[2])
+    re64, im64 = re64[:, :, :T], im64[:, :, :T]
+    err = torch.hypot(re32[:, :, :T].double() - re64, im32[:, :, :T].double() - im64)
+    pow64 = re64 * re64 + im64 * im64
+    rms = torch.sqrt(pow64.mean(dim=-1))
+    rel = (err.amax(dim=-1) / rms.clamp(min=1e-300)).max()
+    d = (rel * rms)[..., None]
+    fb = torch.as_tensor(logmel_iv_filterbank(24000, n_fft, n_mels), device=x.device).double()
+    W, p = fb.sum(dim=0), pow64 @ fb
+    dp = 2.0 * d * torch.sqrt(W * p) + d * d * W
+    return 10.0 / math.log(10.0) * dp / p.clamp(min=1e-300)
+
+
+def wide_check(got, ref, f64, bound):
+    """A form over 64 mels against its plain version ``ref`` and the
+    float64 DFT ``f64`` under the rule above, ``bound`` from
+    ``wide_bound``: (ok, {the largest log-mel distance from ref and from
+    f64 over the bands within 50 dB of their frame's loudest, and over the
+    deeper ones, the deep bands' count, the largest share of its allowance
+    any distance takes, the largest IV distance})."""
+    import torch
+
+    lm = lambda t: t[:, :4].double()  # noqa: E731
+    T = bound.shape[2]
+    p64 = 10.0 ** (lm(f64) / 10.0)
+    deep = (p64 < WIDE_DEPTH * p64.amax(dim=-1, keepdim=True))[:, :, :T]
+    budget = FEATURE_BUDGET[0]
+    allow = torch.where(deep, torch.clamp(DEEP_MARGIN * bound, min=budget),
+                        torch.full_like(bound, budget))
+    allow_ref = torch.where(deep, torch.clamp(2.0 * DEEP_MARGIN * bound, min=budget), allow)
+    d_ref = (lm(got) - lm(ref)).abs()[:, :, :T]
+    d_f64 = (lm(got) - lm(f64)).abs()[:, :, :T]
+    worst = lambda d, m: d[m].max().item() if bool(m.any()) else 0.0  # noqa: E731
+    iv = max((got[:, 4:].double() - r[:, 4:].double()).abs().max().item() for r in (ref, f64))
+    info = {"shallow": (worst(d_ref, ~deep), worst(d_f64, ~deep)),
+            "deep": (worst(d_ref, deep), worst(d_f64, deep)), "n_deep": int(deep.sum()),
+            "share": max((d_ref / allow_ref).max().item(), (d_f64 / allow).max().item()),
+            "iv": iv}
+    # the frames past the float32 extractor's (an odd n_fft whose hop divides
+    # N: none at these shapes) are held to the budget alone
+    rest = max((lm(got) - lm(r)).abs()[:, :, T:].max().item() if got.shape[2] > T else 0.0
+               for r in (ref, f64))
+    return info["share"] <= 1.0 and iv <= FEATURE_BUDGET[1] and rest <= budget, info
+
+
+def wide_note(info):
+    """One log line's account of ``wide_check``'s numbers."""
+    return (f"within 50 dB of the frame's loudest: vs plain {info['shallow'][0]:.3g} dB, vs "
+            f"float64 {info['shallow'][1]:.3g} (<= 8e-4); {info['n_deep']} deeper bands: vs plain "
+            f"{info['deep'][0]:.3g}, vs float64 {info['deep'][1]:.3g}; {info['share']:.3g} of the "
+            f"allowance at most; IV {info['iv']:.3g} (<= 7e-5)")
+
+
+def wide_controls(x, n_fft, hop, window, n_mels, f64, bound):
+    """Lower-precision forms that ``wide_check`` must refuse, on the same
+    clips: the flat form's DFT as one TF32 product a k (no split) and the
+    float32 plain flat form with its mel table rounded to bf16. Returns
+    {name: wide_check's info}, each with ok False."""
+    import torch
+    from pseldnets_tpu_torch.ops import frontend_forms
+    from pseldnets_tpu_torch.ops.features import logmel_iv_filterbank, logmel_iv_from_spectrum
+
+    n_frames = 1 + x.shape[-1] // hop
+    frames = frontend_forms.padded_signal(x, n_fft, hop).unfold(-1, n_fft, hop)[..., :n_frames, :]
+    tab = torch.as_tensor(frontend_forms._dft_table(n_fft, window), device=x.device).float()
+    nf = n_fft // 2 + 1
+    fb = torch.as_tensor(logmel_iv_filterbank(24000, n_fft, n_mels), device=x.device)
+    # the operands rounded to tf32 as the tensor cores take them, the
+    # products summed in float32
+    spec = frontend_forms.tf32_round(frames) @ frontend_forms.tf32_round(tab)
+    tf32 = logmel_iv_from_spectrum(spec[..., :nf], spec[..., nf:], fb)
+    re, im = frontend_forms.flat_spectrum(x, n_fft, hop, window)
+    bf16 = logmel_iv_from_spectrum(re, im, fb.bfloat16().float())
+    out = {}
+    for name, got in (("TF32 DFT", tf32), ("bf16 mel table", bf16)):
+        ok, info = wide_check(got, got, f64, bound)
+        out[name] = dict(info, ok=ok)
+    return out
 
 
 def raises(fn, exc):
@@ -1960,9 +2156,14 @@ def phase_frontend_forms():
     """K9 and K10 at B_CHECK 10 s clips at each shape the routing gives them
     (FORM_CASES): each against its plain version and against the float32
     eager extractor, within the feature budget (8e-4 dB / 7e-5 IV), and
-    beside a float64 DFT; n_fft 2048 through LogmelIVExtractor, and in K1's
-    folded serving form (affine, bf16, 1024 frames) within one bf16 ulp of
-    the plain folded form; the routes that raise."""
+    beside a float64 DFT; then at 96, 128 and 256 mels (WIDE_MELS), each
+    case one launch of its kernel, against its plain version and the
+    float64 DFT by ``wide_check``, beside the controls it must refuse
+    (``wide_controls``); K1 at 128 and 256 mels against its plain version
+    (``wide_check``), float32 and in its served HTSAT form at those widths; n_fft
+    2048 through LogmelIVExtractor, and in K1's folded serving form (affine,
+    bf16, 1024 frames) within one bf16 ulp of the plain folded form, at 64
+    and 128 mels; the routes that raise."""
     import torch
     from pseldnets_tpu_torch.ops import frontend_forms
     from pseldnets_tpu_torch.ops.features import (LogmelIVExtractor, logmel_iv_filterbank,
@@ -1976,8 +2177,8 @@ def phase_frontend_forms():
     plains = {"K9": frontend_forms.logmel_iv_flat_plain,
               "K10": frontend_forms.logmel_iv_dif_plain}
 
-    def hold(name, what, got, ref, eager, f64):
-        e_plain, e_eager = feature_errs(got, ref), feature_errs(got, eager)
+    def hold(name, what, got, ref, eager, f64, errs=feature_errs):
+        e_plain, e_eager = errs(got, ref), errs(got, eager)
         log(f"{name} {what}: vs plain {e_plain[0]:.3g} dB / {e_plain[1]:.3g} IV, vs float32 "
             f"eager {e_eager[0]:.3g} / {e_eager[1]:.3g} (<= 8e-4 / 7e-5); from float64 "
             f"{feature_errs(got, f64)[0]:.3g} dB (plain {feature_errs(ref, f64)[0]:.3g}, "
@@ -2002,31 +2203,147 @@ def phase_frontend_forms():
              fused_logmel_iv_plain(x, **shape), f64)
         del f64
 
-    # n_fft 2048 through the extractor a SELDTask builds, then folded
-    cfg = {"data": {"nfft": 2048, "hoplen": 240, "window": "hann", "sample_rate": 24000,
-                    "n_mels": 64}}
-    before = read_counts()["K9"]
-    got = LogmelIVExtractor(cfg)(x)
-    check(read_counts()["K9"] == before + 1, "LogmelIVExtractor at n_fft 2048 runs K9")
+    # wider mels: each FORM_CASES shape at 96, 128 and 256 mels, one launch
+    # of the route's kernel each (the wide form: the mel sums in a scratch
+    # of the block's own), against the form's plain version and the float64
+    # DFT (the float32 eager extractor logged beside)
+    def f64_of(spec64, n_fft, n_mels):
+        fb64 = torch.as_tensor(logmel_iv_filterbank(24000, n_fft, n_mels), device="cuda")
+        return logmel_iv_from_spectrum(*spec64, fb64.double())
+
+    def worst_band(got, ref, n_fft, n_mels):
+        """Where got's largest dB distance from ref lies: (mel, the bins its
+        band holds, ref's value there)."""
+        d = (got[:, :4].double() - ref[:, :4].double()).abs()
+        at = divmod(int(d.argmax()), n_mels)
+        bins = int((logmel_iv_filterbank(24000, n_fft, n_mels)[:, at[1]] != 0).sum())
+        return at[1], bins, ref[:, :4].reshape(-1)[int(d.argmax())].item()
+
+    failed = []
+
+    for n_fft, hop, window, kw, name in FORM_CASES:
+        shape = dict(n_fft=n_fft, hop=hop, window=window)
+        spec64 = frontend_forms.flat_spectrum(x.double(), n_fft, hop, window)
+        for n_mels in WIDE_MELS:
+            before = read_counts()
+            got = fused_logmel_iv(x, **shape, n_mels=n_mels, **kw)
+            torch.cuda.synchronize()
+            after = read_counts()
+            check(after[name] == before[name] + 1
+                  and sum(after.values()) == sum(before.values()) + 1,
+                  f"route of {shape} {kw} at {n_mels} mels: counts {before} -> {after}")
+            check(got.shape == (B_CHECK, 7, 1 + N_SAMPLES // hop, n_mels),
+                  f"{name} shape at {n_mels} mels")
+            f64 = f64_of(spec64, n_fft, n_mels)
+            ref = plains[name](x, **shape, n_mels=n_mels)
+            eager = fused_logmel_iv_plain(x, **shape, n_mels=n_mels)
+            bound = wide_bound(x, n_fft, hop, window, n_mels, spec64)
+            ok, info = wide_check(got, ref, f64, bound)
+            mel, bins, value = worst_band(got, f64, n_fft, n_mels)
+            log(f"{name} {shape} {kw} at {n_mels} mels: {wide_note(info)}; raw largest: vs plain "
+                f"{feature_errs(got, ref)[0]:.3g} dB, vs float64 {feature_errs(got, f64)[0]:.3g} "
+                f"at mel {mel} ({bins} bins, {value:.2f} dB); from float64: plain "
+                f"{feature_errs(ref, f64)[0]:.3g}, float32 eager {feature_errs(eager, f64)[0]:.3g}")
+            if not (bool(torch.isfinite(got).all()) and ok):
+                failed.append(f"{name} {shape} {kw} at {n_mels} mels")
+            # what the rule refuses on the same clips: a TF32 DFT, a bf16
+            # mel table; and, for K10, the 3-tap window of the narrow form
+            controls = wide_controls(x, n_fft, hop, window, n_mels, f64, bound)
+            if name == "K10":
+                re, im = frontend_forms.dif_spectrum(x, n_fft, hop, window)
+                tap = frontend_forms.tile_mel_features("dif", re, im, n_fft, n_mels, 24000)
+                ok3, info3 = wide_check(tap, tap, f64, bound)
+                controls["3-tap DIF (logged)"] = dict(info3, ok=ok3)
+                del re, im, tap
+            log("  refused: " + "; ".join(
+                f"{c}: ok {v['ok']}, {v['share']:.3g} of the allowance, from float64 "
+                f"{v['shallow'][1]:.3g} dB within 50 dB, {v['deep'][1]:.3g} deeper"
+                for c, v in controls.items()))
+            WIDE_CONTROLS.append({"case": f"{name} n_fft {n_fft} hop {hop} {window} {n_mels}",
+                                  "share": info["share"],
+                                  **{c: v["share"] for c, v in controls.items()}})
+            if any(v["ok"] for c, v in controls.items() if "logged" not in c):
+                failed.append(f"a control passed the rule at {name} {shape} {n_mels} mels")
+            del f64, ref, got
+        del spec64
+    check(not failed, f"outside the feature budget: {failed}")
+
+    # K1 at 128 and 256 mels: float32 against its plain version within the
+    # budget (float64 logged), and in the served HTSAT form at that width
+    # (ScalarBN affine, bf16, the frames of spec_size 256 x freq_ratio: hop
+    # 480 and 512 frames at 128 mels, hop 960 and 256 at 256) within one
+    # bf16 ulp
+    spec64 = frontend_forms.flat_spectrum(x.double(), 1024, 240)
+    for n_mels, hop, t_out in ((128, 480, 512), (256, 960, 256)):
+        before = read_counts()
+        got = fused_logmel_iv(x, n_mels=n_mels)
+        torch.cuda.synchronize()
+        check(read_counts()["K1"] == before["K1"] + 1, f"K1 at {n_mels} mels")
+        ref = fused_logmel_iv_plain(x, n_mels=n_mels)  # also the eager extractor
+        f64 = f64_of(spec64, 1024, n_mels)
+        ok, info = wide_check(got, ref, f64, wide_bound(x, 1024, 240, "hann", n_mels, spec64))
+        mel, bins, value = worst_band(got, f64, 1024, n_mels)
+        log(f"K1 float32 at {n_mels} mels: {wide_note(info)}; raw largest: vs plain "
+            f"{feature_errs(got, ref)[0]:.3g} dB, vs float64 {feature_errs(got, f64)[0]:.3g} at "
+            f"mel {mel} ({bins} bins, {value:.2f} dB); plain from float64 "
+            f"{feature_errs(ref, f64)[0]:.3g}")
+        if not (bool(torch.isfinite(got).all()) and ok):
+            failed.append(f"K1 float32 at {n_mels} mels")
+        inv = torch.rand(7, n_mels, device="cuda", generator=g) + 0.5
+        shift = torch.randn(7, n_mels, device="cuda", generator=g)
+        kw = dict(post_affine=(inv, shift), out_dtype=torch.bfloat16, t_out=t_out, hop=hop,
+                  n_mels=n_mels)
+        got = fused_logmel_iv(x, **kw)
+        ref = fused_logmel_iv_plain(x, **kw)
+        check(got.shape == (B_CHECK, 7, t_out, n_mels) and got.dtype == torch.bfloat16
+              and bool((got[:, :, 1 + N_SAMPLES // hop:] == 0).all())
+              and torch.equal(got, fused_logmel_iv(x, **kw)), f"K1 served form at {n_mels} mels")
+        rel = ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+        log(f"K1 served HTSAT form at {n_mels} mels (hop {hop}, affine, bf16, {t_out} frames): "
+            f"max err {rel:.3g} of max(|x|, 1) (<= 2^-7), two launches equal")
+        check(rel <= 2.0 ** -7, f"K1 served form at {n_mels} mels disagrees with its plain version")
+        del f64
+    del spec64
+    check(not failed, f"outside the feature budget: {failed}")
+
+    # n_fft 2048 through the extractor a SELDTask builds, then folded, at 64
+    # and 128 mels
     shape = dict(n_fft=2048, hop=240)
-    fb64 = torch.as_tensor(logmel_iv_filterbank(24000, 2048, 64), device="cuda").double()
-    hold("K9", "LogmelIVExtractor n_fft 2048", got,
-         frontend_forms.logmel_iv_flat_plain(x, **shape), fused_logmel_iv_plain(x, **shape),
-         logmel_iv_from_spectrum(*frontend_forms.flat_spectrum(x.double(), 2048, 240), fb64))
-    inv = torch.rand(7, 64, device="cuda", generator=g) + 0.5
-    shift = torch.randn(7, 64, device="cuda", generator=g)
-    kw = dict(post_affine=(inv, shift), out_dtype=torch.bfloat16, t_out=1024)
-    got = fused_logmel_iv(x, **shape, **kw)
-    ref = frontend_forms.logmel_iv_flat_plain(x, **shape, **kw)
-    check(got.shape == (B_CHECK, 7, 1024, 64) and got.dtype == torch.bfloat16
-          and bool((got[:, :, 1001:] == 0).all()), "K9 folded form shape, dtype, zero tail")
-    rel = ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
-    log(f"K9 folded serving form (n_fft 2048, affine, bf16, 1024 frames): max err {rel:.3g} "
-        f"of max(|x|, 1) (<= 2^-7)")
-    check(rel <= 2.0 ** -7, "K9 folded form disagrees with its plain version")
+    spec64 = frontend_forms.flat_spectrum(x.double(), 2048, 240)
+    for n_mels in (64, 128):
+        cfg = {"data": {"nfft": 2048, "hoplen": 240, "window": "hann", "sample_rate": 24000,
+                        "n_mels": n_mels}}
+        before = read_counts()["K9"]
+        got = LogmelIVExtractor(cfg)(x)
+        check(read_counts()["K9"] == before + 1, "LogmelIVExtractor at n_fft 2048 runs K9")
+        check(got.shape == (B_CHECK, 7, 1001, n_mels), "LogmelIVExtractor shape")
+        what = f"LogmelIVExtractor n_fft 2048, {n_mels} mels"
+        ref = frontend_forms.logmel_iv_flat_plain(x, **shape, n_mels=n_mels)
+        eager = fused_logmel_iv_plain(x, **shape, n_mels=n_mels)
+        if n_mels <= 64:
+            hold("K9", what, got, ref, eager, f64_of(spec64, 2048, n_mels))
+        else:
+            ok, info = wide_check(got, ref, f64_of(spec64, 2048, n_mels),
+                                  wide_bound(x, 2048, 240, "hann", n_mels, spec64))
+            log(f"K9 {what}: {wide_note(info)}")
+            check(bool(torch.isfinite(got).all()) and ok, f"K9 {what} outside the feature budget")
+        inv = torch.rand(7, n_mels, device="cuda", generator=g) + 0.5
+        shift = torch.randn(7, n_mels, device="cuda", generator=g)
+        kw = dict(post_affine=(inv, shift), out_dtype=torch.bfloat16, t_out=1024, n_mels=n_mels)
+        got = fused_logmel_iv(x, **shape, **kw)
+        ref = frontend_forms.logmel_iv_flat_plain(x, **shape, **kw)
+        check(got.shape == (B_CHECK, 7, 1024, n_mels) and got.dtype == torch.bfloat16
+              and bool((got[:, :, 1001:] == 0).all()), "K9 folded form shape, dtype, zero tail")
+        rel = ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+        log(f"K9 folded serving form (n_fft 2048, {n_mels} mels, affine, bf16, 1024 frames): "
+            f"max err {rel:.3g} of max(|x|, 1) (<= 2^-7)")
+        check(rel <= 2.0 ** -7, "K9 folded form disagrees with its plain version")
+    del spec64
 
     # the routes that raise, as in the JAX package
     nie = NotImplementedError
+    inv = torch.rand(7, 64, device="cuda", generator=g) + 0.5
+    shift = torch.randn(7, 64, device="cuda", generator=g)
     cases = {"hop >= n_fft": lambda: frontend_route(1024, 1024),
              "DIF with folds": lambda: fused_logmel_iv(x, variant="dif", out_dtype=torch.bfloat16),
              "radix2=False with folds": lambda: fused_logmel_iv(x, radix2=False,
@@ -2046,6 +2363,7 @@ def phase_features_form(smi, name, kw):
     bound at this shape."""
     import torch
     from pseldnets_tpu_torch.ops import frontend_forms
+    from pseldnets_tpu_torch.ops.features import logmel_iv_filterbank, logmel_iv_from_spectrum
     from pseldnets_tpu_torch.ops.frontend import fused_logmel_iv
 
     plain = {"K9": frontend_forms.logmel_iv_flat_plain,
@@ -2084,8 +2402,172 @@ def phase_features_form(smi, name, kw):
         f"{ms:.3f} ms ({gemm / 1e12:.3f} TFLOP of DFT, {3 * gemm / ms / 1e9:.1f} TFLOP/s of "
         f"split-TF32 products, {3 * gemm / ms / 1e9 / 495:.0%} of 495 dense TF32), plain "
         f"{plain_ms:.3f} ms, K1 on the same batch {k1_ms:.3f} ms, bound {bound:.4f} ms by {by}")
+    # the same batch at 128 mels (the wide form), beside its plain version
+    # and K1 at 128 mels; the tiles' mel groups and the scratch it needs
+    wide = lambda: fused_logmel_iv(x, n_mels=128, **kw)  # noqa: E731
+    out = wide()
+    ref = plain(x, n_fft=1024, hop=240, n_mels=128)
+    errs128 = feature_errs(out, ref)
+    fb64 = torch.as_tensor(logmel_iv_filterbank(24000, 1024, 128), device=x.device).double()
+    spec64 = frontend_forms.flat_spectrum(x.double(), 1024, 240)
+    f64 = logmel_iv_from_spectrum(*spec64, fb64)
+    ok, info = wide_check(out, ref, f64, wide_bound(x, 1024, 240, "hann", 128, spec64))
+    del spec64
+    ok = ok and out.shape == (B_SERVE, 7, 1001, 128)
+    log(f"{name} at 128 mels, B={B_SERVE}: {wide_note(info)}")
+    del f64
+    check(ok, f"{name} at 128 mels outside the feature budget at B={B_SERVE}")
+    ms128 = cuda_ms(wide, reps=5)
+    plain128 = cuda_ms(lambda: plain(x, n_fft=1024, hop=240, n_mels=128), reps=2)
+    k1_128 = cuda_ms(lambda: fused_logmel_iv(x, n_mels=128), reps=10)
+    nb, fl = k1_work(B_SERVE, t_out=1001, out_bytes=4, affine=False, n_mels=128)
+    b128, by128 = bound_ms(nb, f32_flops=fl)
+    lp = frontend_forms.launch_plan("flat" if name == "K9" else "dif", B_SERVE, N_SAMPLES, 1024,
+                                    240, 128, 24000, 1001)
+    WIDE_TIMES.setdefault(name, {})[f"128 mels, n_fft 1024, hop 240, B={B_SERVE}"] = {
+        "ms": ms128, "plain_ms": plain128, "bound_ms": b128, "bound_by": by128,
+        "k1_ms": k1_128, "max_abs_err_db_iv": errs128, "mel_groups": lp["mel_groups"]}
+    log(f"{name} at 128 mels, B={B_SERVE} ({smi}): vs plain {errs128[0]:.3g} dB / "
+        f"{errs128[1]:.3g} IV; {ms128:.3f} ms (64 mels: {ms:.3f}), plain {plain128:.3f} ms, "
+        f"K1 at 128 mels {k1_128:.3f} ms, bound {b128:.4f} ms by {by128}; mel groups a tile "
+        f"{lp['mel_groups']}, scratch {math.prod(lp['scratch']) * 4 / 2 ** 20:.0f} MiB")
     return launches, {name: (err, err / ref.abs().max().item(), ms, plain_ms, bound, by, None,
                              None, {"k1_ms": k1_ms, "tf32_tflop_s": 3 * gemm / ms / 1e9})}
+
+
+# the served paths at 128 mels through SELDTask's eval route, bf16: HTSAT
+# mACCDOA at spec_size 256, freq_ratio 2 (hop 480: 501 frames of the
+# 512-frame image, pred_res 5, 100 label frames) and PaSST mACCDOA at its
+# published 128 bins (img_size (128, 1001): 12 x 100 patches + 2 tokens, 1202)
+HTSAT128_OVERRIDES = ["loss=multi_accdoa", "model.kwargs.pretrained_path=null",
+                      "model.kwargs.audioset_pretrain=false", "trainer.precision=bf16-mixed",
+                      "data.n_mels=128", "data.hoplen=480"]
+PASST128_OVERRIDES = PASST_OVERRIDES + ["trainer.precision=bf16-mixed", "data.n_mels=128",
+                                        "model.kwargs.img_size=[128,1001]"]
+
+
+def phase_serve_wide(smi, route, overrides, per_batch, seed):
+    """A served path at 128 mels: SERVE_BATCHES batches of B_SERVE 10 s
+    clips through ``SELDTask.eval_step`` (the eval route from the waveform,
+    the eval ScalarBN folded into K1), counted from 0 (``per_batch`` launches
+    a batch, no other kernel); the outputs against the same step on the
+    plain versions (the serving bound 5e-2) and a float32 plain run; K1 on
+    the batch against its plain version, and K8 (HTSAT) or K6 (PaSST) on
+    the batch's own inputs, each timed beside its plain version and bound
+    (WIDE_TIMES); the ms a batch."""
+    import torch
+    from pseldnets_tpu_torch import serving
+    from pseldnets_tpu_torch.ops import patch_embed, vit_block
+    from pseldnets_tpu_torch.serving.passt import passt_tokens
+
+    task, _ = eval_task(overrides, seed)
+    m, ex = task.full_model(), task.extractor
+    check(task.eval_route() == route and ex.n_mels == 128, f"{route} at 128 mels: its route")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    wavs = [torch.randn(B_SERVE, 4, N_SAMPLES, device="cuda", generator=g) * 0.1
+            for _ in range(SERVE_BATCHES)]
+    check(task._folds_from_wav(wavs[0]), f"{route} at 128 mels: served from the waveform")
+    step = lambda w: task.eval_step({"data": w})["multi_accdoa"]  # noqa: E731
+    step(wavs[0])  # warm-up: the route's weights, the frontend's tables
+    torch.cuda.synchronize()
+
+    # the main path: counts from 0, SERVE_BATCHES batches
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [step(w) for w in wavs]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SERVE_BATCHES
+    launches = read_counts()
+    want = expected(**{k: n * SERVE_BATCHES for k, n in per_batch.items()})
+    log(f"{route} at 128 mels: served {SERVE_BATCHES} batches of {B_SERVE} x 10 s clips through "
+        f"SELDTask.eval_step: launches {launches} (expect {want})")
+    check(launches == want, f"{route} at 128 mels: launch counts")
+    for o in outs:
+        check(o.shape == (B_SERVE, 100, 117) and o.dtype == torch.float32
+              and torch.isfinite(o).all().item(), f"{route} 128 mels output {tuple(o.shape)}")
+    task.set_use_kernels(False)
+    plain = step(wavs[0])
+    task.set_use_kernels(True)
+    fe = dict(n_fft=ex.n_fft, hop=ex.hop, window=ex.window, n_mels=ex.n_mels, sample_rate=ex.sr)
+    fn = {"htsat": serving.htsat_fused_forward_from_wav,
+          "passt": serving.passt_fused_forward_from_wav}[route]
+    f32 = fn(m, wavs[0], compute_dtype=torch.float32, use_kernels=False, **fe)["multi_accdoa"]
+    e_plain = (outs[0] - plain).abs().max().item()
+    e_f32 = (outs[0] - f32).abs().max().item()
+    p_f32 = (plain - f32).abs().max().item()
+    log(f"{route} at 128 mels: {dt * 1e3:.2f} ms/batch, {B_SERVE / dt:.1f} clips/s (host clock, "
+        f"synchronized; {smi}); vs the plain step {e_plain:.3g} (<= 5e-2), vs float32 plain "
+        f"{e_f32:.3g} (plain bf16 {p_f32:.3g})")
+    check(e_plain <= 5e-2, f"{route} at 128 mels disagrees with the plain step")
+    check(e_f32 <= 1.25 * p_f32 + 1e-2, f"{route} at 128 mels further from float32 than plain")
+
+    # K1 in the route's form on the batch, then the route's next kernel
+    wav = wavs[0]
+    t_out = m.encoder.spec_size * m.encoder.freq_ratio if route == "htsat" else None
+    feats = serving.folded_wav_features(m, wav, t_out=t_out, **fe)
+    ref = serving.folded_wav_features(m, wav, t_out=t_out, use_kernels=False, **fe).float()
+    frames = t_out or 1001
+    check(feats.shape == (B_SERVE, 7, frames, 128), f"K1 form {tuple(feats.shape)}")
+    k1_err = (feats.float() - ref).abs().max().item()
+    rel = ((feats.float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    check(rel <= 2.0 ** -7, f"K1 disagrees with its plain version ({route}, 128 mels)")
+    k1 = cuda_ms(lambda: serving.folded_wav_features(m, wav, t_out=t_out, **fe), reps=10)
+    k1_plain = cuda_ms(lambda: serving.folded_wav_features(m, wav, t_out=t_out,
+                                                           use_kernels=False, **fe), reps=2)
+    nb, fl = k1_work(B_SERVE, hop=ex.hop, t_out=frames, n_mels=128)
+    k1_bound, k1_by = bound_ms(nb, f32_flops=fl)
+    WIDE_TIMES.setdefault("K1", {})[f"serve_{route}128 (hop {ex.hop}, {frames} frames, "
+                                    f"affine, bf16, B={B_SERVE})"] = {
+        "ms": k1, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by}
+    log(f"K1 at 128 mels ({route} form, {frames} frames): max err {rel:.3g} of max(|x|, 1) "
+        f"(<= 2^-7); {k1:.3f} ms, plain {k1_plain:.3f} ms, bound {k1_bound:.4f} ms by {k1_by}")
+    errs = {"K1": (k1_err, k1_err / ref.abs().max().item())}
+    params = task._eval_params(route)
+    if route == "htsat":
+        embed = params["embed"]
+        got = patch_embed.patch_embed_tokens(feats, embed).float()
+        ref8 = patch_embed.patch_embed_tokens_plain(feats, embed).float()
+        err = (got - ref8).abs().max().item()
+        rel8 = ((got - ref8).abs() / ref8.abs().clamp(min=1.0)).max().item()
+        check(got.shape == (B_SERVE, 4096, 96) and rel8 <= 2.0 ** -7,
+              f"K8 at F=128 disagrees with its plain version ({rel8:.3g})")
+        ms = cuda_ms(lambda: patch_embed.patch_embed_tokens(feats, embed), reps=20)
+        plain_ms = cuda_ms(lambda: patch_embed.patch_embed_tokens_plain(feats, embed), reps=5)
+        nb, fl = k8_work(B_SERVE, embed, 128)
+        b_ms, by = bound_ms(nb, bf16_flops=fl)
+        WIDE_TIMES.setdefault("K8", {})[f"serve_htsat128 (F=128, B={B_SERVE})"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
+        log(f"K8 at F=128 on the batch: max err {rel8:.3g} of max(|x|, 1) (<= 2^-7); {ms:.4f} "
+            f"ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {by}")
+        errs["K8"] = (err, err / ref8.abs().max().item())
+    else:
+        blocks = params["blocks"]
+        with torch.no_grad():
+            xs = [passt_tokens(m, feats, torch.bfloat16)]
+            for p in blocks[:-1]:
+                xs.append(vit_block.vit_block_fused(xs[-1], p))
+        n_tok = math.prod(m.encoder.grid_size) + 2
+        check(xs[0].shape == (B_SERVE, n_tok, 768), f"PaSST tokens {tuple(xs[0].shape)}")
+        k6 = [0.0, 0.0, 0.0]
+        err6, rel6 = 0.0, 0.0
+        for i, (x, p) in enumerate(zip(xs, blocks)):
+            ref6 = vit_block.vit_block_plain(x, p).float()
+            scale = ref6.abs().max().item()
+            err = (vit_block.vit_block_fused(x, p).float() - ref6).abs().max().item()
+            check(err <= 2.0 ** -6 * scale, f"K6 block {i} at N={n_tok} disagrees with its plain")
+            err6, rel6 = max(err6, err), max(rel6, err / scale)
+            k6[0] += cuda_ms(lambda: vit_block.vit_block_fused(x, p), reps=3)
+            k6[1] += cuda_ms(lambda: vit_block.vit_block_plain(x, p), reps=1)
+            nb, fl = k6_work(B_SERVE, n_tok, p)
+            k6[2] += bound_ms(nb, bf16_flops=fl)[0]
+        WIDE_TIMES.setdefault("K6", {})[f"serve_passt128 (N={n_tok}, 7 blocks, B={B_SERVE})"] = {
+            "ms": k6[0], "plain_ms": k6[1], "bound_ms": k6[2], "bound_by": "operations"}
+        log(f"K6 x7 at N={n_tok} on the batch's block inputs: max err {rel6:.3g} of scale (<= "
+            f"2^-6); {k6[0]:.3f} ms, plain {k6[1]:.3f} ms, bound {k6[2]:.3f} ms")
+        errs["K6"] = (err6, rel6)
+    WIDE_TIMES.setdefault("paths", {})[f"serve_{route}128"] = {
+        "ms_per_batch": dt * 1e3, "clips_per_s": B_SERVE / dt}
+    return launches, errs
 
 
 def random_stage(i, gen, shifts=None):
@@ -3089,9 +3571,10 @@ def eval_task(overrides, seed):
                     DatasetSpec(num_classes=13), device="cuda")
     task.init_state(seed)
     gen = torch.Generator().manual_seed(seed)
+    n_mels = task.model.scalar.running_mean.shape[1]
     with torch.no_grad():
-        task.model.scalar.running_mean.copy_(torch.randn(7, 64, generator=gen) * 5.0 - 20.0)
-        task.model.scalar.running_var.copy_(torch.rand(7, 64, generator=gen) * 50.0 + 10.0)
+        task.model.scalar.running_mean.copy_(torch.randn(7, n_mels, generator=gen) * 5.0 - 20.0)
+        task.model.scalar.running_var.copy_(torch.rand(7, n_mels, generator=gen) * 50.0 + 10.0)
     return task, gen
 
 
@@ -4579,6 +5062,10 @@ def main():
     phase_frontend_forms()
     results["features_flat"] = phase_features_form(smi, "K9", {"radix2": False})
     results["features_dif"] = phase_features_form(smi, "K10", {"variant": "dif"})
+    results["serve_passt128"] = phase_serve_wide(smi, "passt", PASST128_OVERRIDES,
+                                                 {"K1": 1, "K6": 7}, 251)
+    results["serve_htsat128"] = phase_serve_wide(smi, "htsat", HTSAT128_OVERRIDES,
+                                                 {"K1": 1, "K8": 1, "K2": 12}, 252)
     phase_swin_stage()
     results["serve_stage"] = phase_serve_stage(smi)
     results["serve_einv2"] = phase_serve_einv2(smi)
@@ -4596,7 +5083,8 @@ def main():
     rows = []
     # launches: the sum over the main paths' runs (served batches and training
     # steps, plain, AdapterBit, PaSST and CRNN, HTSAT with the einsum embed, one
-    # call of each frontend form, HTSAT one stage per launch, EINV2 served and
+    # call of each frontend form, PaSST and HTSAT at 128 mels through the eval
+    # route, HTSAT one stage per launch, EINV2 served and
     # trained eagerly, PaSST trained with its validation, the CRNN trained with
     # its dropout and its validation, HTSAT trained eagerly with LoRA, the
     # eager-only adapters and the drop rates, the eval path, fit,
@@ -4658,7 +5146,11 @@ def main():
                      "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms,
                      "library_err_of_scale": library_err,
-                     **(timed[8] if len(timed) > 8 else {})})
+                     **(timed[8] if len(timed) > 8 else {}),
+                     **({"wide_mels": WIDE_TIMES[key]} if key in WIDE_TIMES else {})})
+    log(f"served at 128 mels: {json.dumps(WIDE_TIMES.get('paths', {}))}")
+    log(f"wide frontend forms and their controls, share of the allowance: "
+        f"{json.dumps(WIDE_CONTROLS)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,10 +18,10 @@
 // 1.0e-3 dB from the plain version, one puts it 3.4e-4
 // (scripts/torch_frontend_forms_probe.py --accuracy). The tables are split
 // on the host from their float64 values (rounded once to the 22 bits the
-// pair holds);
-// the waveform rows (DIF: the sum and difference streams, formed in float32)
-// on the device. The plain versions (ops/frontend_forms.py, split3_matmul)
-// sum in the same order of k steps and k-blocks.
+// pair holds); the waveform rows (DIF: the sum and difference streams,
+// formed in float32, of the windowed halves in the WIDE form) on the
+// device. The plain versions (ops/frontend_forms.py, split3_matmul) sum in
+// the same order of k steps and k-blocks.
 //
 // GEMM layout: a block takes FR = 32 frames of one clip, 16 a consumer
 // warpgroup. A warpgroup's 64 GEMM rows are (frame, channel) pairs ordered
@@ -53,9 +53,10 @@
 //
 // Epilogue of a column tile (no spectrum reaches device memory): the tile's
 // columns are ordered so that thread t holds local bins 16 t .. 16 t + 15
-// of its two channels (flat: bin k_lo + 64 tile + local; DIF: the
-// unwindowed bins 2s - 1 + local, sum-stream bins at odd locals, the 3-tap
-// window applied in registers with one shuffle across each 16-bin edge).
+// of its two channels (flat: bin k_lo + 64 tile + local; DIF: bin 2s - 1 +
+// local, sum-stream bins at odd locals; the narrow form applies the window
+// as the 3-tap in registers with one shuffle across each 16-bin edge, the
+// WIDE form applied it to the samples).
 // Lanes l and l ^ 4 swap their channels, each computes the powers and the
 // normalized intensity vector, and the seven values of the tile's 64 local
 // bins go through a second split-TF32 wgmma against the tile's mel table
@@ -64,6 +65,31 @@
 // accumulator is added to the block's mel sums in shared memory (each sum
 // owned by one thread: fixed order, no atomics). The block ends with dB,
 // the optional ScalarBN affine, the zero tail and one store per output.
+//
+// Wide mel widths (n_mels > 64, the WIDE form): the block's mel sums (32
+// frames x 7 x n_mels, 229 KB at 256 mels) do not fit beside the ring and
+// the waveform's staging, so they live in a device-memory scratch of the
+// block's own, read and written by the same owners in the same order (a
+// sum is still one thread's, tile after tile). A column tile's mels are a
+// window from its first touched mel, rounded down to a multiple of 8 so
+// that a mel keeps its owner from tile to tile, in one or more groups of
+// 64 (``plan``: the window's first mel and the tile's first group; mel
+// bands are banded and close in bin order, so a tile touches few: at n_fft
+// 1024 and 128 mels the widest tile touches 51). Each group is one more
+// ring stage of mel tables and one more mel GEMM. The sums of each mel
+// are added in the same order as at 64 mels; at n_mels <= 64 the kernel is
+// the narrow form, unchanged. Why device memory: the sums (32 frames x 8
+// rows x n_mels float32) take 128 KB at 128 mels and 256 KB at 256, beside
+// the 96 KB ring and the waveform's staging (32 KB flat, 64 KB DIF); 16
+// frames a block would fit 128 mels but not 256, would drop the second
+// consumer warpgroup (whose wgmma hides the first one's own work) and
+// double the tables' reads; a sliding window of the mels still open must
+// span the widest tile's (145 mels at n_fft 512 and 256 mels: 145 KB).
+// K10's WIDE form also applies the window to each frame's halves before
+// the butterfly, not as the 3-tap after the DFT (frontend_dif.cu): over 64
+// mels the low bands hold one bin, and the 3-tap's float32 cancellation at
+// a frame that ends in a sharp onset puts such a band up to 2e-3 dB from
+// the float64 DFT, where the windowed samples keep the flat form's error.
 
 #pragma once
 
@@ -109,7 +135,7 @@ constexpr int CONSUMERS = 128 * CWG;
 constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
 constexpr int COLS = 128;                // spectrum columns per tile: 64 complex values
 constexpr int LOCALS = 64;               // local bins per tile: the mel GEMM's k
-constexpr int MELS = 64;                 // the mel GEMM's columns (n_mels <= 64)
+constexpr int MELS = 64;                 // the mel GEMM's columns: a group of mels
 constexpr int BK = 32;                   // k-block: one 128-byte row of float32
 constexpr int STAGE = 2 * COLS * BK * 4;  // a k-block's hi and lo tiles, or a tile's mel table
 constexpr int STAGES = FE_STAGES;        // ring depth
@@ -122,10 +148,11 @@ template <bool DIF>
 constexpr int SLOTS = DIF ? 8 : 4;
 template <bool DIF>
 constexpr int A_BYTES = 2 * SLOTS<DIF> * CONSUMERS * 16;
-template <bool DIF>
-constexpr int SMEM = STAGES * STAGE + ACC_BYTES + A_BYTES<DIF> + 16 * STAGES + 1024;
+// WIDE: the mel sums in device memory, none in shared memory
+template <bool DIF, bool WIDE>
+constexpr int SMEM = STAGES * STAGE + (WIDE ? 0 : ACC_BYTES) + A_BYTES<DIF> + 16 * STAGES + 1024;
 constexpr float EPS_F32 = 1.1920928955078125e-07f;
-static_assert(SMEM<true> <= 232448 && SMEM<false> <= 232448,
+static_assert(SMEM<true, false> <= 232448 && SMEM<false, false> <= 232448,
               "the ring, the mel sums and the waveform's staging fit in 227 KB");
 static_assert(CLUSTER == 1 || CLUSTER == 2, "one CTA or a pair per table tile");
 // registers a thread after setmaxnreg (producer 40, consumers 232), from the
@@ -138,10 +165,13 @@ struct FormArgs {
   const float* x;    // (B, 4, N) float32
   const float* aff;  // (2, 7, n_mels) float32 or null (flat only)
   void* out;         // (B, 7, t_out, n_mels) float32 or bf16
+  const int* plan;   // (n_tiles + 1, 2): a tile's first mel and first mel group (WIDE)
+  float* acc;        // WIDE: (B, blocks, FR, 7, n_mels) float32 scratch, the mel sums
   int N, n_fft, hop, n_tiles, kblocks, n_mels, n_frames, t_out, out_bf16;
   int vec;           // the waveform's rows of a k-block are 16-byte aligned
   int s0;            // DIF: sub-bin of tile 0
-  float a0, a1;      // DIF: the window's 3-tap
+  float a0, a1;      // DIF, narrow: the window's 3-tap
+  const float* win;  // DIF, WIDE: (2, Kp) the window of each frame's two halves, in sample order
 };
 
 // sample i of the center=True padded signal: a reflect pad of `pad` samples
@@ -255,7 +285,7 @@ __device__ __forceinline__ void iv_values(const Bin2& own, const Bin2& oth, bool
   v1 = even ? iv1 * inv : 0.f;
 }
 
-template <bool DIF>
+template <bool DIF, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
     logmel_iv_forms_kernel(const __grid_constant__ CUtensorMap tm_tab,
                            const __grid_constant__ CUtensorMap tm_fb, const FormArgs p) {
@@ -263,7 +293,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t raw0 = smem_u32(smem_raw);
   const uint32_t base = (raw0 + 1023) & ~1023u;
   float* macc = reinterpret_cast<float*>(smem_raw + (base - raw0) + STAGES * STAGE);
-  const uint32_t astage = base + STAGES * STAGE + ACC_BYTES;
+  // WIDE: the block's mel sums (FR, 7, n_mels) in its scratch
+  float* const gacc =
+      WIDE ? p.acc + ((long)blockIdx.y * gridDim.x + blockIdx.x) * FR * 7 * p.n_mels : nullptr;
+  const uint32_t astage = base + STAGES * STAGE + (WIDE ? 0 : ACC_BYTES);
   const uint32_t full = astage + A_BYTES<DIF>, empty = full + 8 * STAGES;
   const int b = blockIdx.y, f0 = blockIdx.x * FR;
   // a pair runs the ring together: both work if its first CTA has frames
@@ -309,19 +342,24 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
           next();
         }
-        mbar_wait(empty + 8 * s, ph ^ 1);
-        if constexpr (PROBE & 8) {
-          mbar_arrive(full + 8 * s);
-        } else if constexpr (CLUSTER == 1) {
-          mbar_expect_tx(full + 8 * s, STAGE);
-          tma_load_2d(base + s * STAGE, &tm_fb, 0, t * 2 * MELS, full + 8 * s);
-          tma_load_2d(base + s * STAGE + STAGE / 2, &tm_fb, BK, t * 2 * MELS, full + 8 * s);
-        } else {  // each CTA loads one k-half for both
-          mbar_expect_tx(full + 8 * s, STAGE);
-          tma_load_2d_mc(base + s * STAGE + rank * (STAGE / 2), &tm_fb, rank * BK,
-                         t * 2 * MELS, full + 8 * s, 3);
+        // the tile's mel groups (one at n_mels <= 64)
+        const int g0 = WIDE ? __ldg(p.plan + 2 * t + 1) : t;
+        const int ng = WIDE ? __ldg(p.plan + 2 * t + 3) - g0 : 1;
+        for (int gi = g0; gi < g0 + ng; ++gi) {
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          if constexpr (PROBE & 8) {
+            mbar_arrive(full + 8 * s);
+          } else if constexpr (CLUSTER == 1) {
+            mbar_expect_tx(full + 8 * s, STAGE);
+            tma_load_2d(base + s * STAGE, &tm_fb, 0, gi * 2 * MELS, full + 8 * s);
+            tma_load_2d(base + s * STAGE + STAGE / 2, &tm_fb, BK, gi * 2 * MELS, full + 8 * s);
+          } else {  // each CTA loads one k-half for both
+            mbar_expect_tx(full + 8 * s, STAGE);
+            tma_load_2d_mc(base + s * STAGE + rank * (STAGE / 2), &tm_fb, rank * BK,
+                           gi * 2 * MELS, full + 8 * s, 3);
+          }
+          next();
         }
-        next();
       }
     }
   } else {
@@ -336,11 +374,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int hf = p.n_fft / 2;
     const float* xc0 = p.x + ((long)b * 4 + c0) * p.N;
     const float* xc1 = xc0 + p.N;
-    // the thread's own mel sums start at zero
+    // the thread's own mel sums start at zero: mels m = 2 t + e (mod 8),
+    // rows q = c0, c0 + 1, 4 + c0, 5 + c0 (q < 7)
+    if constexpr (WIDE) {
+      for (int m = 2 * t; m < p.n_mels; m += 8)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      const int q = 4 * (i / 32) + c0 + ((i & 3) >> 1), m = 8 * ((i % 32) >> 2) + 2 * t + (i & 1);
-      if (q < 7) macc[fl * ACC_LD + q * MELS + m] = 0.f;
+        for (int i = 0; i < 8; ++i) {
+          const int q = 4 * (i >> 2) + c0 + ((i >> 1) & 1), mm = m + (i & 1);
+          if (q < 7 && mm < p.n_mels) gacc[(fl * 7 + q) * p.n_mels + mm] = 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int q = 4 * (i / 32) + c0 + ((i & 3) >> 1),
+                  m = 8 * ((i % 32) >> 2) + 2 * t + (i & 1);
+        if (q < 7) macc[fl * ACC_LD + q * MELS + m] = 0.f;
+      }
     }
 
     if (work) {
@@ -390,8 +439,19 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
         asm volatile("cp.async.commit_group;\n" ::: "memory");
       };
-      auto take = [&](int buf) {
+      auto take = [&](int buf, int kb) {
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        // DIF, WIDE: the window of the thread's samples, w[n] and w[n + N/2]
+        // of the vector at offset 16 part + 4 t of the k-block
+        [[maybe_unused]] float4 wv[2][2];
+        if constexpr (DIF && WIDE) {
+#pragma unroll
+          for (int part = 0; part < 2; ++part)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              wv[part][hh] = __ldg(reinterpret_cast<const float4*>(
+                  p.win + hh * KB * BK + kb * BK + 16 * part + 4 * t));
+        }
 #pragma unroll
         for (int sl = 0; sl < 4; ++sl) {
           const int part = sl & 1, h = sl >> 1;
@@ -402,6 +462,17 @@ __global__ void __launch_bounds__(THREADS, 1)
             asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
                          : "=f"(z[0]), "=f"(z[1]), "=f"(z[2]), "=f"(z[3])
                          : "r"(slot(buf, sl + 4)));
+            if constexpr (WIDE) {
+              const float wl[4] = {wv[part][0].x, wv[part][0].y, wv[part][0].z, wv[part][0].w};
+              const float wh[4] = {wv[part][1].x, wv[part][1].y, wv[part][1].z, wv[part][1].w};
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                // the windowed halves, rounded before their sum and difference
+                // (no contraction: the plain version rounds both products)
+                a[i] = __fmul_rn(a[i], wl[i]);
+                z[i] = __fmul_rn(z[i], wh[i]);
+              }
+            }
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               raw[0][h][4 * part + i] = a[i] + z[i];
@@ -457,7 +528,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[i] = 0.f;
         for (int kb = 0; kb < KB; ++kb, ++kc) {
-          take(kc & 1);
+          take(kc & 1, kb);
           // the next k-block's samples (the next tile reads the same rows
           // from k-block 0)
           if ((kb + 1 < KB || tile + 1 < p.n_tiles) && !(PROBE & 1))
@@ -509,14 +580,16 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
         }
 
-        // epilogue: the tile's mel table is the next stage; stripe 0 (the
-        // powers of the thread's own channels), then stripe 1 (the intensity
-        // vector, after swapping channels with lane ^ 4)
-        mbar_wait(full + 8 * s, ph);
-        const uint64_t fh0 = desc_sw128(base + s * STAGE);
-        float ue[2][2], ve[2][2];  // DIF: the neighbours across the thread's 16-bin edges
-        int bin0 = 0;
-        if constexpr (DIF) {
+        // epilogue: the tile's mel tables are the next stages, a group of
+        // 64 mels each; stripe 0 (the powers of the thread's own channels),
+        // then stripe 1 (the intensity vector, after swapping channels with
+        // lane ^ 4)
+        // DIF: the narrow form applies the window here, as the 3-tap with
+        // one shuffle across each 16-bin edge (the WIDE form applied it to
+        // the samples); the neighbours across the thread's 16-bin edges
+        [[maybe_unused]] float ue[2][2], ve[2][2];
+        [[maybe_unused]] int bin0 = 0;
+        if constexpr (DIF && !WIDE) {
           bin0 = 2 * (p.s0 + 31 * tile) - 1 + 16 * t;  // the bin of the thread's local 16 t
 #pragma unroll
           for (int h = 0; h < 2; ++h)
@@ -536,33 +609,36 @@ __global__ void __launch_bounds__(THREADS, 1)
                 // e = 0: difference-stream value j = kk2, neighbours U_{j-1}, U_j;
                 // e = 1: sum-stream value j, neighbours V_j, V_{j+1}
                 const int j = kk2;
-                float xr, xi, lr, li, rr, ri;
-                if (e == 0) {
-                  xr = runV[4 * j + 2 * h];
-                  xi = runV[4 * j + 2 * h + 1];
-                  lr = j > 0 ? runU[4 * (j - 1) + 2 * h] : ue[h][0];
-                  li = j > 0 ? runU[4 * (j - 1) + 2 * h + 1] : ue[h][1];
-                  rr = runU[4 * j + 2 * h];
-                  ri = runU[4 * j + 2 * h + 1];
+                const float xr = e == 0 ? runV[4 * j + 2 * h] : runU[4 * j + 2 * h];
+                const float xi = e == 0 ? runV[4 * j + 2 * h + 1] : runU[4 * j + 2 * h + 1];
+                if constexpr (WIDE) {
+                  own[e].re[h] = xr;
+                  own[e].im[h] = xi;
                 } else {
-                  xr = runU[4 * j + 2 * h];
-                  xi = runU[4 * j + 2 * h + 1];
-                  lr = runV[4 * j + 2 * h];
-                  li = runV[4 * j + 2 * h + 1];
-                  rr = j < 7 ? runV[4 * (j + 1) + 2 * h] : ve[h][0];
-                  ri = j < 7 ? runV[4 * (j + 1) + 2 * h + 1] : ve[h][1];
+                  float lr, li, rr, ri;
+                  if (e == 0) {
+                    lr = j > 0 ? runU[4 * (j - 1) + 2 * h] : ue[h][0];
+                    li = j > 0 ? runU[4 * (j - 1) + 2 * h + 1] : ue[h][1];
+                    rr = runU[4 * j + 2 * h];
+                    ri = runU[4 * j + 2 * h + 1];
+                  } else {
+                    lr = runV[4 * j + 2 * h];
+                    li = runV[4 * j + 2 * h + 1];
+                    rr = j < 7 ? runV[4 * (j + 1) + 2 * h] : ve[h][0];
+                    ri = j < 7 ? runV[4 * (j + 1) + 2 * h + 1] : ve[h][1];
+                  }
+                  const int bin = bin0 + 2 * kk2 + e;
+                  if (bin == 0) {  // X[-1] = conj(X[1])
+                    lr = rr;
+                    li = -ri;
+                  }
+                  if (bin == hf) {  // X[N/2+1] = conj(X[N/2-1])
+                    rr = lr;
+                    ri = -li;
+                  }
+                  own[e].re[h] = p.a0 * xr + p.a1 * (lr + rr);
+                  own[e].im[h] = p.a0 * xi + p.a1 * (li + ri);
                 }
-                const int bin = bin0 + 2 * kk2 + e;
-                if (bin == 0) {  // X[-1] = conj(X[1])
-                  lr = rr;
-                  li = -ri;
-                }
-                if (bin == hf) {  // X[N/2+1] = conj(X[N/2-1])
-                  rr = lr;
-                  ri = -li;
-                }
-                own[e].re[h] = p.a0 * xr + p.a1 * (lr + rr);
-                own[e].im[h] = p.a0 * xi + p.a1 * (li + ri);
               } else {
                 const int j = 2 * kk2 + e;
                 own[e].re[h] = run[4 * j + 2 * h];
@@ -570,75 +646,90 @@ __global__ void __launch_bounds__(THREADS, 1)
               }
             }
         };
-        if constexpr (PROBE & 4) {  // the sums stay live: stored only on a value no run gives
-          float sink = 0.f;
+        // WIDE: the tile's window of mels (its first, rounded down to a
+        // multiple of 8) and its groups
+        const int mel0 = WIDE ? __ldg(p.plan + 2 * tile) : 0;
+        const int ng = WIDE ? __ldg(p.plan + 2 * tile + 3) - __ldg(p.plan + 2 * tile + 1) : 1;
+#pragma unroll 1
+        for (int gj = 0; gj < ng; ++gj) {
+          mbar_wait(full + 8 * s, ph);
+          const uint64_t fh0 = desc_sw128(base + s * STAGE);
+          if constexpr (PROBE & 4) {  // the sums stay live: stored only on a value no run gives
+            float sink = 0.f;
 #pragma unroll
-          for (int i = 0; i < 64; ++i) sink += run[i];
-          if (sink == 1.2345e-30f) macc[fl * ACC_LD] = sink;
-        }
-        Frag<2> mf[2];
+            for (int i = 0; i < 64; ++i) sink += run[i];
+            if (sink == 1.2345e-30f) macc[fl * ACC_LD] = sink;
+          }
+          Frag<2> mf[2];
 #pragma unroll
-        for (int st = 0; st < ((PROBE & 4) ? 0 : 2); ++st) {
-          float mel[32];  // rows q = 4 st + c0 + h: the tile's mel sums
+          for (int st = 0; st < ((PROBE & 4) ? 0 : 2); ++st) {
+            float mel[32];  // rows q = 4 st + c0 + h: the tile's mel sums
 #pragma unroll
-          for (int i = 0; i < 32; ++i) mel[i] = 0.f;
-          // a commit group a pair of k steps kk2 (locals 16 t + 2 kk2 + e)
+            for (int i = 0; i < 32; ++i) mel[i] = 0.f;
+            // a commit group a pair of k steps kk2 (locals 16 t + 2 kk2 + e)
 #pragma unroll
-          for (int kq = 0; kq < 4; ++kq) {
-            Frag<2>& f = mf[kq & 1];
+            for (int kq = 0; kq < 4; ++kq) {
+              Frag<2>& f = mf[kq & 1];
 #pragma unroll
-            for (int k = 0; k < 2; ++k) {
-              const int kk2 = 2 * kq + k;
-              Bin2 own[2];
-              own_bins(own, kk2);
-              float v[2][2];  // [e][h]
-              if (st == 0) {
+              for (int k = 0; k < 2; ++k) {
+                const int kk2 = 2 * kq + k;
+                Bin2 own[2];
+                own_bins(own, kk2);
+                float v[2][2];  // [e][h]
+                if (st == 0) {
 #pragma unroll
-                for (int e = 0; e < 2; ++e)
+                  for (int e = 0; e < 2; ++e)
 #pragma unroll
-                  for (int h = 0; h < 2; ++h)
-                    v[e][h] = own[e].re[h] * own[e].re[h] + own[e].im[h] * own[e].im[h];
-              } else {
-                Bin2 oth[2];
+                    for (int h = 0; h < 2; ++h)
+                      v[e][h] = own[e].re[h] * own[e].re[h] + own[e].im[h] * own[e].im[h];
+                } else {
+                  Bin2 oth[2];
 #pragma unroll
-                for (int e = 0; e < 2; ++e)
+                  for (int e = 0; e < 2; ++e)
 #pragma unroll
-                  for (int h = 0; h < 2; ++h) {
-                    oth[e].re[h] = __shfl_xor_sync(0xffffffffu, own[e].re[h], 4);
-                    oth[e].im[h] = __shfl_xor_sync(0xffffffffu, own[e].im[h], 4);
-                  }
+                    for (int h = 0; h < 2; ++h) {
+                      oth[e].re[h] = __shfl_xor_sync(0xffffffffu, own[e].re[h], 4);
+                      oth[e].im[h] = __shfl_xor_sync(0xffffffffu, own[e].im[h], 4);
+                    }
 #pragma unroll
-                for (int e = 0; e < 2; ++e) iv_values(own[e], oth[e], even, v[e][0], v[e][1]);
+                  for (int e = 0; e < 2; ++e) iv_values(own[e], oth[e], even, v[e][0], v[e][1]);
+                }
+                split_frag(f, k, v[0][0], v[0][1], v[1][0], v[1][1]);
               }
-              split_frag(f, k, v[0][0], v[0][1], v[1][0], v[1][1]);
-            }
-            // locals 16 (c % 4) + 2 kk2 + c / 4 sit at k 8 kk2 + c of the
-            // mel table: k-half kk2 / 4 (16 KB on), 32 bytes a step; lo 8 KB on
-            wgmma_fence();
+              // locals 16 (c % 4) + 2 kk2 + c / 4 sit at k 8 kk2 + c of the
+              // mel table: k-half kk2 / 4 (16 KB on), 32 bytes a step; lo 8 KB on
+              wgmma_fence();
 #pragma unroll
-            for (int k = 0; k < 2; ++k) {
-              const int kk2 = 2 * kq + k;
-              const uint64_t fh = fh0 + (kk2 / 4) * (STAGE / 2 >> 4) + 2 * (kk2 % 4);
-              split3<64>(mel, f.hi[k], f.lo[k], fh, fh + 512, kk2);
+              for (int k = 0; k < 2; ++k) {
+                const int kk2 = 2 * kq + k;
+                const uint64_t fh = fh0 + (kk2 / 4) * (STAGE / 2 >> 4) + 2 * (kk2 % 4);
+                split3<64>(mel, f.hi[k], f.lo[k], fh, fh + 512, kk2);
+              }
+              wgmma_commit();
+              wgmma_wait<1>();
+              fence_frag(mf[(kq & 1) ^ 1]);
             }
-            wgmma_commit();
-            wgmma_wait<1>();
-            fence_frag(mf[(kq & 1) ^ 1]);
-          }
-          wgmma_wait<0>();
-          fence_frag(mf[1]);
-          fence_regs(mel);
-          // the tile's mel sums into the block's, each sum by its one owner
+            wgmma_wait<0>();
+            fence_frag(mf[1]);
+            fence_regs(mel);
+            // the tile's mel sums into the block's, each sum by its one owner
 #pragma unroll
-          for (int i = 0; i < 32; ++i) {
-            const int q = 4 * st + c0 + ((i & 3) >> 1), m = 8 * (i >> 2) + 2 * t + (i & 1);
-            if (q < 7) macc[fl * ACC_LD + q * MELS + m] += mel[i];
+            for (int i = 0; i < 32; ++i) {
+              const int q = 4 * st + c0 + ((i & 3) >> 1), m = 8 * (i >> 2) + 2 * t + (i & 1);
+              if constexpr (WIDE) {
+                const int mm = mel0 + MELS * gj + m;
+                if (q < 7 && mm < p.n_mels) gacc[(fl * 7 + q) * p.n_mels + mm] += mel[i];
+              } else {
+                if (q < 7) macc[fl * ACC_LD + q * MELS + m] += mel[i];
+              }
+            }
           }
+          if (lane == 0) release_stage(empty + 8 * s);
+          next();
         }
-        if (lane == 0) release_stage(empty + 8 * s);
-        next();
       }
     }
+    if constexpr (WIDE) __threadfence_block();  // the scratch's sums, for the other consumers
     named_barrier(1, CONSUMERS);
     // the block's outputs: dB on the powers, the affine, zeros from n_frames
     // on, frames up to t_out, float32 or bf16
@@ -648,7 +739,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (f >= p.t_out) continue;
       float v = 0.f;
       if (f < p.n_frames) {
-        v = macc[flo * ACC_LD + q * MELS + m];
+        v = WIDE ? gacc[(flo * 7 + q) * p.n_mels + m] : macc[flo * ACC_LD + q * MELS + m];
         if (q < 4) v = 10.f * log10f(fmaxf(v, 1e-10f));
         if (p.aff != nullptr)
           v = v * __ldg(p.aff + q * p.n_mels + m) + __ldg(p.aff + (7 + q) * p.n_mels + m);
@@ -664,20 +755,19 @@ __global__ void __launch_bounds__(THREADS, 1)
 // Host: the tensor maps (encoded on every launch: they hold raw addresses)
 // and the launch. tab (n_tiles, 2, 128, Kp) float32: per tile the hi and
 // lo tables, rows the tile's columns, k in the permuted order; fb
-// (n_tiles, 2, 64, 64) float32: per tile the hi and lo mel tables, rows the
-// mels, k the tile's local bins in the permuted order.
-template <bool DIF>
-inline int launch_forms(const float* tab, const float* fb, const FormArgs& a, int B, int Kp,
-                        cudaStream_t stream) {
-  if (B < 1 || B > 65535 || a.N <= a.n_fft / 2 || a.hop < 1 || Kp % BK != 0 || a.n_tiles < 1 ||
-      a.n_mels < 1 || a.n_mels > MELS || a.t_out < a.n_frames || a.n_frames < 1 ||
-      (long)a.n_tiles * 2 * COLS > (1L << 31) - 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+// (n_groups, 2, 64, 64) float32: per mel group the hi and lo mel tables,
+// rows the group's mels, k its tile's local bins in the permuted order;
+// plan (n_tiles + 1, 2) int32: per tile its first mel and first group (a
+// tile t takes groups plan[t][1] .. plan[t + 1][1] - 1; at n_mels <= 64
+// group t, mels from 0); acc: WIDE's scratch.
+template <bool DIF, bool WIDE>
+inline int launch_form(const float* tab, const float* fb, const FormArgs& a, int B, int Kp,
+                       int n_groups, cudaStream_t stream) {
   CUtensorMap tm_tab, tm_fb;
   const uint64_t tdims[2] = {static_cast<uint64_t>(Kp), static_cast<uint64_t>(a.n_tiles) * 2 * COLS};
   const uint64_t tstr[1] = {static_cast<uint64_t>(Kp) * 4};
   const uint32_t tbox[2] = {BK, 2 * COLS / CLUSTER};
-  const uint64_t fdims[2] = {LOCALS, static_cast<uint64_t>(a.n_tiles) * 2 * MELS};
+  const uint64_t fdims[2] = {LOCALS, static_cast<uint64_t>(n_groups) * 2 * MELS};
   const uint64_t fstr[1] = {LOCALS * 4};
   const uint32_t fbox[2] = {BK, 2 * MELS};
   cudaError_t e = make_tmap(&tm_tab, tab, 2, tdims, tstr, tbox, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -686,15 +776,15 @@ inline int launch_forms(const float* tab, const float* fb, const FormArgs& a, in
     e = make_tmap(&tm_fb, fb, 2, fdims, fstr, fbox, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(logmel_iv_forms_kernel<DIF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           SMEM<DIF>);
+  e = cudaFuncSetAttribute(logmel_iv_forms_kernel<DIF, WIDE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM<DIF, WIDE>);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (a.t_out + FR - 1) / FR;
   const dim3 grid((blocks + CLUSTER - 1) / CLUSTER * CLUSTER, B);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM<DIF>;
+  cfg.dynamicSmemBytes = SMEM<DIF, WIDE>;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -703,9 +793,23 @@ inline int launch_forms(const float* tab, const float* fb, const FormArgs& a, in
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = CLUSTER > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, logmel_iv_forms_kernel<DIF>, tm_tab, tm_fb, a);
+  e = cudaLaunchKernelEx(&cfg, logmel_iv_forms_kernel<DIF, WIDE>, tm_tab, tm_fb, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the narrow form at n_mels <= 64, the WIDE one above (its scratch given)
+template <bool DIF>
+inline int launch_forms(const float* tab, const float* fb, const FormArgs& a, int B, int Kp,
+                        int n_groups, cudaStream_t stream) {
+  const bool wide = a.n_mels > MELS;
+  if (B < 1 || B > 65535 || a.N <= a.n_fft / 2 || a.hop < 1 || Kp % BK != 0 || a.n_tiles < 1 ||
+      a.n_mels < 1 || a.t_out < a.n_frames || a.n_frames < 1 || a.plan == nullptr ||
+      n_groups < a.n_tiles || (!wide && n_groups != a.n_tiles) || (wide && a.acc == nullptr) ||
+      (long)a.n_tiles * 2 * COLS > (1L << 31) - 1 || (long)n_groups * 2 * MELS > (1L << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wide ? launch_form<DIF, true>(tab, fb, a, B, Kp, n_groups, stream)
+              : launch_form<DIF, false>(tab, fb, a, B, Kp, n_groups, stream);
 }
 
 }  // namespace fe

@@ -41,19 +41,24 @@ extern "C" const char* pt_error_string(int code) {
 // x (B, 4, N) f32; tab (n_tiles, 2, 128, Kp) f32: per tile of 64 bins from
 // the first weighted one the hi and lo parts of the windowed cos and -sin,
 // rows the columns (column 8 j + 2 t + c: local bin 16 t + j, c = 0 cos,
-// 1 -sin), k zero from n_fft to Kp (a multiple of 32); fb (n_tiles, 2, 64, 64) f32: the hi and lo
-// mel tables, rows the mels (zero from n_mels on), k the tile's local bins
-// in the kernel's order; aff (2, 7, n_mels) f32 or null; out (B, 7, t_out,
-// n_mels) f32 or bf16.
+// 1 -sin), k zero from n_fft to Kp (a multiple of 32); fb (n_groups, 2, 64, 64) f32: the hi
+// and lo mel tables of each group of 64 mels, rows the mels (zero from
+// n_mels on), k its tile's local bins in the kernel's order; plan
+// (n_tiles + 1, 2) i32: a tile's first mel and first group; aff (2, 7,
+// n_mels) f32 or null; acc (B, blocks, 32, 7, n_mels) f32 scratch where
+// n_mels > 64, else null; out (B, 7, t_out, n_mels) f32 or bf16.
 extern "C" int logmel_iv_flat(const float* x, const float* tab, const float* fb,
-                              const float* aff, void* out, int B, int N, int n_fft, int hop,
-                              int Kp, int n_tiles, int n_mels, int n_frames, int t_out,
-                              int out_bf16, cudaStream_t stream) {
+                              const int* plan, const float* aff, float* acc, void* out, int B,
+                              int N, int n_fft, int hop, int Kp, int n_tiles, int n_groups,
+                              int n_mels, int n_frames, int t_out, int out_bf16,
+                              cudaStream_t stream) {
   if (Kp < n_fft) return static_cast<int>(cudaErrorInvalidValue);
   fe::FormArgs a = {};
   a.x = x;
   a.aff = aff;
   a.out = out;
+  a.plan = plan;
+  a.acc = acc;
   a.N = N;
   a.n_fft = n_fft;
   a.hop = hop;
@@ -65,5 +70,5 @@ extern "C" int logmel_iv_flat(const float* x, const float* tab, const float* fb,
   a.n_frames = n_frames;
   a.t_out = t_out;
   a.out_bf16 = out_bf16;
-  return fe::launch_forms<false>(tab, fb, a, B, Kp, stream);
+  return fe::launch_forms<false>(tab, fb, a, B, Kp, n_groups, stream);
 }

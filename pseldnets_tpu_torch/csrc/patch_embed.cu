@@ -1,7 +1,8 @@
 // Kernel K8: the HTSAT patch embed, eval.
 //
 // Replaces the JAX package's ops/pallas/patch_embed.py::patch_embed_tokens
-// (_kernel, pallas_call at :119): normalized features (B, C, T, F) -> the
+// (_kernel, pallas_call at :119) at F = 64, 128 and 256 mel bins (HTSAT's
+// spec_size 256 at freq_ratio 4, 2 and 1): normalized features (B, C, T, F) -> the
 // stage-0 tokens (B, L, E), L = fr * (F / 4) * (T_img / fr / 4): HTSAT's
 // reshape_wav2img (image row g F + f, column t'' for frame t = g (T_img /
 // fr) + t''), the 4 x 4 stride-4 VALID conv with compute-dtype operands
@@ -17,9 +18,11 @@
 // alone would take 0.042 ms.
 //
 // Design (bf16, the served form): a tile is the 128 tokens of one (b, g)
-// and 8 time patches: all 16 frequency patches of 32 frames, whose raw
-// input is one 4-D TMA box x[b, 0:7, t0:t0 + 32, 0:64] (28 KB, 128-byte
-// swizzle; frames past T arrive as TMA's zeros, the wav2img pad).
+// and TPB = 8 / H time patches: all FP = 16 H frequency patches of 32 / H
+// frames (H = F / 64: 8 time patches of 32 frames at F = 64), whose raw
+// input is H 4-D TMA boxes x[b, 0:7, t0:t0 + 32 / H, 64 h:64 h + 64], one
+// a 64-bin half (28 KB in all, 128-byte swizzle over 128-byte rows; frames
+// past T arrive as TMA's zeros, the wav2img pad).
 // Persistent blocks (two an SM, 256 threads: two warpgroups of 64 GEMM
 // rows) walk the tiles t = blockIdx.x, + gridDim.x, ... (grid min(tiles,
 // CTAS_PER_SM x the SM count), set in launch_wgmma); one thread keeps the
@@ -31,18 +34,20 @@
 // channel k = kw 4 + kh (ops/patch_embed.py lays the weights out so), so a
 // fragment's pair (k, k + 1) is two adjacent mel bins of one frame, one
 // 4-byte shared load. GEMM row m of a tile is token (fp, tp) with bits m0
-// -> tp0, m1 -> fp0, m2 -> fp2, m3 -> fp1, m4 -> fp3, m5 -> tp1, m6 -> tp2,
-// which puts a fragment load's 32 lanes on 32 banks of the swizzled tile.
+// -> tp0, m1 -> fp0, m2 -> fp2, m3 -> fp1, m4 -> fp3, then m5, m6 -> tp1,
+// tp2 (F = 64), fp4, tp1 (128) or fp4, fp5 (256), which puts a fragment
+// load's 32 lanes on 32 banks of the swizzled tile (each half's box holds
+// a frame's 64 bins in one 128-byte row, row % 8 the frame's low bits).
 // GEMM column n is channel e = 24 (n / 2 % 4) + 2 (n / 8) + n % 2, so each
 // thread holds 24 consecutive channels of its two rows. The epilogue runs
 // in registers: bias, the two-pass LayerNorm (mean, then the centred
 // variance) reduced over the 4 lanes of a row with shuffles, one rounding,
 // three 16-byte stores a row into a staging tile in (fp, tp) order
 // (conflict-free: rows 2i and 2i + 1 differ in tp0), and one TMA store of
-// the tile as 16 runs of 8 tokens.
+// the tile as FP runs of TPB tokens.
 //
 // The float32 form (not on the served path) runs the products as float32
-// FMA on the CUDA cores: each block gathers its tile's 7 x 4 x 4 patches
+// FMA on the CUDA cores: each block gathers its tile's C x 4 x 4 patches
 // into shared memory, keeps the weights there in float32, and a thread
 // owns 4 tokens x 12 channels.
 
@@ -52,10 +57,8 @@
 
 namespace {
 
-constexpr int E = 96;          // embed width (HTSAT's published 96)
-constexpr int FP = 16;         // frequency patches: F = 64
-constexpr int TPB = 8;         // time patches a tile
-constexpr int TOK = FP * TPB;  // tokens a tile
+constexpr int E = 96;     // embed width (HTSAT's published 96)
+constexpr int TOK = 128;  // tokens a tile: 16 H frequency patches x 8 / H time patches
 constexpr float LN_EPS = 1e-5f;
 
 // ---------------------------------------------------------------------------
@@ -65,21 +68,25 @@ constexpr int NC = 7;                     // channels: K = 16 NC = 112
 constexpr int THREADS = 256;              // two warpgroups
 constexpr int CTAS_PER_SM = 2;
 constexpr int STAGES = 2;
-constexpr int ROW_BYTES = 128;            // one frame's 64 bf16 bins
-constexpr int CH_BYTES = 32 * ROW_BYTES;  // one channel's 32 frames
-constexpr int STAGE_BYTES = NC * CH_BYTES;
+constexpr int ROW_BYTES = 128;                    // one frame's 64 bf16 bins of a half
+constexpr int STAGE_BYTES = NC * 32 * ROW_BYTES;  // a tile's H boxes: 32 rows a channel
 constexpr int SLICE_BYTES = E * 32;       // one channel's k16 weight slice
 constexpr int W_BYTES = NC * SLICE_BYTES;
 constexpr int OUT_BYTES = TOK * E * 2;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + W_BYTES + OUT_BYTES + 3 * E * 4 + 8 * STAGES +
                            1024;
 
-// GEMM row m of a tile -> its token's frequency patch and time patch
+// GEMM row m of a tile -> its token's frequency patch and time patch, for
+// H 64-bin halves (F = 64 H)
+template <int H>
 __device__ __forceinline__ int row_fp(int m) {
-  return ((m >> 1) & 1) | ((m >> 3) & 1) << 1 | ((m >> 2) & 1) << 2 | ((m >> 4) & 1) << 3;
+  const int low = ((m >> 1) & 1) | ((m >> 3) & 1) << 1 | ((m >> 2) & 1) << 2 | ((m >> 4) & 1) << 3;
+  return low | (H >= 2 ? ((m >> 5) & 1) << 4 : 0) | (H == 4 ? ((m >> 6) & 1) << 5 : 0);
 }
+template <int H>
 __device__ __forceinline__ int row_tp(int m) {
-  return (m & 1) | ((m >> 5) & 1) << 1 | ((m >> 6) & 1) << 2;
+  return (m & 1) | (H == 1 ? ((m >> 5) & 1) << 1 | ((m >> 6) & 1) << 2
+                           : H == 2 ? ((m >> 6) & 1) << 1 : 0);
 }
 // channel e -> its GEMM column n (the inverse of e = 24 (n / 2 % 4) + 2 (n / 8) + n % 2)
 __device__ __forceinline__ int gemm_col(int e) {
@@ -125,11 +132,15 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+template <int H>
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
     patch_embed_wgmma(const __grid_constant__ CUtensorMap tma_x,
                       const __grid_constant__ CUtensorMap tma_out, const bf16* __restrict__ w,
                       const float* __restrict__ bias, const float* __restrict__ ln_w,
                       const float* __restrict__ ln_b, int tiles, int fr, int tg) {
+  constexpr int FP = 16 * H, TPB = 8 / H;               // a tile's patches
+  constexpr int CH_BYTES = 4 * TPB * ROW_BYTES;         // one channel's frames of a half
+  constexpr int HALF_BYTES = NC * CH_BYTES;             // one half's box
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sX = base, sW = sX + STAGES * STAGE_BYTES, sOut = sW + W_BYTES;
@@ -148,7 +159,10 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
     int b, g, tp0;
     tile_at(t, b, g, tp0);
     mbar_expect_tx(full + 8 * s, STAGE_BYTES);
-    tma_load_4d(sX + s * STAGE_BYTES, mx, 0, g * tg + 4 * tp0, 0, b, full + 8 * s);
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      tma_load_4d(sX + s * STAGE_BYTES + h * HALF_BYTES, mx, 64 * h, g * tg + 4 * tp0, 0, b,
+                  full + 8 * s);
   };
 
   if (tid == 0) {
@@ -180,16 +194,18 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
   __syncthreads();
 
   const int wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32, q = lane % 4;
-  // a fragment's four loads in a channel's 32 swizzled frame rows: rows r
-  // and r + 8 (j % 2) at kw = q / 2 and + 2 (j / 2), bins kh = 2 (q % 2), + 1
+  // a fragment's four loads in a channel's swizzled frame rows of its half:
+  // rows r and r + 8 (j % 2) at kw = q / 2 and + 2 (j / 2), bins kh = 2 (q
+  // % 2), + 1 (bin f: half f / 64, position f % 64 in the row)
   uint32_t off[4];
   int tok[2];  // the two rows' tokens fp * TPB + tp in the tile
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int m = 64 * wg + 16 * warp + lane / 4 + 8 * (j % 2);
-    const int t = 4 * row_tp(m) + q / 2 + 2 * (j / 2), f = 4 * row_fp(m) + 2 * (q % 2);
-    off[j] = t * ROW_BYTES + ((f / 8) ^ (t % 8)) * 16 + f % 8 * 2;
-    if (j < 2) tok[j] = row_fp(m) * TPB + row_tp(m);
+    const int t = 4 * row_tp<H>(m) + q / 2 + 2 * (j / 2), f = 4 * row_fp<H>(m) + 2 * (q % 2);
+    const int fl = f % 64;
+    off[j] = f / 64 * HALF_BYTES + t * ROW_BYTES + ((fl / 8) ^ (t % 8)) * 16 + fl % 8 * 2;
+    if (j < 2) tok[j] = row_fp<H>(m) * TPB + row_tp<H>(m);
   }
   float acc[48];
 #pragma unroll
@@ -273,47 +289,51 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
   if (tid == 0) bulk_wait();
 }
 
-// the kernel's shared-memory limit, set once a device (sm_count(), from
-// sm90_gemm.cuh, is looked up once): the wrapper's host cost a call is of
-// the kernel's order
+// the kernel's shared-memory limit, set once a device and form (sm_count(),
+// from sm90_gemm.cuh, is looked up once): the wrapper's host cost a call is
+// of the kernel's order
 constexpr int MAX_DEVICES = 64;
-bool smem_limit_set[MAX_DEVICES];
+bool smem_limit_set[MAX_DEVICES][3];
 
+template <int H>
 cudaError_t set_smem_limit() {
+  constexpr int form = H == 1 ? 0 : H == 2 ? 1 : 2;
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!smem_limit_set[dev]) {
-    e = cudaFuncSetAttribute(patch_embed_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (!smem_limit_set[dev][form]) {
+    e = cudaFuncSetAttribute(patch_embed_wgmma<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_BYTES);
     if (e != cudaSuccess) return e;
-    smem_limit_set[dev] = true;
+    smem_limit_set[dev][form] = true;
   }
   return cudaSuccess;
 }
 
+template <int H>
 cudaError_t launch_wgmma(const bf16* x, const bf16* w, const float* bias, const float* ln_w,
                          const float* ln_b, bf16* out, int B, int C, int T_in, int T_img, int fr,
                          cudaStream_t stream) {
+  constexpr int F = 64 * H, FP = 16 * H, TPB = 8 / H;
   const int tg = T_img / fr, tp_n = tg / 4;
-  cudaError_t e = set_smem_limit();
+  cudaError_t e = set_smem_limit<H>();
   if (e != cudaSuccess) return e;
   CUtensorMap tx, to;
-  // x (B, C, T_in, 64) as (64, T_in, C, B) in boxes of one tile's (64, 32, C, 1)
-  const uint64_t xd[4] = {64, (uint64_t)T_in, (uint64_t)C, (uint64_t)B};
-  const uint64_t xs[3] = {ROW_BYTES, (uint64_t)T_in * ROW_BYTES, (uint64_t)C * T_in * ROW_BYTES};
-  const uint32_t xb[4] = {64, 32, (uint32_t)C, 1};
+  // x (B, C, T_in, F) as (F, T_in, C, B) in boxes of one tile's half (64, 4 TPB, C, 1)
+  const uint64_t xd[4] = {F, (uint64_t)T_in, (uint64_t)C, (uint64_t)B};
+  const uint64_t xs[3] = {F * 2, (uint64_t)T_in * F * 2, (uint64_t)C * T_in * F * 2};
+  const uint32_t xb[4] = {64, 4 * TPB, (uint32_t)C, 1};
   e = make_tmap(&tx, x, 4, xd, xs, xb);
-  // out (B, fr 16 tp_n, 96) as (96, tp_n, fr 16, B) in boxes of one tile's (96, 8, 16, 1)
+  // out (B, fr FP tp_n, 96) as (96, tp_n, fr FP, B) in boxes of one tile's (96, TPB, FP, 1)
   const uint64_t od[4] = {E, (uint64_t)tp_n, (uint64_t)fr * FP, (uint64_t)B};
   const uint64_t os[3] = {E * 2, (uint64_t)tp_n * E * 2, (uint64_t)fr * FP * tp_n * E * 2};
   const uint32_t ob[4] = {E, TPB, FP, 1};
   if (e == cudaSuccess) e = make_tmap(&to, out, 4, od, os, ob, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e != cudaSuccess) return e;
   const int tiles = B * fr * (tp_n / TPB), grid = std::min(tiles, CTAS_PER_SM * sm_count());
-  patch_embed_wgmma<<<grid, THREADS, SMEM_BYTES, stream>>>(tx, to, w, bias, ln_w, ln_b, tiles,
-                                                           fr, tg);
+  patch_embed_wgmma<H><<<grid, THREADS, SMEM_BYTES, stream>>>(tx, to, w, bias, ln_w, ln_b,
+                                                              tiles, fr, tg);
   return cudaGetLastError();
 }
 
@@ -329,31 +349,32 @@ __device__ __forceinline__ void store4(float* p, float a, float b, float c, floa
 __global__ void __launch_bounds__(F32_THREADS, 2) patch_embed_f32(
     const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
     const float* __restrict__ ln_w, const float* __restrict__ ln_b, float* __restrict__ out,
-    int C, int T_in, int T_img, int fr) {
+    int C, int T_in, int T_img, int fr, int F) {
   extern __shared__ float4 smem4[];
   const int K = C * 16;
   float* ps = reinterpret_cast<float*>(smem4);  // [K][TOK] patch values
   float* ws = ps + K * TOK;                     // [K][E] weights
   const int tid = threadIdx.x;
+  const int FP = F / 4, TPB = TOK / FP;          // a tile's patches: 16 x 8 at F = 64
   const int tg = T_img / fr, tp_n = tg / 4;
   const int tblk = tp_n / TPB;
   const int b = blockIdx.x / (fr * tblk), rest = blockIdx.x % (fr * tblk);
   const int g = rest / tblk, tp0 = (rest % tblk) * TPB;
 
   for (int i = tid; i < K * E; i += F32_THREADS) ws[i] = __ldg(w + i);
-  // patch gather: (c, frame r of the block's 32, frequency f) -> k = (c 4 +
-  // r % 4) 4 + f % 4 (the conv's (c, kw, kh)), token f / 4 * TPB + r / 4
+  // patch gather: (c, frame r of the block's 4 TPB, frequency f) -> k = (c 4
+  // + r % 4) 4 + f % 4 (the conv's (c, kw, kh)), token f / 4 * TPB + r / 4
   const int t0 = g * tg + tp0 * 4;
-  for (int i = tid; i < C * TPB * 4 * 64; i += F32_THREADS) {
-    const int f = i & 63, r = (i >> 6) & (TPB * 4 - 1), c = i / (TPB * 4 * 64);
+  for (int i = tid; i < C * TPB * 4 * F; i += F32_THREADS) {
+    const int f = i % F, r = i / F % (TPB * 4), c = i / (TPB * 4 * F);
     const int t = t0 + r;
-    const float v = t < T_in ? x[(((long)b * C + c) * T_in + t) * 64 + f] : 0.f;
+    const float v = t < T_in ? x[(((long)b * C + c) * T_in + t) * F + f] : 0.f;
     ps[((c * 4 + (r & 3)) * 4 + (f & 3)) * TOK + (f >> 2) * TPB + (r >> 2)] = v;
   }
   __syncthreads();
 
-  // thread: tokens 4 tgi .. 4 tgi + 3 (one frequency patch, 4 time
-  // patches), channels j 32 + cg 4 + i for j < 3, i < 4
+  // thread: tokens 4 tgi .. 4 tgi + 3 of the tile's (fp, tp) order,
+  // channels j 32 + cg 4 + i for j < 3, i < 4
   const int cg = tid & 7, tgi = tid >> 3;
   float acc[4][12];
 #pragma unroll
@@ -381,9 +402,9 @@ __global__ void __launch_bounds__(F32_THREADS, 2) patch_embed_f32(
   for (int j = 0; j < 3; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) bs[j * 4 + i] = __ldg(bias + j * 32 + cg * 4 + i);
-  const int fp = tgi / (TPB / 4), tq = (tgi % (TPB / 4)) * 4;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
+    const int fp = (4 * tgi + a) / TPB, tp = (4 * tgi + a) % TPB;
     float s = 0.f;
 #pragma unroll
     for (int e = 0; e < 12; ++e) {
@@ -404,7 +425,7 @@ __global__ void __launch_bounds__(F32_THREADS, 2) patch_embed_f32(
     q += __shfl_xor_sync(0xffffffffu, q, 2);
     q += __shfl_xor_sync(0xffffffffu, q, 4);
     const float rstd = rsqrtf(q * (1.f / E) + LN_EPS);
-    const long tok = ((long)g * FP + fp) * tp_n + tp0 + tq + a;
+    const long tok = ((long)g * FP + fp) * tp_n + tp0 + tp;
     float* o = out + ((long)b * fr * FP * tp_n + tok) * E;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
@@ -421,14 +442,14 @@ __global__ void __launch_bounds__(F32_THREADS, 2) patch_embed_f32(
 
 cudaError_t launch_f32(const float* x, const float* w, const float* bias, const float* ln_w,
                        const float* ln_b, float* out, int B, int C, int T_in, int T_img, int fr,
-                       cudaStream_t stream) {
+                       int F, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)C * 16 * (TOK + E);
   cudaError_t e = cudaFuncSetAttribute(patch_embed_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const int blocks = B * fr * (T_img / fr / 4 / TPB);
+  const int blocks = B * fr * (T_img / fr / 4 / (TOK / (F / 4)));
   patch_embed_f32<<<blocks, F32_THREADS, smem, stream>>>(x, w, bias, ln_w, ln_b, out, C, T_in,
-                                                         T_img, fr);
+                                                         T_img, fr, F);
   return cudaGetLastError();
 }
 
@@ -438,22 +459,28 @@ extern "C" const char* pt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x (B, C, T_in, 64) and w (C * 16, 96) in the compute dtype (bf16 if
+// x (B, C, T_in, F) and w (C * 16, 96) in the compute dtype (bf16 if
 // is_bf16, else float32), w[(c 4 + kw) 4 + kh][e] the conv kernel; bias,
-// ln_w, ln_b (96,) f32; out (B, fr 16 T_img / fr / 4, 96) in the compute
-// dtype. T_in <= T_img; T_img / fr a multiple of 4 * 8; bf16: C = 7, x and
-// out 16-byte aligned.
+// ln_w, ln_b (96,) f32; out (B, fr F / 4 T_img / fr / 4, 96) in the
+// compute dtype. F = 64, 128 or 256; T_in <= T_img; T_img / fr a multiple
+// of a tile's frames (2048 / F); bf16: C = 7, x and out 16-byte aligned.
 extern "C" int patch_embed_tokens(const void* x, const void* w, const float* bias,
                                   const float* ln_w, const float* ln_b, void* out, int B, int C,
-                                  int T_in, int T_img, int fr, int is_bf16, cudaStream_t stream) {
-  if (B < 1 || fr < 1 || T_img % fr || (T_img / fr) % (4 * TPB) || T_in < 1 || T_in > T_img ||
-      C < 1 || (is_bf16 && C != NC))
+                                  int T_in, int T_img, int fr, int F, int is_bf16,
+                                  cudaStream_t stream) {
+  if (B < 1 || fr < 1 || T_img % fr || (F != 64 && F != 128 && F != 256) ||
+      (T_img / fr) % (2048 / F) || T_in < 1 || T_in > T_img || C < 1 || (is_bf16 && C != NC))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16)
-    return static_cast<int>(launch_wgmma(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                                         bias, ln_w, ln_b, static_cast<bf16*>(out), B, C, T_in,
-                                         T_img, fr, stream));
+  if (is_bf16) {
+    const bf16 *xb = static_cast<const bf16*>(x), *wb = static_cast<const bf16*>(w);
+    bf16* ob = static_cast<bf16*>(out);
+    const cudaError_t e =
+        F == 64    ? launch_wgmma<1>(xb, wb, bias, ln_w, ln_b, ob, B, C, T_in, T_img, fr, stream)
+        : F == 128 ? launch_wgmma<2>(xb, wb, bias, ln_w, ln_b, ob, B, C, T_in, T_img, fr, stream)
+                   : launch_wgmma<4>(xb, wb, bias, ln_w, ln_b, ob, B, C, T_in, T_img, fr, stream);
+    return static_cast<int>(e);
+  }
   return static_cast<int>(launch_f32(static_cast<const float*>(x), static_cast<const float*>(w),
                                      bias, ln_w, ln_b, static_cast<float*>(out), B, C, T_in,
-                                     T_img, fr, stream));
+                                     T_img, fr, F, stream));
 }

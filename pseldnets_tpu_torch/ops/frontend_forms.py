@@ -15,8 +15,14 @@ power -> mel -> dB and the normalized FOA intensity vector -> mel.
   kernel it carries K1's folds (``post_affine``, ``out_dtype``, ``t_out``).
 - DIF (K10, ``csrc/frontend_dif.cu``): the sum and difference streams
   y+-[n] = p[n] +- p[n + n_fft/2] of each frame through two half-size DFTs
-  (even and odd bins), then the window as the exact 3-tap in frequency;
-  even n_fft and hop, hann or hamming, no folds.
+  (even and odd bins), then the window as the exact 3-tap in frequency, as
+  the JAX kernel does; even n_fft and hop, hann or hamming, no folds. Over
+  64 mels each frame's two halves are multiplied by their halves of the
+  window before the streams instead (``dif_spectrum(in_time=True)``): in
+  float32 the 3-tap cancels the unwindowed leakage of a frame that ends in
+  a sharp onset and leaves a one-bin band (there are many over 64 mels) up
+  to 2e-3 dB from the float64 DFT, where the windowed samples leave the
+  flat form's error.
 
 On a CUDA tensor the wrapper launches its kernel; on a CPU tensor it runs
 the plain version, which follows the kernels' arithmetic in float32: the DFT
@@ -26,8 +32,14 @@ zero over each k-block of 32 and then into a running sum, ``split3_matmul``)
 and the shared plain epilogue (``features.logmel_iv_from_spectrum``). The
 kernels compute only the bins from the first to the last one with a
 non-zero mel weight (the others add nothing to any output) and take the mel
-sums on the tensor cores too (``flat_tables``, ``dif_tables``);
-``launch_plan`` mirrors what they take and refuse.
+sums on the tensor cores too (``flat_tables``, ``dif_tables``), a column
+tile's mels in groups of 64 from its first touched one (``mel_plan``; one
+group a tile, mels from 0, at n_mels <= 64); ``launch_plan`` mirrors what
+they take and refuse. Over 64 mels the plain versions take the mel sums as
+the kernels do (``tile_mel_features``: each tile's seven values a local bin
+through a split-TF32 product with each of its groups' tables, the tiles'
+sums added in tile order); at 64 mels and fewer their mel projection is
+one float32 product over all bins.
 """
 
 from functools import lru_cache
@@ -38,14 +50,15 @@ import torch
 import torch.nn.functional as F
 
 from ._cuda import CudaKernel, check_cuda_tensor, f32, i32, ptr
-from .features import logmel_iv_filterbank, logmel_iv_from_spectrum
+from .features import (EPS_F32, logmel_iv_filterbank, logmel_iv_from_spectrum,
+                       power_to_db)
 from .windows import get_window
 
 FLAT_KERNEL = CudaKernel("frontend_flat.cu", {
-    "logmel_iv_flat": [ptr] * 5 + [i32] * 10 + [ptr],
+    "logmel_iv_flat": [ptr] * 7 + [i32] * 11 + [ptr],
 })
 DIF_KERNEL = CudaKernel("frontend_dif.cu", {
-    "logmel_iv_dif": [ptr] * 4 + [i32] * 9 + [f32] * 2 + [ptr],
+    "logmel_iv_dif": [ptr] * 7 + [i32] * 10 + [f32] * 2 + [ptr],
 })
 
 # window -> exact 3-tap frequency response of the periodic cosine window
@@ -58,14 +71,15 @@ KSTEP = 8        # wgmma's k step: the plain versions sum a step at a time
 CHUNK = 32       # k summed in the tensor cores' accumulator (a k-block) before the running sum
 TILE_BINS = 64   # local bins per column tile (128 columns)
 COLS = 2 * TILE_BINS
-MELS = 64        # the mel GEMM's columns: n_mels <= 64
+MELS = 64        # the mel GEMM's columns: a group of mels (one a tile at n_mels <= 64)
+MEL_ALIGN = 8    # a wide tile's first mel, rounded down: each mel keeps its owner thread
 DIF_STEP = 31    # K10: sub-bins between column tiles (62 windowed bins)
 FR = 32          # frames per block (two consumer warpgroups of 16)
 THREADS = 384    # two consumer warpgroups and the producer's
 STAGES = 3       # ring depth
 CLUSTER = 1      # CTAs sharing each table tile by TMA multicast
 STAGE_BYTES = 2 * COLS * BK * 4     # a k-block's hi and lo tiles, or a tile's mel tables
-ACC_BYTES = FR * 8 * MELS * 4       # the block's mel sums
+ACC_BYTES = FR * 8 * MELS * 4       # the block's mel sums (n_mels <= 64; wider: device memory)
 A_SLOTS = {"flat": 4, "dif": 8}     # 16-byte waveform slots a consumer thread and k-block
 SMEM_LIMIT = 232448                 # 227 KB a block
 
@@ -146,18 +160,20 @@ def local_order() -> np.ndarray:
     return 16 * (c % 4) + 2 * kk + c // 4
 
 
-def split3_matmul(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor) -> torch.Tensor:
+def split3_matmul(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor,
+                  chunk: int = CHUNK) -> torch.Tensor:
     """a @ (b_hi + b_lo) as the kernels compute it: a split with
-    ``tf32_split``; in each chunk of CHUNK k from zero, for each k step of 8
+    ``tf32_split``; in each chunk of ``chunk`` k from zero (the DFT's CHUNK,
+    the mel GEMM's 64 locals), for each k step of 8
     in order a_lo b_hi, a_hi b_lo and a_hi b_hi added to the chunk's sum (the
     small products first); the chunks' sums added in order (two levels, as
     the former float32 kernels summed). a (..., K) float32 with K a multiple
     of 8, b_hi and b_lo (K, cols) float32."""
     a_hi, a_lo = tf32_split(a)
     out = None
-    for c0 in range(0, a.shape[-1], CHUNK):
+    for c0 in range(0, a.shape[-1], chunk):
         part = None
-        for k0 in range(c0, min(c0 + CHUNK, a.shape[-1]), KSTEP):
+        for k0 in range(c0, min(c0 + chunk, a.shape[-1]), KSTEP):
             k = slice(k0, k0 + KSTEP)
             step = torch.matmul(a_lo[..., k], b_hi[k])
             part = step if part is None else part + step
@@ -190,13 +206,16 @@ def flat_spectrum(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann"):
     return spec[..., :n_freqs], spec[..., n_freqs:]
 
 
-def dif_spectrum(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann"):
+def dif_spectrum(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann",
+                 in_time: bool = False):
     """The windowed spectrum (B, 4, n_frames, n_fft // 2 + 1) as (re, im),
     in float64 or float32 as ``flat_spectrum``, the DIF way: the sum and
     difference streams of each frame (formed in the working dtype) -> an
     n_fft/2-point DFT of each (even bins, and the pre-twiddled odd bins) ->
     the unwindowed spectrum with X[-1] = conj(X[1]) and X[n_fft/2 + 1] =
-    conj(X[n_fft/2 - 1]) -> the 3-tap window."""
+    conj(X[n_fft/2 - 1]) -> the 3-tap window. ``in_time``: each frame's two
+    halves times their halves of the window (``dif_window``, rounded before
+    the sum and difference) and no 3-tap, K10's form over 64 mels."""
     check_dif(n_fft, hop, window)
     hf = n_fft // 2
     dt = x.dtype if x.dtype == torch.float64 else torch.float32
@@ -204,6 +223,11 @@ def dif_spectrum(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann"):
     xp = padded_signal(x.to(dt), n_fft, hop)
     lo = xp.unfold(-1, hf, hop)[..., :n_frames, :]
     hi = xp[..., hf:].unfold(-1, hf, hop)[..., :n_frames, :]
+    if in_time:
+        win = get_window(window, n_fft)
+        win = torch.as_tensor(win if dt == torch.float64 else win.astype(np.float32),
+                              device=x.device)
+        lo, hi = lo * win[:hf], hi * win[hf:]
     tabs = _dif_tables(n_fft)
     if dt == torch.float64:
         even, odd = ((lo + hi) @ torch.as_tensor(tabs[0], device=x.device),
@@ -218,6 +242,8 @@ def dif_spectrum(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann"):
     re, im = even.new_empty(shape), even.new_empty(shape)
     re[..., 0::2], im[..., 0::2] = even[..., :n_even], even[..., n_even:]
     re[..., 1::2], im[..., 1::2] = odd[..., :n_odd], odd[..., n_odd:]
+    if in_time:
+        return re, im
     # neighbours k - 1 and k + 1 with the conjugate fix-ups at both ends
     re_l = torch.cat([re[..., 1:2], re[..., :-1]], -1)
     im_l = torch.cat([-im[..., 1:2], im[..., :-1]], -1)
@@ -227,23 +253,67 @@ def dif_spectrum(x: torch.Tensor, n_fft: int, hop: int, window: str = "hann"):
     return a0 * re + a1 * (re_l + re_r), a0 * im + a1 * (im_l + im_r)
 
 
+def bin_values(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """(B, 4, T, F) spectrum -> (B, 7, T, F) float32: the four channels'
+    powers and the normalized intensity vector of each bin, the values the
+    kernels project onto the mels (as ``features.logmel_iv_from_spectrum``
+    computes them before its projection)."""
+    iv = re[:, 1:4] * re[:, :1] + im[:, 1:4] * im[:, :1]
+    iv = iv / (torch.sqrt(torch.sum(iv * iv, dim=1, keepdim=True)) + EPS_F32)
+    return torch.cat([re * re + im * im, iv], dim=1)
+
+
+def tile_mel_features(form: str, re: torch.Tensor, im: torch.Tensor, n_fft: int, n_mels: int,
+                      sample_rate: int) -> torch.Tensor:
+    """(B, 4, T, n_fft // 2 + 1) float32 spectrum -> (B, 7, T, n_mels): the
+    mel sums as the kernels take them over 64 mels: for each column tile in
+    order, its 64 local bins' values (``bin_values``, zero where a local
+    feeds no band) in the mel GEMM's k order, through one split-TF32
+    product a k step with each of the tile's groups of 64 mels
+    (``mel_tiles``; the 64 locals summed in one chunk), added to the mels'
+    running sums; then dB on the powers."""
+    vals = bin_values(re, im)
+    bins = tile_bins(form, n_fft, n_mels, sample_rate)
+    plan = mel_plan(form, n_fft, n_mels, sample_rate)
+    fb = _mel_tiles(form, n_fft, n_mels, sample_rate)
+    vals = F.pad(vals, (0, 1))  # index -1: a zero value for the locals that feed none
+    order = torch.as_tensor(local_order(), device=re.device)
+    out = vals.new_zeros(vals.shape[:-1] + (n_mels,))
+    for t in range(bins.shape[0]):
+        local = vals[..., torch.as_tensor(bins[t], device=re.device)][..., order]
+        for j, g in enumerate(range(plan[t, 1], plan[t + 1, 1])):
+            m0 = int(plan[t, 0]) + MELS * j
+            n = min(MELS, n_mels - m0)
+            hi, lo = (torch.as_tensor(fb[g, i].T, device=re.device) for i in (0, 1))
+            out[..., m0:m0 + n] += split3_matmul(local, hi, lo, chunk=TILE_BINS)[..., :n]
+    return torch.cat([power_to_db(out[:, :4]), out[:, 4:]], dim=1)
+
+
+def _features(form: str, re, im, n_fft: int, n_mels: int, sample_rate: int) -> torch.Tensor:
+    """The plain epilogue of a form: the kernels' per-tile mel sums over 64
+    mels, the shared epilogue otherwise."""
+    if n_mels > MELS and re.dtype == torch.float32:
+        return tile_mel_features(form, re, im, n_fft, n_mels, sample_rate)
+    return logmel_iv_from_spectrum(re, im, _mel_fb(sample_rate, n_fft, n_mels, re))
+
+
 def logmel_iv_flat_plain(x: torch.Tensor, *, n_fft: int, hop: int, window: str = "hann",
                          n_mels: int = 64, sample_rate: int = 24000, post_affine=None,
                          out_dtype: torch.dtype = torch.float32,
                          t_out: Optional[int] = None) -> torch.Tensor:
-    """Plain version of K9 on any device: ``flat_spectrum``, the shared
-    epilogue and K1's folds."""
+    """Plain version of K9 on any device: ``flat_spectrum``, the mel sums
+    (``_features``) and K1's folds."""
     re, im = flat_spectrum(x, n_fft, hop, window)
-    feats = logmel_iv_from_spectrum(re, im, _mel_fb(sample_rate, n_fft, n_mels, re))
+    feats = _features("flat", re, im, n_fft, n_mels, sample_rate)
     return apply_folds(feats, post_affine, out_dtype, t_out)
 
 
 def logmel_iv_dif_plain(x: torch.Tensor, *, n_fft: int, hop: int, window: str = "hann",
                         n_mels: int = 64, sample_rate: int = 24000) -> torch.Tensor:
-    """Plain version of K10 on any device: ``dif_spectrum`` and the shared
-    epilogue."""
-    re, im = dif_spectrum(x, n_fft, hop, window)
-    return logmel_iv_from_spectrum(re, im, _mel_fb(sample_rate, n_fft, n_mels, re))
+    """Plain version of K10 on any device: ``dif_spectrum`` (the window in
+    time over 64 mels) and the mel sums (``_features``)."""
+    re, im = dif_spectrum(x, n_fft, hop, window, in_time=n_mels > MELS)
+    return _features("dif", re, im, n_fft, n_mels, sample_rate)
 
 
 def logmel_iv_flat(x: torch.Tensor, *, n_fft: int, hop: int, window: str = "hann",
@@ -264,13 +334,15 @@ def logmel_iv_flat(x: torch.Tensor, *, n_fft: int, hop: int, window: str = "hann
     check_cuda_tensor("x", x, torch.float32, (B, 4, N))
     check_launch(N, n_fft, hop, out_dtype)
     plan = launch_plan("flat", B, N, n_fft, hop, n_mels, sample_rate, t_out)
-    tab, fb = _flat_kernel_tables(n_fft, window, n_mels, sample_rate, x.device)
+    tab, fb, tiles = _flat_kernel_tables(n_fft, window, n_mels, sample_rate, x.device)
     aff = affine_table(post_affine, n_mels, x.device)
+    acc = _scratch(plan, x.device)
     out = torch.empty((B, 7, t_out, n_mels), device=x.device, dtype=out_dtype)
     FLAT_KERNEL.launches += 1
     FLAT_KERNEL.call("logmel_iv_flat", x.data_ptr(), tab.data_ptr(), fb.data_ptr(),
-                     aff.data_ptr() if aff is not None else None, out.data_ptr(), B, N, n_fft,
-                     hop, plan["Kp"], plan["n_tiles"], n_mels, n_frames, t_out,
+                     tiles.data_ptr(), aff.data_ptr() if aff is not None else None,
+                     acc.data_ptr() if acc is not None else None, out.data_ptr(), B, N, n_fft,
+                     hop, plan["Kp"], plan["n_tiles"], plan["n_groups"], n_mels, n_frames, t_out,
                      int(out_dtype == torch.bfloat16))
     return out
 
@@ -288,14 +360,25 @@ def logmel_iv_dif(x: torch.Tensor, *, n_fft: int, hop: int, window: str = "hann"
     check_launch(N, n_fft, hop, torch.float32)
     n_frames = 1 + N // hop
     plan = launch_plan("dif", B, N, n_fft, hop, n_mels, sample_rate, n_frames)
-    tab, fb, s0 = _dif_kernel_tables(n_fft, n_mels, sample_rate, x.device)
+    tab, fb, tiles, s0 = _dif_kernel_tables(n_fft, n_mels, sample_rate, x.device)
+    win = _dif_kernel_window(n_fft, window, x.device) if plan["wide"] else None
+    acc = _scratch(plan, x.device)
     out = torch.empty((B, 7, n_frames, n_mels), device=x.device, dtype=torch.float32)
     a0, a1 = WIN_3TAP[window]
     DIF_KERNEL.launches += 1
     DIF_KERNEL.call("logmel_iv_dif", x.data_ptr(), tab.data_ptr(), fb.data_ptr(),
-                    out.data_ptr(), B, N, n_fft, hop, plan["Kp"], plan["n_tiles"], s0, n_mels,
-                    n_frames, a0, a1)
+                    tiles.data_ptr(), win.data_ptr() if win is not None else None,
+                    acc.data_ptr() if acc is not None else None, out.data_ptr(), B, N, n_fft,
+                    hop, plan["Kp"], plan["n_tiles"], plan["n_groups"], s0, n_mels, n_frames,
+                    a0, a1)
     return out
+
+
+def _scratch(plan: dict, device) -> Optional[torch.Tensor]:
+    """The wide form's mel sums, (B, blocks, FR, 7, n_mels) float32 (the
+    kernel zeroes its own), or None at n_mels <= 64."""
+    return (torch.empty(plan["scratch"], device=device, dtype=torch.float32)
+            if plan["wide"] else None)
 
 
 def check_dif(n_fft: int, hop: int, window: str) -> None:
@@ -323,30 +406,36 @@ def launch_plan(form: str, B: int, N: int, n_fft: int, hop: int, n_mels: int,
     raises ``NotImplementedError`` on what they refuse, before any launch."""
     if form not in ("flat", "dif"):
         raise ValueError(f"form must be 'flat' or 'dif', got {form!r}")
-    k_lo, k_hi = weighted_bins(sample_rate, n_fft, n_mels)
+    if n_mels < 1:
+        raise NotImplementedError(f"the frontend form kernels do not take n_mels={n_mels}")
+    tiles = mel_plan(form, n_fft, n_mels, sample_rate)
+    n_tiles = tiles.shape[0] - 1
+    groups = np.diff(tiles[:, 1])
+    wide = n_mels > MELS
     K = n_fft if form == "flat" else n_fft // 2
-    n_tiles = (-(-(k_hi - k_lo + 1) // TILE_BINS) if form == "flat"
-               else -(-(k_hi - 2 * (k_lo // 2) + 1) // (2 * DIF_STEP)))
     n_frames = 1 + N // hop
     blocks = -(-t_out // FR)
+    grid = (-(-blocks // CLUSTER) * CLUSTER, B)
     plan = {"Kp": -(-K // BK) * BK, "n_tiles": n_tiles, "n_frames": n_frames,
-            "grid": (-(-blocks // CLUSTER) * CLUSTER, B), "cluster": CLUSTER,
-            "threads": THREADS, "stages": STAGES,
-            "smem": (STAGES * STAGE_BYTES + ACC_BYTES + 2 * A_SLOTS[form] * (THREADS - 128) * 16
-                     + 16 * STAGES + 1024),
+            "grid": grid, "cluster": CLUSTER, "threads": THREADS, "stages": STAGES,
+            "smem": (STAGES * STAGE_BYTES + (0 if wide else ACC_BYTES)
+                     + 2 * A_SLOTS[form] * (THREADS - 128) * 16 + 16 * STAGES + 1024),
             # (k, rows) of each TMA box: the tables' hi and lo tiles (split
             # over the pair), the mel tables' two k-halves
             "tab_box": (BK, 2 * COLS // CLUSTER), "fb_box": (BK, 2 * MELS),
-            # ring stages a column tile takes: its k-blocks and its mel tables
-            "stages_a_tile": -(-K // BK) + 1}
+            # mel groups: each tile's, all, and the wide form's scratch
+            "mel_groups": tuple(int(g) for g in groups), "n_groups": int(tiles[-1, 1]),
+            "wide": wide, "scratch": (B, grid[0], FR, 7, n_mels) if wide else None,
+            # ring stages a column tile takes: its k-blocks and its mel
+            # tables (the widest tile's)
+            "stages_a_tile": -(-K // BK) + int(groups.max())}
     why = []
-    if n_mels > MELS:
-        why.append(f"n_mels={n_mels} > {MELS} (the mel GEMM's columns)")
     if not 1 <= B <= 65535:
         why.append(f"B={B} outside the grid's 1..65535")
     if plan["smem"] > SMEM_LIMIT:
         why.append(f"{plan['smem']} bytes of shared memory > {SMEM_LIMIT}")
-    if n_tiles * 2 * COLS >= 2 ** 31 or max(plan["tab_box"] + plan["fb_box"]) > 256:
+    if (max(n_tiles * 2 * COLS, plan["n_groups"] * 2 * MELS) >= 2 ** 31
+            or max(plan["tab_box"] + plan["fb_box"]) > 256):
         why.append("a TMA dimension or box out of range")
     if t_out < n_frames:
         why.append(f"t_out={t_out} < n_frames={n_frames}")
@@ -432,15 +521,65 @@ def tile_columns(width: int = COLS) -> Tuple[np.ndarray, np.ndarray]:
     return width // 8 * u + j, part
 
 
-def mel_tiles(fb: np.ndarray, local_bins: np.ndarray) -> np.ndarray:
-    """(n_tiles, 2, 64, 64) float32: per tile the hi and lo mel tables, rows
-    the mels (zero from n_mels on), k the tile's local bins in the mel GEMM's
+@lru_cache(maxsize=16)
+def tile_bins(form: str, n_fft: int, n_mels: int, sample_rate: int) -> np.ndarray:
+    """(n_tiles, 64) int: the bin each column tile's local bin feeds, -1 for
+    one that feeds no band. K9: bins k_lo + 64 t + l from the first weighted
+    bin k_lo; K10 (s = s0 + 31 t, s0 = k_lo // 2): windowed local l = 1 ..
+    62 is bin 2s - 1 + l, locals 0 and 63 feed none. Bins past n_fft / 2
+    (K9's last tile) feed none either (their weights are absent)."""
+    k_lo, k_hi = weighted_bins(sample_rate, n_fft, n_mels)
+    local = np.arange(TILE_BINS)
+    if form == "flat":
+        n_tiles = -(-(k_hi - k_lo + 1) // TILE_BINS)
+        bins = k_lo + TILE_BINS * np.arange(n_tiles)[:, None] + local[None]
+    else:
+        s0 = k_lo // 2
+        n_tiles = -(-(k_hi - 2 * s0 + 1) // (2 * DIF_STEP))
+        bins = 2 * (s0 + DIF_STEP * np.arange(n_tiles))[:, None] - 1 + local[None]
+        bins[:, [0, TILE_BINS - 1]] = -1
+    bins[bins > n_fft // 2] = -1
+    return bins
+
+
+@lru_cache(maxsize=16)
+def mel_plan(form: str, n_fft: int, n_mels: int, sample_rate: int) -> np.ndarray:
+    """(n_tiles + 1, 2) int32: per column tile its first mel and its first
+    mel group, the last row (0, the number of groups). At n_mels <= 64 tile
+    t takes group t, mels 0 .. 63 (the narrow form). Wider, a tile's mels
+    run from the first one its bins feed, rounded down to a multiple of
+    MEL_ALIGN (so that a mel's sum keeps its owner thread in the kernel), to
+    the last one, in groups of 64 (at least one)."""
+    bins = tile_bins(form, n_fft, n_mels, sample_rate)
+    n_tiles = bins.shape[0]
+    first, groups = np.zeros(n_tiles, np.int64), np.ones(n_tiles, np.int64)
+    if n_mels > MELS:
+        fb = logmel_iv_filterbank(sample_rate, n_fft, n_mels)
+        for t in range(n_tiles):
+            fed = np.nonzero(fb[bins[t][bins[t] >= 0]].any(axis=0))[0]
+            lo, hi = (fed[0], fed[-1]) if fed.size else (0, 0)
+            first[t] = lo // MEL_ALIGN * MEL_ALIGN
+            groups[t] = -(-(hi - first[t] + 1) // MELS)
+    plan = np.zeros((n_tiles + 1, 2), np.int32)
+    plan[:-1, 0] = first
+    plan[1:, 1] = np.cumsum(groups)
+    return plan
+
+
+def mel_tiles(fb: np.ndarray, local_bins: np.ndarray, plan: np.ndarray) -> np.ndarray:
+    """(n_groups, 2, 64, 64) float32: per mel group the hi and lo mel
+    tables, rows the group's mels (tile t's group j: mels plan[t, 0] + 64 j
+    + r, zero from n_mels on), k the tile's local bins in the mel GEMM's
     order (``local_order``); ``local_bins`` (n_tiles, 64) gives each local's
-    bin, -1 or past the last bin for one that feeds no band."""
-    n_tiles = local_bins.shape[0]
-    rows = np.zeros((n_tiles, TILE_BINS, MELS))
-    ok = (local_bins >= 0) & (local_bins < fb.shape[0])
-    rows[ok, :fb.shape[1]] = fb[local_bins[ok]]
+    bin, -1 for one that feeds no band."""
+    n_mels = fb.shape[1]
+    rows = np.zeros((int(plan[-1, 1]), TILE_BINS, MELS))
+    for t, bins in enumerate(local_bins):
+        ok = bins >= 0
+        for g in range(plan[t, 1], plan[t + 1, 1]):
+            m0 = plan[t, 0] + MELS * (g - plan[t, 1])
+            cols = fb[bins[ok], m0:m0 + MELS]
+            rows[g, np.nonzero(ok)[0], :cols.shape[1]] = cols
     hi, lo = tf32_split_np(rows.transpose(0, 2, 1)[..., local_order()])
     return np.ascontiguousarray(np.stack([hi, lo], axis=1))
 
@@ -451,8 +590,8 @@ def flat_tables(n_fft: int, window: str, n_mels: int, sample_rate: int):
     (split from float64), rows the tile's columns (local bin 16 u + j at
     columns 8 j + 2 u + {0: cos, 1: -sin}), k the samples in the kernels'
     order (``k_order``), zero from n_fft to Kp (n_fft rounded up to the
-    k-block); and ``mel_tiles`` of each tile's 64 bins."""
-    fb = logmel_iv_filterbank(sample_rate, n_fft, n_mels)
+    k-block); and ``mel_tiles`` of each tile's 64 bins (groups as
+    ``mel_plan``)."""
     plan = launch_plan("flat", 1, n_fft, n_fft, 1, n_mels, sample_rate, 1 + n_fft)
     n_tiles, Kp = plan["n_tiles"], plan["Kp"]
     k_lo = weighted_bins(sample_rate, n_fft, n_mels)[0]
@@ -464,8 +603,8 @@ def flat_tables(n_fft: int, window: str, n_mels: int, sample_rate: int):
         c, s = _trig(n_fft, np.arange(n_fft), bins)
         tab[t, :, :n_fft] = (np.where(part == 0, win * c, -win * s) * (bins <= n_fft // 2)).T
     hi, lo = tf32_split_np(tab[..., k_order(Kp)])
-    local_bins = k_lo + TILE_BINS * np.arange(n_tiles)[:, None] + np.arange(TILE_BINS)[None]
-    return np.ascontiguousarray(np.stack([hi, lo], axis=1)), mel_tiles(fb, local_bins)
+    return (np.ascontiguousarray(np.stack([hi, lo], axis=1)),
+            _mel_tiles("flat", n_fft, n_mels, sample_rate))
 
 
 def dif_tables(n_fft: int, n_mels: int, sample_rate: int):
@@ -474,9 +613,9 @@ def dif_tables(n_fft: int, n_mels: int, sample_rate: int):
     sum stream and in its last 64 those of bin 2s - 1 + 2i for the
     difference stream (i = 8 u + j at columns 8 j + 2 u + part of each
     half), zero for a bin outside 0 .. n_fft/2; split hi/lo as K9's,
-    (n_tiles, 2, 128, Kp) float32; with ``mel_tiles`` of windowed local bin
-    l (bin 2s - 1 + l, l = 1 .. 62; locals 0 and 63 feed none)."""
-    fb = logmel_iv_filterbank(sample_rate, n_fft, n_mels)
+    (n_tiles, 2, 128, Kp) float32; with ``mel_tiles`` of local bin l (bin
+    2s - 1 + l, l = 1 .. 62; locals 0 and 63, which the next and the last
+    tile hold, feed none)."""
     hf = n_fft // 2
     plan = launch_plan("dif", 1, n_fft, n_fft, 2, n_mels, sample_rate, 1 + n_fft // 2)
     n_tiles, Kp = plan["n_tiles"], plan["Kp"]
@@ -485,26 +624,53 @@ def dif_tables(n_fft: int, n_mels: int, sample_rate: int):
     half = np.arange(COLS) // (COLS // 2)
     n = np.arange(hf)
     tab = np.zeros((n_tiles, COLS, Kp))
-    local_bins = np.full((n_tiles, TILE_BINS), -1)
     for t in range(n_tiles):
         s = s0 + DIF_STEP * t
         bins = np.where(half == 0, 2 * s + 2 * idx, 2 * s - 1 + 2 * idx)
         c, sn = _trig(n_fft, n, bins)
         keep = (bins >= 0) & (bins <= hf)
         tab[t, :, :hf] = (np.where(part == 0, c, -sn) * keep).T
-        local_bins[t, 1:TILE_BINS - 1] = 2 * s - 1 + np.arange(1, TILE_BINS - 1)
     hi, lo = tf32_split_np(tab[..., k_order(Kp)])
-    return (np.ascontiguousarray(np.stack([hi, lo], axis=1)), mel_tiles(fb, local_bins), s0)
+    return (np.ascontiguousarray(np.stack([hi, lo], axis=1)),
+            _mel_tiles("dif", n_fft, n_mels, sample_rate), s0)
 
 
 @lru_cache(maxsize=8)
 def _flat_kernel_tables(n_fft: int, window: str, n_mels: int, sample_rate: int,
                         device: torch.device):
     return tuple(torch.as_tensor(a, device=device)
-                 for a in flat_tables(n_fft, window, n_mels, sample_rate))
+                 for a in (*flat_tables(n_fft, window, n_mels, sample_rate),
+                           mel_plan("flat", n_fft, n_mels, sample_rate)))
+
+
+def dif_window(n_fft: int, window: str) -> np.ndarray:
+    """(2, Kp) float32: the window K10's wide form multiplies each frame's
+    halves by, w[n] and w[n + n_fft/2] for n < n_fft/2 in sample order (a thread
+    reads four adjacent samples' values as one vector), zero to Kp."""
+    hf = n_fft // 2
+    Kp = -(-hf // BK) * BK
+    w = np.zeros((2, Kp), np.float32)
+    win = get_window(window, n_fft).astype(np.float32)
+    w[0, :hf], w[1, :hf] = win[:hf], win[hf:]
+    return w
+
+
+@lru_cache(maxsize=8)
+def _dif_kernel_window(n_fft: int, window: str, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(dif_window(n_fft, window), device=device)
+
+
+@lru_cache(maxsize=16)
+def _mel_tiles(form: str, n_fft: int, n_mels: int, sample_rate: int) -> np.ndarray:
+    """The form's ``mel_tiles`` (the mel tables are the same whatever the
+    window)."""
+    return mel_tiles(logmel_iv_filterbank(sample_rate, n_fft, n_mels),
+                     tile_bins(form, n_fft, n_mels, sample_rate),
+                     mel_plan(form, n_fft, n_mels, sample_rate))
 
 
 @lru_cache(maxsize=8)
 def _dif_kernel_tables(n_fft: int, n_mels: int, sample_rate: int, device: torch.device):
     tab, fb, s0 = dif_tables(n_fft, n_mels, sample_rate)
-    return torch.as_tensor(tab, device=device), torch.as_tensor(fb, device=device), s0
+    return (torch.as_tensor(tab, device=device), torch.as_tensor(fb, device=device),
+            torch.as_tensor(mel_plan("dif", n_fft, n_mels, sample_rate), device=device), s0)

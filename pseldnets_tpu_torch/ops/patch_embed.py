@@ -16,7 +16,8 @@ in bf16.
 
 On a CUDA tensor ``patch_embed_tokens`` launches ``csrc/patch_embed.cu``
 (bf16: a persistent TMA-fed wgmma kernel, two blocks an SM walking the
-128-token tiles; float32: CUDA-core FMA); on a CPU tensor it runs
+128-token tiles; float32: CUDA-core FMA) at 64, 128 or 256 mel bins
+(HTSAT's spec_size 256 at freq_ratio 4, 2 or 1); on a CPU tensor it runs
 ``patch_embed_tokens_plain``, which nothing on the card's served path calls.
 ``prepare_patch_embed`` lays the weights out once per encoder and dtype, in
 the kernel's k order (c, kw, kh), which the plain version reads too.
@@ -31,13 +32,20 @@ from ..models.adapters import check_kernels
 from ._cuda import CudaKernel, check_cuda_tensor, i32, ptr
 
 KERNEL = CudaKernel("patch_embed.cu", {
-    "patch_embed_tokens": [ptr] * 6 + [i32] * 6 + [ptr],
+    "patch_embed_tokens": [ptr] * 6 + [i32] * 7 + [ptr],
 })
 
 LN_EPS = 1e-5
 # the kernel's shapes: HTSAT's published embed width, mel bins and (bf16)
-# channels; time patches a tile (8: a tile is 128 tokens of 32 frames)
-KERNEL_E, KERNEL_F, KERNEL_C, KERNEL_TPB = 96, 64, 7, 8
+# channels; a tile is 128 tokens (F / 4 frequency patches of tile_patches(F)
+# time patches: 8 of 32 frames at F = 64)
+KERNEL_E, KERNEL_FS, KERNEL_C = 96, (64, 128, 256), 7
+TILE_TOKENS = 128
+
+
+def tile_patches(F: int) -> int:
+    """Time patches in one of the kernel's tiles at F mel bins."""
+    return TILE_TOKENS // (F // 4)
 
 
 @dataclass
@@ -90,6 +98,21 @@ def patch_embed_tokens_plain(x: torch.Tensor, p: PatchEmbedParams) -> torch.Tens
     return tok.reshape(B, -1, tok.shape[-1]).to(p.dtype)
 
 
+def check_kernel_shape(C: int, F: int, p: PatchEmbedParams) -> None:
+    """Raise ``NotImplementedError`` on what the kernel does not take: an
+    embed width other than 96, mel bins other than 64, 128 or 256, a
+    wav2img group of frames that is not whole tiles, bf16 with other than 7
+    channels."""
+    E = p.w.shape[1]
+    tg = p.t_img // p.freq_ratio
+    if (E != KERNEL_E or F not in KERNEL_FS or p.t_img % p.freq_ratio
+            or tg % (4 * tile_patches(F)) or (p.dtype == torch.bfloat16 and C != KERNEL_C)):
+        raise NotImplementedError(
+            f"the patch-embed kernel takes E={KERNEL_E}, F in {KERNEL_FS}, {KERNEL_C} "
+            f"channels in bf16 and a wav2img group of whole tiles of frames (got E={E}, "
+            f"F={F}, C={C}, {tg} frames): use patch_embed=\"einsum\"")
+
+
 def patch_embed_tokens(x: torch.Tensor, p: PatchEmbedParams) -> torch.Tensor:
     """(B, C, T, F) -> (B, L, E) in the compute dtype, T <= spec_size *
     freq_ratio (the rest is the zero pad): kernel K8 on a CUDA tensor, the
@@ -101,25 +124,18 @@ def patch_embed_tokens(x: torch.Tensor, p: PatchEmbedParams) -> torch.Tensor:
     if x.device.type == "cpu":
         return patch_embed_tokens_plain(x, p)
     check_cuda_tensor("x", x, p.dtype, (B, C, T, Fq))
-    E = p.w.shape[1]
-    tg = p.t_img // p.freq_ratio
-    bf16 = p.dtype == torch.bfloat16
-    if ((E, Fq) != (KERNEL_E, KERNEL_F) or p.t_img % p.freq_ratio or tg % (4 * KERNEL_TPB)
-            or (bf16 and C != KERNEL_C)):
-        raise NotImplementedError(
-            f"the patch-embed kernel takes E={KERNEL_E}, F={KERNEL_F}, {KERNEL_C} channels "
-            f"in bf16 and a wav2img group of a multiple of {4 * KERNEL_TPB} frames (got "
-            f"E={E}, F={Fq}, C={C}, {tg}): use patch_embed=\"einsum\"")
+    check_kernel_shape(C, Fq, p)
     if p.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be float32 or bfloat16, got {p.dtype}")
     for name, t in (("w", p.w), ("bias", p.bias), ("ln_w", p.ln_w), ("ln_b", p.ln_b)):
         check_cuda_tensor(name, t, p.dtype if name == "w" else torch.float32)
     if any(t.data_ptr() % 16 for t in (x, p.w)):
         raise ValueError("the patch-embed kernel reads x and w from 16-byte aligned addresses")
+    E, tg = p.w.shape[1], p.t_img // p.freq_ratio
     out = torch.empty((B, p.freq_ratio * (Fq // 4) * (tg // 4), E), device=x.device,
                       dtype=p.dtype)
     KERNEL.launches += 1
     KERNEL.call("patch_embed_tokens", x.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(),
                 p.ln_w.data_ptr(), p.ln_b.data_ptr(), out.data_ptr(), B, C, T, p.t_img,
-                p.freq_ratio, int(bf16))
+                p.freq_ratio, Fq, int(p.dtype == torch.bfloat16))
     return out

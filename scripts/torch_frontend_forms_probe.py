@@ -29,7 +29,8 @@ With ``--accuracy``, only the arithmetic's variants instead: ``chunk2``,
 ``chunk4`` (two or four k-blocks summed in the tensor cores before the
 running sum; one ships) and ``four_products`` (a_lo b_lo added too), each
 timed and held against the float64 DFT and the plain version on
-chip_smoke.py's check data (n_fft 512 / hop 100 and 1024 / 240).
+chip_smoke.py's check data (n_fft 512 / hop 100 and 1024 / 240), at each
+mel width of ``--mels`` (64 by default; over 64 the kernels' wide form).
 
 The former float32 FMA design gets ``one_level`` (the DFT summed in one
 level) and ``one_epilogue`` (the per-tile epilogue run once a block: the
@@ -40,6 +41,7 @@ card's name and power limit, each copy's ms per round and the registers and
 spills ptxas reported.
 
     python3 scripts/torch_frontend_forms_probe.py _archive/parent . --rounds 2
+    python3 scripts/torch_frontend_forms_probe.py --accuracy --mels 64 128 256
 
 Needs one CUDA card and nvcc.
 """
@@ -162,27 +164,33 @@ if json.loads(sys.argv[5]):
     xa = torch.randn(4, 4, 240000, device="cuda", generator=g) * 0.1
     xa[-1, :, :60000] = 0.0
     for n_fft, hop in ((512, 100), (1024, 240)):
-        fb64 = torch.as_tensor(logmel_iv_filterbank(24000, n_fft, 64), device="cuda").double()
-        f64 = logmel_iv_from_spectrum(*frontend_forms.flat_spectrum(xa.double(), n_fft, hop), fb64)
-        for f in src:
-            plain = wrap[f][1](xa, n_fft=n_fft, hop=hop)
-            for n in names:
-                attr = wrap[f][2]
-                orig = getattr(frontend_forms, attr)
-                setattr(frontend_forms, attr, kernels[f, n])
-                got = wrap[f][0](xa, n_fft=n_fft, hop=hop)
-                setattr(frontend_forms, attr, orig)
-                e = lambda r: (got.double() - r.double()).abs()[:, :4].max().item()
-                acc[f"{f} {n} {n_fft}/{hop}"] = {"f64": e(f64), "plain": e(plain)}
-            acc[f"{f} plain {n_fft}/{hop}"] = {"f64": (plain.double() - f64).abs()[:, :4].max().item()}
-        del f64
+        spec64 = frontend_forms.flat_spectrum(xa.double(), n_fft, hop)
+        for n_mels in json.loads(sys.argv[6]):
+            kw = dict(n_fft=n_fft, hop=hop, n_mels=n_mels)
+            fb64 = torch.as_tensor(logmel_iv_filterbank(24000, n_fft, n_mels), device="cuda")
+            f64 = logmel_iv_from_spectrum(*spec64, fb64.double())
+            tag = f"{n_fft}/{hop}" + ("" if n_mels == 64 else f" {n_mels} mels")
+            for f in src:
+                plain = wrap[f][1](xa, **kw)
+                for n in names:
+                    attr = wrap[f][2]
+                    orig = getattr(frontend_forms, attr)
+                    setattr(frontend_forms, attr, kernels[f, n])
+                    got = wrap[f][0](xa, **kw)
+                    setattr(frontend_forms, attr, orig)
+                    e = lambda r: (got.double() - r.double()).abs()[:, :4].max().item()
+                    acc[f"{f} {n} {tag}"] = {"f64": e(f64), "plain": e(plain)}
+                acc[f"{f} plain {tag}"] = {"f64": (plain.double() - f64).abs()[:, :4].max().item()}
+            del f64
+        del spec64
 print(json.dumps({"new": new, "times": times, "checks": checks, "regs": regs, "acc": acc}))
 '''
 
 
-def child(checkout, names, rounds, checked, timeout, accuracy=False):
+def child(checkout, names, rounds, checked, timeout, accuracy=False, mels=(64,)):
     r = subprocess.run([sys.executable, "-c", RUN, json.dumps(names), str(rounds),
-                        json.dumps(NEW), json.dumps(checked), json.dumps(accuracy)],
+                        json.dumps(NEW), json.dumps(checked), json.dumps(accuracy),
+                        json.dumps(list(mels))],
                        cwd=checkout, capture_output=True, text=True, timeout=timeout)
     if r.returncode != 0:
         raise RuntimeError(r.stderr[-4000:])
@@ -198,6 +206,8 @@ def main():
     ap.add_argument("--accuracy", action="store_true",
                     help="only the arithmetic's variants, against the float64 DFT on "
                          "chip_smoke.py's check data, and timed")
+    ap.add_argument("--mels", type=int, nargs="+", default=[64],
+                    help="the mel widths of --accuracy")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -214,7 +224,7 @@ def main():
             checked = [n for n in names if n in CHECKED] if new else ["shipped", "one_level"]
             try:
                 res = child(checkout, names, args.rounds, checked, args.timeout,
-                            args.accuracy and new)
+                            args.accuracy and new, args.mels)
             except (RuntimeError, subprocess.TimeoutExpired) as e:
                 out["failed"][" ".join(names)] = str(e)[-2000:]
                 print(f"{checkout}: {names} failed: {str(e)[-600:]}", flush=True)

@@ -154,14 +154,25 @@ def _columns(width):
     return width // 8 * ((col % 8) // 2) + col // 8, col % 2
 
 
-def _mel_replay(vals, fb, t):
-    """The mel GEMM of tile t: values (..., 7, 64 locals), position 8 kk + c
-    of its k holding local 16 (c % 4) + 2 kk + c // 4, against the tile's
-    hi + lo mel table (rows the mels)."""
+def _mel_replay(vals, fb, plan, t, n_mels):
+    """The mel GEMMs of tile t: values (..., 7, 64 locals), position 8 kk +
+    c of its k holding local 16 (c % 4) + 2 kk + c // 4, against each of
+    the tile's groups' hi + lo mel tables (rows the group's mels: plan[t, 0]
+    + 64 j + r), scattered to the mels < n_mels: (..., 7, n_mels). The
+    tile's first mel is a multiple of 8, so that the thread owning a mel's
+    sum (column 8 i + 2 u + e: lane u = mel // 2 % 4) is the same in every
+    tile."""
     kk, c = np.divmod(np.arange(64), 8)
     order = 16 * (c % 4) + 2 * kk + c // 4
-    table = fb[t, 0].astype(np.float64) + fb[t, 1]
-    return vals[..., order] @ table.T
+    assert plan[t, 0] % 8 == 0
+    out = np.zeros(vals.shape[:-1] + (n_mels,))
+    for j, g in enumerate(range(plan[t, 1], plan[t + 1, 1])):
+        m0 = plan[t, 0] + 64 * j
+        table = fb[g, 0].astype(np.float64) + fb[g, 1]
+        sums = vals[..., order] @ table.T
+        n = min(64, n_mels - m0)
+        out[..., m0:m0 + n] += sums[..., :n]
+    return out
 
 
 def _replay_flat(x, n_fft, hop, window, n_mels=64):
@@ -169,44 +180,52 @@ def _replay_flat(x, n_fft, hop, window, n_mels=64):
     channel) read from the padded signal at stride hop (zero past n_fft),
     each tile's hi + lo table (rows its columns),
     bins as (re, im) column pairs in the quad layout, the seven values per
-    local bin and the tile's mel GEMM."""
+    local bin and the tile's mel GEMMs (one a group of 64 mels)."""
     tab, fb = frontend_forms.flat_tables(n_fft, window, n_mels, SR)
+    plan = frontend_forms.mel_plan("flat", n_fft, n_mels, SR)
     n_tiles, _, cols, Kp = tab.shape
     n_frames = 1 + x.shape[-1] // hop
     pos = frontend_forms.k_order(Kp)  # the sample at each k position
     idx = np.arange(n_frames)[:, None] * hop + pos[None]
     a = np.where(pos < n_fft, _padded_sample(x, n_fft // 2, idx), 0.0)  # (B, 4, T, Kp)
     local, part = _columns(cols)
-    acc = np.zeros((x.shape[0], n_frames, 7, 64))
+    acc = np.zeros((x.shape[0], n_frames, 7, n_mels))
     for t in range(n_tiles):
         spec = a @ (tab[t, 0].astype(np.float64) + tab[t, 1]).T  # (B, 4, T, 128)
         re, im = np.zeros(spec.shape[:-1] + (64,)), np.zeros(spec.shape[:-1] + (64,))
         re[..., local[part == 0]] = spec[..., part == 0]
         im[..., local[part == 1]] = spec[..., part == 1]
         vals = _bin_values(re.transpose(0, 2, 1, 3), im.transpose(0, 2, 1, 3))  # (B, T, 7, 64)
-        acc += _mel_replay(vals, fb, t)
-    return _finish(acc[..., :n_mels].transpose(0, 2, 1, 3))
+        acc += _mel_replay(vals, fb, plan, t, n_mels)
+    return _finish(acc.transpose(0, 2, 1, 3))
 
 
 def _replay_dif(x, n_fft, hop, window, n_mels=64):
     """numpy replay of csrc/frontend_dif.cu in float64: the sum and
-    difference streams from the padded signal, each
-    tile's two table halves (hi + lo), the unwindowed local spectrum (local
+    difference streams from the padded signal (over 64 mels each frame's
+    halves first times the window table's two rows), each
+    tile's two table halves (hi + lo), the local spectrum (local
     2i + 1: sum-stream index i, local 2i: difference-stream index i, each
-    half in the quad layout), the 3-tap with the conjugate fix-ups at bins 0
-    and n_fft/2 on local bins 1 .. 62, the values and the mel GEMM."""
+    half in the quad layout), at 64 mels and fewer the 3-tap with the
+    conjugate fix-ups at bins 0 and n_fft/2 on local bins 1 .. 62, the
+    values and the mel GEMM."""
     tab, fb, s0 = frontend_forms.dif_tables(n_fft, n_mels, SR)
+    plan = frontend_forms.mel_plan("dif", n_fft, n_mels, SR)
     n_tiles, _, cols, Kp = tab.shape
     hf = n_fft // 2
     a0, a1 = frontend_forms.WIN_3TAP[window]
+    in_time = n_mels > 64
     n_frames = 1 + x.shape[-1] // hop
     pos = frontend_forms.k_order(Kp)
     idx = np.arange(n_frames)[:, None] * hop + pos[None]
     keep = pos < hf
     lo = np.where(keep, _padded_sample(x, hf, idx), 0.0)
     hi = np.where(keep, _padded_sample(x, hf, idx + hf), 0.0)
+    if in_time:
+        win = frontend_forms.dif_window(n_fft, window).astype(np.float64)
+        lo, hi = lo * win[0, pos], hi * win[1, pos]
     index, part = _columns(cols // 2)
-    acc = np.zeros((x.shape[0], n_frames, 7, 64))
+    acc = np.zeros((x.shape[0], n_frames, 7, n_mels))
     for t in range(n_tiles):
         base = 2 * (s0 + frontend_forms.DIF_STEP * t) - 1
         table = (tab[t, 0].astype(np.float64) + tab[t, 1]).T  # (Kp, 128)
@@ -215,8 +234,8 @@ def _replay_dif(x, n_fft, hop, window, n_mels=64):
             s = stream @ half  # (B, 4, T, 64)
             X[..., 2 * index[part == 0] + offset] += s[..., part == 0]
             X[..., 2 * index[part == 1] + offset] += 1j * s[..., part == 1]
-        xw = np.zeros_like(X)
-        for l in range(1, 63):
+        xw = X if in_time else np.zeros_like(X)
+        for l in range(1, 63) if not in_time else ():
             left, right = X[..., l - 1], X[..., l + 1]
             if base + l == 0:
                 left = np.conj(X[..., l + 1])
@@ -224,8 +243,8 @@ def _replay_dif(x, n_fft, hop, window, n_mels=64):
                 right = np.conj(X[..., l - 1])
             xw[..., l] = a0 * X[..., l] + a1 * (left + right)
         vals = _bin_values(xw.real.transpose(0, 2, 1, 3), xw.imag.transpose(0, 2, 1, 3))
-        acc += _mel_replay(vals, fb, t)
-    return _finish(acc[..., :n_mels].transpose(0, 2, 1, 3))
+        acc += _mel_replay(vals, fb, plan, t, n_mels)
+    return _finish(acc.transpose(0, 2, 1, 3))
 
 
 @pytest.mark.parametrize("form,n_fft,hop,window", [
@@ -247,15 +266,25 @@ def test_kernel_replays_match_plain(rng, form, n_fft, hop, window):
     assert db < 1e-3 and iv < 1e-5, (db, iv)
 
 
-@pytest.mark.parametrize("n_fft,hop,window", [(1024, 240, "hann"), (512, 100, "hamming")])
-def test_dif_spectrum_matches_the_direct_dft(rng, n_fft, hop, window):
+@pytest.mark.parametrize("n_fft,hop,window,in_time", [
+    pytest.param(1024, 240, "hann", False, id="1024-240-hann"),
+    pytest.param(512, 100, "hamming", False, id="512-100-hamming"),
+    pytest.param(1024, 240, "hann", True, id="in_time-1024-240-hann"),
+    pytest.param(512, 100, "hamming", True, id="in_time-512-100-hamming")])
+def test_dif_spectrum_matches_the_direct_dft(rng, n_fft, hop, window, in_time):
     """The DIF spectrum (two half-size DFTs, 3-tap window with the conjugate
-    fix-ups) equals the direct windowed DFT at every bin, 0 and n_fft/2
-    included, within float32 rounding of the spectrum's scale; and K10's
-    tile 0 starts one bin below bin 0 (a zero column: bin -1 does not
-    exist), its first difference-stream bin being bin 1."""
+    fix-ups; or, K10's wide form, each frame's halves times their halves of
+    the window first) equals the direct windowed DFT at every bin, 0 and
+    n_fft/2 included, within float32 rounding of the spectrum's scale; the
+    wide form's window table holds the window's two halves in sample order,
+    zero to Kp; and K10's tile 0 starts one bin below bin 0 (a zero column:
+    bin -1 does not exist), its first difference-stream bin being bin 1."""
     x = torch.from_numpy(_wav(rng, N=6000))
-    got = frontend_forms.dif_spectrum(x, n_fft, hop, window)
+    got = frontend_forms.dif_spectrum(x, n_fft, hop, window, in_time=in_time)
+    win = frontend_forms.dif_window(n_fft, window)
+    assert win.shape == (2, -(-n_fft // 64) * 32) and not win[:, n_fft // 2:].any()
+    assert np.array_equal(win[:, :n_fft // 2].reshape(-1),
+                          frontend_forms.get_window(window, n_fft).astype(np.float32))
     ref = frontend_forms.flat_spectrum(x.double(), n_fft, hop, window)
     scale = max(float(r.abs().max()) for r in ref)
     for g, r in zip(got, ref):

@@ -181,8 +181,9 @@ def test_split_plain_within_budget_of_float64(form, n_fft, hop):
 
 def test_launch_plan_mirrors_the_kernels():
     """``launch_plan``: the cell's launch (B=32, 10 s, n_fft 1024, hop 240)
-    in both forms, the tables it implies, and the shapes the C entries
-    refuse, refused before any launch."""
+    in both forms and at wider mels, the tables it implies, and the shapes
+    the C entries refuse (no mels, too many clips, t_out short of the
+    frames), refused before any launch."""
     flat = ff.launch_plan("flat", 32, 240000, 1024, 240, 64, SR, 1001)
     dif = ff.launch_plan("dif", 32, 240000, 1024, 240, 64, SR, 1001)
     assert (flat["Kp"], flat["n_tiles"], dif["Kp"], dif["n_tiles"]) == (1024, 8, 512, 9)
@@ -193,7 +194,14 @@ def test_launch_plan_mirrors_the_kernels():
     assert tab.shape == (8, 2, 128, 1024) and fb.shape == (8, 2, 64, 64)
     # K9 with K1's folds: zero frames to t_out, in whole blocks of 32
     assert ff.launch_plan("flat", 2, 48000, 2048, 240, 64, SR, 208)["grid"] == (7, 2)
-    for kw in (dict(n_mels=65), dict(B=70000), dict(t_out=100)):
+    # wider mels: the same launch, the sums in a scratch of the blocks' own
+    # and no shared-memory accumulator; the widest tile's mel groups
+    for n_mels, groups in ((96, 1), (128, 1), (256, 2)):
+        wide = ff.launch_plan("flat", 32, 240000, 1024, 240, n_mels, SR, 1001)
+        assert wide["wide"] and wide["grid"] == (32, 32) and wide["smem"] < flat["smem"]
+        assert wide["scratch"] == (32, 32, 32, 7, n_mels) and max(wide["mel_groups"]) == groups
+        assert wide["fb_box"] == (32, 128) and wide["stages_a_tile"] == 32 + groups
+    for kw in (dict(n_mels=0), dict(B=70000), dict(t_out=100)):
         args = dict(form="flat", B=2, N=48000, n_fft=1024, hop=240, n_mels=64,
                     sample_rate=SR, t_out=201)
         args.update(kw)

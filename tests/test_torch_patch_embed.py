@@ -68,11 +68,19 @@ def test_plain_matches_pallas_interpret(rng, T):
             assert _bf16_ulps(got.float().numpy(), ref) <= 2.0 ** -7
 
 
-def _row_token(m):
-    """csrc/patch_embed.cu's GEMM row m of a tile -> (fp, tp): bits m0 tp0,
-    m1 fp0, m2 fp2, m3 fp1, m4 fp3, m5 tp1, m6 tp2."""
-    fp = (m >> 1) & 1 | ((m >> 3) & 1) << 1 | ((m >> 2) & 1) << 2 | ((m >> 4) & 1) << 3
-    tp = m & 1 | ((m >> 5) & 1) << 1 | ((m >> 6) & 1) << 2
+def _row_token(m, H=1):
+    """csrc/patch_embed.cu's GEMM row m of a tile -> (fp, tp) for H 64-bin
+    halves (F = 64 H): bits m0 tp0, m1 fp0, m2 fp2, m3 fp1, m4 fp3, then m5,
+    m6 tp1, tp2 (H 1), fp4, tp1 (H 2) or fp4, fp5 (H 4)."""
+    bit = lambda i: (m >> i) & 1  # noqa: E731
+    fp = bit(1) | bit(3) << 1 | bit(2) << 2 | bit(4) << 3
+    tp = bit(0)
+    if H == 1:
+        tp = tp | bit(5) << 1 | bit(6) << 2
+    elif H == 2:
+        fp, tp = fp | bit(5) << 4, tp | bit(6) << 1
+    else:
+        fp = fp | bit(5) << 4 | bit(6) << 5
     return fp, tp
 
 
@@ -86,11 +94,14 @@ def _gemm_col(e):
     return 8 * (e % 24 // 2) + 2 * (e // 24) + e % 2
 
 
-def _swizzle128(c, t, f):
-    """Byte offset of bf16 x[c, t, f] in a stage: TMA's 128-byte swizzle
-    over the box's 128-byte frame rows (16-byte chunk ^= row % 8)."""
-    r = c * 32 + t
-    return r * 128 + ((f // 8) ^ (r % 8)) * 16 + f % 8 * 2
+def _swizzle128(c, t, f, H=1):
+    """Byte offset of bf16 x[c, t, f] in a stage: the box of half f // 64
+    (7 channels of 32 / H frames of 64 bins), TMA's 128-byte swizzle over
+    its 128-byte frame rows c (32 / H) + t (16-byte chunk ^= row % 8)."""
+    frames = 32 // H
+    r = c * frames + t
+    fl = f % 64
+    return (f // 64) * 7 * frames * 128 + r * 128 + ((fl // 8) ^ (r % 8)) * 16 + fl % 8 * 2
 
 
 def _kernel_const(name):
@@ -132,53 +143,58 @@ def _banks_distinct(byte_addrs, width=4):
 
 
 def _replay(x, p, sms=132):
-    """numpy replay of csrc/patch_embed.cu's bf16 map in float64: the
-    persistent schedule (``_schedule``); per tile the 4-D TMA box x[b, :, t0:t0 + 32, :] with zeros
-    past T_in, laid out with the 128-byte swizzle; per thread the A
-    fragments' 4-byte loads from it (rows r, r + 8; k pairs 2 (l % 4), + 8
-    in the (kw, kh) order, one channel a k16 step), the weights B[n, k] =
-    w[k, e(n)] of the permuted columns; per accumulator register its (row,
-    column); the epilogue's bias and LayerNorm over each row's 96 channels,
-    24 a lane; the 16-byte staging stores at token fp * 8 + tp; the TMA
-    store at (g 16 + fp) tp_n + tp0 + tp. Also asserts that every fragment
-    load and every staging store is free of bank conflicts. Returns the
-    tokens."""
+    """numpy replay of csrc/patch_embed.cu's bf16 map in float64 at F = 64
+    H mel bins: the persistent schedule (``_schedule``); per tile the H 4-D
+    TMA boxes x[b, :, t0:t0 + 32 / H, 64 h:64 h + 64] with zeros past T_in,
+    laid out with the 128-byte swizzle; per thread the A fragments' 4-byte
+    loads from it (rows r, r + 8; k pairs 2 (l % 4), + 8 in the (kw, kh)
+    order, one channel a k16 step), the weights B[n, k] = w[k, e(n)] of the
+    permuted columns; per accumulator register its (row, column); the
+    epilogue's bias and LayerNorm over each row's 96 channels, 24 a lane;
+    the 16-byte staging stores at token fp TPB + tp (TPB = 8 / H); the TMA
+    store at (g 16 H + fp) tp_n + tp0 + tp. Also asserts that every
+    fragment load and every staging store is free of bank conflicts.
+    Returns the tokens."""
     B, C, T_in, Fq = x.shape
+    H = Fq // 64
+    FP, TPB, frames = 16 * H, 8 // H, 32 // H
     fr, t_img = p.freq_ratio, p.t_img
     tg = t_img // fr
-    tp_n, tblk = tg // 4, tg // 32
+    tp_n = tg // 4
+    tblk = tp_n // TPB
     w = p.w.double().numpy()
     bias, ln_w, ln_b = (v.double().numpy() for v in (p.bias, p.ln_w, p.ln_b))
     E = w.shape[1]
     B_mat = w[:, [_col_channel(n) for n in range(E)]].T  # (N, K)
     assert [_gemm_col(_col_channel(n)) for n in range(E)] == list(range(E))
     _, taken = _schedule(B * fr * tblk, sms)
-    out = np.full((B, fr * 16 * tp_n, E), np.nan)
+    out = np.full((B, fr * FP * tp_n, E), np.nan)
     lane = np.arange(32)
     q = lane % 4
+    cc, tt, ff = np.meshgrid(np.arange(C), np.arange(frames), np.arange(Fq), indexing="ij")
     for cta_tiles in taken:
         for t in cta_tiles:
             b, rest = divmod(t, fr * tblk)
             g, tb = divmod(rest, tblk)
-            tp0 = tb * 8
-            t0 = g * tg + 4 * tp0
-            stage = np.zeros(C * 32 * 64)  # bf16 elements by byte offset / 2
-            cc, tt, ff = np.meshgrid(np.arange(C), np.arange(32), np.arange(64), indexing="ij")
-            frames = t0 + tt
-            vals = np.where(frames < T_in, x[b, cc, np.minimum(frames, T_in - 1), ff], 0.0)
-            stage[_swizzle128(cc, tt, ff) // 2] = vals
+            tp0 = tb * TPB
+            at = g * tg + 4 * tp0 + tt
+            stage = np.full(C * 32 * 64, np.nan)  # bf16 elements by byte offset / 2
+            vals = np.where(at < T_in, x[b, cc, np.minimum(at, T_in - 1), ff], 0.0)
+            stage[_swizzle128(cc, tt, ff, H) // 2] = vals
             A = np.full((128, C * 16), np.nan)
             for wg in range(2):
                 for warp in range(4):
                     for j in range(4):
                         m = 64 * wg + 16 * warp + lane // 4 + 8 * (j % 2)
-                        fp, tp = _row_token(m)
+                        fp, tp = _row_token(m, H)
                         tr = 4 * tp + q // 2 + 2 * (j // 2)
                         f = 4 * fp + 2 * (q % 2)
-                        off = tr * 128 + ((f // 8) ^ (tr % 8)) * 16 + f % 8 * 2
-                        assert (off == _swizzle128(0, tr, f)).all()
+                        fl = f % 64  # the kernel's offset: half, frame row, swizzled chunk
+                        off = (f // 64 * C * frames * 128 + tr * 128
+                               + ((fl // 8) ^ (tr % 8)) * 16 + fl % 8 * 2)
+                        assert (off == _swizzle128(0, tr, f, H)).all()
                         for c in range(C):
-                            addr = c * 32 * 128 + off
+                            addr = c * frames * 128 + off
                             assert _banks_distinct(addr)
                             k = 16 * c + 2 * q + 8 * (j // 2)
                             A[m, k] = stage[addr // 2]
@@ -200,16 +216,16 @@ def _replay(x, p, sms=132):
                         mean = v.reshape(8, 4, 24).sum((1, 2)).repeat(4)[:, None] / E
                         var = ((v - mean) ** 2).reshape(8, 4, 24).sum((1, 2)).repeat(4)[:, None]
                         y = (v - mean) / np.sqrt(var / E + 1e-5) * ln_w[ch] + ln_b[ch]
-                        fp, tp = _row_token(m)
-                        tok = fp * 8 + tp
+                        fp, tp = _row_token(m, H)
+                        tok = fp * TPB + tp
                         for k in range(3):
                             dst = tok * 192 + 48 * q + 16 * k
                             for quarter in range(4):
                                 assert _banks_distinct(dst[8 * quarter:8 * quarter + 8], 16)
                         staging[tok[:, None], ch] = y
             assert not np.isnan(staging).any()
-            fpi, tpi = np.divmod(np.arange(128), 8)
-            out[b, (g * 16 + fpi) * tp_n + tp0 + tpi] = staging
+            fpi, tpi = np.divmod(np.arange(128), TPB)
+            out[b, (g * FP + fpi) * tp_n + tp0 + tpi] = staging
     return out
 
 
